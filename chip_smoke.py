@@ -7,30 +7,47 @@ against their plain PyTorch versions.
 Phases (any failure exits non-zero; nothing is caught):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the kernels from ``commefficient_torch/csrc`` and print ptxas's
-   register / shared-memory / spill summary;
-3. each kernel against its plain version at the headline geometry
-   (d = 6,568,640, 5 x 500,000 sketch) and at a ragged one (c not a
-   multiple of 128, a partial last chunk, even r, t0 != 0, NaN, inf and
-   subnormal cells): exact equality, then CUDA-event times (median of 30,
-   L2 flushed before each launch) beside the bound the card's memory rate
-   sets;
+2. build the kernels from ``commefficient_torch/csrc`` (one ``nvcc`` per
+   source, all at once) and print ptxas's register / shared-memory / spill
+   summary;
+3. each of the six kernels against its plain version at the headline
+   geometry (d = 6,568,640, 5 x 500,000 sketch) and at ragged ones (c not
+   a multiple of 128, a partial last chunk, even r, t0 != 0, NaN, inf and
+   subnormal cells, ties at the top-k threshold): exact equality, then
+   CUDA-event times (median of 30, L2 flushed before each launch) beside
+   the bound the card's memory rate or operation rate sets, and the time
+   of one PyTorch call computing the same function where there is one;
 4. the headline FetchSGD round at full width through FedModel /
    FedOptimizer / LambdaLR on a seeded synthetic batch (8 clients x 8
    images): 2 warm-up and 20 timed rounds, rounds/sec, a finite loss,
-   and exactly 2 / 1 / 8 launches per round of the three kernels; then the
-   server phase from one table and state through the kernels and through
-   the plain versions, which must be equal;
-5. ``commefficient_torch.cv_train.main`` for one short epoch and an eval
-   on synthetic CIFAR10 in a temporary directory.
+   and exactly 2 / 1 / 8 launches per round of the accumulate, the query
+   and the count pass; then the server phase from one table and state
+   through the kernels and through the plain versions, which must be
+   equal;
+5. the opt-in round: the same round with ``--stream_sketch
+   --sketch_coalesce --fused_epilogue`` and
+   ``COMMEFFICIENT_PALLAS_TOPK_FUSED=1``, timed the same way, with the
+   launches per round derived from the port's coalescing plan (one
+   running accumulate per group and microbatch plus one for weight decay,
+   one query, one descent, one epilogue, no zero-table accumulate and no
+   count pass); the client table and the server phase through the kernels
+   and through the plain versions, and the fused epilogue against the
+   composed pair, all exactly equal;
+6. ``commefficient_torch.cv_train.main`` for one short epoch and an eval
+   on synthetic CIFAR10 in a temporary directory, once as the headline
+   round and once with the opt-in flags.
 
-Then one JSON line of the kernels (main-path launches from phase 4), the
+Then one JSON line of the kernels (launches per timed window of the path
+that runs each: phase 4 for the accumulate, the query and the count pass,
+phase 5 for the running accumulate, the epilogue and the descent), the
 card's line, and ``{"ok": true, "device": {...}}`` as the last line.
 Without a card it exits with an error before printing any result.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -48,6 +65,7 @@ from commefficient_torch.config import parse_args
 from commefficient_torch.federated import FedModel, FedOptimizer, LambdaLR
 from commefficient_torch.federated.losses import make_cv_losses
 from commefficient_torch.federated.server import server_update
+from commefficient_torch.federated.worker import microbatch_plan
 from commefficient_torch.models import ResNet9
 from commefficient_torch.ops import sketch as tsk
 from commefficient_torch.ops import topk as ttk
@@ -58,8 +76,11 @@ HEADLINE = ["--mode", "sketch", "--error_type", "virtual",
             "--num_rows", "5", "--num_cols", "500000", "--k", "50000",
             "--num_workers", "8", "--local_batch_size", "8",
             "--dataset_name", "CIFAR10", "--device", "cuda"]
+OPT_IN = ["--stream_sketch", "--sketch_coalesce", "--fused_epilogue"]
 TIMED_ROUNDS = 20
 REPS = 30
+HEADLINE_KERNELS = ("sketch_accumulate", "sketch_estimates", "topk_count_ge")
+OPT_IN_KERNELS = ("sketch_accumulate_into", "fused_epilogue", "topk_descent")
 
 
 def card_line() -> str:
@@ -71,20 +92,41 @@ def card_line() -> str:
 
 
 def peaks(name: str):
-    """(bytes/s, float32 op/s) of the card, from NVIDIA's data sheets."""
+    """(bytes/s, float32 op/s, int32 op/s) of the card.
+
+    Memory and float32 rates are NVIDIA's data-sheet numbers. The data
+    sheets give no int32 rate; it is the Hopper SM's 64 int32 lanes (the
+    Hopper architecture white paper: 64 INT32 units per SM, against 128
+    FP32) times the SM count times the maximum SM clock that ``nvidia-smi``
+    reports: 64 x 132 x 1,980 MHz = 16.7 T int32 op/s on an H100 SXM."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int32 = 64 * sms * mhz * 1e6
     if "PCIe" in name:
-        return 2.0e12, 51e12
+        return 2.0e12, 51e12, int32
     if "NVL" in name:
-        return 3.9e12, 60e12
+        return 3.9e12, 60e12, int32
     if "H200" in name:
-        return 4.8e12, 67e12
-    return 3.35e12, 67e12  # H100 SXM
+        return 4.8e12, 67e12, int32
+    return 3.35e12, 67e12, int32  # H100 SXM
 
 
 def nan_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return bool(torch.equal(torch.isnan(a), torch.isnan(b))
                 and torch.equal(torch.nan_to_num(a, nan=0.0),
                                 torch.nan_to_num(b, nan=0.0)))
+
+
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal NaN positions, and equal bit patterns (zero signs included)
+    everywhere else."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a.view(torch.int32)[~nan],
+                                b.view(torch.int32)[~nan]))
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -136,17 +178,42 @@ def special(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def bound(nbytes: float, ops: float, bw: float, flops: float) -> dict:
+def bound(nbytes: float, ops: float, bw: float, rate: float) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the float32 rate."""
-    tb, to = nbytes / bw, ops / flops
+    the memory rate and the operations over the card's rate for their
+    type (float32 or int32)."""
+    tb, to = nbytes / bw, ops / rate
     return {"bound_ms": 1e3 * max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations"}
 
 
+def plain_estimates(table3, cs_, t0=0, Tn=None):
+    return tsk._sketch_estimates_plain(table3, cs_.inv_q, cs_.inv_w,
+                                       cs_.sign_keys, t0)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel's dispatch point swapped for its plain version, on the
+    card; no kernel may launch inside."""
+    with contextlib.ExitStack() as stack:
+        for mod, name, fn in (
+                (tsk, "sketch_accumulate", tsk._sketch_accumulate_plain),
+                (tsk, "sketch_accumulate_into",
+                 tsk._sketch_accumulate_into_plain),
+                (tsk, "sketch_estimates", plain_estimates),
+                (tsk, "fused_epilogue", tsk._fused_epilogue_plain),
+                (ttk, "topk_count_ge", ttk._count_ge_plain),
+                (ttk, "topk_descent", ttk._descent_plain)):
+            stack.enter_context(mock.patch.object(mod, name, fn))
+        before = kernels.launch_counts()
+        yield
+        assert kernels.launch_counts() == before, "plain path launched"
+
+
 def check_kernels(card: str, d, c, r, t0, seed, label, timed):
     """Phase 3 for one geometry: every kernel against its plain version."""
-    bw, flops = peaks(card)
+    bw, flops, iops = peaks(card)
     dev = torch.device("cuda")
     cs = tsk.make_sketch(d, c, r, seed=seed, device=dev)
     Tn = cs.T - t0
@@ -163,20 +230,53 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed):
     keys = cs.sign_keys
     results = {}
 
+    def record(name, got, want, nbytes, ops, rate, kernel_fn=None,
+               plain_fn=None, library_fn=None):
+        results[name] = dict(max_abs_err=max_abs_err(got, want),
+                             **bound(nbytes, ops, bw, rate))
+        if timed:
+            results[name]["ms"] = time_ms(kernel_fn)
+            results[name]["plain_ms"] = time_ms(plain_fn)
+            results[name]["library_ms"] = (time_ms(library_fn)
+                                           if library_fn else None)
+
     # accumulate
     got = kernels.sketch_accumulate(v3, q, w, keys, t0)
     want = tsk._sketch_accumulate_plain(v3, q, w, keys, t0)
     torch.cuda.synchronize()
     assert nan_equal(got, want), f"{label}: sketch_accumulate != plain"
-    acc_bytes = 4 * (v3.numel() + got.numel() + 2 * q.numel() + r)
-    results["sketch_accumulate"] = dict(
-        max_abs_err=max_abs_err(got, want),
-        **bound(acc_bytes, 2 * r * Tn * c_pad, bw, flops))
-    if timed:
-        results["sketch_accumulate"]["ms"] = time_ms(
-            lambda: kernels.sketch_accumulate(v3, q, w, keys, t0))
-        results["sketch_accumulate"]["plain_ms"] = time_ms(
-            lambda: tsk._sketch_accumulate_plain(v3, q, w, keys, t0))
+    record("sketch_accumulate", got, want,
+           4 * (v3.numel() + got.numel() + 2 * q.numel() + r),
+           2 * r * Tn * c_pad, flops,
+           lambda: kernels.sketch_accumulate(v3, q, w, keys, t0),
+           lambda: tsk._sketch_accumulate_plain(v3, q, w, keys, t0))
+
+    # running accumulate from a random incoming table: the chunk range's
+    # full width (the weight-decay launch), then an unaligned segment that
+    # straddles a chunk boundary (a coalesced group's launch)
+    tbl3 = torch.randn((r, S, 128), generator=gen)
+    if not timed:
+        tbl3 = special(tbl3)
+    tbl3 = tbl3.to(dev)
+    got = kernels.sketch_accumulate_into(tbl3, v3, q, w, keys, t0)
+    want = tsk._sketch_accumulate_into_plain(tbl3, v3, q, w, keys, t0)
+    torch.cuda.synchronize()
+    assert bit_equal(got, want), f"{label}: sketch_accumulate_into != plain"
+    seg_a = t0 * c_pad + 137
+    seg_b = min(t0 * c_pad + c_pad + 50_011, d)
+    seg = v3.reshape(-1)[seg_a - t0 * c_pad:seg_b - t0 * c_pad]
+    cs_cpu = tsk.make_sketch(d, c, r, seed=seed, device="cpu")
+    seg_got = tsk.sketch_segment_accum(cs, tbl3.view(r, c_pad), seg, seg_a)
+    seg_want = tsk.sketch_segment_accum(cs_cpu, tbl3.view(r, c_pad).cpu(),
+                                        seg.cpu(), seg_a)
+    assert bit_equal(seg_got.cpu(), seg_want), \
+        f"{label}: segment [{seg_a}, {seg_b}) on the card != plain on the CPU"
+    record("sketch_accumulate_into", got, want,
+           4 * (v3.numel() + 2 * got.numel() + 2 * q.numel() + r),
+           2 * r * Tn * c_pad, flops,
+           lambda: kernels.sketch_accumulate_into(tbl3, v3, q, w, keys, t0),
+           lambda: tsk._sketch_accumulate_into_plain(tbl3, v3, q, w, keys,
+                                                     t0))
 
     # query
     table3 = want if timed else special(want.clone())
@@ -184,22 +284,29 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed):
     want = tsk._sketch_estimates_plain(table3, iq, iw, keys, t0)
     torch.cuda.synchronize()
     assert nan_equal(got, want), f"{label}: sketch_estimates != plain"
-    est_bytes = 4 * (table3.numel() + got.numel() + 2 * q.numel() + r)
-    est_ops = Tn * c_pad * (r + r * (r - 1) + 1)
-    results["sketch_estimates"] = dict(
-        max_abs_err=max_abs_err(got, want),
-        **bound(est_bytes, est_ops, bw, flops))
-    if timed:
-        results["sketch_estimates"]["ms"] = time_ms(
-            lambda: kernels.sketch_estimates(table3, q, w, keys, t0))
-        results["sketch_estimates"]["plain_ms"] = time_ms(
-            lambda: tsk._sketch_estimates_plain(table3, iq, iw, keys, t0))
+    record("sketch_estimates", got, want,
+           4 * (table3.numel() + got.numel() + 2 * q.numel() + r),
+           Tn * c_pad * (r + r * (r - 1) + 1), flops,
+           lambda: kernels.sketch_estimates(table3, q, w, keys, t0),
+           lambda: tsk._sketch_estimates_plain(table3, iq, iw, keys, t0))
 
-    # count passes: the whole descent over the estimate plane, each pass
-    # against the plain count
+    # the estimate plane of the server phase, and its top-k size
     est = cs.chunk_layout.mask_tail(want) if t0 == 0 else want
+    if not timed:
+        # NaN, inf and subnormal estimates, and ties at the threshold: 40
+        # cells of one magnitude, k reaching into them
+        flat = special(est).view(-1)
+        flat[100:130] = 0.75
+        flat[130:140] = -0.75
+        mags = torch.where(torch.isnan(flat), torch.zeros_like(flat),
+                           flat.abs())
+        k = int((mags > 0.75).sum()) + 20
+    else:
+        k = max(1, est.numel() // 140)
     bits = est.reshape(-1).view(torch.int32)
-    k = max(1, bits.numel() // 140)
+    n = bits.numel()
+
+    # count passes: the whole descent, each pass against the plain count
     p = torch.zeros((), dtype=torch.int32, device=dev)
     for shift in range(28, -1, -4):
         ts = ttk._pass_thresholds(p, shift)
@@ -208,17 +315,64 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed):
         assert torch.equal(got_c, want_c), f"{label}: topk_count_ge != plain"
         p = p + ((want_c >= k).sum().to(torch.int32) << shift)
     assert int(ttk.resolve_threshold(est, k)) == int(p)
-    n = bits.numel()
-    results["topk_count_ge"] = dict(
-        max_abs_err=0.0,
-        **bound(4 * (n + 32), 2 * 16 * n, bw, flops))
-    if timed:
-        ts0 = ttk._pass_thresholds(torch.zeros((), dtype=torch.int32,
-                                               device=dev), 28)
-        results["topk_count_ge"]["ms"] = time_ms(
-            lambda: kernels.topk_count_ge(bits, ts0))
-        results["topk_count_ge"]["plain_ms"] = time_ms(
-            lambda: ttk._count_ge_plain(bits, ts0))
+    if not timed:
+        assert int(p) == int(torch.tensor(0.75).view(torch.int32)), label
+    ts0 = ttk._pass_thresholds(torch.zeros((), dtype=torch.int32,
+                                           device=dev), 28)
+    # the operations the function needs, not the kernel's 16 compares and
+    # 16 adds: a bucket search over the 16 sorted thresholds (sign mask, 4
+    # compare-and-select steps, one shared-memory increment), 10 int32 ops
+    # per element
+    record("topk_count_ge", got_c.float(), want_c.float(),
+           4 * (n + 32), 10 * n, iops,
+           lambda: kernels.topk_count_ge(bits, ts0),
+           lambda: ttk._count_ge_plain(bits, ts0))
+
+    # the one-launch descent against the per-pass descent and the plain
+    # one; the library call is the k-th largest magnitude by kthvalue
+    got_p = kernels.topk_descent(bits, k)
+    want_p = ttk._descent_plain(bits, k)
+    torch.cuda.synchronize()
+    assert int(got_p) == int(want_p) == int(p), \
+        f"{label}: topk_descent {int(got_p)} != plain {int(want_p)} / " \
+        f"per-pass {int(p)}"
+    mags = ttk._mag(bits)
+    if k <= n:
+        kth = torch.kthvalue(mags, n - k + 1).values
+        assert int(kth) == int(p), f"{label}: kthvalue {int(kth)} != {int(p)}"
+    # the operations the function needs, not the kernel's 8 passes of 15
+    # candidates: a histogram radix select in 3 passes of 11-bit digits,
+    # 6 int32 ops per element and pass (sign mask, prefix shift and
+    # compare, digit shift and mask, one shared-memory increment)
+    record("topk_descent", got_p.float(), want_p.float(),
+           4 * (n + 1), 3 * 6 * n, iops,
+           lambda: kernels.topk_descent(bits, k),
+           lambda: ttk._descent_plain(bits, k),
+           lambda: torch.kthvalue(mags, n - k + 1))
+
+    # fused epilogue at the resolved threshold: against its plain version
+    # (the composed mask and accumulate), on the chunk range and, on a
+    # range from chunk 3, at t0 != 0
+    got_u, got_t = kernels.fused_epilogue(est, p, q, w, keys, t0)
+    want_u, want_t = tsk._fused_epilogue_plain(est, p, q, w, keys, t0)
+    torch.cuda.synchronize()
+    assert bit_equal(got_u, want_u), f"{label}: fused_epilogue update"
+    assert bit_equal(got_t, want_t), f"{label}: fused_epilogue table"
+    if Tn > 3:
+        q3, w3 = tsk._shift_cols(cs.shift_q, cs.shift_w, t0 + 3, Tn - 3)
+        sub = est[3:].contiguous()
+        u3, t3 = kernels.fused_epilogue(sub, p, q3, w3, keys, t0 + 3)
+        pu3, pt3 = tsk._fused_epilogue_plain(sub, p, q3, w3, keys, t0 + 3)
+        torch.cuda.synchronize()
+        assert bit_equal(u3, pu3) and bit_equal(t3, pt3), \
+            f"{label}: fused_epilogue at t0 = {t0 + 3}"
+    record("fused_epilogue", torch.cat([got_u.reshape(-1),
+                                        got_t.reshape(-1)]),
+           torch.cat([want_u.reshape(-1), want_t.reshape(-1)]),
+           4 * (2 * est.numel() + got_t.numel() + 2 * q.numel() + r + 1),
+           2 * r * Tn * c_pad, flops,
+           lambda: kernels.fused_epilogue(est, p, q, w, keys, t0),
+           lambda: tsk._fused_epilogue_plain(est, p, q, w, keys, t0))
     return results
 
 
@@ -231,9 +385,11 @@ def synthetic_batch(seed: int = 0):
             "worker_mask": np.ones(8, np.float32)}
 
 
-def phase_rounds():
-    """Phase 4: the headline round at full width."""
-    args = parse_args(argv=HEADLINE + ["--num_clients", "64", "--seed", "0"])
+def build_round(extra):
+    """FedModel / FedOptimizer / LambdaLR for the headline round plus the
+    flags ``extra``; returns ``(args, fm, opt, sched, one_round)``."""
+    args = parse_args(argv=HEADLINE + extra + ["--num_clients", "64",
+                                                "--seed", "0"])
     model = ResNet9()
     train_loss, val_loss = make_cv_losses(model)
     fm = FedModel(model, train_loss, args, val_loss, num_clients=64)
@@ -244,36 +400,81 @@ def phase_rounds():
     sched = LambdaLR(opt, lambda step: schedule(step / spe))
     print(f"model d = {fm.grad_size:,}, sketch {fm.sketch.r} x "
           f"{fm.sketch.c_pad} (T = {fm.sketch.T}), k = {args.k}")
-    batch = synthetic_batch()
 
-    def one_round():
+    def one_round(batch):
         sched.step()
         out = fm(batch)
         opt.step()
         return out
 
+    return args, fm, opt, sched, one_round
+
+
+def timed_rounds(one_round, batch, per_round: dict, label: str):
+    """2 warm-up rounds, then TIMED_ROUNDS rounds with the launch counts
+    set to 0 just before and read just after: they must be ``per_round``
+    times the rounds. Returns ``(counts, rounds/sec)``."""
     for _ in range(2):
-        one_round()
+        one_round(batch)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     losses = []
     for _ in range(TIMED_ROUNDS):
-        losses.append(one_round()[0])
+        losses.append(one_round(batch)[0])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
     loss = np.concatenate(losses)
-    assert np.all(np.isfinite(loss)), "non-finite round loss"
-    want = {"sketch_accumulate": 2 * TIMED_ROUNDS,
-            "sketch_estimates": TIMED_ROUNDS,
-            "topk_count_ge": 8 * TIMED_ROUNDS}
-    assert counts == want, f"launches {counts}, expected {want}"
+    assert np.all(np.isfinite(loss)), f"{label}: non-finite round loss"
+    want = {k.name: per_round.get(k.name, 0) * TIMED_ROUNDS
+            for k in kernels.KERNELS}
+    assert counts == want, f"{label}: launches {counts}, expected {want}"
     rps = TIMED_ROUNDS / wall
-    print(f"rounds: {TIMED_ROUNDS} timed, {rps:.3f} rounds/sec "
+    print(f"{label} rounds: {TIMED_ROUNDS} timed, {rps:.3f} rounds/sec "
           f"({1e3 / rps:.2f} ms/round), mean loss {loss.mean():.4f}")
+    print(f"{label} launches per round: " + json.dumps(
+        {k: v // TIMED_ROUNDS for k, v in counts.items()}))
+    return counts, rps
 
-    # per-phase split: CUDA events around the client and server phases
+
+def phase_rounds():
+    """Phase 4: the headline round at full width."""
+    args, fm, opt, sched, one_round = build_round([])
+    batch = synthetic_batch()
+    counts, rps = timed_rounds(
+        one_round, batch, {"sketch_accumulate": 2, "sketch_estimates": 1,
+                           "topk_count_ge": 8}, "headline")
+
+    split = phase_split(fm, opt, sched, batch, "headline")
+    split.update(profile_rounds(lambda: one_round(batch)))
+
+    # the server phase exact: one table and state through the kernels and
+    # through the plain versions, all on the card
+    cs = fm.sketch
+    fm.begin_round(synthetic_batch(1))
+    table = fm._round_table
+    state = opt.server_state
+    lr = opt.get_lr()
+    upd_k, st_k = server_update(table, state, fm.server_config, lr,
+                                sketch=cs, layout=fm.layout)
+    with plain_kernels():
+        upd_p, st_p = server_update(table, state, fm.server_config, lr,
+                                    sketch=cs, layout=fm.layout)
+    torch.cuda.synchronize()
+    assert nan_equal(upd_k, upd_p), "server update: kernels != plain"
+    assert nan_equal(st_k.velocity, st_p.velocity), "velocity differs"
+    assert nan_equal(st_k.error, st_p.error), "error differs"
+    nnz = int((upd_k != 0).sum())
+    print(f"server phase exact: update ({nnz} nonzeros), velocity and "
+          "error equal through kernels and plain versions")
+    fm._round_table = None
+    return counts, rps, split
+
+
+def phase_split(fm, opt, sched, batch, label: str) -> dict:
+    """Median CUDA-event times of the client and server phases over 10
+    rounds."""
     client_ms, server_ms = [], []
     for _ in range(10):
         sched.step()
@@ -288,40 +489,93 @@ def phase_rounds():
         server_ms.append(e[1].elapsed_time(e[2]))
     split = {"client_phase_ms": statistics.median(client_ms),
              "server_phase_ms": statistics.median(server_ms)}
-    print("phase split: " + json.dumps(split))
-    split.update(profile_rounds(one_round))
+    print(f"{label} phase split: " + json.dumps(split))
+    return split
 
-    # the server phase exact: one table and state through the kernels and
-    # through the plain versions, all on the card
+
+def opt_in_per_round(fm, args) -> dict:
+    """Launches per round of the opt-in round, from the port's own plan:
+    one running accumulate per coalesced group and microbatch, one more
+    for weight decay, one query, one descent, one epilogue."""
+    groups = fm.steps.stream_groups
+    assert groups is not None, "the opt-in round has no coalescing plan"
+    _, n_iters, _ = microbatch_plan(8, args.microbatch_size)
+    return {"sketch_accumulate_into":
+            len(groups) * n_iters + (1 if args.weight_decay else 0),
+            "sketch_estimates": 1, "topk_descent": 1, "fused_epilogue": 1}
+
+
+def phase_opt_in(headline_rps: float):
+    """Phase 5: the opt-in round at full width."""
+    os.environ[ttk.FUSED_DESCENT_ENV] = "1"
+    args, fm, opt, sched, one_round = build_round(OPT_IN)
+    segs, groups = fm.steps.stream_segments, fm.steps.stream_groups
+    print(f"opt-in plan: {len(segs)} leaves in {len(groups)} groups "
+          f"(budget {tsk.coalesce_vmem_budget(fm.sketch):,} B): " +
+          json.dumps([[segs[i].path.rsplit("/", 2)[0]
+                       for i in range(g.start, g.stop)] for g in groups]))
+    per_round = opt_in_per_round(fm, args)
+    batch = synthetic_batch()
+    counts, rps = timed_rounds(one_round, batch, per_round, "opt-in")
+    print(f"rounds/sec: headline {headline_rps:.3f}, opt-in {rps:.3f} "
+          f"(ratio {rps / headline_rps:.3f}, same call)")
+    prof = phase_split(fm, opt, sched, batch, "opt-in")
+    prof.update(profile_rounds(lambda: one_round(batch)))
+
+    # the client table through the kernels and through the plain versions
+    # (cuDNN held to deterministic algorithms, so that the gradients are
+    # the same in the three runs)
+    torch.backends.cudnn.deterministic = True
+    tables = []
+    for plain in (False, True, False):
+        with plain_kernels() if plain else contextlib.nullcontext():
+            fm.begin_round(synthetic_batch(1))
+            tables.append(fm._round_table)
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.synchronize()
+    assert bit_equal(tables[0], tables[2]), "client phase not reproducible"
+    assert bit_equal(tables[0], tables[1]), "client table: kernels != plain"
+    print("client table exact through kernels and plain versions")
+
+    # the server phase: kernels against plain versions, and the fused
+    # epilogue against the composed pair, from one table and state
     cs = fm.sketch
-    fm.begin_round(synthetic_batch(1))
-    table = fm._round_table
+    table = tables[0]
     state = opt.server_state
     lr = opt.get_lr()
-    upd_k, st_k = server_update(table, state, fm.server_config, lr,
-                                sketch=cs, layout=fm.layout)
-
-    def plain_estimates(table3, cs_, t0=0, Tn=None):
-        return tsk._sketch_estimates_plain(table3, cs_.inv_q, cs_.inv_w,
-                                           cs_.sign_keys, t0)
-
-    with mock.patch.object(tsk, "sketch_accumulate",
-                           tsk._sketch_accumulate_plain), \
-            mock.patch.object(tsk, "sketch_estimates", plain_estimates), \
-            mock.patch.object(ttk, "topk_count_ge", ttk._count_ge_plain):
-        before = kernels.launch_counts()
-        upd_p, st_p = server_update(table, state, fm.server_config, lr,
-                                    sketch=cs, layout=fm.layout)
-        assert kernels.launch_counts() == before, "plain path launched"
+    scfg = fm.server_config
+    assert scfg.fused_epilogue
+    upd_k, st_k = server_update(table, state, scfg, lr, sketch=cs,
+                                layout=fm.layout)
+    with plain_kernels():
+        upd_p, st_p = server_update(table, state, scfg, lr, sketch=cs,
+                                    layout=fm.layout)
+    upd_c, st_c = server_update(
+        table, state, dataclasses.replace(scfg, fused_epilogue=False), lr,
+        sketch=cs, layout=fm.layout)
     torch.cuda.synchronize()
-    assert nan_equal(upd_k, upd_p), "server update: kernels != plain"
-    assert nan_equal(st_k.velocity, st_p.velocity), "velocity differs"
-    assert nan_equal(st_k.error, st_p.error), "error differs"
-    nnz = int((upd_k != 0).sum())
-    print(f"server phase exact: update ({nnz} nonzeros), velocity and "
-          "error equal through kernels and plain versions")
+    for name, a, b in (("update", upd_k, upd_p),
+                       ("velocity", st_k.velocity, st_p.velocity),
+                       ("error", st_k.error, st_p.error)):
+        assert nan_equal(a, b), f"opt-in server {name}: kernels != plain"
+    for name, a, b in (("update", upd_k, upd_c),
+                       ("velocity", st_k.velocity, st_c.velocity),
+                       ("error", st_k.error, st_c.error)):
+        assert bit_equal(a, b), f"opt-in server {name}: fused != composed"
+    est = tsk.estimates_chunks(cs, state.error + table)
+    u_f, t_f = tsk.fused_epilogue_chunks(cs, est, args.k)
+    u_c = ttk.topk_dense_nd(est, args.k)
+    t_c = tsk.sketch_chunks(cs, u_c)
+    torch.cuda.synchronize()
+    assert bit_equal(u_f, u_c), "fused update != composed update"
+    assert bit_equal(t_f, t_c), "fused re-sketch != composed re-sketch"
+    print(f"opt-in server phase exact: update ({int((upd_k != 0).sum())} "
+          "nonzeros), velocity and error equal through kernels and plain "
+          "versions and equal to the composed epilogue; fused re-sketch "
+          "equals the composed one bit for bit")
     fm._round_table = None
-    return counts, rps, split
+    del os.environ[ttk.FUSED_DESCENT_ENV]
+    return counts, rps, prof
 
 
 def profile_rounds(one_round, n: int = 5) -> dict:
@@ -352,7 +606,7 @@ def profile_rounds(one_round, n: int = 5) -> dict:
     cats = {"convolution": 0.0, "port kernels": 0.0, "other": 0.0}
     for e in rows:
         name = e.key.lower()
-        if any(s in name for s in ("sketch_", "topk_count_ge")):
+        if any(s in name for s in ("sketch_", "topk_", "fused_epilogue")):
             cats["port kernels"] += dev_us(e)
         elif any(s in name for s in ("conv", "xmma", "cudnn", "dgrad",
                                      "wgrad", "implicit_gemm")):
@@ -372,20 +626,28 @@ def profile_rounds(one_round, n: int = 5) -> dict:
 
 
 def phase_cv_train():
-    """Phase 5: the CLI entry point, one short epoch and an eval."""
+    """Phase 6: the CLI entry point, one short epoch and an eval, as the
+    headline round and with the opt-in flags."""
     from commefficient_torch import cv_train
 
-    with tempfile.TemporaryDirectory() as tmp:
-        os.environ["COMMEFFICIENT_SYNTHETIC_PER_CLASS"] = "16"
-        kernels.reset_launch_counts()
-        summary = cv_train.main(HEADLINE + [
-            "--dataset_dir", os.path.join(tmp, "cifar10"), "--iid",
-            "--num_clients", "16", "--num_epochs", "1", "--seed", "0"])
-        counts = kernels.launch_counts()
-    assert summary and np.isfinite(summary["train_loss"]), summary
-    assert all(v > 0 for v in counts.values()), counts
-    print(f"cv_train row: {json.dumps(summary, default=float)}")
-    print(f"cv_train launches: {json.dumps(counts)}")
+    for label, extra, ran in (("headline", [], HEADLINE_KERNELS),
+                              ("opt-in", OPT_IN,
+                               OPT_IN_KERNELS + ("sketch_estimates",))):
+        if extra:
+            os.environ[ttk.FUSED_DESCENT_ENV] = "1"
+        with tempfile.TemporaryDirectory() as tmp:
+            os.environ["COMMEFFICIENT_SYNTHETIC_PER_CLASS"] = "16"
+            kernels.reset_launch_counts()
+            summary = cv_train.main(HEADLINE + extra + [
+                "--dataset_dir", os.path.join(tmp, "cifar10"), "--iid",
+                "--num_clients", "16", "--num_epochs", "1", "--seed", "0"])
+            counts = kernels.launch_counts()
+        os.environ.pop(ttk.FUSED_DESCENT_ENV, None)
+        assert summary and np.isfinite(summary["train_loss"]), summary
+        assert all((counts[k] > 0) == (k in ran) for k in counts), \
+            (label, counts)
+        print(f"cv_train {label} row: {json.dumps(summary, default=float)}")
+        print(f"cv_train {label} launches: {json.dumps(counts)}")
 
 
 def main() -> int:
@@ -408,6 +670,11 @@ def main() -> int:
                                    "spill", "smem")):
             print("  ptxas: " + line.strip().removeprefix("ptxas info    : "))
 
+    bw, flops, iops = peaks(card)
+    print(f"peaks: {bw / 1e12:.2f} TB/s, {flops / 1e12:.1f} T float32 op/s, "
+          f"{iops / 1e12:.2f} T int32 op/s (64 lanes x "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs "
+          "x the max SM clock)")
     rows = {}
     for label, geom, timed in (
             ("headline", (6_568_640, 500_000, 5, 0, 0), True),
@@ -422,20 +689,34 @@ def main() -> int:
             if timed:
                 rows[name] = row
     print(json.dumps({"kernels_checked": [k.name for k in kernels.KERNELS]}))
+    wall = {"3 kernels": time.perf_counter() - t_build}
 
+    t = time.perf_counter()
     counts, rps, split = phase_rounds()
+    wall["4 headline"] = time.perf_counter() - t
+    t = time.perf_counter()
+    opt_counts, opt_rps, opt_prof = phase_opt_in(rps)
+    wall["5 opt-in"] = time.perf_counter() - t
+    t = time.perf_counter()
     phase_cv_train()
+    wall["6 cv_train"] = time.perf_counter() - t
+    print("phase wall seconds (phase 3 includes the build): " + json.dumps(
+        {k: round(v, 2) for k, v in wall.items()}))
 
+    # launches: each kernel from the timed window of the path that runs it
+    launches = {**{k: counts[k] for k in HEADLINE_KERNELS},
+                **{k: opt_counts[k] for k in OPT_IN_KERNELS}}
     summary = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": counts[k.name],
-         "max_abs_err": rows[k.name]["max_abs_err"],
-         "ms": rows[k.name]["ms"], "plain_ms": rows[k.name]["plain_ms"],
-         "bound_ms": rows[k.name]["bound_ms"],
-         "bound_by": rows[k.name]["bound_by"], "library_ms": None}
+         "replaces": k.replaces, "launches": launches[k.name],
+         **{key: rows[k.name][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}}
         for k in kernels.KERNELS]}
     print(json.dumps({"rounds_per_sec": rps,
-                      "main_path_rounds": TIMED_ROUNDS, **split}))
+                      "opt_in_rounds_per_sec": opt_rps,
+                      "main_path_rounds": TIMED_ROUNDS, **split,
+                      **{"opt_in_" + k: v for k, v in opt_prof.items()}}))
     print(json.dumps(summary))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,10 @@ Deviations: ``--device`` takes ``{cuda, cpu}`` with ``cuda`` the default
 (a CUDA request on a host without a card raises; there is no fallback to
 the CPU), and the run is on one device (``--num_devices`` -1 or 1).
 
+The opt-in sketch paths ``--stream_sketch``, ``--sketch_coalesce`` and
+``--fused_epilogue`` are carried, with the JAX package's note for
+``--sketch_coalesce`` without ``--stream_sketch`` (a no-op there).
+
 Every flag of the JAX package that this slice does not carry is still
 parsed, so that using it raises ``NotImplementedError`` naming the ROADMAP
 item that ports it instead of being ignored (``reject_unported``).
@@ -22,12 +26,11 @@ DATASETS = ["CIFAR10", "CIFAR100"]
 
 _Q1 = "ROADMAP.md queue 1"
 ITEM_MODES = f"{_Q1} item 1 (the other server modes and the per-client worker path)"
-ITEM_OPT_IN = f"{_Q1} item 2 (the opt-in sketch paths, queue 2 kernels 2, 4, 6)"
-ITEM_CKPT = f"{_Q1} item 3 (checkpoint, resume and the round engine)"
-ITEM_CV = f"{_Q1} item 4 (the other CV models, datasets and data planes)"
-ITEM_GPT2 = f"{_Q1} item 5 (GPT-2 and --bf16)"
-ITEM_MULTI = f"{_Q1} item 6 (multi-GPU)"
-ITEM_RUNTIME = f"{_Q1} item 7 (runtime planes)"
+ITEM_CKPT = f"{_Q1} item 2 (checkpoint, resume and the round engine)"
+ITEM_CV = f"{_Q1} item 3 (the other CV models, datasets and data planes)"
+ITEM_GPT2 = f"{_Q1} item 4 (GPT-2 and --bf16)"
+ITEM_MULTI = f"{_Q1} item 5 (multi-GPU)"
+ITEM_RUNTIME = f"{_Q1} item 6 (runtime planes)"
 
 # (flag, dest, takes a value, roadmap item)
 UNPORTED = (
@@ -56,9 +59,6 @@ UNPORTED = (
     ("--shard_devices", "shard_devices", True, ITEM_MULTI),
     ("--reduce_dtype", "reduce_dtype", True, ITEM_MULTI),
     ("--collective_plan", "collective_plan", True, ITEM_MULTI),
-    ("--fused_epilogue", "fused_epilogue", False, ITEM_OPT_IN),
-    ("--stream_sketch", "stream_sketch", False, ITEM_OPT_IN),
-    ("--sketch_coalesce", "sketch_coalesce", False, ITEM_OPT_IN),
     ("--seq_parallel", "seq_parallel", True, ITEM_GPT2),
     ("--model_devices", "model_devices", True, ITEM_GPT2),
     ("--pipeline_devices", "pipeline_devices", True, ITEM_GPT2),
@@ -123,6 +123,23 @@ def build_parser(default_lr=None) -> argparse.ArgumentParser:
                         dest="telemetry", default=False,
                         help="Accepted; the port has no telemetry plane.")
 
+    # opt-in sketch paths (the JAX package's flags)
+    parser.add_argument("--fused_epilogue", action="store_true",
+                        dest="fused_epilogue",
+                        help="Mask at the top-k threshold, emit the update "
+                             "and re-sketch it in one kernel sweep (sketch "
+                             "mode; the composed path stays the default).")
+    parser.add_argument("--stream_sketch", action="store_true",
+                        dest="stream_sketch",
+                        help="Sketch the client phase's gradient leaf by "
+                             "leaf into a running table instead of "
+                             "forming the flat d-vector.")
+    parser.add_argument("--sketch_coalesce", action="store_true",
+                        dest="sketch_coalesce",
+                        help="Accumulate each group of adjacent gradient "
+                             "leaves with one launch (requires "
+                             "--stream_sketch).")
+
     for flag, dest, valued, _item in UNPORTED:
         if valued:
             parser.add_argument(flag, type=str, dest=dest, default=None,
@@ -160,4 +177,10 @@ def reject_unported(args) -> None:
 def parse_args(default_lr=None, argv=None):
     args = build_parser(default_lr).parse_args(argv)
     reject_unported(args)
+    if args.sketch_coalesce and not args.stream_sketch:
+        # the coalescer refines the leaf-streamed accumulate; without
+        # --stream_sketch there are no per-leaf launches to coalesce
+        print("NOTE: --sketch_coalesce refines the streaming client "
+              "phase; without --stream_sketch it has nothing to coalesce "
+              "and this config runs the composed path")
     return args

@@ -1,0 +1,72 @@
+// Helpers shared by the port's kernel sources (sketch_kernels.cu,
+// fused_epilogue.cu, topk_descent.cu). Each source is its own translation
+// unit; everything here is internal to the one that includes it.
+//
+// Shared conventions (identical to commefficient_tpu/ops/sketch.py and
+// ops/topk.py):
+//   - a chunk plane is (Tn, S, 128) float32, c_pad = S * 128 coordinates per
+//     chunk; chunk t starts at global coordinate (t0 + t) * c_pad;
+//   - row j shifts chunk t cyclically by m = 128 * q[j, t] + w[j, t];
+//   - the sign of coordinate idx in row j is bit 0 of fmix32(idx ^ key_j):
+//     1 -> +1, 0 -> -1;
+//   - the top-k works on int32 bit patterns: mag = bits & 0x7FFFFFFF, and a
+//     NaN pattern (mag > 0x7F800000) counts as magnitude 0.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int32_t kAbsMask = 0x7FFFFFFF;
+constexpr int32_t kInfBits = 0x7F800000;
+constexpr int kCandidates = 16;
+
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ float sign_of(uint32_t idx, uint32_t key) {
+  return (mix32(idx ^ key) & 1u) ? 1.0f : -1.0f;
+}
+
+// Magnitude of an int32 bit pattern for the top-k (NaN -> 0).
+__device__ __forceinline__ int32_t magnitude(int32_t bits) {
+  const int32_t m = bits & kAbsMask;
+  return m > kInfBits ? 0 : m;
+}
+
+// Adds each thread's kCandidates register counters into counts[0..16): a
+// warp shuffle reduction, a block reduction through shared memory, then one
+// atomicAdd per candidate per block. Integer sums are exact in any order.
+// Every thread of the block must call it.
+template <int kThreads>
+__device__ __forceinline__ void block_add_counts(
+    const int32_t (&cnt)[kCandidates], int32_t* counts) {
+  static_assert(kThreads % 32 == 0 && kThreads / 32 >= 1, "whole warps");
+  __shared__ int32_t s_part[kCandidates][kThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < kCandidates; ++j) {
+    int32_t x = cnt[j];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      x += __shfl_down_sync(0xffffffffu, x, off);
+    if (lane == 0) s_part[j][warp] = x;
+  }
+  __syncthreads();
+  if (threadIdx.x < kCandidates) {
+    int32_t total = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) total += s_part[threadIdx.x][w];
+    if (total) atomicAdd(&counts[threadIdx.x], total);
+  }
+}
+
+}  // namespace

@@ -1,65 +1,66 @@
-// Hand-written Hopper (sm_90a) kernels of the sketched FetchSGD round.
+// Hand-written Hopper (sm_90a) kernels of the sketched FetchSGD round: the
+// accumulate (from a zero table or from an incoming one), the median query
+// and the top-k count pass. The fused server epilogue and the one-launch
+// top-k descent live in fused_epilogue.cu and topk_descent.cu.
 //
-// Built by commefficient_torch/kernels.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
-//        -Xcompiler -fPIC
-// and loaded with ctypes: every entry point is a plain extern "C" function
-// that launches on the caller's stream and returns cudaGetLastError().
+// Built by commefficient_torch/kernels.py, one nvcc per source, with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
+//        -Xcompiler -fPIC -c
+// and linked with the other sources into one shared library loaded with
+// ctypes: every entry point is a plain extern "C" function that launches on
+// the caller's stream and returns cudaGetLastError().
 // Never build with --use_fast_math: it flushes denormals to zero, and the
 // sketch and the top-k must keep denormal values exactly.
-//
-// Shared conventions (identical to commefficient_tpu/ops/sketch.py):
-//   - a chunk plane is (Tn, S, 128) float32, c_pad = S * 128 coordinates per
-//     chunk; chunk t starts at global coordinate (t0 + t) * c_pad;
-//   - row j shifts chunk t cyclically by m = 128 * q[j, t] + w[j, t];
-//   - the sign of coordinate idx in row j is bit 0 of fmix32(idx ^ key_j):
-//     1 -> +1, 0 -> -1.
+// Conventions shared with the JAX package: sketch_common.cuh.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sketch_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ float sign_of(uint32_t idx, uint32_t key) {
-  return (mix32(idx ^ key) & 1u) ? 1.0f : -1.0f;
-}
-
 // ---------------------------------------------------------------------------
-// sketch_accumulate
+// sketch_accumulate (kFromTable = false) and sketch_accumulate_into
+// (kFromTable = true): one loop body, so the two cannot drift bit-wise.
 //
-// Replaces commefficient_tpu/ops/sketch.py::_sketch_vec_pallas.
+// sketch_accumulate replaces commefficient_tpu/ops/sketch.py::
+// _sketch_vec_pallas:
 //   table[j, c] = sum_t sign_j((t0+t)*c_pad + p) * v3[t, p],
 //   p = (c - m[j, t]) mod c_pad, chunks added in t order from 0.
-// Bound: device-memory bytes (the chunk plane read once, the table written
-// once; about 4 integer ops and one add per element). Design: output-
-// stationary, one thread per table cell, a loop over the Tn chunks. There
-// are no atomics, and each cell's adds come in chunk order, which is the
-// JAX scan's fold, so the table is bit-identical to the plain version.
-// Neighbouring threads read neighbouring p (one wrap per row), so the reads
-// coalesce. Each chunk element is read once per row (r times in all); the
-// rows of one chunk range are launched together (blockIdx.y = row) so the
-// plane is reread mostly from the 50 MB L2.
+// sketch_accumulate_into replaces ops/sketch.py::_accum_pallas_call (the
+// running-table kernel behind _sketch_accum_pallas and
+// _sketch_segments_pallas): the same sum, but each cell starts from the
+// incoming table's value, so the adds are ((tbl + c_0) + c_1) + ... in chunk
+// order. That continues the incoming table's fold; launching the zero-table
+// kernel and adding the table afterwards would round tbl + (c_0 + c_1 + ...)
+// instead and break bit-equality with the JAX fold.
+//
+// Bound: device-memory bytes (the chunk plane read once, the table read
+// (into) and written once; about 4 integer ops and one add per element).
+// Design: output-stationary, one thread per table cell, a loop over the Tn
+// chunks. There are no atomics, and each cell's adds come in chunk order,
+// which is the JAX scan's fold, so the table is bit-identical to the plain
+// version. Neighbouring threads read neighbouring p (one wrap per row), so
+// the reads coalesce. Each chunk element is read once per row (r times in
+// all); the rows of one chunk range are launched together (blockIdx.y =
+// row) so the plane is reread mostly from the 50 MB L2.
+// table_in and table_out may be the same buffer: each thread reads its own
+// cell once, before its one write, and touches no other cell (hence no
+// __restrict__ on the two).
 // ---------------------------------------------------------------------------
+template <bool kFromTable>
 __global__ void sketch_accumulate_kernel(const float* __restrict__ v3,
                                          const int32_t* __restrict__ shift_q,
                                          const int32_t* __restrict__ shift_w,
                                          const int32_t* __restrict__ keys,
-                                         float* __restrict__ table, int Tn,
-                                         int c_pad, int t0) {
+                                         const float* table_in,
+                                         float* table_out, int Tn, int c_pad,
+                                         int t0) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y;
   if (c >= c_pad) return;
+  const int64_t cell = static_cast<int64_t>(j) * c_pad + c;
   const uint32_t key = static_cast<uint32_t>(keys[j]);
   float acc = 0.0f;
+  if constexpr (kFromTable) acc = table_in[cell];
   for (int t = 0; t < Tn; ++t) {
     const int m = shift_q[j * Tn + t] * 128 + shift_w[j * Tn + t];
     int p = c - m;
@@ -68,7 +69,7 @@ __global__ void sketch_accumulate_kernel(const float* __restrict__ v3,
         static_cast<uint32_t>(static_cast<int64_t>(t0 + t) * c_pad + p);
     acc += sign_of(idx, key) * v3[static_cast<int64_t>(t) * c_pad + p];
   }
-  table[static_cast<int64_t>(j) * c_pad + c] = acc;
+  table_out[cell] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -141,20 +142,21 @@ __global__ void sketch_estimates_kernel(const float* __restrict__ table,
 // Replaces commefficient_tpu/ops/topk.py::_count_ge_pallas.
 //   counts[j] = #{i : mag(bits_i) >= ts[j]},  j < 16,
 //   mag = bits & 0x7FFFFFFF, NaN patterns (> 0x7F800000) counted as 0.
-// Bound: device-memory bytes (each pattern read once; 16 compares per
-// element). Design: a grid-stride loop over the patterns (no padding to
+// Bound: device-memory bytes (each pattern read once). The function needs
+// fewer integer operations than those bytes take: a bucket search over the
+// 16 sorted thresholds (sign mask, 4 compare-and-select steps, one
+// shared-memory increment) is 10 int32 ops per element; this kernel does
+// 16 compares and 16 adds. Design: a grid-stride loop over the patterns (no padding to
 // whole blocks), 16 counters per thread in registers, a warp then block
 // reduction, and one atomicAdd per block per candidate into the zeroed
 // output. Integer counts are exact in any order.
 // ---------------------------------------------------------------------------
-constexpr int kCandidates = 16;
 constexpr int kCountThreads = 256;
 
 __global__ void __launch_bounds__(kCountThreads)
     topk_count_ge_kernel(const int32_t* __restrict__ bits, int64_t n,
                          const int32_t* __restrict__ ts,
                          int32_t* __restrict__ counts) {
-  __shared__ int32_t s_part[kCandidates][kCountThreads / 32];
   int32_t th[kCandidates];
   int32_t cnt[kCandidates];
 #pragma unroll
@@ -165,29 +167,11 @@ __global__ void __launch_bounds__(kCountThreads)
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
-    int32_t m = bits[i] & 0x7FFFFFFF;
-    if (m > 0x7F800000) m = 0;
+    const int32_t m = magnitude(bits[i]);
 #pragma unroll
     for (int j = 0; j < kCandidates; ++j) cnt[j] += (m >= th[j]) ? 1 : 0;
   }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < kCandidates; ++j) {
-    int32_t x = cnt[j];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      x += __shfl_down_sync(0xffffffffu, x, off);
-    if (lane == 0) s_part[j][warp] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x < kCandidates) {
-    int32_t total = 0;
-#pragma unroll
-    for (int w = 0; w < kCountThreads / 32; ++w)
-      total += s_part[threadIdx.x][w];
-    if (total) atomicAdd(&counts[threadIdx.x], total);
-  }
+  block_add_counts<kCountThreads>(cnt, counts);
 }
 
 template <int R>
@@ -209,8 +193,21 @@ int sketch_accumulate(const float* v3, const int32_t* shift_q,
                       cudaStream_t stream) {
   if (r <= 0 || c_pad <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((c_pad + 255) / 256, r);
-  sketch_accumulate_kernel<<<grid, 256, 0, stream>>>(
-      v3, shift_q, shift_w, keys, table, Tn, c_pad, t0);
+  sketch_accumulate_kernel<false><<<grid, 256, 0, stream>>>(
+      v3, shift_q, shift_w, keys, nullptr, table, Tn, c_pad, t0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// table_out = table_in + the sketch of v3; table_out may be table_in.
+int sketch_accumulate_into(const float* table_in, const float* v3,
+                           const int32_t* shift_q, const int32_t* shift_w,
+                           const int32_t* keys, float* table_out, int r,
+                           int Tn, int c_pad, int t0, cudaStream_t stream) {
+  if (r <= 0 || c_pad <= 0 || Tn < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((c_pad + 255) / 256, r);
+  sketch_accumulate_kernel<true><<<grid, 256, 0, stream>>>(
+      v3, shift_q, shift_w, keys, table_in, table_out, Tn, c_pad, t0);
   return static_cast<int>(cudaGetLastError());
 }
 

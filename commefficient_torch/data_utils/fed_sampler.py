@@ -1,7 +1,7 @@
 """FedSampler: random client sampling with per-client cursors, the port's
 own copy of ``commefficient_tpu/data_utils/fed_sampler.py`` (full
 participation; the participation, requeue, quarantine and churn layers
-are a later slice, ROADMAP.md queue 1 item 7).
+are a later slice, ROADMAP.md queue 1 item 6).
 
 Per epoch: shuffle within each client, then per step sample
 ``num_workers`` clients uniformly without replacement from the

@@ -1,7 +1,7 @@
 """FedLoader: client-major batch assembly, the port's own copy of the
 numpy path of ``commefficient_tpu/data_utils/loader.py`` (the native C++
 fast path and the prefetch thread are a later slice, ROADMAP.md queue 1
-item 4; both produce the same batches as this path under one seed).
+item 3; both produce the same batches as this path under one seed).
 
   train round batch: {
     client_ids:  (W,)  int32   sampled client per worker slot

@@ -86,7 +86,16 @@ def server_config_from_args(args, grad_size: int) -> ServerConfig:
     return ServerConfig(
         mode=args.mode, error_type=args.error_type, k=args.k,
         grad_size=grad_size, virtual_momentum=args.virtual_momentum,
-        local_momentum=args.local_momentum)
+        local_momentum=args.local_momentum,
+        fused_epilogue=bool(getattr(args, "fused_epilogue", False)))
+
+
+def round_config_from_args(args, grad_size: int) -> RoundConfig:
+    return RoundConfig(
+        worker=worker_config_from_args(args),
+        server=server_config_from_args(args, grad_size), grad_size=grad_size,
+        stream_sketch=bool(getattr(args, "stream_sketch", False)),
+        sketch_coalesce=bool(getattr(args, "sketch_coalesce", False)))
 
 
 def _to_device(batch: dict, device) -> dict:
@@ -137,14 +146,12 @@ class FedModel:
         # the slice's CV models carry no BatchNorm statistics
         self._model_state = {}
 
-        wcfg = worker_config_from_args(args)
-        scfg = server_config_from_args(args, self.grad_size)
-        self.worker_config, self.server_config = wcfg, scfg
+        cfg = round_config_from_args(args, self.grad_size)
+        self.worker_config, self.server_config = cfg.worker, cfg.server
         self.sketch = make_sketch(self.grad_size, args.num_cols,
                                   args.num_rows, seed=args.seed,
                                   num_blocks=args.num_blocks,
                                   device=self.device)
-        cfg = RoundConfig(worker=wcfg, server=scfg, grad_size=self.grad_size)
         self.steps = build_round_step(
             compute_loss_train, compute_loss_val or compute_loss_train,
             self.param_layout, cfg, self.sketch)

@@ -18,6 +18,14 @@ PS weights stay resident in the sketch's ``(T, S, 128)`` chunk layout
 the unchunked vector, so the backward pass lands the gradient in that
 layout directly.
 
+``--stream_sketch`` (``RoundConfig.stream_sketch``) swaps steps 1-3 for
+the streaming client phase (``fused_clients_stream``): the backward pass
+differentiates with respect to each parameter leaf, the leaf gradients are
+sketched at their flat offsets into a running ``(r, c_pad)`` table after
+each microbatch (one launch per group of adjacent leaves under
+``--sketch_coalesce``), weight decay goes in as one more full-range
+accumulate after the microbatch loop, and no d-sized gradient exists.
+
 Per-client state (local momentum/error), the per-client worker path,
 guards, telemetry, the engine and sharding are later slices (ROADMAP.md,
 queue 1).
@@ -26,7 +34,7 @@ queue 1).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import vmap
@@ -40,10 +48,25 @@ from commefficient_torch.federated.worker import (
     WorkerConfig,
     forward_metrics,
     microbatch_plan,
+    sketch_grad_tree,
     split_microbatches,
 )
-from commefficient_torch.ops.flat import ChunkLayout, ParamLayout
-from commefficient_torch.ops.sketch import CountSketch, sketch_chunks
+from commefficient_torch.ops.flat import (
+    ChunkLayout,
+    LeafSegment,
+    ParamLayout,
+    SegmentGroup,
+    chunked_unravel,
+    coalesce_segments,
+    jax_to_torch_layout,
+    leaf_segments,
+)
+from commefficient_torch.ops.sketch import (
+    CountSketch,
+    coalesce_vmem_budget,
+    sketch_chunks,
+    sketch_chunks_accum,
+)
 
 
 @dataclass(frozen=True)
@@ -51,6 +74,11 @@ class RoundConfig:
     worker: WorkerConfig
     server: ServerConfig
     grad_size: int
+    # the streaming client phase (--stream_sketch)
+    stream_sketch: bool = False
+    # one accumulate launch per group of adjacent leaves (--sketch_coalesce;
+    # only inside the streaming client phase)
+    sketch_coalesce: bool = False
 
 
 class FederatedSteps(NamedTuple):
@@ -58,6 +86,10 @@ class FederatedSteps(NamedTuple):
     server_step: Callable
     val_step: Callable
     layout: ChunkLayout
+    # the streaming client phase's leaf layout and group plan (None when
+    # the round is composed, or streams leaf by leaf)
+    stream_segments: Optional[Tuple[LeafSegment, ...]] = None
+    stream_groups: Optional[Tuple[SegmentGroup, ...]] = None
 
 
 def check_round_config(wcfg: WorkerConfig) -> None:
@@ -84,6 +116,16 @@ def build_round_step(compute_loss_train: Callable,
     assert params.d == cfg.grad_size == sketch.d, \
         (params.d, cfg.grad_size, sketch.d)
     layout = sketch.chunk_layout
+    stream_segs = stream_unravel = stream_groups = None
+    if cfg.stream_sketch:
+        stream_segs = leaf_segments(params)
+        assert stream_segs[-1].offset + stream_segs[-1].size == \
+            cfg.grad_size, "leaf layout does not cover the flat vector"
+        stream_unravel = chunked_unravel(layout, params)
+        if cfg.sketch_coalesce:
+            stream_groups = coalesce_segments(
+                stream_segs, coalesce_vmem_budget(sketch),
+                chunk_elems=sketch.c_pad)
 
     def fused_clients(ps3, model_state, batch, worker_mask):
         """One-gradient client phase. Returns (summed gradient incl. weight
@@ -123,14 +165,71 @@ def build_round_step(compute_loss_train: Callable,
             + (counts,)
         return g_sum, metrics
 
+    def fused_clients_stream(ps3, model_state, batch, worker_mask):
+        """Streaming client phase: like ``fused_clients``, but the
+        microbatch loop carries the ``(r, c_pad)`` table instead of a
+        d-sized gradient. The backward pass differentiates with respect to
+        the parameter leaves; after ``torch.autograd.grad`` returns, the
+        leaf gradients are sketched in offset order (never from backward
+        hooks, which fire in reverse layer order: the per-cell add order
+        must be the composed fold's). Weight decay is one more full-range
+        accumulate of the resident weights after the loop. Returns (the
+        undivided table, per-client metrics).
+
+        With one microbatch and no weight decay the table equals the
+        composed ``sketch_chunks(g_sum)`` under ``==``; several microbatches
+        or weight decay reorder float32 sums, as in the JAX package."""
+        W, B = batch["mask"].shape
+        mb, n_iters, pad = microbatch_plan(B, wcfg.microbatch_size)
+        stacked = split_microbatches(batch, mb, n_iters, pad, example_dim=1)
+        leaves = stream_unravel(ps3)
+        p = {e.torch_name: jax_to_torch_layout(x)
+             for e, x in zip(params.entries, leaves)}
+
+        def per_client(b):
+            loss_sum, msums, count, _ = compute_loss_train(
+                p, model_state, b, None, True)
+            return loss_sum, msums, count
+
+        table = torch.zeros(sketch.table_shape, dtype=torch.float32,
+                            device=ps3.device)
+        loss_sums = torch.zeros(W, device=ps3.device)
+        counts = torch.zeros(W, device=ps3.device)
+        m_sums = None
+        for it in range(n_iters):
+            micro = {k: v[it] for k, v in stacked.items()}
+            ls, ms, cs = vmap(per_client)(micro)
+            total = torch.sum(ls * worker_mask)
+            grads = torch.autograd.grad(total, leaves)
+            table = sketch_grad_tree(sketch, table, grads, stream_segs,
+                                     stream_groups)
+            loss_sums = loss_sums + ls.detach()
+            ms = tuple(m.detach() for m in ms)
+            m_sums = ms if m_sums is None else tuple(
+                a + m for a, m in zip(m_sums, ms))
+            counts = counts + cs.detach()
+        if wcfg.weight_decay != 0:
+            wd_scale = torch.sum(worker_mask * counts)
+            coef = (wcfg.weight_decay / wcfg.num_workers) * wd_scale
+            table = sketch_chunks_accum(sketch, table, ps3 * coef)
+        denom = torch.clamp(counts, min=1.0)
+        metrics = (loss_sums / denom,) + tuple(m / denom for m in m_sums) \
+            + (counts,)
+        return table, metrics
+
     def client_step(ps3, model_state, batch):
         """Phase 1: the round's data-weighted ``(r, c_pad)`` sketch table
         (the server phase's input), the model state, per-client metrics."""
         worker_mask = batch["worker_mask"]
         data = {k: v for k, v in batch.items()
                 if k not in ("client_ids", "worker_mask")}
-        g_sum, metrics = fused_clients(ps3, model_state, data, worker_mask)
-        table = sketch_chunks(sketch, g_sum)
+        if cfg.stream_sketch:
+            table, metrics = fused_clients_stream(ps3, model_state, data,
+                                                  worker_mask)
+        else:
+            g_sum, metrics = fused_clients(ps3, model_state, data,
+                                           worker_mask)
+            table = sketch_chunks(sketch, g_sum)
         total_count = torch.clamp(batch["mask"].sum(), min=1.0)
         return table / total_count, model_state, metrics
 
@@ -146,5 +245,7 @@ def build_round_step(compute_loss_train: Callable,
                                model_state, batch)
 
     return FederatedSteps(client_step=client_step, server_step=server_step,
-                          val_step=val_step, layout=layout)
+                          val_step=val_step, layout=layout,
+                          stream_segments=stream_segs,
+                          stream_groups=stream_groups)
 

@@ -6,7 +6,11 @@ for sketch mode.
 learning rate) and the new state. In sketch mode with virtual error
 (FetchSGD): momentum and error accumulate in table space, the update is
 the top-k of the error table's median-of-rows estimates, and error and
-velocity are zeroed at the nonzero cells of the update's re-sketch.
+velocity are zeroed at the nonzero cells of the update's re-sketch. With
+``fused_epilogue`` (``--fused_epilogue``) and the chunk layout, the mask,
+the update and its re-sketch come from one epilogue sweep over the
+estimates (``ops/sketch.fused_epilogue_chunks``), bit-identical to the
+composed pair.
 
 The legality asserts of ``ServerConfig`` are the JAX package's, verbatim.
 The other four modes are later slices (ROADMAP.md, queue 1).
@@ -22,6 +26,8 @@ import torch
 from commefficient_torch.ops.flat import ChunkLayout
 from commefficient_torch.ops.sketch import (
     CountSketch,
+    estimates_chunks,
+    fused_epilogue_chunks,
     sketch_chunks,
     unsketch_chunks,
 )
@@ -40,6 +46,9 @@ class ServerConfig:
     grad_size: int = 0
     virtual_momentum: float = 0.0
     local_momentum: float = 0.0
+    # sketch mode, chunked layout: one epilogue sweep for the threshold
+    # mask, the update and its re-sketch
+    fused_epilogue: bool = False
 
     def __post_init__(self):
         assert self.mode in MODES, self.mode
@@ -105,8 +114,12 @@ def _sketched(sketched_grad, state, cfg, lr, sketch: CountSketch,
         error = state.error + velocity
     else:  # "local", and "none": unsketch the velocity (JAX deviation note)
         error = velocity
-    upd3 = unsketch_chunks(sketch, error, cfg.k)
-    sketched_update = sketch_chunks(sketch, upd3)
+    if layout is not None and cfg.fused_epilogue:
+        upd3, sketched_update = fused_epilogue_chunks(
+            sketch, estimates_chunks(sketch, error), cfg.k)
+    else:
+        upd3 = unsketch_chunks(sketch, error, cfg.k)
+        sketched_update = sketch_chunks(sketch, upd3)
     update = upd3 if layout is not None else sketch.chunk_layout.unchunk(upd3)
     cell_nz = sketched_update != 0
     zero = torch.zeros((), dtype=error.dtype, device=error.device)

@@ -6,15 +6,23 @@ per-client gradients (per-example-mean gradient x local batch size), with
 weight decay folded in as ``wd / num_workers x weights`` per datum. The
 per-client worker path (local momentum/error, clipping, DP, local top-k,
 fedavg) is a later slice (ROADMAP.md, queue 1); this slice runs the
-fused-gradient client phase of ``federated/rounds.py``.
+fused-gradient client phase of ``federated/rounds.py``, composed or
+streamed (``sketch_grad_tree``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
+
+from commefficient_torch.ops.flat import LeafSegment, SegmentGroup
+from commefficient_torch.ops.sketch import (
+    CountSketch,
+    sketch_segment_accum,
+    sketch_segments_accum,
+)
 
 
 @dataclass(frozen=True)
@@ -72,3 +80,31 @@ def forward_metrics(compute_loss, params, model_state, batch):
                                                  None, False)
     denom = torch.clamp(count, min=1.0)
     return (loss_sum / denom,) + tuple(m / denom for m in msums) + (count,)
+
+
+def sketch_grad_tree(sketch: CountSketch, table: torch.Tensor,
+                     grads: Sequence[torch.Tensor],
+                     segments: Sequence[LeafSegment],
+                     groups: Optional[Sequence[SegmentGroup]] = None
+                     ) -> torch.Tensor:
+    """Stream leaf gradients into a running count-sketch table (the JAX
+    package's ``sketch_grad_tree``): each leaf is accumulated at its flat
+    offset (``ops/flat.leaf_segments``), so the d-vector is never formed.
+    ``grads`` come in offset order (the JAX layout of each leaf), so per
+    table cell the adds continue the composed path's chunk-ordered fold.
+    With ``groups`` (an ``ops/flat.coalesce_segments`` plan) each group of
+    adjacent leaves is one accumulate launch; without, one per leaf."""
+    assert len(grads) == len(segments), (len(grads), len(segments))
+    for g, seg in zip(grads, segments):
+        assert g.numel() == seg.size, (tuple(g.shape), seg)
+    if groups is None:
+        for g, seg in zip(grads, segments):
+            table = sketch_segment_accum(sketch, table, g, seg.offset)
+        return table
+    assert groups[0].start == 0 and groups[-1].stop == len(segments) \
+        and all(a.stop == b.start for a, b in zip(groups[:-1], groups[1:])), \
+        "groups must partition the leaf segments in order"
+    for grp in groups:
+        table = sketch_segments_accum(sketch, table,
+                                      grads[grp.start:grp.stop], grp.offset)
+    return table

@@ -1,14 +1,18 @@
 """Build, bind and count the port's CUDA kernels.
 
-The three kernels of the sketched round live in one source,
-``csrc/sketch_kernels.cu``, with a plain ``extern "C"`` interface. At first
-use it is compiled with ``nvcc`` for ``sm_90a`` into ``_build/`` beside this
-file (keyed on a hash of the source and the flags, so an edited source
-rebuilds) and loaded with ``ctypes``. Nothing is compiled or loaded at
-import: the CPU tests import every module.
+The six kernels of the sketched round live in three sources under
+``csrc/`` (``sketch_kernels.cu``: the accumulate from a zero or an incoming
+table, the median query and the top-k count pass; ``fused_epilogue.cu``;
+``topk_descent.cu``), each with a plain ``extern "C"`` interface and the
+helpers of ``csrc/sketch_common.cuh``. At first use each source is
+compiled by its own ``nvcc`` for ``sm_90a`` (all started together), the
+objects are linked into one shared library in ``_build/`` beside this file
+(keyed on a hash of the sources and the flags, so an edited source
+rebuilds), and the library is loaded with ``ctypes``. Nothing is compiled
+or loaded at import: the CPU tests import every module.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-output with ``torch.empty``, launches on ``torch.cuda.current_stream()``,
+outputs with ``torch.empty``, launches on ``torch.cuda.current_stream()``,
 raises if the C function reports a CUDA error, and adds one to its
 kernel's ``launches`` count. The plain PyTorch versions live beside the
 public dispatch functions in ``ops/sketch.py`` and ``ops/topk.py``.
@@ -30,11 +34,13 @@ from typing import Tuple
 import torch
 
 _PKG = Path(__file__).resolve().parent
-SOURCE = _PKG / "csrc" / "sketch_kernels.cu"
+CSRC = _PKG / "csrc"
+SOURCES = (CSRC / "sketch_kernels.cu", CSRC / "fused_epilogue.cu",
+           CSRC / "topk_descent.cu")
+HEADERS = (CSRC / "sketch_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclass
@@ -43,21 +49,33 @@ class Kernel:
 
     name: str
     source: str    # path in the repo
-    replaces: str  # the TPU kernel it ports, file:line
+    replaces: str  # the TPU kernel it ports, file:line of its def
     launches: int = 0
 
 
+_SKETCH_CU = "commefficient_torch/csrc/sketch_kernels.cu"
 SKETCH_ACCUMULATE = Kernel(
-    "sketch_accumulate", "commefficient_torch/csrc/sketch_kernels.cu",
-    "commefficient_tpu/ops/sketch.py:274 (_sketch_vec_pallas)")
+    "sketch_accumulate", _SKETCH_CU,
+    "commefficient_tpu/ops/sketch.py:275 (_sketch_vec_pallas)")
+SKETCH_ACCUMULATE_INTO = Kernel(
+    "sketch_accumulate_into", _SKETCH_CU,
+    "commefficient_tpu/ops/sketch.py:563 (_accum_pallas_call)")
 SKETCH_ESTIMATES = Kernel(
-    "sketch_estimates", "commefficient_torch/csrc/sketch_kernels.cu",
-    "commefficient_tpu/ops/sketch.py:889 (_estimates_pallas)")
+    "sketch_estimates", _SKETCH_CU,
+    "commefficient_tpu/ops/sketch.py:891 (_estimates_pallas)")
+FUSED_EPILOGUE = Kernel(
+    "fused_epilogue", "commefficient_torch/csrc/fused_epilogue.cu",
+    "commefficient_tpu/ops/sketch.py:1118 (_fused_epilogue_pallas)")
 TOPK_COUNT_GE = Kernel(
-    "topk_count_ge", "commefficient_torch/csrc/sketch_kernels.cu",
-    "commefficient_tpu/ops/topk.py:95 (_count_ge_pallas)")
-KERNELS: Tuple[Kernel, ...] = (SKETCH_ACCUMULATE, SKETCH_ESTIMATES,
-                               TOPK_COUNT_GE)
+    "topk_count_ge", _SKETCH_CU,
+    "commefficient_tpu/ops/topk.py:96 (_count_ge_pallas)")
+TOPK_DESCENT = Kernel(
+    "topk_descent", "commefficient_torch/csrc/topk_descent.cu",
+    "commefficient_tpu/ops/topk.py:136 (_descent_pallas)")
+# in the order of the TPU kernels they replace
+KERNELS: Tuple[Kernel, ...] = (SKETCH_ACCUMULATE, SKETCH_ACCUMULATE_INTO,
+                               SKETCH_ESTIMATES, FUSED_EPILOGUE,
+                               TOPK_COUNT_GE, TOPK_DESCENT)
 
 
 def reset_launch_counts() -> None:
@@ -81,25 +99,39 @@ def _nvcc() -> str:
 
 
 def build() -> Tuple[Path, str]:
-    """Compile the kernel library if this source has no build yet.
-    Returns ``(library path, compiler output)``; the output holds
-    ``ptxas``'s register, shared-memory and spill summary."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libsketch_kernels_{key}.so"
+    """Compile the kernel library if these sources have no build yet: one
+    ``nvcc -c`` per source, all running at once, then one link. Returns
+    ``(library path, compiler output)``; the output holds ``ptxas``'s
+    register, shared-memory and spill summary of every kernel."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in SOURCES + HEADERS:
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    lib = BUILD_DIR / f"libsketch_kernels_{h.hexdigest()[:16]}.so"
     log = lib.with_suffix(".log")
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            out = Path(tmp) / lib.name
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(SOURCE)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            log.write_text(proc.stdout + proc.stderr)
-            os.replace(out, lib)
+            objs = [str(Path(tmp) / (src.stem + ".o")) for src in SOURCES]
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(SOURCES, objs)]
+            text = "".join(f"== {src.name}\n{proc.communicate()[0]}"
+                           for src, proc in zip(SOURCES, procs))
+            tmp_lib = Path(tmp) / lib.name
+            failed = any(proc.returncode for proc in procs)
+            if not failed:
+                link = subprocess.run(
+                    [nvcc, "-shared", "-o", str(tmp_lib), *objs],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                text += link.stdout
+                failed = link.returncode != 0
+            if failed:
+                raise RuntimeError(f"nvcc failed:\n{text}")
+            log.write_text(text)
+            os.replace(tmp_lib, lib)
     return lib, (log.read_text() if log.exists() else "")
 
 
@@ -117,6 +149,14 @@ def library() -> ctypes.CDLL:
     lib.sketch_estimates_max_rows.restype = i32
     lib.topk_count_ge.argtypes = [p, i64, p, p, i32, p]
     lib.topk_count_ge.restype = i32
+    lib.sketch_accumulate_into.argtypes = [p, p, p, p, p, p, i32, i32, i32,
+                                           i32, p]
+    lib.sketch_accumulate_into.restype = i32
+    lib.fused_epilogue.argtypes = [p, p, p, p, p, p, p, i32, i32, i32, i32,
+                                   p]
+    lib.fused_epilogue.restype = i32
+    lib.topk_descent.argtypes = [p, i64, i32, p, p, i32, p]
+    lib.topk_descent.restype = i32
     return lib
 
 
@@ -226,3 +266,87 @@ def topk_count_ge(bits: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
     _raise_on(err, TOPK_COUNT_GE)
     TOPK_COUNT_GE.launches += 1
     return out
+
+
+def sketch_accumulate_into(tbl3: torch.Tensor, v3: torch.Tensor,
+                           shift_q: torch.Tensor, shift_w: torch.Tensor,
+                           sign_keys: torch.Tensor,
+                           t0: int = 0) -> torch.Tensor:
+    """``(r, S, 128)`` f32 table plus the sketch of ``(Tn, S, 128)`` f32
+    chunks, each cell's adds continuing the table's fold, on the card (see
+    ``ops/sketch.sketch_accumulate_into``). Returns a new table."""
+    if tbl3.device.type != "cuda" or tbl3.ndim != 3 or v3.ndim != 3:
+        raise ValueError("sketch_accumulate_into: expected an (r, S, 128) "
+                         "CUDA table and (Tn, S, 128) chunks, got "
+                         f"{tuple(tbl3.shape)} on {tbl3.device} and "
+                         f"{tuple(v3.shape)}")
+    r, S, lanes = tbl3.shape
+    Tn = v3.shape[0]
+    _check("tbl3", tbl3, torch.float32, (r, S, 128), tbl3.device)
+    _check("v3", v3, torch.float32, (Tn, S, 128), tbl3.device)
+    _shift_args(tbl3.device, shift_q, shift_w, sign_keys, r, Tn)
+    lib = library()
+    with torch.cuda.device(tbl3.device):
+        out = torch.empty_like(tbl3)
+        err = lib.sketch_accumulate_into(
+            tbl3.data_ptr(), v3.data_ptr(), shift_q.data_ptr(),
+            shift_w.data_ptr(), sign_keys.data_ptr(), out.data_ptr(), r, Tn,
+            S * lanes, int(t0),
+            torch.cuda.current_stream(tbl3.device).cuda_stream)
+    _raise_on(err, SKETCH_ACCUMULATE_INTO)
+    SKETCH_ACCUMULATE_INTO.launches += 1
+    return out
+
+
+def fused_epilogue(est3: torch.Tensor, p: torch.Tensor,
+                   shift_q: torch.Tensor, shift_w: torch.Tensor,
+                   sign_keys: torch.Tensor, t0: int = 0):
+    """``(Tn, S, 128)`` f32 estimates and the int32 threshold pattern ``p``
+    (one element, on the card) -> ``(update (Tn, S, 128), table (r, S,
+    128))`` (see ``ops/sketch.fused_epilogue``)."""
+    if est3.device.type != "cuda" or est3.ndim != 3:
+        raise ValueError("fused_epilogue: expected a (Tn, S, 128) CUDA "
+                         f"tensor, got {tuple(est3.shape)} on {est3.device}")
+    Tn, S, lanes = est3.shape
+    r = shift_q.shape[0]
+    _check("est3", est3, torch.float32, (Tn, S, 128), est3.device)
+    _check("p", p.reshape(1), torch.int32, (1,), est3.device)
+    _shift_args(est3.device, shift_q, shift_w, sign_keys, r, Tn)
+    lib = library()
+    with torch.cuda.device(est3.device):
+        update = torch.empty_like(est3)
+        table = torch.empty((r, S, lanes), dtype=torch.float32,
+                            device=est3.device)
+        err = lib.fused_epilogue(
+            est3.data_ptr(), p.reshape(1).data_ptr(), shift_q.data_ptr(),
+            shift_w.data_ptr(), sign_keys.data_ptr(), update.data_ptr(),
+            table.data_ptr(), r, Tn, S * lanes, int(t0),
+            torch.cuda.current_stream(est3.device).cuda_stream)
+    _raise_on(err, FUSED_EPILOGUE)
+    FUSED_EPILOGUE.launches += 1
+    return update, table
+
+
+def topk_descent(bits: torch.Tensor, k: int) -> torch.Tensor:
+    """The k-th largest magnitude's int32 bit pattern of flat int32 bit
+    patterns, all 8 descent passes in one cooperative launch, as a 0-d
+    int32 tensor on the card (see ``ops/topk.topk_descent``)."""
+    if bits.device.type != "cuda" or bits.ndim != 1:
+        raise ValueError("topk_descent: expected a flat CUDA tensor, got "
+                         f"{tuple(bits.shape)} on {bits.device}")
+    _check("bits", bits, torch.int32, bits.shape, bits.device)
+    if not 1 <= int(k) < 2**31:
+        raise ValueError(f"topk_descent: k={k} out of range")
+    lib = library()
+    with torch.cuda.device(bits.device):
+        counts = torch.empty(8 * 16, dtype=torch.int32, device=bits.device)
+        out = torch.empty(1, dtype=torch.int32, device=bits.device)
+        err = lib.topk_descent(
+            bits.data_ptr(), bits.numel(), int(k), counts.data_ptr(),
+            out.data_ptr(),
+            _num_sms(bits.device.index if bits.device.index is not None
+                     else torch.cuda.current_device()),
+            torch.cuda.current_stream(bits.device).cuda_stream)
+    _raise_on(err, TOPK_DESCENT)
+    TOPK_DESCENT.launches += 1
+    return out.reshape(())

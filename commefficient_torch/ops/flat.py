@@ -14,12 +14,18 @@ HWIO, dense kernels ``(in, out)``). The sketch depends on coordinate order
 keeps exactly this order. The torch module's own parameters are views of
 the flat vector with a ``permute``, so the gradient of the flat leaf is the
 gradient in JAX order with no copy loop.
+
+The streaming client phase (``--stream_sketch``) differentiates with
+respect to each leaf instead (``chunked_unravel``) and sketches every leaf
+gradient at its flat offset (``leaf_segments``), one group of adjacent
+leaves per launch under ``--sketch_coalesce`` (``coalesce_segments``).
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Tuple
+from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -138,3 +144,133 @@ class ParamLayout:
         return torch.cat([
             torch_to_jax_layout(params[e.torch_name].detach()).reshape(-1)
             for e in self.entries]).to(torch.float32)
+
+
+class LeafSegment(NamedTuple):
+    """One parameter leaf's place in the flat layout (the JAX package's
+    ``ops/flat.LeafSegment``)."""
+
+    path: str    # '/'-joined lowercase flax path, e.g. "layer1/conv_0/kernel"
+    offset: int  # flat element offset of the leaf's first element
+    size: int    # number of elements
+
+
+def leaf_segments(params: ParamLayout) -> Tuple[LeafSegment, ...]:
+    """Per-leaf ``(path, offset, size)`` of the flat layout, leaves in
+    offset order: the JAX package's ``leaf_segments`` of the flax tree
+    (``ParamLayout.entries`` are already in its ravel order)."""
+    return tuple(LeafSegment("/".join(e.jax_path).lower(), e.offset, e.size)
+                 for e in params.entries)
+
+
+class SegmentGroup(NamedTuple):
+    """A contiguous run of leaves ``segs[start:stop]`` sketched with one
+    launch; its flat span ``[offset, offset + size)`` is covered by the
+    chunks ``[t_a, t_b)``."""
+
+    start: int   # index of the first leaf in the group
+    stop: int    # one past the last leaf index
+    offset: int  # flat element offset of the group's first element
+    size: int    # total elements (the leaves are contiguous)
+    t_a: int     # first covering chunk
+    t_b: int     # one past the last covering chunk (== t_a when size == 0)
+
+
+def coalesce_segments(segs: Sequence[LeafSegment], vmem_budget: int, *,
+                      chunk_elems: int) -> Tuple[SegmentGroup, ...]:
+    """Greedy in-order grouping of adjacent leaves into covering
+    chunk-range groups under a byte budget (the JAX package's
+    ``coalesce_segments``, the same rules): a group grows while its
+    covering chunk range ``[t_a, t_b)`` stays within ``vmem_budget`` bytes
+    of float32 chunks (``chunk_elems`` = the sketch's ``c_pad``).
+
+    - the groups partition the leaves in order;
+    - zero-size leaves ride whichever group is current;
+    - a single leaf whose covering range alone exceeds the budget forms
+      its own group (one launch, as the per-leaf path);
+    - when no group holds two nonzero leaves although two exist, one
+      ``RuntimeWarning`` says the plan degenerated to per-leaf launches.
+    """
+    segs = tuple(segs)
+    if not segs:
+        return ()
+    ce = int(chunk_elems)
+    budget = int(vmem_budget)
+    assert ce > 0, ce
+    assert budget > 0, budget
+    for a, b in zip(segs[:-1], segs[1:]):
+        assert b.offset == a.offset + a.size, (a, b)
+
+    def span_bytes(e0: int, e1: int) -> int:
+        if e1 <= e0:
+            return 0
+        return (-(-e1 // ce) - e0 // ce) * ce * 4
+
+    def mk(start: int, stop: int) -> SegmentGroup:
+        e0 = segs[start].offset
+        e1 = segs[stop - 1].offset + segs[stop - 1].size
+        size = e1 - e0
+        t_a = e0 // ce
+        t_b = -(-e1 // ce) if size else t_a
+        return SegmentGroup(start=start, stop=stop, offset=e0, size=size,
+                            t_a=t_a, t_b=t_b)
+
+    groups = []
+    start = 0
+    g_e0 = segs[0].offset
+    cur_size = segs[0].size
+    for i in range(1, len(segs)):
+        s = segs[i]
+        end = s.offset + s.size
+        if (span_bytes(g_e0, end) <= budget or cur_size == 0
+                or s.size == 0):
+            cur_size += s.size
+            continue
+        groups.append(mk(start, i))
+        start, g_e0, cur_size = i, s.offset, s.size
+    groups.append(mk(start, len(segs)))
+
+    n_nonzero = sum(1 for s in segs if s.size)
+    multi = any(sum(1 for s in segs[g.start:g.stop] if s.size) > 1
+                for g in groups)
+    if n_nonzero > 1 and not multi:
+        worst = max((g for g in groups if g.size),
+                    key=lambda g: g.t_b - g.t_a)
+        big = next(segs[i] for i in range(worst.start, worst.stop)
+                   if segs[i].size)
+        warnings.warn(
+            f"coalesce_segments: budget {budget} B is smaller than every "
+            f"leaf adjacency's covering chunk range (largest single leaf "
+            f"{big.path!r}: {worst.t_b - worst.t_a} chunks "
+            f"= {(worst.t_b - worst.t_a) * ce * 4} B); no adjacent "
+            f"leaves coalesced — the plan degenerates to one per-leaf "
+            f"launch each", RuntimeWarning)
+    return tuple(groups)
+
+
+def chunked_unravel(layout: ChunkLayout, params: ParamLayout
+                    ) -> Callable[[torch.Tensor], List[torch.Tensor]]:
+    """Leaves straight from the ``(T, S, 128)`` resident plane (the JAX
+    package's ``chunked_unravel``): each leaf is sliced from its covering
+    chunk rows and shaped in the flax layout. Every leaf is a view of the
+    plane, detached into its own autograd leaf with ``requires_grad``, so
+    ``torch.autograd.grad`` returns one gradient per leaf in JAX layout
+    and no d-sized gradient is formed."""
+    segs = leaf_segments(params)
+    shapes = [e.jax_shape for e in params.entries]
+    ce = layout.S * LANES  # elements per chunk
+
+    def unravel_chunks(c3: torch.Tensor) -> List[torch.Tensor]:
+        assert tuple(c3.shape) == layout.shape, (tuple(c3.shape),
+                                                 layout.shape)
+        leaves = []
+        for seg, shape in zip(segs, shapes):
+            t0 = seg.offset // ce
+            t1 = -(-(seg.offset + seg.size) // ce)
+            block = c3[t0:t1].reshape((t1 - t0) * ce)
+            lo = seg.offset - t0 * ce
+            leaf = block[lo:lo + seg.size].view(shape)
+            leaves.append(leaf.detach().requires_grad_(True))
+        return leaves
+
+    return unravel_chunks

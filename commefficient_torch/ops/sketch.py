@@ -11,18 +11,23 @@ with ``m`` drawn from a seeded numpy ``RandomState`` in the same calls and
 order as the JAX package, and per-(row, coordinate) signs from the murmur3
 fmix32 finalizer of ``idx ^ key_j``.
 
-Two operations carry the round, each with a CUDA kernel for the H100
-(``commefficient_torch/csrc/sketch_kernels.cu``) and a plain PyTorch version
-in this module:
+Four operations carry the round, each with a CUDA kernel for the H100
+(``commefficient_torch/csrc/``) and a plain PyTorch version in this module:
 
 - ``sketch_accumulate``: ``(Tn, S, 128)`` chunks -> ``(r, S, 128)`` table,
   the per-cell adds in chunk order from a zero table (the JAX ``lax.scan``
   fold), so kernel and plain version agree bit for bit;
+- ``sketch_accumulate_into``: the same adds, each cell starting from an
+  incoming table (the streaming client phase's running table:
+  ``sketch_segment_accum``, ``sketch_segments_accum``,
+  ``sketch_chunks_accum``);
 - ``sketch_estimates``: the median-of-rows query, ``(r, S, 128)`` table ->
   ``(Tn, S, 128)`` estimates, tail left as hash noise for the caller's
-  ``mask_tail``.
+  ``mask_tail``;
+- ``fused_epilogue``: the server's threshold mask, update and re-sketch
+  of that update in one sweep (``--fused_epilogue``).
 
-Dispatch rule of both: a CPU tensor goes to the plain version, a CUDA
+Dispatch rule of all four: a CPU tensor goes to the plain version, a CUDA
 tensor to the kernel (which raises on what it cannot take). There is no
 fallback from a kernel to its plain version.
 """
@@ -30,12 +35,17 @@ fallback from a kernel to its plain version.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from commefficient_torch.ops.flat import LANES, ChunkLayout
+from commefficient_torch.ops.topk import (
+    _apply_threshold,
+    resolve_threshold,
+    topk_dense_nd,
+)
 
 _M1 = 0x85EBCA6B
 _M2 = 0xC2B2AE35
@@ -161,10 +171,12 @@ def _shift_cols(q: torch.Tensor, w: torch.Tensor, t0: int, Tn: int):
 # accumulate: (Tn, S, 128) chunks -> (r, S, 128) table
 # --------------------------------------------------------------------------
 
-def _sketch_accumulate_plain(v3, shift_q, shift_w, sign_keys, t0: int = 0):
-    """Plain PyTorch accumulate (a transcription of ``_sketch_chunks_jax``):
-    chunk t lands in row j at ``table[j, c] += sign * v3[t, (c - m) mod
-    c_pad]``, chunks added in t order to a zero table."""
+def _sketch_accumulate_into_plain(tbl3, v3, shift_q, shift_w, sign_keys,
+                                  t0: int = 0):
+    """Plain PyTorch running-table accumulate (a transcription of
+    ``_sketch_accum_chunks_jax``): chunk t lands in row j at
+    ``table[j, c] += sign * v3[t, (c - m) mod c_pad]``, chunks added in t
+    order onto the incoming ``(r, S, 128)`` table."""
     Tn, S, _ = v3.shape
     c_pad = S * LANES
     r = shift_q.shape[0]
@@ -172,13 +184,22 @@ def _sketch_accumulate_plain(v3, shift_q, shift_w, sign_keys, t0: int = 0):
     pos = torch.arange(c_pad, device=dev, dtype=torch.int64)
     m = shift_q.to(torch.int64) * LANES + shift_w.to(torch.int64)  # (r, Tn)
     keys = sign_keys.reshape(r, 1)
-    table = torch.zeros((r, c_pad), dtype=torch.float32, device=dev)
+    table = tbl3.reshape(r, c_pad)
     for t in range(Tn):
         signs = _signs_for((t0 + t) * c_pad + pos[None, :], keys)  # (r, c_pad)
         sv = v3[t].reshape(1, c_pad) * signs
         src = (pos[None, :] - m[:, t:t + 1]) % c_pad
         table = table + torch.gather(sv, 1, src)
     return table.view(r, S, LANES)
+
+
+def _sketch_accumulate_plain(v3, shift_q, shift_w, sign_keys, t0: int = 0):
+    """Plain PyTorch accumulate (a transcription of ``_sketch_chunks_jax``):
+    the running-table accumulate onto a zero table."""
+    zero = torch.zeros((shift_q.shape[0],) + tuple(v3.shape[1:]),
+                       dtype=torch.float32, device=v3.device)
+    return _sketch_accumulate_into_plain(zero, v3, shift_q, shift_w,
+                                         sign_keys, t0)
 
 
 def sketch_accumulate(v3: torch.Tensor, shift_q: torch.Tensor,
@@ -214,6 +235,128 @@ def sketch_chunks(cs: CountSketch, v3: torch.Tensor,
 def sketch_vec(cs: CountSketch, v: torch.Tensor) -> torch.Tensor:
     """Accumulate a dense ``(d,)`` vector into an ``(r, c_pad)`` table."""
     return sketch_chunks(cs, _chunks3(cs, v))
+
+
+# --------------------------------------------------------------------------
+# running-table accumulate: table + the sketch of a chunk range
+# --------------------------------------------------------------------------
+
+def sketch_accumulate_into(tbl3: torch.Tensor, v3: torch.Tensor,
+                           shift_q: torch.Tensor, shift_w: torch.Tensor,
+                           sign_keys: torch.Tensor,
+                           t0: int = 0) -> torch.Tensor:
+    """The running-table accumulate (``_accum_pallas_call``'s contract):
+    ``tbl3`` is the incoming ``(r, S, 128)`` table, ``v3`` holds ``Tn``
+    chunks from global chunk ``t0`` and ``shift_q``/``shift_w`` are that
+    range's ``(r, Tn)`` shift columns. Per cell the adds are ``((tbl + c_0)
+    + c_1) + ...`` in chunk order, continuing the incoming table's fold.
+    Returns a new ``(r, S, 128)`` table."""
+    if v3.device.type == "cpu":
+        return _sketch_accumulate_into_plain(tbl3, v3, shift_q, shift_w,
+                                             sign_keys, t0)
+    from commefficient_torch import kernels
+
+    return kernels.sketch_accumulate_into(tbl3, v3, shift_q, shift_w,
+                                          sign_keys, t0)
+
+
+def _accum_range(cs: CountSketch, table: torch.Tensor, v3: torch.Tensor,
+                 t_a: int) -> torch.Tensor:
+    """``table`` plus the sketch of the chunks ``[t_a, t_a + Tn)`` in
+    ``v3`` (a range inside ``[0, T)``), as an ``(r, c_pad)`` table."""
+    t_b = t_a + v3.shape[0]
+    assert 0 <= t_a and t_b <= cs.T, (t_a, t_b, cs.T)
+    out = sketch_accumulate_into(
+        table.reshape(cs.r, cs.sublanes, LANES).contiguous(),
+        v3.contiguous(), cs.shift_q[:, t_a:t_b].contiguous(),
+        cs.shift_w[:, t_a:t_b].contiguous(), cs.sign_keys, t_a)
+    return out.view(cs.r, cs.c_pad)
+
+
+def _segment_chunks(cs: CountSketch, seg: torch.Tensor, e0: int):
+    """Zero-pad a 1-D segment holding coordinates ``[e0, e0 + n)`` out to
+    the chunk boundaries it touches: ``((Tn, S, 128) chunks, t_a)`` for the
+    chunks ``[t_a, t_a + Tn)``. The buffer is segment-sized (at most two
+    chunks more), never d-sized. Pad positions add ``sign * 0`` to their
+    cells, so a cell whose every contribution is zero may differ from the
+    composed sketch in the sign of its zero, never under ``==``."""
+    n = int(seg.numel())
+    ce = cs.c_pad
+    t_a = e0 // ce
+    lpad = e0 - t_a * ce
+    Tn = -(-(lpad + n) // ce)
+    v = seg.new_zeros(Tn * ce, dtype=torch.float32)
+    v[lpad:lpad + n] = seg.reshape(-1)
+    return v.view(Tn, cs.sublanes, LANES), t_a
+
+
+def sketch_segment_accum(cs: CountSketch, table: torch.Tensor,
+                         seg: torch.Tensor, e0: int) -> torch.Tensor:
+    """Accumulate a contiguous segment (coordinates ``[e0, e0 +
+    seg.numel())`` of the d-vector) into a running ``(r, c_pad)`` table.
+    Streaming a vector through consecutive segments in offset order equals
+    ``sketch_vec`` of the whole vector under ``==`` (``_segment_chunks``)."""
+    e0 = int(e0)
+    n = int(seg.numel())
+    assert 0 <= e0 and e0 + n <= cs.d, (e0, n, cs.d)
+    assert tuple(table.shape) == cs.table_shape, (tuple(table.shape),
+                                                   cs.table_shape)
+    if n == 0:
+        return table
+    v3, t_a = _segment_chunks(cs, seg, e0)
+    return _accum_range(cs, table, v3, t_a)
+
+
+# staging ceiling of the coalescer's auto budget
+_COALESCE_MAX_BUDGET = 32 * 1024 * 1024
+
+
+def coalesce_vmem_budget(cs: CountSketch) -> int:
+    """Auto group-sizing budget (bytes) for ``ops/flat.coalesce_segments``
+    (``--sketch_coalesce``), the JAX package's rule under its name:
+    ``min(32 MiB, max(one chunk, padded plane / 4))``. On this card it
+    bounds the staging buffer of a group, the zero-padded copy of the
+    group's covering chunk range that ``sketch_segments_accum`` hands to the
+    kernel (the kernel itself keeps nothing group-sized on chip), so a
+    group stages at most a quarter of the d-plane (3 chunks, 6 MB, at the
+    headline geometry)."""
+    chunk_bytes = cs.c_pad * 4
+    padded = cs.T * chunk_bytes
+    return int(min(_COALESCE_MAX_BUDGET, max(chunk_bytes, padded // 4)))
+
+
+def sketch_segments_accum(cs: CountSketch, table: torch.Tensor,
+                          segs: Sequence[torch.Tensor],
+                          e0: int) -> torch.Tensor:
+    """One launch for a group of contiguous segments: segment ``i`` starts
+    where ``i - 1`` ends and the first starts at flat offset ``e0``
+    (``ops/flat.coalesce_segments`` plans the groups). Per cell the adds
+    replay the per-segment fold in the same chunk order, with fewer ``+-0``
+    terms at shared boundary chunks, so it equals folding
+    ``sketch_segment_accum`` over the segments under ``==``. Zero-size
+    segments are skipped."""
+    e0 = int(e0)
+    xs = [x.reshape(-1) for x in segs if x.numel()]
+    n = sum(int(x.numel()) for x in xs)
+    assert tuple(table.shape) == cs.table_shape, (tuple(table.shape),
+                                                   cs.table_shape)
+    if n == 0:
+        return table
+    assert 0 <= e0 and e0 + n <= cs.d, (e0, n, cs.d)
+    v = xs[0] if len(xs) == 1 else torch.cat(xs)
+    v3, t_a = _segment_chunks(cs, v, e0)
+    return _accum_range(cs, table, v3, t_a)
+
+
+def sketch_chunks_accum(cs: CountSketch, table: torch.Tensor,
+                        v3: torch.Tensor) -> torch.Tensor:
+    """Full-range running-table accumulate: ``table`` plus the sketch of a
+    vector in the ``(T, S, 128)`` resident layout (the streaming client
+    phase's weight-decay term)."""
+    assert tuple(v3.shape) == (cs.T, cs.sublanes, LANES), tuple(v3.shape)
+    assert tuple(table.shape) == cs.table_shape, (tuple(table.shape),
+                                                   cs.table_shape)
+    return _accum_range(cs, table, v3, 0)
 
 
 # --------------------------------------------------------------------------
@@ -279,14 +422,56 @@ def estimates(cs: CountSketch, table: torch.Tensor) -> torch.Tensor:
 def unsketch_chunks(cs: CountSketch, table: torch.Tensor,
                     k: int) -> torch.Tensor:
     """Top-k of the masked estimate chunks, shape-preserving (tail zero)."""
-    from commefficient_torch.ops.topk import topk_dense_nd
-
     return topk_dense_nd(estimates_chunks(cs, table), k)
 
 
 def unsketch(cs: CountSketch, table: torch.Tensor, k: int) -> torch.Tensor:
     """Dense ``(d,)`` vector of the k largest-magnitude estimates."""
     return cs.chunk_layout.unchunk(unsketch_chunks(cs, table, k))
+
+
+# --------------------------------------------------------------------------
+# fused epilogue: estimates -> (masked update, its re-sketch)
+# --------------------------------------------------------------------------
+
+def _fused_epilogue_plain(est3, p, shift_q, shift_w, sign_keys, t0: int = 0):
+    """Plain PyTorch fused epilogue: the composed pair it replaces, the
+    threshold mask of ``ops/topk`` at the resolved ``p`` and the accumulate
+    of the masked update."""
+    upd = _apply_threshold(est3.view(torch.int32), est3, p)
+    return upd, _sketch_accumulate_plain(upd, shift_q, shift_w, sign_keys,
+                                         t0)
+
+
+def fused_epilogue(est3: torch.Tensor, p: torch.Tensor,
+                   shift_q: torch.Tensor, shift_w: torch.Tensor,
+                   sign_keys: torch.Tensor, t0: int = 0):
+    """The one-sweep server epilogue (``_fused_epilogue_pallas``'s
+    contract): ``est3`` holds the ``Tn`` estimate chunks from global chunk
+    ``t0``, ``p`` the int32 threshold pattern (a device tensor, never read
+    on the host), ``shift_q``/``shift_w`` the range's ``(r, Tn)`` shift
+    columns. Returns ``(update (Tn, S, 128), table (r, S, 128))``: the
+    masked update (``|est| >= p`` on bit patterns, tie-inclusive, NaN
+    passed through) and its re-sketch, bit-identical to ``topk_dense_nd``
+    followed by ``sketch_accumulate`` at the same ``p``, zero signs
+    included."""
+    if est3.device.type == "cpu":
+        return _fused_epilogue_plain(est3, p, shift_q, shift_w, sign_keys, t0)
+    from commefficient_torch import kernels
+
+    return kernels.fused_epilogue(est3, p, shift_q, shift_w, sign_keys, t0)
+
+
+def fused_epilogue_chunks(cs: CountSketch, est3: torch.Tensor, k: int):
+    """Fused epilogue over the full chunk range: the threshold from
+    ``ops/topk.resolve_threshold``, then one epilogue call. Returns
+    ``(update (T, S, 128), table (r, c_pad))``, a drop-in for
+    ``upd = topk_dense_nd(est3, k); tbl = sketch_chunks(cs, upd)``."""
+    est3 = est3.contiguous()
+    p = resolve_threshold(est3, k)
+    upd, table = fused_epilogue(est3, p, cs.shift_q, cs.shift_w,
+                                cs.sign_keys, 0)
+    return upd, table.view(cs.r, cs.c_pad)
 
 
 def l2estimate(table: torch.Tensor) -> torch.Tensor:

@@ -14,12 +14,18 @@ package:
   inf pattern and count as 0) and re-inserted in the output, so divergence
   stays visible to the NaN abort of the train loop.
 
-The count pass has a CUDA kernel (``topk_count_ge``). The descent keeps the
-prefix, the candidates and the selected nibble on the device between the 8
-passes: no host sync.
+Two kernels serve the descent. The default, as in the JAX package, is the
+per-pass descent: 8 launches of the count pass (``topk_count_ge``), with
+the prefix, the candidates and the selected nibble kept on the device
+between them (no host sync). ``COMMEFFICIENT_PALLAS_TOPK_FUSED=1`` (the JAX
+package's switch, read only by ``fused_descent_enabled``; default off)
+chooses the whole descent in one launch (``topk_descent``). Both count
+exact integers, so they return the same threshold on every input.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -64,18 +70,55 @@ def _pass_thresholds(p: torch.Tensor, shift: int) -> torch.Tensor:
     return torch.cat([p + cand, pad])
 
 
-def resolve_threshold(vec: torch.Tensor, k: int) -> torch.Tensor:
-    """The k-th-largest-magnitude bit pattern of ``vec`` (any shape,
-    float32) as a 0-d int32 tensor on its device."""
-    raw = vec.contiguous().view(torch.int32).reshape(-1)
-    p = torch.zeros((), dtype=torch.int32, device=vec.device)
+def _descent(bits: torch.Tensor, k: int, count) -> torch.Tensor:
+    """The 8-pass radix descent over flat int32 bit patterns with the
+    count pass ``count(bits, thresholds)``; the k-th largest magnitude's
+    pattern as a 0-d int32 tensor on the device of ``bits``."""
+    p = torch.zeros((), dtype=torch.int32, device=bits.device)
     for shift in range(28, -1, -4):
-        counts = topk_count_ge(raw, _pass_thresholds(p, shift))
+        counts = count(bits, _pass_thresholds(p, shift))
         # counts are non-increasing in the threshold, so the chosen nibble
         # is the number of candidates whose count still reaches k
         sel = (counts >= k).sum().to(torch.int32)
         p = p + (sel << shift)
     return p
+
+
+def _descent_plain(bits: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain whole descent (``_threshold_descent_fused``'s contract): the
+    8 passes with the plain count, the prefix carried between them."""
+    return _descent(bits, k, _count_ge_plain)
+
+
+def topk_descent(bits: torch.Tensor, k: int) -> torch.Tensor:
+    """The whole descent in one launch (``_descent_pallas``'s contract)
+    over flat int32 bit patterns. Returns the k-th largest magnitude's
+    pattern as a 0-d int32 tensor on the device of ``bits``."""
+    if bits.device.type == "cpu":
+        return _descent_plain(bits, k)
+    from commefficient_torch import kernels
+
+    return kernels.topk_descent(bits.reshape(-1), k)
+
+
+FUSED_DESCENT_ENV = "COMMEFFICIENT_PALLAS_TOPK_FUSED"
+
+
+def fused_descent_enabled() -> bool:
+    """``COMMEFFICIENT_PALLAS_TOPK_FUSED=1`` chooses the one-launch
+    descent; unset (the default, as in the JAX package) or any other
+    value keeps the per-pass descent."""
+    return os.environ.get(FUSED_DESCENT_ENV) == "1"
+
+
+def resolve_threshold(vec: torch.Tensor, k: int) -> torch.Tensor:
+    """The k-th-largest-magnitude bit pattern of ``vec`` (any shape,
+    float32) as a 0-d int32 tensor on its device, by the one-launch
+    descent or the per-pass one (``fused_descent_enabled``)."""
+    raw = vec.contiguous().view(torch.int32).reshape(-1)
+    if fused_descent_enabled():
+        return topk_descent(raw, k)
+    return _descent(raw, k, topk_count_ge)
 
 
 def _apply_threshold(raw: torch.Tensor, vec: torch.Tensor,

@@ -1,12 +1,13 @@
-"""The port's CUDA kernels (commefficient_torch/csrc/sketch_kernels.cu)
-against their plain PyTorch versions.
+"""The port's CUDA kernels (commefficient_torch/csrc/*.cu) against their
+plain PyTorch versions.
 
 Tests marked ``gpu`` need an NVIDIA card and skip without one; whether a
 card is present is decided inside the ``cuda`` fixture, never at import.
 On the card: ``python -m pytest tests/test_torch_kernels.py -m gpu``.
 Every comparison is exact (``torch.equal``, NaN-aware): the accumulate
 keeps the plain version's per-cell add order, the query its min/max
-network, and the counts are integers.
+network, the fused epilogue the composed mask and accumulate, and the
+counts and the descent are integers.
 """
 
 import numpy as np
@@ -32,6 +33,16 @@ def _nan_equal(a, b):
     return bool(torch.equal(torch.isnan(a), torch.isnan(b))
                 and torch.equal(torch.nan_to_num(a, nan=0.0),
                                 torch.nan_to_num(b, nan=0.0)))
+
+
+def _bit_equal(a, b):
+    """Equal NaN positions, and equal bit patterns (zero signs included)
+    everywhere else."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a.view(torch.int32)[~nan],
+                                b.view(torch.int32)[~nan]))
 
 
 def _special(x):
@@ -99,6 +110,100 @@ def test_count_kernel_and_descent_equal_plain(cuda, n, k):
         ttk.resolve_threshold(v, k))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,c,r,seed,t0", GEOMS)
+def test_accumulate_into_kernel_equals_plain(cuda, d, c, r, seed, t0):
+    cs = tsk.make_sketch(d, c, r, seed=seed, device=cuda)
+    Tn = cs.T - t0
+    gen = torch.Generator().manual_seed(seed + 20)
+    tbl = _special(torch.randn((r, cs.sublanes, 128), generator=gen))
+    v3 = _special(torch.randn((Tn, cs.sublanes, 128), generator=gen))
+    tbl, v3 = tbl.to(cuda), v3.to(cuda)
+    q, w = tsk._shift_cols(cs.shift_q, cs.shift_w, t0, Tn)
+    before = kernels.SKETCH_ACCUMULATE_INTO.launches
+    got = kernels.sketch_accumulate_into(tbl, v3, q, w, cs.sign_keys, t0)
+    torch.cuda.synchronize()
+    assert kernels.SKETCH_ACCUMULATE_INTO.launches == before + 1
+    want = tsk._sketch_accumulate_into_plain(tbl, v3, q, w, cs.sign_keys, t0)
+    assert _bit_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,c,r,seed,t0", GEOMS[:4])
+def test_segment_accum_on_card_equals_cpu(cuda, d, c, r, seed, t0):
+    """An unaligned segment straddling a chunk boundary, from a random
+    table: the kernel on the card equals the plain version on the CPU."""
+    cs_g = tsk.make_sketch(d, c, r, seed=seed, device=cuda)
+    cs_c = tsk.make_sketch(d, c, r, seed=seed, device="cpu")
+    rng = np.random.RandomState(seed)
+    tbl = torch.from_numpy(rng.randn(*cs_c.table_shape).astype(np.float32))
+    e0 = 137 + t0 * cs_c.c_pad
+    n = min(cs_c.c_pad + 50, d - e0)
+    seg = _special(torch.from_numpy(rng.randn(n).astype(np.float32)))
+    got = tsk.sketch_segment_accum(cs_g, tbl.to(cuda), seg.to(cuda), e0)
+    want = tsk.sketch_segment_accum(cs_c, tbl, seg, e0)
+    assert _bit_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,c,r,seed,t0", GEOMS)
+def test_fused_epilogue_kernel_equals_plain(cuda, d, c, r, seed, t0):
+    cs = tsk.make_sketch(d, c, r, seed=seed, device=cuda)
+    Tn = cs.T - t0
+    gen = torch.Generator().manual_seed(seed + 30)
+    est = _special(torch.randn((Tn, cs.sublanes, 128), generator=gen))
+    flat = est.view(-1)
+    flat[50:90] = 0.75        # ties at the threshold
+    flat[90:100] = -0.75
+    mag = torch.where(torch.isnan(flat), torch.zeros_like(flat), flat.abs())
+    k = int((mag > 0.75).sum()) + 20
+    est = est.to(cuda)
+    p = ttk.resolve_threshold(est, k)
+    assert int(p) == int(torch.tensor(0.75).view(torch.int32))
+    q, w = tsk._shift_cols(cs.shift_q, cs.shift_w, t0, Tn)
+    before = kernels.FUSED_EPILOGUE.launches
+    upd, tbl = kernels.fused_epilogue(est, p, q, w, cs.sign_keys, t0)
+    torch.cuda.synchronize()
+    assert kernels.FUSED_EPILOGUE.launches == before + 1
+    want_u, want_t = tsk._fused_epilogue_plain(est, p, q, w, cs.sign_keys, t0)
+    assert _bit_equal(upd, want_u)
+    assert _bit_equal(tbl, want_t)
+    assert int((upd.abs() == 0.75).sum()) == 50
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", [(7_001_344, 50_000), (70_001, 1000),
+                                 (1, 1), (129, 500), (5000, 5000),
+                                 (66_000, 1)])
+def test_descent_kernel_equals_per_pass_and_plain(cuda, n, k):
+    gen = torch.Generator().manual_seed(n + 1)
+    v = _special(torch.randn(n + 64, generator=gen))[-n:].contiguous()
+    v[: n // 3] = v[n // 3: 2 * (n // 3)]  # ties
+    bits = v.view(torch.int32).to(cuda)
+    before = kernels.TOPK_DESCENT.launches
+    got = int(kernels.topk_descent(bits, k))
+    assert kernels.TOPK_DESCENT.launches == before + 1
+    assert got == int(ttk._descent(bits, k, kernels.topk_count_ge))
+    assert got == int(ttk._descent_plain(bits, k))
+    assert got == int(ttk._descent_plain(bits.cpu(), k))
+
+
+def test_new_wrappers_refuse_cpu_tensors():
+    """The running accumulate, the fused epilogue and the one-launch
+    descent launch on CUDA tensors only, like the other wrappers."""
+    cs = tsk.make_sketch(1000, 256, 3, seed=0, device="cpu")
+    v3 = torch.zeros((cs.T, cs.sublanes, 128))
+    t3 = torch.zeros((3, cs.sublanes, 128))
+    p = torch.zeros((), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.sketch_accumulate_into(t3, v3, cs.shift_q, cs.shift_w,
+                                       cs.sign_keys)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fused_epilogue(v3, p, cs.shift_q, cs.shift_w, cs.sign_keys)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.topk_descent(torch.zeros(10, dtype=torch.int32), 3)
+
+
 def test_wrappers_refuse_cpu_tensors():
     """A wrapper launches on CUDA tensors only (it never computes the plain
     version); on a CPU tensor it raises before touching the library."""
@@ -115,29 +220,38 @@ def test_wrappers_refuse_cpu_tensors():
 
 
 def test_build_flags_keep_ieee_denormals():
-    """sm_90a target, and never fast-math (it flushes subnormals)."""
+    """sm_90a target, and never fast-math (it flushes subnormals); every
+    kernel's entry point is in one of the sources the build compiles."""
     flags = " ".join(kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "ftz=true" not in flags
-    src = kernels.SOURCE.read_text()
-    for name in ("sketch_accumulate", "sketch_estimates", "topk_count_ge"):
-        assert f"int {name}(" in src
+    srcs = {f"commefficient_torch/csrc/{f.name}": f.read_text()
+            for f in kernels.SOURCES}
+    for k in kernels.KERNELS:
+        assert f"int {k.name}(" in srcs[k.source], k
+
+
+ALL_ZERO = {"sketch_accumulate": 0, "sketch_accumulate_into": 0,
+            "sketch_estimates": 0, "fused_epilogue": 0, "topk_count_ge": 0,
+            "topk_descent": 0}
 
 
 def test_launch_counters_start_and_reset():
     kernels.reset_launch_counts()
-    assert kernels.launch_counts() == {
-        "sketch_accumulate": 0, "sketch_estimates": 0, "topk_count_ge": 0}
+    assert kernels.launch_counts() == ALL_ZERO
     assert [k.name for k in kernels.KERNELS] == list(kernels.launch_counts())
     assert all(k.replaces.startswith("commefficient_tpu/ops/")
                for k in kernels.KERNELS)
 
 
-def test_plain_versions_on_cpu_do_not_count():
+def test_plain_versions_on_cpu_do_not_count(monkeypatch):
     kernels.reset_launch_counts()
     cs = tsk.make_sketch(2000, 256, 3, seed=1, device="cpu")
     v = torch.from_numpy(np.random.RandomState(1).randn(2000)
                          .astype(np.float32))
-    tsk.unsketch(cs, tsk.sketch_vec(cs, v), 10)
-    assert kernels.launch_counts() == {
-        "sketch_accumulate": 0, "sketch_estimates": 0, "topk_count_ge": 0}
+    table = tsk.sketch_vec(cs, v)
+    tsk.unsketch(cs, table, 10)
+    tsk.sketch_chunks_accum(cs, table, cs.chunk_layout.chunk(v))
+    monkeypatch.setenv(ttk.FUSED_DESCENT_ENV, "1")
+    tsk.fused_epilogue_chunks(cs, tsk.estimates_chunks(cs, table), 10)
+    assert kernels.launch_counts() == ALL_ZERO

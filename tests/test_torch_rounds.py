@@ -182,7 +182,7 @@ def test_cv_train_main_cpu(tmp_path, monkeypatch):
     assert summary["up (MiB)"] > 0
 
 
-@pytest.mark.parametrize("flag", [["--stream_sketch"], ["--fused_epilogue"],
+@pytest.mark.parametrize("flag", [["--checkpoint"], ["--guards"],
                                   ["--server_shard"], ["--telemetry"],
                                   ["--resume", "auto"], ["--bf16"],
                                   ["--participation", "0.5"],
@@ -191,6 +191,35 @@ def test_cv_train_main_cpu(tmp_path, monkeypatch):
 def test_unported_options_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_parse(argv=ARGV + ["--device", "cpu"] + flag)
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, import in a fresh
+    interpreter without loading jax, flax or the JAX package."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import commefficient_torch\n"
+        "for m in pkgutil.walk_packages(commefficient_torch.__path__,\n"
+        "                               'commefficient_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'commefficient_tpu'))\n"
+        "print(len([n for n in sys.modules\n"
+        "           if n.startswith('commefficient_torch')]), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(root))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 20, proc.stdout
 
 
 def test_cuda_request_without_card_raises():
