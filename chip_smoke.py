@@ -2,7 +2,7 @@
 """Drive the PyTorch port on one NVIDIA card and hold its CUDA kernels
 against their plain PyTorch versions.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernel-times]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -14,14 +14,23 @@ Phases (any failure exits non-zero; nothing is caught):
    geometry (d = 6,568,640, 5 x 500,000 sketch) and at ragged ones (c not
    a multiple of 128, a partial last chunk, even r, t0 != 0, NaN, inf and
    subnormal cells, ties at the top-k threshold): exact equality, then
-   CUDA-event times (median of 30, L2 flushed before each launch) beside
-   the bound the card's memory rate or operation rate sets, and the time
-   of one PyTorch call computing the same function where there is one;
+   CUDA-event times (median of 30, L2 flushed before each launch by a
+   read of 96 MB, ``time_ms``) beside the bound the card's memory rate or
+   issue rates set (the sign hashes' int32 operations count for the four
+   sketch kernels, ``HASH_ALU_OPS``), and the time of one PyTorch call
+   computing the same function where there is one (``torch.topk`` for the
+   descent, with ``torch.kthvalue`` beside it). Also exact: the running
+   accumulate's segment form, which reads a group's flat vector in place,
+   against its padded plain version at a segment straddling a chunk
+   boundary and at one ending at d; the histogram radix select descent at
+   a view not 16-byte aligned (``bits[1:]``), at k = n and k > n, and on
+   all-equal and all-zero patterns;
 4. the headline FetchSGD round at full width through FedModel /
    FedOptimizer / LambdaLR on a seeded synthetic batch (8 clients x 8
    images): 2 warm-up and 20 timed rounds, rounds/sec, a finite loss,
    and exactly 2 / 1 / 8 launches per round of the accumulate, the query
-   and the count pass; then the server phase from one table and state
+   and the count pass, the device time of each port kernel per round
+   (``torch.profiler``); then the server phase from one table and state
    through the kernels and through the plain versions, which must be
    equal;
 5. the opt-in round: the same round with ``--stream_sketch
@@ -42,10 +51,21 @@ that runs each: phase 4 for the accumulate, the query and the count pass,
 phase 5 for the running accumulate, the epilogue and the descent), the
 card's line, and ``{"ok": true, "device": {...}}`` as the last line.
 Without a card it exits with an error before printing any result.
+
+``--kernel-times`` runs none of the phases. It times, for the checkout
+that holds the script, the accumulate pair over full chunk ranges at
+``r`` in {1, 5} and ``Tn`` in {1, 3, 14}, and the descent over 7,001,344
+patterns at k = 50,000 with ``torch.topk`` and ``torch.kthvalue`` beside
+it, one JSON line each. It uses only entry points that the port has had
+since its second slice, so to compare two checkouts on one card, copy
+this file into the other's root (for example the parent commit unpacked
+with ``git archive`` into a gitignored directory) and run the two copies
+in turns: parent, change, change, parent.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import json
@@ -78,9 +98,42 @@ HEADLINE = ["--mode", "sketch", "--error_type", "virtual",
             "--dataset_name", "CIFAR10", "--device", "cuda"]
 OPT_IN = ["--stream_sketch", "--sketch_coalesce", "--fused_epilogue"]
 TIMED_ROUNDS = 20
-REPS = 30
 HEADLINE_KERNELS = ("sketch_accumulate", "sketch_estimates", "topk_count_ge")
 OPT_IN_KERNELS = ("sketch_accumulate_into", "fused_epilogue", "topk_descent")
+REPS = 30
+
+_FLUSH = {}
+
+
+def flush_l2() -> None:
+    """Read 96 MB, twice the H100's 50 MB L2, so the timed launch finds none
+    of its data there. A read leaves clean lines, which the launch evicts
+    for free; a write (``zero_``) would leave up to 50 MB of dirty lines
+    whose write-back the launch would pay for."""
+    buf = _FLUSH.get("buf")
+    if buf is None:
+        buf = _FLUSH["buf"] = torch.zeros(96 << 20, dtype=torch.uint8,
+                                          device="cuda")
+    buf.max()
+
+
+def time_ms(fn, reps: int = REPS) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` launches, after 3
+    warm-up calls, with L2 flushed before each launch."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush_l2()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
 
 
 def card_line() -> str:
@@ -95,10 +148,16 @@ def peaks(name: str):
     """(bytes/s, float32 op/s, int32 op/s) of the card.
 
     Memory and float32 rates are NVIDIA's data-sheet numbers. The data
-    sheets give no int32 rate; it is the Hopper SM's 64 int32 lanes (the
-    Hopper architecture white paper: 64 INT32 units per SM, against 128
-    FP32) times the SM count times the maximum SM clock that ``nvidia-smi``
-    reports: 64 x 132 x 1,980 MHz = 16.7 T int32 op/s on an H100 SXM."""
+    sheets give no int32 rate; this one is the rate of the ALU pipe, which
+    alone runs the right shifts and the logic ops (SHF, LOP3): the Hopper
+    SM's 64 INT32 lanes (the Hopper architecture white paper: 64 INT32
+    units per SM, against 128 FP32) times the SM count times the maximum SM
+    clock that ``nvidia-smi`` reports: 64 x 132 x 1,980 MHz = 16.7 T int32
+    op/s on an H100 SXM. Integer multiplies (IMAD), and the adds and left
+    shifts that the compiler moves there, run on the FMA pipe beside it,
+    and the SM issues 4 warp instructions a clock (128 lanes) over all its
+    pipes, so an int32 count charged at this rate must be of ALU-pipe ops,
+    or half the instructions of any kind (see ``HASH_ALU_OPS``)."""
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -138,36 +197,6 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((fa[both] - fb[both]).abs().max())
 
 
-_FLUSH = {}
-
-
-def flush_l2():
-    buf = _FLUSH.get("buf")
-    if buf is None:
-        buf = _FLUSH["buf"] = torch.empty(96 << 20, dtype=torch.uint8,
-                                          device="cuda")
-    buf.zero_()
-
-
-def time_ms(fn) -> float:
-    """Median CUDA-event time of ``fn`` over REPS launches, L2 flushed
-    before each."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(REPS):
-        flush_l2()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
-
-
 def special(x: torch.Tensor) -> torch.Tensor:
     flat = x.view(-1)
     flat[3] = float("nan")
@@ -178,13 +207,32 @@ def special(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def bound(nbytes: float, ops: float, bw: float, rate: float) -> dict:
+def bound(nbytes: float, int_ops: float, flops: float, peak) -> dict:
     """The least time the card could take: the larger of the bytes over
     the memory rate and the operations over the card's rate for their
-    type (float32 or int32)."""
-    tb, to = nbytes / bw, ops / rate
+    type (int32 and float32 run on their own lanes, so the slower of the
+    two)."""
+    bw, frate, irate = peak
+    tb, to = nbytes / bw, max(int_ops / irate, flops / frate)
     return {"bound_ms": 1e3 * max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations"}
+
+
+# The int32 work of one sign hash and its use, per (row, coordinate),
+# charged at the ALU pipe's rate (``peaks``). As the source writes it a hash
+# is 12 int32 ops: the coordinate (chunk base + position, 1), idx ^ key
+# (1), x ^= x >> 16 (2), x *= M1 (1), x ^= x >> 13 (2), x *= M2 (1), bit 0
+# of x ^ x >> 16 (2), that bit into the value's sign bit (2); and the
+# float add. The fewest of them that must run on the ALU pipe: 2 for the
+# key and the first xor-shift (idx >> 16, then one LOP3 of idx, idx >> 16
+# and the row's key ^ key >> 16, computed once), 2 for the second
+# xor-shift (SHF, LOP3), 2 for the sign (one LOP3 for ~(a ^ b) & 0x80000000
+# of a = x << 31 and b = x << 15, one LOP3 into the value). The other 6
+# (the two multiplies, those two left shifts as IMAD.SHL, the coordinate
+# add, the float add) go to the FMA pipes. 12 instructions a hash over the
+# SM's 128 issue lanes a clock take as long as 6 over the ALU's 64, so
+# either way the bound is 6 ops a hash at 64 lanes x SMs x clock.
+HASH_ALU_OPS = 6
 
 
 def plain_estimates(table3, cs_, t0=0, Tn=None):
@@ -201,6 +249,7 @@ def plain_kernels():
                 (tsk, "sketch_accumulate", tsk._sketch_accumulate_plain),
                 (tsk, "sketch_accumulate_into",
                  tsk._sketch_accumulate_into_plain),
+                (tsk, "sketch_segment_into", tsk._sketch_segment_into_plain),
                 (tsk, "sketch_estimates", plain_estimates),
                 (tsk, "fused_epilogue", tsk._fused_epilogue_plain),
                 (ttk, "topk_count_ge", ttk._count_ge_plain),
@@ -213,7 +262,7 @@ def plain_kernels():
 
 def check_kernels(card: str, d, c, r, t0, seed, label, timed):
     """Phase 3 for one geometry: every kernel against its plain version."""
-    bw, flops, iops = peaks(card)
+    peak = peaks(card)
     dev = torch.device("cuda")
     cs = tsk.make_sketch(d, c, r, seed=seed, device=dev)
     Tn = cs.T - t0
@@ -230,10 +279,10 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed):
     keys = cs.sign_keys
     results = {}
 
-    def record(name, got, want, nbytes, ops, rate, kernel_fn=None,
+    def record(name, got, want, nbytes, int_ops, flops, kernel_fn=None,
                plain_fn=None, library_fn=None):
         results[name] = dict(max_abs_err=max_abs_err(got, want),
-                             **bound(nbytes, ops, bw, rate))
+                             **bound(nbytes, int_ops, flops, peak))
         if timed:
             results[name]["ms"] = time_ms(kernel_fn)
             results[name]["plain_ms"] = time_ms(plain_fn)
@@ -245,9 +294,10 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed):
     want = tsk._sketch_accumulate_plain(v3, q, w, keys, t0)
     torch.cuda.synchronize()
     assert nan_equal(got, want), f"{label}: sketch_accumulate != plain"
+    hashes = r * Tn * c_pad  # one sign hash per (row, coordinate)
     record("sketch_accumulate", got, want,
            4 * (v3.numel() + got.numel() + 2 * q.numel() + r),
-           2 * r * Tn * c_pad, flops,
+           HASH_ALU_OPS * hashes, 2 * hashes,
            lambda: kernels.sketch_accumulate(v3, q, w, keys, t0),
            lambda: tsk._sketch_accumulate_plain(v3, q, w, keys, t0))
 
@@ -271,9 +321,20 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed):
                                         seg.cpu(), seg_a)
     assert bit_equal(seg_got.cpu(), seg_want), \
         f"{label}: segment [{seg_a}, {seg_b}) on the card != plain on the CPU"
+    # the segment form read in place against its plain version (the
+    # segment padded to its covering chunks), at the straddling segment and
+    # at one that ends at d, inside the last chunk's padded tail
+    for a, b in ((seg_a, seg_b), (d - c_pad - 7, d)):
+        x = v3.reshape(-1)[a - t0 * c_pad:b - t0 * c_pad]
+        tbl = tbl3.view(r, c_pad)
+        got_s = tsk.sketch_segment_into(cs, tbl, x, a)
+        want_s = tsk._sketch_segment_into_plain(cs, tbl, x, a)
+        torch.cuda.synchronize()
+        assert bit_equal(got_s, want_s), \
+            f"{label}: segment form [{a}, {b}) != padded plain"
     record("sketch_accumulate_into", got, want,
            4 * (v3.numel() + 2 * got.numel() + 2 * q.numel() + r),
-           2 * r * Tn * c_pad, flops,
+           HASH_ALU_OPS * hashes, 2 * hashes,
            lambda: kernels.sketch_accumulate_into(tbl3, v3, q, w, keys, t0),
            lambda: tsk._sketch_accumulate_into_plain(tbl3, v3, q, w, keys,
                                                      t0))
@@ -286,7 +347,7 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed):
     assert nan_equal(got, want), f"{label}: sketch_estimates != plain"
     record("sketch_estimates", got, want,
            4 * (table3.numel() + got.numel() + 2 * q.numel() + r),
-           Tn * c_pad * (r + r * (r - 1) + 1), flops,
+           HASH_ALU_OPS * hashes, Tn * c_pad * (r + r * (r - 1) + 1),
            lambda: kernels.sketch_estimates(table3, q, w, keys, t0),
            lambda: tsk._sketch_estimates_plain(table3, iq, iw, keys, t0))
 
@@ -324,12 +385,13 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed):
     # compare-and-select steps, one shared-memory increment), 10 int32 ops
     # per element
     record("topk_count_ge", got_c.float(), want_c.float(),
-           4 * (n + 32), 10 * n, iops,
+           4 * (n + 32), 10 * n, 0,
            lambda: kernels.topk_count_ge(bits, ts0),
            lambda: ttk._count_ge_plain(bits, ts0))
 
     # the one-launch descent against the per-pass descent and the plain
-    # one; the library call is the k-th largest magnitude by kthvalue
+    # one; the library call is torch.topk of the magnitudes (it splits the
+    # slice over many blocks), with torch.kthvalue (one block) beside it
     got_p = kernels.topk_descent(bits, k)
     want_p = ttk._descent_plain(bits, k)
     torch.cuda.synchronize()
@@ -340,15 +402,29 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed):
     if k <= n:
         kth = torch.kthvalue(mags, n - k + 1).values
         assert int(kth) == int(p), f"{label}: kthvalue {int(kth)} != {int(p)}"
-    # the operations the function needs, not the kernel's 8 passes of 15
-    # candidates: a histogram radix select in 3 passes of 11-bit digits,
+    # a view whose start is not 16-byte aligned, k at and past n, and one
+    # bin only (all equal, all zero)
+    for case, b, kk in (
+            ("bits[1:]", bits[1:], k), ("k = n", bits, n),
+            ("k > n", bits, n + 1),
+            ("all equal", torch.full_like(bits, 0x3F400000), k),
+            ("all zero", torch.zeros_like(bits), k)):
+        got_e, want_e = kernels.topk_descent(b, kk), ttk._descent_plain(b, kk)
+        torch.cuda.synchronize()
+        assert int(got_e) == int(want_e), \
+            f"{label}: topk_descent at {case}: {int(got_e)} != {int(want_e)}"
+    # the operations the function needs, not the old kernel's 8 passes of
+    # 15 candidates: a histogram radix select in 3 passes of 11-bit digits,
     # 6 int32 ops per element and pass (sign mask, prefix shift and
     # compare, digit shift and mask, one shared-memory increment)
     record("topk_descent", got_p.float(), want_p.float(),
-           4 * (n + 1), 3 * 6 * n, iops,
+           4 * (n + 1), 3 * 6 * n, 0,
            lambda: kernels.topk_descent(bits, k),
            lambda: ttk._descent_plain(bits, k),
-           lambda: torch.kthvalue(mags, n - k + 1))
+           lambda: torch.topk(mags, k, sorted=False))
+    if timed:
+        results["topk_descent"]["kthvalue_ms"] = time_ms(
+            lambda: torch.kthvalue(mags, n - k + 1), reps=5)
 
     # fused epilogue at the resolved threshold: against its plain version
     # (the composed mask and accumulate), on the chunk range and, on a
@@ -370,7 +446,7 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed):
                                         got_t.reshape(-1)]),
            torch.cat([want_u.reshape(-1), want_t.reshape(-1)]),
            4 * (2 * est.numel() + got_t.numel() + 2 * q.numel() + r + 1),
-           2 * r * Tn * c_pad, flops,
+           HASH_ALU_OPS * hashes, 2 * hashes,
            lambda: kernels.fused_epilogue(est, p, q, w, keys, t0),
            lambda: tsk._fused_epilogue_plain(est, p, q, w, keys, t0))
     return results
@@ -613,6 +689,11 @@ def profile_rounds(one_round, n: int = 5) -> dict:
             cats["convolution"] += dev_us(e)
         else:
             cats["other"] += dev_us(e)
+    per_kernel = {k.name: 0.0 for k in kernels.KERNELS}
+    for e in rows:
+        name = kernel_of(e.key)
+        if name:
+            per_kernel[name] += dev_us(e) / n / 1e3
     print(f"profile: {n} rounds, wall {wall_ms / n:.3f} ms/round under the "
           f"profiler, device busy {busy_ms / n:.3f} ms/round "
           f"({100 * busy_ms / wall_ms:.1f}%)")
@@ -621,8 +702,30 @@ def profile_rounds(one_round, n: int = 5) -> dict:
     for e in rows[:16]:
         print(f"  {dev_us(e) / n / 1e3:8.3f} ms/round  {e.count / n:6.1f} "
               f"calls/round  {e.key[:90]}")
+    print("  port kernels (device ms/round): " + json.dumps(per_kernel))
     return {"profiled_busy_ms_per_round": busy_ms / n,
-            "profiled_wall_ms_per_round": wall_ms / n}
+            "profiled_wall_ms_per_round": wall_ms / n,
+            "kernel_ms_per_round": per_kernel}
+
+
+# the port's kernel functions as the profiler names them (demangled or not)
+KERNEL_SYMBOLS = (
+    ("sketch_accumulate_into", ("sketch_accumulate_kernel<true>",
+                                "sketch_accumulate_kernelILb1E")),
+    ("sketch_accumulate", ("sketch_accumulate_kernel<false>",
+                           "sketch_accumulate_kernelILb0E")),
+    ("sketch_estimates", ("sketch_estimates_kernel",)),
+    ("fused_epilogue", ("fused_epilogue_kernel",)),
+    ("topk_count_ge", ("topk_count_ge_kernel",)),
+    ("topk_descent", ("topk_descent_kernel",)))
+
+
+def kernel_of(key: str):
+    """The port kernel a profiler row belongs to, or None."""
+    for name, symbols in KERNEL_SYMBOLS:
+        if any(sym in key for sym in symbols):
+            return name
+    return None
 
 
 def phase_cv_train():
@@ -650,13 +753,59 @@ def phase_cv_train():
         print(f"cv_train {label} launches: {json.dumps(counts)}")
 
 
-def main() -> int:
+def kernel_times(card: str) -> int:
+    """``--kernel-times``: the accumulate pair and the descent alone, at the
+    headline geometry, one JSON line per timing, tagged with the checkout."""
+    d, c, r_max, k = 6_568_640, 500_000, 5, 50_000
+    tree = os.path.dirname(os.path.dirname(os.path.abspath(kernels.__file__)))
+    kernels.library()
+    dev = torch.device("cuda")
+    cs = tsk.make_sketch(d, c, r_max, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    plane = cs.chunk_layout.chunk(torch.randn(d, generator=gen)).to(dev)
+    table = torch.randn((r_max, cs.sublanes, 128), generator=gen).to(dev)
+    est = cs.chunk_layout.chunk(torch.randn(d, generator=gen)).to(dev)
+    bits = est.reshape(-1).view(torch.int32)
+    mags = bits & 0x7FFFFFFF
+
+    def emit(**row):
+        print(json.dumps({"tree": tree, "card": card, **row}))
+
+    for r in (1, r_max):
+        for Tn in (1, 3, cs.T):
+            v3 = plane[:Tn].contiguous()
+            q = cs.shift_q[:r, :Tn].contiguous()
+            w = cs.shift_w[:r, :Tn].contiguous()
+            keys = cs.sign_keys[:r].contiguous()
+            tbl = table[:r].contiguous()
+            emit(name="sketch_accumulate", r=r, Tn=Tn, ms=time_ms(
+                lambda: kernels.sketch_accumulate(v3, q, w, keys, 0)))
+            emit(name="sketch_accumulate_into", r=r, Tn=Tn, ms=time_ms(
+                lambda: kernels.sketch_accumulate_into(tbl, v3, q, w, keys,
+                                                       0)))
+    n = bits.numel()
+    emit(name="topk_descent", n=n, k=k,
+         ms=time_ms(lambda: kernels.topk_descent(bits, k)))
+    emit(name="torch.topk", n=n, k=k,
+         ms=time_ms(lambda: torch.topk(mags, k, sorted=False)))
+    emit(name="torch.kthvalue", n=n, k=k,
+         ms=time_ms(lambda: torch.kthvalue(mags, n - k + 1), reps=5))
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="time the accumulate pair and the descent only")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
     card = card_line()
     print(card)
+    if args.kernel_times:
+        return kernel_times(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)")

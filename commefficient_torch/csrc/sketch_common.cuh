@@ -35,6 +35,16 @@ __device__ __forceinline__ float sign_of(uint32_t idx, uint32_t key) {
   return (mix32(idx ^ key) & 1u) ? 1.0f : -1.0f;
 }
 
+// sign_of(idx, key) * x, by flipping x's sign bit where the sign is -1:
+// the same bits for every x but NaN, which stays a NaN (a product with a
+// NaN gives the canonical NaN instead). Two int32 ops in place of a
+// select and a multiply.
+__device__ __forceinline__ float signed_by(float x, uint32_t idx,
+                                          uint32_t key) {
+  return __int_as_float(__float_as_int(x) ^
+                        static_cast<int>((~mix32(idx ^ key) & 1u) << 31));
+}
+
 // Magnitude of an int32 bit pattern for the top-k (NaN -> 0).
 __device__ __forceinline__ int32_t magnitude(int32_t bits) {
   const int32_t m = bits & kAbsMask;

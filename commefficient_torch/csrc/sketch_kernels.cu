@@ -23,7 +23,7 @@ namespace {
 //
 // sketch_accumulate replaces commefficient_tpu/ops/sketch.py::
 // _sketch_vec_pallas:
-//   table[j, c] = sum_t sign_j((t0+t)*c_pad + p) * v3[t, p],
+//   table[j, c] = sum_t sign_j((t0+t)*c_pad + p) * x[t, p],
 //   p = (c - m[j, t]) mod c_pad, chunks added in t order from 0.
 // sketch_accumulate_into replaces ops/sketch.py::_accum_pallas_call (the
 // running-table kernel behind _sketch_accum_pallas and
@@ -33,43 +33,142 @@ namespace {
 // kernel and adding the table afterwards would round tbl + (c_0 + c_1 + ...)
 // instead and break bit-equality with the JAX fold.
 //
-// Bound: device-memory bytes (the chunk plane read once, the table read
-// (into) and written once; about 4 integer ops and one add per element).
-// Design: output-stationary, one thread per table cell, a loop over the Tn
-// chunks. There are no atomics, and each cell's adds come in chunk order,
-// which is the JAX scan's fold, so the table is bit-identical to the plain
-// version. Neighbouring threads read neighbouring p (one wrap per row), so
-// the reads coalesce. Each chunk element is read once per row (r times in
-// all); the rows of one chunk range are launched together (blockIdx.y =
-// row) so the plane is reread mostly from the 50 MB L2.
+// The chunk range [t0, t0 + Tn) is read from a flat vector v in place:
+// x[t, p] = v[t*c_pad + p - lpad] where 0 <= t*c_pad + p - lpad < n, else
+// 0.0f. A full-range launch is lpad = 0, n = Tn*c_pad (v is the (Tn, S,
+// 128) plane). A streamed group passes its concatenated leaves, its first
+// coordinate's offset lpad in chunk t0 and its length n, so no zero-padded
+// copy of the covering chunks is made. Positions outside the group still
+// add sign * 0.0f, as the padded plain version does: skipping them would
+// change the sign of an all-zero cell.
+//
+// Bound: the sign hashes, or the bytes, whichever is larger. The function
+// needs one fmix32 per (row, coordinate), r*Tn*c_pad of them, about 12
+// instructions each with its index, its use and the add. At least 6 of
+// them (the right shifts and the xors) run only on the ALU pipe, 64 lanes
+// per SM, and the SM issues 128 lanes a clock in all; so at the headline
+// geometry 35 M hashes take at least 0.0126 ms on an H100 (16.7 T ALU
+// op/s), against 0.011 ms (zero table) and 0.014 ms (incoming table) to
+// move the plane and the tables once (chip_smoke.py::HASH_ALU_OPS).
+// Design: output-stationary. A block owns kAccTile consecutive cells of
+// one row, a thread kAccCells consecutive ones. For chunk t the thread's
+// sources are kAccCells consecutive positions p0 .. p0 + 3, p0 = (c - m)
+// mod c_pad, so one wrap test, one range test and one index per kAccCells
+// elements cover the common case, and its loads are in flight together
+// while it hashes; a warp reads one contiguous 512-byte window. Only the
+// groups that wrap at c_pad or cross the ends of v take the per-element
+// path. The row's shifts go through shared memory once per block,
+// kShiftTile at a time; the index arithmetic is uint32 (the sign hash
+// reads the low 32 bits of the coordinate, as the int64 product's cast
+// did), and the sign flips the value's sign bit (signed_by) rather than
+// multiplying it. On an H100, in an earlier form of this design (cells
+// kAccThreads apart, a wrap and range test per element), the hashes alone
+// took 0.041-0.045 ms and the loads alone 0.032-0.038 ms of the whole's
+// 0.044-0.048 ms at the headline geometry (PERF.md): the int32 work
+// sets the time, which is why the index work is shared by kAccCells
+// elements. There are no atomics, and each cell's adds come in chunk
+// order, which is the JAX scan's fold, so the table is bit-identical to
+// the plain version. Each chunk element is read once per row (r times in
+// all); the rows of one range are launched together (blockIdx.y = row) so
+// the rereads mostly hit the 50 MB L2 (5 rows took 1.9x one row's time in
+// the old design).
 // table_in and table_out may be the same buffer: each thread reads its own
-// cell once, before its one write, and touches no other cell (hence no
-// __restrict__ on the two).
+// cells once, before its one write of each, and touches no other cell
+// (hence no __restrict__ on the two).
 // ---------------------------------------------------------------------------
+constexpr int kAccThreads = 256;
+constexpr int kAccCells = 4;
+constexpr int kAccTile = kAccThreads * kAccCells;
+constexpr int kShiftTile = 256;
+
 template <bool kFromTable>
-__global__ void sketch_accumulate_kernel(const float* __restrict__ v3,
-                                         const int32_t* __restrict__ shift_q,
-                                         const int32_t* __restrict__ shift_w,
-                                         const int32_t* __restrict__ keys,
-                                         const float* table_in,
-                                         float* table_out, int Tn, int c_pad,
-                                         int t0) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kAccThreads)
+    sketch_accumulate_kernel(const float* __restrict__ v, int lpad, int n,
+                             const int32_t* __restrict__ shift_q,
+                             const int32_t* __restrict__ shift_w,
+                             const int32_t* __restrict__ keys,
+                             const float* table_in, float* table_out, int Tn,
+                             int c_pad, int t0) {
+  __shared__ int s_m[kShiftTile];
   const int j = blockIdx.y;
-  if (c >= c_pad) return;
-  const int64_t cell = static_cast<int64_t>(j) * c_pad + c;
+  // this thread's cells c .. c + 3; c_pad is a multiple of 128, so they are
+  // all in the row or all past it
+  const int c = blockIdx.x * kAccTile + threadIdx.x * kAccCells;
+  const bool active = c < c_pad;
+  const int64_t row = static_cast<int64_t>(j) * c_pad;
   const uint32_t key = static_cast<uint32_t>(keys[j]);
-  float acc = 0.0f;
-  if constexpr (kFromTable) acc = table_in[cell];
-  for (int t = 0; t < Tn; ++t) {
-    const int m = shift_q[j * Tn + t] * 128 + shift_w[j * Tn + t];
-    int p = c - m;
-    if (p < 0) p += c_pad;
-    const uint32_t idx =
-        static_cast<uint32_t>(static_cast<int64_t>(t0 + t) * c_pad + p);
-    acc += sign_of(idx, key) * v3[static_cast<int64_t>(t) * c_pad + p];
+  float acc[kAccCells];
+#pragma unroll
+  for (int k = 0; k < kAccCells; ++k) {
+    acc[k] = 0.0f;
+    if constexpr (kFromTable) {
+      if (active) acc[k] = table_in[row + c + k];
+    }
   }
-  table_out[cell] = acc;
+  for (int tb = 0; tb < Tn; tb += kShiftTile) {
+    const int tn = min(kShiftTile, Tn - tb);
+    __syncthreads();
+    for (int t = threadIdx.x; t < tn; t += kAccThreads)
+      s_m[t] = shift_q[j * Tn + tb + t] * 128 + shift_w[j * Tn + tb + t];
+    __syncthreads();
+    if (!active) continue;
+#pragma unroll 2
+    for (int tt = 0; tt < tn; ++tt) {
+      const int t = tb + tt;
+      const int base = t * c_pad - lpad;  // v index of chunk t's position 0
+      const uint32_t idx0 = static_cast<uint32_t>(t0 + t) *
+                            static_cast<uint32_t>(c_pad);
+      int p0 = c - s_m[tt];
+      if (p0 < 0) p0 += c_pad;
+      const int l0 = base + p0;
+      if (p0 + kAccCells <= c_pad && l0 >= 0 && l0 + kAccCells <= n) {
+        // the common case: the 4 positions neither wrap nor leave v
+        const float* src = v + l0;
+        const uint32_t i0 = idx0 + static_cast<uint32_t>(p0);
+#pragma unroll
+        for (int k = 0; k < kAccCells; ++k)
+          acc[k] += signed_by(__ldg(src + k), i0 + k, key);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kAccCells; ++k) {
+          int p = p0 + k;
+          if (p >= c_pad) p -= c_pad;
+          const int l = base + p;
+          const float x = static_cast<unsigned>(l) < static_cast<unsigned>(n)
+                              ? __ldg(v + l)
+                              : 0.0f;
+          acc[k] += signed_by(x, idx0 + static_cast<uint32_t>(p), key);
+        }
+      }
+    }
+  }
+  if (active) {
+#pragma unroll
+    for (int k = 0; k < kAccCells; ++k) table_out[row + c + k] = acc[k];
+  }
+}
+
+int launch_accumulate(bool from_table, const float* table_in, const float* v,
+                      int lpad, int n, const int32_t* shift_q,
+                      const int32_t* shift_w, const int32_t* keys,
+                      float* table_out, int r, int Tn, int c_pad, int t0,
+                      cudaStream_t stream) {
+  // every v index t*c_pad + p - lpad must fit an int
+  if (r <= 0 || c_pad <= 0 || Tn < 0 || lpad < 0 || lpad >= c_pad || n < 0 ||
+      static_cast<int64_t>(Tn) * c_pad >= (int64_t{1} << 31) ||
+      lpad + static_cast<int64_t>(n) > static_cast<int64_t>(Tn) * c_pad)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((c_pad + kAccTile - 1) / kAccTile, r);
+  if (from_table) {
+    sketch_accumulate_kernel<true><<<grid, kAccThreads, 0, stream>>>(
+        v, lpad, n, shift_q, shift_w, keys, table_in, table_out, Tn, c_pad,
+        t0);
+  } else {
+    sketch_accumulate_kernel<false><<<grid, kAccThreads, 0, stream>>>(
+        v, lpad, n, shift_q, shift_w, keys, nullptr, table_out, Tn, c_pad,
+        t0);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -187,28 +286,27 @@ void launch_estimates(const float* table, const int32_t* q, const int32_t* w,
 
 extern "C" {
 
+// table = the sketch of the (Tn, S, 128) plane v3.
 int sketch_accumulate(const float* v3, const int32_t* shift_q,
                       const int32_t* shift_w, const int32_t* keys,
                       float* table, int r, int Tn, int c_pad, int t0,
                       cudaStream_t stream) {
-  if (r <= 0 || c_pad <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((c_pad + 255) / 256, r);
-  sketch_accumulate_kernel<false><<<grid, 256, 0, stream>>>(
-      v3, shift_q, shift_w, keys, nullptr, table, Tn, c_pad, t0);
-  return static_cast<int>(cudaGetLastError());
+  if (Tn < 0 || static_cast<int64_t>(Tn) * c_pad >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_accumulate(false, nullptr, v3, 0, Tn * c_pad, shift_q,
+                           shift_w, keys, table, r, Tn, c_pad, t0, stream);
 }
 
-// table_out = table_in + the sketch of v3; table_out may be table_in.
-int sketch_accumulate_into(const float* table_in, const float* v3,
-                           const int32_t* shift_q, const int32_t* shift_w,
-                           const int32_t* keys, float* table_out, int r,
-                           int Tn, int c_pad, int t0, cudaStream_t stream) {
-  if (r <= 0 || c_pad <= 0 || Tn < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((c_pad + 255) / 256, r);
-  sketch_accumulate_kernel<true><<<grid, 256, 0, stream>>>(
-      v3, shift_q, shift_w, keys, table_in, table_out, Tn, c_pad, t0);
-  return static_cast<int>(cudaGetLastError());
+// table_out = table_in + the sketch of the n coordinates of v, which start
+// at position lpad of chunk t0 (a full range: lpad = 0, n = Tn * c_pad);
+// table_out may be table_in.
+int sketch_accumulate_into(const float* table_in, const float* v, int lpad,
+                           int n, const int32_t* shift_q,
+                           const int32_t* shift_w, const int32_t* keys,
+                           float* table_out, int r, int Tn, int c_pad, int t0,
+                           cudaStream_t stream) {
+  return launch_accumulate(true, table_in, v, lpad, n, shift_q, shift_w, keys,
+                           table_out, r, Tn, c_pad, t0, stream);
 }
 
 // Largest row count the query is instantiated for.

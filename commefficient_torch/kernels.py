@@ -149,8 +149,8 @@ def library() -> ctypes.CDLL:
     lib.sketch_estimates_max_rows.restype = i32
     lib.topk_count_ge.argtypes = [p, i64, p, p, i32, p]
     lib.topk_count_ge.restype = i32
-    lib.sketch_accumulate_into.argtypes = [p, p, p, p, p, p, i32, i32, i32,
-                                           i32, p]
+    lib.sketch_accumulate_into.argtypes = [p, p, i32, i32, p, p, p, p, i32,
+                                           i32, i32, i32, p]
     lib.sketch_accumulate_into.restype = i32
     lib.fused_epilogue.argtypes = [p, p, p, p, p, p, p, i32, i32, i32, i32,
                                    p]
@@ -268,6 +268,34 @@ def topk_count_ge(bits: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _launch_into(tbl3: torch.Tensor, v: torch.Tensor, lpad: int,
+                 shift_q: torch.Tensor, shift_w: torch.Tensor,
+                 sign_keys: torch.Tensor, t0: int) -> torch.Tensor:
+    """One launch of the running accumulate: a new ``(r, S, 128)`` table,
+    ``tbl3`` plus the sketch of the flat ``v`` read in place as the
+    coordinates from position ``lpad`` of chunk ``t0`` on."""
+    r, S, lanes = tbl3.shape
+    Tn = shift_q.shape[1]
+    _shift_args(tbl3.device, shift_q, shift_w, sign_keys, r, Tn)
+    c_pad = S * lanes
+    n = v.numel()
+    if not (0 <= lpad < c_pad and lpad + n <= Tn * c_pad
+            and Tn * c_pad < 2**31):
+        raise ValueError(f"sketch_accumulate_into: {n} coordinates from "
+                         f"position {lpad} do not fit {Tn} chunks of {c_pad}")
+    lib = library()
+    with torch.cuda.device(tbl3.device):
+        out = torch.empty_like(tbl3)
+        err = lib.sketch_accumulate_into(
+            tbl3.data_ptr(), v.data_ptr(), int(lpad), n, shift_q.data_ptr(),
+            shift_w.data_ptr(), sign_keys.data_ptr(), out.data_ptr(), r, Tn,
+            c_pad, int(t0),
+            torch.cuda.current_stream(tbl3.device).cuda_stream)
+    _raise_on(err, SKETCH_ACCUMULATE_INTO)
+    SKETCH_ACCUMULATE_INTO.launches += 1
+    return out
+
+
 def sketch_accumulate_into(tbl3: torch.Tensor, v3: torch.Tensor,
                            shift_q: torch.Tensor, shift_w: torch.Tensor,
                            sign_keys: torch.Tensor,
@@ -280,22 +308,32 @@ def sketch_accumulate_into(tbl3: torch.Tensor, v3: torch.Tensor,
                          "CUDA table and (Tn, S, 128) chunks, got "
                          f"{tuple(tbl3.shape)} on {tbl3.device} and "
                          f"{tuple(v3.shape)}")
-    r, S, lanes = tbl3.shape
-    Tn = v3.shape[0]
+    r, S, _ = tbl3.shape
     _check("tbl3", tbl3, torch.float32, (r, S, 128), tbl3.device)
-    _check("v3", v3, torch.float32, (Tn, S, 128), tbl3.device)
-    _shift_args(tbl3.device, shift_q, shift_w, sign_keys, r, Tn)
-    lib = library()
-    with torch.cuda.device(tbl3.device):
-        out = torch.empty_like(tbl3)
-        err = lib.sketch_accumulate_into(
-            tbl3.data_ptr(), v3.data_ptr(), shift_q.data_ptr(),
-            shift_w.data_ptr(), sign_keys.data_ptr(), out.data_ptr(), r, Tn,
-            S * lanes, int(t0),
-            torch.cuda.current_stream(tbl3.device).cuda_stream)
-    _raise_on(err, SKETCH_ACCUMULATE_INTO)
-    SKETCH_ACCUMULATE_INTO.launches += 1
-    return out
+    _check("v3", v3, torch.float32, (shift_q.shape[1], S, 128), tbl3.device)
+    return _launch_into(tbl3, v3, 0, shift_q, shift_w, sign_keys, t0)
+
+
+def sketch_segment_into(tbl3: torch.Tensor, seg: torch.Tensor, lpad: int,
+                        shift_q: torch.Tensor, shift_w: torch.Tensor,
+                        sign_keys: torch.Tensor,
+                        t0: int = 0) -> torch.Tensor:
+    """The running accumulate of a segment read in place: ``(r, S, 128)``
+    f32 table plus the sketch of the flat f32 ``seg``, whose first
+    coordinate is position ``lpad`` of chunk ``t0``; the ``Tn`` chunks of
+    the shift columns cover it and their positions outside it add ``sign *
+    0.0`` (see ``ops/sketch.sketch_segment_into``). The same kernel as
+    ``sketch_accumulate_into``, counted as its launch. Returns a new
+    table."""
+    if tbl3.device.type != "cuda" or tbl3.ndim != 3 or seg.ndim != 1:
+        raise ValueError("sketch_segment_into: expected an (r, S, 128) CUDA "
+                         "table and a flat segment, got "
+                         f"{tuple(tbl3.shape)} on {tbl3.device} and "
+                         f"{tuple(seg.shape)}")
+    r, S, _ = tbl3.shape
+    _check("tbl3", tbl3, torch.float32, (r, S, 128), tbl3.device)
+    _check("seg", seg, torch.float32, seg.shape, tbl3.device)
+    return _launch_into(tbl3, seg, lpad, shift_q, shift_w, sign_keys, t0)
 
 
 def fused_epilogue(est3: torch.Tensor, p: torch.Tensor,
@@ -329,8 +367,10 @@ def fused_epilogue(est3: torch.Tensor, p: torch.Tensor,
 
 def topk_descent(bits: torch.Tensor, k: int) -> torch.Tensor:
     """The k-th largest magnitude's int32 bit pattern of flat int32 bit
-    patterns, all 8 descent passes in one cooperative launch, as a 0-d
-    int32 tensor on the card (see ``ops/topk.topk_descent``)."""
+    patterns (0 when there are fewer than k), a 3-pass histogram radix
+    select in one cooperative launch, as a 0-d int32 tensor on the card
+    (see ``ops/topk.topk_descent``). ``bits`` may be a view at any 4-byte
+    offset."""
     if bits.device.type != "cuda" or bits.ndim != 1:
         raise ValueError("topk_descent: expected a flat CUDA tensor, got "
                          f"{tuple(bits.shape)} on {bits.device}")
@@ -339,10 +379,10 @@ def topk_descent(bits: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"topk_descent: k={k} out of range")
     lib = library()
     with torch.cuda.device(bits.device):
-        counts = torch.empty(8 * 16, dtype=torch.int32, device=bits.device)
+        hist = torch.empty(4096, dtype=torch.int32, device=bits.device)
         out = torch.empty(1, dtype=torch.int32, device=bits.device)
         err = lib.topk_descent(
-            bits.data_ptr(), bits.numel(), int(k), counts.data_ptr(),
+            bits.data_ptr(), bits.numel(), int(k), hist.data_ptr(),
             out.data_ptr(),
             _num_sms(bits.device.index if bits.device.index is not None
                      else torch.cuda.current_device()),

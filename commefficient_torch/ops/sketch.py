@@ -19,8 +19,10 @@ Four operations carry the round, each with a CUDA kernel for the H100
   fold), so kernel and plain version agree bit for bit;
 - ``sketch_accumulate_into``: the same adds, each cell starting from an
   incoming table (the streaming client phase's running table:
-  ``sketch_segment_accum``, ``sketch_segments_accum``,
-  ``sketch_chunks_accum``);
+  ``sketch_chunks_accum``), and its segment form ``sketch_segment_into``
+  (``sketch_segment_accum``, ``sketch_segments_accum``), where the kernel
+  reads a group's flat vector in place and the plain version pads it to
+  its covering chunks;
 - ``sketch_estimates``: the median-of-rows query, ``(r, S, 128)`` table ->
   ``(Tn, S, 128)`` estimates, tail left as hash noise for the caller's
   ``mask_tail``;
@@ -260,17 +262,13 @@ def sketch_accumulate_into(tbl3: torch.Tensor, v3: torch.Tensor,
                                           sign_keys, t0)
 
 
-def _accum_range(cs: CountSketch, table: torch.Tensor, v3: torch.Tensor,
-                 t_a: int) -> torch.Tensor:
-    """``table`` plus the sketch of the chunks ``[t_a, t_a + Tn)`` in
-    ``v3`` (a range inside ``[0, T)``), as an ``(r, c_pad)`` table."""
-    t_b = t_a + v3.shape[0]
-    assert 0 <= t_a and t_b <= cs.T, (t_a, t_b, cs.T)
-    out = sketch_accumulate_into(
-        table.reshape(cs.r, cs.sublanes, LANES).contiguous(),
-        v3.contiguous(), cs.shift_q[:, t_a:t_b].contiguous(),
-        cs.shift_w[:, t_a:t_b].contiguous(), cs.sign_keys, t_a)
-    return out.view(cs.r, cs.c_pad)
+def _segment_range(cs: CountSketch, e0: int, n: int):
+    """The chunks ``[t_a, t_a + Tn)`` that coordinates ``[e0, e0 + n)``
+    touch, and ``lpad``, the position of ``e0`` in chunk ``t_a``:
+    ``(t_a, lpad, Tn)``."""
+    t_a = e0 // cs.c_pad
+    lpad = e0 - t_a * cs.c_pad
+    return t_a, lpad, -(-(lpad + n) // cs.c_pad)
 
 
 def _segment_chunks(cs: CountSketch, seg: torch.Tensor, e0: int):
@@ -281,13 +279,43 @@ def _segment_chunks(cs: CountSketch, seg: torch.Tensor, e0: int):
     cells, so a cell whose every contribution is zero may differ from the
     composed sketch in the sign of its zero, never under ``==``."""
     n = int(seg.numel())
-    ce = cs.c_pad
-    t_a = e0 // ce
-    lpad = e0 - t_a * ce
-    Tn = -(-(lpad + n) // ce)
-    v = seg.new_zeros(Tn * ce, dtype=torch.float32)
+    t_a, lpad, Tn = _segment_range(cs, e0, n)
+    v = seg.new_zeros(Tn * cs.c_pad, dtype=torch.float32)
     v[lpad:lpad + n] = seg.reshape(-1)
     return v.view(Tn, cs.sublanes, LANES), t_a
+
+
+def _sketch_segment_into_plain(cs: CountSketch, table: torch.Tensor,
+                               seg: torch.Tensor, e0: int) -> torch.Tensor:
+    """Plain segment accumulate: ``_segment_chunks`` then the plain running
+    accumulate of the covering chunk range."""
+    v3, t_a = _segment_chunks(cs, seg, e0)
+    t_b = t_a + v3.shape[0]
+    out = _sketch_accumulate_into_plain(
+        table.reshape(cs.r, cs.sublanes, LANES), v3,
+        cs.shift_q[:, t_a:t_b], cs.shift_w[:, t_a:t_b], cs.sign_keys, t_a)
+    return out.reshape(cs.r, cs.c_pad)
+
+
+def sketch_segment_into(cs: CountSketch, table: torch.Tensor,
+                        seg: torch.Tensor, e0: int) -> torch.Tensor:
+    """``table`` plus the sketch of a non-empty flat segment holding
+    coordinates ``[e0, e0 + n)``, per cell in chunk order over the chunks
+    the segment touches, their positions outside it adding ``sign * 0``.
+    The kernel reads the segment in place; the plain version pads it
+    (``_segment_chunks``). Both give the same bits."""
+    if seg.device.type == "cpu":
+        return _sketch_segment_into_plain(cs, table, seg, e0)
+    from commefficient_torch import kernels
+
+    t_a, lpad, Tn = _segment_range(cs, e0, int(seg.numel()))
+    t_b = t_a + Tn
+    out = kernels.sketch_segment_into(
+        table.reshape(cs.r, cs.sublanes, LANES).contiguous(),
+        seg.reshape(-1).contiguous(), lpad,
+        cs.shift_q[:, t_a:t_b].contiguous(),
+        cs.shift_w[:, t_a:t_b].contiguous(), cs.sign_keys, t_a)
+    return out.view(cs.r, cs.c_pad)
 
 
 def sketch_segment_accum(cs: CountSketch, table: torch.Tensor,
@@ -303,8 +331,7 @@ def sketch_segment_accum(cs: CountSketch, table: torch.Tensor,
                                                    cs.table_shape)
     if n == 0:
         return table
-    v3, t_a = _segment_chunks(cs, seg, e0)
-    return _accum_range(cs, table, v3, t_a)
+    return sketch_segment_into(cs, table, seg, e0)
 
 
 # staging ceiling of the coalescer's auto budget
@@ -315,11 +342,9 @@ def coalesce_vmem_budget(cs: CountSketch) -> int:
     """Auto group-sizing budget (bytes) for ``ops/flat.coalesce_segments``
     (``--sketch_coalesce``), the JAX package's rule under its name:
     ``min(32 MiB, max(one chunk, padded plane / 4))``. On this card it
-    bounds the staging buffer of a group, the zero-padded copy of the
-    group's covering chunk range that ``sketch_segments_accum`` hands to the
-    kernel (the kernel itself keeps nothing group-sized on chip), so a
-    group stages at most a quarter of the d-plane (3 chunks, 6 MB, at the
-    headline geometry)."""
+    bounds a group's concatenated leaves, which the kernel reads in place
+    (it keeps nothing group-sized on chip), so a group copies at most a
+    quarter of the d-plane (3 chunks, 6 MB, at the headline geometry)."""
     chunk_bytes = cs.c_pad * 4
     padded = cs.T * chunk_bytes
     return int(min(_COALESCE_MAX_BUDGET, max(chunk_bytes, padded // 4)))
@@ -344,8 +369,7 @@ def sketch_segments_accum(cs: CountSketch, table: torch.Tensor,
         return table
     assert 0 <= e0 and e0 + n <= cs.d, (e0, n, cs.d)
     v = xs[0] if len(xs) == 1 else torch.cat(xs)
-    v3, t_a = _segment_chunks(cs, v, e0)
-    return _accum_range(cs, table, v3, t_a)
+    return sketch_segment_into(cs, table, v, e0)
 
 
 def sketch_chunks_accum(cs: CountSketch, table: torch.Tensor,
@@ -356,7 +380,10 @@ def sketch_chunks_accum(cs: CountSketch, table: torch.Tensor,
     assert tuple(v3.shape) == (cs.T, cs.sublanes, LANES), tuple(v3.shape)
     assert tuple(table.shape) == cs.table_shape, (tuple(table.shape),
                                                    cs.table_shape)
-    return _accum_range(cs, table, v3, 0)
+    out = sketch_accumulate_into(
+        table.reshape(cs.r, cs.sublanes, LANES).contiguous(),
+        v3.contiguous(), cs.shift_q, cs.shift_w, cs.sign_keys, 0)
+    return out.view(cs.r, cs.c_pad)
 
 
 # --------------------------------------------------------------------------

@@ -19,8 +19,10 @@ per-pass descent: 8 launches of the count pass (``topk_count_ge``), with
 the prefix, the candidates and the selected nibble kept on the device
 between them (no host sync). ``COMMEFFICIENT_PALLAS_TOPK_FUSED=1`` (the JAX
 package's switch, read only by ``fused_descent_enabled``; default off)
-chooses the whole descent in one launch (``topk_descent``). Both count
-exact integers, so they return the same threshold on every input.
+chooses one launch for the whole search (``topk_descent``): on the card a
+3-pass histogram radix select (``csrc/topk_descent.cu``), whose plain
+version is the 8-pass descent. All of them count exact integers, so they
+return the same threshold on every input.
 """
 
 from __future__ import annotations

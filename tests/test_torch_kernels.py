@@ -255,3 +255,65 @@ def test_plain_versions_on_cpu_do_not_count(monkeypatch):
     monkeypatch.setenv(ttk.FUSED_DESCENT_ENV, "1")
     tsk.fused_epilogue_chunks(cs, tsk.estimates_chunks(cs, table), 10)
     assert kernels.launch_counts() == ALL_ZERO
+
+
+# (e0, n) of a segment, by kind, in a geometry of c_pad = 3072, d = 50_000
+def _segment_cases(c_pad, d):
+    return {"straddling": (137, c_pad + 500),
+            "mid-chunk": (c_pad + 100, 900),
+            "one-element": (2 * c_pad + 5, 1),
+            "ends-at-d": (d - c_pad - 7, c_pad + 7),
+            "whole-range": (0, d)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["straddling", "mid-chunk", "one-element",
+                                  "ends-at-d", "whole-range"])
+def test_segment_form_equals_padded_plain(cuda, kind):
+    """The kernel reads the segment in place; the plain version pads it to
+    its covering chunks. Equal bits, zero signs included, from a random
+    incoming table."""
+    cs = tsk.make_sketch(50_000, 3000, 4, seed=1, device=cuda)
+    e0, n = _segment_cases(cs.c_pad, cs.d)[kind]
+    gen = torch.Generator().manual_seed(n)
+    tbl = _special(torch.randn(cs.table_shape, generator=gen)).to(cuda)
+    seg = torch.randn(n, generator=gen)
+    if n > 50:
+        seg = _special(seg)
+    seg = seg.to(cuda)
+    before = kernels.SKETCH_ACCUMULATE_INTO.launches
+    got = tsk.sketch_segment_into(cs, tbl, seg, e0)
+    torch.cuda.synchronize()
+    assert kernels.SKETCH_ACCUMULATE_INTO.launches == before + 1
+    assert _bit_equal(got, tsk._sketch_segment_into_plain(cs, tbl, seg, e0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["misaligned", "k=n", "k>n", "all-equal",
+                                  "all-zero", "offset-2", "offset-3"])
+def test_descent_kernel_edge_cases(cuda, kind):
+    """Views at every 4-byte offset (a head before the first 16-byte
+    boundary), k at and past n, and inputs whose patterns are all one bin."""
+    n, k = 70_001, 1000
+    gen = torch.Generator().manual_seed(7)
+    v = _special(torch.randn(n + 8, generator=gen)).to(cuda)
+    bits = v.view(torch.int32)[:n]
+    if kind == "misaligned":
+        bits = bits[1:]
+    elif kind == "offset-2":
+        bits = bits[2:]
+    elif kind == "offset-3":
+        bits = bits[3:]
+    elif kind == "k=n":
+        k = n
+    elif kind == "k>n":
+        k = n + 5
+    elif kind == "all-equal":
+        bits = torch.full((n,), 0x3F400000, dtype=torch.int32, device=cuda)
+    else:
+        bits = torch.zeros(n, dtype=torch.int32, device=cuda)
+    got = int(kernels.topk_descent(bits, k))
+    assert got == int(ttk._descent_plain(bits, k))
+    assert got == int(ttk._descent_plain(bits.cpu(), k))
+    if kind == "k>n":
+        assert got == 0

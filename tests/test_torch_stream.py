@@ -404,10 +404,15 @@ def test_stream_table_close_to_composed(wd, microbatch):
 
 
 def test_stream_launches_follow_the_plan(monkeypatch):
-    """One running accumulate per group and microbatch, plus one for weight
-    decay, and none of the zero-table accumulate."""
+    """One running accumulate per group and microbatch (its segment form),
+    plus one for weight decay, and none of the zero-table accumulate."""
     calls = {"into": 0, "zero": 0}
-    into, zero = tsk.sketch_accumulate_into, tsk.sketch_accumulate
+    seg, into, zero = (tsk.sketch_segment_into, tsk.sketch_accumulate_into,
+                       tsk.sketch_accumulate)
+
+    def count_seg(*a, **kw):
+        calls["into"] += 1
+        return seg(*a, **kw)
 
     def count_into(*a, **kw):
         calls["into"] += 1
@@ -417,6 +422,7 @@ def test_stream_launches_follow_the_plan(monkeypatch):
         calls["zero"] += 1
         return zero(*a, **kw)
 
+    monkeypatch.setattr(tsk, "sketch_segment_into", count_seg)
     monkeypatch.setattr(tsk, "sketch_accumulate_into", count_into)
     monkeypatch.setattr(tsk, "sketch_accumulate", count_zero)
     for coalesce, microbatch in ((True, -1), (True, 2), (False, -1)):
@@ -518,3 +524,194 @@ def test_opt_in_rounds_track_jax(opt_in_trajectories):
         overlap = len(jsel & tsel) / max(len(jsel), len(tsel))
         assert overlap >= 0.99, (rnd, overlap)
         jprev, tprev = jw, tw
+
+
+# ---- the histogram radix select of the one-launch descent -----------------
+
+RADIX_DIGITS = ((20, 11), (10, 10), (0, 10))  # (shift, bits), from the top
+
+
+def _radix_select_np(bits, k):
+    """numpy transcription of ``csrc/topk_descent.cu``: 3 passes over the
+    31 magnitude bits; each histograms one digit over the patterns whose
+    higher digits equal the prefix so far, walks the bins from the top
+    until the running count reaches the remaining rank, keeps that digit
+    and takes the count of the bins above it off the rank. Fewer than k
+    patterns give 0."""
+    m = np.asarray(bits, np.int32) & 0x7FFFFFFF
+    m = np.where(m > 0x7F800000, 0, m).astype(np.int64)
+    prefix, rank = 0, int(k)
+    for shift, nbits in RADIX_DIGITS:
+        top = shift + nbits
+        live = m[(m >> top) == (prefix >> top)]
+        hist = np.bincount((live >> shift) & ((1 << nbits) - 1),
+                           minlength=1 << nbits)
+        above = np.concatenate([[0], np.cumsum(hist[::-1])[:-1]])[::-1]
+        hit = np.flatnonzero((above < rank) & (above + hist >= rank))
+        if hit.size == 0:
+            return 0
+        digit = int(hit[0])
+        prefix |= digit << shift
+        rank -= int(above[digit])
+    return prefix
+
+
+def _radix_edge(n, kind):
+    v = np.random.RandomState(n + 11).randn(n).astype(np.float32)
+    if kind == "straddle":
+        # tie runs on both sides of a digit-1 boundary (0x3F8003FF and
+        # 0x3F800400) and of a digit-0 boundary (1.0 = 0x3F800000 and the
+        # patterns just below it), above small random values
+        one = 0x3F800000
+        runs = [(0x3F800400, 10), (0x3F8003FF, 10), (one + 1, 10),
+                (one, 40), (one - 10, 10)]
+        v = (v * np.float32(1e-3)).astype(np.float32)
+        at = 0
+        for i, (pat, count) in enumerate(runs):
+            pats = np.full(count, pat, np.int32)
+            if i in (2, 4):  # distinct patterns, not a tie run
+                pats += np.arange(count, dtype=np.int32)
+            v[at:at + count] = pats.view(np.float32) * (-1) ** i
+            at += count
+    elif kind == "equal":
+        v[:] = np.float32(-0.375)
+    elif kind == "subnormal":
+        v = (v * np.float32(1e-40)).astype(np.float32)
+    return v
+
+
+RADIX_CASES = DESCENT_CASES + [
+    (5000, "straddle", 10), (5000, "straddle", 11), (5000, "straddle", 20),
+    (5000, "straddle", 45), (5000, "straddle", 70), (5000, "straddle", 71),
+    (5000, "straddle", 75), (4097, "random", 4097), (1, "random", 1),
+    (1, "random", 2), (3000, "equal", 1), (3000, "equal", 3000),
+    (3000, "equal", 3001)]
+
+
+def _radix_input(n, kind):
+    return _edge(n, kind) if kind in ("random", "special", "ties",
+                                      "zeros") else _radix_edge(n, kind)
+
+
+@pytest.mark.parametrize("n,kind,k", RADIX_CASES)
+def test_radix_select_equals_descent_and_jax(n, kind, k):
+    """The new descent's algorithm against the port's 8-pass plain descent
+    and the JAX package's one-launch Pallas descent (interpret mode)."""
+    v = _radix_input(n, kind)
+    bits = v.view(np.int32)
+    got = _radix_select_np(bits, k)
+    assert got == int(ttk._descent_plain(torch.from_numpy(bits), k))
+    want = int(jtk._threshold_descent_fused(jnp.asarray(bits), k,
+                                            interpret=True))
+    assert got == want
+    if k > n:
+        assert got == 0
+
+
+@pytest.mark.parametrize("k", [1, 64, 4999, 5000])
+def test_radix_select_keeps_subnormals(k):
+    """Subnormal magnitudes sit in digit-0 bins 0-7; against the port's
+    plain descent only (XLA on the CPU flushes them)."""
+    bits = _radix_edge(5000, "subnormal").view(np.int32)
+    got = _radix_select_np(bits, k)
+    assert got == int(ttk._descent_plain(torch.from_numpy(bits), k))
+    assert 0 < got < 0x00800000
+
+
+# ---- the segment form of the running accumulate ----------------------------
+
+SEG_CASES = {"mid-chunk": (2048 + 300, 900), "one-element": (4096 + 5, 1),
+             "straddling": (137, 2048 + 500),
+             "ends-at-d-in-tail": (31_640 - 2048 - 100, 2048 + 100)}
+
+
+def _padded_fold_np(js, tbl, seg, e0):
+    """numpy transcription of the segment form's plain version: the segment
+    zero-padded to the chunks ``[t_a, t_b)`` it touches, then per row and
+    cell ``acc += sign * x[(c - m) mod c_pad]`` in float32, chunk by chunk,
+    onto the incoming table. The geometry (shifts, keys) is the JAX
+    package's. Returns ``(table, t_b)``."""
+    c_pad, r = js.c_pad, js.r
+    t_a, lpad = divmod(e0, c_pad)
+    t_b = t_a + -(-(lpad + seg.size) // c_pad)
+    x = np.zeros((t_b - t_a) * c_pad, np.float32)
+    x[lpad:lpad + seg.size] = seg
+    q, w = np.asarray(js.shift_q), np.asarray(js.shift_w)
+    keys = np.asarray(js.sign_keys).astype(np.uint32)
+    pos = np.arange(c_pad, dtype=np.int64)
+    acc = np.array(tbl, np.float32).reshape(r, c_pad)
+    for t in range(t_a, t_b):
+        xt = x[(t - t_a) * c_pad:(t - t_a + 1) * c_pad]
+        idx = (t * c_pad + pos).astype(np.uint32)
+        for j in range(r):
+            h = idx ^ keys[j]
+            h ^= h >> np.uint32(16)
+            h *= np.uint32(0x85EBCA6B)
+            h ^= h >> np.uint32(13)
+            h *= np.uint32(0xC2B2AE35)
+            h ^= h >> np.uint32(16)
+            sign = np.where(h & np.uint32(1), np.float32(1), np.float32(-1))
+            sv = (sign * xt).astype(np.float32)
+            m = int(q[j, t]) * 128 + int(w[j, t])
+            acc[j] = acc[j] + sv[(pos - m) % c_pad]
+    return acc, t_b
+
+
+def _zero_cells(tbl):
+    """Zero incoming cells, a third -0.0 and a third +0.0, spread over the
+    table so that some of them receive only the padding's ``sign * 0``
+    adds: -0.0 keeps the sign of those adds visible (+0.0 + -0.0 is +0.0
+    whatever the adds' signs)."""
+    flat = tbl.reshape(-1)
+    flat[0::3] = -0.0
+    flat[1::3] = 0.0
+    return tbl
+
+
+def _neg_zeros(x):
+    x = np.asarray(x)
+    return int(((x == 0) & np.signbit(x)).sum())
+
+
+@pytest.mark.parametrize("kind", list(SEG_CASES))
+def test_segment_form_plain_equals_padded_chunks(kind):
+    """The segment form's plain version against a numpy transcription of
+    the padded fold (``_segment_chunks`` then the running accumulate of the
+    covering chunks), bit for bit with zero signs included, and against the
+    JAX package's segment fold in interpret mode."""
+    js, ts = _pair(31_640, 2048, 3, 0)
+    e0, n = SEG_CASES[kind]
+    seg = _rand((n,), n + 1)
+    tbl = _zero_cells(_rand(ts.table_shape, n + 2))
+    got = tsk.sketch_segment_into(ts, torch.from_numpy(tbl),
+                                  torch.from_numpy(seg), e0)
+    want, t_b = _padded_fold_np(js, tbl, seg, e0)
+    _bits_equal(got.numpy(), want)
+    assert _neg_zeros(got.numpy()) > 0   # zero signs were compared
+    if kind == "ends-at-d-in-tail":
+        assert t_b == ts.T and e0 + n == ts.d
+    jt = jsk.sketch_segment_accum(js, jnp.asarray(tbl), jnp.asarray(seg), e0,
+                                  interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jt))
+
+
+def test_segments_form_with_zero_size_segment_equals_padded():
+    """A group holding a zero-size segment: one segment-form accumulate of
+    the concatenation, against the JAX package's group accumulate in
+    interpret mode and the numpy padded fold's bits."""
+    js, ts = _pair(31_640, 2048, 3, 0)
+    bounds = [2048 + 300, 2048 + 300, 2048 + 700, 2 * 2048 + 100]
+    v = _rand((31_640,), 9)
+    tbl = _zero_cells(_rand(ts.table_shape, 10))
+    segs = [v[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    assert segs[0].size == 0
+    got = tsk.sketch_segments_accum(ts, torch.from_numpy(tbl),
+                                    [torch.from_numpy(x) for x in segs],
+                                    bounds[0])
+    want = jsk.sketch_segments_accum(js, jnp.asarray(tbl),
+                                     [jnp.asarray(x) for x in segs],
+                                     bounds[0], interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    fold, _ = _padded_fold_np(js, tbl, v[bounds[0]:bounds[-1]], bounds[0])
+    _bits_equal(got.numpy(), fold)
+    assert _neg_zeros(got.numpy()) > 0   # zero signs were compared
