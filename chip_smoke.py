@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; nothing is caught):
    summary;
 3. each of the six kernels against its plain version at the headline
    geometry (d = 6,568,640, 5 x 500,000 sketch) and at ragged ones (c not
-   a multiple of 128, a partial last chunk, even r, t0 != 0, NaN, inf and
+   a multiple of 128, a partial last chunk, even r, t0 != 0, a row length
+   not a multiple of the accumulate's 1,024-cell tile, NaN, inf and
    subnormal cells, ties at the top-k threshold): exact equality, then
    CUDA-event times (median of 30, L2 flushed before each launch by a
    read of 96 MB, ``time_ms``) beside the bound the card's memory rate or
@@ -22,17 +23,22 @@ Phases (any failure exits non-zero; nothing is caught):
    descent, with ``torch.kthvalue`` beside it). Also exact: the running
    accumulate's segment form, which reads a group's flat vector in place,
    against its padded plain version at a segment straddling a chunk
-   boundary and at one ending at d; the histogram radix select descent at
-   a view not 16-byte aligned (``bits[1:]``), at k = n and k > n, and on
-   all-equal and all-zero patterns;
+   boundary and at one ending at d; the count pass at unsorted, repeated,
+   zero, negative and all-``0x7FFFFFFF`` thresholds, on views at a 4-byte
+   offset (``bits[1:]``), of 1, 3 and 129 patterns, on NaN, inf and
+   subnormal patterns, and twice back to back; the histogram radix select
+   descent at a view not 16-byte aligned (``bits[1:]``), at k = n and
+   k > n, and on all-equal and all-zero patterns; the fused epilogue at
+   p = 0 (all kept) and p = 0x7F800001 (only NaNs kept), its update equal
+   to the masked estimates bit for bit, NaN payloads included;
 4. the headline FetchSGD round at full width through FedModel /
    FedOptimizer / LambdaLR on a seeded synthetic batch (8 clients x 8
    images): 2 warm-up and 20 timed rounds, rounds/sec, a finite loss,
    and exactly 2 / 1 / 8 launches per round of the accumulate, the query
-   and the count pass, the device time of each port kernel per round
-   (``torch.profiler``); then the server phase from one table and state
-   through the kernels and through the plain versions, which must be
-   equal;
+   and the count pass, the device time of each port kernel and the
+   device memsets per round (``torch.profiler``); then the server phase
+   from one table and state through the kernels and through the plain
+   versions, which must be equal;
 5. the opt-in round: the same round with ``--stream_sketch
    --sketch_coalesce --fused_epilogue`` and
    ``COMMEFFICIENT_PALLAS_TOPK_FUSED=1``, timed the same way, with the
@@ -54,10 +60,12 @@ Without a card it exits with an error before printing any result.
 
 ``--kernel-times`` runs none of the phases. It times, for the checkout
 that holds the script, the accumulate pair over full chunk ranges at
-``r`` in {1, 5} and ``Tn`` in {1, 3, 14}, and the descent over 7,001,344
-patterns at k = 50,000 with ``torch.topk`` and ``torch.kthvalue`` beside
-it, one JSON line each. It uses only entry points that the port has had
-since its second slice, so to compare two checkouts on one card, copy
+``r`` in {1, 5} and ``Tn`` in {1, 3, 14}, the count pass at the first
+and the last pass's thresholds and the fused epilogue at the headline
+geometry, and the descent over 7,001,344 patterns at k = 50,000 with
+``torch.topk`` and ``torch.kthvalue`` beside it, one JSON line each. It
+uses only entry points that the port has had since its second slice, so
+to compare two checkouts on one card, copy
 this file into the other's root (for example the parent commit unpacked
 with ``git archive`` into a gitignored directory) and run the two copies
 in turns: parent, change, change, parent.
@@ -117,15 +125,21 @@ def flush_l2() -> None:
     buf.max()
 
 
-def time_ms(fn, reps: int = REPS) -> float:
+def time_ms(fn, reps: int = REPS, flush: bool = True) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` launches, after 3
-    warm-up calls, with L2 flushed before each launch."""
+    warm-up calls, with L2 flushed before each launch (or not: then the
+    launch finds in L2 what the one before it left there). The card spins
+    for about 0.1 ms (``torch.cuda._sleep``, which touches no memory)
+    before the start event, so the host has enqueued the launch by the time
+    the card reaches it and no host time enters the measurement."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        flush_l2()
+        if flush:
+            flush_l2()
+        torch.cuda._sleep(200_000)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -260,6 +274,45 @@ def plain_kernels():
         assert kernels.launch_counts() == before, "plain path launched"
 
 
+# Thresholds beyond the descent's sorted p + (j << shift): unsorted, with
+# repeats, 0, negative ones and 0x7FFFFFFF; and all 0x7FFFFFFF
+COUNT_THRESHOLDS = {
+    "mixed": [0x3F400000, 0, 0x7F800000, 0x3F400000, 1, 0x7FFFFFFF, -5,
+              0x3E800000, 0x00800000, 0x3F400000, 0x7F7FFFFF, 0x100,
+              0x3F000000, -2**31, 0x40400000, 0x3F400001],
+    "all 0x7FFFFFFF": [0x7FFFFFFF] * 16}
+
+
+def check_count_cases(bits, est, label):
+    """The count pass's contract beyond the descent, each case exact:
+    ``COUNT_THRESHOLDS`` and 16 of the data's own magnitudes in random
+    order, on the whole, on views at a 4-byte offset, on 1, 3 and 129
+    patterns and on NaN, inf and subnormal patterns; then two launches back
+    to back on different inputs (the kernel's scratch totals and ticket
+    must come back to zero between them)."""
+    dev = bits.device
+    gen = torch.Generator().manual_seed(bits.numel())
+    pick = torch.randint(0, bits.numel(), (16,), generator=gen).to(dev)
+    sets = {name: torch.tensor(ts, dtype=torch.int32, device=dev)
+            for name, ts in COUNT_THRESHOLDS.items()}
+    sets["own magnitudes"] = ttk._mag(bits)[pick]
+    sp = special(est.clone()).reshape(-1).view(torch.int32)
+    views = {"whole": bits, "bits[1:]": bits[1:], "n = 1": bits[:1],
+             "n = 3 at offset 1": bits[1:4], "n = 129": bits[:129],
+             "n = 129 at offset 3": bits[3:132], "special": sp}
+    for vname, b in views.items():
+        for tname, ts in sets.items():
+            assert torch.equal(kernels.topk_count_ge(b, ts),
+                               ttk._count_ge_plain(b, ts)), \
+                f"{label}: topk_count_ge on {vname}, {tname} thresholds"
+    first = kernels.topk_count_ge(bits, sets["mixed"])
+    second = kernels.topk_count_ge(sp[1:], sets["own magnitudes"])
+    assert torch.equal(first, ttk._count_ge_plain(bits, sets["mixed"])) \
+        and torch.equal(second, ttk._count_ge_plain(
+            sp[1:], sets["own magnitudes"])), \
+        f"{label}: topk_count_ge launched twice back to back"
+
+
 def check_kernels(card: str, d, c, r, t0, seed, label, timed):
     """Phase 3 for one geometry: every kernel against its plain version."""
     peak = peaks(card)
@@ -359,6 +412,7 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed):
         flat = special(est).view(-1)
         flat[100:130] = 0.75
         flat[130:140] = -0.75
+        flat.view(torch.int32)[7] = 0xFFC00123 - 2**32  # -NaN, a payload
         mags = torch.where(torch.isnan(flat), torch.zeros_like(flat),
                            flat.abs())
         k = int((mags > 0.75).sum()) + 20
@@ -378,12 +432,13 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed):
     assert int(ttk.resolve_threshold(est, k)) == int(p)
     if not timed:
         assert int(p) == int(torch.tensor(0.75).view(torch.int32)), label
+    check_count_cases(bits, est, label)
     ts0 = ttk._pass_thresholds(torch.zeros((), dtype=torch.int32,
                                            device=dev), 28)
-    # the operations the function needs, not the kernel's 16 compares and
-    # 16 adds: a bucket search over the 16 sorted thresholds (sign mask, 4
-    # compare-and-select steps, one shared-memory increment), 10 int32 ops
-    # per element
+    # the operations the function needs: a bucket search over the 16
+    # sorted thresholds (sign mask, 4 compare-and-select steps, one
+    # shared-memory increment), 10 int32 ops per element; the kernel's
+    # search compiles to about twice that
     record("topk_count_ge", got_c.float(), want_c.float(),
            4 * (n + 32), 10 * n, 0,
            lambda: kernels.topk_count_ge(bits, ts0),
@@ -442,11 +497,28 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed):
         torch.cuda.synchronize()
         assert bit_equal(u3, pu3) and bit_equal(t3, pt3), \
             f"{label}: fused_epilogue at t0 = {t0 + 3}"
+    # the update is the masked estimates themselves, NaN payloads included
+    assert torch.equal(got_u.view(torch.int32), want_u.view(torch.int32)), \
+        f"{label}: fused_epilogue update bits"
+    # every estimate kept, and none but the NaNs
+    for p_x in (0, 0x7F800001):
+        pt = torch.tensor(p_x, dtype=torch.int32, device=dev)
+        u_x, t_x = kernels.fused_epilogue(est, pt, q, w, keys, t0)
+        pu_x, pt_x = tsk._fused_epilogue_plain(est, pt, q, w, keys, t0)
+        torch.cuda.synchronize()
+        assert torch.equal(u_x.view(torch.int32), pu_x.view(torch.int32)), \
+            f"{label}: fused_epilogue update at p = {p_x:#x}"
+        assert bit_equal(t_x, pt_x), \
+            f"{label}: fused_epilogue table at p = {p_x:#x}"
+    # the operations the function needs: one mask test per coordinate and
+    # one sign hash and add per kept nonzero estimate and row (the adds of
+    # zeros change no bit, see csrc/sketch_kernels.cu)
+    kept = int(((want_u.view(torch.int32) & 0x7FFFFFFF) != 0).sum())
     record("fused_epilogue", torch.cat([got_u.reshape(-1),
                                         got_t.reshape(-1)]),
            torch.cat([want_u.reshape(-1), want_t.reshape(-1)]),
            4 * (2 * est.numel() + got_t.numel() + 2 * q.numel() + r + 1),
-           HASH_ALU_OPS * hashes, 2 * hashes,
+           2 * est.numel() + HASH_ALU_OPS * r * kept, 2 * r * kept,
            lambda: kernels.fused_epilogue(est, p, q, w, keys, t0),
            lambda: tsk._fused_epilogue_plain(est, p, q, w, keys, t0))
     return results
@@ -703,9 +775,12 @@ def profile_rounds(one_round, n: int = 5) -> dict:
         print(f"  {dev_us(e) / n / 1e3:8.3f} ms/round  {e.count / n:6.1f} "
               f"calls/round  {e.key[:90]}")
     print("  port kernels (device ms/round): " + json.dumps(per_kernel))
+    memsets = sum(e.count for e in rows if "memset" in e.key.lower()) / n
+    print(f"  device memsets per round: {memsets:g}")
     return {"profiled_busy_ms_per_round": busy_ms / n,
             "profiled_wall_ms_per_round": wall_ms / n,
-            "kernel_ms_per_round": per_kernel}
+            "kernel_ms_per_round": per_kernel,
+            "memsets_per_round": memsets}
 
 
 # the port's kernel functions as the profiler names them (demangled or not)
@@ -754,8 +829,9 @@ def phase_cv_train():
 
 
 def kernel_times(card: str) -> int:
-    """``--kernel-times``: the accumulate pair and the descent alone, at the
-    headline geometry, one JSON line per timing, tagged with the checkout."""
+    """``--kernel-times``: the accumulate pair, the count pass, the fused
+    epilogue and the descent alone, at the headline geometry, one JSON line
+    per timing, tagged with the checkout."""
     d, c, r_max, k = 6_568_640, 500_000, 5, 50_000
     tree = os.path.dirname(os.path.dirname(os.path.abspath(kernels.__file__)))
     kernels.library()
@@ -784,6 +860,19 @@ def kernel_times(card: str) -> int:
                 lambda: kernels.sketch_accumulate_into(tbl, v3, q, w, keys,
                                                        0)))
     n = bits.numel()
+    p = ttk._descent_plain(bits, k)
+    # the descent's first and last passes (prefix 0 and p's top 7
+    # nibbles), flushed and not (the patterns left in L2 as in the round)
+    for shift, prefix in ((28, torch.zeros_like(p)), (0, p & ~15)):
+        ts = ttk._pass_thresholds(prefix, shift)
+        emit(name="topk_count_ge", n=n, shift=shift, ms=time_ms(
+            lambda: kernels.topk_count_ge(bits, ts)), warm_ms=time_ms(
+            lambda: kernels.topk_count_ge(bits, ts), flush=False))
+    emit(name="fused_epilogue", r=r_max, Tn=cs.T, k=k, ms=time_ms(
+        lambda: kernels.fused_epilogue(est, p, cs.shift_q, cs.shift_w,
+                                       cs.sign_keys, 0)), warm_ms=time_ms(
+        lambda: kernels.fused_epilogue(est, p, cs.shift_q, cs.shift_w,
+                                       cs.sign_keys, 0), flush=False))
     emit(name="topk_descent", n=n, k=k,
          ms=time_ms(lambda: kernels.topk_descent(bits, k)))
     emit(name="torch.topk", n=n, k=k,
@@ -796,7 +885,8 @@ def kernel_times(card: str) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-times", action="store_true",
-                    help="time the accumulate pair and the descent only")
+                    help="time the accumulate pair, the count pass, the "
+                    "fused epilogue and the descent only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -828,7 +918,8 @@ def main(argv=None) -> int:
     for label, geom, timed in (
             ("headline", (6_568_640, 500_000, 5, 0, 0), True),
             ("ragged", (50_003, 3_001, 4, 2, 7), False),
-            ("ragged-odd", (50_003, 3_001, 5, 0, 8), False)):
+            ("ragged-odd", (50_003, 3_001, 5, 0, 8), False),
+            ("ragged-tile", (9_001, 700, 5, 0, 9), False)):
         d, c, r, t0, seed = geom
         res = check_kernels(card, d, c, r, t0, seed, label, timed)
         for name, row in res.items():

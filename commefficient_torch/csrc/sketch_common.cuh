@@ -1,6 +1,6 @@
 // Helpers shared by the port's kernel sources (sketch_kernels.cu,
-// fused_epilogue.cu, topk_descent.cu). Each source is its own translation
-// unit; everything here is internal to the one that includes it.
+// topk_descent.cu). Each source is its own translation unit; everything
+// here is internal to the one that includes it.
 //
 // Shared conventions (identical to commefficient_tpu/ops/sketch.py and
 // ops/topk.py):
@@ -49,34 +49,6 @@ __device__ __forceinline__ float signed_by(float x, uint32_t idx,
 __device__ __forceinline__ int32_t magnitude(int32_t bits) {
   const int32_t m = bits & kAbsMask;
   return m > kInfBits ? 0 : m;
-}
-
-// Adds each thread's kCandidates register counters into counts[0..16): a
-// warp shuffle reduction, a block reduction through shared memory, then one
-// atomicAdd per candidate per block. Integer sums are exact in any order.
-// Every thread of the block must call it.
-template <int kThreads>
-__device__ __forceinline__ void block_add_counts(
-    const int32_t (&cnt)[kCandidates], int32_t* counts) {
-  static_assert(kThreads % 32 == 0 && kThreads / 32 >= 1, "whole warps");
-  __shared__ int32_t s_part[kCandidates][kThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < kCandidates; ++j) {
-    int32_t x = cnt[j];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      x += __shfl_down_sync(0xffffffffu, x, off);
-    if (lane == 0) s_part[j][warp] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x < kCandidates) {
-    int32_t total = 0;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) total += s_part[threadIdx.x][w];
-    if (total) atomicAdd(&counts[threadIdx.x], total);
-  }
 }
 
 }  // namespace

@@ -1,10 +1,11 @@
 """Build, bind and count the port's CUDA kernels.
 
-The six kernels of the sketched round live in three sources under
-``csrc/`` (``sketch_kernels.cu``: the accumulate from a zero or an incoming
-table, the median query and the top-k count pass; ``fused_epilogue.cu``;
-``topk_descent.cu``), each with a plain ``extern "C"`` interface and the
-helpers of ``csrc/sketch_common.cuh``. At first use each source is
+The six kernels of the sketched round live in two sources under ``csrc/``
+(``sketch_kernels.cu``: the accumulate from a zero or an incoming table and
+the fused server epilogue, three instantiations of one loop body, the
+median query and the top-k count pass; ``topk_descent.cu``), each with a
+plain ``extern "C"`` interface and the helpers of
+``csrc/sketch_common.cuh``. At first use each source is
 compiled by its own ``nvcc`` for ``sm_90a`` (all started together), the
 objects are linked into one shared library in ``_build/`` beside this file
 (keyed on a hash of the sources and the flags, so an edited source
@@ -35,8 +36,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "sketch_kernels.cu", CSRC / "fused_epilogue.cu",
-           CSRC / "topk_descent.cu")
+SOURCES = (CSRC / "sketch_kernels.cu", CSRC / "topk_descent.cu")
 HEADERS = (CSRC / "sketch_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -64,7 +64,7 @@ SKETCH_ESTIMATES = Kernel(
     "sketch_estimates", _SKETCH_CU,
     "commefficient_tpu/ops/sketch.py:891 (_estimates_pallas)")
 FUSED_EPILOGUE = Kernel(
-    "fused_epilogue", "commefficient_torch/csrc/fused_epilogue.cu",
+    "fused_epilogue", _SKETCH_CU,
     "commefficient_tpu/ops/sketch.py:1118 (_fused_epilogue_pallas)")
 TOPK_COUNT_GE = Kernel(
     "topk_count_ge", _SKETCH_CU,
@@ -147,7 +147,7 @@ def library() -> ctypes.CDLL:
     lib.sketch_estimates.restype = i32
     lib.sketch_estimates_max_rows.argtypes = []
     lib.sketch_estimates_max_rows.restype = i32
-    lib.topk_count_ge.argtypes = [p, i64, p, p, i32, p]
+    lib.topk_count_ge.argtypes = [p, i64, p, p, p, i32, p]
     lib.topk_count_ge.restype = i32
     lib.sketch_accumulate_into.argtypes = [p, p, i32, i32, p, p, p, p, i32,
                                            i32, i32, i32, p]
@@ -247,22 +247,43 @@ def sketch_estimates(table3: torch.Tensor, shift_q: torch.Tensor,
     return out
 
 
+# The count pass's scratch on each (device, stream): 16 running totals and
+# the last block's ticket, zeroed once here; every launch leaves it zero.
+_COUNT_SCRATCH: dict = {}
+
+
+def _count_scratch(index: int, stream) -> torch.Tensor:
+    key = (index, stream.cuda_stream)
+    buf = _COUNT_SCRATCH.get(key)
+    if buf is None:
+        buf = _COUNT_SCRATCH[key] = torch.zeros(17, dtype=torch.int32,
+                                                device=f"cuda:{index}")
+    return buf
+
+
 def topk_count_ge(bits: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
-    """``counts[j] = #{i : mag(bits_i) >= ts[j]}`` for 16 int32 thresholds
-    over flat int32 bit patterns, on the card (see ``ops/topk``)."""
+    """``counts[j] = #{i : mag(bits_i) >= ts[j]}`` for any 16 int32
+    thresholds over fewer than 2**31 flat int32 bit patterns, on the card,
+    in one launch (see ``ops/topk``). ``bits`` may be a view at any 4-byte
+    offset."""
     if bits.device.type != "cuda" or bits.ndim != 1:
         raise ValueError("topk_count_ge: expected a flat CUDA tensor, got "
                          f"{tuple(bits.shape)} on {bits.device}")
     _check("bits", bits, torch.int32, bits.shape, bits.device)
     _check("ts", ts, torch.int32, (16,), bits.device)
+    if bits.numel() >= 2**31:
+        raise ValueError(f"topk_count_ge: {bits.numel()} patterns, at most "
+                         "2**31 - 1")
     lib = library()
-    with torch.cuda.device(bits.device):
+    index = (bits.device.index if bits.device.index is not None
+             else torch.cuda.current_device())
+    with torch.cuda.device(index):
+        stream = torch.cuda.current_stream(index)
         out = torch.empty(16, dtype=torch.int32, device=bits.device)
         err = lib.topk_count_ge(
             bits.data_ptr(), bits.numel(), ts.data_ptr(), out.data_ptr(),
-            _num_sms(bits.device.index if bits.device.index is not None
-                     else torch.cuda.current_device()),
-            torch.cuda.current_stream(bits.device).cuda_stream)
+            _count_scratch(index, stream).data_ptr(), _num_sms(index),
+            stream.cuda_stream)
     _raise_on(err, TOPK_COUNT_GE)
     TOPK_COUNT_GE.launches += 1
     return out

@@ -110,6 +110,50 @@ def test_count_kernel_and_descent_equal_plain(cuda, n, k):
         ttk.resolve_threshold(v, k))
 
 
+# Thresholds beyond the descent's sorted p + (j << shift): unsorted, with
+# repeats, 0, negative ones and 0x7FFFFFFF
+MIXED_THRESHOLDS = [0x3F400000, 0, 0x7F800000, 0x3F400000, 1, 0x7FFFFFFF,
+                    -5, 0x3E800000, 0x00800000, 0x3F400000, 0x7F7FFFFF,
+                    0x100, 0x3F000000, -2**31, 0x40400000, 0x3F400001]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mixed", "all-max", "own", "offset-1",
+                                  "n=1", "n=3", "n=129", "headline",
+                                  "back-to-back"])
+def test_count_kernel_contract_cases(cuda, kind):
+    """The count pass for any 16 thresholds (unsorted, repeated, 0,
+    negative, all 0x7FFFFFFF), on views at a 4-byte offset, on 1, 3, 129
+    and 7,001,344 NaN, inf and subnormal patterns, and twice back to back
+    (the kernel's scratch totals and ticket come back to zero)."""
+    n = 7_001_344 if kind == "headline" else 70_001
+    gen = torch.Generator().manual_seed(11)
+    bits = _special(torch.randn(n + 8, generator=gen)).view(torch.int32)
+    bits = bits.to(cuda)[:n]
+    ts = torch.tensor(MIXED_THRESHOLDS, dtype=torch.int32, device=cuda)
+    if kind == "all-max":
+        ts = torch.full((16,), 0x7FFFFFFF, dtype=torch.int32, device=cuda)
+    elif kind == "own":
+        ts = ttk._mag(bits)[torch.randint(0, n, (16,), generator=gen)
+                            .to(cuda)]
+    elif kind == "offset-1":
+        bits = bits[1:]
+    elif kind in ("n=1", "n=3", "n=129"):
+        bits = bits[1:1 + int(kind[2:])]
+    before = kernels.TOPK_COUNT_GE.launches
+    got = kernels.topk_count_ge(bits, ts)
+    if kind == "back-to-back":
+        other = bits[3:].flip(0).contiguous()
+        ts2 = ttk._pass_thresholds(torch.tensor(0x3F000000, dtype=torch.int32,
+                                                device=cuda), 20)
+        got2 = kernels.topk_count_ge(other, ts2)
+        assert torch.equal(got2, ttk._count_ge_plain(other, ts2))
+    assert torch.equal(got, ttk._count_ge_plain(bits, ts))
+    assert torch.equal(got.cpu(), ttk._count_ge_plain(bits.cpu(), ts.cpu()))
+    assert kernels.TOPK_COUNT_GE.launches == before + (
+        2 if kind == "back-to-back" else 1)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,c,r,seed,t0", GEOMS)
 def test_accumulate_into_kernel_equals_plain(cuda, d, c, r, seed, t0):
@@ -169,6 +213,33 @@ def test_fused_epilogue_kernel_equals_plain(cuda, d, c, r, seed, t0):
     assert _bit_equal(upd, want_u)
     assert _bit_equal(tbl, want_t)
     assert int((upd.abs() == 0.75).sum()) == 50
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p_bits", [0, 0x7F800001])
+@pytest.mark.parametrize("d,c,r,seed,t0", [GEOMS[0], GEOMS[3],
+                                           (20_000, 1_100, 5, 5, 1)])
+def test_fused_epilogue_kernel_at_threshold_extremes(cuda, p_bits, d, c, r,
+                                                     seed, t0):
+    """p = 0 keeps every estimate, p = 0x7F800001 none but the NaNs; rows
+    of 2,048, 768 and 1,152 cells (the last two not a multiple of the
+    kernel's 1,024-cell tile). The update is the plain version's bit for
+    bit, NaN payloads included."""
+    cs = tsk.make_sketch(d, c, r, seed=seed, device=cuda)
+    Tn = cs.T - t0
+    gen = torch.Generator().manual_seed(seed + 40)
+    est = _special(torch.randn((Tn, cs.sublanes, 128), generator=gen))
+    est.view(-1).view(torch.int32)[7] = 0xFFC00123 - 2**32  # -NaN, payload
+    est = est.to(cuda)
+    p = torch.tensor(p_bits, dtype=torch.int32, device=cuda)
+    q, w = tsk._shift_cols(cs.shift_q, cs.shift_w, t0, Tn)
+    upd, tbl = kernels.fused_epilogue(est, p, q, w, cs.sign_keys, t0)
+    want_u, want_t = tsk._fused_epilogue_plain(est, p, q, w, cs.sign_keys, t0)
+    torch.cuda.synchronize()
+    assert torch.equal(upd.view(torch.int32), want_u.view(torch.int32))
+    assert _bit_equal(tbl, want_t)
+    if p_bits:
+        assert int((upd != 0).sum()) == int(torch.isnan(est).sum())
 
 
 @pytest.mark.gpu

@@ -96,6 +96,79 @@ def test_count_pass_matches_pallas_kernel():
     np.testing.assert_array_equal(ttk.topk_count_ge(bits, ts).numpy(), want)
 
 
+# Thresholds beyond the descent's sorted p + (j << shift), as the count
+# pass's contract allows (the sharded server counts others): unsorted, with
+# repeats, 0, negative ones and 0x7FFFFFFF; all 0x7FFFFFFF; and 16 of the
+# data's own magnitudes in random order
+MIXED_THRESHOLDS = [0x3F400000, 0, 0x7F800000, 0x3F400000, 1, 0x7FFFFFFF,
+                    -5, 0x3E800000, 0x00800000, 0x3F400000, 0x7F7FFFFF,
+                    0x100, 0x3F000000, -2**31, 0x40400000, 0x3F400001]
+
+
+def _thresholds(kind, bits):
+    if kind == "mixed":
+        return np.array(MIXED_THRESHOLDS, np.int32)
+    if kind == "all-max":
+        return np.full(16, 0x7FFFFFFF, np.int32)
+    m = bits & 0x7FFFFFFF
+    m = np.where(m > 0x7F800000, 0, m)
+    return m[np.random.RandomState(2).randint(0, bits.size, 16)]
+
+
+@pytest.mark.parametrize("kind", ["mixed", "all-max", "own"])
+def test_count_pass_any_thresholds_matches_pallas_kernel(kind):
+    """The count pass at unsorted, repeated, zero and negative thresholds.
+    Two whole blocks of the Pallas kernel (2 * 512 * 128 patterns), so its
+    zero padding, which thresholds <= 0 would count, is empty."""
+    v = _edge(2 * 512 * 128, "special")
+    bits = v.view(np.int32)
+    ts = _thresholds(kind, bits)
+    v3, T = jtk._blocks3(jnp.asarray(bits))
+    assert T * 512 * 128 == bits.size
+    want = np.asarray(jtk._count_ge_pallas(v3, jnp.asarray(ts), T=T,
+                                           interpret=True))
+    got = ttk.topk_count_ge(torch.from_numpy(bits), torch.from_numpy(ts))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _bucket_count(bits, ts):
+    """A numpy transcription of the card's count pass
+    (``csrc/sketch_kernels.cu``): the 16 thresholds sorted by stable rank
+    and padded with 16 sentinels no magnitude reaches, a pattern's bucket
+    ``#{i : sorted[i] <= mag}`` by the 5-step binary search (the first
+    pivot ``sorted[15]``), a histogram of the buckets, suffix sums over
+    buckets 1..16, and each threshold's count read at its rank."""
+    ts = np.asarray(ts, np.int64)
+    rank = np.array([sum(ts[i] < ts[j] or (ts[i] == ts[j] and i < j)
+                         for i in range(16)) for j in range(16)])
+    s = np.full(32, 0x7FFFFFFF, np.int64)
+    s[rank] = ts
+    m = bits.astype(np.int64) & 0x7FFFFFFF
+    m = np.where(m > 0x7F800000, 0, m)
+    b = np.where(s[15] <= m, 16, 0)
+    for step in (8, 4, 2, 1):
+        b = np.where(s[b + step - 1] <= m, b + step, b)
+    total = np.bincount(b, minlength=17)[1:]   # buckets 1..16
+    suffix = np.cumsum(total[::-1])[::-1]       # patterns in buckets >= q+1
+    return suffix[rank].astype(np.int32)
+
+
+@pytest.mark.parametrize("data", ["random", "special", "ties", "subnormal",
+                                  "zeros"])
+@pytest.mark.parametrize("kind", ["mixed", "all-max", "own", "descent"])
+def test_bucket_count_transcription_matches_plain(data, kind):
+    """The card's bucket search, transcribed, equals the plain count on the
+    descent's thresholds and on any others."""
+    bits = _edge(5000, data).view(np.int32)
+    if kind == "descent":
+        ts = ttk._pass_thresholds(torch.tensor(0x3F000000, dtype=torch.int32),
+                                  20).numpy()
+    else:
+        ts = _thresholds(kind, bits)
+    want = ttk._count_ge_plain(torch.from_numpy(bits), torch.from_numpy(ts))
+    np.testing.assert_array_equal(_bucket_count(bits, ts), want.numpy())
+
+
 def test_nan_passes_through_and_never_wins():
     v = np.arange(1, 101, dtype=np.float32)
     v[7] = np.nan
