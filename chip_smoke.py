@@ -2,7 +2,7 @@
 """Drive the PyTorch port on one NVIDIA card and hold its CUDA kernels
 against their plain PyTorch versions.
 
-    python3 chip_smoke.py [--kernel-times]
+    python3 chip_smoke.py [--kernel-times [NAME ...]]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -18,7 +18,8 @@ Phases (any failure exits non-zero; nothing is caught):
    CUDA-event times (median of 30, L2 flushed before each launch by a
    read of 96 MB, ``time_ms``) beside the bound the card's memory rate or
    issue rates set (the sign hashes' int32 operations count for the four
-   sketch kernels, ``HASH_ALU_OPS``), and the time of one PyTorch call
+   sketch kernels, ``HASH_ALU_OPS`` and ``QUERY_ALU_OPS_*``), and the time
+   of one PyTorch call
    computing the same function where there is one (``torch.topk`` for the
    descent, with ``torch.kthvalue`` beside it). Also exact: the running
    accumulate's segment form, which reads a group's flat vector in place,
@@ -30,13 +31,18 @@ Phases (any failure exits non-zero; nothing is caught):
    descent at a view not 16-byte aligned (``bits[1:]``), at k = n and
    k > n, and on all-equal and all-zero patterns; the fused epilogue at
    p = 0 (all kept) and p = 0x7F800001 (only NaNs kept), its update equal
-   to the masked estimates bit for bit, NaN payloads included;
+   to the masked estimates bit for bit, NaN payloads included; the query
+   masked at d as the round calls it (its tail +0.0 bit for bit, the rest
+   equal to ``mask_tail`` of the plain version), also on a table half of
+   whose cells are zero;
 4. the headline FetchSGD round at full width through FedModel /
    FedOptimizer / LambdaLR on a seeded synthetic batch (8 clients x 8
    images): 2 warm-up and 20 timed rounds, rounds/sec, a finite loss,
    and exactly 2 / 1 / 8 launches per round of the accumulate, the query
-   and the count pass, the device time of each port kernel and the
-   device memsets per round (``torch.profiler``); then the server phase
+   and the count pass, no call of ``ChunkLayout.mask_tail`` (the query
+   kernel writes the padded tail), the device time of each port kernel,
+   the device memsets and device operations per round
+   (``torch.profiler``); then the server phase
    from one table and state through the kernels and through the plain
    versions, which must be equal;
 5. the opt-in round: the same round with ``--stream_sketch
@@ -59,12 +65,14 @@ card's line, and ``{"ok": true, "device": {...}}`` as the last line.
 Without a card it exits with an error before printing any result.
 
 ``--kernel-times`` runs none of the phases. It times, for the checkout
-that holds the script, the accumulate pair over full chunk ranges at
-``r`` in {1, 5} and ``Tn`` in {1, 3, 14}, the count pass at the first
-and the last pass's thresholds and the fused epilogue at the headline
-geometry, and the descent over 7,001,344 patterns at k = 50,000 with
-``torch.topk`` and ``torch.kthvalue`` beside it, one JSON line each. It
-uses only entry points that the port has had since its second slice, so
+that holds the script, the accumulate pair and the query over full chunk
+ranges at ``r`` in {1, 5} and ``Tn`` in {1, 3, 14} (the query flushed
+and warm), the round's masked query (``estimates_chunks``), the count
+pass at the first and the last pass's thresholds and the fused epilogue
+at the headline geometry, and the descent over 7,001,344 patterns at
+k = 50,000 with ``torch.topk`` and ``torch.kthvalue`` beside it, one JSON
+line each (with names, only those rows). It uses only entry points that
+the port has had since its second slice, so
 to compare two checkouts on one card, copy
 this file into the other's root (for example the parent commit unpacked
 with ``git archive`` into a gitignored directory) and run the two copies
@@ -95,6 +103,7 @@ from commefficient_torch.federated.losses import make_cv_losses
 from commefficient_torch.federated.server import server_update
 from commefficient_torch.federated.worker import microbatch_plan
 from commefficient_torch.models import ResNet9
+from commefficient_torch.ops.flat import ChunkLayout
 from commefficient_torch.ops import sketch as tsk
 from commefficient_torch.ops import topk as ttk
 from commefficient_torch.utils import PiecewiseLinear
@@ -248,10 +257,34 @@ def bound(nbytes: float, int_ops: float, flops: float, peak) -> dict:
 # either way the bound is 6 ops a hash at 64 lanes x SMs x clock.
 HASH_ALU_OPS = 6
 
+# The query's ALU-pipe ops. All its rows hash the same coordinate, so
+# fmix32's first xor-shift is taken once per coordinate: its xor (1; the
+# shift can run as IMAD.HI on the FMA pipe). Per (row, coordinate): the
+# xor with the row's folded key (1), the second xor-shift's xor (1) and
+# the sign flip (1); the sign bit itself comes out of one multiply
+# (csrc/sketch_common.cuh::sign_word). The median's min and max run on the
+# ALU pipe too (64 a clock per SM, the CUDA guide's rate for compare,
+# minimum and maximum): 10 at R = 5, 4 at R = 3, the bubble network's
+# R (R - 1) at other R.
+QUERY_ALU_OPS_COORD = 1
+QUERY_ALU_OPS_ROW = 3
+MEDIAN_MIN_MAX = {r: 10 if r == 5 else 4 if r == 3 else r * (r - 1)
+                  for r in range(1, 9)}
 
-def plain_estimates(table3, cs_, t0=0, Tn=None):
-    return tsk._sketch_estimates_plain(table3, cs_.inv_q, cs_.inv_w,
-                                       cs_.sign_keys, t0)
+
+def mask_past(est, t0, n_valid):
+    """``mask_tail`` by global coordinate, written out: +0.0 at every
+    position of the chunks from ``t0`` whose coordinate is >= n_valid."""
+    coord = t0 * est.shape[1] * 128 + torch.arange(
+        est.numel(), device=est.device).view(est.shape)
+    return torch.where(coord < n_valid, est,
+                       torch.zeros((), dtype=est.dtype, device=est.device))
+
+
+def plain_estimates(table3, cs_, t0=0, Tn=None, n_valid=None):
+    est = tsk._sketch_estimates_plain(table3, cs_.inv_q, cs_.inv_w,
+                                      cs_.sign_keys, t0)
+    return est if n_valid is None else mask_past(est, t0, n_valid)
 
 
 @contextlib.contextmanager
@@ -392,17 +425,42 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed):
            lambda: tsk._sketch_accumulate_into_plain(tbl3, v3, q, w, keys,
                                                      t0))
 
-    # query
+    # query: unmasked, then masked at d as the round calls it (+0.0 at
+    # every coordinate >= d, bit for bit), on the table and, untimed, on a
+    # table half of whose cells are zero (ties at zero)
     table3 = want if timed else special(want.clone())
     got = kernels.sketch_estimates(table3, q, w, keys, t0)
     want = tsk._sketch_estimates_plain(table3, iq, iw, keys, t0)
     torch.cuda.synchronize()
     assert nan_equal(got, want), f"{label}: sketch_estimates != plain"
-    record("sketch_estimates", got, want,
-           4 * (table3.numel() + got.numel() + 2 * q.numel() + r),
-           HASH_ALU_OPS * hashes, Tn * c_pad * (r + r * (r - 1) + 1),
-           lambda: kernels.sketch_estimates(table3, q, w, keys, t0),
-           lambda: tsk._sketch_estimates_plain(table3, iq, iw, keys, t0))
+    tables = {"table": table3}
+    if not timed:
+        zero = torch.rand(table3.shape, generator=gen).to(dev)
+        tables["half-zero table"] = torch.where(
+            zero < 0.25, torch.zeros((), device=dev), torch.where(
+                zero < 0.5, torch.full((), -0.0, device=dev), table3))
+    for tname, tbl in tables.items():
+        got_m = kernels.sketch_estimates(tbl, q, w, keys, t0, d)
+        want_u = tsk._sketch_estimates_plain(tbl, iq, iw, keys, t0)
+        want_m = mask_past(want_u, t0, d)
+        if t0 == 0:
+            assert bit_equal(want_m, cs.chunk_layout.mask_tail(want_u))
+        torch.cuda.synchronize()
+        tail = mask_past(torch.ones_like(want_u), t0, d) == 0
+        assert not got_m[tail].view(torch.int32).any(), \
+            f"{label}: masked sketch_estimates tail not +0.0 ({tname})"
+        assert nan_equal(got_m, want_m), \
+            f"{label}: masked sketch_estimates != mask_tail(plain) ({tname})"
+    # the operations the function needs, for the coordinates below d (the
+    # kernel neither gathers nor hashes a masked cell)
+    nv = min(max(d - t0 * c_pad, 0), Tn * c_pad)
+    record("sketch_estimates", got_m, want_m,
+           4 * (table3.numel() + got_m.numel() + 2 * q.numel() + r),
+           (QUERY_ALU_OPS_COORD + QUERY_ALU_OPS_ROW * r + MEDIAN_MIN_MAX[r])
+           * nv, (2 if r % 2 == 0 else 0) * nv,
+           lambda: kernels.sketch_estimates(table3, q, w, keys, t0, d),
+           lambda: mask_past(tsk._sketch_estimates_plain(
+               table3, iq, iw, keys, t0), t0, d))
 
     # the estimate plane of the server phase, and its top-k size
     est = cs.chunk_layout.mask_tail(want) if t0 == 0 else want
@@ -565,14 +623,24 @@ def timed_rounds(one_round, batch, per_round: dict, label: str):
     for _ in range(2):
         one_round(batch)
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    losses = []
-    for _ in range(TIMED_ROUNDS):
-        losses.append(one_round(batch)[0])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    masks = []
+    mask_tail = ChunkLayout.mask_tail
+
+    def counted_mask_tail(self, c3):
+        masks.append(c3.device.type)
+        return mask_tail(self, c3)
+
+    with mock.patch.object(ChunkLayout, "mask_tail", counted_mask_tail):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(TIMED_ROUNDS):
+            losses.append(one_round(batch)[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    # the query kernel writes the padded tail's +0.0 itself
+    assert not masks, f"{label}: mask_tail ran {len(masks)} times"
     loss = np.concatenate(losses)
     assert np.all(np.isfinite(loss)), f"{label}: non-finite round loss"
     want = {k.name: per_round.get(k.name, 0) * TIMED_ROUNDS
@@ -582,7 +650,8 @@ def timed_rounds(one_round, batch, per_round: dict, label: str):
     print(f"{label} rounds: {TIMED_ROUNDS} timed, {rps:.3f} rounds/sec "
           f"({1e3 / rps:.2f} ms/round), mean loss {loss.mean():.4f}")
     print(f"{label} launches per round: " + json.dumps(
-        {k: v // TIMED_ROUNDS for k, v in counts.items()}))
+        {k: v // TIMED_ROUNDS for k, v in counts.items()}) +
+        ", mask_tail calls: 0")
     return counts, rps
 
 
@@ -776,11 +845,14 @@ def profile_rounds(one_round, n: int = 5) -> dict:
               f"calls/round  {e.key[:90]}")
     print("  port kernels (device ms/round): " + json.dumps(per_kernel))
     memsets = sum(e.count for e in rows if "memset" in e.key.lower()) / n
-    print(f"  device memsets per round: {memsets:g}")
+    device_ops = sum(e.count for e in rows) / n
+    print(f"  device memsets per round: {memsets:g}, device operations "
+          f"(kernels, copies, memsets) per round: {device_ops:g}")
     return {"profiled_busy_ms_per_round": busy_ms / n,
             "profiled_wall_ms_per_round": wall_ms / n,
             "kernel_ms_per_round": per_kernel,
-            "memsets_per_round": memsets}
+            "memsets_per_round": memsets,
+            "device_ops_per_round": device_ops}
 
 
 # the port's kernel functions as the profiler names them (demangled or not)
@@ -828,10 +900,11 @@ def phase_cv_train():
         print(f"cv_train {label} launches: {json.dumps(counts)}")
 
 
-def kernel_times(card: str) -> int:
-    """``--kernel-times``: the accumulate pair, the count pass, the fused
-    epilogue and the descent alone, at the headline geometry, one JSON line
-    per timing, tagged with the checkout."""
+def kernel_times(card: str, only=()) -> int:
+    """``--kernel-times``: the accumulate pair, the query, the count pass,
+    the fused epilogue and the descent alone, at the headline geometry, one
+    JSON line per timing, tagged with the checkout; only the rows named in
+    ``only``, if it names any."""
     d, c, r_max, k = 6_568_640, 500_000, 5, 50_000
     tree = os.path.dirname(os.path.dirname(os.path.abspath(kernels.__file__)))
     kernels.library()
@@ -844,8 +917,11 @@ def kernel_times(card: str) -> int:
     bits = est.reshape(-1).view(torch.int32)
     mags = bits & 0x7FFFFFFF
 
-    def emit(**row):
-        print(json.dumps({"tree": tree, "card": card, **row}))
+    def emit(name, **times):
+        if not only or name in only:
+            print(json.dumps({"tree": tree, "card": card, "name": name,
+                              **{k: v() if callable(v) else v
+                                 for k, v in times.items()}}))
 
     for r in (1, r_max):
         for Tn in (1, 3, cs.T):
@@ -854,39 +930,55 @@ def kernel_times(card: str) -> int:
             w = cs.shift_w[:r, :Tn].contiguous()
             keys = cs.sign_keys[:r].contiguous()
             tbl = table[:r].contiguous()
-            emit(name="sketch_accumulate", r=r, Tn=Tn, ms=time_ms(
+            emit("sketch_accumulate", r=r, Tn=Tn, ms=lambda: time_ms(
                 lambda: kernels.sketch_accumulate(v3, q, w, keys, 0)))
-            emit(name="sketch_accumulate_into", r=r, Tn=Tn, ms=time_ms(
+            emit("sketch_accumulate_into", r=r, Tn=Tn, ms=lambda: time_ms(
                 lambda: kernels.sketch_accumulate_into(tbl, v3, q, w, keys,
                                                        0)))
+
+            def query():
+                return kernels.sketch_estimates(tbl, q, w, keys, 0)
+
+            emit("sketch_estimates", r=r, Tn=Tn, ms=lambda: time_ms(query),
+                 warm_ms=lambda: time_ms(query, flush=False))
+    # the round's query with its tail mask: one launch, or the query and
+    # mask_tail's three operations
+    emit("estimates_chunks", r=r_max, Tn=cs.T,
+         ms=lambda: time_ms(lambda: tsk.estimates_chunks(cs, table)),
+         warm_ms=lambda: time_ms(lambda: tsk.estimates_chunks(cs, table),
+                                 flush=False))
     n = bits.numel()
     p = ttk._descent_plain(bits, k)
     # the descent's first and last passes (prefix 0 and p's top 7
     # nibbles), flushed and not (the patterns left in L2 as in the round)
     for shift, prefix in ((28, torch.zeros_like(p)), (0, p & ~15)):
         ts = ttk._pass_thresholds(prefix, shift)
-        emit(name="topk_count_ge", n=n, shift=shift, ms=time_ms(
-            lambda: kernels.topk_count_ge(bits, ts)), warm_ms=time_ms(
+        emit("topk_count_ge", n=n, shift=shift, ms=lambda: time_ms(
+            lambda: kernels.topk_count_ge(bits, ts)), warm_ms=lambda: time_ms(
             lambda: kernels.topk_count_ge(bits, ts), flush=False))
-    emit(name="fused_epilogue", r=r_max, Tn=cs.T, k=k, ms=time_ms(
-        lambda: kernels.fused_epilogue(est, p, cs.shift_q, cs.shift_w,
-                                       cs.sign_keys, 0)), warm_ms=time_ms(
-        lambda: kernels.fused_epilogue(est, p, cs.shift_q, cs.shift_w,
-                                       cs.sign_keys, 0), flush=False))
-    emit(name="topk_descent", n=n, k=k,
-         ms=time_ms(lambda: kernels.topk_descent(bits, k)))
-    emit(name="torch.topk", n=n, k=k,
-         ms=time_ms(lambda: torch.topk(mags, k, sorted=False)))
-    emit(name="torch.kthvalue", n=n, k=k,
-         ms=time_ms(lambda: torch.kthvalue(mags, n - k + 1), reps=5))
+
+    def epilogue():
+        return kernels.fused_epilogue(est, p, cs.shift_q, cs.shift_w,
+                                      cs.sign_keys, 0)
+
+    emit("fused_epilogue", r=r_max, Tn=cs.T, k=k,
+         ms=lambda: time_ms(epilogue),
+         warm_ms=lambda: time_ms(epilogue, flush=False))
+    emit("topk_descent", n=n, k=k,
+         ms=lambda: time_ms(lambda: kernels.topk_descent(bits, k)))
+    emit("torch.topk", n=n, k=k,
+         ms=lambda: time_ms(lambda: torch.topk(mags, k, sorted=False)))
+    emit("torch.kthvalue", n=n, k=k, ms=lambda: time_ms(
+        lambda: torch.kthvalue(mags, n - k + 1), reps=5))
     return 0
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel-times", action="store_true",
-                    help="time the accumulate pair, the count pass, the "
-                    "fused epilogue and the descent only")
+    ap.add_argument("--kernel-times", nargs="*", metavar="NAME",
+                    help="time the accumulate pair, the query, the count "
+                    "pass, the fused epilogue and the descent only (the "
+                    "rows of the NAMEs given, else all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -894,8 +986,8 @@ def main(argv=None) -> int:
         return 1
     card = card_line()
     print(card)
-    if args.kernel_times:
-        return kernel_times(card)
+    if args.kernel_times is not None:
+        return kernel_times(card, args.kernel_times)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)")

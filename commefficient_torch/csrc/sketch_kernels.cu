@@ -1,6 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels of the sketched FetchSGD round: the
 // accumulate (from a zero table or from an incoming one) and the fused
-// server epilogue, three instantiations of one loop body; the median query;
+// server epilogue, three instantiations of one loop body; the median query
+// with the tail mask;
 // the top-k count pass. The one-launch top-k descent lives in
 // topk_descent.cu.
 //
@@ -280,65 +281,183 @@ int launch_accumulate(bool from_table, const float* table_in, const float* v,
 // ---------------------------------------------------------------------------
 // sketch_estimates
 //
-// Replaces commefficient_tpu/ops/sketch.py::_estimates_pallas.
-//   est[t, p] = median_j( sign_j((t0+t)*c_pad + p) * row_j[(p + m[j,t]) mod c_pad] )
-// with the bubble min/max network of _median_small (even R averages the
-// middle two). Bound: device-memory bytes (the table read once, the
-// estimates written once). Design: one thread per output cell gathers its
-// R values by modular index; that replaces the TPU's doubled table and DMA
-// windows. The table (10 MB at the headline geometry) stays in L2 across
-// the Tn chunks. R is a template parameter so the network unrolls in
-// registers.
+// Replaces commefficient_tpu/ops/sketch.py::_estimates_pallas, and the
+// tail mask that commefficient_tpu/ops/sketch.py::estimates_chunks (and
+// estimates_chunks_local, by global coordinate) applies after it:
+//   est[t, p] = median_j( sign_j(i) * row_j[(p + m[j,t]) mod c_pad] ),
+//   i = (t0+t)*c_pad + p, for i < n_valid; +0.0f for i >= n_valid,
+// the median being _median_small's (even R averages the middle two). With
+// n_valid = (t0+Tn)*c_pad nothing is masked; the round passes d, so the
+// padded tail comes out as the +0.0 that torch.where(keep, est, 0) writes,
+// and no mask pass follows the launch.
 //
-// min/max propagate NaN like torch.minimum/maximum and jnp.minimum/maximum
-// (CUDA's fminf/fmaxf would drop it): a NaN table cell must reach the top-k's
-// NaN passthrough and the train loop's NaN abort.
+// Bound: the bytes (the table read once, the estimates written once: 38 MB,
+// 0.0113 ms at the headline geometry), ahead of the ALU-pipe ops
+// (chip_smoke.py::QUERY_ALU_OPS_*: the hash's first xor-shift once per
+// coordinate, 3 ops per row and coordinate with the shifts left to the FMA
+// pipe, the median's min and max).
+// Each table cell is read Tn times, once per chunk, from the 50 MB L2.
+//
+// Design. The first form gave a thread one cell: it reloaded the row shifts
+// from global memory, formed a 64-bit coordinate, tested the wrap and took
+// the whole hash per (row, cell), multiplied by the sign, and sorted by the
+// full bubble network with a NaN test on every comparator (0.066 ms at the
+// headline geometry, flushed). Here:
+//  - a block is one chunk t and kQryTile positions; the R shifts of chunk t
+//    and the keys' fold16 halves go through shared memory once a block;
+//  - a warp owns kQrySpan consecutive positions, a lane kQryCells cells 32
+//    apart: each gather and store instruction of the warp is 32
+//    consecutive floats, one wrap test a row covers the lane's cells, and
+//    all kQryCells * R gathers are issued before any arithmetic;
+//  - the sign takes 6 instructions a row and cell, 4 of them on the ALU
+//    pipe, in place of fmix32's 9 and 6 after a shared fold16
+//    (sketch_common.cuh::sign_word: the coordinate's fold16 shared by the
+//    rows, the sign bit out of one multiply, one LOP3 to flip the value);
+//  - the median is min/max with NaN propagation in the instruction
+//    (min.NaN / max.NaN, FMNMX.NAN: a NaN operand gives the canonical NaN,
+//    like torch.minimum and jnp.minimum), so no NaN test is needed: with
+//    NaN-propagating min and max, any network in which every input reaches
+//    the output returns NaN when some input is NaN, as the bubble network
+//    does. R = 5 takes 10 of them (median3 of e and the middle two of the
+//    pairs' minima and maxima), R = 3 four, other R the bubble network.
+//    Among equal values a different one may be picked than the bubble
+//    network picks: where +0.0 and -0.0 tie at the median the sign of the
+//    zero may differ. No consumer reads that sign (the top-k compares
+//    magnitudes; the mask zeroes +0.0 and -0.0 alike); every nonzero value
+//    and every NaN position is the plain version's;
+//  - a cell at or past n_valid is written as +0.0f, and a thread whose
+//    cells all are skips its gathers.
+// On an H100 the arithmetic sets the time. At 4 cells a thread and 256
+// threads, the hashes and medians alone (no loads, no stores) took 0.0297
+// of the whole 0.0324 ms, the loads alone 0.026 (r = 5, Tn = 14). 8
+// cells a thread (half the wrap tests and address work a cell) at 128
+// threads took 0.031, and the tail select moved after the medians (a
+// select in each cell's median had put every cell's arithmetic behind a
+// branch of its own, which cost the scheduler its overlap of cells)
+// 0.0297 masked (PERF.md). The estimates are stored with plain stores:
+// the next kernel (the count pass or the descent) reads them from L2.
+// Never with --use_fast_math: FMNMX keeps subnormals and orders the
+// infinities without it.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+constexpr int kQryThreads = 128;
+constexpr int kQryCells = 8;
+// A warp owns kQrySpan consecutive positions, lane l the cells l, l + 32,
+// ..., l + 224, so each gather and store instruction of a warp is 32
+// consecutive floats.
+constexpr int kQrySpan = 32 * kQryCells;
+constexpr int kQryTile = kQryThreads * kQryCells;
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float median3(float x, float y, float z) {
+  return max_nan(min_nan(x, y), min_nan(max_nan(x, y), z));
 }
 
 template <int R>
-__global__ void sketch_estimates_kernel(const float* __restrict__ table,
-                                        const int32_t* __restrict__ shift_q,
-                                        const int32_t* __restrict__ shift_w,
-                                        const int32_t* __restrict__ keys,
-                                        float* __restrict__ est, int Tn,
-                                        int c_pad, int t0) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const int t = blockIdx.y;
-  if (p >= c_pad) return;
-  const uint32_t idx =
-      static_cast<uint32_t>(static_cast<int64_t>(t0 + t) * c_pad + p);
-  float v[R];
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    const int m = shift_q[j * Tn + t] * 128 + shift_w[j * Tn + t];
-    int c = p + m;
-    if (c >= c_pad) c -= c_pad;
-    v[j] = table[static_cast<int64_t>(j) * c_pad + c] *
-           sign_of(idx, static_cast<uint32_t>(keys[j]));
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-#pragma unroll
-    for (int j = 0; j < R - 1 - i; ++j) {
-      const float a = v[j], b = v[j + 1];
-      v[j] = nan_min(a, b);
-      v[j + 1] = nan_max(a, b);
-    }
-  }
-  float med;
-  if constexpr (R % 2) {
-    med = v[R / 2];
+__device__ __forceinline__ float median_of(float (&v)[R]) {
+  if constexpr (R == 5) {
+    return median3(v[4], max_nan(min_nan(v[0], v[1]), min_nan(v[2], v[3])),
+                   min_nan(max_nan(v[0], v[1]), max_nan(v[2], v[3])));
+  } else if constexpr (R == 3) {
+    return median3(v[0], v[1], v[2]);
   } else {
-    med = 0.5f * (v[R / 2 - 1] + v[R / 2]);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int j = 0; j < R - 1 - i; ++j) {
+        const float a = v[j], b = v[j + 1];
+        v[j] = min_nan(a, b);
+        v[j + 1] = max_nan(a, b);
+      }
+    }
+    if constexpr (R % 2) return v[R / 2];
+    return 0.5f * (v[R / 2 - 1] + v[R / 2]);
   }
-  est[static_cast<int64_t>(t) * c_pad + p] = med;
+}
+
+template <int R>
+__global__ void __launch_bounds__(kQryThreads)
+    sketch_estimates_kernel(const float* __restrict__ table,
+                            const int32_t* __restrict__ shift_q,
+                            const int32_t* __restrict__ shift_w,
+                            const int32_t* __restrict__ keys,
+                            float* __restrict__ est, int Tn, int c_pad,
+                            int t0, int64_t n_valid) {
+  __shared__ int s_m[R];
+  __shared__ uint32_t s_key[R];
+  const int t = blockIdx.y;
+  if (threadIdx.x < R) {
+    const int j = threadIdx.x;
+    s_m[j] = shift_q[j * Tn + t] * 128 + shift_w[j * Tn + t];
+    s_key[j] = fold16(static_cast<uint32_t>(keys[j]));
+  }
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  const int span0 = blockIdx.x * kQryTile + (threadIdx.x / 32) * kQrySpan;
+  if (span0 >= c_pad) return;
+  // c_pad is a multiple of 128, so the warp's span holds 4 or 8 whole
+  // columns of cells in the chunk: cell k exists iff k < cells
+  const int cells = min(kQryCells, (c_pad - span0) / 32);
+  const int p0 = span0 + lane;
+  float* out = est + static_cast<int64_t>(t) * c_pad + p0;
+  // cell k is below n_valid iff 32 k < room
+  const int64_t room =
+      n_valid - (static_cast<int64_t>(t0 + t) * c_pad + p0);
+  float med[kQryCells];
+  if (room <= 0) {
+#pragma unroll
+    for (int k = 0; k < kQryCells; ++k) med[k] = 0.0f;
+  } else {
+    float v[kQryCells][R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      int c = p0 + s_m[j];
+      if (c >= c_pad) c -= c_pad;
+      const float* row = table + static_cast<int64_t>(j) * c_pad;
+      if (c + kQrySpan - 32 < c_pad) {  // the common case: no wrap
+#pragma unroll
+        for (int k = 0; k < kQryCells; ++k) v[k][j] = __ldg(row + c + 32 * k);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kQryCells; ++k) {
+          int ck = c + 32 * k;
+          if (ck >= c_pad) ck -= c_pad;
+          v[k][j] = k < cells ? __ldg(row + ck) : 0.0f;
+        }
+      }
+    }
+    // the sign hash reads the low 32 bits of the coordinate
+    const uint32_t idx0 = static_cast<uint32_t>(t0 + t) *
+                              static_cast<uint32_t>(c_pad) +
+                          static_cast<uint32_t>(p0);
+#pragma unroll
+    for (int k = 0; k < kQryCells; ++k) {
+      const uint32_t h = fold16(idx0 + 32 * k);
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        v[k][j] = signed_by_word(v[k][j], sign_word(h ^ s_key[j]));
+      med[k] = median_of<R>(v[k]);
+    }
+    // the cells at or past n_valid (in the one warp that straddles it);
+    // selected after the medians, so that no cell's arithmetic sits behind
+    // a branch of its own
+#pragma unroll
+    for (int k = 0; k < kQryCells; ++k)
+      if (32 * k >= room) med[k] = 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < kQryCells; ++k)
+    if (k < cells) out[32 * k] = med[k];
 }
 
 // ---------------------------------------------------------------------------
@@ -499,10 +618,10 @@ __global__ void __launch_bounds__(kCountThreads)
 template <int R>
 void launch_estimates(const float* table, const int32_t* q, const int32_t* w,
                       const int32_t* keys, float* est, int Tn, int c_pad,
-                      int t0, cudaStream_t stream) {
-  const dim3 grid((c_pad + 255) / 256, Tn);
-  sketch_estimates_kernel<R>
-      <<<grid, 256, 0, stream>>>(table, q, w, keys, est, Tn, c_pad, t0);
+                      int t0, int64_t n_valid, cudaStream_t stream) {
+  const dim3 grid((c_pad + kQryTile - 1) / kQryTile, Tn);
+  sketch_estimates_kernel<R><<<grid, kQryThreads, 0, stream>>>(
+      table, q, w, keys, est, Tn, c_pad, t0, n_valid);
 }
 
 }  // namespace
@@ -550,19 +669,25 @@ int fused_epilogue(const float* est, const int32_t* p_bits,
 // Largest row count the query is instantiated for.
 int sketch_estimates_max_rows() { return 8; }
 
+// est = the median-of-rows estimates of the Tn chunks from chunk t0, +0.0
+// at every global coordinate >= n_valid.
 int sketch_estimates(const float* table, const int32_t* shift_q,
                      const int32_t* shift_w, const int32_t* keys, float* est,
-                     int r, int Tn, int c_pad, int t0, cudaStream_t stream) {
-  if (Tn <= 0 || c_pad <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                     int r, int Tn, int c_pad, int t0, int64_t n_valid,
+                     cudaStream_t stream) {
+  if (Tn <= 0 || Tn > 65535 || c_pad <= 0 || c_pad % 128 ||
+      c_pad >= (1 << 30) || t0 < 0 || n_valid < 0 ||
+      static_cast<int64_t>(r) * c_pad >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (r) {
-    case 1: launch_estimates<1>(table, shift_q, shift_w, keys, est, Tn, c_pad, t0, stream); break;
-    case 2: launch_estimates<2>(table, shift_q, shift_w, keys, est, Tn, c_pad, t0, stream); break;
-    case 3: launch_estimates<3>(table, shift_q, shift_w, keys, est, Tn, c_pad, t0, stream); break;
-    case 4: launch_estimates<4>(table, shift_q, shift_w, keys, est, Tn, c_pad, t0, stream); break;
-    case 5: launch_estimates<5>(table, shift_q, shift_w, keys, est, Tn, c_pad, t0, stream); break;
-    case 6: launch_estimates<6>(table, shift_q, shift_w, keys, est, Tn, c_pad, t0, stream); break;
-    case 7: launch_estimates<7>(table, shift_q, shift_w, keys, est, Tn, c_pad, t0, stream); break;
-    case 8: launch_estimates<8>(table, shift_q, shift_w, keys, est, Tn, c_pad, t0, stream); break;
+    case 1: launch_estimates<1>(table, shift_q, shift_w, keys, est, Tn, c_pad, t0, n_valid, stream); break;
+    case 2: launch_estimates<2>(table, shift_q, shift_w, keys, est, Tn, c_pad, t0, n_valid, stream); break;
+    case 3: launch_estimates<3>(table, shift_q, shift_w, keys, est, Tn, c_pad, t0, n_valid, stream); break;
+    case 4: launch_estimates<4>(table, shift_q, shift_w, keys, est, Tn, c_pad, t0, n_valid, stream); break;
+    case 5: launch_estimates<5>(table, shift_q, shift_w, keys, est, Tn, c_pad, t0, n_valid, stream); break;
+    case 6: launch_estimates<6>(table, shift_q, shift_w, keys, est, Tn, c_pad, t0, n_valid, stream); break;
+    case 7: launch_estimates<7>(table, shift_q, shift_w, keys, est, Tn, c_pad, t0, n_valid, stream); break;
+    case 8: launch_estimates<8>(table, shift_q, shift_w, keys, est, Tn, c_pad, t0, n_valid, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

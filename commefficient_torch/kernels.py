@@ -3,9 +3,9 @@
 The six kernels of the sketched round live in two sources under ``csrc/``
 (``sketch_kernels.cu``: the accumulate from a zero or an incoming table and
 the fused server epilogue, three instantiations of one loop body, the
-median query and the top-k count pass; ``topk_descent.cu``), each with a
-plain ``extern "C"`` interface and the helpers of
-``csrc/sketch_common.cuh``. At first use each source is
+median query with the tail mask and the top-k count pass;
+``topk_descent.cu``), each with a plain ``extern "C"`` interface and the
+helpers of ``csrc/sketch_common.cuh``. At first use each source is
 compiled by its own ``nvcc`` for ``sm_90a`` (all started together), the
 objects are linked into one shared library in ``_build/`` beside this file
 (keyed on a hash of the sources and the flags, so an edited source
@@ -30,7 +30,7 @@ import subprocess
 import tempfile
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -143,7 +143,8 @@ def library() -> ctypes.CDLL:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.sketch_accumulate.argtypes = [p, p, p, p, p, i32, i32, i32, i32, p]
     lib.sketch_accumulate.restype = i32
-    lib.sketch_estimates.argtypes = [p, p, p, p, p, i32, i32, i32, i32, p]
+    lib.sketch_estimates.argtypes = [p, p, p, p, p, i32, i32, i32, i32, i64,
+                                     p]
     lib.sketch_estimates.restype = i32
     lib.sketch_estimates_max_rows.argtypes = []
     lib.sketch_estimates_max_rows.restype = i32
@@ -219,10 +220,13 @@ def sketch_accumulate(v3: torch.Tensor, shift_q: torch.Tensor,
 
 def sketch_estimates(table3: torch.Tensor, shift_q: torch.Tensor,
                      shift_w: torch.Tensor, sign_keys: torch.Tensor,
-                     t0: int = 0) -> torch.Tensor:
+                     t0: int = 0, n_valid: Optional[int] = None
+                     ) -> torch.Tensor:
     """``(r, S, 128)`` f32 table -> ``(Tn, S, 128)`` f32 median-of-rows
     estimates on the card, ``Tn = shift_q.shape[1]``, with the FORWARD
-    shift columns (see ``ops/sketch.sketch_estimates``)."""
+    shift columns (see ``ops/sketch.sketch_estimates``). Positions whose
+    global coordinate ``(t0 + t) * S * 128 + p`` is ``>= n_valid`` are
+    written as +0.0 (``None``: none are)."""
     if table3.device.type != "cuda" or table3.ndim != 3:
         raise ValueError("sketch_estimates: expected an (r, S, 128) CUDA "
                          f"tensor, got {tuple(table3.shape)} on "
@@ -235,13 +239,17 @@ def sketch_estimates(table3: torch.Tensor, shift_q: torch.Tensor,
     if not 1 <= r <= lib.sketch_estimates_max_rows():
         raise ValueError(f"sketch_estimates: r={r} rows not supported "
                          f"(1..{lib.sketch_estimates_max_rows()})")
+    if n_valid is None:
+        n_valid = (t0 + Tn) * S * lanes
+    if n_valid < 0:
+        raise ValueError(f"sketch_estimates: n_valid={n_valid} < 0")
     with torch.cuda.device(table3.device):
         out = torch.empty((Tn, S, lanes), dtype=torch.float32,
                           device=table3.device)
         err = lib.sketch_estimates(
             table3.data_ptr(), shift_q.data_ptr(), shift_w.data_ptr(),
             sign_keys.data_ptr(), out.data_ptr(), r, Tn, S * lanes, int(t0),
-            torch.cuda.current_stream(table3.device).cuda_stream)
+            int(n_valid), torch.cuda.current_stream(table3.device).cuda_stream)
     _raise_on(err, SKETCH_ESTIMATES)
     SKETCH_ESTIMATES.launches += 1
     return out

@@ -4,7 +4,8 @@
 the count-sketch kernels consume (ops/sketch.py). In a sketch-mode round the
 PS weights stay resident in it; a resident chunked tensor carries **zeros in
 its padded tail** (coordinates >= d), and the one nonlinear producer (the
-sketch query, whose tail cells are hash noise) is masked by ``mask_tail``.
+sketch query, whose tail cells are hash noise) writes them as +0.0: its
+kernel masks them in the launch, its plain version through ``mask_tail``.
 
 ``ParamLayout`` is the model's flat parameter vector in **JAX ravel order**
 (``jax.flatten_util.ravel_pytree`` of the flax parameter tree): leaves in

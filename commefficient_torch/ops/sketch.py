@@ -24,8 +24,9 @@ Four operations carry the round, each with a CUDA kernel for the H100
   reads a group's flat vector in place and the plain version pads it to
   its covering chunks;
 - ``sketch_estimates``: the median-of-rows query, ``(r, S, 128)`` table ->
-  ``(Tn, S, 128)`` estimates, tail left as hash noise for the caller's
-  ``mask_tail``;
+  ``(Tn, S, 128)`` estimates, the positions at and past a global
+  coordinate ``n_valid`` (the padded tail, for ``estimates_chunks``)
+  masked to +0.0 by the kernel itself;
 - ``fused_epilogue``: the server's threshold mask, update and re-sketch
   of that update in one sweep (``--fused_epilogue``).
 
@@ -413,13 +414,25 @@ def _sketch_estimates_plain(table3, inv_q, inv_w, sign_keys, t0: int = 0):
     return torch.stack(out).view(Tn, S, LANES)
 
 
+def _mask_from(est3: torch.Tensor, t0: int, n_valid: int) -> torch.Tensor:
+    """``mask_tail`` by global coordinate: the positions of the chunks
+    from ``t0`` whose coordinate is ``>= n_valid`` set to +0.0."""
+    Tn, S, _ = est3.shape
+    c_pad = S * LANES
+    n = min(max(n_valid - t0 * c_pad, 0), Tn * c_pad)
+    return ChunkLayout(d=n, T=Tn, S=S).mask_tail(est3)
+
+
 def sketch_estimates(table3: torch.Tensor, cs: CountSketch,
-                     t0: int = 0, Tn: Optional[int] = None) -> torch.Tensor:
+                     t0: int = 0, Tn: Optional[int] = None,
+                     n_valid: Optional[int] = None) -> torch.Tensor:
     """The median-of-rows query (``_estimates_pallas``'s contract):
     estimates of the ``Tn`` chunks from global chunk ``t0`` as
-    ``(Tn, S, 128)``; the padded tail holds hash noise. The kernel reads
-    ``row_j[(p + m) mod c_pad]`` with the FORWARD shifts; the plain version
-    rolls by the inverse shifts; both give the same values."""
+    ``(Tn, S, 128)``. Positions whose global coordinate is ``>= n_valid``
+    are +0.0; with ``n_valid=None`` the padded tail holds hash noise. The
+    kernel reads ``row_j[(p + m) mod c_pad]`` with the FORWARD shifts and
+    writes the mask itself; the plain version rolls by the inverse shifts
+    and masks after; both give the same values."""
     Tn = cs.T if Tn is None else Tn
     if t0 == 0 and Tn == cs.T:
         fq, fw, iq, iw = cs.shift_q, cs.shift_w, cs.inv_q, cs.inv_w
@@ -427,18 +440,20 @@ def sketch_estimates(table3: torch.Tensor, cs: CountSketch,
         fq, fw = _shift_cols(cs.shift_q, cs.shift_w, t0, Tn)
         iq, iw = _shift_cols(cs.inv_q, cs.inv_w, t0, Tn)
     if table3.device.type == "cpu":
-        return _sketch_estimates_plain(table3, iq, iw, cs.sign_keys, t0)
+        est = _sketch_estimates_plain(table3, iq, iw, cs.sign_keys, t0)
+        return est if n_valid is None else _mask_from(est, t0, n_valid)
     from commefficient_torch import kernels
 
     return kernels.sketch_estimates(table3.contiguous(), fq, fw,
-                                    cs.sign_keys, t0)
+                                    cs.sign_keys, t0, n_valid)
 
 
 def estimates_chunks(cs: CountSketch, table: torch.Tensor) -> torch.Tensor:
     """Median-of-rows estimates in the ``(T, S, 128)`` resident layout with
-    the padded tail masked to zero."""
+    the padded tail masked to +0.0 (on the card by the query kernel, in
+    the same launch)."""
     table3 = table.reshape(cs.r, cs.sublanes, LANES)
-    return cs.chunk_layout.mask_tail(sketch_estimates(table3, cs))
+    return sketch_estimates(table3, cs, n_valid=cs.d)
 
 
 def estimates(cs: CountSketch, table: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,10 @@ Tests marked ``gpu`` need an NVIDIA card and skip without one; whether a
 card is present is decided inside the ``cuda`` fixture, never at import.
 On the card: ``python -m pytest tests/test_torch_kernels.py -m gpu``.
 Every comparison is exact (``torch.equal``, NaN-aware): the accumulate
-keeps the plain version's per-cell add order, the query its min/max
-network, the fused epilogue the composed mask and accumulate, and the
-counts and the descent are integers.
+keeps the plain version's per-cell add order, the query the median's
+values (the sign of a zero median is free) and writes its masked tail as
++0.0 bit for bit, the fused epilogue the composed mask and accumulate,
+and the counts and the descent are integers.
 """
 
 import numpy as np
@@ -90,6 +91,43 @@ def test_estimates_kernel_equals_plain(cuda, d, c, r, seed, t0):
     torch.cuda.synchronize()
     assert got.shape == want.shape == (Tn, cs.sublanes, 128)
     assert _nan_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", range(1, 9))
+@pytest.mark.parametrize("d,c,seed,t0", [g[:2] + g[3:] for g in GEOMS])
+def test_estimates_kernel_masked_equals_plain(cuda, d, c, seed, t0, r):
+    """The query at every row count the kernel takes, with ``n_valid`` at
+    d and at the chunk range's end, on ``_special`` tables and on tables
+    half of whose cells are zero (both signs): one launch each, every
+    coordinate >= n_valid +0.0 bit for bit, every other cell the plain
+    version's (the sign of a zero median is free, see
+    ``csrc/sketch_kernels.cu``)."""
+    cs = tsk.make_sketch(d, c, r, seed=seed, device=cuda)
+    Tn = cs.T - t0
+    q, w = tsk._shift_cols(cs.shift_q, cs.shift_w, t0, Tn)
+    iq, iw = tsk._shift_cols(cs.inv_q, cs.inv_w, t0, Tn)
+    gen = torch.Generator().manual_seed(seed + 50 + r)
+    shape = (r, cs.sublanes, 128)
+    half_zero = torch.randn(shape, generator=gen)
+    zero = torch.rand(shape, generator=gen)
+    half_zero[zero < 0.25] = 0.0
+    half_zero[(zero >= 0.25) & (zero < 0.5)] = -0.0
+    coord = (t0 * cs.c_pad + torch.arange(Tn * cs.c_pad, device=cuda)
+             ).view(Tn, cs.sublanes, 128)
+    for tbl in (_special(torch.randn(shape, generator=gen)), half_zero):
+        tbl = tbl.to(cuda)
+        plain = tsk._sketch_estimates_plain(tbl, iq, iw, cs.sign_keys, t0)
+        for n_valid in (d, (t0 + Tn) * cs.c_pad):
+            before = kernels.SKETCH_ESTIMATES.launches
+            got = kernels.sketch_estimates(tbl, q, w, cs.sign_keys, t0,
+                                           n_valid)
+            torch.cuda.synchronize()
+            assert kernels.SKETCH_ESTIMATES.launches == before + 1
+            tail = coord >= n_valid
+            assert int(tail.sum()) == max(0, (t0 + Tn) * cs.c_pad - n_valid)
+            assert not got[tail].view(torch.int32).any()
+            assert _nan_equal(got[~tail], plain[~tail])
 
 
 @pytest.mark.gpu
