@@ -44,7 +44,10 @@ Phases (any failure exits non-zero; nothing is caught):
    the device memsets and device operations per round
    (``torch.profiler``); then the server phase
    from one table and state through the kernels and through the plain
-   versions, which must be equal;
+   versions, which must be equal, and once more at top-k threshold 0
+   (fewer than k nonzero estimates) on weights a quarter of which are
+   -0.0: the new weights equal under == and different at most in the sign
+   bit of zero weights, whose count is printed;
 5. the opt-in round: the same round with ``--stream_sketch
    --sketch_coalesce --fused_epilogue`` and
    ``COMMEFFICIENT_PALLAS_TOPK_FUSED=1``, timed the same way, with the
@@ -56,7 +59,21 @@ Phases (any failure exits non-zero; nothing is caught):
    composed pair, all exactly equal;
 6. ``commefficient_torch.cv_train.main`` for one short epoch and an eval
    on synthetic CIFAR10 in a temporary directory, once as the headline
-   round and once with the opt-in flags.
+   round and once with the opt-in flags;
+7. the other modes at full width, 16 clients, seeded synthetic batches of
+   8 images a client: ``c1`` (uncompressed, 1 worker), ``c2`` (true top-k,
+   8 workers, k = 50,000; with the per-pass descent and once more with
+   ``COMMEFFICIENT_PALLAS_TOPK_FUSED=1``), ``local-topk`` (local error and
+   momentum), ``sketch-local`` (local error and momentum in sketch space,
+   5 x 500,000) and ``fedavg`` (1 local epoch in chunks of 4): 2 warm-up
+   and 10 timed rounds each, rounds/sec beside the card's line, a finite
+   loss, the launches per round derived from the code's structure
+   (``modes_per_round``; 0 for the kernels a path does not run), the
+   device's busy share and time by kernel over 3 profiled rounds, and one
+   server step from the same round context through the kernels and
+   through the plain versions, whose weights, server state and scattered
+   client rows must be equal; and the count pass once on the flat,
+   unpadded 6,568,640-pattern vector that ``true_topk`` hands it.
 
 Then one JSON line of the kernels (launches per timed window of the path
 that runs each: phase 4 for the accumulate, the query and the count pass,
@@ -100,7 +117,11 @@ from commefficient_torch import kernels
 from commefficient_torch.config import parse_args
 from commefficient_torch.federated import FedModel, FedOptimizer, LambdaLR
 from commefficient_torch.federated.losses import make_cv_losses
-from commefficient_torch.federated.server import server_update
+from commefficient_torch.federated.rounds import ClientStates
+from commefficient_torch.federated.server import (
+    init_server_state,
+    server_update,
+)
 from commefficient_torch.federated.worker import microbatch_plan
 from commefficient_torch.models import ResNet9
 from commefficient_torch.ops.flat import ChunkLayout
@@ -670,7 +691,7 @@ def phase_rounds():
     # through the plain versions, all on the card
     cs = fm.sketch
     fm.begin_round(synthetic_batch(1))
-    table = fm._round_table
+    table = fm._round_ctx.gradient
     state = opt.server_state
     lr = opt.get_lr()
     upd_k, st_k = server_update(table, state, fm.server_config, lr,
@@ -685,8 +706,54 @@ def phase_rounds():
     nnz = int((upd_k != 0).sum())
     print(f"server phase exact: update ({nnz} nonzeros), velocity and "
           "error equal through kernels and plain versions")
-    fm._round_table = None
+    fm._round_ctx = None
+    check_zero_sign(fm, lr)
     return counts, rps, split
+
+
+def check_zero_sign(fm, lr):
+    """The headline server step at top-k threshold 0: a table with 2,000
+    nonzero cells a row (an estimate is nonzero only where 3 of its 5 cells
+    are, so fewer than k are) and the round's weights with a quarter of
+    them -0.0 and a quarter +0.0, through the kernels and through the
+    plain versions. Every estimate is kept, so the query's free sign of a
+    zero median reaches ``ps - update``: the new weights must be equal
+    under ==, and differ in at most the sign bit of zero weights."""
+    cs, k = fm.sketch, fm.server_config.k
+    gen = torch.Generator().manual_seed(11)
+    table = torch.zeros(cs.table_shape)
+    for j in range(cs.r):
+        idx = torch.randperm(cs.c_pad, generator=gen)[:2000]
+        table[j, idx] = torch.randn(2000, generator=gen)
+    table = table.to(fm.device)
+    w = fm.layout.unchunk(fm.ps_weights).clone()
+    w[0::4] = -0.0
+    w[1::4] = 0.0
+    ps3 = fm.layout.chunk(w)
+    state = init_server_state(fm.server_config, cs)
+    est = tsk.estimates_chunks(cs, table)
+    assert int((est != 0).sum()) < k
+    assert int(ttk.resolve_threshold(est, k)) == 0, "threshold not 0"
+    upd_k, st_k = server_update(table, state, fm.server_config, lr,
+                                sketch=cs, layout=fm.layout)
+    new_k = ps3 - upd_k
+    with plain_kernels():
+        upd_p, st_p = server_update(table, state, fm.server_config, lr,
+                                    sketch=cs, layout=fm.layout)
+        new_p = ps3 - upd_p
+    torch.cuda.synchronize()
+    for name, a, b in (("update", upd_k, upd_p),
+                       ("velocity", st_k.velocity, st_p.velocity),
+                       ("error", st_k.error, st_p.error),
+                       ("weights", new_k, new_p)):
+        assert nan_equal(a, b), f"p = 0 server {name}: kernels != plain"
+    sign_only = new_k.view(torch.int32) != new_p.view(torch.int32)
+    assert not new_k[sign_only].any() and not new_p[sign_only].any(), \
+        "p = 0: weights differ beyond the sign of zero"
+    print(f"server phase at p = 0 ({int((est != 0).sum())} nonzero "
+          f"estimates, k = {k}): weights equal under ==; "
+          f"{int((new_p == 0).sum())} zero weights, "
+          f"{int(sign_only.sum())} of them differ in the sign bit")
 
 
 def phase_split(fm, opt, sched, batch, label: str) -> dict:
@@ -747,7 +814,7 @@ def phase_opt_in(headline_rps: float):
     for plain in (False, True, False):
         with plain_kernels() if plain else contextlib.nullcontext():
             fm.begin_round(synthetic_batch(1))
-            tables.append(fm._round_table)
+            tables.append(fm._round_ctx.gradient)
     torch.backends.cudnn.deterministic = False
     torch.cuda.synchronize()
     assert bit_equal(tables[0], tables[2]), "client phase not reproducible"
@@ -790,7 +857,7 @@ def phase_opt_in(headline_rps: float):
           "nonzeros), velocity and error equal through kernels and plain "
           "versions and equal to the composed epilogue; fused re-sketch "
           "equals the composed one bit for bit")
-    fm._round_table = None
+    fm._round_ctx = None
     del os.environ[ttk.FUSED_DESCENT_ENV]
     return counts, rps, prof
 
@@ -898,6 +965,185 @@ def phase_cv_train():
             (label, counts)
         print(f"cv_train {label} row: {json.dumps(summary, default=float)}")
         print(f"cv_train {label} launches: {json.dumps(counts)}")
+
+
+# phase 7: (name, workers, flags, one-launch descent)
+MODES_BASE = ["--num_rows", "5", "--num_cols", "500000", "--k", "50000",
+              "--local_batch_size", "8", "--dataset_name", "CIFAR10",
+              "--device", "cuda", "--num_clients", "16", "--seed", "0"]
+VIRTUAL = ["--error_type", "virtual", "--local_momentum", "0",
+           "--virtual_momentum", "0.9"]
+MODE_CONFIGS = (
+    ("c1", 1, ["--mode", "uncompressed"] + VIRTUAL, False),
+    ("c2", 8, ["--mode", "true_topk"] + VIRTUAL, False),
+    ("c2-one-launch-descent", 8, ["--mode", "true_topk"] + VIRTUAL, True),
+    ("local-topk", 8, ["--mode", "local_topk", "--error_type", "local",
+                       "--local_momentum", "0.9"], False),
+    ("sketch-local", 8, ["--mode", "sketch", "--error_type", "local",
+                         "--local_momentum", "0.9",
+                         "--virtual_momentum", "0"], False),
+    ("fedavg", 8, ["--mode", "fedavg", "--error_type", "none",
+                   "--local_momentum", "0", "--local_batch_size", "-1",
+                   "--num_fedavg_epochs", "1", "--fedavg_batch_size", "4"],
+     False),
+)
+MODE_TIMED_ROUNDS = 10
+
+
+def modes_per_round(fm, one_launch_descent: bool) -> dict:
+    """Launches per round of a phase-7 config, from the structure of the
+    port's round (``federated/rounds.py``, ``server.py``): a top-k is one
+    threshold search, 8 count passes or (one-launch descent) one descent;
+    ``true_topk`` takes one top-k on the server, ``local_topk`` one in
+    each client slot; sketch mode takes one accumulate in each client slot
+    on the per-client path (one of the sum on the fused one), the
+    server's query, top-k and re-sketch, and with client tables one more
+    re-sketch for their keep mask. ``uncompressed`` and ``fedavg`` launch
+    none."""
+    wcfg, W = fm.worker_config, fm.args.num_workers
+    n = dict.fromkeys((k.name for k in kernels.KERNELS), 0)
+
+    def topk(times):
+        if one_launch_descent:
+            n["topk_descent"] += times
+        else:
+            n["topk_count_ge"] += 8 * times
+
+    client_tables = wcfg.has_velocity or wcfg.has_error
+    if wcfg.mode == "true_topk":
+        topk(1)
+    elif wcfg.mode == "local_topk":
+        topk(W)
+    elif wcfg.mode == "sketch":
+        per_client = client_tables or wcfg.max_grad_norm is not None
+        n["sketch_accumulate"] += (W if per_client else 1) + 1 \
+            + (1 if client_tables else 0)
+        n["sketch_estimates"] += 1
+        topk(1)
+    return n
+
+
+def mode_batches(W: int, n: int = 4):
+    """``n`` seeded synthetic batches of W clients x 8 images, the client
+    ids drawn from the 16 clients."""
+    out = []
+    for i in range(n):
+        rng = np.random.RandomState(200 + i)
+        out.append({
+            "inputs": rng.randn(W, 8, 32, 32, 3).astype(np.float32),
+            "targets": rng.randint(0, 10, size=(W, 8)).astype(np.int64),
+            "mask": np.ones((W, 8), np.float32),
+            "client_ids": rng.choice(16, W, replace=False).astype(np.int32),
+            "worker_mask": np.ones(W, np.float32)})
+    return out
+
+
+def check_server_step(fm, opt, batch, label: str) -> None:
+    """One server step from one round context, through the kernels and
+    through the plain versions (client states cloned for each, since the
+    scatter is in place): weights, server state and client rows equal."""
+    fm.begin_round(batch)
+    ctx, lr = fm._round_ctx, opt.get_lr()
+
+    def states():
+        return ClientStates(*(None if x is None else x.clone()
+                              for x in fm.client_states))
+
+    out_k = fm.steps.server_step(fm.ps_weights, opt.server_state, states(),
+                                 ctx, lr, fm._rng)
+    with plain_kernels():
+        out_p = fm.steps.server_step(fm.ps_weights, opt.server_state,
+                                     states(), ctx, lr, fm._rng)
+    torch.cuda.synchronize()
+    (ps_k, ss_k, cs_k), (ps_p, ss_p, cs_p) = out_k, out_p
+    pairs = [("weights", ps_k, ps_p), ("velocity", ss_k.velocity,
+                                       ss_p.velocity),
+             ("error", ss_k.error, ss_p.error)]
+    pairs += [(f"client {n}", a, b) for n, a, b in zip(
+        ClientStates._fields, cs_k, cs_p) if a is not None]
+    for name, a, b in pairs:
+        assert nan_equal(a, b), f"{label} server step {name}: kernels != plain"
+    fm._round_ctx = None
+    print(f"{label} server step equal through kernels and plain versions: "
+          + ", ".join(name for name, _, _ in pairs))
+
+
+def phase_modes(card: str) -> dict:
+    """Phase 7: the other modes at full width."""
+    results = {}
+    error_vec = None
+    for name, W, extra, one_launch in MODE_CONFIGS:
+        if one_launch:
+            os.environ[ttk.FUSED_DESCENT_ENV] = "1"
+        args = parse_args(argv=MODES_BASE + ["--num_workers", str(W)]
+                          + extra)
+        model = ResNet9()
+        train_loss, val_loss = make_cv_losses(model)
+        fm = FedModel(model, train_loss, args, val_loss, num_clients=16)
+        opt = FedOptimizer(fm, args)
+        schedule = PiecewiseLinear([0, args.pivot_epoch, args.num_epochs],
+                                   [0, 0.4, 0])
+        sched = LambdaLR(opt, lambda step: schedule(step / 50))
+        per_round = modes_per_round(fm, one_launch)
+        batches = mode_batches(W)
+
+        def one_round(b):
+            sched.step()
+            out = fm(b)
+            opt.step()
+            return out
+
+        for i in range(2):
+            one_round(batches[i])
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [one_round(batches[i % len(batches)])[0]
+                  for i in range(MODE_TIMED_ROUNDS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        loss = np.concatenate(losses)
+        assert np.all(np.isfinite(loss)), f"{name}: non-finite round loss"
+        want = {k: v * MODE_TIMED_ROUNDS for k, v in per_round.items()}
+        assert counts == want, f"{name}: launches {counts}, expected {want}"
+        rps = MODE_TIMED_ROUNDS / wall
+        state_mb = sum(x.numel() * 4 for x in fm.client_states
+                       if x is not None) / 1e6
+        prof = profile_rounds(lambda: one_round(batches[0]), n=3)
+        row = {"phase": "modes", "config": name, "mode": args.mode,
+               "workers": W, "rounds_per_sec": rps,
+               "ms_per_round": 1e3 / rps, "mean_loss": float(loss.mean()),
+               "launches_per_round": per_round,
+               "client_state_MB": state_mb,
+               "profiled_busy_share": (prof["profiled_busy_ms_per_round"]
+                                       / prof["profiled_wall_ms_per_round"]),
+               "kernel_ms_per_round": prof["kernel_ms_per_round"],
+               "card": card}
+        print(json.dumps(row))
+        results[name] = row
+        check_server_step(fm, opt, batches[0], name)
+        if name == "c2":
+            error_vec = opt.server_state.error.clone()
+        os.environ.pop(ttk.FUSED_DESCENT_ENV, None)
+        del fm, opt, sched
+        torch.cuda.empty_cache()
+
+    # the count pass on the flat, unpadded vector true_topk hands it (the
+    # server's error after c2's rounds): a shape of its own
+    bits = error_vec.view(torch.int32)
+    n = bits.numel()
+    ts = ttk._pass_thresholds(torch.zeros((), dtype=torch.int32,
+                                          device=bits.device), 28)
+    assert torch.equal(kernels.topk_count_ge(bits, ts),
+                       ttk._count_ge_plain(bits, ts)), "flat count pass"
+    row = {"phase": "modes", "name": "topk_count_ge", "n": n,
+           "ms": time_ms(lambda: kernels.topk_count_ge(bits, ts)),
+           "plain_ms": time_ms(lambda: ttk._count_ge_plain(bits, ts)),
+           **bound(4 * (n + 32), 10 * n, 0, peaks(card)), "card": card}
+    print(json.dumps(row))
+    results["flat count pass"] = row
+    return results
 
 
 def kernel_times(card: str, only=()) -> int:
@@ -1032,6 +1278,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     phase_cv_train()
     wall["6 cv_train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    modes = phase_modes(card)
+    wall["7 other modes"] = time.perf_counter() - t
     print("phase wall seconds (phase 3 includes the build): " + json.dumps(
         {k: round(v, 2) for k, v in wall.items()}))
 
@@ -1048,6 +1297,9 @@ def main(argv=None) -> int:
     print(json.dumps({"rounds_per_sec": rps,
                       "opt_in_rounds_per_sec": opt_rps,
                       "main_path_rounds": TIMED_ROUNDS, **split,
+                      "modes_rounds_per_sec": {
+                          k: v["rounds_per_sec"] for k, v in modes.items()
+                          if "rounds_per_sec" in v},
                       **{"opt_in_" + k: v for k, v in opt_prof.items()}}))
     print(json.dumps(summary))
     print(card)

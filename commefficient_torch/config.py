@@ -1,14 +1,15 @@
-"""CLI surface of the port: its own copy of the flags the sketched ResNet9
-slice reads, with the JAX package's names and defaults
-(``commefficient_tpu/config.py``).
+"""CLI surface of the port: its own copy of the flags the ResNet9 round
+reads (all five ``--mode`` values), with the JAX package's names and
+defaults (``commefficient_tpu/config.py``), and its fedavg invariants.
 
 Deviations: ``--device`` takes ``{cuda, cpu}`` with ``cuda`` the default
 (a CUDA request on a host without a card raises; there is no fallback to
 the CPU), and the run is on one device (``--num_devices`` -1 or 1).
 
 The opt-in sketch paths ``--stream_sketch``, ``--sketch_coalesce`` and
-``--fused_epilogue`` are carried, with the JAX package's note for
-``--sketch_coalesce`` without ``--stream_sketch`` (a no-op there).
+``--fused_epilogue`` are carried, with the JAX package's notes for
+``--stream_sketch`` outside the fused sketch round and for
+``--sketch_coalesce`` without ``--stream_sketch`` (no-ops there).
 
 Every flag of the JAX package that this slice does not carry is still
 parsed, so that using it raises ``NotImplementedError`` naming the ROADMAP
@@ -23,9 +24,10 @@ import argparse
 MODES = ["sketch", "true_topk", "local_topk", "fedavg", "uncompressed"]
 ERROR_TYPES = ["none", "local", "virtual"]
 DATASETS = ["CIFAR10", "CIFAR100"]
+DP_MODES = ["worker", "server"]
 
 _Q1 = "ROADMAP.md queue 1"
-ITEM_MODES = f"{_Q1} item 1 (the other server modes and the per-client worker path)"
+ITEM_BN = f"{_Q1} item 1c (BatchNorm in ResNet9 and its running statistics)"
 ITEM_CKPT = f"{_Q1} item 2 (checkpoint, resume and the round engine)"
 ITEM_CV = f"{_Q1} item 3 (the other CV models, datasets and data planes)"
 ITEM_GPT2 = f"{_Q1} item 4 (GPT-2 and --bf16)"
@@ -34,7 +36,6 @@ ITEM_RUNTIME = f"{_Q1} item 6 (runtime planes)"
 
 # (flag, dest, takes a value, roadmap item)
 UNPORTED = (
-    ("--test", "do_test", False, ITEM_MODES),
     ("--bf16", "do_bf16", False, ITEM_GPT2),
     ("--tensorboard", "use_tensorboard", False, ITEM_RUNTIME),
     ("--profile", "do_profile", False, ITEM_RUNTIME),
@@ -47,12 +48,7 @@ UNPORTED = (
     ("--resume", "resume", True, ITEM_CKPT),
     ("--keep_checkpoints", "keep_checkpoints", True, ITEM_CKPT),
     ("--state_dir", "state_dir", True, ITEM_RUNTIME),
-    ("--batchnorm", "do_batchnorm", False, ITEM_MODES),
-    ("--topk_down", "do_topk_down", False, ITEM_MODES),
-    ("--num_fedavg_epochs", "num_fedavg_epochs", True, ITEM_MODES),
-    ("--fedavg_batch_size", "fedavg_batch_size", True, ITEM_MODES),
-    ("--fedavg_lr_decay", "fedavg_lr_decay", True, ITEM_MODES),
-    ("--dp", "do_dp", False, ITEM_MODES),
+    ("--batchnorm", "do_batchnorm", False, ITEM_BN),
     ("--round_window", "round_window", True, ITEM_CKPT),
     ("--metrics_drain_every", "metrics_drain_every", True, ITEM_CKPT),
     ("--server_shard", "server_shard", False, ITEM_MULTI),
@@ -80,6 +76,7 @@ UNPORTED = (
 def build_parser(default_lr=None) -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument("--mode", choices=MODES, default="sketch")
+    parser.add_argument("--test", action="store_true", dest="do_test")
     parser.add_argument("--seed", type=int, default=21)
     parser.add_argument("--model", default="ResNet9", choices=["ResNet9"],
                         help="Name of the model.")
@@ -92,12 +89,16 @@ def build_parser(default_lr=None) -> argparse.ArgumentParser:
     parser.add_argument("--num_cols", type=int, default=500000)
     parser.add_argument("--num_rows", type=int, default=5)
     parser.add_argument("--num_blocks", type=int, default=20)
+    parser.add_argument("--topk_down", action="store_true", dest="do_topk_down")
 
     # optimization
     parser.add_argument("--local_momentum", type=float, default=0.9)
     parser.add_argument("--virtual_momentum", type=float, default=0)
     parser.add_argument("--weight_decay", type=float, default=5e-4)
     parser.add_argument("--num_epochs", type=float, default=24)
+    parser.add_argument("--num_fedavg_epochs", type=int, default=1)
+    parser.add_argument("--fedavg_batch_size", type=int, default=-1)
+    parser.add_argument("--fedavg_lr_decay", type=float, default=1)
     parser.add_argument("--error_type", choices=ERROR_TYPES, default="none")
     parser.add_argument("--lr_scale", type=float, default=default_lr)
     parser.add_argument("--pivot_epoch", type=float, default=5)
@@ -119,6 +120,12 @@ def build_parser(default_lr=None) -> argparse.ArgumentParser:
     parser.add_argument("--microbatch_size", type=int, default=-1)
     parser.add_argument("--max_grad_norm", type=float)
     parser.add_argument("--eval_before_start", action="store_true")
+
+    # differential privacy
+    parser.add_argument("--dp", action="store_true", dest="do_dp")
+    parser.add_argument("--dp_mode", choices=DP_MODES, default="worker")
+    parser.add_argument("--l2_norm_clip", type=float, default=1.0)
+    parser.add_argument("--noise_multiplier", type=float, default=0.0)
     parser.add_argument("--no_telemetry", action="store_false",
                         dest="telemetry", default=False,
                         help="Accepted; the port has no telemetry plane.")
@@ -157,9 +164,6 @@ def reject_unported(args) -> None:
         val = getattr(args, dest, None)
         if (val is not None) if valued else bool(val):
             raise NotImplementedError(f"{flag} is not ported yet ({item})")
-    if getattr(args, "mode", "sketch") != "sketch":
-        raise NotImplementedError(
-            f"--mode {args.mode} is not ported yet ({ITEM_MODES})")
     if getattr(args, "model", "ResNet9") != "ResNet9":
         raise NotImplementedError(
             f"--model {args.model} is not ported yet ({ITEM_CV})")
@@ -177,6 +181,24 @@ def reject_unported(args) -> None:
 def parse_args(default_lr=None, argv=None):
     args = build_parser(default_lr).parse_args(argv)
     reject_unported(args)
+    if args.mode == "fedavg":
+        assert args.local_batch_size == -1, "fedavg requires local_batch_size == -1"
+        assert args.local_momentum == 0, "fedavg requires local_momentum == 0"
+        assert args.error_type == "none", "fedavg requires error_type == none"
+    if args.stream_sketch:
+        # the round composes outside the fused sketch window; say so for
+        # the configs that are plainly outside it
+        if args.mode != "sketch":
+            print(f"NOTE: --stream_sketch is sketch-mode only; mode="
+                  f"{args.mode} runs the composed path")
+        elif (args.local_momentum > 0 or args.error_type == "local"
+              or args.do_dp or args.max_grad_norm is not None
+              or args.do_topk_down):
+            print("NOTE: --stream_sketch needs the fused client phase "
+                  "(no per-client sketch-space state — set "
+                  "--local_momentum 0 / --error_type virtual — and no "
+                  "clip, DP, or topk-down); this config runs the "
+                  "composed path")
     if args.sketch_coalesce and not args.stream_sketch:
         # the coalescer refines the leaf-streamed accumulate; without
         # --stream_sketch there are no per-leaf launches to coalesce

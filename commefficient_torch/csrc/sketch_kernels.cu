@@ -322,9 +322,15 @@ int launch_accumulate(bool from_table, const float* table_in, const float* v,
 //    pairs' minima and maxima), R = 3 four, other R the bubble network.
 //    Among equal values a different one may be picked than the bubble
 //    network picks: where +0.0 and -0.0 tie at the median the sign of the
-//    zero may differ. No consumer reads that sign (the top-k compares
-//    magnitudes; the mask zeroes +0.0 and -0.0 alike); every nonzero value
-//    and every NaN position is the plain version's;
+//    zero may differ. Every nonzero value and every NaN position is the
+//    plain version's, and the top-k, the re-sketch, the masks and the
+//    byte accounting read no zero's sign. The weights can: when fewer
+//    than k estimates are nonzero the top-k threshold is 0, every
+//    estimate is kept, and ps - lr * update turns a weight of -0.0 into
+//    +0.0 where the update's zero is -0.0 (-0.0 - -0.0 = +0.0) and keeps
+//    it where it is +0.0. So at that threshold the new weights equal the
+//    plain version's under == and may differ in the sign bit of zero
+//    weights (tests/test_torch_kernels.py::test_zero_sign_at_p_zero);
 //  - a cell at or past n_valid is written as +0.0f, and a thread whose
 //    cells all are skips its gathers.
 // On an H100 the arithmetic sets the time. At 4 cells a thread and 256

@@ -1,10 +1,17 @@
 """CV federated training entry point of the port (ResNet9 on CIFAR10/100,
-sketch mode).
+every ``--mode``).
 
     python -m commefficient_torch.cv_train --dataset_name CIFAR10 \
         --dataset_dir ./dataset --mode sketch --error_type virtual \
         --local_momentum 0 --virtual_momentum 0.9 --num_workers 8 \
         --num_clients 1000 --iid --num_epochs 24
+
+``--mode true_topk`` (with ``--error_type virtual``), ``local_topk`` (with
+``--error_type local`` or ``none``), ``uncompressed`` and ``fedavg`` (with
+``--local_batch_size -1 --local_momentum 0 --error_type none``; the
+learning rate is applied on the clients) take the same command line.
+``--test`` runs one round and one eval batch of a one-channel ResNet9
+with an all-ones transmit.
 
 CLI and loop parity with ``cv_train.py`` of the JAX package: the same flags
 (config.py), a ``PiecewiseLinear`` LR peaking at ``--pivot_epoch``, the NaN
@@ -90,12 +97,16 @@ def run_batches(model, opt, lr_scheduler, loader, training, epoch_fraction,
             client_upload += upload
             losses.extend(loss.tolist())
             accs.extend(acc.tolist())
+            if args.do_test:
+                break
         return (np.mean(losses), np.mean(accs), client_download,
                 client_upload)
     for batch in loader:
         loss, acc = model(batch)
         losses.extend(loss.tolist())
         accs.extend(acc.tolist())
+        if args.do_test:
+            break
     return np.mean(losses), np.mean(accs), None, None
 
 
@@ -151,9 +162,16 @@ def train(model, opt, lr_scheduler, train_loader, test_loader, args,
 
 
 def build_model_and_config(args):
-    """ResNet9 widths: ``COMMEFFICIENT_MODEL_CHANNELS`` ("prep,l1,l2,l3")
+    """ResNet9 widths: one channel each and a 1 x 10 sketch with k = 10
+    under ``--test``, ``COMMEFFICIENT_MODEL_CHANNELS`` ("prep,l1,l2,l3"),
     or ``COMMEFFICIENT_TINY_MODEL`` (8,16,16,32), else full width."""
-    if os.environ.get("COMMEFFICIENT_MODEL_CHANNELS"):
+    if getattr(args, "do_test", False):
+        model_config = {"channels": (("prep", 1), ("layer1", 1),
+                                     ("layer2", 1), ("layer3", 1))}
+        args.num_cols = 10
+        args.num_rows = 1
+        args.k = 10
+    elif os.environ.get("COMMEFFICIENT_MODEL_CHANNELS"):
         pre, l1, l2, l3 = (int(x) for x in os.environ[
             "COMMEFFICIENT_MODEL_CHANNELS"].split(","))
         model_config = {"channels": (("prep", pre), ("layer1", l1),

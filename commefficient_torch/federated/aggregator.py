@@ -8,15 +8,21 @@ exposes ``step()`` / ``get_lr()`` and is driven by ``LambdaLR``. A round is
 ``lr_scheduler.step(); model(batch); opt.step()``.
 
 Byte accounting, both of the JAX package's regimes: upload is 4 B x the
-transmitted table size for each participating client; download regime (a)
+transmitted size for each participating client (the gradient size for
+``uncompressed``, ``true_topk`` and ``fedavg``, ``k`` for ``local_topk``,
+the lane-aligned table for ``sketch``); download regime (a)
 (single-epoch, whole-client batches) charges the popcount of an
 updated-since-init mask, regime (b) charges each sampled client the count
 of coordinates changed since it last participated, from a device-resident
-per-coordinate last-changed round index.
+per-coordinate last-changed round index, in the resident layout of the
+weights (chunked in sketch mode, flat otherwise).
 
-This slice runs the fused sketch-mode round on one device. Options of the
-JAX package that it does not carry raise ``NotImplementedError`` naming the
-ROADMAP item (``config.reject_unported``).
+The round runs on one device, its per-client state on that device too
+(``rounds.init_client_states``; no host offload). DP noise draws from a
+``torch.Generator`` on the device, seeded with ``args.seed + 1`` as the
+JAX package seeds its key. Options of the JAX package that the port does
+not carry raise ``NotImplementedError`` naming the ROADMAP item
+(``config.reject_unported``).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 from commefficient_torch.federated.rounds import (
     RoundConfig,
     build_round_step,
+    init_client_states,
 )
 from commefficient_torch.federated.server import (
     ServerConfig,
@@ -79,14 +86,21 @@ def worker_config_from_args(args) -> WorkerConfig:
         num_workers=args.num_workers, weight_decay=args.weight_decay,
         local_momentum=args.local_momentum,
         microbatch_size=args.microbatch_size,
-        max_grad_norm=args.max_grad_norm)
+        max_grad_norm=args.max_grad_norm, do_dp=args.do_dp,
+        dp_mode=args.dp_mode, l2_norm_clip=args.l2_norm_clip,
+        noise_multiplier=args.noise_multiplier,
+        num_fedavg_epochs=args.num_fedavg_epochs,
+        fedavg_batch_size=args.fedavg_batch_size,
+        fedavg_lr_decay=args.fedavg_lr_decay,
+        do_topk_down=args.do_topk_down)
 
 
 def server_config_from_args(args, grad_size: int) -> ServerConfig:
     return ServerConfig(
         mode=args.mode, error_type=args.error_type, k=args.k,
         grad_size=grad_size, virtual_momentum=args.virtual_momentum,
-        local_momentum=args.local_momentum,
+        local_momentum=args.local_momentum, do_dp=args.do_dp,
+        dp_mode=args.dp_mode, noise_multiplier=args.noise_multiplier,
         fused_epilogue=bool(getattr(args, "fused_epilogue", False)))
 
 
@@ -94,6 +108,7 @@ def round_config_from_args(args, grad_size: int) -> RoundConfig:
     return RoundConfig(
         worker=worker_config_from_args(args),
         server=server_config_from_args(args, grad_size), grad_size=grad_size,
+        do_test=bool(getattr(args, "do_test", False)),
         stream_sketch=bool(getattr(args, "stream_sketch", False)),
         sketch_coalesce=bool(getattr(args, "sketch_coalesce", False)))
 
@@ -148,26 +163,42 @@ class FedModel:
 
         cfg = round_config_from_args(args, self.grad_size)
         self.worker_config, self.server_config = cfg.worker, cfg.server
-        self.sketch = make_sketch(self.grad_size, args.num_cols,
-                                  args.num_rows, seed=args.seed,
-                                  num_blocks=args.num_blocks,
-                                  device=self.device)
+        self.sketch = None
+        if args.mode == "sketch":
+            self.sketch = make_sketch(self.grad_size, args.num_cols,
+                                      args.num_rows, seed=args.seed,
+                                      num_blocks=args.num_blocks,
+                                      device=self.device)
         self.steps = build_round_step(
             compute_loss_train, compute_loss_val or compute_loss_train,
             self.param_layout, cfg, self.sketch)
         self.layout = self.steps.layout
-        self.ps_weights = self.layout.chunk(flat.to(self.device))
-        self._round_table = None
+        flat = flat.to(self.device)
+        self.ps_weights = (self.layout.chunk(flat) if self.layout is not None
+                           else flat)
+        self.client_states = init_client_states(
+            self.num_clients, self.grad_size, cfg.worker, init_weights=flat,
+            sketch=self.sketch, device=self.device)
+        self._round_ctx = None
+        # DP noise (worker and server); the JAX package seeds its key with
+        # seed + 1 too (the streams differ)
+        self._rng = torch.Generator(device=self.device).manual_seed(
+            int(args.seed) + 1)
+        # the current learning rate, published by FedOptimizer (fedavg's
+        # local SGD reads it)
+        self._opt_lr = 1.0
 
-        # download-byte tracking; chunked-tail positions never change, so
-        # they are never counted
+        # download-byte tracking in the resident layout; chunked-tail
+        # positions never change, so they are never counted
+        acct_shape = (self.layout.shape if self.layout is not None
+                      else (self.grad_size,))
         self._simple_download = (args.num_epochs <= 1
                                  and args.local_batch_size == -1)
         if self._simple_download:
             self._updated_since_init = torch.zeros(
-                self.layout.shape, dtype=torch.bool, device=self.device)
+                acct_shape, dtype=torch.bool, device=self.device)
         else:
-            self._last_changed = torch.full(self.layout.shape, -1,
+            self._last_changed = torch.full(acct_shape, -1,
                                             dtype=torch.int32,
                                             device=self.device)
             self._round_idx = 0
@@ -194,8 +225,9 @@ class FedModel:
     def params(self):
         """``{torch_name: tensor}`` views of the current weights
         (``convert.flax_from_port`` turns them into a flax tree)."""
-        return self.param_layout.params(
-            self.layout.unchunk(self.ps_weights).detach())
+        w = (self.layout.unchunk(self.ps_weights)
+             if self.layout is not None else self.ps_weights)
+        return self.param_layout.params(w.detach())
 
     # -- rounds -------------------------------------------------------------
 
@@ -207,8 +239,10 @@ class FedModel:
         participating = np.unique(ids[wmask > 0])
         download_dev, upload = self._account_bytes_deferred(participating)
         dbatch = _to_device(batch, self.device)
-        self._round_table, self._model_state, metrics = \
-            self.steps.client_step(self.ps_weights, self._model_state, dbatch)
+        self._round_ctx, self._model_state, metrics = \
+            self.steps.client_step(self.ps_weights, self.client_states,
+                                   self._model_state, dbatch, self._opt_lr,
+                                   self._rng)
         return RoundHandle(metrics=metrics, valid=wmask > 0,
                            participating=participating,
                            download=download_dev, upload=upload)
@@ -225,10 +259,11 @@ class FedModel:
 
     def _apply_server(self, server_state, lr):
         """Phase 2 for ``FedOptimizer.step()``."""
-        new_ps, new_state = self.steps.server_step(
-            self.ps_weights, server_state, self._round_table, lr)
-        self.ps_weights = new_ps
-        self._round_table = None
+        self.ps_weights, new_state, self.client_states = \
+            self.steps.server_step(self.ps_weights, server_state,
+                                   self.client_states, self._round_ctx, lr,
+                                   self._rng)
+        self._round_ctx = None
         return new_state
 
     def _call_val(self, batch: dict):
@@ -241,8 +276,15 @@ class FedModel:
         """Byte accounting without a host sync: the download value is a
         device tensor, fetched in ``finish_round``."""
         upload = np.zeros(self.num_clients, np.float64)
-        # the lane-aligned table actually transmitted
-        upload[participating] = int(np.prod(self.sketch.table_shape)) * 4
+        upload[participating] = {
+            "uncompressed": self.grad_size,
+            "true_topk": self.grad_size,
+            "local_topk": self.args.k,
+            # the lane-aligned table actually transmitted
+            "sketch": (int(np.prod(self.sketch.table_shape))
+                       if self.sketch is not None else 0),
+            "fedavg": self.grad_size,
+        }[self.args.mode] * 4
         download_dev = None
         if self._simple_download:
             self._updated_since_init |= self.ps_weights != self._prev_ps
@@ -283,17 +325,20 @@ class FedOptimizer:
                 "(ROADMAP.md, queue 1: Fixup LR groups and finetuning)")
         self._lr_factor = 0.0
         self.server_state = init_server_state(fed_model.server_config,
-                                              fed_model.sketch)
+                                              fed_model.sketch,
+                                              device=fed_model.device)
 
     def get_lr(self):
         return self._lr_factor
 
     def set_lr_factor(self, factor: float):
         self._lr_factor = float(factor)
+        # publish to the model so fedavg's clients see the current lr
+        self.fed_model._opt_lr = self.get_lr()
 
     def step(self):
         fm = self.fed_model
-        assert fm._round_table is not None, "call model(batch) before step()"
+        assert fm._round_ctx is not None, "call model(batch) before step()"
         self.server_state = fm._apply_server(self.server_state, self.get_lr())
 
     def zero_grad(self):

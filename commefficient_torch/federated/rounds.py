@@ -1,39 +1,60 @@
 """The federated round on one device: the port of
-``commefficient_tpu/federated/rounds.py`` for the FetchSGD sketched round.
+``commefficient_tpu/federated/rounds.py`` (the unsharded round, without
+guards and telemetry).
 
 One round, in the JAX package's order:
 
-1. fused-gradient client phase: every client in the round holds the same
-   weights and nothing nonlinear touches a per-client gradient, so the sum
-   of per-client transmits is the gradient of the slot-masked sum of
-   per-client losses; one backward over that sum (per microbatch);
-2. weight decay ``(wd / num_workers) * sum(mask * count) * w``, added to
-   the summed gradient BEFORE the sketch;
-3. one sketch of the sum (sketch-after-sum);
-4. the data-weighted division of the table by ``max(sum(mask), 1)``;
-5. the server phase (``server.server_update``) and ``ps -= lr * update``.
+1. the client phase (``client_step``): the gathered client-state rows, the
+   per-client contributions, their sum, and the data-weighted division by
+   ``max(sum(mask), 1)``;
+2. the server phase (``server_step``): the server rule
+   (``server.server_update``; fedavg's lr is applied on the clients, so the
+   server sees lr = 1), ``ps -= update``, the masking of the per-client
+   state rows and their delta scatter, and the topk-down stale-weight
+   advance.
 
-PS weights stay resident in the sketch's ``(T, S, 128)`` chunk layout
-(zero tail); the model sees them through ``ops/flat.ParamLayout`` views of
-the unchunked vector, so the backward pass lands the gradient in that
-layout directly.
+The client phase takes one of two forms, decided as the JAX package
+decides them:
 
-``--stream_sketch`` (``RoundConfig.stream_sketch``) swaps steps 1-3 for
-the streaming client phase (``fused_clients_stream``): the backward pass
-differentiates with respect to each parameter leaf, the leaf gradients are
-sketched at their flat offsets into a running ``(r, c_pad)`` table after
-each microbatch (one launch per group of adjacent leaves under
-``--sketch_coalesce``), weight decay goes in as one more full-range
-accumulate after the microbatch loop, and no d-sized gradient exists.
+- the fused-gradient phase (``fused_grad``: ``uncompressed``,
+  ``true_topk`` and ``sketch`` with no local velocity or error, no DP, no
+  topk-down, no ``max_grad_norm`` and no ``--test``): every client holds
+  the same weights and nothing nonlinear touches a per-client gradient, so
+  the sum of per-client transmits is the gradient of the slot-masked sum
+  of per-client losses; one backward over that sum (per microbatch), with
+  weight decay ``(wd / num_workers) * sum(mask * count) * w`` added after;
+- the per-client path: the W slots run the worker math
+  (``worker.local_step``, ``worker.fedavg_local``) one after the other,
+  each on its own state rows (``one_client``), and the transmits are
+  summed.
 
-Per-client state (local momentum/error), the per-client worker path,
-guards, telemetry, the engine and sharding are later slices (ROADMAP.md,
-queue 1).
+In sketch mode with nothing nonlinear on a client's table
+(``sketch_after_sum``) the clients transmit dense gradients and the sum
+is sketched once. PS weights stay resident in the sketch's ``(T, S,
+128)`` chunk layout (zero tail) in sketch mode without ``--topk_down``
+(``chunked``); every other mode keeps a flat ``(d,)`` vector. The model
+sees the weights through ``ops/flat.ParamLayout`` views of the flat
+vector, so a backward pass lands the gradient in the resident layout.
+
+``--stream_sketch`` (``RoundConfig.stream_sketch``, legal in the fused
+sketch-after-sum chunked window and silently composed elsewhere, as in
+the JAX package) swaps the fused phase for the streaming one
+(``fused_clients_stream``): the backward pass differentiates with respect
+to each parameter leaf, the leaf gradients are sketched at their flat
+offsets into a running ``(r, c_pad)`` table after each microbatch (one
+launch per group of adjacent leaves under ``--sketch_coalesce``), weight
+decay goes in as one more full-range accumulate after the microbatch
+loop, and no d-sized gradient exists.
+
+Per-client state lives on the round's device (``init_client_states``):
+``(num_clients, d)`` rows, or ``(num_clients, r, c_pad)`` tables in sketch
+mode. The CV models of the port carry no model state (BatchNorm is
+ROADMAP.md queue 1 item 1c), so the model state passes through.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace as dc_replace
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -46,7 +67,10 @@ from commefficient_torch.federated.server import (
 )
 from commefficient_torch.federated.worker import (
     WorkerConfig,
+    fedavg_local,
     forward_metrics,
+    get_new_worker_weights,
+    local_step,
     microbatch_plan,
     sketch_grad_tree,
     split_microbatches,
@@ -66,7 +90,61 @@ from commefficient_torch.ops.sketch import (
     coalesce_vmem_budget,
     sketch_chunks,
     sketch_chunks_accum,
+    sketch_vec,
 )
+
+
+class ClientStates(NamedTuple):
+    """Per-client persistent state; a member is None when the config does
+    not need it. In sketch mode velocity and error are ``(num_clients, r,
+    c_pad)`` tables, else ``(num_clients, d)`` rows."""
+
+    velocities: Optional[torch.Tensor]
+    errors: Optional[torch.Tensor]
+    weights: Optional[torch.Tensor]  # (num_clients, d) iff do_topk_down
+
+
+class RoundContext(NamedTuple):
+    """What the server phase needs from the client phase. ``*_rows`` are
+    the participating clients' state rows before the round (None where the
+    config keeps no such state), ``new_*`` after it."""
+
+    gradient: torch.Tensor
+    ids: torch.Tensor
+    wmask: torch.Tensor  # (W,) 1 for participating slots, 0 for padding
+    vel_rows: Optional[torch.Tensor]
+    err_rows: Optional[torch.Tensor]
+    stale_rows: Optional[torch.Tensor]
+    new_vel: Optional[torch.Tensor]
+    new_err: Optional[torch.Tensor]
+
+
+def init_client_states(num_clients: int, grad_size: int, wcfg: WorkerConfig,
+                       init_weights: Optional[torch.Tensor] = None,
+                       sketch: Optional[CountSketch] = None,
+                       device=None) -> ClientStates:
+    """Zero velocity and error rows where the config keeps them, and the
+    topk-down stale weights as copies of ``init_weights`` (flat ``(d,)``),
+    all on ``device`` (default ``cuda``). Dense rows cost ``num_clients x
+    d x 4`` bytes an array."""
+    device = torch.device(device if device is not None else "cuda")
+    if wcfg.mode == "sketch" and (wcfg.has_velocity or wcfg.has_error):
+        assert sketch is not None, \
+            "sketch-mode client state needs the sketch geometry"
+        state_shape = (num_clients,) + sketch.table_shape
+    else:
+        state_shape = (num_clients, grad_size)
+
+    def alloc():
+        return torch.zeros(state_shape, dtype=torch.float32, device=device)
+
+    weights = None
+    if wcfg.do_topk_down:
+        assert init_weights is not None
+        weights = init_weights.to(device=device, dtype=torch.float32)[
+            None, :].repeat(num_clients, 1)
+    return ClientStates(alloc() if wcfg.has_velocity else None,
+                        alloc() if wcfg.has_error else None, weights)
 
 
 @dataclass(frozen=True)
@@ -74,6 +152,8 @@ class RoundConfig:
     worker: WorkerConfig
     server: ServerConfig
     grad_size: int
+    # --test: skip the forward and backward passes, transmit all ones
+    do_test: bool = False
     # the streaming client phase (--stream_sketch)
     stream_sketch: bool = False
     # one accumulate launch per group of adjacent leaves (--sketch_coalesce;
@@ -85,39 +165,53 @@ class FederatedSteps(NamedTuple):
     client_step: Callable
     server_step: Callable
     val_step: Callable
-    layout: ChunkLayout
+    # the chunk layout of the resident weights, None where they are flat
+    layout: Optional[ChunkLayout]
     # the streaming client phase's leaf layout and group plan (None when
     # the round is composed, or streams leaf by leaf)
     stream_segments: Optional[Tuple[LeafSegment, ...]] = None
     stream_groups: Optional[Tuple[SegmentGroup, ...]] = None
 
 
-def check_round_config(wcfg: WorkerConfig) -> None:
-    """Raise for configs outside this slice: it runs only the fused
-    sketch-after-sum client phase."""
-    if wcfg.mode != "sketch":
-        raise NotImplementedError(
-            f"--mode {wcfg.mode} is not ported yet (ROADMAP.md, queue 1: the "
-            "other server modes)")
-    if (wcfg.has_velocity or wcfg.has_error
-            or wcfg.max_grad_norm is not None):
-        raise NotImplementedError(
-            "per-client sketch-space state and clipping need the "
-            "per-client worker path, which is not ported yet "
-            "(ROADMAP.md, queue 1); use --error_type virtual "
-            "--local_momentum 0")
-
-
 def build_round_step(compute_loss_train: Callable,
                      compute_loss_val: Callable, params: ParamLayout,
-                     cfg: RoundConfig, sketch: CountSketch) -> FederatedSteps:
+                     cfg: RoundConfig,
+                     sketch: Optional[CountSketch] = None) -> FederatedSteps:
     wcfg, scfg = cfg.worker, cfg.server
-    check_round_config(wcfg)
-    assert params.d == cfg.grad_size == sketch.d, \
-        (params.d, cfg.grad_size, sketch.d)
-    layout = sketch.chunk_layout
+    assert wcfg.mode == scfg.mode, (wcfg.mode, scfg.mode)
+    assert params.d == cfg.grad_size, (params.d, cfg.grad_size)
+    if wcfg.mode == "sketch":
+        assert sketch is not None and sketch.d == cfg.grad_size, \
+            "sketch mode needs the sketch geometry of the flat vector"
+
+    # chunked-resident weights: sketch mode without topk-down (its
+    # stale-weight math lives on dense (num_clients, d) rows)
+    chunked = wcfg.mode == "sketch" and not wcfg.do_topk_down
+    layout = sketch.chunk_layout if chunked else None
+    # sketch-after-sum: with nothing nonlinear on a client's table (no
+    # sketch-space velocity, error or clip), the sum of per-client tables
+    # is one table of the summed dense gradient; the clients then run the
+    # dense worker math (mode "uncompressed") and the sum is sketched once
+    sketch_after_sum = (wcfg.mode == "sketch" and not wcfg.has_velocity
+                        and not wcfg.has_error
+                        and wcfg.max_grad_norm is None and not cfg.do_test)
+    inner_wcfg = (dc_replace(wcfg, mode="uncompressed") if sketch_after_sum
+                  else wcfg)
+    # fused-gradient client phase (see the module docstring)
+    fused_grad = (
+        not cfg.do_test
+        and wcfg.mode in ("uncompressed", "true_topk", "sketch")
+        and not wcfg.has_velocity and not wcfg.has_error
+        and not wcfg.do_dp and not wcfg.do_topk_down
+        and wcfg.max_grad_norm is None
+    )
+    # fused sketch mode only ever rides the sketch-after-sum path
+    assert not (fused_grad and wcfg.mode == "sketch" and not sketch_after_sum)
+    stream = bool(cfg.stream_sketch) and fused_grad and sketch_after_sum \
+        and chunked
+
     stream_segs = stream_unravel = stream_groups = None
-    if cfg.stream_sketch:
+    if stream:
         stream_segs = leaf_segments(params)
         assert stream_segs[-1].offset + stream_segs[-1].size == \
             cfg.grad_size, "leaf layout does not cover the flat vector"
@@ -127,23 +221,28 @@ def build_round_step(compute_loss_train: Callable,
                 stream_segs, coalesce_vmem_budget(sketch),
                 chunk_elems=sketch.c_pad)
 
-    def fused_clients(ps3, model_state, batch, worker_mask):
+    def unravel_res(w):
+        """Resident weights -> the model's parameter views (the one flat
+        materialization of a chunked round, at the model boundary)."""
+        return params.params(layout.unchunk(w) if chunked else w)
+
+    def fused_clients(ps, model_state, batch, worker_mask):
         """One-gradient client phase. Returns (summed gradient incl. weight
-        decay in the chunk layout, per-client metrics)."""
+        decay in the resident layout, per-client metrics)."""
         W, B = batch["mask"].shape
         mb, n_iters, pad = microbatch_plan(B, wcfg.microbatch_size)
         stacked = split_microbatches(batch, mb, n_iters, pad, example_dim=1)
-        w = ps3.detach().requires_grad_(True)
-        p = params.params(layout.unchunk(w))
+        w = ps.detach().requires_grad_(True)
+        p = unravel_res(w)
 
         def per_client(b):
             loss_sum, msums, count, _ = compute_loss_train(
                 p, model_state, b, None, True)
             return loss_sum, msums, count
 
-        g_sum = torch.zeros_like(ps3)
-        loss_sums = torch.zeros(W, device=ps3.device)
-        counts = torch.zeros(W, device=ps3.device)
+        g_sum = torch.zeros_like(ps)
+        loss_sums = torch.zeros(W, device=ps.device)
+        counts = torch.zeros(W, device=ps.device)
         m_sums = None
         for it in range(n_iters):
             micro = {k: v[it] for k, v in stacked.items()}
@@ -159,7 +258,7 @@ def build_round_step(compute_loss_train: Callable,
         if wcfg.weight_decay != 0:
             wd_scale = torch.sum(worker_mask * counts)
             g_sum = g_sum + ((wcfg.weight_decay / wcfg.num_workers)
-                             * wd_scale) * ps3
+                             * wd_scale) * ps
         denom = torch.clamp(counts, min=1.0)
         metrics = (loss_sums / denom,) + tuple(m / denom for m in m_sums) \
             + (counts,)
@@ -217,30 +316,177 @@ def build_round_step(compute_loss_train: Callable,
             + (counts,)
         return table, metrics
 
-    def client_step(ps3, model_state, batch):
-        """Phase 1: the round's data-weighted ``(r, c_pad)`` sketch table
-        (the server phase's input), the model state, per-client metrics."""
+    _probe = {}
+
+    def one_client(ps_flat, vel_row, err_row, stale_row, model_state,
+                   batch_row, lr, rng, slot_mask):
+        """One slot of the per-client path. Returns (transmit x slot mask,
+        new velocity row, new error row, metrics); a padded slot (mask 0)
+        transmits zeros and keeps its rows. The model state passes
+        through (the port's CV models carry none)."""
+        # the weights the client holds: the topk-down stale reconstruction
+        weights_used = (get_new_worker_weights(ps_flat, stale_row, wcfg.k,
+                                               True)
+                        if wcfg.do_topk_down else ps_flat)
+        if cfg.do_test:
+            # smoke mode: no backward pass and an all-ones transmit; the
+            # metrics (all ones, and the count) take the loss's arity,
+            # learnt from one forward pass without a gradient
+            shape = sketch.table_shape if wcfg.mode == "sketch" else \
+                (cfg.grad_size,)
+            transmit = torch.ones(shape, dtype=torch.float32,
+                                  device=ps_flat.device)
+            if "n_metrics" not in _probe:
+                with torch.no_grad():
+                    _probe["n_metrics"] = len(compute_loss_train(
+                        params.params(weights_used), model_state, batch_row,
+                        rng, True)[1])
+            one = torch.ones((), device=ps_flat.device)
+            metrics = (one,) * (1 + _probe["n_metrics"]) + \
+                (batch_row["mask"].sum(),)
+            new_vel, new_err = vel_row, err_row
+        elif wcfg.mode == "fedavg":
+            res, _ = fedavg_local(compute_loss_train, weights_used,
+                                  params.params, model_state, batch_row,
+                                  rng, lr, wcfg)
+            transmit, new_vel, new_err, metrics = (res.transmit, vel_row,
+                                                   err_row, res.metrics)
+        else:
+            res, _ = local_step(compute_loss_train, weights_used,
+                                params.params, model_state, vel_row,
+                                err_row, batch_row, rng, inner_wcfg, sketch)
+            transmit, new_vel, new_err, metrics = (
+                res.transmit, res.new_velocity, res.new_error, res.metrics)
+        transmit = transmit * slot_mask
+        if new_vel is not None:
+            new_vel = torch.where(slot_mask > 0, new_vel, vel_row)
+        if new_err is not None:
+            new_err = torch.where(slot_mask > 0, new_err, err_row)
+        return transmit, new_vel, new_err, metrics
+
+    def per_client_path(ps, vel_rows, err_rows, stale_rows, model_state,
+                        batch, lr, rng, worker_mask):
+        """The per-client path: the W slots one after the other, each
+        through ``one_client``; the transmits summed in slot order. The
+        worker math runs on the flat vector, so a chunked round
+        materializes the flat view once here."""
+        ps_flat = layout.unchunk(ps) if chunked else ps
+        total = None
+        vels, errs, metrics = [], [], []
+        for i in range(worker_mask.shape[0]):
+            t, nv, ne, m = one_client(
+                ps_flat, None if vel_rows is None else vel_rows[i],
+                None if err_rows is None else err_rows[i],
+                None if stale_rows is None else stale_rows[i], model_state,
+                {k: v[i] for k, v in batch.items()}, lr, rng,
+                worker_mask[i])
+            total = t if total is None else total + t
+            vels.append(nv)
+            errs.append(ne)
+            metrics.append(m)
+        metrics = tuple(torch.stack([x.detach() for x in ms])
+                        for ms in zip(*metrics))
+        new_vel = None if vel_rows is None else torch.stack(vels)
+        new_err = None if err_rows is None else torch.stack(errs)
+        return total, new_vel, new_err, metrics
+
+    def _rows(state_arr, ids):
+        return None if state_arr is None else state_arr[ids]
+
+    def client_step(ps, client_states: ClientStates, model_state, batch, lr,
+                    rng: Optional[torch.Generator]):
+        """Phase 1: the round's data-weighted transmit (a dense vector in
+        the resident layout, or the ``(r, c_pad)`` table in sketch mode)
+        with the client-state rows in a ``RoundContext``, the model state,
+        per-client metrics. ``lr`` is the current learning rate (fedavg's
+        local SGD reads it); ``rng`` draws DP noise."""
+        ids = batch["client_ids"].to(torch.int64)
         worker_mask = batch["worker_mask"]
         data = {k: v for k, v in batch.items()
                 if k not in ("client_ids", "worker_mask")}
-        if cfg.stream_sketch:
-            table, metrics = fused_clients_stream(ps3, model_state, data,
-                                                  worker_mask)
+        vel_rows = _rows(client_states.velocities, ids)
+        err_rows = _rows(client_states.errors, ids)
+        stale_rows = _rows(client_states.weights, ids)
+        if fused_grad:
+            if stream:
+                # the streaming phase's sum is already the table
+                total, metrics = fused_clients_stream(ps, model_state, data,
+                                                      worker_mask)
+            else:
+                total, metrics = fused_clients(ps, model_state, data,
+                                               worker_mask)
+            new_vel, new_err = vel_rows, err_rows
         else:
-            g_sum, metrics = fused_clients(ps3, model_state, data,
-                                           worker_mask)
-            table = sketch_chunks(sketch, g_sum)
+            total, new_vel, new_err, metrics = per_client_path(
+                ps, vel_rows, err_rows, stale_rows, model_state, data, lr,
+                rng, worker_mask)
+        if sketch_after_sum and not stream:
+            # one sketch of the dense sum; the fused gradient is already in
+            # the (T, S, 128) layout
+            total = (sketch_chunks(sketch, total) if chunked and fused_grad
+                     else sketch_vec(sketch, total))
+        # data-weighted average
         total_count = torch.clamp(batch["mask"].sum(), min=1.0)
-        return table / total_count, model_state, metrics
+        ctx = RoundContext(total / total_count, ids, worker_mask, vel_rows,
+                           err_rows, stale_rows, new_vel, new_err)
+        return ctx, model_state, metrics
 
-    def server_step(ps3, server_state: ServerState, table, lr):
-        """Phase 2: server rule and the weight update."""
-        update, new_state = server_update(table, server_state, scfg, lr,
-                                          sketch=sketch, layout=layout)
-        return ps3 - update, new_state
+    def server_step(ps, server_state: ServerState,
+                    client_states: ClientStates, ctx: RoundContext, lr,
+                    rng: Optional[torch.Generator]):
+        """Phase 2: the server rule, the weight update, and the client-state
+        scatter. Returns (new weights, new server state, client states);
+        the client-state arrays are updated in place."""
+        # fedavg applies the lr on the clients; the server sees lr = 1
+        eff_lr = 1.0 if wcfg.mode == "fedavg" else lr
+        update, new_state = server_update(ctx.gradient, server_state, scfg,
+                                          eff_lr, sketch=sketch, rng=rng,
+                                          layout=layout)
+        new_ps = ps - update
 
-    def val_step(ps3, model_state, batch):
-        w = layout.unchunk(ps3) if ps3.ndim != 1 else ps3
+        # the server's masks of the participating clients' state:
+        # true_topk's momentum factor masking of local velocities at the
+        # global top-k coordinates; sketch mode's error feedback and
+        # momentum masking of the clients' sketch-space tables at the
+        # nonzero cells of the re-sketched update
+        keep_vel = keep_err = None
+        if wcfg.mode == "true_topk" and wcfg.local_momentum > 0:
+            keep_vel = (update == 0).to(torch.float32)[None, :]
+        elif wcfg.mode == "sketch" and (wcfg.has_velocity or wcfg.has_error):
+            resketch = sketch_chunks if chunked else sketch_vec
+            cell_keep = (resketch(sketch, update) == 0).to(
+                torch.float32)[None]
+            keep_vel = keep_err = cell_keep
+
+        def scatter(state_arr, old_rows, new_rows, keep):
+            """Add each participating slot's (masked new row - old row) to
+            its client's row, in place. A padded slot repeats client id 0
+            with wmask 0, so its delta is exactly 0: index_add_ then adds
+            +0.0 to the row a real slot of client 0 updates (or leaves),
+            and x + 0.0 == x, so duplicate ids stay exact in any order."""
+            if state_arr is None:
+                return None
+            final = new_rows if keep is None else new_rows * keep
+            w = ctx.wmask.reshape((-1,) + (1,) * (old_rows.ndim - 1))
+            return state_arr.index_add_(0, ctx.ids, (final - old_rows) * w)
+
+        cs = ClientStates(
+            velocities=scatter(client_states.velocities, ctx.vel_rows,
+                               ctx.new_vel, keep_vel),
+            errors=scatter(client_states.errors, ctx.err_rows, ctx.new_err,
+                           keep_err),
+            weights=client_states.weights)
+        if wcfg.do_topk_down and cs.weights is not None:
+            # the participating clients' stale weights advance to the
+            # weights they used this round; wmask gates the delta as above
+            used = torch.stack([get_new_worker_weights(ps, s, wcfg.k, True)
+                                for s in ctx.stale_rows])
+            w = ctx.wmask.reshape(-1, 1)
+            cs.weights.index_add_(0, ctx.ids, (used - ctx.stale_rows) * w)
+        return new_ps, new_state, cs
+
+    def val_step(ps, model_state, batch):
+        w = layout.unchunk(ps) if (chunked and ps.ndim != 1) else ps
         return forward_metrics(compute_loss_val, params.params(w),
                                model_state, batch)
 
@@ -248,4 +494,3 @@ def build_round_step(compute_loss_train: Callable,
                           val_step=val_step, layout=layout,
                           stream_segments=stream_segs,
                           stream_groups=stream_groups)
-

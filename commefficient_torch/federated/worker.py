@@ -1,28 +1,54 @@
-"""Client-side configuration and helpers: the port of
-``commefficient_tpu/federated/worker.py`` for the fused sketch-mode round.
+"""Client-side (worker) computation: the port of
+``commefficient_tpu/federated/worker.py``, one client per call.
 
-Semantics preserved: the round transmits the data-weighted sum of
-per-client gradients (per-example-mean gradient x local batch size), with
-weight decay folded in as ``wd / num_workers x weights`` per datum. The
-per-client worker path (local momentum/error, clipping, DP, local top-k,
-fedavg) is a later slice (ROADMAP.md, queue 1); this slice runs the
-fused-gradient client phase of ``federated/rounds.py``, composed or
-streamed (``sketch_grad_tree``).
+Semantics preserved:
+
+- per-example-mean gradient x local batch size, so the cross-client sum is
+  data-weighted; weight decay folded in as ``wd / num_workers x weights``;
+- local momentum ``v = g + m v`` on the client's state row; local error
+  ``e += v``, transmit ``e``;
+- local_topk: transmit the top-k, zero error and velocity at the
+  transmitted coordinates;
+- sketch mode transmits the count-sketch table of the weighted gradient;
+  local momentum and local error are carried in sketch space (``(r,
+  c_pad)`` rows: sketches are linear, so the recurrences commute with
+  sketching);
+- DP: clip to ``l2_norm_clip``, then add ``N(0, noise_multiplier^2) x
+  sqrt(num_workers)`` noise in worker mode, drawn from an explicit
+  ``torch.Generator``;
+- ``max_grad_norm``: a dense clip, except in sketch mode, where the table
+  is clipped by its ``l2estimate``;
+- fedavg: ``num_fedavg_epochs`` of local SGD over ``fedavg_batch_size``
+  chunks with per-step decay, transmitting ``(w0 - w_final) x count``;
+- microbatched gradient accumulation (the exact per-example mean).
+
+The loss callback contract is ``compute_loss(params, model_state,
+microbatch, rng, train) -> (loss_sum, metric_sums, count,
+new_model_state)``; ``unravel`` maps the flat ``(d,)`` weights (JAX ravel
+order) to the ``params`` the loss applies, so a gradient taken with
+respect to the flat vector lands in that order. The fused-gradient client
+phase of ``federated/rounds.py`` shares ``microbatch_plan``,
+``split_microbatches`` and ``sketch_grad_tree`` with this module.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from commefficient_torch.ops.clip import clip_by_l2
 from commefficient_torch.ops.flat import LeafSegment, SegmentGroup
 from commefficient_torch.ops.sketch import (
     CountSketch,
+    l2estimate,
     sketch_segment_accum,
     sketch_segments_accum,
+    sketch_vec,
 )
+from commefficient_torch.ops.topk import topk
 
 
 @dataclass(frozen=True)
@@ -35,6 +61,14 @@ class WorkerConfig:
     local_momentum: float = 0.0
     microbatch_size: int = -1
     max_grad_norm: Optional[float] = None
+    do_dp: bool = False
+    dp_mode: str = "worker"
+    l2_norm_clip: float = 1.0
+    noise_multiplier: float = 0.0
+    num_fedavg_epochs: int = 1
+    fedavg_batch_size: int = -1
+    fedavg_lr_decay: float = 1.0
+    do_topk_down: bool = False
 
     @property
     def has_velocity(self) -> bool:
@@ -45,6 +79,13 @@ class WorkerConfig:
     def has_error(self) -> bool:
         # client errors exist iff error_type == "local"
         return self.error_type == "local"
+
+
+class ClientResult(NamedTuple):
+    transmit: torch.Tensor  # (d,) dense or (r, c_pad) table, x count
+    new_velocity: Optional[torch.Tensor]
+    new_error: Optional[torch.Tensor]
+    metrics: Tuple[torch.Tensor, ...]  # (loss_mean, *metric_means, count)
 
 
 def microbatch_plan(B: int, microbatch_size: int):
@@ -108,3 +149,154 @@ def sketch_grad_tree(sketch: CountSketch, table: torch.Tensor,
         table = sketch_segments_accum(sketch, table,
                                       grads[grp.start:grp.stop], grp.offset)
     return table
+
+
+def _grad_of(compute_loss, unravel, w_flat, model_state, batch, rng):
+    """``(gradient of loss_sum by the flat weights, loss_sum, metric_sums,
+    count, new_model_state)`` on one batch, all detached."""
+    w = w_flat.detach().requires_grad_(True)
+    loss_sum, msums, count, new_state = compute_loss(unravel(w), model_state,
+                                                     batch, rng, True)
+    (g,) = torch.autograd.grad(loss_sum, w)
+    return (g, loss_sum.detach(), tuple(m.detach() for m in msums),
+            count.detach(), new_state)
+
+
+def _microbatch_grads(compute_loss, params_flat, unravel, model_state, batch,
+                      rng, cfg: WorkerConfig):
+    """Per-example-mean flat gradient over the masked batch, accumulated
+    over microbatches. Returns ``(grad_mean, loss_mean, metric_means,
+    count, new_model_state)``."""
+    B = batch["mask"].shape[0]
+    mb, n_iters, pad = microbatch_plan(B, cfg.microbatch_size)
+    stacked = split_microbatches(batch, mb, n_iters, pad)
+    zero = torch.zeros((), device=params_flat.device)
+    g_sum = torch.zeros_like(params_flat)
+    loss_sum, count, m_sums, mstate = zero, zero, None, model_state
+    for it in range(n_iters):
+        micro = {k: v[it] for k, v in stacked.items()}
+        g, ls, ms, cnt, mstate = _grad_of(compute_loss, unravel, params_flat,
+                                          mstate, micro, rng)
+        g_sum = g_sum + g
+        loss_sum = loss_sum + ls
+        m_sums = ms if m_sums is None else tuple(
+            a + m for a, m in zip(m_sums, ms))
+        count = count + cnt
+    denom = torch.clamp(count, min=1.0)
+    return (g_sum / denom, loss_sum / denom, tuple(m / denom for m in m_sums),
+            count, mstate)
+
+
+def forward_grad(compute_loss, params_flat, unravel, model_state, batch,
+                 rng, cfg: WorkerConfig, sketch: Optional[CountSketch]):
+    """One client's gradient and its transforms, in the JAX package's
+    order: weight decay, the dense ``max_grad_norm`` clip (not in sketch
+    mode), DP (clip, then worker noise), then in sketch mode the table and
+    its clip by ``l2estimate``. Returns ``(transmit, (loss_mean,
+    *metric_means, count), new_model_state, dense_grad)``."""
+    grad, loss_mean, metric_means, count, new_state = _microbatch_grads(
+        compute_loss, params_flat, unravel, model_state, batch, rng, cfg)
+    if cfg.weight_decay != 0:
+        grad = grad + (cfg.weight_decay / cfg.num_workers) * params_flat
+    if cfg.max_grad_norm is not None and cfg.mode != "sketch":
+        grad = clip_by_l2(grad, cfg.max_grad_norm)
+    if cfg.do_dp:
+        grad = clip_by_l2(grad, cfg.l2_norm_clip)
+        if cfg.dp_mode == "worker":
+            noise = cfg.noise_multiplier * torch.randn(
+                grad.shape, generator=rng, dtype=grad.dtype,
+                device=grad.device) * math.sqrt(float(cfg.num_workers))
+            grad = grad + noise
+    if cfg.mode == "sketch":
+        g = sketch_vec(sketch, grad)
+        if cfg.max_grad_norm is not None:
+            g = clip_by_l2(g, cfg.max_grad_norm, norm=l2estimate(g))
+    else:
+        g = grad
+    return g, (loss_mean,) + metric_means + (count,), new_state, grad
+
+
+def local_step(compute_loss, params_flat, unravel, model_state, velocity,
+               error, batch, rng, cfg: WorkerConfig,
+               sketch: Optional[CountSketch]) -> Tuple[ClientResult, Any]:
+    """One client's training contribution: ``forward_grad``, the ``x
+    count`` scaling, local momentum and error, and the local top-k."""
+    g, metrics, new_state, _ = forward_grad(
+        compute_loss, params_flat, unravel, model_state, batch, rng, cfg,
+        sketch)
+    count = metrics[-1]
+    # sum-of-example-gradients scaling; linear, so it applies to tables too
+    g = g * count
+
+    new_velocity, new_error = velocity, error
+    if cfg.has_velocity:
+        new_velocity = g + cfg.local_momentum * velocity
+        carrier = new_velocity
+    else:
+        carrier = g
+    if cfg.has_error:
+        new_error = error + carrier
+        to_transmit = new_error
+    else:
+        to_transmit = carrier
+
+    if cfg.mode == "local_topk":
+        to_transmit = topk(to_transmit, cfg.k)
+        nz = to_transmit != 0
+        zero = torch.zeros((), dtype=to_transmit.dtype,
+                           device=to_transmit.device)
+        if cfg.has_error:
+            new_error = torch.where(nz, zero, new_error)
+        if cfg.has_velocity:
+            new_velocity = torch.where(nz, zero, new_velocity)
+
+    return ClientResult(to_transmit, new_velocity, new_error,
+                        metrics), new_state
+
+
+def fedavg_local(compute_loss, params_flat, unravel, model_state, batch, rng,
+                 lr, cfg: WorkerConfig) -> Tuple[ClientResult, Any]:
+    """FedAvg local training: ``num_fedavg_epochs`` passes of local SGD
+    over the client's batch in ``fedavg_batch_size`` chunks, the step
+    decayed by ``fedavg_lr_decay ** step``; all-padding chunks are
+    skipped (they move neither the weights nor the step count). Transmits
+    ``(w0 - w_final) x count``."""
+    B = batch["mask"].shape[0]
+    fbs, n_chunks, pad = microbatch_plan(B, cfg.fedavg_batch_size)
+    chunks = split_microbatches(batch, fbs, n_chunks, pad)
+    zero = torch.zeros((), device=params_flat.device)
+    w, mstate = params_flat, model_state
+    step = loss_acc = n_steps = zero
+    m_acc = None
+    for _ in range(cfg.num_fedavg_epochs):
+        for i in range(n_chunks):
+            chunk = {k: v[i] for k, v in chunks.items()}
+            g, loss_sum, msums, count, mstate = _grad_of(
+                compute_loss, unravel, w, mstate, chunk, rng)
+            g_mean = g / torch.clamp(count, min=1.0)
+            decay = cfg.fedavg_lr_decay ** step
+            valid = (count > 0).to(torch.float32)
+            w = w - valid * g_mean * lr * decay
+            denom = torch.clamp(count, min=1.0)
+            ms = tuple(valid * m / denom for m in msums)
+            m_acc = ms if m_acc is None else tuple(
+                a + m for a, m in zip(m_acc, ms))
+            step = step + valid
+            loss_acc = loss_acc + valid * loss_sum / denom
+            n_steps = n_steps + valid
+    count = batch["mask"].sum()
+    # weight the delta by the client's dataset size
+    transmit = (params_flat - w) * count
+    denom = torch.clamp(n_steps, min=1.0)
+    metrics = (loss_acc / denom,) + tuple(m / denom for m in m_acc) \
+        + (count,)
+    return ClientResult(transmit, None, None, metrics), mstate
+
+
+def get_new_worker_weights(ps_weights, worker_weights, k: int,
+                           do_topk_down: bool):
+    """topk-down stale-weight reconstruction: the client moves toward the
+    server's weights by the top-k of the difference (or all of it)."""
+    diff = ps_weights - worker_weights
+    update = topk(diff, k) if do_topk_down else diff
+    return worker_weights + update

@@ -37,8 +37,8 @@ def max_pool(x: torch.Tensor, window: int) -> torch.Tensor:
 
 class ConvBN(nn.Module):
     """3x3 conv without bias + ReLU + optional max-pool (the reference's
-    ``ConvBN`` cell with BatchNorm off). BatchNorm is not ported in this
-    slice (ROADMAP.md, queue 1)."""
+    ``ConvBN`` cell with BatchNorm off). BatchNorm is not ported yet
+    (ROADMAP.md queue 1 item 1c)."""
 
     def __init__(self, c_in: int, c_out: int, pool: int = 0):
         super().__init__()

@@ -426,3 +426,69 @@ def test_descent_kernel_edge_cases(cuda, kind):
     assert got == int(ttk._descent_plain(bits.cpu(), k))
     if kind == "k>n":
         assert got == 0
+
+
+def _plain_on_card(monkeypatch):
+    """Every kernel of the headline server step swapped for its plain
+    version, on the card."""
+    def plain_estimates(table3, cs, t0=0, Tn=None, n_valid=None):
+        est = tsk._sketch_estimates_plain(table3, cs.inv_q, cs.inv_w,
+                                          cs.sign_keys, t0)
+        return est if n_valid is None else tsk._mask_from(est, t0, n_valid)
+
+    monkeypatch.setattr(tsk, "sketch_estimates", plain_estimates)
+    monkeypatch.setattr(tsk, "sketch_accumulate",
+                        tsk._sketch_accumulate_plain)
+    monkeypatch.setattr(ttk, "topk_count_ge", ttk._count_ge_plain)
+    monkeypatch.setattr(ttk, "topk_descent", ttk._descent_plain)
+
+
+@pytest.mark.gpu
+def test_zero_sign_at_p_zero(cuda, monkeypatch):
+    """The headline server step at top-k threshold 0 (fewer than k nonzero
+    estimates: 2,000 nonzero cells a row, and an estimate is nonzero only
+    where 3 of its 5 cells are), through the kernels and through the plain
+    versions, on weights a quarter of which are -0.0 and a quarter +0.0.
+    Every estimate is kept, so the query's free sign of a zero median
+    reaches ``ps - update``: the new weights must be equal under ==, and
+    differ in at most the sign bit of zero weights; the count of such
+    weights is printed."""
+    from commefficient_torch.federated import server as tsrv
+
+    d, c, r, k, lr = 6_568_640, 500_000, 5, 50_000, 0.1
+    cs = tsk.make_sketch(d, c, r, seed=0, device=cuda)
+    gen = torch.Generator().manual_seed(0)
+    table = torch.zeros(cs.table_shape)
+    for j in range(r):
+        idx = torch.randperm(cs.c_pad, generator=gen)[:2000]
+        table[j, idx] = torch.randn(2000, generator=gen)
+    table = table.to(cuda)
+    w = torch.randn(d, generator=gen)
+    w[0::4] = -0.0
+    w[1::4] = 0.0
+    ps3 = cs.chunk_layout.chunk(w.to(cuda))
+    cfg = tsrv.ServerConfig(mode="sketch", error_type="virtual", k=k,
+                            grad_size=d, virtual_momentum=0.9)
+    state = tsrv.init_server_state(cfg, cs)
+    est = tsk.estimates_chunks(cs, table)
+    assert int((est != 0).sum()) < k
+    assert int(ttk.resolve_threshold(est, k)) == 0
+    upd_k, st_k = tsrv.server_update(table, state, cfg, lr, sketch=cs,
+                                     layout=cs.chunk_layout)
+    new_k = ps3 - upd_k
+    kernels.reset_launch_counts()
+    with monkeypatch.context() as m:
+        _plain_on_card(m)
+        upd_p, st_p = tsrv.server_update(table, state, cfg, lr, sketch=cs,
+                                         layout=cs.chunk_layout)
+        new_p = ps3 - upd_p
+        torch.cuda.synchronize()
+    assert kernels.launch_counts() == ALL_ZERO, "plain path launched"
+    for a, b in ((upd_k, upd_p), (st_k.velocity, st_p.velocity),
+                 (st_k.error, st_p.error), (new_k, new_p)):
+        assert _nan_equal(a, b)
+    sign_only = (new_k.view(torch.int32) != new_p.view(torch.int32))
+    assert not new_k[sign_only].any() and not new_p[sign_only].any()
+    zero_w = int((new_p == 0).sum())
+    print(f"zero weights {zero_w}, of which {int(sign_only.sum())} differ "
+          f"in the sign bit (kernels against plain versions, p = 0)")

@@ -186,7 +186,7 @@ def test_cv_train_main_cpu(tmp_path, monkeypatch):
                                   ["--server_shard"], ["--telemetry"],
                                   ["--resume", "auto"], ["--bf16"],
                                   ["--participation", "0.5"],
-                                  ["--mode", "true_topk"],
+                                  ["--batchnorm"],
                                   ["--num_devices", "4"]])
 def test_unported_options_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -235,12 +235,37 @@ def test_cuda_request_without_card_raises():
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_batchnorm_names_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match="item 1c"):
+        t_parse(argv=ARGV + ["--device", "cpu", "--batchnorm"])
+
+
 def test_per_client_worker_path_not_ported():
+    """The name is kept from when the per-client path was not ported: this
+    config (local momentum and local error in sketch space) now builds and
+    takes a round, and the server's legality asserts still hold."""
     tm = ResNet9(channels=TINY)
     ttrain, _ = t_losses(tm)
-    args = t_parse(argv=ARGV + ["--device", "cpu", "--local_momentum", "0.9",
-                                "--error_type", "local",
-                                "--virtual_momentum", "0"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FedModel(tm, ttrain, args, num_clients=NCLIENTS, device="cpu")
-
+    argv = ARGV + ["--device", "cpu", "--local_momentum", "0.9",
+                   "--error_type", "local", "--virtual_momentum", "0"]
+    fm = FedModel(tm, ttrain, t_parse(argv=argv), num_clients=NCLIENTS,
+                  device="cpu")
+    opt = FedOptimizer(fm, t_parse(argv=argv))
+    opt.set_lr_factor(LR)
+    b = _batch(0)
+    loss, _, _, upload = fm(b)
+    opt.step()
+    assert np.all(np.isfinite(loss)) and upload[b["client_ids"]].all()
+    for rows in (fm.client_states.velocities, fm.client_states.errors):
+        assert tuple(rows.shape) == (NCLIENTS,) + fm.sketch.table_shape
+        touched = rows.reshape(NCLIENTS, -1).abs().sum(1) > 0
+        assert touched.numpy().tolist() == [
+            c in b["client_ids"] for c in range(NCLIENTS)]
+    with pytest.raises(AssertionError, match="virtual_momentum 0"):
+        FedModel(tm, ttrain, t_parse(argv=argv + ["--virtual_momentum",
+                                                  "0.9"]),
+                 num_clients=NCLIENTS, device="cpu")
+    with pytest.raises(AssertionError, match="local_momentum 0"):
+        FedModel(tm, ttrain, t_parse(argv=ARGV + ["--device", "cpu",
+                                                  "--local_momentum", "0.9"]),
+                 num_clients=NCLIENTS, device="cpu")

@@ -46,6 +46,7 @@ from commefficient_torch.convert import flat_from_jax  # noqa: E402
 from commefficient_torch.federated import FedModel, FedOptimizer  # noqa: E402
 from commefficient_torch.federated.losses import make_cv_losses as t_losses  # noqa: E402
 from commefficient_torch.federated.rounds import (  # noqa: E402
+    ClientStates,
     RoundConfig,
     build_round_step,
 )
@@ -368,7 +369,9 @@ def _steps(stream, coalesce, wd, microbatch, k=500):
 def _client_table(steps, ps3, rnd=0):
     b = {k: torch.from_numpy(np.asarray(v)) for k, v in _batch(rnd).items()}
     b["targets"] = b["targets"].to(torch.int64)
-    table, _, metrics = steps.client_step(ps3, {}, b)
+    ctx, _, metrics = steps.client_step(ps3, ClientStates(None, None, None),
+                                        {}, b, LR, None)
+    table = ctx.gradient
     return table, metrics
 
 
