@@ -74,6 +74,30 @@ Phases (any failure exits non-zero; nothing is caught):
    through the plain versions, whose weights, server state and scattered
    client rows must be equal; and the count pass once on the flat,
    unpadded 6,568,640-pattern vector that ``true_topk`` hands it.
+8. the run lifecycle at full width (``phase_lifecycle``; cuDNN pinned
+   deterministic, ``torch.backends.cudnn.deterministic = True`` and
+   ``benchmark = False``, where bits are compared): the headline and the
+   opt-in round through ``PipelinedRoundEngine(window=2,
+   drain_every=8)`` for 24 rounds, bit-equal to the synchronous loop
+   from the same state, every non-drain submit under
+   ``torch.cuda.set_sync_debug_mode("error")`` (any synchronizing call
+   raises) with 0 counted fetches, 2 / 1 / 8 launches a headline round;
+   rounds/sec and the device's busy share (``torch.profiler``) of the
+   loop and the engine in 5 alternating pairs of 48 rounds, for both
+   rounds, beside
+   the card's line (data, no claim); resume: 6 rounds straight against 3
+   rounds, ``save_round_state``, a new FedModel / FedOptimizer / LambdaLR
+   restored by ``load_run_state`` and 3 more, weights, server state,
+   client rows and the download accounting bit-equal (the headline round,
+   and sketch-local with 16 clients' tables), with the save and load ms
+   and the file's size; ``--batchnorm``: d = 6,573,120, 10 headline
+   rounds with finite losses, 2 / 1 / 8 launches a round and finite
+   averaged running statistics, and one server step equal through
+   kernels and plain versions; ``cv_train --batchnorm`` with
+   ``--checkpoint_every_rounds 2`` and then ``--resume auto`` from its
+   round-2 run state: final weights and statistics bit-identical with
+   cuDNN deterministic (with cuDNN free, the count of differing arrays
+   is printed).
 
 Then one JSON line of the kernels (launches per timed window of the path
 that runs each: phase 4 for the accumulate, the query and the count pass,
@@ -103,6 +127,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -116,6 +141,11 @@ import torch
 from commefficient_torch import kernels
 from commefficient_torch.config import parse_args
 from commefficient_torch.federated import FedModel, FedOptimizer, LambdaLR
+from commefficient_torch.federated.checkpoint import (
+    load_run_state,
+    save_round_state,
+)
+from commefficient_torch.federated.engine import PipelinedRoundEngine
 from commefficient_torch.federated.losses import make_cv_losses
 from commefficient_torch.federated.rounds import ClientStates
 from commefficient_torch.federated.server import (
@@ -127,6 +157,7 @@ from commefficient_torch.models import ResNet9
 from commefficient_torch.ops.flat import ChunkLayout
 from commefficient_torch.ops import sketch as tsk
 from commefficient_torch.ops import topk as ttk
+from commefficient_torch.profiling import host_sync_monitor
 from commefficient_torch.utils import PiecewiseLinear
 
 HEADLINE = ["--mode", "sketch", "--error_type", "virtual",
@@ -612,14 +643,14 @@ def synthetic_batch(seed: int = 0):
             "worker_mask": np.ones(8, np.float32)}
 
 
-def build_round(extra):
+def build_round(extra, num_clients: int = 64):
     """FedModel / FedOptimizer / LambdaLR for the headline round plus the
     flags ``extra``; returns ``(args, fm, opt, sched, one_round)``."""
-    args = parse_args(argv=HEADLINE + extra + ["--num_clients", "64",
-                                                "--seed", "0"])
-    model = ResNet9()
+    args = parse_args(argv=HEADLINE + extra + [
+        "--num_clients", str(num_clients), "--seed", "0"])
+    model = ResNet9(do_batchnorm=args.do_batchnorm)
     train_loss, val_loss = make_cv_losses(model)
-    fm = FedModel(model, train_loss, args, val_loss, num_clients=64)
+    fm = FedModel(model, train_loss, args, val_loss, num_clients=num_clients)
     opt = FedOptimizer(fm, args)
     spe = 50
     schedule = PiecewiseLinear([0, args.pivot_epoch, args.num_epochs],
@@ -637,10 +668,11 @@ def build_round(extra):
     return args, fm, opt, sched, one_round
 
 
-def timed_rounds(one_round, batch, per_round: dict, label: str):
-    """2 warm-up rounds, then TIMED_ROUNDS rounds with the launch counts
-    set to 0 just before and read just after: they must be ``per_round``
-    times the rounds. Returns ``(counts, rounds/sec)``."""
+def timed_rounds(one_round, batch, per_round: dict, label: str,
+                 n: int = TIMED_ROUNDS):
+    """2 warm-up rounds, then ``n`` rounds with the launch counts set to 0
+    just before and read just after: they must be ``per_round`` times the
+    rounds. Returns ``(counts, rounds/sec)``."""
     for _ in range(2):
         one_round(batch)
     torch.cuda.synchronize()
@@ -655,7 +687,7 @@ def timed_rounds(one_round, batch, per_round: dict, label: str):
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         losses = []
-        for _ in range(TIMED_ROUNDS):
+        for _ in range(n):
             losses.append(one_round(batch)[0])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -664,15 +696,13 @@ def timed_rounds(one_round, batch, per_round: dict, label: str):
     assert not masks, f"{label}: mask_tail ran {len(masks)} times"
     loss = np.concatenate(losses)
     assert np.all(np.isfinite(loss)), f"{label}: non-finite round loss"
-    want = {k.name: per_round.get(k.name, 0) * TIMED_ROUNDS
-            for k in kernels.KERNELS}
+    want = {k.name: per_round.get(k.name, 0) * n for k in kernels.KERNELS}
     assert counts == want, f"{label}: launches {counts}, expected {want}"
-    rps = TIMED_ROUNDS / wall
-    print(f"{label} rounds: {TIMED_ROUNDS} timed, {rps:.3f} rounds/sec "
+    rps = n / wall
+    print(f"{label} rounds: {n} timed, {rps:.3f} rounds/sec "
           f"({1e3 / rps:.2f} ms/round), mean loss {loss.mean():.4f}")
     print(f"{label} launches per round: " + json.dumps(
-        {k: v // TIMED_ROUNDS for k, v in counts.items()}) +
-        ", mask_tail calls: 0")
+        {k: v // n for k, v in counts.items()}) + ", mask_tail calls: 0")
     return counts, rps
 
 
@@ -862,9 +892,20 @@ def phase_opt_in(headline_rps: float):
     return counts, rps, prof
 
 
-def profile_rounds(one_round, n: int = 5) -> dict:
-    """Device time by kernel over ``n`` rounds (torch.profiler), printed
-    per round, and the device's busy share of the profiled wall time."""
+ANNOTATIONS = ("fed_round", "fed_drain")
+
+
+def dev_us(e):
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0))
+
+
+def device_rows(one_round, n: int, finish=None):
+    """``n`` calls of ``one_round`` (then ``finish``, if given) under
+    ``torch.profiler``, ending in a device sync: the device-side rows
+    (kernels, copies, memsets; the CPU ops that launched them would count
+    the same time twice), busiest first, and the wall ms."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -873,19 +914,24 @@ def profile_rounds(one_round, n: int = 5) -> dict:
         t0 = time.perf_counter()
         for _ in range(n):
             one_round()
+        if finish is not None:
+            finish()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0))
-
-    # device-side events only (kernels, copies, memsets): the CPU ops that
-    # launched them would count the same time twice
+    # a profiler range's device-side mirror (the engine's "fed_round" and
+    # "fed_drain") spans the kernels under it, which would count twice
     rows = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.key not in ANNOTATIONS
                    and dev_us(e) > 0), key=dev_us, reverse=True)
+    return rows, wall_ms
+
+
+def profile_rounds(one_round, n: int = 5) -> dict:
+    """Device time by kernel over ``n`` rounds (torch.profiler), printed
+    per round, and the device's busy share of the profiled wall time."""
+    rows, wall_ms = device_rows(one_round, n)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
     cats = {"convolution": 0.0, "port kernels": 0.0, "other": 0.0}
     for e in rows:
@@ -1146,6 +1192,308 @@ def phase_modes(card: str) -> dict:
     return results
 
 
+# phase 8: the run lifecycle
+ENGINE_ROUNDS = 24
+PAIR_ROUNDS = 48
+PAIRS = 5
+BN_ROUNDS = 10
+HEADLINE_PER_ROUND = {"sketch_accumulate": 2, "sketch_estimates": 1,
+                      "topk_count_ge": 8}
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN held to deterministic algorithms (and no autotuning), so that
+    two runs of one round give the same gradients bit for bit."""
+    old = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = old
+
+
+def audited_submit(eng, batch, audit: dict):
+    """``eng.submit(batch)``; a submit that will not drain runs under
+    ``host_sync_monitor(strict=True)``: ``torch.cuda.set_sync_debug_mode(
+    "error")`` raises on any call that synchronizes the stream, and the
+    counted fetches must be 0."""
+    if eng.pending + 1 < eng.drain_every:
+        with host_sync_monitor(strict=True) as counter:
+            out = eng.submit(batch)
+        assert out == [], "a non-drain submit returned results"
+        audit["audited"] += 1
+        audit["fetches"] += counter.count
+        return out
+    audit["drains"] += 1
+    return eng.submit(batch)
+
+
+def engine_identity(label, extra, per_round):
+    """The round through ``PipelinedRoundEngine(window=2, drain_every=8)``
+    for ENGINE_ROUNDS rounds against the synchronous loop from the same
+    state: results, weights and server state bit-equal, the non-drain
+    submits audited, the launches ``per_round`` a round."""
+    batches = [synthetic_batch(s) for s in range(8)]
+    args, fm_s, opt_s, _, one_s = build_round(extra)
+    if per_round is None:
+        per_round = opt_in_per_round(fm_s, args)
+    want = [one_s(batches[i % 8]) for i in range(ENGINE_ROUNDS)]
+    _, fm_e, opt_e, sched_e, _ = build_round(extra)
+    eng = PipelinedRoundEngine(fm_e, opt_e, sched_e, window=2,
+                               drain_every=8)
+    audit = {"audited": 0, "fetches": 0, "drains": 0}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = []
+    for i in range(ENGINE_ROUNDS):
+        got.extend(audited_submit(eng, batches[i % 8], audit))
+    got.extend(eng.drain())
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want_counts = {k.name: per_round.get(k.name, 0) * ENGINE_ROUNDS
+                   for k in kernels.KERNELS}
+    assert counts == want_counts, f"{label} engine: launches {counts}"
+    assert audit["fetches"] == 0, f"{label} engine: fetches between drains"
+    assert [r.index for r in got] == list(range(ENGINE_ROUNDS))
+    for r, w in zip(got, want):
+        for a, b in zip(r.values, w):
+            assert a.dtype == b.dtype and np.array_equal(a, b), \
+                f"{label} engine: round {r.index} differs from the loop"
+    for name, a, b in (("weights", fm_e.ps_weights, fm_s.ps_weights),
+                       ("velocity", opt_e.server_state.velocity,
+                        opt_s.server_state.velocity),
+                       ("error", opt_e.server_state.error,
+                        opt_s.server_state.error)):
+        assert bit_equal(a, b), f"{label} engine: {name} differs"
+    print(f"{label} engine: {ENGINE_ROUNDS} rounds (window 2, drain every "
+          f"8) equal to the synchronous loop bit for bit; "
+          f"{audit['audited']} non-drain submits under "
+          f"set_sync_debug_mode('error'), {audit['fetches']} fetches, "
+          f"{eng.window_waits} window waits, {eng.drains} drains; "
+          f"launches per round " + json.dumps(
+              {k: v // ENGINE_ROUNDS for k, v in counts.items()}))
+    del fm_s, opt_s, fm_e, opt_e
+    torch.cuda.empty_cache()
+
+
+def engine_pairs(card, label, extra):
+    """Rounds/sec and the device's busy share of the synchronous loop and
+    of the engine, on one model, in PAIRS alternating pairs (loop first,
+    then engine first, ...). Data, not a claim."""
+    _, fm, opt, sched, one_round = build_round(extra)
+    batch = synthetic_batch()
+    eng = PipelinedRoundEngine(fm, opt, sched, window=2, drain_every=8)
+    for _ in range(2):
+        one_round(batch)
+        eng.submit(batch)
+    eng.drain()
+
+    def run(mode):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "sync":
+            for _ in range(PAIR_ROUNDS):
+                one_round(batch)
+        else:
+            for _ in range(PAIR_ROUNDS):
+                eng.submit(batch)
+            eng.drain()
+        torch.cuda.synchronize()
+        rps = PAIR_ROUNDS / (time.perf_counter() - t0)
+        if mode == "sync":
+            rows, wall = device_rows(lambda: one_round(batch), 8)
+        else:
+            rows, wall = device_rows(lambda: eng.submit(batch), 8,
+                                     finish=eng.drain)
+        return rps, sum(dev_us(e) for e in rows) / 1e3 / wall
+
+    out = {"sync": [], "engine": []}
+    for p in range(PAIRS):
+        order = ("sync", "engine") if p % 2 == 0 else ("engine", "sync")
+        for mode in order:
+            rps, busy = run(mode)
+            out[mode].append((rps, busy))
+    row = {"phase": "lifecycle", "round": label,
+           "rounds_per_pair_window": PAIR_ROUNDS,
+           "sync_rounds_per_sec": [r for r, _ in out["sync"]],
+           "engine_rounds_per_sec": [r for r, _ in out["engine"]],
+           "sync_busy_share": [b for _, b in out["sync"]],
+           "engine_busy_share": [b for _, b in out["engine"]],
+           "card": card}
+    print(json.dumps(row))
+    del fm, opt, sched, eng
+    torch.cuda.empty_cache()
+    return row
+
+
+def checkpoint_resume(card, label, extra, num_clients):
+    """6 rounds straight against 3 rounds, ``save_round_state``, a new
+    FedModel / FedOptimizer / LambdaLR restored with ``load_run_state``,
+    and 3 more: weights, server state, client rows and the download
+    accounting bit-equal. Save and load ms, the file's size."""
+    batches = [synthetic_batch(s) for s in range(6)]
+    _, fm_a, opt_a, sched_a, one_a = build_round(extra, num_clients)
+    for b in batches:
+        one_a(b)
+    args, fm_b, opt_b, sched_b, one_b = build_round(extra, num_clients)
+    for b in batches[:3]:
+        one_b(b)
+    sampler = {"permuted": np.arange(64, dtype=np.int64),
+               "cursor": np.zeros(num_clients, np.int64)}
+    with tempfile.TemporaryDirectory() as tmp:
+        args.checkpoint_path = tmp
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_round_state(args, 0, 3, sampler, fm_b, opt_b, sched_b,
+                                (0.0, 0.0))
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        size = os.path.getsize(path)
+        del fm_b, opt_b, sched_b, one_b
+        torch.cuda.empty_cache()
+        _, fm_c, opt_c, sched_c, one_c = build_round(extra, num_clients)
+        fm_c.ps_weights = fm_c.ps_weights + 1.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, mid = load_run_state(path, fm_c, opt_c, sched_c)
+        torch.cuda.synchronize()
+        load_ms = 1e3 * (time.perf_counter() - t0)
+    assert mid["rounds_done"] == 3
+    for b in batches[3:]:
+        one_c(b)
+    torch.cuda.synchronize()
+    pairs = [("weights", fm_c.ps_weights, fm_a.ps_weights),
+             ("server velocity", opt_c.server_state.velocity,
+              opt_a.server_state.velocity),
+             ("server error", opt_c.server_state.error,
+              opt_a.server_state.error),
+             ("prev_ps", fm_c._prev_ps, fm_a._prev_ps)]
+    pairs += [(f"client {n}", a, b) for n, a, b in zip(
+        ClientStates._fields, fm_c.client_states, fm_a.client_states)
+        if a is not None or b is not None]
+    for name, a, b in pairs:
+        assert a is not None and b is not None and bit_equal(a, b), \
+            f"{label} resume: {name} differs from the continuous run"
+    assert torch.equal(fm_c._last_changed, fm_a._last_changed)
+    assert np.array_equal(fm_c._client_part_round, fm_a._client_part_round)
+    assert fm_c.rounds_dispatched == fm_a.rounds_dispatched == 6
+    assert sched_c._step_count == sched_a._step_count == 6
+    row = {"phase": "lifecycle", "resume": label, "save_ms": save_ms,
+           "load_ms": load_ms, "file_bytes": size,
+           "bit_equal": [n for n, _, _ in pairs]
+           + ["last_changed", "client_part_round"], "card": card}
+    print(json.dumps(row))
+    del fm_a, opt_a, fm_c, opt_c
+    torch.cuda.empty_cache()
+    return row
+
+
+def cli_resume(deterministic: bool) -> int:
+    """``cv_train.main`` with ``--batchnorm`` on synthetic CIFAR10 (16
+    clients, 8 a round), once through with ``--checkpoint_every_rounds
+    2`` and once resumed with ``--resume auto`` from its round-2 run
+    state; returns how many arrays of the two final ``ResNet9.npz``
+    differ. With cuDNN pinned deterministic none may."""
+    from commefficient_torch import cv_train
+
+    cm = deterministic_cudnn() if deterministic else contextlib.nullcontext()
+    with tempfile.TemporaryDirectory() as tmp, cm:
+        os.environ["COMMEFFICIENT_SYNTHETIC_PER_CLASS"] = "16"
+        argv = HEADLINE + [
+            "--dataset_dir", os.path.join(tmp, "cifar10"), "--iid",
+            "--num_clients", "16", "--num_epochs", "1", "--seed", "0",
+            "--batchnorm", "--checkpoint"]
+        full = cv_train.main(argv + [
+            "--checkpoint_path", os.path.join(tmp, "full"),
+            "--checkpoint_every_rounds", "2"])
+        os.makedirs(os.path.join(tmp, "res"))
+        shutil.copy(os.path.join(tmp, "full", "run_state_ep1_r2.npz"),
+                    os.path.join(tmp, "res"))
+        res = cv_train.main(argv + [
+            "--checkpoint_path", os.path.join(tmp, "res"),
+            "--resume", "auto"])
+        with np.load(os.path.join(tmp, "full", "ResNet9.npz")) as a, \
+                np.load(os.path.join(tmp, "res", "ResNet9.npz")) as b:
+            assert sorted(a.files) == sorted(b.files)
+            differ = sum(not np.array_equal(a[k], b[k]) for k in a.files)
+            n = len(a.files)
+    assert np.isfinite(full["train_loss"]) and np.isfinite(res["train_loss"])
+    print(f"cv_train --batchnorm resume (cuDNN "
+          f"{'deterministic' if deterministic else 'free'}): {differ} of "
+          f"{n} final arrays differ from the continuous run")
+    if deterministic:
+        assert differ == 0, "cv_train resume not bit-identical"
+    return differ
+
+
+def phase_lifecycle(card: str) -> dict:
+    """Phase 8: the run lifecycle at full width, with cuDNN pinned
+    deterministic (``deterministic_cudnn``) where bits are compared.
+
+    (a) the headline and the opt-in round through the pipelined engine
+    (window 2, drain every 8) for 24 rounds: bit-equal to the synchronous
+    loop, no stream synchronization in a non-drain submit (under
+    ``set_sync_debug_mode("error")``) and no fetch, 2 / 1 / 8 launches a
+    headline round; then rounds/sec and busy share, loop against engine,
+    in 5 alternating pairs (data, no claim);
+    (b) resume: 6 rounds straight against 3 + ``save_round_state`` + a
+    new model restored by ``load_run_state`` + 3, bit-equal (the headline
+    round, and the sketch-local round with its client tables);
+    (c) ``--batchnorm``: d = 6,573,120, 10 headline rounds with finite
+    losses and 2 / 1 / 8 launches a round, finite averaged running
+    statistics, the device's time by kernel over 3 profiled rounds, one
+    server step equal through kernels and plain versions;
+    (d) ``cv_train --batchnorm`` resumed mid-epoch with ``--resume auto``:
+    bit-identical to the continuous run with cuDNN deterministic, and the
+    count of differing arrays with cuDNN free (data)."""
+    out = {}
+    os.environ[ttk.FUSED_DESCENT_ENV] = "1"
+    with deterministic_cudnn():
+        engine_identity("opt-in", OPT_IN, None)
+    del os.environ[ttk.FUSED_DESCENT_ENV]
+    with deterministic_cudnn():
+        engine_identity("headline", [], HEADLINE_PER_ROUND)
+    out["pairs"] = [engine_pairs(card, "headline", [])]
+    os.environ[ttk.FUSED_DESCENT_ENV] = "1"
+    out["pairs"].append(engine_pairs(card, "opt-in", OPT_IN))
+    del os.environ[ttk.FUSED_DESCENT_ENV]
+
+    with deterministic_cudnn():
+        out["resume"] = [
+            checkpoint_resume(card, "headline", [], 64),
+            checkpoint_resume(card, "sketch-local",
+                              ["--error_type", "local", "--local_momentum",
+                               "0.9", "--virtual_momentum", "0"], 16)]
+
+    args, fm, opt, sched, one_round = build_round(["--batchnorm"])
+    assert fm.grad_size == 6_573_120, fm.grad_size
+    batch = synthetic_batch()
+    counts, rps = timed_rounds(one_round, batch, HEADLINE_PER_ROUND,
+                               "batchnorm", n=BN_ROUNDS)
+    stats = fm._model_state
+    assert len(stats) == 16 and all(
+        bool(torch.isfinite(v).all()) for v in stats.values()), \
+        "batchnorm: non-finite running statistics"
+    prof = profile_rounds(lambda: one_round(batch), n=3)
+    check_server_step(fm, opt, synthetic_batch(1), "batchnorm")
+    out["batchnorm"] = {"phase": "lifecycle", "round": "batchnorm",
+                        "d": fm.grad_size, "rounds_per_sec": rps,
+                        "rounds": BN_ROUNDS, "launches": counts,
+                        "profiled_busy_ms_per_round":
+                            prof["profiled_busy_ms_per_round"],
+                        "profiled_wall_ms_per_round":
+                            prof["profiled_wall_ms_per_round"],
+                        "card": card}
+    print(json.dumps(out["batchnorm"]))
+    del fm, opt, sched
+    torch.cuda.empty_cache()
+    out["cli_resume_differing"] = {"free": cli_resume(False),
+                                   "deterministic": cli_resume(True)}
+    return out
+
+
 def kernel_times(card: str, only=()) -> int:
     """``--kernel-times``: the accumulate pair, the query, the count pass,
     the fused epilogue and the descent alone, at the headline geometry, one
@@ -1281,6 +1629,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     modes = phase_modes(card)
     wall["7 other modes"] = time.perf_counter() - t
+    t = time.perf_counter()
+    lifecycle = phase_lifecycle(card)
+    wall["8 lifecycle"] = time.perf_counter() - t
     print("phase wall seconds (phase 3 includes the build): " + json.dumps(
         {k: round(v, 2) for k, v in wall.items()}))
 
@@ -1300,6 +1651,8 @@ def main(argv=None) -> int:
                       "modes_rounds_per_sec": {
                           k: v["rounds_per_sec"] for k, v in modes.items()
                           if "rounds_per_sec" in v},
+                      "batchnorm_rounds_per_sec":
+                          lifecycle["batchnorm"]["rounds_per_sec"],
                       **{"opt_in_" + k: v for k, v in opt_prof.items()}}))
     print(json.dumps(summary))
     print(card)

@@ -11,6 +11,13 @@ The opt-in sketch paths ``--stream_sketch``, ``--sketch_coalesce`` and
 ``--stream_sketch`` outside the fused sketch round and for
 ``--sketch_coalesce`` without ``--stream_sketch`` (no-ops there).
 
+The run lifecycle is carried too: ``--batchnorm``, the checkpoint and
+resume flags (``--checkpoint``, ``--checkpoint_path``,
+``--checkpoint_every``, ``--checkpoint_every_rounds``, ``--resume``,
+``--keep_checkpoints``) and the round engine's ``--round_window`` and
+``--metrics_drain_every``, with the JAX package's names, defaults and
+help.
+
 Every flag of the JAX package that this slice does not carry is still
 parsed, so that using it raises ``NotImplementedError`` naming the ROADMAP
 item that ports it instead of being ignored (``reject_unported``).
@@ -27,8 +34,6 @@ DATASETS = ["CIFAR10", "CIFAR100"]
 DP_MODES = ["worker", "server"]
 
 _Q1 = "ROADMAP.md queue 1"
-ITEM_BN = f"{_Q1} item 1c (BatchNorm in ResNet9 and its running statistics)"
-ITEM_CKPT = f"{_Q1} item 2 (checkpoint, resume and the round engine)"
 ITEM_CV = f"{_Q1} item 3 (the other CV models, datasets and data planes)"
 ITEM_GPT2 = f"{_Q1} item 4 (GPT-2 and --bf16)"
 ITEM_MULTI = f"{_Q1} item 5 (multi-GPU)"
@@ -42,15 +47,7 @@ UNPORTED = (
     ("--finetune", "do_finetune", False, ITEM_CV),
     ("--finetuned_from", "finetuned_from", True, ITEM_CV),
     ("--finetune_path", "finetune_path", True, ITEM_CV),
-    ("--checkpoint", "do_checkpoint", False, ITEM_CKPT),
-    ("--checkpoint_every", "checkpoint_every", True, ITEM_CKPT),
-    ("--checkpoint_every_rounds", "checkpoint_every_rounds", True, ITEM_CKPT),
-    ("--resume", "resume", True, ITEM_CKPT),
-    ("--keep_checkpoints", "keep_checkpoints", True, ITEM_CKPT),
     ("--state_dir", "state_dir", True, ITEM_RUNTIME),
-    ("--batchnorm", "do_batchnorm", False, ITEM_BN),
-    ("--round_window", "round_window", True, ITEM_CKPT),
-    ("--metrics_drain_every", "metrics_drain_every", True, ITEM_CKPT),
     ("--server_shard", "server_shard", False, ITEM_MULTI),
     ("--shard_devices", "shard_devices", True, ITEM_MULTI),
     ("--reduce_dtype", "reduce_dtype", True, ITEM_MULTI),
@@ -129,6 +126,38 @@ def build_parser(default_lr=None) -> argparse.ArgumentParser:
     parser.add_argument("--no_telemetry", action="store_false",
                         dest="telemetry", default=False,
                         help="Accepted; the port has no telemetry plane.")
+
+    parser.add_argument("--batchnorm", action="store_true",
+                        dest="do_batchnorm")
+
+    # checkpoint, resume and the round engine (the JAX package's flags)
+    parser.add_argument("--checkpoint", action="store_true",
+                        dest="do_checkpoint")
+    parser.add_argument("--checkpoint_path", type=str,
+                        default="./checkpoint")
+    parser.add_argument("--checkpoint_every", type=int, default=0,
+                        help="Save full run state every N epochs (0 = off).")
+    parser.add_argument("--checkpoint_every_rounds", type=int, default=0,
+                        help="Save full run state every N rounds mid-epoch "
+                             "(0 = off; engine in-flight window is drained "
+                             "before each save).")
+    parser.add_argument("--resume", type=str, default="",
+                        help="Path of a run-state checkpoint to resume "
+                             "from, or 'auto' to pick the newest VALID "
+                             "run_state*.npz under --checkpoint_path "
+                             "(corrupt/truncated files are skipped).")
+    parser.add_argument("--keep_checkpoints", type=int, default=0,
+                        help="Retain only the newest N run_state*.npz under "
+                             "--checkpoint_path, pruning older ones after "
+                             "each save (0 = keep all; existing workflows "
+                             "unchanged).")
+    parser.add_argument("--round_window", type=int, default=2,
+                        help="Max rounds dispatched ahead of device "
+                             "completion (pipelined round engine).")
+    parser.add_argument("--metrics_drain_every", type=int, default=8,
+                        help="Fetch per-round metrics in batches of N "
+                             "rounds; 1 restores per-round (blocking) "
+                             "metric fetching.")
 
     # opt-in sketch paths (the JAX package's flags)
     parser.add_argument("--fused_epilogue", action="store_true",

@@ -4,8 +4,11 @@ The port's flat parameter vector follows ``jax.flatten_util.ravel_pytree``
 order and element layout (ops/flat.ParamLayout), so a JAX flat vector IS a
 port flat vector; only the per-leaf trees differ in layout (conv kernels
 HWIO in flax, OIHW in torch; the dense kernel ``(in, out)`` in flax,
-``(out, in)`` in torch). Everything crosses as numpy arrays: this module
-imports neither JAX nor flax.
+``(out, in)`` in torch). Under ``--batchnorm`` the BatchNorm ``scale`` and
+``bias`` are 1-D leaves of the same vector, and the running statistics
+cross as the model state, keyed by their flax ``batch_stats`` paths.
+Everything crosses as numpy arrays: this module imports neither JAX nor
+flax.
 """
 
 from __future__ import annotations
@@ -75,4 +78,13 @@ def flax_from_port(params: Mapping[str, torch.Tensor],
         node[e.jax_path[-1]] = torch_to_jax_layout(
             params[e.torch_name].detach().cpu()).contiguous().numpy()
     return tree
+
+
+def model_state_from_flax(np_tree: Mapping, device="cpu"
+                          ) -> Dict[str, torch.Tensor]:
+    """A flax ``batch_stats`` tree (numpy) -> the port's model state:
+    ``{"<flax path>/BatchNorm_0/{mean,var}": float32 tensor}``."""
+    return {"/".join(path): torch.from_numpy(
+                np.asarray(leaf, np.float32).copy()).to(device)
+            for path, leaf in _leaves(np_tree)}
 

@@ -15,10 +15,19 @@ with an all-ones transmit.
 
 CLI and loop parity with ``cv_train.py`` of the JAX package: the same flags
 (config.py), a ``PiecewiseLinear`` LR peaking at ``--pivot_epoch``, the NaN
-abort, per-epoch ``TableLogger`` rows and byte totals. The loop is plain
-and synchronous, in the JAX engine's order: ``lr_scheduler.step();
-model(batch); opt.step()``. Runs on ``cuda`` unless ``--device cpu``;
-float32 throughout (TF32 off).
+abort, per-epoch ``TableLogger`` rows and byte totals. The training loop
+drives ``federated/engine.PipelinedRoundEngine`` over
+``cohort_lookahead(loader)``: each round is dispatched without a host wait,
+at most ``--round_window`` rounds ahead of the card, and the metrics are
+fetched every ``--metrics_drain_every`` rounds (the NaN abort fires at
+drain time). ``--checkpoint_every`` saves the run state every N epochs,
+``--checkpoint_every_rounds`` every N rounds (after a drain, with the
+sampler's position and the partial epoch accumulators), ``--resume
+PATH|auto`` restores one (``federated/checkpoint.py``; a mid-epoch resume
+ends bit-identical to the run it continues), and ``--checkpoint`` writes
+the final weights as ``<checkpoint_path>/ResNet9.npz``. ``--batchnorm``
+puts flax's BatchNorm in every ResNet9 cell. Runs on ``cuda`` unless
+``--device cpu``; float32 throughout (TF32 off).
 """
 
 from __future__ import annotations
@@ -38,10 +47,22 @@ from commefficient_torch.data_utils import (
     num_classes_of_dataset,
     transforms,
 )
+from commefficient_torch.convert import flax_from_port
 from commefficient_torch.federated import FedModel, FedOptimizer, LambdaLR
 from commefficient_torch.federated.aggregator import (
     resolve_device,
     set_fp32_numerics,
+)
+from commefficient_torch.federated.checkpoint import (
+    maybe_save_run_state,
+    restore_mid_epoch,
+    resume_run,
+    save_checkpoint,
+    save_round_state,
+)
+from commefficient_torch.federated.engine import (
+    PipelinedRoundEngine,
+    cohort_lookahead,
 )
 from commefficient_torch.federated.losses import make_cv_losses
 from commefficient_torch.utils import (
@@ -74,7 +95,7 @@ def get_data_loaders(args):
 
 
 def run_batches(model, opt, lr_scheduler, loader, training, epoch_fraction,
-                args):
+                args, epoch=0, resume_mid=None, totals=(0.0, 0.0)):
     if not training and epoch_fraction != 1:
         raise ValueError("Must do full epochs for val")
     model.train(training)
@@ -84,21 +105,60 @@ def run_batches(model, opt, lr_scheduler, loader, training, epoch_fraction,
         client_download = np.zeros(num_clients)
         client_upload = np.zeros(num_clients)
         spe = loader.steps_per_epoch()
-        for i, batch in enumerate(loader):
-            if i > spe * epoch_fraction:
+        # mid-epoch resume: the sampler replays its saved position (the
+        # global np RNG was restored by load_run_state) and the partial
+        # epoch accumulators reload
+        i0, ex = restore_mid_epoch(resume_mid, loader, client_download,
+                                   client_upload)
+        losses.extend(np.asarray(ex.get("losses", [])).tolist())
+        accs.extend(np.asarray(ex.get("accs", [])).tolist())
+        # rounds are dispatched without a host wait and their metrics
+        # fetched every --metrics_drain_every rounds, so the NaN abort
+        # fires at drain time
+        engine = PipelinedRoundEngine(
+            model, opt, lr_scheduler, window=args.round_window,
+            drain_every=args.metrics_drain_every)
+        nan_loss = False
+        save_every = int(args.checkpoint_every_rounds or 0)
+
+        def consume(results):
+            nonlocal nan_loss, client_download, client_upload
+            for res in results:
+                loss, acc, download, upload = res.values
+                if np.any(np.isnan(loss)):
+                    print(f"LOSS OF {np.mean(loss)} IS NAN, "
+                          "TERMINATING TRAINING")
+                    nan_loss = True
+                    return
+                client_download += download
+                client_upload += upload
+                losses.extend(loss.tolist())
+                accs.extend(acc.tolist())
+
+        for i, batch in enumerate(cohort_lookahead(loader, model)):
+            if i0 + i > spe * epoch_fraction:
                 break
-            lr_scheduler.step()
-            loss, acc, download, upload = model(batch)
-            opt.step()
-            if np.any(np.isnan(loss)):
-                print(f"LOSS OF {np.mean(loss)} IS NAN, TERMINATING TRAINING")
+            consume(engine.submit(batch))
+            if nan_loss:
                 return np.nan, np.nan, np.nan, np.nan
-            client_download += download
-            client_upload += upload
-            losses.extend(loss.tolist())
-            accs.extend(acc.tolist())
+            if save_every and (i0 + i + 1) % save_every == 0:
+                # drain first: the saved sampler and RNG position must
+                # describe exactly the rounds folded into the run state
+                consume(engine.drain())
+                if nan_loss:
+                    return np.nan, np.nan, np.nan, np.nan
+                save_round_state(
+                    args, epoch, i0 + i + 1, loader.sampler.get_state(),
+                    model, opt, lr_scheduler, totals,
+                    extras={"download": client_download,
+                            "upload": client_upload,
+                            "losses": np.asarray(losses, np.float64),
+                            "accs": np.asarray(accs, np.float64)})
             if args.do_test:
                 break
+        consume(engine.drain())
+        if nan_loss:
+            return np.nan, np.nan, np.nan, np.nan
         return (np.mean(losses), np.mean(accs), client_download,
                 client_upload)
     for batch in loader:
@@ -111,23 +171,26 @@ def run_batches(model, opt, lr_scheduler, loader, training, epoch_fraction,
 
 
 def train(model, opt, lr_scheduler, train_loader, test_loader, args,
-          loggers=(), timer=None):
+          loggers=(), timer=None, start_epoch=0, totals=(0.0, 0.0),
+          resume_mid=None):
     timer = timer or Timer()
-    total_download, total_upload = 0.0, 0.0
-    if args.eval_before_start:
+    total_download, total_upload = totals
+    if args.eval_before_start and start_epoch == 0:
         _, test_acc, _, _ = run_batches(model, None, None, test_loader,
                                         False, 1, args)
         timer()
         print(f"Test acc at epoch 0: {test_acc:0.4f}")
     summary = {}
-    for epoch in range(math.ceil(args.num_epochs)):
+    for epoch in range(start_epoch, math.ceil(args.num_epochs)):
         if epoch == math.ceil(args.num_epochs) - 1:
             epoch_fraction = args.num_epochs - epoch
         else:
             epoch_fraction = 1
         train_loss, train_acc, download, upload = run_batches(
             model, opt, lr_scheduler, train_loader, True, epoch_fraction,
-            args)
+            args, epoch=epoch,
+            resume_mid=(resume_mid if epoch == start_epoch else None),
+            totals=(total_download, total_upload))
         if np.isnan(train_loss):
             print("TERMINATING TRAINING DUE TO NAN LOSS")
             return
@@ -153,6 +216,8 @@ def train(model, opt, lr_scheduler, train_loader, test_loader, args,
         summary = {"epoch": epoch + 1, "lr": lr, **epoch_stats}
         for logger in loggers:
             logger.append(summary)
+        maybe_save_run_state(args, epoch, model, opt, lr_scheduler,
+                             (total_download, total_upload))
     print(f"Total Download (MiB): {total_download:0.2f}")
     print(f"Total Upload (MiB): {total_upload:0.2f}")
     n = train_loader.dataset.num_clients
@@ -182,6 +247,7 @@ def build_model_and_config(args):
     else:
         model_config = {}
     model_config["num_classes"] = num_classes_of_dataset(args.dataset_name)
+    model_config["do_batchnorm"] = bool(getattr(args, "do_batchnorm", False))
     return getattr(models, args.model)(**model_config)
 
 
@@ -207,13 +273,22 @@ def main(argv=None):
                                   [0, args.lr_scale, 0])
     spe = train_loader.steps_per_epoch()
     lr_scheduler = LambdaLR(opt, lr_lambda=lambda step: lr_schedule(step / spe))
+    start_epoch, totals, resume_mid = resume_run(args, fed_model, opt,
+                                                 lr_scheduler)
     print(f"Finished initializing in {timer():.2f} seconds")
     try:
         summary = train(fed_model, opt, lr_scheduler, train_loader,
                         test_loader, args, loggers=(TableLogger(),),
-                        timer=timer)
+                        timer=timer, start_epoch=start_epoch, totals=totals,
+                        resume_mid=resume_mid)
     finally:
         fed_model.finalize()
+    if args.do_checkpoint:
+        os.makedirs(args.checkpoint_path, exist_ok=True)
+        save_checkpoint(os.path.join(args.checkpoint_path, args.model),
+                        flax_from_port(fed_model.params,
+                                       fed_model.param_layout),
+                        fed_model._model_state)
     return summary
 
 

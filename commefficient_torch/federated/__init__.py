@@ -1,10 +1,15 @@
-"""The federated round on PyTorch: configs, the round steps, and the
-FedModel / FedOptimizer / LambdaLR call surface."""
+"""The federated round on PyTorch: configs, the round steps, the
+FedModel / FedOptimizer / LambdaLR call surface, the pipelined round
+engine, and the checkpoint and run state (``checkpoint``)."""
 
 from commefficient_torch.federated.aggregator import (
     FedModel,
     FedOptimizer,
     LambdaLR,
+)
+from commefficient_torch.federated.engine import (
+    PipelinedRoundEngine,
+    cohort_lookahead,
 )
 from commefficient_torch.federated.rounds import RoundConfig, build_round_step
 from commefficient_torch.federated.server import (
@@ -15,6 +20,7 @@ from commefficient_torch.federated.server import (
 )
 from commefficient_torch.federated.worker import WorkerConfig
 
-__all__ = ["FedModel", "FedOptimizer", "LambdaLR", "RoundConfig",
+__all__ = ["FedModel", "FedOptimizer", "LambdaLR", "PipelinedRoundEngine",
+           "cohort_lookahead", "RoundConfig",
            "build_round_step", "ServerConfig", "ServerState",
            "init_server_state", "server_update", "WorkerConfig"]

@@ -23,6 +23,15 @@ The round runs on one device, its per-client state on that device too
 JAX package seeds its key. Options of the JAX package that the port does
 not carry raise ``NotImplementedError`` naming the ROADMAP item
 (``config.reject_unported``).
+
+``begin_round`` dispatches a round without a host wait: the batch and the
+participants' last rounds reach the card through pinned host buffers and
+non-blocking copies (the handle keeps the buffers until the round is
+drained), and the accounting's round index lives on the device. The
+fetches go through ``profiling.materialize``: ``finish_rounds`` stacks the
+metrics and download counts of several rounds and copies them once
+(``federated/engine.PipelinedRoundEngine`` drains that way). The model
+state is ResNet9's BatchNorm running statistics under ``--batchnorm``.
 """
 
 from __future__ import annotations
@@ -71,13 +80,22 @@ def set_fp32_numerics() -> None:
 
 class RoundHandle(NamedTuple):
     """A dispatched round: device metrics and the deferred download
-    count; ``valid``/``participating``/``upload`` are host data."""
+    count; ``valid``/``participating``/``upload`` are host data.
+    ``round_no`` is the model's global dispatch index
+    (``FedModel.rounds_dispatched`` when the round was dispatched).
+    ``staged`` keeps the pinned host buffers of the round's host-to-device
+    copies alive until the round is drained, and ``done`` is the CUDA event
+    recorded after its server phase (``FedModel.seal_round``; None on the
+    CPU)."""
 
     metrics: Tuple[Any, ...]
     valid: np.ndarray
     participating: np.ndarray
     download: Optional[Any]
     upload: np.ndarray
+    round_no: int = -1
+    staged: Tuple[Any, ...] = ()
+    done: Optional[Any] = None
 
 
 def worker_config_from_args(args) -> WorkerConfig:
@@ -113,13 +131,45 @@ def round_config_from_args(args, grad_size: int) -> RoundConfig:
         sketch_coalesce=bool(getattr(args, "sketch_coalesce", False)))
 
 
-def _to_device(batch: dict, device) -> dict:
-    out = {}
-    for k, v in batch.items():
-        t = torch.as_tensor(np.asarray(v))
-        if t.is_floating_point():
-            t = t.to(torch.float32)
-        out[k] = t.to(device)
+def _h2d(arr, device, staged: list, dtype=None) -> torch.Tensor:
+    """A host array on ``device`` without a wait on the stream: on the card
+    the array is staged in pinned host memory and copied with
+    ``non_blocking=True`` (a copy from pageable memory synchronizes the
+    stream); the pinned buffer is appended to ``staged``, whose owner keeps
+    it until the copy has completed. On the CPU, a tensor of the array."""
+    t = torch.as_tensor(np.asarray(arr))
+    if dtype is not None:
+        t = t.to(dtype)
+    elif t.is_floating_point():
+        t = t.to(torch.float32)
+    if torch.device(device).type != "cuda":
+        return t
+    pinned = t.pin_memory()
+    staged.append(pinned)
+    return pinned.to(device, non_blocking=True)
+
+
+def _to_device(batch: dict, device, staged: list) -> dict:
+    return {k: _h2d(v, device, staged) for k, v in batch.items()}
+
+
+def _fetch_all(tensors) -> List[np.ndarray]:
+    """Every tensor of ``tensors`` on the host, fetched with one counted
+    ``materialize``: their bytes are concatenated on the device and split
+    again on the host, so each value is the one a fetch of its own would
+    give, bit for bit."""
+    from commefficient_torch.profiling import materialize
+
+    if not tensors:
+        return []
+    flat = [t.detach().contiguous().reshape(-1) for t in tensors]
+    buf = materialize(torch.cat([t.view(torch.uint8) for t in flat]))
+    out, off = [], 0
+    for t, f in zip(tensors, flat):
+        n = f.numel() * f.element_size()
+        np_dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+        out.append(buf[off:off + n].view(np_dtype).reshape(tuple(t.shape)))
+        off += n
     return out
 
 
@@ -158,8 +208,9 @@ class FedModel:
             flat = init_params.detach().to(torch.float32)
             assert flat.shape == (self.grad_size,), \
                 (tuple(flat.shape), self.grad_size)
-        # the slice's CV models carry no BatchNorm statistics
-        self._model_state = {}
+        # the BatchNorm running statistics (empty without --batchnorm)
+        self._model_state = {k: v.to(self.device) for k, v in
+                             model.initial_model_state().items()}
 
         cfg = round_config_from_args(args, self.grad_size)
         self.worker_config, self.server_config = cfg.worker, cfg.server
@@ -202,8 +253,14 @@ class FedModel:
                                             dtype=torch.int32,
                                             device=self.device)
             self._round_idx = 0
+            # the same index on the device (a fill, never a copy), so the
+            # round marks its changed coordinates without a host wait
+            self._round_idx_dev = torch.zeros((), dtype=torch.int32,
+                                              device=self.device)
             self._client_part_round = np.zeros(self.num_clients, np.int64)
         self._prev_ps = self.ps_weights
+        # the global dispatch counter (RoundHandle.round_no)
+        self._rounds_dispatched = 0
 
     # -- reference API surface -------------------------------------------
 
@@ -222,6 +279,12 @@ class FedModel:
         pass  # gradients are per-call values
 
     @property
+    def rounds_dispatched(self) -> int:
+        """Global dispatch count: the last dispatched round's
+        ``RoundHandle.round_no`` is ``rounds_dispatched - 1``."""
+        return self._rounds_dispatched
+
+    @property
     def params(self):
         """``{torch_name: tensor}`` views of the current weights
         (``convert.flax_from_port`` turns them into a flax tree)."""
@@ -233,29 +296,62 @@ class FedModel:
 
     def begin_round(self, batch: dict) -> RoundHandle:
         """Run the client phase; metrics and the download count stay on
-        the device in the returned handle."""
+        the device in the returned handle. Nothing here waits on the
+        stream: host data reaches the card through pinned buffers
+        (``_h2d``), which the handle keeps."""
         ids = np.asarray(batch["client_ids"])
         wmask = np.asarray(batch["worker_mask"])
         participating = np.unique(ids[wmask > 0])
-        download_dev, upload = self._account_bytes_deferred(participating)
-        dbatch = _to_device(batch, self.device)
+        staged = []
+        download_dev, upload = self._account_bytes_deferred(participating,
+                                                            staged)
+        dbatch = _to_device(batch, self.device, staged)
         self._round_ctx, self._model_state, metrics = \
             self.steps.client_step(self.ps_weights, self.client_states,
                                    self._model_state, dbatch, self._opt_lr,
                                    self._rng)
+        round_no = self._rounds_dispatched
+        self._rounds_dispatched += 1
         return RoundHandle(metrics=metrics, valid=wmask > 0,
                            participating=participating,
-                           download=download_dev, upload=upload)
+                           download=download_dev, upload=upload,
+                           round_no=round_no, staged=tuple(staged))
+
+    def seal_round(self, handle: RoundHandle) -> RoundHandle:
+        """After the round's server phase: on the card, record the event
+        the round engine's window waits on."""
+        if self.device.type != "cuda":
+            return handle
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return handle._replace(done=done)
 
     def finish_round(self, handle: RoundHandle):
         """Fetch a round's results: ``[loss_arr, acc_arr, download,
         upload]``."""
-        *ms, _count = (m.detach().cpu().numpy() for m in handle.metrics)
-        download = np.zeros(self.num_clients, np.float64)
-        if handle.download is not None and len(handle.participating):
-            download[handle.participating] = \
-                4.0 * handle.download.cpu().numpy()
-        return [m[handle.valid] for m in ms] + [download, handle.upload]
+        return self.finish_rounds([handle])[0]
+
+    def finish_rounds(self, handles: Sequence[RoundHandle]):
+        """Fetch the results of several rounds with one counted
+        ``materialize``: their metrics and download counts are stacked and
+        copied once. Each round's values are the ones ``finish_round``
+        alone gives, bit for bit."""
+        tensors = []
+        for h in handles:
+            tensors.extend(h.metrics)
+            if h.download is not None:
+                tensors.append(h.download)
+        host = iter(_fetch_all(tensors))
+        out = []
+        for h in handles:
+            *ms, _count = (next(host) for _ in h.metrics)
+            download = np.zeros(self.num_clients, np.float64)
+            if h.download is not None:
+                counts = next(host)
+                if len(h.participating):
+                    download[h.participating] = 4.0 * counts
+            out.append([m[h.valid] for m in ms] + [download, h.upload])
+        return out
 
     def _apply_server(self, server_state, lr):
         """Phase 2 for ``FedOptimizer.step()``."""
@@ -268,13 +364,16 @@ class FedModel:
 
     def _call_val(self, batch: dict):
         metrics = self.steps.val_step(self.ps_weights, self._model_state,
-                                      _to_device(batch, self.device))
-        *ms, _count = (m.cpu().numpy() for m in metrics)
+                                      _to_device(batch, self.device, []))
+        *ms, _count = _fetch_all(metrics)
         return [np.array([m]) for m in ms]
 
-    def _account_bytes_deferred(self, participating):
+    def _account_bytes_deferred(self, participating,
+                                staged: Optional[list] = None):
         """Byte accounting without a host sync: the download value is a
-        device tensor, fetched in ``finish_round``."""
+        device tensor, fetched in ``finish_round``. The participants'
+        last rounds reach the device through ``_h2d`` (pinned buffers
+        appended to ``staged``)."""
         upload = np.zeros(self.num_clients, np.float64)
         upload[participating] = {
             "uncompressed": self.grad_size,
@@ -292,16 +391,15 @@ class FedModel:
             download_dev = torch.sum(self._updated_since_init)
         else:
             self._last_changed = torch.where(
-                self.ps_weights != self._prev_ps,
-                torch.tensor(self._round_idx, dtype=torch.int32,
-                             device=self.device),
+                self.ps_weights != self._prev_ps, self._round_idx_dev,
                 self._last_changed)
             self._prev_ps = self.ps_weights
             self._round_idx += 1
+            self._round_idx_dev = self._round_idx_dev + 1
             if len(participating):
-                since = torch.as_tensor(
-                    self._client_part_round[participating],
-                    dtype=torch.int32, device=self.device)
+                since = _h2d(self._client_part_round[participating],
+                             self.device, [] if staged is None else staged,
+                             dtype=torch.int32)
                 download_dev = torch.stack([
                     torch.sum(self._last_changed >= s) for s in since])
             self._client_part_round[participating] = self._round_idx

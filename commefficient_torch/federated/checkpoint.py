@@ -1,0 +1,538 @@
+"""Checkpoint save/load and the run state for ``--resume``: the port of
+``commefficient_tpu/federated/checkpoint.py``, in the JAX package's
+``.npz`` format (plain numpy; keys '/'-joined paths).
+
+- ``save_checkpoint`` / ``load_checkpoint``: the final weights, keys
+  ``params/<flax path>`` (the flax layout of each leaf,
+  ``convert.flax_from_port``) and ``model_state/<path>`` (the BatchNorm
+  running statistics). The JAX package's ``load_checkpoint`` reads the
+  port's file and the other way round.
+- ``save_run_state`` / ``load_run_state``: everything a bit-exact restart
+  needs, at an epoch boundary or mid-epoch (the sampler's position and
+  the partial epoch accumulators), with a CRC32 content checksum in
+  ``meta_json``, written atomically (``.tmp.npz`` + ``os.replace``). The
+  weights, the download accounting's planes and ``acct/prev_ps`` are
+  stored in the flat ``(d,)`` view whatever the resident layout, so a
+  chunked and a flat run restore each other's files.
+- ``--resume auto`` (``find_resume_checkpoint``) takes the newest run
+  state that reads and checksums clean, skipping corrupt candidates and
+  never a ``.tmp.npz``; ``--keep_checkpoints N`` prunes
+  (``prune_run_states``).
+
+The run state holds the state the port has: ``ps_weights``,
+``client/{velocities,errors,weights}``, ``model_state/*``,
+``server/{velocity,error}``, ``np_rng/keys``, the download accounting
+(``acct/*``) and the meta. The device generator (DP noise) is saved under
+the port's own key, ``torch_rng/state``: the JAX package's ``rng`` holds
+JAX key data, which a JAX file's restore in the port ignores (and refuses
+under ``--dp``, whose noise streams differ); the JAX package's restore
+reads ``rng``, so it does not restore a port run state. A file that
+carries a plane the port does not have (``part/*``, ``pop/*``, ``io/*``,
+``server/qres*``, ``server/dres*``, a ``client_store`` snapshot, a
+``--client_dropout`` stream that has been drawn from) raises
+``NotImplementedError`` naming its ROADMAP item. The JAX package saves its
+dropout stream (``drop_rng/*``) on every run; one still at its seed
+carries nothing and is passed over.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import zlib
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+_Q1 = "ROADMAP.md queue 1"
+# run-state planes of the JAX package that the port does not have yet
+_UNPORTED_PLANES = (
+    ("part/", f"{_Q1} item 6 (runtime planes: participation)"),
+    ("pop/", f"{_Q1} item 6 (runtime planes: population churn)"),
+    ("io/", f"{_Q1} item 6 (runtime planes: storage faults)"),
+    ("server/qres", f"{_Q1} item 5 (multi-GPU: quantized collectives)"),
+    ("server/dres", f"{_Q1} item 5 (multi-GPU: quantized collectives)"),
+)
+_UNPORTED_META = (
+    ("client_store", f"{_Q1} item 6 (runtime planes: host offload)"),
+    ("participation", f"{_Q1} item 6 (runtime planes: participation)"),
+    ("population", f"{_Q1} item 6 (runtime planes: population churn)"),
+    ("io_fault", f"{_Q1} item 6 (runtime planes: storage faults)"),
+)
+
+
+def _read_npz(path: str) -> Dict[str, np.ndarray]:
+    """Every array of an ``.npz``; a truncated or bit-rotted file raises one
+    ``RuntimeError`` that says so (a missing one ``FileNotFoundError``)."""
+    try:
+        size = os.path.getsize(path)
+    except OSError:
+        size = -1
+    try:
+        with np.load(path) as data:
+            return {k: data[k] for k in data.files}
+    except FileNotFoundError:
+        raise
+    except Exception as e:  # zipfile.BadZipFile, ValueError, EOFError, OSError
+        raise RuntimeError(
+            f"checkpoint corrupt or truncated ({path}, {size} bytes): "
+            f"{type(e).__name__}: {e}; try an earlier run_state or "
+            f"--resume auto") from e
+
+
+def _content_checksum(arrays: Dict[str, np.ndarray]) -> int:
+    """CRC32 over every array's name, dtype and raw bytes, in sorted key
+    order (``meta_json``, which carries the checksum, excluded): the JAX
+    package's checksum, value for value."""
+    crc = 0
+    for key in sorted(arrays):
+        if key == "meta_json":
+            continue
+        a = np.ascontiguousarray(arrays[key])
+        crc = zlib.crc32(key.encode(), crc)
+        crc = zlib.crc32(str(a.dtype).encode(), crc)
+        crc = zlib.crc32(a, crc)
+    return crc
+
+
+def _verify_checksum(flat: Dict[str, np.ndarray], meta: dict,
+                     path: str) -> None:
+    want = meta.get("checksum")
+    if want is None:  # a file from before checksums: nothing to verify
+        return
+    got = _content_checksum(flat)
+    if got != want:
+        size = os.path.getsize(path) if os.path.exists(path) else -1
+        raise RuntimeError(
+            f"checkpoint corrupt or truncated ({path}, {size} bytes): "
+            f"content checksum mismatch (stored {want:#010x}, computed "
+            f"{got:#010x}); try an earlier run_state or --resume auto")
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        from commefficient_torch.profiling import materialize
+
+        return materialize(x)
+    return np.asarray(x)
+
+
+def _flatten(tree, prefix=()):
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, prefix + (str(k),)))
+    else:
+        out["/".join(prefix)] = _host(tree)
+    return out
+
+
+def _unflatten(flat: Dict[str, np.ndarray]):
+    tree: Dict[str, Any] = {}
+    for key, v in flat.items():
+        node = tree
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def save_checkpoint(path: str, params, model_state=None):
+    """``params``: the flax parameter tree of numpy arrays
+    (``convert.flax_from_port``); ``model_state``: the port's model state
+    or a flax ``batch_stats`` tree."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    flat = _flatten({"params": params,
+                     "model_state": model_state if model_state else {}})
+    np.savez(path if path.endswith(".npz") else path + ".npz", **flat)
+
+
+def load_checkpoint(path: str):
+    """``(params, model_state)`` as nested trees of numpy arrays."""
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    tree = _unflatten(_read_npz(path))
+    return tree.get("params", {}), tree.get("model_state", {})
+
+
+def save_run_state(path: str, fed_model, optimizer, lr_scheduler,
+                   next_epoch: int, totals=(0.0, 0.0),
+                   mid_epoch: Optional[dict] = None) -> str:
+    """The run state for ``--resume`` (see the module docstring).
+
+    ``mid_epoch`` also captures the position inside the epoch named by
+    ``next_epoch``: ``{"rounds_done": int, "sampler":
+    FedSampler.get_state(), "extras": {name: np.ndarray}}``. The caller
+    drains the round engine first, so the saved sampler and RNG position
+    describe exactly the rounds folded into the saved state."""
+    fm = fed_model
+    assert getattr(fm, "_round_ctx", None) is None, (
+        "save_run_state called with a round in flight (begin_round without "
+        "opt.step()); drain the engine before saving")
+    layout = fm.layout
+
+    def canon(t):
+        # the layout-independent flat (d,) view
+        return _host(layout.unchunk(t) if layout is not None else t)
+
+    arrays = {"ps_weights": canon(fm.ps_weights)}
+    for name in ("velocities", "errors", "weights"):
+        arr = getattr(fm.client_states, name)
+        if arr is not None:
+            arrays["client/" + name] = _host(arr)
+    arrays.update({"model_state/" + k: _host(v)
+                   for k, v in fm._model_state.items()})
+    arrays["server/velocity"] = _host(optimizer.server_state.velocity)
+    arrays["server/error"] = _host(optimizer.server_state.error)
+    arrays["torch_rng/state"] = fm._rng.get_state().numpy()
+    np_name, np_keys, np_pos, np_has_gauss, np_cached = \
+        np.random.get_state()
+    arrays["np_rng/keys"] = np_keys
+    if fm._simple_download:
+        arrays["acct/updated_since_init"] = canon(fm._updated_since_init)
+    else:
+        arrays["acct/last_changed"] = canon(fm._last_changed)
+        arrays["acct/client_part_round"] = np.asarray(fm._client_part_round)
+    # the accounting marks round k's changed coordinates at round k+1's
+    # dispatch (against _prev_ps), so _prev_ps lags the weights by one
+    # round at any save point: without it the resumed run would never
+    # charge the last round before the save
+    arrays["acct/prev_ps"] = canon(fm._prev_ps)
+    meta = {
+        "next_epoch": int(next_epoch),
+        "lr_step_count": int(lr_scheduler._step_count),
+        "total_download": float(totals[0]),
+        "total_upload": float(totals[1]),
+        "np_rng": {"name": np_name, "pos": int(np_pos),
+                   "has_gauss": int(np_has_gauss),
+                   "cached": float(np_cached)},
+        "round_idx": int(getattr(fm, "_round_idx", 0)),
+        "rounds_dispatched": int(fm.rounds_dispatched),
+    }
+    if mid_epoch is not None:
+        sampler = mid_epoch.get("sampler")
+        assert sampler is not None, (
+            "mid-epoch save needs the FedSampler position "
+            "(FedSampler.get_state())")
+        arrays["sampler/permuted"] = np.asarray(sampler["permuted"],
+                                                np.int64)
+        arrays["sampler/cursor"] = np.asarray(sampler["cursor"], np.int64)
+        extras = mid_epoch.get("extras") or {}
+        for name, val in extras.items():
+            arrays["mid/" + name] = np.asarray(val)
+        meta["mid_epoch"] = {"rounds_done": int(mid_epoch["rounds_done"]),
+                             "extras": sorted(extras)}
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    meta["checksum"] = _content_checksum(arrays)
+    arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(),
+                                        dtype=np.uint8)
+    # atomic: a crash mid-save must not leave a truncated file at the
+    # expected name; the tmp name keeps the .npz suffix so np.savez does
+    # not append another one
+    tmp = path[:-len(".npz")] + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+    return path
+
+
+def maybe_save_run_state(args, epoch: int, fed_model, optimizer,
+                         lr_scheduler, totals) -> None:
+    """The per-epoch ``--checkpoint_every`` hook."""
+    if args.checkpoint_every and (epoch + 1) % args.checkpoint_every == 0:
+        path = save_run_state(
+            os.path.join(args.checkpoint_path, f"run_state_ep{epoch + 1}"),
+            fed_model, optimizer, lr_scheduler, next_epoch=epoch + 1,
+            totals=totals)
+        print(f"run state saved to {path} (epoch {epoch + 1})")
+        prune_run_states(args.checkpoint_path,
+                         getattr(args, "keep_checkpoints", 0))
+
+
+def save_round_state(args, epoch: int, rounds_done: int, sampler_state,
+                     fed_model, optimizer, lr_scheduler, totals,
+                     extras=None) -> str:
+    """The mid-epoch ``--checkpoint_every_rounds`` hook. ``epoch`` is the
+    0-based epoch in progress; the file is ``run_state_ep{epoch+1}_r{
+    rounds_done}`` and a resume re-enters that epoch at that round."""
+    path = save_run_state(
+        os.path.join(args.checkpoint_path,
+                     f"run_state_ep{epoch + 1}_r{rounds_done}"),
+        fed_model, optimizer, lr_scheduler, next_epoch=epoch,
+        totals=totals,
+        mid_epoch={"rounds_done": rounds_done, "sampler": sampler_state,
+                   "extras": extras or {}})
+    print(f"run state saved to {path} "
+          f"(epoch {epoch + 1}, round {rounds_done})")
+    prune_run_states(args.checkpoint_path,
+                     getattr(args, "keep_checkpoints", 0))
+    return path
+
+
+_RUN_STATE_RE = re.compile(r"run_state_ep(\d+)(?:_r(\d+))?\.npz$")
+
+
+def _run_state_progress(path: str):
+    """Training progress in a run-state file name, as an ordering key:
+    ``run_state_ep{N}`` (N epochs completed) -> ``(N, 0)``;
+    ``run_state_ep{N}_r{R}`` (epoch N in progress, R rounds done) ->
+    ``(N-1, R)``. None for names this module did not write."""
+    m = _RUN_STATE_RE.search(os.path.basename(path))
+    if m is None:
+        return None
+    epoch = int(m.group(1))
+    return (epoch, 0) if m.group(2) is None else (epoch - 1, int(m.group(2)))
+
+
+def _run_state_files(checkpoint_path: str):
+    """``run_state*.npz`` candidates, newest first by the progress in the
+    name (mtime breaks ties only among other names); ``.tmp.npz`` write
+    intermediates are never candidates."""
+    try:
+        names = os.listdir(checkpoint_path)
+    except OSError:
+        return []
+    cands = [os.path.join(checkpoint_path, n) for n in names
+             if n.startswith("run_state") and n.endswith(".npz")
+             and ".tmp." not in n]
+
+    def key(path):
+        progress = _run_state_progress(path)
+        try:
+            mtime = os.path.getmtime(path)
+        except OSError:
+            mtime = float("-inf")  # vanished since listdir: rank last
+        return ((1,) + progress if progress is not None else (0,),
+                mtime, path)
+
+    return sorted(cands, key=key, reverse=True)
+
+
+def prune_run_states(checkpoint_path: str, keep: int) -> None:
+    """``--keep_checkpoints N``: drop all but the newest N run-state files
+    (``keep`` <= 0 keeps everything, the default)."""
+    if not keep or keep <= 0:
+        return
+    for path in _run_state_files(checkpoint_path)[keep:]:
+        try:
+            os.remove(path)
+            print(f"pruned old run state {path} (--keep_checkpoints {keep})")
+        except OSError as e:
+            print(f"could not prune {path}: {e}")
+
+
+def find_resume_checkpoint(checkpoint_path: str,
+                           return_contents: bool = False):
+    """``--resume auto``: the newest run state under ``checkpoint_path``
+    that reads and checksums clean; corrupt or truncated candidates are
+    reported and skipped. None when nothing valid exists.
+    ``return_contents=True`` returns ``(path, (flat, meta))`` for
+    ``load_run_state(preloaded=...)``, so the file is read once."""
+    for path in _run_state_files(checkpoint_path):
+        try:
+            flat = _read_npz(path)
+            meta = json.loads(bytes(flat.pop("meta_json")).decode())
+            _verify_checksum(flat, meta, path)
+        except Exception as e:  # corrupt candidate: fall back to older
+            print(f"--resume auto: skipping {path}: corrupt npz ({e})")
+            continue
+        return (path, (flat, meta)) if return_contents else path
+    return None
+
+
+def _reject_unported(flat: Dict[str, np.ndarray], meta: dict,
+                     seed: int) -> None:
+    if "drop_rng/keys" in flat:
+        # the JAX package saves its --client_dropout stream on every run;
+        # a stream still at its seed (no dropout drawn) carries nothing
+        _, keys, pos, gauss, cached = np.random.RandomState(
+            seed + 2).get_state()
+        pos_gauss = [int(x) for x in flat["drop_rng/meta"]]
+        if not (np.array_equal(flat["drop_rng/keys"], keys)
+                and pos_gauss == [pos, gauss]):
+            raise NotImplementedError(
+                "the run state carries a --client_dropout stream that has "
+                f"been drawn from ({_Q1} item 6 (runtime planes: client "
+                "dropout))")
+        for key in ("drop_rng/keys", "drop_rng/meta", "drop_rng/cached"):
+            flat.pop(key, None)
+    for prefix, item in _UNPORTED_PLANES:
+        keys = sorted(k for k in flat if k.startswith(prefix))
+        if keys:
+            raise NotImplementedError(
+                f"the run state carries {keys[0]!r}, a plane the port does "
+                f"not have yet ({item})")
+    for name, item in _UNPORTED_META:
+        if meta.get(name) is not None:
+            raise NotImplementedError(
+                f"the run state carries {name!r} state, which the port "
+                f"does not have yet ({item})")
+
+
+def load_run_state(path: str, fed_model, optimizer, lr_scheduler,
+                   preloaded=None):
+    """Restore a run state in place (the port's or the JAX package's);
+    returns ``(next_epoch, (total_download, total_upload), mid)``, where
+    ``mid`` is None at an epoch boundary, else ``{"rounds_done": int,
+    "sampler": FedSampler state, "extras": {...}}``. Corrupt files and
+    checksum mismatches raise one ``RuntimeError``; a geometry mismatch
+    (another model, sketch or ``--mode``) raises before anything is
+    restored."""
+    from commefficient_torch.federated.rounds import ClientStates
+    from commefficient_torch.federated.server import ServerState
+
+    fm = fed_model
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    if preloaded is not None:
+        flat, meta = preloaded
+        flat = dict(flat)  # the restore pops keys; keep the caller's
+    else:
+        flat = _read_npz(path)
+        meta = json.loads(bytes(flat.pop("meta_json")).decode())
+        _verify_checksum(flat, meta, path)
+    _reject_unported(flat, meta, int(fm.args.seed))
+    mid = None
+    if meta.get("mid_epoch") is not None:
+        mid = {
+            "rounds_done": int(meta["mid_epoch"]["rounds_done"]),
+            "sampler": {"permuted": flat.pop("sampler/permuted"),
+                        "cursor": flat.pop("sampler/cursor")},
+            "extras": {name: flat.pop("mid/" + name)
+                       for name in meta["mid_epoch"]["extras"]},
+        }
+
+    def check_shape(what, got, want):
+        assert tuple(got) == tuple(want), (
+            f"checkpoint geometry mismatch: {what} has shape {tuple(got)} "
+            f"but this run expects {tuple(want)} — was the checkpoint "
+            f"written with a different model/sketch geometry or --mode?")
+
+    layout = fm.layout
+    dev = fm.device
+    check_shape("ps_weights", flat["ps_weights"].shape, (fm.grad_size,))
+    cur = optimizer.server_state
+    check_shape("server velocity", flat["server/velocity"].shape,
+                cur.velocity.shape)
+    check_shape("server error", flat["server/error"].shape, cur.error.shape)
+    cs = {}
+    for name in ("velocities", "errors", "weights"):
+        key = "client/" + name
+        have = getattr(fm.client_states, name)
+        if key in flat:
+            assert have is not None, (
+                f"checkpoint has client {name} but this config allocates "
+                f"none")
+            check_shape(f"client {name}", flat[key].shape, have.shape)
+            cs[name] = torch.from_numpy(flat[key].copy()).to(dev)
+        else:
+            assert have is None, (
+                f"config allocates client {name} but checkpoint has none")
+            cs[name] = None
+    mstate = {k[len("model_state/"):]: v for k, v in flat.items()
+              if k.startswith("model_state/")}
+    assert sorted(mstate) == sorted(fm._model_state), (
+        f"checkpoint geometry mismatch: model state {sorted(mstate)} but "
+        f"this run has {sorted(fm._model_state)} — was the checkpoint "
+        f"written with a different model or --batchnorm?")
+    for k, v in mstate.items():
+        check_shape(f"model state {k}", v.shape, fm._model_state[k].shape)
+    if "torch_rng/state" not in flat:
+        # a JAX package's run state: its rng key drives JAX's noise
+        # stream, which the port's generator cannot continue
+        if fm.args.do_dp:
+            raise ValueError(
+                "this run state was written by the JAX package, whose DP "
+                "noise stream the port's generator cannot continue; "
+                "resume a --dp run from a run state the port wrote")
+
+    def resident(arr, tail_fill=None):
+        # the file holds the flat (d,) view; a chunked run re-chunks, with
+        # tail_fill where the tail is not zero (last_changed keeps -1, so
+        # a tail position is never charged)
+        t = torch.from_numpy(np.array(arr)).to(dev)
+        if layout is None:
+            return t
+        c = layout.chunk(t)
+        if tail_fill is not None:
+            c = torch.where(layout.flat_index(dev) < layout.d, c,
+                            torch.full((), tail_fill, dtype=c.dtype,
+                                       device=dev))
+        return c
+
+    fm.ps_weights = resident(flat["ps_weights"])
+    fm.client_states = ClientStates(**cs)
+    fm._model_state = {k: torch.from_numpy(v.copy()).to(dev, torch.float32)
+                       for k, v in sorted(mstate.items())}
+    if "torch_rng/state" in flat:
+        fm._rng.set_state(torch.from_numpy(flat["torch_rng/state"].copy()))
+    optimizer.server_state = ServerState(
+        velocity=torch.from_numpy(flat["server/velocity"].copy()).to(dev),
+        error=torch.from_numpy(flat["server/error"].copy()).to(dev))
+    np_meta = meta["np_rng"]
+    np.random.set_state((np_meta["name"], flat["np_rng/keys"],
+                         np_meta["pos"], np_meta["has_gauss"],
+                         np_meta["cached"]))
+    if fm._simple_download:
+        fm._updated_since_init = resident(flat["acct/updated_since_init"])
+    else:
+        fm._last_changed = resident(flat["acct/last_changed"], tail_fill=-1)
+        fm._client_part_round = np.asarray(
+            flat["acct/client_part_round"]).astype(np.int64)
+        fm._round_idx = int(meta["round_idx"])
+        fm._round_idx_dev = torch.full((), fm._round_idx, dtype=torch.int32,
+                                       device=dev)
+    fm._prev_ps = (resident(flat["acct/prev_ps"]) if "acct/prev_ps" in flat
+                   else fm.ps_weights)
+    fm._rounds_dispatched = int(meta.get("rounds_dispatched", 0))
+    lr_scheduler._step_count = int(meta["lr_step_count"])
+    lr_scheduler.optimizer.set_lr_factor(
+        lr_scheduler.lr_lambda(meta["lr_step_count"]))
+    return (meta["next_epoch"],
+            (meta["total_download"], meta["total_upload"]), mid)
+
+
+def restore_mid_epoch(resume_mid, loader, client_download, client_upload):
+    """The training loop's mid-epoch re-entry: arm the sampler at the
+    saved position and fold the partial per-client byte accumulators in
+    place. Returns ``(rounds_done, extras)``; ``(0, {})`` when not
+    resuming mid-epoch."""
+    if resume_mid is None:
+        return 0, {}
+    loader.sampler.set_state(resume_mid["sampler"])
+    extras = resume_mid.get("extras", {})
+    if "download" in extras:
+        client_download += extras["download"]
+    if "upload" in extras:
+        client_upload += extras["upload"]
+    return int(resume_mid["rounds_done"]), extras
+
+
+def resume_run(args, fed_model, optimizer, lr_scheduler):
+    """The ``--resume`` hook: resolve the path ('auto' = the newest run
+    state that reads and checksums clean), restore in place, report.
+    Returns ``(start_epoch, totals, mid)``; ``(0, (0.0, 0.0), None)`` when
+    not resuming."""
+    path, blob = args.resume or None, None
+    if path == "auto":
+        found = find_resume_checkpoint(args.checkpoint_path,
+                                       return_contents=True)
+        if found is None:
+            print(f"--resume auto: no valid run-state checkpoint under "
+                  f"{args.checkpoint_path}; starting fresh")
+            path = None
+        else:
+            path, blob = found
+    if not path:
+        return 0, (0.0, 0.0), None
+    start_epoch, totals, mid = load_run_state(path, fed_model, optimizer,
+                                              lr_scheduler, preloaded=blob)
+    at = f"epoch {start_epoch + 1}"
+    if mid is not None:
+        at += f", round {mid['rounds_done']}"
+    print(f"resumed run state from {path} (continuing at {at})")
+    return start_epoch, totals, mid

@@ -48,8 +48,13 @@ loop, and no d-sized gradient exists.
 
 Per-client state lives on the round's device (``init_client_states``):
 ``(num_clients, d)`` rows, or ``(num_clients, r, c_pad)`` tables in sketch
-mode. The CV models of the port carry no model state (BatchNorm is
-ROADMAP.md queue 1 item 1c), so the model state passes through.
+mode.
+
+The model state is ResNet9's BatchNorm running statistics under
+``--batchnorm`` (empty otherwise): each client's loss returns its updated
+statistics, computed from the round's state over its microbatches in
+order, and the round's new state is their slot-masked average
+(``average_model_state``), on both client-phase forms.
 """
 
 from __future__ import annotations
@@ -102,6 +107,30 @@ class ClientStates(NamedTuple):
     velocities: Optional[torch.Tensor]
     errors: Optional[torch.Tensor]
     weights: Optional[torch.Tensor]  # (num_clients, d) iff do_topk_down
+
+
+def _broadcast_state(model_state, W: int):
+    """The round's model state as W per-client copies (a leading W axis,
+    expanded views)."""
+    return {k: v.expand((W,) + tuple(v.shape)) for k, v in
+            model_state.items()}
+
+
+def average_model_state(new_ms, model_state, worker_mask: torch.Tensor):
+    """The slot-masked cross-client average of the per-client model states
+    (``new_ms``, a leading W axis), as the JAX package's round takes it
+    (``commefficient_tpu/federated/rounds.py:847-869``): ``sum_c mask_c
+    x_c / max(sum(mask), 1)``; an all-padding round keeps ``model_state``.
+    An empty state (no BatchNorm) stays empty."""
+    if not model_state:
+        return model_state
+    wsum = worker_mask.sum()
+    denom = torch.clamp(wsum, min=1.0)
+    return {k: torch.where(wsum > 0,
+                           torch.einsum("c,c...->...", worker_mask,
+                                        new_ms[k]) / denom,
+                           model_state[k])
+            for k in model_state}
 
 
 class RoundContext(NamedTuple):
@@ -228,25 +257,28 @@ def build_round_step(compute_loss_train: Callable,
 
     def fused_clients(ps, model_state, batch, worker_mask):
         """One-gradient client phase. Returns (summed gradient incl. weight
-        decay in the resident layout, per-client metrics)."""
+        decay in the resident layout, the per-client model states stacked
+        on a leading W axis, per-client metrics). Each client's model
+        state runs through its microbatches in order, from the round's
+        state, as the JAX package's scan carries it."""
         W, B = batch["mask"].shape
         mb, n_iters, pad = microbatch_plan(B, wcfg.microbatch_size)
         stacked = split_microbatches(batch, mb, n_iters, pad, example_dim=1)
         w = ps.detach().requires_grad_(True)
         p = unravel_res(w)
 
-        def per_client(b):
-            loss_sum, msums, count, _ = compute_loss_train(
-                p, model_state, b, None, True)
-            return loss_sum, msums, count
+        def per_client(ms, b):
+            return compute_loss_train(p, ms, b, None, True)
 
+        mstates = _broadcast_state(model_state, W)
         g_sum = torch.zeros_like(ps)
         loss_sums = torch.zeros(W, device=ps.device)
         counts = torch.zeros(W, device=ps.device)
         m_sums = None
         for it in range(n_iters):
             micro = {k: v[it] for k, v in stacked.items()}
-            ls, ms, cs = vmap(per_client)(micro)
+            ls, ms, cs, mstates = vmap(per_client)(mstates, micro)
+            mstates = {k: v.detach() for k, v in mstates.items()}
             total = torch.sum(ls * worker_mask)
             (g,) = torch.autograd.grad(total, w)
             g_sum = g_sum + g
@@ -262,7 +294,7 @@ def build_round_step(compute_loss_train: Callable,
         denom = torch.clamp(counts, min=1.0)
         metrics = (loss_sums / denom,) + tuple(m / denom for m in m_sums) \
             + (counts,)
-        return g_sum, metrics
+        return g_sum, mstates, metrics
 
     def fused_clients_stream(ps3, model_state, batch, worker_mask):
         """Streaming client phase: like ``fused_clients``, but the
@@ -273,7 +305,7 @@ def build_round_step(compute_loss_train: Callable,
         hooks, which fire in reverse layer order: the per-cell add order
         must be the composed fold's). Weight decay is one more full-range
         accumulate of the resident weights after the loop. Returns (the
-        undivided table, per-client metrics).
+        undivided table, the per-client model states, per-client metrics).
 
         With one microbatch and no weight decay the table equals the
         composed ``sketch_chunks(g_sum)`` under ``==``; several microbatches
@@ -285,11 +317,10 @@ def build_round_step(compute_loss_train: Callable,
         p = {e.torch_name: jax_to_torch_layout(x)
              for e, x in zip(params.entries, leaves)}
 
-        def per_client(b):
-            loss_sum, msums, count, _ = compute_loss_train(
-                p, model_state, b, None, True)
-            return loss_sum, msums, count
+        def per_client(ms, b):
+            return compute_loss_train(p, ms, b, None, True)
 
+        mstates = _broadcast_state(model_state, W)
         table = torch.zeros(sketch.table_shape, dtype=torch.float32,
                             device=ps3.device)
         loss_sums = torch.zeros(W, device=ps3.device)
@@ -297,7 +328,8 @@ def build_round_step(compute_loss_train: Callable,
         m_sums = None
         for it in range(n_iters):
             micro = {k: v[it] for k, v in stacked.items()}
-            ls, ms, cs = vmap(per_client)(micro)
+            ls, ms, cs, mstates = vmap(per_client)(mstates, micro)
+            mstates = {k: v.detach() for k, v in mstates.items()}
             total = torch.sum(ls * worker_mask)
             grads = torch.autograd.grad(total, leaves)
             table = sketch_grad_tree(sketch, table, grads, stream_segs,
@@ -314,16 +346,16 @@ def build_round_step(compute_loss_train: Callable,
         denom = torch.clamp(counts, min=1.0)
         metrics = (loss_sums / denom,) + tuple(m / denom for m in m_sums) \
             + (counts,)
-        return table, metrics
+        return table, mstates, metrics
 
     _probe = {}
 
     def one_client(ps_flat, vel_row, err_row, stale_row, model_state,
                    batch_row, lr, rng, slot_mask):
         """One slot of the per-client path. Returns (transmit x slot mask,
-        new velocity row, new error row, metrics); a padded slot (mask 0)
-        transmits zeros and keeps its rows. The model state passes
-        through (the port's CV models carry none)."""
+        new velocity row, new error row, new model state, metrics); a
+        padded slot (mask 0) transmits zeros and keeps its rows (its model
+        state is weighted 0 in the round's average)."""
         # the weights the client holds: the topk-down stale reconstruction
         weights_used = (get_new_worker_weights(ps_flat, stale_row, wcfg.k,
                                                True)
@@ -344,17 +376,18 @@ def build_round_step(compute_loss_train: Callable,
             one = torch.ones((), device=ps_flat.device)
             metrics = (one,) * (1 + _probe["n_metrics"]) + \
                 (batch_row["mask"].sum(),)
-            new_vel, new_err = vel_row, err_row
+            new_vel, new_err, new_ms = vel_row, err_row, model_state
         elif wcfg.mode == "fedavg":
-            res, _ = fedavg_local(compute_loss_train, weights_used,
-                                  params.params, model_state, batch_row,
-                                  rng, lr, wcfg)
+            res, new_ms = fedavg_local(compute_loss_train, weights_used,
+                                       params.params, model_state,
+                                       batch_row, rng, lr, wcfg)
             transmit, new_vel, new_err, metrics = (res.transmit, vel_row,
                                                    err_row, res.metrics)
         else:
-            res, _ = local_step(compute_loss_train, weights_used,
-                                params.params, model_state, vel_row,
-                                err_row, batch_row, rng, inner_wcfg, sketch)
+            res, new_ms = local_step(compute_loss_train, weights_used,
+                                     params.params, model_state, vel_row,
+                                     err_row, batch_row, rng, inner_wcfg,
+                                     sketch)
             transmit, new_vel, new_err, metrics = (
                 res.transmit, res.new_velocity, res.new_error, res.metrics)
         transmit = transmit * slot_mask
@@ -362,7 +395,7 @@ def build_round_step(compute_loss_train: Callable,
             new_vel = torch.where(slot_mask > 0, new_vel, vel_row)
         if new_err is not None:
             new_err = torch.where(slot_mask > 0, new_err, err_row)
-        return transmit, new_vel, new_err, metrics
+        return transmit, new_vel, new_err, new_ms, metrics
 
     def per_client_path(ps, vel_rows, err_rows, stale_rows, model_state,
                         batch, lr, rng, worker_mask):
@@ -372,9 +405,9 @@ def build_round_step(compute_loss_train: Callable,
         materializes the flat view once here."""
         ps_flat = layout.unchunk(ps) if chunked else ps
         total = None
-        vels, errs, metrics = [], [], []
+        vels, errs, mss, metrics = [], [], [], []
         for i in range(worker_mask.shape[0]):
-            t, nv, ne, m = one_client(
+            t, nv, ne, nms, m = one_client(
                 ps_flat, None if vel_rows is None else vel_rows[i],
                 None if err_rows is None else err_rows[i],
                 None if stale_rows is None else stale_rows[i], model_state,
@@ -383,12 +416,15 @@ def build_round_step(compute_loss_train: Callable,
             total = t if total is None else total + t
             vels.append(nv)
             errs.append(ne)
+            mss.append(nms)
             metrics.append(m)
         metrics = tuple(torch.stack([x.detach() for x in ms])
                         for ms in zip(*metrics))
         new_vel = None if vel_rows is None else torch.stack(vels)
         new_err = None if err_rows is None else torch.stack(errs)
-        return total, new_vel, new_err, metrics
+        new_ms = {k: torch.stack([m[k].detach() for m in mss])
+                  for k in model_state}
+        return total, new_vel, new_err, new_ms, metrics
 
     def _rows(state_arr, ids):
         return None if state_arr is None else state_arr[ids]
@@ -410,14 +446,14 @@ def build_round_step(compute_loss_train: Callable,
         if fused_grad:
             if stream:
                 # the streaming phase's sum is already the table
-                total, metrics = fused_clients_stream(ps, model_state, data,
-                                                      worker_mask)
+                total, new_ms, metrics = fused_clients_stream(
+                    ps, model_state, data, worker_mask)
             else:
-                total, metrics = fused_clients(ps, model_state, data,
-                                               worker_mask)
+                total, new_ms, metrics = fused_clients(ps, model_state, data,
+                                                       worker_mask)
             new_vel, new_err = vel_rows, err_rows
         else:
-            total, new_vel, new_err, metrics = per_client_path(
+            total, new_vel, new_err, new_ms, metrics = per_client_path(
                 ps, vel_rows, err_rows, stale_rows, model_state, data, lr,
                 rng, worker_mask)
         if sketch_after_sum and not stream:
@@ -429,7 +465,8 @@ def build_round_step(compute_loss_train: Callable,
         total_count = torch.clamp(batch["mask"].sum(), min=1.0)
         ctx = RoundContext(total / total_count, ids, worker_mask, vel_rows,
                            err_rows, stale_rows, new_vel, new_err)
-        return ctx, model_state, metrics
+        return ctx, average_model_state(new_ms, model_state, worker_mask), \
+            metrics
 
     def server_step(ps, server_state: ServerState,
                     client_states: ClientStates, ctx: RoundContext, lr,

@@ -158,6 +158,8 @@ def _grad_of(compute_loss, unravel, w_flat, model_state, batch, rng):
     loss_sum, msums, count, new_state = compute_loss(unravel(w), model_state,
                                                      batch, rng, True)
     (g,) = torch.autograd.grad(loss_sum, w)
+    if isinstance(new_state, dict):
+        new_state = {k: v.detach() for k, v in new_state.items()}
     return (g, loss_sum.detach(), tuple(m.detach() for m in msums),
             count.detach(), new_state)
 

@@ -9,6 +9,12 @@ keeps the plain version's per-cell add order, the query the median's
 values (the sign of a zero median is free) and writes its masked tail as
 +0.0 bit for bit, the fused epilogue the composed mask and accumulate,
 and the counts and the descent are integers.
+
+Also on the card, at a tiny width with cuDNN pinned deterministic: the
+round engine's non-drain submits under
+``torch.cuda.set_sync_debug_mode("error")`` with results equal to the
+synchronous loop, and a resume through ``save_round_state`` /
+``load_run_state`` bit-equal to the continuous run.
 """
 
 import numpy as np
@@ -492,3 +498,117 @@ def test_zero_sign_at_p_zero(cuda, monkeypatch):
     zero_w = int((new_p == 0).sum())
     print(f"zero weights {zero_w}, of which {int(sign_only.sum())} differ "
           f"in the sign bit (kernels against plain versions, p = 0)")
+
+
+def _lifecycle_model(cuda, extra=()):
+    """A tiny headline round on the card: ResNet9 at 8/16/16/32 channels,
+    a 3 x 2048 sketch, 4 clients of 8 a round."""
+    from commefficient_torch.config import parse_args
+    from commefficient_torch.federated import FedModel, FedOptimizer, LambdaLR
+    from commefficient_torch.federated.losses import make_cv_losses
+    from commefficient_torch.models import ResNet9
+
+    args = parse_args(argv=[
+        "--mode", "sketch", "--error_type", "virtual", "--local_momentum",
+        "0", "--virtual_momentum", "0.9", "--k", "500", "--num_cols", "2048",
+        "--num_rows", "3", "--num_blocks", "2", "--num_workers", "4",
+        "--num_clients", "8", "--dataset_name", "CIFAR10",
+        "--local_batch_size", "4", "--seed", "0",
+        "--checkpoint_path", "unused"] + list(extra))
+    model = ResNet9(channels=(("prep", 8), ("layer1", 16), ("layer2", 16),
+                              ("layer3", 32)))
+    train, val = make_cv_losses(model)
+    fm = FedModel(model, train, args, val, num_clients=8, device=cuda)
+    opt = FedOptimizer(fm, args)
+    return args, fm, opt, LambdaLR(opt, lambda s: 0.05 * (1 + s % 7))
+
+
+def _lifecycle_batch(rnd):
+    rng = np.random.RandomState(500 + rnd)
+    return {"inputs": rng.randn(4, 4, 32, 32, 3).astype(np.float32),
+            "targets": rng.randint(0, 10, size=(4, 4)).astype(np.int64),
+            "mask": np.ones((4, 4), np.float32),
+            "client_ids": rng.choice(8, 4, replace=False).astype(np.int32),
+            "worker_mask": np.ones(4, np.float32)}
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    old = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    yield
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+
+
+@pytest.mark.gpu
+def test_engine_submits_without_stream_sync(cuda, deterministic_cudnn):
+    """Between drains no submit synchronizes the stream (armed with
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
+    synchronizing call) or fetches; the drained results equal the
+    synchronous loop's bit for bit, and so do the weights."""
+    from commefficient_torch.federated.engine import PipelinedRoundEngine
+    from commefficient_torch.profiling import host_sync_monitor
+
+    _, fm_s, opt_s, sched_s = _lifecycle_model(cuda)
+    _, fm_e, opt_e, sched_e = _lifecycle_model(cuda)
+    eng = PipelinedRoundEngine(fm_e, opt_e, sched_e, window=2,
+                               drain_every=4)
+    want, got = [], []
+    for rnd in range(12):
+        b = _lifecycle_batch(rnd)
+        sched_s.step()
+        want.append(fm_s(b))
+        opt_s.step()
+        if eng.pending + 1 < eng.drain_every:
+            with host_sync_monitor(strict=True) as counter:
+                assert eng.submit(b) == []
+            assert counter.count == 0
+        else:
+            got.extend(eng.submit(b))
+    got.extend(eng.drain())
+    assert eng.window_waits > 0
+    for r, w in zip(got, want):
+        for a, b in zip(r.values, w):
+            np.testing.assert_array_equal(a, b)
+    assert _bit_equal(fm_e.ps_weights, fm_s.ps_weights)
+
+
+@pytest.mark.gpu
+def test_resume_bit_equal_on_card(cuda, deterministic_cudnn, tmp_path):
+    """6 rounds straight against 3, ``save_round_state``, a new model
+    restored with ``load_run_state``, and 3 more: weights, server state
+    and the download accounting are bit-equal."""
+    from commefficient_torch.federated.checkpoint import (
+        load_run_state,
+        save_round_state,
+    )
+
+    def rounds(fm, opt, sched, rng):
+        for rnd in rng:
+            sched.step()
+            fm(_lifecycle_batch(rnd))
+            opt.step()
+
+    _, fm_a, opt_a, sched_a = _lifecycle_model(cuda)
+    rounds(fm_a, opt_a, sched_a, range(6))
+    args, fm_b, opt_b, sched_b = _lifecycle_model(cuda)
+    args.checkpoint_path = str(tmp_path)
+    rounds(fm_b, opt_b, sched_b, range(3))
+    sampler = {"permuted": np.arange(8), "cursor": np.zeros(8, np.int64)}
+    path = save_round_state(args, 0, 3, sampler, fm_b, opt_b, sched_b,
+                            (0.0, 0.0))
+    _, fm_c, opt_c, sched_c = _lifecycle_model(cuda)
+    fm_c.ps_weights = fm_c.ps_weights + 1.0
+    _, _, mid = load_run_state(path, fm_c, opt_c, sched_c)
+    assert mid["rounds_done"] == 3
+    rounds(fm_c, opt_c, sched_c, range(3, 6))
+    for a, b in ((fm_c.ps_weights, fm_a.ps_weights),
+                 (opt_c.server_state.velocity, opt_a.server_state.velocity),
+                 (opt_c.server_state.error, opt_a.server_state.error),
+                 (fm_c._prev_ps, fm_a._prev_ps)):
+        assert _bit_equal(a, b)
+    assert torch.equal(fm_c._last_changed, fm_a._last_changed)
+    np.testing.assert_array_equal(fm_c._client_part_round,
+                                  fm_a._client_part_round)
+    assert fm_c.rounds_dispatched == fm_a.rounds_dispatched == 6
