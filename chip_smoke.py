@@ -98,6 +98,21 @@ Phases (any failure exits non-zero; nothing is caught):
    round-2 run state: final weights and statistics bit-identical with
    cuDNN deterministic (with cuDNN free, the count of differing arrays
    is printed).
+9. GPT-2 on PersonaChat at full width (``phase_gpt2``: BASELINE.md config
+   5, d = 124,444,417, vocab 50,262, 12 x 768, 12 heads; bench.py's
+   round of 4 clients x 2 examples x 2 candidates x 256 tokens, a
+   5 x 500,000 sketch, 20 blocks, k = 50,000, virtual momentum 0.9, on
+   seeded synthetic token batches): the six kernels against their plain
+   versions at this geometry (Tn = 249 chunks; the count pass and the
+   descent over 124,523,904 patterns), exact and timed; three legs
+   through FedModel, the headline round in float32 and under ``--bf16``
+   and the opt-in round in float32, each 2 warm-up and 10 timed rounds
+   with tokens/sec and rounds/sec, the launches a round checked exactly
+   (2 / 1 / 8, and the coalescing plan's count), the client / server
+   split, the device's busy share and time by kernel over 3 profiled
+   rounds and the peak memory, beside the card's line; one server step
+   through kernels and plain versions; one ``gpt2_train`` epoch on the
+   synthetic PersonaChat with a finite val NLL and perplexity.
 
 Then one JSON line of the kernels (launches per timed window of the path
 that runs each: phase 4 for the accumulate, the query and the count pass,
@@ -146,14 +161,17 @@ from commefficient_torch.federated.checkpoint import (
     save_round_state,
 )
 from commefficient_torch.federated.engine import PipelinedRoundEngine
-from commefficient_torch.federated.losses import make_cv_losses
+from commefficient_torch.federated.losses import (
+    make_cv_losses,
+    make_gpt2_losses,
+)
 from commefficient_torch.federated.rounds import ClientStates
 from commefficient_torch.federated.server import (
     init_server_state,
     server_update,
 )
 from commefficient_torch.federated.worker import microbatch_plan
-from commefficient_torch.models import ResNet9
+from commefficient_torch.models import GPT2DoubleHeads, ResNet9
 from commefficient_torch.ops.flat import ChunkLayout
 from commefficient_torch.ops import sketch as tsk
 from commefficient_torch.ops import topk as ttk
@@ -398,8 +416,10 @@ def check_count_cases(bits, est, label):
         f"{label}: topk_count_ge launched twice back to back"
 
 
-def check_kernels(card: str, d, c, r, t0, seed, label, timed):
-    """Phase 3 for one geometry: every kernel against its plain version."""
+def check_kernels(card: str, d, c, r, t0, seed, label, timed, k=None):
+    """Phase 3 for one geometry: every kernel against its plain version.
+    ``k``: the top-k size of the timed descent (default 1/140 of the
+    padded size, ResNet9's 50,000 at its geometry)."""
     peak = peaks(card)
     dev = torch.device("cuda")
     cs = tsk.make_sketch(d, c, r, seed=seed, device=dev)
@@ -527,7 +547,7 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed):
                            flat.abs())
         k = int((mags > 0.75).sum()) + 20
     else:
-        k = max(1, est.numel() // 140)
+        k = k or max(1, est.numel() // 140)
     bits = est.reshape(-1).view(torch.int32)
     n = bits.numel()
 
@@ -786,11 +806,11 @@ def check_zero_sign(fm, lr):
           f"{int(sign_only.sum())} of them differ in the sign bit")
 
 
-def phase_split(fm, opt, sched, batch, label: str) -> dict:
-    """Median CUDA-event times of the client and server phases over 10
+def phase_split(fm, opt, sched, batch, label: str, n: int = 10) -> dict:
+    """Median CUDA-event times of the client and server phases over ``n``
     rounds."""
     client_ms, server_ms = [], []
-    for _ in range(10):
+    for _ in range(n):
         sched.step()
         e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         e[0].record()
@@ -807,13 +827,14 @@ def phase_split(fm, opt, sched, batch, label: str) -> dict:
     return split
 
 
-def opt_in_per_round(fm, args) -> dict:
+def opt_in_per_round(fm, args, examples: int = 8) -> dict:
     """Launches per round of the opt-in round, from the port's own plan:
-    one running accumulate per coalesced group and microbatch, one more
-    for weight decay, one query, one descent, one epilogue."""
+    one running accumulate per coalesced group and microbatch (of a
+    client's ``examples``), one more for weight decay, one query, one
+    descent, one epilogue."""
     groups = fm.steps.stream_groups
     assert groups is not None, "the opt-in round has no coalescing plan"
-    _, n_iters, _ = microbatch_plan(8, args.microbatch_size)
+    _, n_iters, _ = microbatch_plan(examples, args.microbatch_size)
     return {"sketch_accumulate_into":
             len(groups) * n_iters + (1 if args.weight_decay else 0),
             "sketch_estimates": 1, "topk_descent": 1, "fused_epilogue": 1}
@@ -933,13 +954,18 @@ def profile_rounds(one_round, n: int = 5) -> dict:
     per round, and the device's busy share of the profiled wall time."""
     rows, wall_ms = device_rows(one_round, n)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
-    cats = {"convolution": 0.0, "port kernels": 0.0, "other": 0.0}
+    cats = {"convolution": 0.0, "matmul": 0.0, "port kernels": 0.0,
+            "other": 0.0}
     for e in rows:
         name = e.key.lower()
         if any(s in name for s in ("sketch_", "topk_", "fused_epilogue")):
             cats["port kernels"] += dev_us(e)
-        elif any(s in name for s in ("conv", "xmma", "cudnn", "dgrad",
-                                     "wgrad", "implicit_gemm")):
+        elif any(s in name for s in ("conv", "cudnn", "dgrad", "wgrad",
+                                     "fprop", "implicit_gemm")):
+            cats["convolution"] += dev_us(e)
+        elif "gemm" in name or "nvjet" in name:
+            cats["matmul"] += dev_us(e)
+        elif "xmma" in name:
             cats["convolution"] += dev_us(e)
         else:
             cats["other"] += dev_us(e)
@@ -1494,6 +1520,167 @@ def phase_lifecycle(card: str) -> dict:
     return out
 
 
+# phase 9: GPT-2 on PersonaChat (BASELINE.md config 5), bench.py's round
+GPT2_D = 124_444_417
+GPT2_MODEL = {"vocab_size": 50_262, "n_positions": 1024}
+GPT2_W, GPT2_B, GPT2_C, GPT2_T = 4, 2, 2, 256
+GPT2_BASE = ["--mode", "sketch", "--error_type", "virtual",
+             "--local_momentum", "0", "--virtual_momentum", "0.9",
+             "--num_rows", "5", "--num_cols", "500000", "--k", "50000",
+             "--num_blocks", "20", "--num_workers", str(GPT2_W),
+             "--local_batch_size", str(GPT2_B),
+             "--num_candidates", str(GPT2_C), "--max_seq_len", str(GPT2_T),
+             "--valid_batch_size", "2", "--device", "cuda", "--seed", "0"]
+GPT2_TIMED_ROUNDS = 10
+GPT2_LEGS = (("gpt2 f32", []), ("gpt2 bf16", ["--bf16"]),
+             ("gpt2 opt-in", OPT_IN))
+
+
+def gpt2_batch(seed: int = 0):
+    """A seeded synthetic GPT-2 round (bench.py's): W clients x B examples
+    x C candidates x T tokens of ids below 50,000."""
+    rng = np.random.RandomState(seed)
+    W, B, C, T = GPT2_W, GPT2_B, GPT2_C, GPT2_T
+    return {
+        "input_ids": rng.randint(0, 50000, (W, B, C, T)).astype(np.int64),
+        "token_type_ids": rng.randint(0, 50000, (W, B, C, T)).astype(
+            np.int64),
+        "lm_labels": rng.randint(0, 50000, (W, B, C, T)).astype(np.int64),
+        "mc_token_ids": rng.randint(0, T, (W, B, C)).astype(np.int64),
+        "mc_labels": rng.randint(0, C, (W, B)).astype(np.int64),
+        "mask": np.ones((W, B), np.float32),
+        "client_ids": np.arange(W, dtype=np.int32),
+        "worker_mask": np.ones(W, np.float32)}
+
+
+def build_gpt2(extra, num_clients: int = 8):
+    """FedModel / FedOptimizer / LambdaLR for the GPT-2 round plus the
+    flags ``extra``; returns ``(args, fm, opt, sched, one_round)``."""
+    args = parse_args(default_lr=4e-2, argv=GPT2_BASE + extra + [
+        "--dataset_name", "PERSONA", "--num_clients", str(num_clients)])
+    model = GPT2DoubleHeads(**GPT2_MODEL)
+    train_loss, val_loss = make_gpt2_losses(
+        model, compute_dtype=torch.bfloat16 if args.do_bf16 else None)
+    fm = FedModel(model, train_loss, args, val_loss, num_clients=num_clients)
+    assert fm.grad_size == GPT2_D, fm.grad_size
+    opt = FedOptimizer(fm, args)
+    schedule = PiecewiseLinear([0, 100], [args.lr_scale, 0.0])
+    sched = LambdaLR(opt, lambda step: schedule(step))
+    print(f"gpt2 d = {fm.grad_size:,}, sketch {fm.sketch.r} x "
+          f"{fm.sketch.c_pad} (T = {fm.sketch.T}), k = {args.k}")
+
+    def one_round(batch):
+        sched.step()
+        out = fm(batch)
+        opt.step()
+        return out
+
+    return args, fm, opt, sched, one_round
+
+
+def gpt2_leg(card: str, label: str, extra) -> dict:
+    """One timed GPT-2 leg: 2 warm-up and GPT2_TIMED_ROUNDS rounds
+    (launches checked exactly), tokens/sec, the phase split over 3
+    rounds, the device's busy share and time by kernel over 3 profiled
+    rounds, the peak memory of the timed rounds."""
+    opt_in = extra is OPT_IN
+    if opt_in:
+        os.environ[ttk.FUSED_DESCENT_ENV] = "1"
+    args, fm, opt, sched, one_round = build_gpt2(list(extra))
+    if opt_in:
+        segs, groups = fm.steps.stream_segments, fm.steps.stream_groups
+        print(f"{label} plan: {len(segs)} leaves in {len(groups)} groups "
+              f"(budget {tsk.coalesce_vmem_budget(fm.sketch):,} B), "
+              f"largest group {max(g.t_b - g.t_a for g in groups)} chunks")
+        per_round = opt_in_per_round(fm, args, GPT2_B)
+    else:
+        per_round = HEADLINE_PER_ROUND
+    batch = gpt2_batch()
+    torch.cuda.reset_peak_memory_stats()
+    counts, rps = timed_rounds(one_round, batch, per_round, label,
+                               n=GPT2_TIMED_ROUNDS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = GPT2_W * GPT2_B * GPT2_C * GPT2_T
+    split = phase_split(fm, opt, sched, batch, label, n=3)
+    prof = profile_rounds(lambda: one_round(batch), n=3)
+    row = {"phase": "gpt2", "leg": label, "d": fm.grad_size,
+           "tokens_per_round": tokens, "tokens_per_sec": rps * tokens,
+           "rounds_per_sec": rps, "rounds": GPT2_TIMED_ROUNDS,
+           "launches_per_round": per_round, **split,
+           "profiled_busy_share": (prof["profiled_busy_ms_per_round"]
+                                   / prof["profiled_wall_ms_per_round"]),
+           **prof, "peak_memory_GB": peak_gb, "card": card}
+    print(json.dumps(row))
+    if not opt_in and not args.do_bf16:
+        check_server_step(fm, opt, gpt2_batch(1), label)
+    os.environ.pop(ttk.FUSED_DESCENT_ENV, None)
+    row["counts"] = counts
+    del fm, opt, sched
+    torch.cuda.empty_cache()
+    return row
+
+
+def gpt2_cli() -> dict:
+    """``gpt2_train.train`` for one epoch at full width on the seeded
+    synthetic PersonaChat (8 personalities) in a temporary directory:
+    finite val NLL and perplexity, the headline kernels launched and the
+    opt-in ones not, and ``model.npz`` written."""
+    from commefficient_torch import gpt2_train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["COMMEFFICIENT_SYNTHETIC_CLIENTS"] = "8"
+        os.environ["COMMEFFICIENT_RUN_DIR"] = os.path.join(tmp, "run")
+        kernels.reset_launch_counts()
+        try:
+            stats = gpt2_train.train(GPT2_BASE + [
+                "--dataset_dir", os.path.join(tmp, "persona"),
+                "--num_epochs", "1"])
+        finally:
+            os.environ.pop("COMMEFFICIENT_SYNTHETIC_CLIENTS")
+            os.environ.pop("COMMEFFICIENT_RUN_DIR")
+        counts = kernels.launch_counts()
+        saved = os.path.exists(os.path.join(tmp, "run", "model.npz"))
+    assert saved, "gpt2_train wrote no model.npz"
+    assert np.isfinite(stats["val_nll"]) and np.isfinite(stats["val_ppl"]), \
+        stats
+    assert all((counts[k] > 0) == (k in HEADLINE_KERNELS) for k in counts), \
+        counts
+    row = {"phase": "gpt2", "cli": "gpt2_train", **{
+        k: float(v) for k, v in stats.items()}, "launches": counts}
+    print(json.dumps(row))
+    return row
+
+
+def phase_gpt2(card: str) -> dict:
+    """Phase 9: GPT-2 on PersonaChat at full width (d = 124,444,417,
+    vocab 50,262, 12 x 768, 12 heads), bench.py's round (4 clients x 2
+    examples x 2 candidates x 256 tokens, 5 x 500,000 sketch, 20 blocks,
+    k = 50,000, virtual momentum 0.9).
+
+    (a) all six kernels against their plain versions at this geometry
+    (Tn = 249 chunks of 500,096; the count pass and the descent over
+    124,523,904 patterns, k = 50,000), timed;
+    (b) three timed legs through FedModel: the headline round in float32
+    and under ``--bf16``, and the opt-in round in float32, launches a
+    round exactly 2 / 1 / 8 and the plan's count;
+    (c) one server step through kernels and plain versions (in (b));
+    (d) one ``gpt2_train`` epoch."""
+    out = {"kernels": check_kernels(card, GPT2_D, 500_000, 5, 0, 10, "gpt2",
+                                    True, k=50_000)}
+    for name, row in out["kernels"].items():
+        print(json.dumps({"phase": "gpt2 kernels", "geometry": "gpt2",
+                          "name": name, **row}))
+    out["legs"] = {label: gpt2_leg(card, label, extra)
+                   for label, extra in GPT2_LEGS}
+    f32, bf16 = out["legs"]["gpt2 f32"], out["legs"]["gpt2 bf16"]
+    opt_in = out["legs"]["gpt2 opt-in"]
+    print(f"gpt2 tokens/sec: f32 {f32['tokens_per_sec']:.1f}, bf16 "
+          f"{bf16['tokens_per_sec']:.1f}, opt-in "
+          f"{opt_in['tokens_per_sec']:.1f} ({card}, same call)")
+    out["cli"] = gpt2_cli()
+    return out
+
+
 def kernel_times(card: str, only=()) -> int:
     """``--kernel-times``: the accumulate pair, the query, the count pass,
     the fused epilogue and the descent alone, at the headline geometry, one
@@ -1632,6 +1819,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     lifecycle = phase_lifecycle(card)
     wall["8 lifecycle"] = time.perf_counter() - t
+    t = time.perf_counter()
+    gpt2 = phase_gpt2(card)
+    wall["9 gpt2"] = time.perf_counter() - t
     print("phase wall seconds (phase 3 includes the build): " + json.dumps(
         {k: round(v, 2) for k, v in wall.items()}))
 
@@ -1653,6 +1843,9 @@ def main(argv=None) -> int:
                           if "rounds_per_sec" in v},
                       "batchnorm_rounds_per_sec":
                           lifecycle["batchnorm"]["rounds_per_sec"],
+                      "gpt2_tokens_per_sec": {
+                          k: v["tokens_per_sec"]
+                          for k, v in gpt2["legs"].items()},
                       **{"opt_in_" + k: v for k, v in opt_prof.items()}}))
     print(json.dumps(summary))
     print(card)

@@ -1,6 +1,14 @@
-"""CLI surface of the port: its own copy of the flags the ResNet9 round
-reads (all five ``--mode`` values), with the JAX package's names and
-defaults (``commefficient_tpu/config.py``), and its fedavg invariants.
+"""CLI surface of the port: its own copy of the flags the ResNet9 and
+GPT-2 rounds read (all five ``--mode`` values), with the JAX package's
+names and defaults (``commefficient_tpu/config.py``), and its fedavg
+invariants.
+
+GPT-2's flags (``gpt2_train``): ``--model_checkpoint``,
+``--num_candidates``, ``--max_history``, ``--lm_coef``, ``--mc_coef``,
+``--personality_permutations``, ``--max_seq_len`` (256, or
+``COMMEFFICIENT_GPT2_SEQ_LEN``), ``--eval_before_start`` and ``--bf16``
+(the forward and backward in bfloat16 over float32 master weights; the
+CV losses take it too).
 
 Deviations: ``--device`` takes ``{cuda, cpu}`` with ``cuda`` the default
 (a CUDA request on a host without a card raises; there is no fallback to
@@ -27,35 +35,40 @@ item that ports it instead of being ignored (``reject_unported``).
 from __future__ import annotations
 
 import argparse
+import os
 
 MODES = ["sketch", "true_topk", "local_topk", "fedavg", "uncompressed"]
 ERROR_TYPES = ["none", "local", "virtual"]
-DATASETS = ["CIFAR10", "CIFAR100"]
+DATASETS = ["CIFAR10", "CIFAR100", "PERSONA"]
 DP_MODES = ["worker", "server"]
 
 _Q1 = "ROADMAP.md queue 1"
 ITEM_CV = f"{_Q1} item 3 (the other CV models, datasets and data planes)"
-ITEM_GPT2 = f"{_Q1} item 4 (GPT-2 and --bf16)"
+ITEM_GPT2_HF = (f"{_Q1} item 4a (HF GPT-2 weights: load_hf_gpt2 and "
+                f"GPT-2's --finetune)")
+ITEM_FINETUNE = (f"{_Q1} item 3 (CV) / item 4a (GPT-2): --finetune and "
+                 f"the weights it starts from")
 ITEM_MULTI = f"{_Q1} item 5 (multi-GPU)"
 ITEM_RUNTIME = f"{_Q1} item 6 (runtime planes)"
+ITEM_PARALLEL = (f"{_Q1} item 7 (parallel/: sequence, tensor, pipeline "
+                 f"and expert parallelism)")
 
 # (flag, dest, takes a value, roadmap item)
 UNPORTED = (
-    ("--bf16", "do_bf16", False, ITEM_GPT2),
     ("--tensorboard", "use_tensorboard", False, ITEM_RUNTIME),
     ("--profile", "do_profile", False, ITEM_RUNTIME),
-    ("--finetune", "do_finetune", False, ITEM_CV),
-    ("--finetuned_from", "finetuned_from", True, ITEM_CV),
-    ("--finetune_path", "finetune_path", True, ITEM_CV),
+    ("--finetune", "do_finetune", False, ITEM_FINETUNE),
+    ("--finetuned_from", "finetuned_from", True, ITEM_FINETUNE),
+    ("--finetune_path", "finetune_path", True, ITEM_FINETUNE),
     ("--state_dir", "state_dir", True, ITEM_RUNTIME),
     ("--server_shard", "server_shard", False, ITEM_MULTI),
     ("--shard_devices", "shard_devices", True, ITEM_MULTI),
     ("--reduce_dtype", "reduce_dtype", True, ITEM_MULTI),
     ("--collective_plan", "collective_plan", True, ITEM_MULTI),
-    ("--seq_parallel", "seq_parallel", True, ITEM_GPT2),
-    ("--model_devices", "model_devices", True, ITEM_GPT2),
-    ("--pipeline_devices", "pipeline_devices", True, ITEM_GPT2),
-    ("--n_experts", "n_experts", True, ITEM_GPT2),
+    ("--seq_parallel", "seq_parallel", True, ITEM_PARALLEL),
+    ("--model_devices", "model_devices", True, ITEM_PARALLEL),
+    ("--pipeline_devices", "pipeline_devices", True, ITEM_PARALLEL),
+    ("--n_experts", "n_experts", True, ITEM_PARALLEL),
     ("--client_dropout", "client_dropout", True, ITEM_RUNTIME),
     ("--participation", "participation", True, ITEM_RUNTIME),
     ("--inject_client_fault", "inject_client_fault", True, ITEM_RUNTIME),
@@ -129,6 +142,23 @@ def build_parser(default_lr=None) -> argparse.ArgumentParser:
 
     parser.add_argument("--batchnorm", action="store_true",
                         dest="do_batchnorm")
+    parser.add_argument("--bf16", action="store_true", dest="do_bf16",
+                        help="Forward and backward in bfloat16; master "
+                             "weights, compression and the server stay "
+                             "float32.")
+
+    # GPT-2 (the JAX package's flags)
+    parser.add_argument("--model_checkpoint", type=str, default="gpt2")
+    parser.add_argument("--num_candidates", type=int, default=2)
+    parser.add_argument("--max_history", type=int, default=2)
+    parser.add_argument("--lm_coef", type=float, default=1.0)
+    parser.add_argument("--mc_coef", type=float, default=1.0)
+    parser.add_argument("--personality_permutations", type=int, default=1)
+    parser.add_argument("--max_seq_len", type=int,
+                        default=int(os.environ.get(
+                            "COMMEFFICIENT_GPT2_SEQ_LEN", 256)),
+                        help="GPT-2 static sequence length (pad/left-"
+                             "truncate PersonaChat examples to this).")
 
     # checkpoint, resume and the round engine (the JAX package's flags)
     parser.add_argument("--checkpoint", action="store_true",
@@ -192,7 +222,8 @@ def reject_unported(args) -> None:
     for flag, dest, valued, item in UNPORTED:
         val = getattr(args, dest, None)
         if (val is not None) if valued else bool(val):
-            raise NotImplementedError(f"{flag} is not ported yet ({item})")
+            raise NotImplementedError(
+                f"{flag} is not ported yet ({item})")
     if getattr(args, "model", "ResNet9") != "ResNet9":
         raise NotImplementedError(
             f"--model {args.model} is not ported yet ({ITEM_CV})")

@@ -59,7 +59,7 @@ def params_from_flax(np_tree: Mapping, layout: ParamLayout,
             raise ValueError(f"{'/'.join(path)}: shape {arr.shape}, "
                              f"expected {e.jax_shape}")
         out[e.torch_name] = jax_to_torch_layout(
-            torch.from_numpy(arr.copy())).contiguous().to(device)
+            torch.from_numpy(arr.copy()), e.kind).contiguous().to(device)
     missing = set(e.torch_name for e in layout.entries) - set(out)
     if missing:
         raise KeyError(f"flax tree lacks {sorted(missing)}")
@@ -76,7 +76,7 @@ def flax_from_port(params: Mapping[str, torch.Tensor],
         for key in e.jax_path[:-1]:
             node = node.setdefault(key, {})
         node[e.jax_path[-1]] = torch_to_jax_layout(
-            params[e.torch_name].detach().cpu()).contiguous().numpy()
+            params[e.torch_name].detach().cpu(), e.kind).contiguous().numpy()
     return tree
 
 

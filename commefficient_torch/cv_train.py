@@ -27,7 +27,8 @@ PATH|auto`` restores one (``federated/checkpoint.py``; a mid-epoch resume
 ends bit-identical to the run it continues), and ``--checkpoint`` writes
 the final weights as ``<checkpoint_path>/ResNet9.npz``. ``--batchnorm``
 puts flax's BatchNorm in every ResNet9 cell. Runs on ``cuda`` unless
-``--device cpu``; float32 throughout (TF32 off).
+``--device cpu``; float32 (TF32 off), the forward and backward in
+bfloat16 under ``--bf16``.
 """
 
 from __future__ import annotations
@@ -264,7 +265,8 @@ def main(argv=None):
 
     model = build_model_and_config(args)
     train_loader, test_loader = get_data_loaders(args)
-    compute_loss_train, compute_loss_val = make_cv_losses(model)
+    compute_loss_train, compute_loss_val = make_cv_losses(
+        model, compute_dtype=torch.bfloat16 if args.do_bf16 else None)
     fed_model = FedModel(model, compute_loss_train, args, compute_loss_val,
                          num_clients=train_loader.dataset.num_clients,
                          device=device)

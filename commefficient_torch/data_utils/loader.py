@@ -13,6 +13,10 @@ item 3; both produce the same batches as this path under one seed).
 
 with W = num_workers and B = local_batch_size (or the largest client when
 -1). Val batches are flat: {inputs: (B, ...), targets: (B,), mask: (B,)}.
+
+``collate_fn`` turns a list of items (each without its client id) into a
+dict of stacked columns; ``cv_collate`` gives the image columns above,
+``fed_persona.make_personachat_collate_fn`` GPT-2's.
 """
 
 from __future__ import annotations
@@ -33,10 +37,11 @@ def cv_collate(items):
 
 class FedLoader:
     def __init__(self, dataset, num_workers=1, local_batch_size=8,
-                 val_batch_size=None):
+                 collate_fn=cv_collate, val_batch_size=None):
         self.dataset = dataset
         self.num_workers = num_workers
         self.local_batch_size = local_batch_size
+        self.collate_fn = collate_fn
         self.val_batch_size = val_batch_size or 64
         self.train = dataset.type == "train"
         if self.train:
@@ -64,7 +69,7 @@ class FedLoader:
         for i in idx_list:
             _cid, *rest = self.dataset[int(i)]
             items.append(tuple(rest))
-        return cv_collate(items)
+        return self.collate_fn(items)
 
     def __iter__(self):
         if self.train:

@@ -36,11 +36,14 @@ state is ResNet9's BatchNorm running statistics under ``--batchnorm``.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from commefficient_torch.convert import flax_from_port
+from commefficient_torch.federated.checkpoint import save_checkpoint
 from commefficient_torch.federated.rounds import (
     RoundConfig,
     build_round_step,
@@ -179,8 +182,9 @@ class FedModel:
                  num_clients: Optional[int] = None,
                  init_params: Optional[torch.Tensor] = None, device=None):
         """``init_params``: the flat ``(d,)`` weights in JAX ravel order
-        (``convert.flat_from_jax``); None draws PyTorch's default init from
-        a generator seeded with ``args.seed``. ``device`` defaults to
+        (``convert.flat_from_jax``); None draws the model's ``init_`` (GPT-2:
+        flax's initializers) or PyTorch's default conv/linear init from a
+        generator seeded with ``args.seed``. ``device`` defaults to
         ``args.device``, and that to ``cuda``."""
         from commefficient_torch.config import reject_unported
 
@@ -202,7 +206,11 @@ class FedModel:
         args.grad_size = self.grad_size
         if init_params is None:
             gen = torch.Generator().manual_seed(int(args.seed))
-            torch_conv_init_(model, gen)
+            init_ = getattr(model, "init_", None)
+            if init_ is not None:
+                init_(gen)  # the model's own (flax) initializers
+            else:
+                torch_conv_init_(model, gen)
             flat = self.param_layout.flatten(dict(model.named_parameters()))
         else:
             flat = init_params.detach().to(torch.float32)
@@ -277,6 +285,16 @@ class FedModel:
 
     def zero_grad(self):
         pass  # gradients are per-call values
+
+    def save_pretrained(self, log_dir: str) -> str:
+        """Write the weights and model state as ``<log_dir>/model.npz`` in
+        the JAX package's ``save_checkpoint`` format (its
+        ``load_checkpoint`` reads it back to the same tree). Returns the
+        path."""
+        path = os.path.join(log_dir, "model")
+        save_checkpoint(path, flax_from_port(self.params, self.param_layout),
+                        model_state=self._model_state)
+        return path + ".npz"
 
     @property
     def rounds_dispatched(self) -> int:

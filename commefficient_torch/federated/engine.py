@@ -67,8 +67,9 @@ def cohort_lookahead(loader, model):
 class RoundResult(NamedTuple):
     """One finished round: ``index`` is the submit order (0-based within
     the engine's lifetime), ``values`` the result list ``[loss_arr,
-    acc_arr, download_bytes, upload_bytes]`` that ``model(batch)``
-    returns."""
+    *metric_arrs, download_bytes, upload_bytes]`` that ``model(batch)``
+    returns (the CV losses have one metric, accuracy; GPT-2's train loss
+    none)."""
 
     index: int
     values: List[Any]
@@ -159,3 +160,9 @@ class PipelinedRoundEngine:
     @property
     def pending(self) -> int:
         return len(self._pending)
+
+    @property
+    def rounds_submitted(self) -> int:
+        """Rounds submitted over the engine's lifetime (the next round's
+        ``RoundResult.index``)."""
+        return self._next_index

@@ -1,20 +1,34 @@
 """Workload loss callbacks matching the worker contract: the port of
-``commefficient_tpu/federated/losses.py`` (CV head).
+``commefficient_tpu/federated/losses.py`` (the CV head and GPT-2's double
+heads).
 
 ``compute_loss(params, model_state, batch, rng, train) ->
 (loss_sum, metric_sums, count, new_model_state)`` with sums over valid
 (mask = 1) examples; ``params`` is the ``{torch_name: tensor}`` dict that
 ``torch.func.functional_call`` applies to the module.
+
+``rng`` is the train forward's source of dropout masks: a
+``torch.Generator`` (the per-client path hands the round's generator
+in), or a flat boolean tensor of keep masks drawn beforehand by the
+loss's ``draw_rng(generator, microbatch)`` (the fused client phase draws
+one per client and microbatch before its ``torch.func.vmap``, whose
+``randomness`` cannot take an explicit generator). A loss without
+dropout has no ``draw_rng`` and ignores ``rng``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch.func import functional_call
 from torch.nn import functional as F
 
+from commefficient_torch.models.gpt2 import GeneratorKeep, MaskKeep
 
-def make_cv_losses(model: torch.nn.Module):
+
+def make_cv_losses(model: torch.nn.Module,
+                   compute_dtype: Optional[torch.dtype] = None):
     """Returns ``(compute_loss_train, compute_loss_val)`` for an image
     classifier: cross-entropy + accuracy. The CV models have no dropout,
     so ``rng`` passes through unused. Without BatchNorm the model state
@@ -22,16 +36,26 @@ def make_cv_losses(model: torch.nn.Module):
     normalizes with the batch's statistics and returns the updated
     running statistics as ``new_model_state``, and the val call normalizes
     with the running statistics and returns them unchanged (flax's
-    ``mutable=["batch_stats"]`` train apply, and its eval apply)."""
+    ``mutable=["batch_stats"]`` train apply, and its eval apply).
+
+    ``compute_dtype=torch.bfloat16`` (``--bf16``) casts the parameter
+    views and the images going in; the logits come back to float32 before
+    the cross-entropy, the running statistics to float32, and the
+    gradient reaches the float32 flat vector through the casts."""
     has_bn = bool(getattr(model, "do_batchnorm", False))
 
     def compute(params, model_state, batch, rng, train):
         x = batch["inputs"]
         y = batch["targets"]
         mask = batch["mask"]
+        if compute_dtype is not None:
+            params = _cast_params(params, compute_dtype)
+            x = x.to(compute_dtype)
         if has_bn:
             logits, new_state = functional_call(model, params,
                                                 (x, model_state, train))
+            new_state = {k: v.to(torch.float32)
+                         for k, v in new_state.items()}
         else:
             logits = functional_call(model, params, (x,))
             new_state = model_state
@@ -44,3 +68,109 @@ def make_cv_losses(model: torch.nn.Module):
         return loss_sum, (acc_sum,), count, new_state
 
     return compute, compute
+
+
+def _cast_params(params, dtype):
+    """The float32 parameter views in the compute dtype (``--bf16``); the
+    gradient comes back through the cast in float32."""
+    return {k: v.to(dtype) if v.dtype == torch.float32 else v
+            for k, v in params.items()}
+
+
+def _mc_ce_acc(mc_logits, mc_labels):
+    """Multiple-choice cross-entropy and accuracy over the candidate
+    axis."""
+    logp = torch.log_softmax(mc_logits, dim=-1)
+    labels = mc_labels.to(torch.int64)
+    ce = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    acc = (torch.argmax(mc_logits, dim=-1) == labels).to(torch.float32)
+    return ce, acc
+
+
+def _lm_nll_per_example(lm_logits, lm_labels):
+    """Per-example token-mean NLL of the next token (position t predicts
+    t + 1; label -1 is ignored), as the JAX package takes it (a documented
+    deviation from the reference's batch-wide token mean, identical when
+    the examples have equal valid-token counts): ``logsumexp`` minus the
+    gathered logit, accumulated in float32, so no ``(..., V)`` log-prob
+    tensor is formed."""
+    logits = lm_logits[..., :-1, :]
+    labels = lm_labels[..., 1:].to(torch.int64)
+    valid = labels != -1
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    lse = torch.logsumexp(logits.to(torch.float32), dim=-1)
+    picked = torch.gather(logits, -1, safe[..., None])[..., 0].to(
+        torch.float32)
+    tok_nll = (lse - picked) * valid
+    nll_sum = tok_nll.sum(dim=(-2, -1))
+    n_valid = valid.sum(dim=(-2, -1))
+    return nll_sum / torch.clamp(n_valid, min=1)
+
+
+def make_gpt2_losses(model: torch.nn.Module, lm_coef: float = 1.0,
+                     mc_coef: float = 1.0,
+                     compute_dtype: Optional[torch.dtype] = None):
+    """GPT-2 double-heads losses (the JAX package's ``make_gpt2_losses``,
+    dense attention). Train: ``lm_coef * lm_nll + mc_coef * mc_ce`` per
+    example, summed under the mask, with no metrics. Val: ``(nll, (mc
+    accuracy,))`` sums; perplexity is ``exp(mean nll)``, taken by the entry
+    point. ``compute_dtype=torch.bfloat16`` (``--bf16``) casts the
+    parameter views of the float32 flat vector before the forward; the LM
+    logits stay in that dtype (the NLL accumulates in float32), the MC
+    logits come back to float32.
+
+    The train loss carries ``draw_rng(generator, micro)``: the flat keep
+    masks of one microbatch for each client, ``(W, n)`` booleans for
+    ``micro`` with a leading client axis."""
+    keep_prob = 1.0 - float(model.dropout)
+
+    def _forward(params, batch, keep):
+        if compute_dtype is not None:
+            params = _cast_params(params, compute_dtype)
+        lm_logits, mc_logits = functional_call(
+            model, params, (batch["input_ids"],),
+            {"token_type_ids": batch["token_type_ids"],
+             "mc_token_ids": batch["mc_token_ids"], "dropout": keep})
+        return lm_logits, mc_logits.to(torch.float32)
+
+    def _keep_source(rng, train):
+        if not train or model.dropout == 0.0:
+            return None
+        if isinstance(rng, torch.Generator):
+            return GeneratorKeep(rng, keep_prob)
+        if isinstance(rng, torch.Tensor):
+            return MaskKeep(rng)
+        raise ValueError("the GPT-2 train forward draws dropout masks: pass "
+                         "a torch.Generator or pre-drawn keep masks as rng")
+
+    def compute_train(params, model_state, batch, rng, train):
+        keep = _keep_source(rng, train)
+        lm_logits, mc_logits = _forward(params, batch, keep)
+        if isinstance(keep, MaskKeep):
+            keep.check_consumed()
+        lm_nll = _lm_nll_per_example(lm_logits, batch["lm_labels"])
+        mc_ce, _ = _mc_ce_acc(mc_logits, batch["mc_labels"])
+        mask = batch["mask"]
+        loss_sum = torch.sum((lm_coef * lm_nll + mc_coef * mc_ce) * mask)
+        return loss_sum, (), torch.sum(mask), model_state
+
+    def draw_rng(generator: torch.Generator, micro) -> torch.Tensor:
+        ids = micro["input_ids"]
+        W, T = ids.shape[0], ids.shape[-1]
+        n = model.dropout_numel(ids[0].numel() // T, T)
+        return torch.stack([
+            torch.rand(n, generator=generator, device=ids.device) < keep_prob
+            for _ in range(W)])
+
+    if model.dropout != 0.0:
+        compute_train.draw_rng = draw_rng
+
+    def compute_val(params, model_state, batch, rng, train):
+        lm_logits, mc_logits = _forward(params, batch, None)
+        lm_nll = _lm_nll_per_example(lm_logits, batch["lm_labels"])
+        _, acc = _mc_ce_acc(mc_logits, batch["mc_labels"])
+        mask = batch["mask"]
+        return (torch.sum(lm_nll * mask), (torch.sum(acc * mask),),
+                torch.sum(mask), model_state)
+
+    return compute_train, compute_val

@@ -34,7 +34,14 @@ is sketched once. PS weights stay resident in the sketch's ``(T, S,
 128)`` chunk layout (zero tail) in sketch mode without ``--topk_down``
 (``chunked``); every other mode keeps a flat ``(d,)`` vector. The model
 sees the weights through ``ops/flat.ParamLayout`` views of the flat
-vector, so a backward pass lands the gradient in the resident layout.
+vector. Both client phases make each view its own autograd leaf
+(``ParamLayout.leaves``) and lay the leaf gradients out flat once
+(``gather_grads``).
+
+A loss with dropout (GPT-2) draws its masks from the round's generator:
+in the fused phase each client's masks for each microbatch are drawn
+before the ``vmap`` (the loss's ``draw_rng``) and passed in batched; on
+the per-client path the generator goes to the loss itself.
 
 ``--stream_sketch`` (``RoundConfig.stream_sketch``, legal in the fused
 sketch-after-sum chunked window and silently composed elsewhere, as in
@@ -85,9 +92,7 @@ from commefficient_torch.ops.flat import (
     LeafSegment,
     ParamLayout,
     SegmentGroup,
-    chunked_unravel,
     coalesce_segments,
-    jax_to_torch_layout,
     leaf_segments,
 )
 from commefficient_torch.ops.sketch import (
@@ -239,23 +244,41 @@ def build_round_step(compute_loss_train: Callable,
     stream = bool(cfg.stream_sketch) and fused_grad and sketch_after_sum \
         and chunked
 
-    stream_segs = stream_unravel = stream_groups = None
+    stream_segs = stream_groups = None
     if stream:
         stream_segs = leaf_segments(params)
         assert stream_segs[-1].offset + stream_segs[-1].size == \
             cfg.grad_size, "leaf layout does not cover the flat vector"
-        stream_unravel = chunked_unravel(layout, params)
         if cfg.sketch_coalesce:
             stream_groups = coalesce_segments(
                 stream_segs, coalesce_vmem_budget(sketch),
                 chunk_elems=sketch.c_pad)
 
-    def unravel_res(w):
-        """Resident weights -> the model's parameter views (the one flat
-        materialization of a chunked round, at the model boundary)."""
-        return params.params(layout.unchunk(w) if chunked else w)
+    def flat_res(w):
+        """The resident weights (or a tensor in their layout) as a flat
+        ``(d,)`` view: the chunked plane without its padded tail."""
+        return layout.unchunk(w) if chunked else w
 
-    def fused_clients(ps, model_state, batch, worker_mask):
+    draw_rng = getattr(compute_loss_train, "draw_rng", None)
+
+    def vmapped_losses(p, mstates, micro, rng):
+        """The W clients' losses on one microbatch under ``vmap``. A loss
+        that draws dropout masks (``draw_rng``) gets each client's own,
+        drawn here from the round's generator before the ``vmap`` and
+        passed in as a batched input, so the masks differ per client and
+        per microbatch and follow from the seed."""
+        def per_client(ms, b, keep):
+            return compute_loss_train(p, ms, b, keep, True)
+
+        if draw_rng is None:
+            return vmap(per_client, in_dims=(0, 0, None))(mstates, micro,
+                                                          None)
+        if rng is None:
+            raise ValueError("this loss draws dropout masks; the fused "
+                             "client phase needs the round's generator")
+        return vmap(per_client)(mstates, micro, draw_rng(rng, micro))
+
+    def fused_clients(ps, model_state, batch, worker_mask, rng):
         """One-gradient client phase. Returns (summed gradient incl. weight
         decay in the resident layout, the per-client model states stacked
         on a leading W axis, per-client metrics). Each client's model
@@ -264,12 +287,11 @@ def build_round_step(compute_loss_train: Callable,
         W, B = batch["mask"].shape
         mb, n_iters, pad = microbatch_plan(B, wcfg.microbatch_size)
         stacked = split_microbatches(batch, mb, n_iters, pad, example_dim=1)
-        w = ps.detach().requires_grad_(True)
-        p = unravel_res(w)
-
-        def per_client(ms, b):
-            return compute_loss_train(p, ms, b, None, True)
-
+        # differentiate by leaf and lay the leaf gradients out once
+        # (O(d)); through the views of one flat tensor each leaf's
+        # backward would fill and add a d-sized gradient
+        leaves = params.leaves(flat_res(ps))
+        p = params.params_of(leaves)
         mstates = _broadcast_state(model_state, W)
         g_sum = torch.zeros_like(ps)
         loss_sums = torch.zeros(W, device=ps.device)
@@ -277,10 +299,12 @@ def build_round_step(compute_loss_train: Callable,
         m_sums = None
         for it in range(n_iters):
             micro = {k: v[it] for k, v in stacked.items()}
-            ls, ms, cs, mstates = vmap(per_client)(mstates, micro)
+            ls, ms, cs, mstates = vmapped_losses(p, mstates, micro, rng)
             mstates = {k: v.detach() for k, v in mstates.items()}
             total = torch.sum(ls * worker_mask)
-            (g,) = torch.autograd.grad(total, w)
+            g = torch.zeros_like(ps)
+            params.gather_grads(torch.autograd.grad(total, leaves),
+                                flat_res(g))
             g_sum = g_sum + g
             loss_sums = loss_sums + ls.detach()
             ms = tuple(m.detach() for m in ms)
@@ -296,7 +320,7 @@ def build_round_step(compute_loss_train: Callable,
             + (counts,)
         return g_sum, mstates, metrics
 
-    def fused_clients_stream(ps3, model_state, batch, worker_mask):
+    def fused_clients_stream(ps3, model_state, batch, worker_mask, rng):
         """Streaming client phase: like ``fused_clients``, but the
         microbatch loop carries the ``(r, c_pad)`` table instead of a
         d-sized gradient. The backward pass differentiates with respect to
@@ -313,13 +337,8 @@ def build_round_step(compute_loss_train: Callable,
         W, B = batch["mask"].shape
         mb, n_iters, pad = microbatch_plan(B, wcfg.microbatch_size)
         stacked = split_microbatches(batch, mb, n_iters, pad, example_dim=1)
-        leaves = stream_unravel(ps3)
-        p = {e.torch_name: jax_to_torch_layout(x)
-             for e, x in zip(params.entries, leaves)}
-
-        def per_client(ms, b):
-            return compute_loss_train(p, ms, b, None, True)
-
+        leaves = params.leaves(flat_res(ps3))
+        p = params.params_of(leaves)
         mstates = _broadcast_state(model_state, W)
         table = torch.zeros(sketch.table_shape, dtype=torch.float32,
                             device=ps3.device)
@@ -328,7 +347,7 @@ def build_round_step(compute_loss_train: Callable,
         m_sums = None
         for it in range(n_iters):
             micro = {k: v[it] for k, v in stacked.items()}
-            ls, ms, cs, mstates = vmap(per_client)(mstates, micro)
+            ls, ms, cs, mstates = vmapped_losses(p, mstates, micro, rng)
             mstates = {k: v.detach() for k, v in mstates.items()}
             total = torch.sum(ls * worker_mask)
             grads = torch.autograd.grad(total, leaves)
@@ -379,13 +398,13 @@ def build_round_step(compute_loss_train: Callable,
             new_vel, new_err, new_ms = vel_row, err_row, model_state
         elif wcfg.mode == "fedavg":
             res, new_ms = fedavg_local(compute_loss_train, weights_used,
-                                       params.params, model_state,
+                                       params, model_state,
                                        batch_row, rng, lr, wcfg)
             transmit, new_vel, new_err, metrics = (res.transmit, vel_row,
                                                    err_row, res.metrics)
         else:
             res, new_ms = local_step(compute_loss_train, weights_used,
-                                     params.params, model_state, vel_row,
+                                     params, model_state, vel_row,
                                      err_row, batch_row, rng, inner_wcfg,
                                      sketch)
             transmit, new_vel, new_err, metrics = (
@@ -435,7 +454,8 @@ def build_round_step(compute_loss_train: Callable,
         the resident layout, or the ``(r, c_pad)`` table in sketch mode)
         with the client-state rows in a ``RoundContext``, the model state,
         per-client metrics. ``lr`` is the current learning rate (fedavg's
-        local SGD reads it); ``rng`` draws DP noise."""
+        local SGD reads it); ``rng`` draws DP noise and the dropout masks
+        of a loss that has dropout (GPT-2)."""
         ids = batch["client_ids"].to(torch.int64)
         worker_mask = batch["worker_mask"]
         data = {k: v for k, v in batch.items()
@@ -447,10 +467,10 @@ def build_round_step(compute_loss_train: Callable,
             if stream:
                 # the streaming phase's sum is already the table
                 total, new_ms, metrics = fused_clients_stream(
-                    ps, model_state, data, worker_mask)
+                    ps, model_state, data, worker_mask, rng)
             else:
                 total, new_ms, metrics = fused_clients(ps, model_state, data,
-                                                       worker_mask)
+                                                       worker_mask, rng)
             new_vel, new_err = vel_rows, err_rows
         else:
             total, new_vel, new_err, new_ms, metrics = per_client_path(

@@ -22,13 +22,15 @@ Semantics preserved:
   chunks with per-step decay, transmitting ``(w0 - w_final) x count``;
 - microbatched gradient accumulation (the exact per-example mean).
 
-The loss callback contract is ``compute_loss(params, model_state,
+The loss callback contract is ``compute_loss(param_views, model_state,
 microbatch, rng, train) -> (loss_sum, metric_sums, count,
-new_model_state)``; ``unravel`` maps the flat ``(d,)`` weights (JAX ravel
-order) to the ``params`` the loss applies, so a gradient taken with
-respect to the flat vector lands in that order. The fused-gradient client
-phase of ``federated/rounds.py`` shares ``microbatch_plan``,
-``split_microbatches`` and ``sketch_grad_tree`` with this module.
+new_model_state)``. The worker functions take the flat ``(d,)`` weights
+(JAX ravel order) and ``params``, the model's ``ops/flat.ParamLayout``: a
+gradient is taken with respect to each parameter leaf and laid out flat
+in that order (``ParamLayout.leaves`` / ``gather_grads``), as the
+fused-gradient client phase of ``federated/rounds.py`` does. That phase
+shares ``microbatch_plan``, ``split_microbatches`` and
+``sketch_grad_tree`` with this module.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from commefficient_torch.ops.clip import clip_by_l2
-from commefficient_torch.ops.flat import LeafSegment, SegmentGroup
+from commefficient_torch.ops.flat import LeafSegment, ParamLayout, SegmentGroup
 from commefficient_torch.ops.sketch import (
     CountSketch,
     l2estimate,
@@ -151,20 +153,25 @@ def sketch_grad_tree(sketch: CountSketch, table: torch.Tensor,
     return table
 
 
-def _grad_of(compute_loss, unravel, w_flat, model_state, batch, rng):
+def _grad_of(compute_loss, params: ParamLayout, w_flat, model_state, batch,
+             rng):
     """``(gradient of loss_sum by the flat weights, loss_sum, metric_sums,
-    count, new_model_state)`` on one batch, all detached."""
-    w = w_flat.detach().requires_grad_(True)
-    loss_sum, msums, count, new_state = compute_loss(unravel(w), model_state,
-                                                     batch, rng, True)
-    (g,) = torch.autograd.grad(loss_sum, w)
+    count, new_model_state)`` on one batch, all detached. The gradient is
+    taken by leaf and laid out flat once (O(d)); through the views of one
+    flat tensor each leaf's backward would fill and add a d-sized
+    gradient."""
+    leaves = params.leaves(w_flat)
+    loss_sum, msums, count, new_state = compute_loss(
+        params.params_of(leaves), model_state, batch, rng, True)
+    g = params.gather_grads(torch.autograd.grad(loss_sum, leaves),
+                            torch.empty_like(w_flat))
     if isinstance(new_state, dict):
         new_state = {k: v.detach() for k, v in new_state.items()}
     return (g, loss_sum.detach(), tuple(m.detach() for m in msums),
             count.detach(), new_state)
 
 
-def _microbatch_grads(compute_loss, params_flat, unravel, model_state, batch,
+def _microbatch_grads(compute_loss, params_flat, params, model_state, batch,
                       rng, cfg: WorkerConfig):
     """Per-example-mean flat gradient over the masked batch, accumulated
     over microbatches. Returns ``(grad_mean, loss_mean, metric_means,
@@ -177,7 +184,7 @@ def _microbatch_grads(compute_loss, params_flat, unravel, model_state, batch,
     loss_sum, count, m_sums, mstate = zero, zero, None, model_state
     for it in range(n_iters):
         micro = {k: v[it] for k, v in stacked.items()}
-        g, ls, ms, cnt, mstate = _grad_of(compute_loss, unravel, params_flat,
+        g, ls, ms, cnt, mstate = _grad_of(compute_loss, params, params_flat,
                                           mstate, micro, rng)
         g_sum = g_sum + g
         loss_sum = loss_sum + ls
@@ -189,7 +196,7 @@ def _microbatch_grads(compute_loss, params_flat, unravel, model_state, batch,
             count, mstate)
 
 
-def forward_grad(compute_loss, params_flat, unravel, model_state, batch,
+def forward_grad(compute_loss, params_flat, params, model_state, batch,
                  rng, cfg: WorkerConfig, sketch: Optional[CountSketch]):
     """One client's gradient and its transforms, in the JAX package's
     order: weight decay, the dense ``max_grad_norm`` clip (not in sketch
@@ -197,7 +204,7 @@ def forward_grad(compute_loss, params_flat, unravel, model_state, batch,
     its clip by ``l2estimate``. Returns ``(transmit, (loss_mean,
     *metric_means, count), new_model_state, dense_grad)``."""
     grad, loss_mean, metric_means, count, new_state = _microbatch_grads(
-        compute_loss, params_flat, unravel, model_state, batch, rng, cfg)
+        compute_loss, params_flat, params, model_state, batch, rng, cfg)
     if cfg.weight_decay != 0:
         grad = grad + (cfg.weight_decay / cfg.num_workers) * params_flat
     if cfg.max_grad_norm is not None and cfg.mode != "sketch":
@@ -218,13 +225,13 @@ def forward_grad(compute_loss, params_flat, unravel, model_state, batch,
     return g, (loss_mean,) + metric_means + (count,), new_state, grad
 
 
-def local_step(compute_loss, params_flat, unravel, model_state, velocity,
+def local_step(compute_loss, params_flat, params, model_state, velocity,
                error, batch, rng, cfg: WorkerConfig,
                sketch: Optional[CountSketch]) -> Tuple[ClientResult, Any]:
     """One client's training contribution: ``forward_grad``, the ``x
     count`` scaling, local momentum and error, and the local top-k."""
     g, metrics, new_state, _ = forward_grad(
-        compute_loss, params_flat, unravel, model_state, batch, rng, cfg,
+        compute_loss, params_flat, params, model_state, batch, rng, cfg,
         sketch)
     count = metrics[-1]
     # sum-of-example-gradients scaling; linear, so it applies to tables too
@@ -256,7 +263,7 @@ def local_step(compute_loss, params_flat, unravel, model_state, velocity,
                         metrics), new_state
 
 
-def fedavg_local(compute_loss, params_flat, unravel, model_state, batch, rng,
+def fedavg_local(compute_loss, params_flat, params, model_state, batch, rng,
                  lr, cfg: WorkerConfig) -> Tuple[ClientResult, Any]:
     """FedAvg local training: ``num_fedavg_epochs`` passes of local SGD
     over the client's batch in ``fedavg_batch_size`` chunks, the step
@@ -274,7 +281,7 @@ def fedavg_local(compute_loss, params_flat, unravel, model_state, batch, rng,
         for i in range(n_chunks):
             chunk = {k: v[i] for k, v in chunks.items()}
             g, loss_sum, msums, count, mstate = _grad_of(
-                compute_loss, unravel, w, mstate, chunk, rng)
+                compute_loss, params, w, mstate, chunk, rng)
             g_mean = g / torch.clamp(count, min=1.0)
             decay = cfg.fedavg_lr_decay ** step
             valid = (count > 0).to(torch.float32)

@@ -88,8 +88,9 @@ class BatchNorm(nn.Module):
             ctx.new[self.key + "/var"] = (BN_MOMENTUM * old_v
                                           + (1.0 - BN_MOMENTUM) * var)
         else:
-            mean = ctx.state[self.key + "/mean"]
-            var = ctx.state[self.key + "/var"]
+            # the float32 running statistics in the input's dtype (--bf16)
+            mean = ctx.state[self.key + "/mean"].to(x.dtype)
+            var = ctx.state[self.key + "/var"].to(x.dtype)
         mul = torch.rsqrt(var + BN_EPSILON) * self.scale
         y = (x - mean[None, :, None, None]) * mul[None, :, None, None]
         return y + self.bias[None, :, None, None]

@@ -7,7 +7,8 @@ scale. An ``nn.Module`` computing in NCHW that takes NHWC batches at its
 boundary (the JAX package's layout, which the data loader emits).
 
 ``jax_param_path`` names each parameter's flax path, which fixes the
-model's flat vector in JAX ravel order (ops/flat.ParamLayout). Under
+model's flat vector in JAX ravel order (ops/flat.ParamLayout), and
+``jax_param_kind`` its layout kind. Under
 ``--batchnorm`` each ConvBN cell carries flax's BatchNorm: its ``scale``
 and ``bias`` are parameters (``<cell>/BatchNorm_0/...``, ahead of the
 cell's ``Conv_0`` in ravel order), its running statistics the model state
@@ -116,3 +117,14 @@ class ResNet9(nn.Module):
         if parts == ["linear", "weight"]:
             return ("linear", "kernel")
         raise KeyError(f"no flax path for parameter {torch_name!r}")
+
+    @staticmethod
+    def jax_param_kind(torch_name: str) -> str:
+        """The leaf's layout kind (``ops/flat.LEAF_KINDS``): the conv
+        kernels ``conv``, the linear kernel ``dense``, the BatchNorm
+        ``scale``/``bias`` ``asis``."""
+        if torch_name.endswith("conv.weight"):
+            return "conv"
+        if torch_name == "linear.weight":
+            return "dense"
+        return "asis"

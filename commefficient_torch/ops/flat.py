@@ -13,20 +13,24 @@ sorted-path order, each raveled C-order in the flax shape (conv kernels
 HWIO, dense kernels ``(in, out)``). The sketch depends on coordinate order
 (which coordinates share a chunk, and each one's sign index), so the port
 keeps exactly this order. The torch module's own parameters are views of
-the flat vector with a ``permute``, so the gradient of the flat leaf is the
-gradient in JAX order with no copy loop.
+the flat vector with a ``permute``. Which permute a leaf takes is the
+module's declaration (``model.jax_param_kind(name)``: ``conv``, ``dense``
+or ``asis``), never the leaf's rank: an embedding table is 2-D and stored
+``(num, features)`` by flax and by ``nn.Embedding`` alike.
 
-The streaming client phase (``--stream_sketch``) differentiates with
-respect to each leaf instead (``chunked_unravel``) and sketches every leaf
-gradient at its flat offset (``leaf_segments``), one group of adjacent
-leaves per launch under ``--sketch_coalesce`` (``coalesce_segments``).
+Every gradient is taken with respect to each leaf (``ParamLayout.leaves``:
+views of the resident weights, the JAX package's ``chunked_unravel`` on
+a chunked plane) and laid out flat once (``gather_grads``); the streaming
+client phase (``--stream_sketch``) sketches every leaf gradient at its flat
+offset (``leaf_segments``), one group of adjacent leaves per launch under
+``--sketch_coalesce`` (``coalesce_segments``).
 """
 
 from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
-from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -75,23 +79,35 @@ class ChunkLayout:
         return torch.arange(self.padded_size, device=device).view(self.shape)
 
 
-def jax_to_torch_layout(x: torch.Tensor) -> torch.Tensor:
-    """A leaf in the flax layout -> the torch module's layout (a view):
-    conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in)."""
-    if x.ndim == 4:
+# the leaf kinds a module declares for its parameters
+LEAF_KINDS = ("conv", "dense", "asis")
+
+
+def jax_to_torch_layout(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """A leaf in the flax layout -> the torch module's layout (a view), by
+    the leaf's declared ``kind``: ``conv`` kernels HWIO -> OIHW, ``dense``
+    kernels (in, out) -> (out, in), ``asis`` leaves (biases, scales,
+    embedding tables) unchanged."""
+    if kind == "conv":
         return x.permute(3, 2, 0, 1)
-    if x.ndim == 2:
+    if kind == "dense":
         return x.t()
-    return x
+    if kind == "asis":
+        return x
+    raise ValueError(f"unknown leaf kind {kind!r}; expected one of "
+                     f"{LEAF_KINDS}")
 
 
-def torch_to_jax_layout(x: torch.Tensor) -> torch.Tensor:
+def torch_to_jax_layout(x: torch.Tensor, kind: str) -> torch.Tensor:
     """Inverse of ``jax_to_torch_layout`` (a view)."""
-    if x.ndim == 4:
+    if kind == "conv":
         return x.permute(2, 3, 1, 0)
-    if x.ndim == 2:
+    if kind == "dense":
         return x.t()
-    return x
+    if kind == "asis":
+        return x
+    raise ValueError(f"unknown leaf kind {kind!r}; expected one of "
+                     f"{LEAF_KINDS}")
 
 
 class ParamEntry(NamedTuple):
@@ -102,32 +118,37 @@ class ParamEntry(NamedTuple):
     jax_shape: Tuple[int, ...]  # the leaf's shape in the flax layout
     offset: int
     size: int
+    kind: str                   # "conv", "dense" or "asis" (LEAF_KINDS)
 
 
 class ParamLayout:
     """The model's flat parameter vector in JAX ravel order.
 
     Built from a module that names each of its parameters' flax path
-    (``model.jax_param_path(torch_name)``). ``params(w)`` turns a flat
+    (``model.jax_param_path(torch_name)``) and layout kind
+    (``model.jax_param_kind(torch_name)``). ``params(w)`` turns a flat
     ``(d,)`` tensor into the ``{torch_name: view}`` dict that
-    ``torch.func.functional_call`` takes; autograd through those views
-    lands the gradient on ``w`` in JAX order."""
+    ``torch.func.functional_call`` takes, for forwards without a
+    gradient. A gradient is taken by leaf: ``leaves``, ``params_of`` and
+    ``gather_grads``."""
 
     def __init__(self, model: torch.nn.Module):
         entries = []
         for name, p in model.named_parameters():
-            jax_shape = tuple(torch_to_jax_layout(p.detach()).shape)
+            kind = model.jax_param_kind(name)
+            jax_shape = tuple(torch_to_jax_layout(p.detach(), kind).shape)
             entries.append((tuple(model.jax_param_path(name)), name,
-                            jax_shape))
+                            jax_shape, kind))
         # ravel_pytree flattens dicts with their keys sorted at every
         # level, which is the lexicographic order of the path tuples
+        # (so "h10" sorts before "h2")
         entries.sort(key=lambda e: e[0])
         out, offset = [], 0
-        for path, name, shape in entries:
+        for path, name, shape, kind in entries:
             n = 1
             for s in shape:
                 n *= s
-            out.append(ParamEntry(path, name, shape, offset, n))
+            out.append(ParamEntry(path, name, shape, offset, n, kind))
             offset += n
         self.entries: Tuple[ParamEntry, ...] = tuple(out)
         self.d = offset
@@ -136,14 +157,38 @@ class ParamLayout:
         """Flat ``(d,)`` -> ``{torch_name: torch-layout view of w}``."""
         assert w.shape == (self.d,), (tuple(w.shape), self.d)
         return {e.torch_name: jax_to_torch_layout(
-                    w[e.offset:e.offset + e.size].view(e.jax_shape))
+                    w[e.offset:e.offset + e.size].view(e.jax_shape), e.kind)
                 for e in self.entries}
+
+    def leaves(self, w: torch.Tensor) -> List[torch.Tensor]:
+        """Flat ``(d,)`` -> one autograd leaf per parameter, in the flax
+        layout: a view of ``w``, detached, with ``requires_grad``.
+        ``torch.autograd.grad`` with respect to them returns one gradient
+        per leaf; ``gather_grads`` lays them out flat. (Differentiating
+        with respect to ``w`` through ``params(w)`` instead costs a
+        d-sized zero fill and add per leaf in the backward pass.)"""
+        assert w.shape == (self.d,), (tuple(w.shape), self.d)
+        return [w[e.offset:e.offset + e.size].view(e.jax_shape).detach()
+                .requires_grad_(True) for e in self.entries]
+
+    def params_of(self, leaves) -> Dict[str, torch.Tensor]:
+        """Leaves in the flax layout -> ``{torch_name: torch-layout
+        view}``."""
+        return {e.torch_name: jax_to_torch_layout(x, e.kind)
+                for e, x in zip(self.entries, leaves)}
+
+    def gather_grads(self, grads, out: torch.Tensor) -> torch.Tensor:
+        """Write per-leaf gradients (flax layout, entry order) into the
+        flat ``(d,)`` tensor ``out``, in JAX ravel order."""
+        assert out.shape == (self.d,), (tuple(out.shape), self.d)
+        return torch.cat([g.reshape(-1) for g in grads], out=out)
 
     def flatten(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
         """``{torch_name: torch-layout tensor}`` -> flat ``(d,)`` float32
         in JAX ravel order (a copy)."""
         return torch.cat([
-            torch_to_jax_layout(params[e.torch_name].detach()).reshape(-1)
+            torch_to_jax_layout(params[e.torch_name].detach(),
+                                e.kind).reshape(-1)
             for e in self.entries]).to(torch.float32)
 
 
@@ -247,31 +292,3 @@ def coalesce_segments(segs: Sequence[LeafSegment], vmem_budget: int, *,
             f"leaves coalesced — the plan degenerates to one per-leaf "
             f"launch each", RuntimeWarning)
     return tuple(groups)
-
-
-def chunked_unravel(layout: ChunkLayout, params: ParamLayout
-                    ) -> Callable[[torch.Tensor], List[torch.Tensor]]:
-    """Leaves straight from the ``(T, S, 128)`` resident plane (the JAX
-    package's ``chunked_unravel``): each leaf is sliced from its covering
-    chunk rows and shaped in the flax layout. Every leaf is a view of the
-    plane, detached into its own autograd leaf with ``requires_grad``, so
-    ``torch.autograd.grad`` returns one gradient per leaf in JAX layout
-    and no d-sized gradient is formed."""
-    segs = leaf_segments(params)
-    shapes = [e.jax_shape for e in params.entries]
-    ce = layout.S * LANES  # elements per chunk
-
-    def unravel_chunks(c3: torch.Tensor) -> List[torch.Tensor]:
-        assert tuple(c3.shape) == layout.shape, (tuple(c3.shape),
-                                                 layout.shape)
-        leaves = []
-        for seg, shape in zip(segs, shapes):
-            t0 = seg.offset // ce
-            t1 = -(-(seg.offset + seg.size) // ce)
-            block = c3[t0:t1].reshape((t1 - t0) * ce)
-            lo = seg.offset - t0 * ce
-            leaf = block[lo:lo + seg.size].view(shape)
-            leaves.append(leaf.detach().requires_grad_(True))
-        return leaves
-
-    return unravel_chunks

@@ -1,15 +1,16 @@
-"""Schedules, loggers and timing: the port's copy of the parts of
-``commefficient_tpu/utils.py`` the CV entry point uses."""
+"""Schedules, loggers, timing and run directories: the port's copy of the
+parts of ``commefficient_tpu/utils.py`` the entry points use."""
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
 
-__all__ = ["PiecewiseLinear", "TableLogger", "Timer"]
+__all__ = ["PiecewiseLinear", "TableLogger", "Timer", "make_logdir"]
 
 
 @dataclass(frozen=True)
@@ -61,3 +62,22 @@ class Timer:
         if include_in_total:
             self.total_time += dt
         return dt
+
+
+def make_logdir(args) -> str:
+    """Run-directory name from the federated config and a timestamp
+    (``runs/<time>_w<workers>_c<clients>_<mode>[_r<rows>x<cols>k<k>]``);
+    ``COMMEFFICIENT_RUN_DIR`` overrides it verbatim."""
+    pinned = os.environ.get("COMMEFFICIENT_RUN_DIR", "")
+    if pinned:
+        return pinned
+    parts = [
+        time.strftime("%Y-%m-%d-%H%M%S"),
+        f"w{getattr(args, 'num_workers', 0)}",
+        f"c{getattr(args, 'num_clients', 0)}",
+        str(getattr(args, "mode", "?")),
+    ]
+    if getattr(args, "mode", None) == "sketch":
+        parts.append(f"r{getattr(args, 'num_rows', 0)}"
+                     f"x{getattr(args, 'num_cols', 0)}k{getattr(args, 'k', 0)}")
+    return os.path.join("runs", "_".join(parts))

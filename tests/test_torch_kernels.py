@@ -612,3 +612,124 @@ def test_resume_bit_equal_on_card(cuda, deterministic_cudnn, tmp_path):
     np.testing.assert_array_equal(fm_c._client_part_round,
                                   fm_a._client_part_round)
     assert fm_c.rounds_dispatched == fm_a.rounds_dispatched == 6
+
+
+# GPT-2's geometry in miniature: more than 200 chunks of a narrow table
+# (its round runs Tn = 249 chunks of 500,096)
+GPT2_LIKE = (430_001, 2_000, 5, 21)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["accumulate", "accumulate_into",
+                                  "estimates", "count_and_descent",
+                                  "epilogue"])
+def test_kernels_at_gpt2_like_chunk_count(cuda, kind):
+    """Each kernel against its plain version at Tn = 210 chunks of 2,048
+    cells (the accumulate's shift-tile loop, the query's grid over the
+    chunk rows, the count pass's single-launch publication, the
+    descent's grid): exact, as everywhere."""
+    d, c, r, seed = GPT2_LIKE
+    cs = tsk.make_sketch(d, c, r, seed=seed, device=cuda)
+    assert cs.T == 210
+    gen = torch.Generator().manual_seed(seed)
+    v3 = cs.chunk_layout.chunk(_special(torch.randn(d, generator=gen)))
+    v3 = v3.to(cuda)
+    q, w, keys = cs.shift_q, cs.shift_w, cs.sign_keys
+    table = tsk._sketch_accumulate_plain(v3, q, w, keys, 0)
+    if kind == "accumulate":
+        got = kernels.sketch_accumulate(v3, q, w, keys, 0)
+        torch.cuda.synchronize()
+        assert _nan_equal(got, table)
+    elif kind == "accumulate_into":
+        tbl = torch.randn(table.shape, generator=gen).to(cuda)
+        got = kernels.sketch_accumulate_into(tbl, v3, q, w, keys, 0)
+        want = tsk._sketch_accumulate_into_plain(tbl, v3, q, w, keys, 0)
+        torch.cuda.synchronize()
+        assert _bit_equal(got, want)
+    elif kind == "estimates":
+        got = kernels.sketch_estimates(table, q, w, keys, 0, d)
+        want = cs.chunk_layout.mask_tail(tsk._sketch_estimates_plain(
+            table, cs.inv_q, cs.inv_w, keys, 0))
+        torch.cuda.synchronize()
+        assert _nan_equal(got, want)
+    else:
+        est = cs.chunk_layout.mask_tail(tsk._sketch_estimates_plain(
+            torch.nan_to_num(table), cs.inv_q, cs.inv_w, keys, 0))
+        k = 2_000
+        if kind == "count_and_descent":
+            bits = est.reshape(-1).view(torch.int32)
+            p = torch.zeros((), dtype=torch.int32, device=cuda)
+            for shift in range(28, -1, -4):
+                ts = ttk._pass_thresholds(p, shift)
+                want = ttk._count_ge_plain(bits, ts)
+                assert torch.equal(kernels.topk_count_ge(bits, ts), want)
+                p = p + ((want >= k).sum().to(torch.int32) << shift)
+            assert int(kernels.topk_descent(bits, k)) == int(p) == \
+                int(ttk._descent_plain(bits, k))
+        else:
+            p = ttk.resolve_threshold(est, k)
+            got_u, got_t = kernels.fused_epilogue(est, p, q, w, keys, 0)
+            want_u, want_t = tsk._fused_epilogue_plain(est, p, q, w, keys, 0)
+            torch.cuda.synchronize()
+            assert _bit_equal(got_u, want_u) and _bit_equal(got_t, want_t)
+
+
+@pytest.mark.gpu
+def test_tiny_gpt2_round_on_card(cuda, monkeypatch):
+    """A tiny GPT-2 sketch round on the card (dropout on): 2 / 1 / 8
+    launches of the accumulate, the query and the count pass, a finite
+    loss, and one server step through the kernels equal to the plain
+    versions."""
+    from commefficient_torch.config import parse_args
+    from commefficient_torch.federated import FedModel, FedOptimizer
+    from commefficient_torch.federated.losses import make_gpt2_losses
+    from commefficient_torch.federated.rounds import ClientStates
+    from commefficient_torch.models import GPT2DoubleHeads
+
+    args = parse_args(argv=[
+        "--mode", "sketch", "--error_type", "virtual", "--local_momentum",
+        "0", "--virtual_momentum", "0.9", "--k", "2000", "--num_cols",
+        "20000", "--num_rows", "5", "--num_workers", "3", "--num_clients",
+        "6", "--dataset_name", "PERSONA", "--local_batch_size", "2",
+        "--seed", "0"])
+    model = GPT2DoubleHeads(vocab_size=512, n_positions=64, n_embd=64,
+                            n_layer=2, n_head=2)
+    train, val = make_gpt2_losses(model)
+    fm = FedModel(model, train, args, val, num_clients=6, device=cuda)
+    opt = FedOptimizer(fm, args)
+    opt.set_lr_factor(0.05)
+    rng = np.random.RandomState(0)
+    batch = {"input_ids": rng.randint(0, 512, (3, 2, 2, 32)),
+             "token_type_ids": rng.randint(0, 512, (3, 2, 2, 32)),
+             "lm_labels": rng.randint(0, 512, (3, 2, 2, 32)),
+             "mc_token_ids": rng.randint(0, 32, (3, 2, 2)),
+             "mc_labels": rng.randint(0, 2, (3, 2)),
+             "mask": np.ones((3, 2), np.float32),
+             "client_ids": np.arange(3, dtype=np.int32),
+             "worker_mask": np.ones(3, np.float32)}
+    kernels.reset_launch_counts()
+    loss = fm(batch)[0]
+    opt.step()
+    torch.cuda.synchronize()
+    assert np.all(np.isfinite(loss))
+    assert kernels.launch_counts() == {**ALL_ZERO, "sketch_accumulate": 2,
+                                       "sketch_estimates": 1,
+                                       "topk_count_ge": 8}
+    fm.begin_round(batch)
+    ctx, lr = fm._round_ctx, opt.get_lr()
+
+    def states():
+        return ClientStates(*(None if x is None else x.clone()
+                              for x in fm.client_states))
+
+    out_k = fm.steps.server_step(fm.ps_weights, opt.server_state, states(),
+                                 ctx, lr, fm._rng)
+    with monkeypatch.context() as m:
+        _plain_on_card(m)
+        out_p = fm.steps.server_step(fm.ps_weights, opt.server_state,
+                                     states(), ctx, lr, fm._rng)
+    torch.cuda.synchronize()
+    (ps_k, ss_k, _), (ps_p, ss_p, _) = out_k, out_p
+    for a, b in ((ps_k, ps_p), (ss_k.velocity, ss_p.velocity),
+                 (ss_k.error, ss_p.error)):
+        assert _nan_equal(a, b)

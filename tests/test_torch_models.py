@@ -134,3 +134,56 @@ def test_cv_train_model_widths(monkeypatch):
     monkeypatch.setenv("COMMEFFICIENT_MODEL_CHANNELS", "12,24,48,96")
     assert ParamLayout(cv_train.build_model_and_config(args)).d == 231_972
     assert os.environ["COMMEFFICIENT_MODEL_CHANNELS"] == "12,24,48,96"
+
+
+def test_loss_and_gradient_bf16_match(pair):
+    """``--bf16`` on the CV losses: the parameters and images cast going
+    in, logits, loss and gradient back in float32. The two frameworks
+    round the convolutions' bfloat16 outputs alike, so the loss agrees to
+    ``rtol=1e-4`` and the flat gradient to a relative L2 error below 5e-3
+    (1.1e-4 measured); the port's float32 gradient lies 4.7e-2 and more
+    away, so the test fails if the forward does not run in bfloat16."""
+    jm, params, tm, layout, (hw, cin, ncls) = pair
+    b = _batch(hw, cin, ncls, seed=2)
+    jtrain, _ = j_losses(jm, compute_dtype=jnp.bfloat16)
+    flat, unravel = ravel_pytree(params)
+    jl, jg = jax.value_and_grad(lambda w: jtrain(
+        unravel(w), {}, {k: jnp.asarray(v) for k, v in b.items()}, None,
+        True)[0])(flat)
+
+    def port(compute_dtype):
+        ttrain, _ = t_losses(tm, compute_dtype=compute_dtype)
+        w = flat_from_jax(np.asarray(flat), layout).requires_grad_(True)
+        tl = ttrain(layout.params(w), {}, {k: torch.from_numpy(v)
+                                           for k, v in b.items()}, None,
+                    True)[0]
+        (tg,) = torch.autograd.grad(tl, w)
+        return tl, tg
+
+    tl, tg = port(torch.bfloat16)
+    assert tl.dtype == tg.dtype == torch.float32
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-4)
+    jg = np.asarray(jg)
+    rel = np.linalg.norm(tg.numpy() - jg) / np.linalg.norm(jg)
+    assert rel < 5e-3, rel
+    _, fg = port(None)
+    moved = np.linalg.norm(tg.numpy() - fg.numpy()) / np.linalg.norm(
+        fg.numpy())
+    assert moved > 1e-2, moved
+
+
+def test_batchnorm_eval_under_bf16():
+    """The float32 running statistics meet bfloat16 activations in the
+    eval forward: the logits stay finite and near the float32 ones."""
+    tm = TResNet9(channels=TINY, do_batchnorm=True)
+    layout = ParamLayout(tm)
+    w = layout.flatten(dict(tm.named_parameters()))
+    state = {k: v + 0.5 for k, v in tm.initial_model_state().items()}
+    b = {k: torch.from_numpy(v) for k, v in _batch(32, 3, 10).items()}
+    _, val32 = t_losses(tm)
+    _, val16 = t_losses(tm, compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        l32 = val32(layout.params(w), state, b, None, False)[0]
+        l16 = val16(layout.params(w), state, b, None, False)[0]
+    assert torch.isfinite(l16)
+    np.testing.assert_allclose(float(l16), float(l32), rtol=5e-2)

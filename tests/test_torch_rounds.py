@@ -184,7 +184,8 @@ def test_cv_train_main_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--state_dir", "x"], ["--guards"],
                                   ["--server_shard"], ["--telemetry"],
-                                  ["--inject_fault", "2:nan"], ["--bf16"],
+                                  ["--inject_fault", "2:nan"],
+                                  ["--seq_parallel", "ring"],
                                   ["--participation", "0.5"],
                                   ["--churn", "0.1"],
                                   ["--num_devices", "4"]])

@@ -446,14 +446,14 @@ def test_stream_leaves_are_views_of_the_plane():
     layout = tsk.make_sketch(params.d, 2048, 3, device="cpu").chunk_layout
     w = torch.arange(params.d, dtype=torch.float32)
     ps3 = layout.chunk(w)
-    leaves = tflat.chunked_unravel(layout, params)(ps3)
+    leaves = params.leaves(layout.unchunk(ps3))
     flat = params.params(w)
     for e, leaf in zip(params.entries, leaves):
         assert leaf.requires_grad and leaf.is_leaf
         assert tuple(leaf.shape) == e.jax_shape
         assert leaf.data_ptr() == ps3.data_ptr() + 4 * e.offset
         np.testing.assert_array_equal(
-            tflat.jax_to_torch_layout(leaf).detach().numpy(),
+            tflat.jax_to_torch_layout(leaf, e.kind).detach().numpy(),
             flat[e.torch_name].numpy())
 
 

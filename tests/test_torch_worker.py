@@ -125,7 +125,7 @@ def test_forward_grad_matches(pair, name):
         {}, _jax(b), jax.random.key(1), jcfg, pair["js"] if sk else None)
     w = flat_from_jax(pair["flat"], pair["layout"])
     tg, tmet, _, tdense = twk.forward_grad(
-        pair["ttrain"], w, pair["layout"].params, {}, _torch(b),
+        pair["ttrain"], w, pair["layout"], {}, _torch(b),
         torch.Generator().manual_seed(1), tcfg, pair["ts"] if sk else None)
     _metrics_close(tmet, jmet)
     _close(tdense, jdense)
@@ -168,7 +168,7 @@ def test_local_step_matches(pair, name):
         jcfg, pair["js"] if sk else None)
     tres, _ = twk.local_step(
         pair["ttrain"], flat_from_jax(pair["flat"], pair["layout"]),
-        pair["layout"].params, {}, torch.from_numpy(vel),
+        pair["layout"], {}, torch.from_numpy(vel),
         torch.from_numpy(err), _torch(b), torch.Generator().manual_seed(2),
         tcfg, pair["ts"] if sk else None)
     _metrics_close(tres.metrics, jres.metrics)
@@ -225,7 +225,7 @@ def test_fedavg_local_matches(pair, epochs, fbs, decay, short):
         {}, _jax(b), jax.random.key(4), lr, jcfg)
     tres, _ = twk.fedavg_local(
         pair["ttrain"], flat_from_jax(pair["flat"], pair["layout"]),
-        pair["layout"].params, {}, _torch(b),
+        pair["layout"], {}, _torch(b),
         torch.Generator().manual_seed(4), lr, tcfg)
     _metrics_close(tres.metrics, jres.metrics)
     assert tres.new_velocity is None and tres.new_error is None
