@@ -113,6 +113,28 @@ Phases (any failure exits non-zero; nothing is caught):
    rounds and the peak memory, beside the card's line; one server step
    through kernels and plain versions; one ``gpt2_train`` epoch on the
    synthetic PersonaChat with a finite val NLL and perplexity.
+10. the other CV models (``phase_cv_models``): the six kernels against
+   their plain versions at FEMNIST ResNet101-LN's geometry (d =
+   42,620,926, Tn = 86 chunks; the count pass and the descent over
+   43,008,256 patterns, k = 50,000), exact and timed; the FEMNIST
+   ResNet101-LN round at full width (8 clients x 16 images of 28 x 28, the
+   5 x 500,000 sketch, k = 50,000, virtual momentum 0.9) on batches drawn
+   through ``FedEMNIST``'s synthetic writers, the FEMNIST transforms and
+   ``FedLoader``: the headline and the opt-in leg, each 2 warm-up and 20
+   timed rounds with rounds/sec and images/sec, the launches a round
+   checked exactly (2 / 1 / 8, and the coalescing plan's count), the
+   client / server split, the busy share and time by kernel over 5
+   profiled rounds, the peak memory, and a server step through kernels
+   and plain versions; the loader's batches/sec plain and under
+   ``PrefetchLoader``, and the native data plane against its numpy
+   versions; the ImageNet FixupResNet50 round of scripts/imagenet.sh (7
+   clients x 64 images at 224 x 224, uncompressed, Fixup's LR groups,
+   microbatches of 16) on ``FedImageNet``'s synthetic tree through the
+   fused transforms, timed, profiled, its three LR groups read back and
+   one server step equal to ``ps - (g + 0.9 v) * lr_vec``; and
+   ``python -m commefficient_torch.cv_train`` on EMNIST with
+   ResNet101LN, and ``--finetune`` from a CIFAR100 ResNet9 checkpoint
+   written in the same phase.
 
 Then one JSON line of the kernels (launches per timed window of the path
 that runs each: phase 4 for the accumulate, the query and the count pass,
@@ -140,6 +162,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import shutil
@@ -1681,6 +1704,374 @@ def phase_gpt2(card: str) -> dict:
     return out
 
 
+# phase 10: the other CV models. The FEMNIST ResNet101-LN round (the
+# recipe of scripts/femnist_ablation.py: 8 clients x 16 images) and the
+# ImageNet FixupResNet50 round of scripts/imagenet.sh (7 clients x 64
+# images at 224 x 224, uncompressed, Fixup's LR groups)
+FEMNIST_D = 42_620_926
+FEMNIST_TC = (86, 500_096)  # chunks and their padded width
+FEMNIST_W, FEMNIST_B = 8, 16
+FEMNIST_BASE = ["--mode", "sketch", "--error_type", "virtual",
+                "--local_momentum", "0", "--virtual_momentum", "0.9",
+                "--num_rows", "5", "--num_cols", "500000", "--k", "50000",
+                "--num_workers", str(FEMNIST_W),
+                "--local_batch_size", str(FEMNIST_B),
+                "--dataset_name", "EMNIST", "--model", "ResNet101LN",
+                "--device", "cuda", "--seed", "0"]
+FEMNIST_ROUNDS = 24
+IMAGENET_D = 25_504_030
+IMAGENET_W, IMAGENET_B = 7, 64
+IMAGENET_BASE = ["--mode", "uncompressed", "--error_type", "none",
+                 "--local_momentum", "0", "--virtual_momentum", "0.9",
+                 "--weight_decay", "1e-4", "--num_workers", str(IMAGENET_W),
+                 "--local_batch_size", str(IMAGENET_B),
+                 "--microbatch_size", "16", "--dataset_name", "ImageNet",
+                 "--model", "FixupResNet50", "--iid",
+                 "--num_clients", str(IMAGENET_W), "--device", "cuda",
+                 "--seed", "0"]
+IMAGENET_TIMED_ROUNDS = 5
+
+
+@contextlib.contextmanager
+def env_vars(**values):
+    """Environment variables set for the block, restored after it."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def draw_batches(loader, n: int) -> list:
+    """``n`` train batches from ``loader``, over as many epochs as that
+    takes."""
+    out = []
+    while len(out) < n:
+        out.extend(b for _, b in zip(range(n - len(out)), loader))
+    return out
+
+
+def femnist_data(tmp: str):
+    """The FEMNIST train set through ``FedEMNIST`` (its seeded synthetic
+    LEAF fallback: 100 writers, about 40 images each), the FEMNIST
+    transforms and ``FedLoader``, 8 clients x 16 images a round."""
+    from commefficient_torch.data_utils import FedEMNIST, FedLoader
+    from commefficient_torch.data_utils import transforms
+
+    np.random.seed(0)
+    ds = FedEMNIST(os.path.join(tmp, "femnist"), "EMNIST",
+                   transforms.femnist_train_transforms, False, None,
+                   train=True, download=True)
+    return FedLoader(ds, FEMNIST_W, FEMNIST_B)
+
+
+def build_cv(base, extra, num_clients: int):
+    """FedModel / FedOptimizer / LambdaLR for a phase-10 round, the model
+    and the LR groups as ``cv_train`` builds them; returns ``(args, fm,
+    opt, sched, one_round)``."""
+    from commefficient_torch import cv_train
+
+    args = parse_args(argv=base + extra)
+    model = cv_train.build_model_and_config(args)
+    cv_train.check_trainable(model)
+    train_loss, val_loss = make_cv_losses(model)
+    fm = FedModel(model, train_loss, args, val_loss, num_clients=num_clients)
+    opt = FedOptimizer(fm, args, param_groups=cv_train.build_param_groups(
+        args, fm.param_layout))
+    schedule = PiecewiseLinear([0, 100], [0.1, 0.0])
+    sched = LambdaLR(opt, lambda step: schedule(step))
+
+    def one_round(batch):
+        sched.step()
+        out = fm(batch)
+        opt.step()
+        return out
+
+    return args, fm, opt, sched, one_round
+
+
+def femnist_leg(card: str, label: str, extra, batches) -> dict:
+    """One FEMNIST ResNet101-LN leg: 2 warm-up and 20 timed rounds over the
+    pre-drawn batches (launches checked exactly), rounds/sec and
+    images/sec, the phase split, the busy share and device time by kernel
+    over 5 profiled rounds, the peak memory."""
+    opt_in = extra is OPT_IN
+    with env_vars(**({ttk.FUSED_DESCENT_ENV: "1"} if opt_in else {})):
+        args, fm, opt, sched, one_round = build_cv(
+            FEMNIST_BASE, list(extra), num_clients=100)
+        assert fm.grad_size == FEMNIST_D, fm.grad_size
+        assert (fm.sketch.T, fm.sketch.c_pad) == FEMNIST_TC
+        if opt_in:
+            segs, groups = fm.steps.stream_segments, fm.steps.stream_groups
+            print(f"{label} plan: {len(segs)} leaves in {len(groups)} "
+                  f"groups (budget {tsk.coalesce_vmem_budget(fm.sketch):,} "
+                  f"B), largest group "
+                  f"{max(g.t_b - g.t_a for g in groups)} chunks")
+            per_round = opt_in_per_round(fm, args, FEMNIST_B)
+        else:
+            per_round = HEADLINE_PER_ROUND
+        cycle = itertools.cycle(batches)
+        torch.cuda.reset_peak_memory_stats()
+        counts, rps = timed_rounds(lambda _b: one_round(next(cycle)), None,
+                                   per_round, label)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        split = phase_split(fm, opt, sched, batches[0], label)
+        prof = profile_rounds(lambda: one_round(next(cycle)))
+        images = FEMNIST_W * FEMNIST_B
+        row = {"phase": "femnist", "leg": label, "d": fm.grad_size,
+               "T": fm.sketch.T, "images_per_round": images,
+               "rounds_per_sec": rps, "images_per_sec": rps * images,
+               "rounds": TIMED_ROUNDS, "launches_per_round": per_round,
+               **split, "profiled_busy_share": (
+                   prof["profiled_busy_ms_per_round"]
+                   / prof["profiled_wall_ms_per_round"]),
+               **prof, "peak_memory_GB": peak_gb, "card": card}
+        if opt_in:
+            row["groups"] = len(fm.steps.stream_groups)
+        print(json.dumps(row))
+        check_server_step(fm, opt, batches[1], label)
+    row["counts"] = counts
+    del fm, opt, sched
+    torch.cuda.empty_cache()
+    return row
+
+
+def loader_checks(card: str, loader) -> dict:
+    """The data plane: batches/sec of the FEMNIST train loader, plain and
+    under ``PrefetchLoader``; the native ``image_batch`` (a CIFAR round,
+    8 x 8 images with pad, crop and flip) against its numpy version, and
+    ``resized_crop`` in the fused ImageNet stacks (16 ImageNet-sized
+    images, train and val) against the per-op numpy stacks, within the
+    JAX package's tolerances (1e-5 and 2e-4), with the largest error and
+    the ms of each."""
+    from commefficient_torch import native
+    from commefficient_torch.data_utils import PrefetchLoader
+    from commefficient_torch.data_utils import transforms
+
+    out = {}
+    for name, wrap in (("plain", lambda x: x),
+                       ("prefetch", PrefetchLoader)):
+        n = 12
+        t0 = time.perf_counter()
+        draw_batches(wrap(loader), n)
+        out[f"femnist_loader_{name}_batches_per_sec"] = \
+            n / (time.perf_counter() - t0)
+    rng = np.random.RandomState(0)
+    src = rng.randint(0, 256, (640, 32, 32, 3)).astype(np.uint8)
+    idx = rng.randint(0, 640, 64).astype(np.int64)
+    idx[5] = -1
+    ch, cw = (rng.randint(0, 9, 64).astype(np.int32) for _ in range(2))
+    fl = rng.randint(0, 2, 64).astype(np.uint8)
+    args = (src, idx, ch, cw, fl, 4, 32, transforms.cifar10_mean,
+            transforms.cifar10_std)
+    t0 = time.perf_counter()
+    got = native.image_batch(*args)
+    t1 = time.perf_counter()
+    want = native._image_batch_np(*args)
+    t2 = time.perf_counter()
+    err = float(np.abs(got - want).max())
+    assert err <= 1e-5, f"image_batch: max error {err}"
+    out.update(image_batch_max_err=err, image_batch_ms=1e3 * (t1 - t0),
+               image_batch_numpy_ms=1e3 * (t2 - t1))
+    # the ImageNet stacks: fused (one native call an image) against the
+    # per-op numpy stacks, on 16 ImageNet-sized images, both drawing the
+    # same np.random sequence
+    errs, ms, np_ms = [], 0.0, 0.0
+    for i in range(16):
+        img = rng.randint(0, 256, (300 + 13 * i, 500 - 11 * i, 3)).astype(
+            np.uint8)
+        fused, plain = ((transforms.imagenet_train_transforms,
+                         transforms.imagenet_train_transforms_py) if i % 2
+                        else (transforms.imagenet_val_transforms,
+                              transforms.imagenet_val_transforms_py))
+        np.random.seed(i)
+        t0 = time.perf_counter()
+        got = fused(img)
+        t1 = time.perf_counter()
+        np.random.seed(i)
+        want = plain(img)
+        ms += t1 - t0
+        np_ms += time.perf_counter() - t1
+        errs.append(float(np.abs(got - want).max()))
+    assert max(errs) <= 2e-4, f"resized_crop: max error {max(errs)}"
+    out.update(resized_crop_max_err=max(errs),
+               resized_crop_ms=1e3 * ms / 16,
+               resized_crop_numpy_ms=1e3 * np_ms / 16)
+    print(json.dumps({"phase": "femnist loader", **out, "card": card}))
+    return out
+
+
+def imagenet_leg(card: str, tmp: str) -> dict:
+    """The ImageNet FixupResNet50 round of scripts/imagenet.sh at full
+    width: batches through ``FedImageNet`` (its synthetic ``.npy`` tree),
+    the fused resized-crop transforms (the native plane) and
+    ``FedLoader``; Fixup's three LR groups read back from
+    ``FedOptimizer``; 2 warm-up and a few timed rounds (no port kernel
+    launches); one server step equal to ``ps - (g + 0.9 v) * lr_vec``
+    computed here from the LR vector."""
+    from commefficient_torch.data_utils import FedImageNet, FedLoader
+    from commefficient_torch.data_utils import transforms
+
+    with env_vars(COMMEFFICIENT_SYNTHETIC_CLIENTS=16,
+                  COMMEFFICIENT_SYNTHETIC_PER_CLASS=64):
+        np.random.seed(0)
+        ds = FedImageNet(os.path.join(tmp, "imagenet"), "ImageNet",
+                         transforms.imagenet_train_transforms, True,
+                         IMAGENET_W, train=True, download=True)
+    t0 = time.perf_counter()
+    batches = draw_batches(FedLoader(ds, IMAGENET_W, IMAGENET_B), 3)
+    load_s = (time.perf_counter() - t0) / 3
+    assert batches[0]["inputs"].shape == (IMAGENET_W, IMAGENET_B, 224, 224,
+                                          3)
+    args, fm, opt, sched, one_round = build_cv(IMAGENET_BASE, [],
+                                               IMAGENET_W)
+    assert fm.grad_size == IMAGENET_D, fm.grad_size
+    groups = opt.param_groups
+    assert [b for _, b in groups] == [0.1, 0.1, 1.0], groups
+    lrs = sched.get_last_lr()
+    vec = opt.get_lr()
+    for (mask, base), lr in zip(groups, lrs):
+        # one value a group: the float32 base LR times the factor
+        got = torch.unique(vec[torch.from_numpy(mask).to(fm.device)])
+        assert got.numel() == 1 and abs(float(got) - lr) <= 1e-6 * lr, \
+            (base, lr, got)
+    sizes = [int(m.sum()) for m, _ in groups]
+    print(f"imagenet LR groups (bias, scale, other): {sizes} coordinates, "
+          f"LRs {lrs}")
+    cycle = itertools.cycle(batches)
+    torch.cuda.reset_peak_memory_stats()
+    counts, rps = timed_rounds(lambda _b: one_round(next(cycle)), None, {},
+                               "imagenet", n=IMAGENET_TIMED_ROUNDS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    split = phase_split(fm, opt, sched, batches[0], "imagenet", n=2)
+    prof = profile_rounds(lambda: one_round(next(cycle)), n=2)
+    # one server step against the rule computed from the LR vector
+    sched.step()
+    fm.begin_round(batches[1])
+    g = fm._round_ctx.gradient
+    ps, vel, lr = fm.ps_weights, opt.server_state.velocity, opt.get_lr()
+    want = ps - (g + 0.9 * vel) * lr
+    opt.step()
+    torch.cuda.synchronize()
+    assert torch.equal(fm.ps_weights, want), "imagenet server step"
+    moved = [int(((fm.ps_weights != ps) & torch.from_numpy(m).to(
+        fm.device)).sum()) for m, _ in groups]
+    print(f"imagenet server step equal to ps - (g + 0.9 v) * lr_vec; "
+          f"coordinates moved by group: {moved}")
+    images = IMAGENET_W * IMAGENET_B
+    row = {"phase": "imagenet", "d": fm.grad_size, "images_per_round":
+           images, "rounds_per_sec": rps, "images_per_sec": rps * images,
+           "rounds": IMAGENET_TIMED_ROUNDS, "microbatch": 16,
+           "lr_groups": dict(zip(("bias", "scale", "other"), lrs)),
+           "loader_s_per_batch": load_s, **split,
+           "profiled_busy_share": (prof["profiled_busy_ms_per_round"]
+                                   / prof["profiled_wall_ms_per_round"]),
+           **prof, "peak_memory_GB": peak_gb, "card": card}
+    print(json.dumps(row))
+    del fm, opt, sched
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_cv_train(argv, env) -> dict:
+    """``python -m commefficient_torch.cv_train`` in a child process: its
+    last table row's train and test loss (finite), and the finetune
+    line's count of loaded leaves where it prints one."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "commefficient_torch.cv_train", *argv],
+        env={**os.environ, **{k: str(v) for k, v in env.items()}},
+        capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-6000:], sep="\n")
+        raise RuntimeError(f"cv_train exited {proc.returncode}")
+    lines = proc.stdout.splitlines()
+    head = max(i for i, ln in enumerate(lines) if "train_loss" in ln)
+    rows = list(itertools.takewhile(lambda ln: not ln.startswith("Total"),
+                                    lines[head + 1:]))
+    cells = rows[-1].split()
+    out = {"train_loss": float(cells[3]), "test_loss": float(cells[5])}
+    assert np.isfinite(out["train_loss"]) and np.isfinite(
+        out["test_loss"]), out
+    for ln in lines:
+        if ln.startswith("finetune: loaded"):
+            print(ln)
+            out["loaded"] = int(ln.split()[2])
+    return out
+
+
+def cv_train_runs(tmp: str) -> dict:
+    """``cv_train`` end to end: FEMNIST ResNet101-LN at full width for a
+    few rounds (16 writers of 16 images, 2 epochs of 2 rounds, a prefetch
+    thread, the FEMNIST recipe's peak LR 0.1), a CIFAR100 ResNet9 run that writes its checkpoint, and a
+    ``--finetune`` CIFAR10 run from it (every leaf but the reshaped head
+    loads)."""
+    out = {"emnist": run_cv_train(FEMNIST_BASE + [
+        "--dataset_dir", os.path.join(tmp, "femnist_cli"), "--num_epochs",
+        "2", "--train_dataloader_workers", "1", "--valid_batch_size", "16",
+        "--lr_scale", "0.1"],
+        {"COMMEFFICIENT_SYNTHETIC_CLIENTS": 16,
+         "COMMEFFICIENT_SYNTHETIC_SAMPLES": 16})}
+    cifar = HEADLINE + ["--model", "ResNet9", "--iid", "--num_clients",
+                        "16", "--num_epochs", "1", "--seed", "0"]
+    ck = os.path.join(tmp, "ck")
+    env = {"COMMEFFICIENT_SYNTHETIC_PER_CLASS": 8}
+    out["cifar100"] = run_cv_train(cifar + [
+        "--dataset_name", "CIFAR100", "--dataset_dir",
+        os.path.join(tmp, "c100"), "--checkpoint", "--checkpoint_path", ck],
+        env)
+    assert os.path.exists(os.path.join(ck, "ResNet9.npz"))
+    out["finetune"] = run_cv_train(cifar + [
+        "--dataset_name", "CIFAR10", "--dataset_dir",
+        os.path.join(tmp, "c10"), "--finetune", "--finetuned_from",
+        "CIFAR100", "--finetune_path", ck], env)
+    assert out["finetune"]["loaded"] == 8, out["finetune"]
+    print(json.dumps({"phase": "cv_train", **out}))
+    return out
+
+
+def phase_cv_models(card: str) -> dict:
+    """Phase 10: the other CV models.
+
+    (a) all six kernels against their plain versions at the FEMNIST
+    ResNet101-LN geometry (d = 42,620,926, Tn = 86 chunks of 500,096, the
+    count pass and the descent over 43,008,256 patterns, k = 50,000),
+    timed;
+    (b) the FEMNIST ResNet101-LN round at full width on batches drawn
+    through ``FedEMNIST`` / the FEMNIST transforms / ``FedLoader``: the
+    headline (kernels 1, 3, 5 at 2 / 1 / 8 a round) and the opt-in leg
+    (2, 3, 4, 6; the plan's count), each timed, split, profiled, with the
+    peak memory and a server step through kernels and plain versions;
+    (c) the loader and the native data plane (``loader_checks``);
+    (d) the ImageNet FixupResNet50 round (``imagenet_leg``);
+    (e) ``cv_train`` end to end (``cv_train_runs``)."""
+    out = {"kernels": check_kernels(card, FEMNIST_D, 500_000, 5, 0, 12,
+                                    "femnist", True, k=50_000)}
+    for name, row in out["kernels"].items():
+        print(json.dumps({"phase": "femnist kernels", "geometry": "femnist",
+                          "name": name, **row}))
+    with tempfile.TemporaryDirectory() as tmp:
+        loader = femnist_data(tmp)
+        batches = draw_batches(loader, 6)
+        assert batches[0]["inputs"].shape == (FEMNIST_W, FEMNIST_B, 28, 28,
+                                              1)
+        out["legs"] = {label: femnist_leg(card, label, extra, batches)
+                       for label, extra in (("femnist", []),
+                                            ("femnist opt-in", OPT_IN))}
+        out["loader"] = loader_checks(card, loader)
+        out["imagenet"] = imagenet_leg(card, tmp)
+        out["cli"] = cv_train_runs(tmp)
+    head, opt_in = out["legs"]["femnist"], out["legs"]["femnist opt-in"]
+    print(f"femnist images/sec: headline {head['images_per_sec']:.1f}, "
+          f"opt-in {opt_in['images_per_sec']:.1f}; imagenet "
+          f"{out['imagenet']['images_per_sec']:.1f} ({card}, same call)")
+    return out
+
+
 def kernel_times(card: str, only=()) -> int:
     """``--kernel-times``: the accumulate pair, the query, the count pass,
     the fused epilogue and the descent alone, at the headline geometry, one
@@ -1822,6 +2213,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     gpt2 = phase_gpt2(card)
     wall["9 gpt2"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cv = phase_cv_models(card)
+    wall["10 cv models"] = time.perf_counter() - t
     print("phase wall seconds (phase 3 includes the build): " + json.dumps(
         {k: round(v, 2) for k, v in wall.items()}))
 
@@ -1846,6 +2240,11 @@ def main(argv=None) -> int:
                       "gpt2_tokens_per_sec": {
                           k: v["tokens_per_sec"]
                           for k, v in gpt2["legs"].items()},
+                      "femnist_images_per_sec": {
+                          k: v["images_per_sec"]
+                          for k, v in cv["legs"].items()},
+                      "imagenet_images_per_sec":
+                          cv["imagenet"]["images_per_sec"],
                       **{"opt_in_" + k: v for k, v in opt_prof.items()}}))
     print(json.dumps(summary))
     print(card)

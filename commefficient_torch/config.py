@@ -1,7 +1,11 @@
-"""CLI surface of the port: its own copy of the flags the ResNet9 and
-GPT-2 rounds read (all five ``--mode`` values), with the JAX package's
+"""CLI surface of the port: its own copy of the flags the CV and GPT-2
+rounds read (all five ``--mode`` values, every model of the registry,
+CIFAR10/100, EMNIST, ImageNet and PersonaChat), with the JAX package's
 names and defaults (``commefficient_tpu/config.py``), and its fedavg
-invariants.
+invariants. ``cv_train`` carries ``--finetune``, ``--finetuned_from``
+and ``--finetune_path``; ``gpt2_train`` refuses them (``ITEM_FINETUNE``).
+``--train_dataloader_workers`` / ``--val_dataloader_workers`` > 0 wrap
+the loaders in ``PrefetchLoader``.
 
 GPT-2's flags (``gpt2_train``): ``--model_checkpoint``,
 ``--num_candidates``, ``--max_history``, ``--lm_coef``, ``--mc_coef``,
@@ -39,15 +43,14 @@ import os
 
 MODES = ["sketch", "true_topk", "local_topk", "fedavg", "uncompressed"]
 ERROR_TYPES = ["none", "local", "virtual"]
-DATASETS = ["CIFAR10", "CIFAR100", "PERSONA"]
+DATASETS = ["CIFAR10", "CIFAR100", "EMNIST", "ImageNet", "PERSONA"]
 DP_MODES = ["worker", "server"]
 
 _Q1 = "ROADMAP.md queue 1"
-ITEM_CV = f"{_Q1} item 3 (the other CV models, datasets and data planes)"
 ITEM_GPT2_HF = (f"{_Q1} item 4a (HF GPT-2 weights: load_hf_gpt2 and "
                 f"GPT-2's --finetune)")
-ITEM_FINETUNE = (f"{_Q1} item 3 (CV) / item 4a (GPT-2): --finetune and "
-                 f"the weights it starts from")
+ITEM_FINETUNE = (f"{_Q1} item 4a (GPT-2's --finetune and the weights it "
+                 f"starts from)")
 ITEM_MULTI = f"{_Q1} item 5 (multi-GPU)"
 ITEM_RUNTIME = f"{_Q1} item 6 (runtime planes)"
 ITEM_PARALLEL = (f"{_Q1} item 7 (parallel/: sequence, tensor, pipeline "
@@ -57,9 +60,6 @@ ITEM_PARALLEL = (f"{_Q1} item 7 (parallel/: sequence, tensor, pipeline "
 UNPORTED = (
     ("--tensorboard", "use_tensorboard", False, ITEM_RUNTIME),
     ("--profile", "do_profile", False, ITEM_RUNTIME),
-    ("--finetune", "do_finetune", False, ITEM_FINETUNE),
-    ("--finetuned_from", "finetuned_from", True, ITEM_FINETUNE),
-    ("--finetune_path", "finetune_path", True, ITEM_FINETUNE),
     ("--state_dir", "state_dir", True, ITEM_RUNTIME),
     ("--server_shard", "server_shard", False, ITEM_MULTI),
     ("--shard_devices", "shard_devices", True, ITEM_MULTI),
@@ -83,13 +83,26 @@ UNPORTED = (
 )
 
 
+def _model_names():
+    """The registry: the model names of ``commefficient_torch.models`` that
+    start with a capital (the JAX package's rule)."""
+    from commefficient_torch import models
+
+    return [m for m in dir(models)
+            if not m.startswith("__") and m[0].isupper()]
+
+
 def build_parser(default_lr=None) -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument("--mode", choices=MODES, default="sketch")
     parser.add_argument("--test", action="store_true", dest="do_test")
     parser.add_argument("--seed", type=int, default=21)
-    parser.add_argument("--model", default="ResNet9", choices=["ResNet9"],
+    parser.add_argument("--model", default="ResNet9", choices=_model_names(),
                         help="Name of the model.")
+    parser.add_argument("--finetune", action="store_true", dest="do_finetune")
+    parser.add_argument("--finetune_path", type=str, default="./finetune")
+    parser.add_argument("--finetuned_from", type=str, choices=DATASETS,
+                        help="Name of the dataset you pretrained on.")
     parser.add_argument("--dataset_name", type=str, default="",
                         choices=DATASETS + [""])
     parser.add_argument("--dataset_dir", type=str, default="./dataset")
@@ -224,18 +237,10 @@ def reject_unported(args) -> None:
         if (val is not None) if valued else bool(val):
             raise NotImplementedError(
                 f"{flag} is not ported yet ({item})")
-    if getattr(args, "model", "ResNet9") != "ResNet9":
-        raise NotImplementedError(
-            f"--model {args.model} is not ported yet ({ITEM_CV})")
     if getattr(args, "num_devices", -1) not in (-1, 1):
         raise NotImplementedError(
             f"--num_devices {args.num_devices}: the port runs on one device "
             f"({ITEM_MULTI})")
-    for name in ("train_dataloader_workers", "val_dataloader_workers"):
-        if getattr(args, name, 0):
-            raise NotImplementedError(
-                f"--{name} > 0 (the prefetch loader) is not ported yet "
-                f"({ITEM_CV})")
 
 
 def parse_args(default_lr=None, argv=None):

@@ -1,5 +1,6 @@
-"""CV federated training entry point of the port (ResNet9 on CIFAR10/100,
-every ``--mode``).
+"""CV federated training entry point of the port (every model of the
+registry that the JAX package's ``cv_train`` trains, on CIFAR10/100,
+EMNIST and ImageNet, every ``--mode``).
 
     python -m commefficient_torch.cv_train --dataset_name CIFAR10 \
         --dataset_dir ./dataset --mode sketch --error_type virtual \
@@ -13,6 +14,25 @@ learning rate is applied on the clients) take the same command line.
 ``--test`` runs one round and one eval batch of a one-channel ResNet9
 with an all-ones transmit.
 
+    python -m commefficient_torch.cv_train --dataset_name EMNIST \
+        --model ResNet101LN --dataset_dir ./femnist --mode sketch \
+        --error_type virtual --local_momentum 0 --virtual_momentum 0.9 \
+        --num_workers 8 --local_batch_size 16 --num_epochs 1
+
+The models (``--model``): the JAX package's registry. EMNIST gets
+1-channel stems, and every stem takes the dataset's channels (flax infers
+them from the batch); model options are filtered by each model's
+signature, as the JAX package does. Fixup models (``--model Fixup*``)
+train with three LR groups (biases 0.1, scales 0.1, the rest 1.0);
+``--finetune --finetuned_from DATASET --finetune_path DIR`` starts from
+``DIR/<model>.npz`` (a ``--checkpoint`` file), loading every leaf whose
+path and shape match, and trains the head alone (the JAX package's
+masks, ``build_param_groups``). A model with BatchNorm that
+``--batchnorm`` does not gate (ResNet18, the resnets with
+``norm="batch"``) raises: the JAX package cannot train it either.
+``--train_dataloader_workers`` / ``--val_dataloader_workers`` > 0 put
+the loaders behind ``PrefetchLoader``.
+
 CLI and loop parity with ``cv_train.py`` of the JAX package: the same flags
 (config.py), a ``PiecewiseLinear`` LR peaking at ``--pivot_epoch``, the NaN
 abort, per-epoch ``TableLogger`` rows and byte totals. The training loop
@@ -25,7 +45,7 @@ drain time). ``--checkpoint_every`` saves the run state every N epochs,
 sampler's position and the partial epoch accumulators), ``--resume
 PATH|auto`` restores one (``federated/checkpoint.py``; a mid-epoch resume
 ends bit-identical to the run it continues), and ``--checkpoint`` writes
-the final weights as ``<checkpoint_path>/ResNet9.npz``. ``--batchnorm``
+the final weights as ``<checkpoint_path>/<model>.npz``. ``--batchnorm``
 puts flax's BatchNorm in every ResNet9 cell. Runs on ``cuda`` unless
 ``--device cpu``; float32 (TF32 off), the forward and backward in
 bfloat16 under ``--bf16``.
@@ -33,6 +53,7 @@ bfloat16 under ``--bf16``.
 
 from __future__ import annotations
 
+import inspect
 import math
 import os
 
@@ -44,17 +65,23 @@ from commefficient_torch.config import parse_args
 from commefficient_torch.data_utils import (
     FedCIFAR10,
     FedCIFAR100,
+    FedEMNIST,
+    FedImageNet,
     FedLoader,
+    PrefetchLoader,
     num_classes_of_dataset,
     transforms,
 )
-from commefficient_torch.convert import flax_from_port
+from commefficient_torch.convert import flax_from_port, params_from_flax
 from commefficient_torch.federated import FedModel, FedOptimizer, LambdaLR
 from commefficient_torch.federated.aggregator import (
+    init_model_,
     resolve_device,
     set_fp32_numerics,
 )
 from commefficient_torch.federated.checkpoint import (
+    load_checkpoint,
+    load_matching,
     maybe_save_run_state,
     restore_mid_epoch,
     resume_run,
@@ -66,6 +93,8 @@ from commefficient_torch.federated.engine import (
     cohort_lookahead,
 )
 from commefficient_torch.federated.losses import make_cv_losses
+from commefficient_torch.models import ResNet9
+from commefficient_torch.ops.flat import ParamLayout
 from commefficient_torch.utils import (
     PiecewiseLinear,
     TableLogger,
@@ -75,13 +104,18 @@ from commefficient_torch.utils import (
 
 def get_data_loaders(args):
     train_transforms, val_transforms = {
+        "ImageNet": (transforms.imagenet_train_transforms,
+                     transforms.imagenet_val_transforms),
         "CIFAR10": (transforms.cifar10_train_transforms,
                     transforms.cifar10_test_transforms),
         "CIFAR100": (transforms.cifar100_train_transforms,
                      transforms.cifar100_test_transforms),
+        "EMNIST": (transforms.femnist_train_transforms,
+                   transforms.femnist_test_transforms),
     }[args.dataset_name]
-    dataset_class = {"CIFAR10": FedCIFAR10,
-                     "CIFAR100": FedCIFAR100}[args.dataset_name]
+    dataset_class = {"CIFAR10": FedCIFAR10, "CIFAR100": FedCIFAR100,
+                     "EMNIST": FedEMNIST,
+                     "ImageNet": FedImageNet}[args.dataset_name]
     train_dataset = dataset_class(args.dataset_dir, args.dataset_name,
                                   train_transforms, args.do_iid,
                                   args.num_clients, train=True, download=True)
@@ -92,6 +126,11 @@ def get_data_loaders(args):
     test_loader = FedLoader(test_dataset,
                             val_batch_size=args.valid_batch_size
                             * args.num_workers)
+    # a background thread assembles the next batches while the card works
+    if args.train_dataloader_workers > 0:
+        train_loader = PrefetchLoader(train_loader)
+    if args.val_dataloader_workers > 0:
+        test_loader = PrefetchLoader(test_loader)
     return train_loader, test_loader
 
 
@@ -228,9 +267,16 @@ def train(model, opt, lr_scheduler, train_loader, test_loader, args,
 
 
 def build_model_and_config(args):
-    """ResNet9 widths: one channel each and a 1 x 10 sketch with k = 10
-    under ``--test``, ``COMMEFFICIENT_MODEL_CHANNELS`` ("prep,l1,l2,l3"),
-    or ``COMMEFFICIENT_TINY_MODEL`` (8,16,16,32), else full width."""
+    """The model of ``--model`` (the JAX package's ``model_config``).
+
+    ResNet9 widths: one channel each and a 1 x 10 sketch with k = 10 under
+    ``--test``, ``COMMEFFICIENT_MODEL_CHANNELS`` ("prep,l1,l2,l3"), or
+    ``COMMEFFICIENT_TINY_MODEL`` (8,16,16,32), else full width. Under
+    ``--finetune`` the classes are ``--finetuned_from``'s and the new head
+    ``--dataset_name``'s (``new_num_classes``, which only ResNet9 takes).
+    The stem takes the dataset's channels (1 for EMNIST, else 3). Options
+    a model's signature does not name are dropped, as the JAX package
+    drops them."""
     if getattr(args, "do_test", False):
         model_config = {"channels": (("prep", 1), ("layer1", 1),
                                      ("layer2", 1), ("layer3", 1))}
@@ -247,9 +293,80 @@ def build_model_and_config(args):
                                      ("layer2", 16), ("layer3", 32))}
     else:
         model_config = {}
-    model_config["num_classes"] = num_classes_of_dataset(args.dataset_name)
-    model_config["do_batchnorm"] = bool(getattr(args, "do_batchnorm", False))
-    return getattr(models, args.model)(**model_config)
+    if getattr(args, "do_finetune", False):
+        model_config["num_classes"] = num_classes_of_dataset(
+            args.finetuned_from)
+        model_config["new_num_classes"] = num_classes_of_dataset(
+            args.dataset_name)
+    else:
+        model_config["num_classes"] = num_classes_of_dataset(
+            args.dataset_name)
+    model_config["initial_channels"] = 1 if args.dataset_name == "EMNIST" \
+        else 3
+    model_cls = getattr(models, getattr(args, "model", "ResNet9"))
+    accepted = inspect.signature(model_cls).parameters
+    if "do_batchnorm" in accepted:
+        model_config["do_batchnorm"] = bool(getattr(args, "do_batchnorm",
+                                                    False))
+    return model_cls(**{k: v for k, v in model_config.items()
+                        if k in accepted})
+
+
+def build_param_groups(args, layout: ParamLayout):
+    """Fixup's per-group LRs and finetune's head-only training as
+    ``(mask, base_lr)`` pairs over the flat vector, the JAX package's
+    ``build_param_groups`` mask for mask: a leaf's key is its lowercase
+    '/'-joined flax path. Fixup: ``bias`` in the key 0.1, ``scale`` or
+    ``mul`` 0.1, the rest 1.0. Finetune: ``linear`` or ``classifier`` in
+    the key, or a key ending in ``fc``, 1.0, the rest 0. (A key is a
+    leaf's full path, ``fc/kernel``, so that last test never matches: the
+    resnets' ``fc`` head trains at 0 under ``--finetune`` in both
+    packages.) None for a single default group."""
+
+    def mask_for(pred):
+        mask = np.zeros(layout.d, bool)
+        for e in layout.entries:
+            if pred("/".join(e.jax_path).lower()):
+                mask[e.offset:e.offset + e.size] = True
+        return mask
+
+    if args.model.startswith("Fixup"):
+        bias = mask_for(lambda k: "bias" in k)
+        scale = mask_for(lambda k: "scale" in k or "mul" in k)
+        other = ~(bias | scale)
+        return [(bias, 0.1), (scale & ~bias, 0.1), (other, 1.0)]
+    if getattr(args, "do_finetune", False):
+        head = mask_for(lambda k: "linear" in k or "classifier" in k
+                        or k.endswith("fc"))
+        return [(head, 1.0), (~head, 0.0)]
+    return None
+
+
+def finetune_init(args, model, layout: ParamLayout) -> torch.Tensor:
+    """The finetune start: a fresh init from ``--seed`` with every leaf
+    of ``<finetune_path>/<model>.npz`` whose path and shape match loaded
+    over it. Returns the flat weights."""
+    init_model_(model, args.seed)
+    template = flax_from_port(dict(model.named_parameters()), layout)
+    ckpt_params, _ = load_checkpoint(os.path.join(args.finetune_path,
+                                                  args.model))
+    tree, loaded, skipped = load_matching(template, ckpt_params)
+    print(f"finetune: loaded {loaded} tensors, fresh: {skipped}")
+    return layout.flatten(params_from_flax(tree, layout))
+
+
+def check_trainable(model) -> None:
+    """A model with BatchNorm that ``--batchnorm`` does not gate raises:
+    the JAX package's ``cv_train`` cannot train it (``has_bn``,
+    cv_train.py:429, is False for it, and flax then finds no
+    ``batch_stats``); ROADMAP.md queue 3 records it. The port's modules
+    carry its statistics (``initial_model_state``)."""
+    if model.initial_model_state() and not isinstance(model, ResNet9):
+        raise NotImplementedError(
+            f"{type(model).__name__} has BatchNorm that --batchnorm does "
+            "not gate: the JAX package's cv_train cannot train it (its "
+            "has_bn, cv_train.py:429, is False and flax finds no "
+            "batch_stats), so neither does the port (ROADMAP.md queue 3)")
 
 
 def main(argv=None):
@@ -264,13 +381,18 @@ def main(argv=None):
     np.random.seed(args.seed)
 
     model = build_model_and_config(args)
+    check_trainable(model)
     train_loader, test_loader = get_data_loaders(args)
     compute_loss_train, compute_loss_val = make_cv_losses(
         model, compute_dtype=torch.bfloat16 if args.do_bf16 else None)
+    layout = ParamLayout(model)
+    init_params = (finetune_init(args, model, layout) if args.do_finetune
+                   else None)
     fed_model = FedModel(model, compute_loss_train, args, compute_loss_val,
                          num_clients=train_loader.dataset.num_clients,
-                         device=device)
-    opt = FedOptimizer(fed_model, args)
+                         init_params=init_params, device=device)
+    opt = FedOptimizer(fed_model, args,
+                       param_groups=build_param_groups(args, layout))
     lr_schedule = PiecewiseLinear([0, args.pivot_epoch, args.num_epochs],
                                   [0, args.lr_scale, 0])
     spe = train_loader.steps_per_epoch()

@@ -94,6 +94,9 @@ class FedCIFAR10(FedDataset):
                  for i in range(len(self.images_per_client))], axis=0))
             bounds = np.cumsum(self.images_per_client)[:-1]
             self.client_datasets = np.split(self._store, bounds, axis=0)
+            self._store_targets = np.repeat(
+                np.arange(len(self.images_per_client), dtype=np.int64),
+                self.images_per_client)
         else:
             with np.load(self.test_fn()) as t:
                 self.test_images = t["test_images"]
@@ -121,6 +124,15 @@ class FedCIFAR10(FedDataset):
     def _get_train_item(self, client_id, idx_within_client):
         # train target IS the client id (reference fed_cifar.py:77-84)
         return self.client_datasets[client_id][idx_within_client], client_id
+
+    def native_train_access(self):
+        # store rows are the natural concatenation: target = the natural
+        # client (the class), as _get_train_item gives it
+        return {"store": self._store, "targets": self._store_targets}
+
+    def native_val_access(self):
+        return {"store": self.test_images,
+                "targets": np.asarray(self.test_targets, np.int64)}
 
     def _get_val_item(self, idx):
         return self.test_images[idx], int(self.test_targets[idx])

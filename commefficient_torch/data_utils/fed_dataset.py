@@ -115,6 +115,25 @@ class FedDataset:
             image = self.transform(image)
         return client_id, image, target
 
+    # -- the loader's native batch path -----------------------------------
+
+    def store_rows(self, idxs):
+        """Flat indices -> rows of the contiguous store (rows in natural
+        concatenation order; iid is a permutation on top)."""
+        idxs = np.asarray(idxs, np.int64)
+        if self.type == "train" and self.do_iid:
+            return np.asarray(self.iid_shuffle)[idxs]
+        return idxs
+
+    def native_train_access(self):
+        """``{"store": (N, H, W, C) array, "targets": (N,) int64}`` of a
+        dataset with a contiguous in-memory train store (rows in natural
+        order); None: the loader takes its per-item path."""
+        return None
+
+    def native_val_access(self):
+        return None
+
     # -- subclass hooks ----------------------------------------------------
 
     def prepare_datasets(self, download=False):

@@ -74,6 +74,18 @@ def resolve_device(name) -> torch.device:
     return dev
 
 
+def init_model_(model: torch.nn.Module, seed) -> None:
+    """Draw the model's initial weights from a generator seeded with
+    ``seed``: the model's own ``init_`` (the JAX package's initializers),
+    or PyTorch's default conv/linear init (ResNet9)."""
+    gen = torch.Generator().manual_seed(int(seed))
+    init_ = getattr(model, "init_", None)
+    if init_ is not None:
+        init_(gen)
+    else:
+        torch_conv_init_(model, gen)
+
+
 def set_fp32_numerics() -> None:
     """The JAX reference computes in float32: turn TF32 off for cuDNN
     convolutions and cuBLAS matrix products."""
@@ -205,12 +217,7 @@ class FedModel:
         self.grad_size = self.param_layout.d
         args.grad_size = self.grad_size
         if init_params is None:
-            gen = torch.Generator().manual_seed(int(args.seed))
-            init_ = getattr(model, "init_", None)
-            if init_ is not None:
-                init_(gen)  # the model's own (flax) initializers
-            else:
-                torch_conv_init_(model, gen)
+            init_model_(model, args.seed)
             flat = self.param_layout.flatten(dict(model.named_parameters()))
         else:
             flat = init_params.detach().to(torch.float32)
@@ -425,9 +432,17 @@ class FedModel:
 
 
 class FedOptimizer:
-    """Server-side optimizer. ``param_groups`` other than the single
-    default group (Fixup per-group LRs, finetune freezing) are a later
-    slice (ROADMAP.md, queue 1)."""
+    """Server-side optimizer.
+
+    ``param_groups``: ``(mask, base_lr)`` pairs over the flat vector (a
+    boolean ``(d,)`` mask, or None for every coordinate), applied in
+    order, later groups overwriting earlier ones: Fixup's per-group LRs
+    and finetune freezing (base 0). The single default group ``(None,
+    1.0)`` keeps a scalar LR; any other list becomes a per-coordinate
+    base-LR vector on the device, in the resident layout of the weights
+    (sketch mode: the chunked ``(T, S, 128)`` layout with a zero tail, so
+    padded coordinates never move). ``get_lr`` is the vector times the
+    schedule's factor, and fedavg's clients take it (``_opt_lr``)."""
 
     def __init__(self, fed_model: FedModel, args,
                  param_groups: Optional[Sequence[Tuple[Optional[np.ndarray],
@@ -435,22 +450,35 @@ class FedOptimizer:
         self.fed_model = fed_model
         self.args = args
         self.param_groups = param_groups or [(None, 1.0)]
-        if len(self.param_groups) > 1 or self.param_groups[0][0] is not None:
-            raise NotImplementedError(
-                "per-parameter-group learning rates are not ported yet "
-                "(ROADMAP.md, queue 1: Fixup LR groups and finetuning)")
         self._lr_factor = 0.0
+        self._lr = 0.0
         self.server_state = init_server_state(fed_model.server_config,
                                               fed_model.sketch,
                                               device=fed_model.device)
+        self._base_lr_vec = None
+        if len(self.param_groups) > 1 or self.param_groups[0][0] is not None:
+            vec = np.zeros(fed_model.grad_size, np.float32)
+            for mask, base in self.param_groups:
+                if mask is None:
+                    vec[:] = base
+                else:
+                    vec[np.asarray(mask)] = base
+            vec = torch.from_numpy(vec).to(fed_model.device)
+            if fed_model.layout is not None:
+                vec = fed_model.layout.chunk(vec)
+            self._base_lr_vec = vec
 
     def get_lr(self):
-        return self._lr_factor
+        """The scalar factor for the default group, else the
+        per-coordinate vector ``base_lr_vec * factor``."""
+        return self._lr
 
     def set_lr_factor(self, factor: float):
         self._lr_factor = float(factor)
+        self._lr = (self._lr_factor if self._base_lr_vec is None
+                    else self._base_lr_vec * self._lr_factor)
         # publish to the model so fedavg's clients see the current lr
-        self.fed_model._opt_lr = self.get_lr()
+        self.fed_model._opt_lr = self._lr
 
     def step(self):
         fm = self.fed_model
@@ -462,7 +490,8 @@ class FedOptimizer:
 
 
 class LambdaLR:
-    """Minimal LambdaLR driving FedOptimizer."""
+    """Minimal LambdaLR driving FedOptimizer; ``get_last_lr`` lists one LR
+    per parameter group."""
 
     def __init__(self, optimizer: FedOptimizer,
                  lr_lambda: Callable[[int], float]):

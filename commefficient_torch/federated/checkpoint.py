@@ -6,7 +6,9 @@
   ``params/<flax path>`` (the flax layout of each leaf,
   ``convert.flax_from_port``) and ``model_state/<path>`` (the BatchNorm
   running statistics). The JAX package's ``load_checkpoint`` reads the
-  port's file and the other way round.
+  port's file and the other way round. ``load_matching`` copies such a
+  file's leaves into a fresh tree where path and shape match
+  (``--finetune``).
 - ``save_run_state`` / ``load_run_state``: everything a bit-exact restart
   needs, at an epoch boundary or mid-epoch (the sampler's position and
   the partial epoch accumulators), with a CRC32 content checksum in
@@ -156,6 +158,26 @@ def load_checkpoint(path: str):
         path = path + ".npz"
     tree = _unflatten(_read_npz(path))
     return tree.get("params", {}), tree.get("model_state", {})
+
+
+def load_matching(template_params, ckpt_params):
+    """Checkpoint arrays copied into the template wherever path and shape
+    match: the finetune path (the backbone loads, a re-shaped head keeps
+    its fresh init). Both are nested trees of numpy arrays; returns
+    ``(tree, loaded count, skipped paths)``, the JAX package's
+    ``load_matching``."""
+    t_flat = _flatten(template_params)
+    c_flat = _flatten(ckpt_params)
+    loaded, skipped = 0, []
+    out = {}
+    for k, v in t_flat.items():
+        if k in c_flat and c_flat[k].shape == v.shape:
+            out[k] = c_flat[k]
+            loaded += 1
+        else:
+            out[k] = v
+            skipped.append(k)
+    return _unflatten(out), loaded, skipped
 
 
 def save_run_state(path: str, fed_model, optimizer, lr_scheduler,

@@ -40,7 +40,11 @@ import random
 import numpy as np
 import torch
 
-from commefficient_torch.config import ITEM_GPT2_HF, parse_args
+from commefficient_torch.config import (
+    ITEM_FINETUNE,
+    ITEM_GPT2_HF,
+    parse_args,
+)
 from commefficient_torch.data_utils import (
     FedLoader,
     FedPERSONA,
@@ -237,6 +241,9 @@ def train_gpt2(model, opt, scheduler, train_loader, val_loader, args,
 
 def train(argv=None):
     args = parse_args(default_lr=4e-2, argv=argv)
+    if args.do_finetune or args.finetuned_from:
+        raise NotImplementedError(
+            f"--finetune is not ported for GPT-2 yet ({ITEM_FINETUNE})")
     device = resolve_device(args.device)
     set_fp32_numerics()
     if not args.dataset_name:

@@ -8,7 +8,8 @@ Every comparison is exact (``torch.equal``, NaN-aware): the accumulate
 keeps the plain version's per-cell add order, the query the median's
 values (the sign of a zero median is free) and writes its masked tail as
 +0.0 bit for bit, the fused epilogue the composed mask and accumulate,
-and the counts and the descent are integers.
+and the counts and the descent are integers. All six kernels also run at
+the FEMNIST ResNet101-LN geometry (Tn = 86 chunks of 500,096).
 
 Also on the card, at a tiny width with cuDNN pinned deterministic: the
 round engine's non-drain submits under
@@ -733,3 +734,64 @@ def test_tiny_gpt2_round_on_card(cuda, monkeypatch):
     for a, b in ((ps_k, ps_p), (ss_k.velocity, ss_p.velocity),
                  (ss_k.error, ss_p.error)):
         assert _nan_equal(a, b)
+
+
+# FEMNIST ResNet101-LN's geometry: d = 42,620,926 in Tn = 86 chunks of
+# c_pad = 500,096, r = 5, the count pass and the descent over Tn * c_pad
+# patterns at k = 50,000
+FEMNIST_D, FEMNIST_K = 42_620_926, 50_000
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sketch_accumulate",
+                                  "sketch_accumulate_into",
+                                  "sketch_estimates", "fused_epilogue",
+                                  "topk_count_ge", "topk_descent"])
+def test_kernels_at_femnist_geometry(cuda, name):
+    cs = tsk.make_sketch(FEMNIST_D, 500_000, 5, seed=7, device=cuda)
+    assert (cs.T, cs.c_pad) == (86, 500_096)
+    gen = torch.Generator().manual_seed(86)
+    v3 = cs.chunk_layout.chunk(torch.randn(FEMNIST_D, generator=gen)
+                               ).to(cuda)
+    tbl = torch.randn((5, cs.sublanes, 128), generator=gen).to(cuda)
+    q, w, keys = cs.shift_q, cs.shift_w, cs.sign_keys
+    kern = next(k for k in kernels.KERNELS if k.name == name)
+    before = kern.launches
+    if name == "sketch_accumulate":
+        got = kernels.sketch_accumulate(v3, q, w, keys, 0)
+        assert _nan_equal(got, tsk._sketch_accumulate_plain(v3, q, w, keys,
+                                                            0))
+    elif name == "sketch_accumulate_into":
+        got = kernels.sketch_accumulate_into(tbl, v3, q, w, keys, 0)
+        assert _bit_equal(got, tsk._sketch_accumulate_into_plain(
+            tbl, v3, q, w, keys, 0))
+    elif name == "sketch_estimates":
+        got = kernels.sketch_estimates(tbl, q, w, keys, 0, FEMNIST_D)
+        iq, iw = tsk._shift_cols(cs.inv_q, cs.inv_w, 0, cs.T)
+        want = cs.chunk_layout.mask_tail(tsk._sketch_estimates_plain(
+            tbl, iq, iw, keys, 0))
+        assert _nan_equal(got, want)
+        assert not got.view(-1)[FEMNIST_D:].view(torch.int32).any()
+    elif name == "fused_epilogue":
+        est = tsk.estimates_chunks(cs, tbl)
+        p = ttk.resolve_threshold(est, FEMNIST_K)
+        upd, t = kernels.fused_epilogue(est, p, q, w, keys, 0)
+        want_u, want_t = tsk._fused_epilogue_plain(est, p, q, w, keys, 0)
+        assert _bit_equal(upd, want_u) and _bit_equal(t, want_t)
+        assert int((upd != 0).sum()) >= FEMNIST_K
+    else:
+        bits = v3.reshape(-1).view(torch.int32)
+        if name == "topk_count_ge":
+            p = torch.zeros((), dtype=torch.int32, device=cuda)
+            for shift in range(28, -1, -4):
+                ts = ttk._pass_thresholds(p, shift)
+                want = ttk._count_ge_plain(bits, ts)
+                assert torch.equal(kernels.topk_count_ge(bits, ts), want)
+                p = p + ((want >= FEMNIST_K).sum().to(torch.int32) << shift)
+            assert kern.launches == before + 8
+            assert int(p) == int(ttk._descent_plain(bits, FEMNIST_K))
+            return
+        got = int(kernels.topk_descent(bits, FEMNIST_K))
+        assert got == int(ttk._descent_plain(bits, FEMNIST_K))
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1

@@ -133,7 +133,9 @@ def test_val_call(trajectories):
 
 def test_loader_batches_match_jax(tmp_path, monkeypatch):
     """Same seed, same synthetic data: the port's loader yields the JAX
-    loader's batches (the JAX side on its numpy path)."""
+    loader's batches (both on their numpy per-item paths; the native
+    batch paths are held against each other in
+    ``tests/test_torch_cv_data.py``)."""
     from commefficient_tpu.data_utils import FedCIFAR10 as JCifar
     from commefficient_tpu.data_utils import FedLoader as JLoader
     from commefficient_tpu.data_utils import transforms as jtr
@@ -144,7 +146,7 @@ def test_loader_batches_match_jax(tmp_path, monkeypatch):
     batches = []
     for cls, loader_cls, tr, extra in (
             (JCifar, JLoader, jtr, {"use_native": False}),
-            (FedCIFAR10, FedLoader, ttr, {})):
+            (FedCIFAR10, FedLoader, ttr, {"use_native": False})):
         np.random.seed(3)
         d = tmp_path / cls.__module__.split(".")[0]
         train = cls(str(d), "CIFAR10", tr.cifar10_train_transforms, True, 6,
