@@ -135,10 +135,42 @@ Phases (any failure exits non-zero; nothing is caught):
    ``python -m commefficient_torch.cv_train`` on EMNIST with
    ResNet101LN, and ``--finetune`` from a CIFAR100 ResNet9 checkpoint
    written in the same phase.
+11. the multi-GPU data plane and HF GPT-2 weights (``phase_multi``): (1)
+   each rank's query, count passes, partial re-sketch and fused epilogue
+   of the sharded server at ``t0 = rank * ceil(T / n)`` for n = 2, 4, 8 at
+   ResNet9's (T = 14) and GPT-2's (T = 249) full width, the padded tail
+   included: each launch equal to its plain version, the ranks' estimates
+   concatenated equal to the unsharded query, their counts summed equal
+   to the unsharded counts, their partial tables summed with the
+   unsharded table's ``== 0`` pattern and its values to float32 order,
+   rank 1's launches timed; (2) a NCCL process group of one rank in this
+   process: the headline round with ``--server_shard`` bit-equal to the
+   single-device round (cuDNN deterministic), then 10 timed rounds each
+   of the sharded fp32 round, the same with ``--fused_epilogue``,
+   ``--collective_plan int8`` and
+   ``uplink=int8,downlink=fp8_e4m3,table=int4`` with finite losses, 2 /
+   1 / 8 launches a round per rank (1 / 1 / 8 / 1 with the epilogue), the engine's non-drain submits under
+   ``set_sync_debug_mode("error")``, the quantized legs' error-feedback
+   identity, rounds/sec beside phase 4's; (3) ``torchrun --nproc_per_node
+   1 -m commefficient_torch.cv_train --server_shard --collective_plan
+   int8`` on synthetic CIFAR10 in a subprocess: exit 0, finite losses;
+   (4) two gloo ranks on ``cuda:0`` (gloo takes every collective the port
+   uses on CUDA tensors; two NCCL ranks cannot share a card): the sharded
+   and the replicated headline round bit-equal to each other and on both
+   ranks, and within ``rtol=1e-4, atol=1e-6`` of the one-rank round with
+   99% of its kept set; (5) a seeded GPT-2-small checkpoint written as
+   ``model.safetensors`` and ``pytorch_model.bin``, both loaded bit-equal,
+   the run's initial weights from it (the embedding grown to 50,262),
+   10 timed rounds from them (tokens/sec and peak memory beside phase
+   9's), ``gpt2_train`` for 2 rounds from the directory and
+   ``--finetune`` on its run dir (a finite val NLL, the saved leaves
+   loaded bit for bit).
 
 Then one JSON line of the kernels (launches per timed window of the path
 that runs each: phase 4 for the accumulate, the query and the count pass,
-phase 5 for the running accumulate, the epilogue and the descent), the
+phase 5 for the running accumulate, the epilogue and the descent; and a
+``sharded`` object each: its launches a round per rank on phase 11's
+sharded round and its largest error at ``t0 > 0``), the
 card's line, and ``{"ok": true, "device": {...}}`` as the last line.
 Without a card it exits with an error before printing any result.
 
@@ -2145,6 +2177,678 @@ def kernel_times(card: str, only=()) -> int:
     return 0
 
 
+# --------------------------------------------------------------------------
+# phase 11: the multi-GPU data plane and HF GPT-2 weights
+# --------------------------------------------------------------------------
+
+SHARD_NS = (2, 4, 8)
+SHARD_GEOMETRIES = (("resnet9", 6_568_640), ("gpt2", GPT2_D))
+# a sharded headline round, per rank: the client table and the partial
+# re-sketch, the query over this rank's chunks, 8 exchanged count passes;
+# under --fused_epilogue the epilogue makes the partial re-sketch
+SHARDED_PER_ROUND = HEADLINE_PER_ROUND
+SHARDED_FUSED_PER_ROUND = {"sketch_accumulate": 1, "sketch_estimates": 1,
+                           "topk_count_ge": 8, "fused_epilogue": 1}
+
+
+def sharded_kernels(card: str, label: str, d: int, seed: int) -> dict:
+    """Step 1: each rank's query, count passes, partial re-sketch and
+    fused epilogue at ``t0 = rank * ceil(T / n)`` for n in SHARD_NS at
+    this geometry (5 x 500,000, k = 50,000), padded tail included: each
+    launch equal to its plain version; the ranks' estimates concatenated
+    equal to the unsharded query (==, the zero-median sign free), their
+    counts summed equal to the unsharded counts, their partial tables
+    summed with the unsharded table's ``== 0`` pattern and its values to
+    float32 order (``rtol=1e-5``, ``atol=1e-5 * max|table|``). Times
+    (CUDA events, flushed) of rank 1's launches at each n."""
+    dev = torch.device("cuda")
+    cs = tsk.make_sketch(d, 500_000, 5, seed=seed, device=dev)
+    T, S, r = cs.T, cs.sublanes, cs.r
+    gen = torch.Generator().manual_seed(seed)
+    table = torch.randn(cs.table_shape, generator=gen).to(dev)
+    table3 = table.view(r, S, 128)
+    keys = cs.sign_keys
+    k = 50_000
+    est_full = tsk.estimates_chunks(cs, table)
+    bits_full = est_full.view(torch.int32).reshape(-1)
+    passes, p = [], torch.zeros((), dtype=torch.int32, device=dev)
+    for shift in range(28, -1, -4):
+        ts = ttk._pass_thresholds(p, shift)
+        counts = ttk.topk_count_ge(bits_full, ts)
+        passes.append((ts, counts))
+        p = p + ((counts >= k).sum().to(torch.int32) << shift)
+    assert torch.equal(p, ttk.resolve_threshold(est_full, k))
+    upd_full = ttk._apply_threshold(bits_full.view(est_full.shape), est_full,
+                                    p)
+    tbl_full = tsk.sketch_chunks(cs, upd_full)
+    errs = {"sketch_estimates": 0.0, "topk_count_ge": 0.0,
+            "sketch_accumulate": 0.0, "fused_epilogue": 0.0}
+    times = {}
+    for n in SHARD_NS:
+        Tn = -(-T // n)
+        ests, parts = [], []
+        sums = [torch.zeros(16, dtype=torch.int64, device=dev)
+                for _ in passes]
+        for rank in range(n):
+            t0 = rank * Tn
+            est = tsk.estimates_chunks_local(cs, table, t0, Tn)
+            iq, iw = tsk._shift_cols(cs.inv_q, cs.inv_w, t0, Tn)
+            est_p = mask_past(tsk._sketch_estimates_plain(table3, iq, iw,
+                                                          keys, t0), t0, d)
+            assert bool((est == est_p).all()), \
+                f"{label} n={n} rank {rank}: query != plain"
+            bits = est.view(torch.int32).reshape(-1)
+            for j, (ts, _) in enumerate(passes):
+                got = ttk.topk_count_ge(bits, ts)
+                want = ttk._count_ge_plain(bits, ts)
+                assert torch.equal(got, want), \
+                    f"{label} n={n} rank {rank}: count pass {j} != plain"
+                sums[j] += got.to(torch.int64)
+            q, w = tsk._shift_cols(cs.shift_q, cs.shift_w, t0, Tn)
+            upd = ttk._apply_threshold(bits.view(est.shape), est, p)
+            part = kernels.sketch_accumulate(upd, q, w, keys, t0)
+            part_p = tsk._sketch_accumulate_plain(upd, q, w, keys, t0)
+            assert bit_equal(part, part_p), \
+                f"{label} n={n} rank {rank}: partial re-sketch != plain"
+            fu, ft = kernels.fused_epilogue(est, p, q, w, keys, t0)
+            fu_p, ft_p = tsk._fused_epilogue_plain(est, p, q, w, keys, t0)
+            assert bit_equal(fu, fu_p) and bit_equal(ft, ft_p), \
+                f"{label} n={n} rank {rank}: fused epilogue != plain"
+            assert bit_equal(fu, upd) and bit_equal(ft, part), \
+                f"{label} n={n} rank {rank}: epilogue != composed pair"
+            if t0 > 0:
+                for name, a, b in (("sketch_estimates", est, est_p),
+                                   ("sketch_accumulate", part, part_p),
+                                   ("fused_epilogue", ft, ft_p)):
+                    errs[name] = max(errs[name], max_abs_err(a, b))
+            if rank == 1:
+                times[n] = {
+                    "Tn": Tn, "t0": t0,
+                    "sketch_estimates": time_ms(
+                        lambda: kernels.sketch_estimates(table3, q, w, keys,
+                                                         t0, d)),
+                    "topk_count_ge": time_ms(
+                        lambda: ttk.topk_count_ge(bits, passes[-1][0])),
+                    "sketch_accumulate": time_ms(
+                        lambda: kernels.sketch_accumulate(upd, q, w, keys,
+                                                          t0)),
+                    "fused_epilogue": time_ms(
+                        lambda: kernels.fused_epilogue(est, p, q, w, keys,
+                                                       t0))}
+            ests.append(est)
+            parts.append(part.view(r, -1))
+        cat = torch.cat(ests)
+        assert bool((cat[:T] == est_full).all()) and not cat[T:].any(), \
+            f"{label} n={n}: the ranks' estimates != the unsharded query"
+        for j, (_, want) in enumerate(passes):
+            assert torch.equal(sums[j], want.to(torch.int64)), \
+                f"{label} n={n}: summed counts of pass {j} != unsharded"
+        summed = torch.stack(parts).sum(0)
+        assert torch.equal(summed == 0, tbl_full == 0), \
+            f"{label} n={n}: the partials' zero pattern != the table's"
+        scale = float(tbl_full.abs().max())
+        assert torch.allclose(summed, tbl_full, rtol=1e-5,
+                              atol=1e-5 * scale), \
+            f"{label} n={n}: the summed partials != the table"
+        print(f"sharded kernels {label} n={n} (T = {T}, Tn = {Tn}, "
+              f"{n * Tn - T} padded chunks): exact; rank 1 ms "
+              + json.dumps({kk: round(v, 5) for kk, v in times[n].items()
+                            if kk not in ("Tn", "t0")}))
+    del est_full, upd_full, ests, parts
+    torch.cuda.empty_cache()
+    return {"T": T, "max_abs_err": errs, "rank1_ms": times, "card": card}
+
+
+def host_ops(one_round, n: int = 5, top: int = 12) -> dict:
+    """The host side of ``n`` rounds under ``torch.profiler``: the CPU
+    operators by self time, busiest first, per round, and their total."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(n):
+            one_round()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                  reverse=True)
+    return {"self_cpu_ms_per_round": sum(e.self_cpu_time_total
+                                         for e in rows) / n / 1e3,
+            "top": [(e.key[:60], round(e.self_cpu_time_total / n / 1e3, 4),
+                     e.count / n) for e in rows[:top]]}
+
+
+def _build_group_round(extra, group, num_clients: int = 64):
+    """``build_round`` with the FedModel on ``group``."""
+    args = parse_args(argv=HEADLINE + extra + [
+        "--num_clients", str(num_clients), "--seed", "0"])
+    model = ResNet9()
+    train_loss, val_loss = make_cv_losses(model)
+    fm = FedModel(model, train_loss, args, val_loss, num_clients=num_clients,
+                  group=group)
+    opt = FedOptimizer(fm, args)
+    schedule = PiecewiseLinear([0, args.pivot_epoch, args.num_epochs],
+                               [0, 0.4, 0])
+    sched = LambdaLR(opt, lambda step: schedule(step / 50))
+
+    def one_round(batch):
+        sched.step()
+        out = fm(batch)
+        opt.step()
+        return out
+
+    return args, fm, opt, sched, one_round
+
+
+def _weights(fm) -> torch.Tensor:
+    return fm.layout.unchunk(fm.ps_weights).detach().clone()
+
+
+def ef_identity(fm, opt, group, batch, label: str) -> dict:
+    """The error-feedback identity of the quantized legs at full width:
+    the round's own table through the table leg's ``quantized_psum`` and
+    an update-sized plane through the downlink's ``quantized_all_gather``,
+    each with the carry it holds and the round's generators: transmitted
+    plus new carry equals contribution plus old carry (JAX's tests' bound,
+    here ``atol = 1e-6 * max|contribution|``). On a group of one rank this
+    is a smoke check of the quantizers on the card at full width, not a
+    test of the collective: the carry is defined as the contribution less
+    its dequantized value, and an all-to-all of one rank is the identity.
+    The cross-rank identity is held by the multi-process CPU tests."""
+    from commefficient_torch.ops import collectives as coll
+
+    plan = fm.round_config.collective_plan
+    cs = fm.sketch
+    fm.begin_round(batch)
+    table = fm._round_ctx.gradient
+    st = opt.server_state
+    sr = fm.sr_generators(fm.rounds_dispatched - 1)
+    out = {}
+    if plan.table != "float32":
+        got, new = coll.quantized_psum(table, group, sr["up"],
+                                       residual=st.qres, block=cs.c_pad,
+                                       dtype=plan.table)
+        contrib = table + st.qres
+        scale = float(contrib.abs().max())
+        err = float((got + new - contrib).abs().max())
+        assert err <= 1e-6 * scale, f"{label}: table leg identity {err}"
+        out["table_identity_max_err"] = err
+    if plan.downlink != "float32":
+        Tn = -(-cs.T // group.size)
+        upd = tsk.unsketch_chunks(cs, st.error, fm.server_config.k)[:Tn]
+        upd = torch.nn.functional.pad(upd, (0, 0, 0, 0, 0,
+                                            Tn - upd.shape[0]))
+        got, new = coll.quantized_all_gather(
+            upd, group, sr["down"], residual=st.dres,
+            block=cs.sublanes * 128, dtype=plan.downlink)
+        contrib = upd + st.dres
+        scale = float(contrib.abs().max())
+        err = float((got[:Tn] + new - contrib).abs().max())
+        assert err <= 1e-6 * max(scale, 1e-30), \
+            f"{label}: downlink identity {err}"
+        out["downlink_identity_max_err"] = err
+    opt.step()
+    return out
+
+
+def nccl_world1(card: str, headline_rps: float) -> dict:
+    """Step 2: a NCCL process group of one rank in this process. The
+    ResNet9 headline round with ``--server_shard`` (fp32) bit-equal to the
+    single-device round (2 rounds, one batch and seed, cuDNN
+    deterministic); then TIMED_ROUNDS timed rounds each of the sharded
+    fp32 round, the same with ``--fused_epilogue``, ``--collective_plan
+    int8`` and
+    ``uplink=int8,downlink=fp8_e4m3,table=int4``: finite losses, the
+    launches a round per rank as derived (SHARDED_PER_ROUND), the engine's
+    non-drain submits without a synchronizing call, and the quantized
+    legs' error-feedback identity; rounds/sec beside phase 4's."""
+    from commefficient_torch.parallel import (
+        destroy_distributed,
+        init_distributed,
+        make_client_group,
+    )
+
+    out = {"card": card}
+    batch = synthetic_batch()
+    with tempfile.TemporaryDirectory() as tmp:
+        device = init_distributed("cuda", init_method=f"file://{tmp}/store",
+                                  rank=0, world_size=1, local_rank=0)
+        try:
+            group = make_client_group(8, -1, device)
+            assert group.size == 1 and group.active
+            with deterministic_cudnn():
+                ws = []
+                for grp, extra in ((None, []), (group, ["--server_shard"])):
+                    _, fm, opt, sched, one_round = _build_group_round(
+                        extra, grp)
+                    ws.append([])
+                    for i in range(2):
+                        one_round(synthetic_batch(i))
+                        ws[-1].append(_weights(fm))
+                    del fm, opt, sched
+            for i, (a, b) in enumerate(zip(*ws)):
+                assert bit_equal(a, b), \
+                    f"world-1 sharded round {i + 1} != single-device round"
+            out["world1_bit_equal_rounds"] = len(ws[0])
+            print("nccl world-1: the sharded headline round equals the "
+                  "single-device round bit for bit (2 rounds, cuDNN "
+                  "deterministic)")
+            out["legs"] = {}
+            for label, extra, per_round in (
+                    ("sharded fp32", ["--server_shard"], SHARDED_PER_ROUND),
+                    ("sharded fused epilogue", ["--server_shard",
+                                                "--fused_epilogue"],
+                     SHARDED_FUSED_PER_ROUND),
+                    ("sharded int8", ["--server_shard", "--collective_plan",
+                                      "int8"], SHARDED_PER_ROUND),
+                    ("sharded mixed", ["--server_shard", "--collective_plan",
+                                       "uplink=int8,downlink=fp8_e4m3,"
+                                       "table=int4"], SHARDED_PER_ROUND)):
+                _, fm, opt, sched, one_round = _build_group_round(extra,
+                                                                  group)
+                counts, rps = timed_rounds(one_round, batch, per_round,
+                                           f"nccl {label}",
+                                           n=TIMED_ROUNDS)
+                row = {"rounds_per_sec": rps,
+                       "launches_per_round_per_rank": {
+                           kk: v // TIMED_ROUNDS for kk, v in
+                           counts.items()}}
+                if "int8" in label or "mixed" in label:
+                    row.update(ef_identity(fm, opt, group,
+                                           synthetic_batch(3), label))
+                    st = opt.server_state
+                    assert st.qres is not None and st.dres is not None
+                    assert bool(st.qres.abs().max() > 0), label
+                elif label == "sharded fp32":
+                    # where the round's time goes, beside the
+                    # single-device round's, and the host's operators
+                    row["profile"] = profile_rounds(
+                        lambda: one_round(batch), n=3)
+                    row["host"] = host_ops(lambda: one_round(batch))
+                    *_, one_single = _build_group_round([], None)
+                    row["single_host"] = host_ops(lambda: one_single(batch))
+                    del one_single
+                    for name in ("host", "single_host"):
+                        print(f"{label} {name}: " + json.dumps(row[name]))
+                    # the engine's non-drain submits wait on nothing
+                    audit = {"audited": 0, "fetches": 0, "drains": 0}
+                    eng = PipelinedRoundEngine(fm, opt, sched, window=2,
+                                               drain_every=8)
+                    for _ in range(16):
+                        audited_submit(eng, batch, audit)
+                    eng.drain()
+                    assert audit["fetches"] == 0 and audit["audited"] > 0
+                    row["sync_audit"] = audit
+                out["legs"][label] = row
+                print(json.dumps({"phase": "multi", "step": "nccl world-1",
+                                  "leg": label, **row}))
+                del fm, opt, sched
+            torch.cuda.empty_cache()
+        finally:
+            destroy_distributed()
+    fp32 = out["legs"]["sharded fp32"]["rounds_per_sec"]
+    print(f"rounds/sec: phase 4 headline {headline_rps:.3f}, nccl world-1 "
+          f"sharded fp32 {fp32:.3f}, fused epilogue "
+          f"{out['legs']['sharded fused epilogue']['rounds_per_sec']:.3f}, "
+          f"int8 "
+          f"{out['legs']['sharded int8']['rounds_per_sec']:.3f}, mixed "
+          f"{out['legs']['sharded mixed']['rounds_per_sec']:.3f} ({card}, "
+          "same call)")
+    out["headline_rps"] = headline_rps
+    return out
+
+
+def table_row(output: str, key: str) -> dict:
+    """The first row under the last ``TableLogger`` header holding
+    ``key`` (columns of 12 characters and a space)."""
+    def cells(line):
+        return [line[i:i + 13].strip() for i in range(0, len(line), 13)]
+
+    lines = output.splitlines()
+    for i in range(len(lines) - 1, -1, -1):
+        head = cells(lines[i])
+        if key in head and i + 1 < len(lines):
+            return dict(zip(head, cells(lines[i + 1])))
+    raise AssertionError(f"no table row with {key} in the output")
+
+
+def torchrun_entry(card: str) -> dict:
+    """Step 3: ``torchrun --nproc_per_node 1 -m
+    commefficient_torch.cv_train --server_shard --collective_plan int8``
+    on synthetic CIFAR10 (16 images a class, 16 clients, one epoch) in a
+    subprocess with a 300 s timeout: exit 0 and finite losses."""
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, COMMEFFICIENT_SYNTHETIC_PER_CLASS="16",
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "commefficient_torch.cv_train",
+               *HEADLINE, "--server_shard", "--collective_plan", "int8",
+               "--dataset_dir", os.path.join(tmp, "cifar10"), "--iid",
+               "--num_clients", "16", "--num_epochs", "1", "--seed", "0"]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=300)
+        wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-4000:], file=sys.stderr)
+    assert proc.returncode == 0, f"torchrun cv_train exit {proc.returncode}"
+    row = table_row(proc.stdout, "train_loss")
+    for key in ("train_loss", "test_loss"):
+        assert np.isfinite(float(row[key])), row
+    out = {"phase": "multi", "step": "torchrun cv_train", "row": row,
+           "wall_s": wall, "card": card}
+    print(json.dumps(out))
+    return out
+
+
+def _gloo_rank(rank: int, n: int, tmp: str) -> None:
+    """One rank of step 4: gloo on ``cuda:0``, the headline round sharded,
+    replicated and sharded under ``--fused_epilogue`` from the seed; the
+    weights and the kernels' launches of each round (counts set to 0 just
+    before it) written to ``tmp``."""
+    import torch.distributed as dist
+
+    from commefficient_torch.parallel import ClientGroup
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=n)
+    try:
+        kernels.library()
+        group = ClientGroup(None, rank, n, torch.device("cuda", 0))
+        with deterministic_cudnn():
+            for name, extra in (("sharded", ["--server_shard"]),
+                                ("replicated", []),
+                                ("fused", ["--server_shard",
+                                           "--fused_epilogue"])):
+                _, fm, opt, sched, one_round = _build_group_round(extra,
+                                                                  group)
+                kernels.reset_launch_counts()
+                loss = one_round(synthetic_batch(0))[0]
+                assert np.all(np.isfinite(loss))
+                np.save(os.path.join(tmp, f"{name}{rank}.npy"),
+                        _weights(fm).cpu().numpy())
+                with open(os.path.join(tmp, f"{name}{rank}.json"), "w") as f:
+                    json.dump(kernels.launch_counts(), f)
+                del fm, opt, sched
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_two_ranks(card: str, world1_w: np.ndarray) -> dict:
+    """Step 4: two gloo ranks on the one card (gloo takes all_reduce,
+    all_gather_into_tensor, reduce_scatter_tensor and all_to_all_single
+    on CUDA tensors, PERF.md; two NCCL ranks cannot share a GPU). One
+    sharded, one replicated and one sharded ``--fused_epilogue`` headline
+    round from the seed: the ranks' weights equal, sharded equal to
+    replicated bit for bit (a sum of two addends has one order), and
+    within ``rtol=1e-4, atol=1e-6`` of the one-rank round with 99% of its
+    kept set (the ranks sum the client gradients in another order). Rank
+    1's launches (its chunks start at ``t0 = 7``) equal the launches a
+    round per rank derived from the code (SHARDED_PER_ROUND,
+    SHARDED_FUSED_PER_ROUND)."""
+    import multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_gloo_rank, args=(r, 2, tmp))
+                 for r in range(2)]
+        t = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(1.0, 300 - (time.perf_counter() - t)))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        assert not alive, "gloo ranks timed out"
+        assert all(p.exitcode == 0 for p in procs), \
+            [p.exitcode for p in procs]
+        w = {f"{nm}{r}": np.load(os.path.join(tmp, f"{nm}{r}.npy"))
+             for nm in ("sharded", "replicated", "fused") for r in (0, 1)}
+        counts = {}
+        for nm in ("sharded", "fused"):
+            with open(os.path.join(tmp, f"{nm}1.json")) as f:
+                counts[nm] = json.load(f)
+    for nm, want in (("sharded", SHARDED_PER_ROUND),
+                     ("fused", SHARDED_FUSED_PER_ROUND)):
+        got = {k: v for k, v in counts[nm].items() if v}
+        assert got == want, f"gloo rank 1 {nm} launches {got} != {want}"
+    u32 = {k: v.view(np.uint32) for k, v in w.items()}
+    assert np.array_equal(u32["sharded0"], u32["sharded1"]), "ranks differ"
+    assert np.array_equal(u32["fused0"], u32["fused1"]), "fused ranks differ"
+    assert np.all(np.isfinite(w["fused0"]))
+    assert np.array_equal(u32["sharded0"], u32["replicated0"]), \
+        "2-rank sharded != replicated"
+    w0 = _weights_init_headline()
+    np.testing.assert_allclose(w["sharded0"], world1_w, rtol=1e-4, atol=1e-6)
+    a = set(np.flatnonzero(w["sharded0"] != w0))
+    b = set(np.flatnonzero(world1_w != w0))
+    overlap = len(a & b) / max(len(b), 1)
+    assert overlap >= 0.99, overlap
+    out = {"phase": "multi", "step": "gloo 2 ranks on cuda:0",
+           "kept_overlap_with_world1": overlap,
+           "launches_rank1": counts["sharded"],
+           "launches_rank1_fused_epilogue": counts["fused"],
+           "fused_max_abs_diff_vs_sharded": float(np.abs(
+               w["fused0"] - w["sharded0"]).max()),
+           "max_abs_diff_vs_world1": float(np.abs(w["sharded0"]
+                                                  - world1_w).max()),
+           "wall_s": time.perf_counter() - t, "card": card}
+    print(json.dumps(out))
+    return out
+
+
+def _weights_init_headline() -> np.ndarray:
+    """The headline model's seeded initial weights (flat)."""
+    from commefficient_torch.federated.aggregator import init_model_
+    from commefficient_torch.ops.flat import ParamLayout
+
+    m = ResNet9()
+    init_model_(m, 0)
+    return ParamLayout(m).flatten(dict(m.named_parameters())).numpy()
+
+
+def hf_gpt2_state(seed: int = 0) -> dict:
+    """A seeded GPT-2-small state dict under HF's names (vocab 50,257,
+    1,024 positions, 12 layers of 768; ``Conv1D`` weights ``(in,
+    out)``)."""
+    gen = torch.Generator().manual_seed(seed)
+    E, V, P, L = 768, 50_257, 1024, 12
+
+    def t(*shape, std=0.02, base=0.0):
+        return base + std * torch.randn(shape, generator=gen)
+
+    sd = {"transformer.wte.weight": t(V, E),
+          "transformer.wpe.weight": t(P, E, std=0.01)}
+    for i in range(L):
+        p = f"transformer.h.{i}."
+        sd.update({
+            p + "ln_1.weight": t(E, std=0.1, base=1.0), p + "ln_1.bias": t(E),
+            p + "attn.c_attn.weight": t(E, 3 * E),
+            p + "attn.c_attn.bias": t(3 * E),
+            p + "attn.c_proj.weight": t(E, E), p + "attn.c_proj.bias": t(E),
+            p + "ln_2.weight": t(E, std=0.1, base=1.0), p + "ln_2.bias": t(E),
+            p + "mlp.c_fc.weight": t(E, 4 * E), p + "mlp.c_fc.bias": t(4 * E),
+            p + "mlp.c_proj.weight": t(4 * E, E),
+            p + "mlp.c_proj.bias": t(E)})
+    sd["transformer.ln_f.weight"] = t(E, std=0.1, base=1.0)
+    sd["transformer.ln_f.bias"] = t(E)
+    return sd
+
+
+def write_safetensors(path: str, sd: dict) -> None:
+    """The safetensors layout (float32): an 8-byte little-endian header
+    length, the JSON header, the raw bytes."""
+    header, off = {}, 0
+    for name, x in sd.items():
+        n = x.numel() * 4
+        header[name] = {"dtype": "F32", "shape": list(x.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    h = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(len(h).to_bytes(8, "little"))
+        f.write(h)
+        for x in sd.values():
+            f.write(x.contiguous().numpy().tobytes())
+
+
+def hf_gpt2(card: str, gpt2_f32: dict) -> dict:
+    """Step 5: a seeded GPT-2-small checkpoint written as
+    ``model.safetensors`` and ``pytorch_model.bin``; both loaded
+    (``load_hf_gpt2``) bit-equal; the run's initial weights from it (HF
+    rows kept, the embedding grown to 50,262) and the load's time;
+    GPT2_TIMED_ROUNDS timed rounds from those weights (tokens/sec, peak
+    memory, beside phase 9's f32 leg); ``gpt2_train`` for 2 rounds from
+    the directory and ``--finetune`` on its run dir: a finite val NLL and
+    the loaded leaves the saved ones."""
+    from commefficient_torch import gpt2_train
+    from commefficient_torch.convert import flax_from_port, params_from_flax
+    from commefficient_torch.data_utils.tokenization import (
+        ATTR_TO_SPECIAL_TOKEN,
+        get_tokenizer,
+    )
+    from commefficient_torch.federated.checkpoint import load_checkpoint
+    from commefficient_torch.models.gpt2 import load_hf_gpt2
+    from commefficient_torch.ops.flat import ParamLayout
+
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        sd = hf_gpt2_state()
+        st_dir, bin_dir = os.path.join(tmp, "st"), os.path.join(tmp, "bin")
+        os.makedirs(st_dir)
+        os.makedirs(bin_dir)
+        t = time.perf_counter()
+        write_safetensors(os.path.join(st_dir, "model.safetensors"), sd)
+        torch.save(sd, os.path.join(bin_dir, "pytorch_model.bin"))
+        out["write_s"] = time.perf_counter() - t
+        model = GPT2DoubleHeads(**GPT2_MODEL)
+        layout = ParamLayout(model)
+        template = flax_from_port(dict(model.named_parameters()), layout)
+        loaded = {}
+        for name, dr in (("safetensors", st_dir), ("bin", bin_dir)):
+            t = time.perf_counter()
+            loaded[name] = load_hf_gpt2(template, dr)
+            out[f"load_{name}_s"] = time.perf_counter() - t
+
+        def leaves(tree, prefix=()):
+            for kk in sorted(tree):
+                if isinstance(tree[kk], dict):
+                    yield from leaves(tree[kk], prefix + (kk,))
+                else:
+                    yield prefix + (kk,), tree[kk]
+
+        pairs = list(zip(leaves(loaded["safetensors"]),
+                         leaves(loaded["bin"])))
+        assert len(pairs) == 150, len(pairs)
+        for (pa, a), (pb, b) in pairs:
+            assert pa == pb and np.array_equal(a.view(np.uint32),
+                                               b.view(np.uint32)), pa
+        assert np.array_equal(loaded["bin"]["wte"]["embedding"],
+                              sd["transformer.wte.weight"].numpy())
+        del loaded, pairs
+
+        tok = get_tokenizer("gpt2")
+        tok.add_special_tokens(ATTR_TO_SPECIAL_TOKEN)
+        args = parse_args(default_lr=4e-2, argv=GPT2_BASE + [
+            "--dataset_name", "PERSONA", "--num_clients", "8",
+            "--model_checkpoint", st_dir])
+        t = time.perf_counter()
+        flat, what = gpt2_train.initial_weights(args, model, len(tok))
+        out["initial_weights_s"] = time.perf_counter() - t
+        assert what == "local pretrained GPT-2 weights", what
+        wte = layout.params(flat)["wte.embedding"]
+        assert wte.shape == (50_262, 768)
+        assert torch.equal(wte[:50_257], sd["transformer.wte.weight"])
+        print(f"hf gpt2: wrote both files in {out['write_s']:.2f} s, loaded "
+              f"safetensors {out['load_safetensors_s']:.2f} s, bin "
+              f"{out['load_bin_s']:.2f} s (bit-equal, 150 leaves), initial "
+              f"weights {out['initial_weights_s']:.2f} s")
+
+        # timed rounds from the HF weights
+        train_loss, val_loss = make_gpt2_losses(model)
+        torch.cuda.reset_peak_memory_stats()
+        fm = FedModel(model, train_loss, args, val_loss, num_clients=8,
+                      init_params=flat)
+        opt = FedOptimizer(fm, args)
+        sched = LambdaLR(opt, lambda step: 0.04)
+
+        def one_round(batch):
+            sched.step()
+            res = fm(batch)
+            opt.step()
+            return res
+
+        _, rps = timed_rounds(one_round, gpt2_batch(), HEADLINE_PER_ROUND,
+                              "hf gpt2", n=GPT2_TIMED_ROUNDS)
+        tokens = GPT2_W * GPT2_B * GPT2_C * GPT2_T
+        out["tokens_per_sec"] = rps * tokens
+        out["peak_memory_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        del fm, opt, sched, model
+        torch.cuda.empty_cache()
+        print(f"hf gpt2 tokens/sec {out['tokens_per_sec']:.1f} (phase 9 f32 "
+              f"{gpt2_f32['tokens_per_sec']:.1f}), peak memory "
+              f"{out['peak_memory_GB']:.2f} GB (phase 9 f32 "
+              f"{gpt2_f32['peak_memory_GB']:.2f}) ({card}, same call)")
+
+        # gpt2_train for 2 rounds from the directory, then --finetune
+        os.environ["COMMEFFICIENT_SYNTHETIC_CLIENTS"] = "8"
+        data = ["--dataset_dir", os.path.join(tmp, "persona")]
+        try:
+            loader, _ = gpt2_train.get_data_loaders(
+                parse_args(default_lr=4e-2, argv=GPT2_BASE + data), tok)
+            spe = loader.steps_per_epoch()
+            os.environ["COMMEFFICIENT_RUN_DIR"] = os.path.join(tmp, "run")
+            kernels.reset_launch_counts()
+            stats = gpt2_train.train(GPT2_BASE + data + [
+                "--model_checkpoint", st_dir,
+                "--num_epochs", str(1.5 / spe)])
+            counts = kernels.launch_counts()
+            assert np.isfinite(stats["val_nll"]), stats
+            assert counts["sketch_estimates"] == 2, counts  # 2 rounds
+            os.environ["COMMEFFICIENT_RUN_DIR"] = os.path.join(tmp, "ft")
+            ft = GPT2_BASE + data + ["--finetune", "--finetune_path",
+                                     os.path.join(tmp, "run")]
+            ft_stats = gpt2_train.train(ft)
+        finally:
+            os.environ.pop("COMMEFFICIENT_SYNTHETIC_CLIENTS", None)
+            os.environ.pop("COMMEFFICIENT_RUN_DIR", None)
+        assert np.isfinite(ft_stats["val_nll"]), ft_stats
+        fargs = parse_args(default_lr=4e-2, argv=ft)
+        fargs.model_checkpoint = fargs.finetune_path
+        fmodel = GPT2DoubleHeads(**GPT2_MODEL)
+        fflat, fwhat = gpt2_train.initial_weights(fargs, fmodel, len(tok))
+        flayout = ParamLayout(fmodel)
+        saved, _ = load_checkpoint(os.path.join(tmp, "run", "model"))
+        want = flayout.flatten(params_from_flax(saved, flayout))
+        assert torch.equal(fflat, want), "finetune loaded other weights"
+        assert fwhat == "saved run dir: 150 tensors, fresh: 0", fwhat
+    out.update(val_nll=float(stats["val_nll"]),
+               finetune_val_nll=float(ft_stats["val_nll"]),
+               finetune_loaded=fwhat, rounds=2)
+    print(json.dumps({"phase": "multi", "step": "hf gpt2", **out}))
+    return out
+
+
+def phase_multi(card: str, headline_rps: float, gpt2_f32: dict) -> dict:
+    """Phase 11: the multi-GPU data plane and HF GPT-2 weights."""
+    out = {"kernels": {label: sharded_kernels(card, label, d, 20 + i)
+                       for i, (label, d) in enumerate(SHARD_GEOMETRIES)}}
+    out["nccl"] = nccl_world1(card, headline_rps)
+    out["torchrun"] = torchrun_entry(card)
+    # the one-rank round's weights after one round, for step 4
+    with deterministic_cudnn():
+        _, fm, opt, sched, one_round = _build_group_round([], None)
+        one_round(synthetic_batch(0))
+        world1_w = _weights(fm).cpu().numpy()
+        del fm, opt, sched
+    torch.cuda.empty_cache()
+    out["gloo"] = gloo_two_ranks(card, world1_w)
+    out["hf"] = hf_gpt2(card, gpt2_f32)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-times", nargs="*", metavar="NAME",
@@ -2216,18 +2920,35 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     cv = phase_cv_models(card)
     wall["10 cv models"] = time.perf_counter() - t
+    t = time.perf_counter()
+    multi = phase_multi(card, rps, gpt2["legs"]["gpt2 f32"])
+    wall["11 multi-GPU and HF"] = time.perf_counter() - t
     print("phase wall seconds (phase 3 includes the build): " + json.dumps(
         {k: round(v, 2) for k, v in wall.items()}))
 
     # launches: each kernel from the timed window of the path that runs it
     launches = {**{k: counts[k] for k in HEADLINE_KERNELS},
                 **{k: opt_counts[k] for k in OPT_IN_KERNELS}}
+    # the sharded path (phase 11): the launches of rank 1 (t0 > 0) in the
+    # 2-rank gloo round (the epilogue: of its --fused_epilogue round), the
+    # largest error at t0 > 0 over both geometries (kernels 2 and 6 are
+    # not on that path)
+    gloo = multi["gloo"]
+
+    def sharded(name):
+        got = gloo["launches_rank1_fused_epilogue" if name == "fused_epilogue"
+                   else "launches_rank1"]
+        errs = [g["max_abs_err"][name] for g in multi["kernels"].values()
+                if name in g["max_abs_err"]]
+        return {"launches_per_round_per_rank": got.get(name, 0),
+                "max_abs_err": max(errs) if errs else None}
+
     summary = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
          **{key: rows[k.name][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}}
+             "library_ms")}, "sharded": sharded(k.name)}
         for k in kernels.KERNELS]}
     print(json.dumps({"rounds_per_sec": rps,
                       "opt_in_rounds_per_sec": opt_rps,
@@ -2245,6 +2966,10 @@ def main(argv=None) -> int:
                           for k, v in cv["legs"].items()},
                       "imagenet_images_per_sec":
                           cv["imagenet"]["images_per_sec"],
+                      "nccl_world1_rounds_per_sec": {
+                          k: v["rounds_per_sec"]
+                          for k, v in multi["nccl"]["legs"].items()},
+                      "hf_gpt2_tokens_per_sec": multi["hf"]["tokens_per_sec"],
                       **{"opt_in_" + k: v for k, v in opt_prof.items()}}))
     print(json.dumps(summary))
     print(card)

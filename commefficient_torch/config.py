@@ -3,11 +3,14 @@ rounds read (all five ``--mode`` values, every model of the registry,
 CIFAR10/100, EMNIST, ImageNet and PersonaChat), with the JAX package's
 names and defaults (``commefficient_tpu/config.py``), and its fedavg
 invariants. ``cv_train`` carries ``--finetune``, ``--finetuned_from``
-and ``--finetune_path``; ``gpt2_train`` refuses them (``ITEM_FINETUNE``).
+and ``--finetune_path``; ``gpt2_train`` ``--finetune`` and
+``--finetune_path`` (the JAX package's eval-only path).
 ``--train_dataloader_workers`` / ``--val_dataloader_workers`` > 0 wrap
 the loaders in ``PrefetchLoader``.
 
-GPT-2's flags (``gpt2_train``): ``--model_checkpoint``,
+GPT-2's flags (``gpt2_train``): ``--model_checkpoint`` (a local
+directory of HF weights, ``pytorch_model.bin`` or ``model.safetensors``,
+or a saved run dir's ``model.npz``; nothing is downloaded),
 ``--num_candidates``, ``--max_history``, ``--lm_coef``, ``--mc_coef``,
 ``--personality_permutations``, ``--max_seq_len`` (256, or
 ``COMMEFFICIENT_GPT2_SEQ_LEN``), ``--eval_before_start`` and ``--bf16``
@@ -16,7 +19,14 @@ CV losses take it too).
 
 Deviations: ``--device`` takes ``{cuda, cpu}`` with ``cuda`` the default
 (a CUDA request on a host without a card raises; there is no fallback to
-the CPU), and the run is on one device (``--num_devices`` -1 or 1).
+the CPU). Under ``torchrun`` (``WORLD_SIZE`` set) each rank is one GPU
+(``cuda:LOCAL_RANK``, NCCL; gloo with ``--device cpu``) and the round's
+client slots split over ``min(--num_devices, world)`` ranks, reduced to
+the largest divisor of ``--num_workers`` (``parallel/mesh.py``);
+``--server_shard``, ``--reduce_dtype`` and the flat ``--collective_plan``
+forms carry the JAX package's checks. ``--shard_devices > 1``, the
+per-axis plans and ``--collective_plan auto`` raise naming queue 1 item
+5a.
 
 The opt-in sketch paths ``--stream_sketch``, ``--sketch_coalesce`` and
 ``--fused_epilogue`` are carried, with the JAX package's notes for
@@ -47,11 +57,9 @@ DATASETS = ["CIFAR10", "CIFAR100", "EMNIST", "ImageNet", "PERSONA"]
 DP_MODES = ["worker", "server"]
 
 _Q1 = "ROADMAP.md queue 1"
-ITEM_GPT2_HF = (f"{_Q1} item 4a (HF GPT-2 weights: load_hf_gpt2 and "
-                f"GPT-2's --finetune)")
-ITEM_FINETUNE = (f"{_Q1} item 4a (GPT-2's --finetune and the weights it "
-                 f"starts from)")
-ITEM_MULTI = f"{_Q1} item 5 (multi-GPU)"
+ITEM_MULTI_2D = (f"{_Q1} item 5a (the 2-D clients x shard plane, "
+                 f"per-axis collective plans, --collective_plan auto, the "
+                 f"multi-host seam)")
 ITEM_RUNTIME = f"{_Q1} item 6 (runtime planes)"
 ITEM_PARALLEL = (f"{_Q1} item 7 (parallel/: sequence, tensor, pipeline "
                  f"and expert parallelism)")
@@ -59,12 +67,9 @@ ITEM_PARALLEL = (f"{_Q1} item 7 (parallel/: sequence, tensor, pipeline "
 # (flag, dest, takes a value, roadmap item)
 UNPORTED = (
     ("--tensorboard", "use_tensorboard", False, ITEM_RUNTIME),
+    ("--plan_error_budget", "plan_error_budget", True, ITEM_MULTI_2D),
     ("--profile", "do_profile", False, ITEM_RUNTIME),
     ("--state_dir", "state_dir", True, ITEM_RUNTIME),
-    ("--server_shard", "server_shard", False, ITEM_MULTI),
-    ("--shard_devices", "shard_devices", True, ITEM_MULTI),
-    ("--reduce_dtype", "reduce_dtype", True, ITEM_MULTI),
-    ("--collective_plan", "collective_plan", True, ITEM_MULTI),
     ("--seq_parallel", "seq_parallel", True, ITEM_PARALLEL),
     ("--model_devices", "model_devices", True, ITEM_PARALLEL),
     ("--pipeline_devices", "pipeline_devices", True, ITEM_PARALLEL),
@@ -134,7 +139,31 @@ def build_parser(default_lr=None) -> argparse.ArgumentParser:
                         default="cuda",
                         help="cuda (default; raises without a card) or cpu.")
     parser.add_argument("--num_devices", type=int, default=-1,
-                        help="The port runs on one device: -1 or 1.")
+                        help="Ranks of the client group under torchrun; "
+                             "-1 = the world.")
+    # the sharded server data plane and its collectives (the JAX
+    # package's flags; the flat plans)
+    parser.add_argument("--server_shard", action="store_true",
+                        dest="server_shard",
+                        help="Shard the server aggregation/update over the "
+                             "client group (reduce-scatter -> per-shard "
+                             "update -> all-gather).")
+    parser.add_argument("--shard_devices", type=int, default=1,
+                        help="The 2-D (clients x shard) plane: not ported, "
+                             "only 1.")
+    parser.add_argument("--reduce_dtype", choices=["float32", "int8"],
+                        default="float32",
+                        help="Legacy alias of --collective_plan: int8 sets "
+                             "every wire leg to the block-scaled "
+                             "stochastic-rounding collectives; requires "
+                             "--server_shard.")
+    parser.add_argument("--collective_plan", type=str, default="",
+                        help="Per-leg wire dtypes: 'leg=dtype,...' over "
+                             "legs {uplink,table,downlink} and dtypes "
+                             "{fp32,int8,fp8_e4m3,int4} (unnamed legs stay "
+                             "fp32), or one bare dtype for every leg. "
+                             "Quantized legs require --server_shard.")
+
     parser.add_argument("--iid", action="store_true", dest="do_iid")
     parser.add_argument("--train_dataloader_workers", type=int, default=0)
     parser.add_argument("--val_dataloader_workers", type=int, default=0)
@@ -237,15 +266,49 @@ def reject_unported(args) -> None:
         if (val is not None) if valued else bool(val):
             raise NotImplementedError(
                 f"{flag} is not ported yet ({item})")
-    if getattr(args, "num_devices", -1) not in (-1, 1):
+    if int(getattr(args, "shard_devices", 1) or 1) > 1:
         raise NotImplementedError(
-            f"--num_devices {args.num_devices}: the port runs on one device "
-            f"({ITEM_MULTI})")
+            f"--shard_devices {args.shard_devices} is not ported "
+            f"({ITEM_MULTI_2D})")
+    spec = (getattr(args, "collective_plan", None) or "").strip()
+    if spec == "auto" or ":" in spec:
+        raise NotImplementedError(
+            f"--collective_plan {spec} is not ported ({ITEM_MULTI_2D})")
+
+
+def check_collectives(args) -> None:
+    """The JAX package's checks of the sharded server's flags
+    (``commefficient_tpu/config.py``)."""
+    from commefficient_torch.ops.collectives import parse_collective_plan
+
+    if args.reduce_dtype == "int8":
+        assert args.server_shard, (
+            "--reduce_dtype int8 quantizes the transmit reduce of the "
+            "sharded server plane; it requires --server_shard")
+    plan_spec = (getattr(args, "collective_plan", "") or "").strip()
+    if plan_spec:
+        assert args.reduce_dtype == "float32", (
+            "--collective_plan and --reduce_dtype int8 both name wire "
+            "dtypes; use --collective_plan alone (the int8 alias equals "
+            "--collective_plan int8)")
+        # fail at parse time, not rounds into a run
+        plan = parse_collective_plan(plan_spec)
+        if plan.quantized:
+            assert args.server_shard, (
+                "quantized --collective_plan legs require "
+                "--server_shard (the block-scaled collectives live on "
+                "the sharded server plane)")
+    assert args.shard_devices >= 1, "--shard_devices must be >= 1"
+    if args.server_shard:
+        assert not args.do_topk_down, (
+            "--server_shard is incompatible with --topk_down (stale-"
+            "weight reconstruction lives on dense per-client rows)")
 
 
 def parse_args(default_lr=None, argv=None):
     args = build_parser(default_lr).parse_args(argv)
     reject_unported(args)
+    check_collectives(args)
     if args.mode == "fedavg":
         assert args.local_batch_size == -1, "fedavg requires local_batch_size == -1"
         assert args.local_momentum == 0, "fedavg requires local_momentum == 0"

@@ -49,6 +49,16 @@ the final weights as ``<checkpoint_path>/<model>.npz``. ``--batchnorm``
 puts flax's BatchNorm in every ResNet9 cell. Runs on ``cuda`` unless
 ``--device cpu``; float32 (TF32 off), the forward and backward in
 bfloat16 under ``--bf16``.
+
+On N GPUs, one process per GPU:
+
+    torchrun --nproc_per_node N -m commefficient_torch.cv_train ... \
+        [--server_shard] [--collective_plan int8]
+
+Each rank reads the same seeded batches and runs its ``W / n`` slots of
+every round (``parallel/mesh.py``; rank 0 prepares a synthetic dataset
+first); only rank 0 prints and writes files. The process group is
+destroyed on exit.
 """
 
 from __future__ import annotations
@@ -95,6 +105,12 @@ from commefficient_torch.federated.engine import (
 from commefficient_torch.federated.losses import make_cv_losses
 from commefficient_torch.models import ResNet9
 from commefficient_torch.ops.flat import ParamLayout
+from commefficient_torch.parallel import (
+    destroy_distributed,
+    main_first,
+    quiet_unless_main,
+    start_client_group,
+)
 from commefficient_torch.utils import (
     PiecewiseLinear,
     TableLogger,
@@ -369,9 +385,26 @@ def check_trainable(model) -> None:
             "batch_stats), so neither does the port (ROADMAP.md queue 3)")
 
 
-def main(argv=None):
+def main(argv=None, init_method=None):
+    """``init_method``: the process group's rendezvous under ``torchrun``
+    (default ``env://``)."""
     args = parse_args(argv=argv)
-    device = resolve_device(args.device)
+    group = start_client_group(args, init_method)
+    try:
+        if group is not None and not group.active:
+            print(f"rank {group.rank} idle: the client group has "
+                  f"{group.size} ranks")
+            return None
+        return _main(args, group)
+    finally:
+        if group is not None:
+            destroy_distributed()
+
+
+def _main(args, group):
+    quiet_unless_main()
+    device = resolve_device(group.device if group is not None
+                            else args.device)
     set_fp32_numerics()
     if args.lr_scale is None:
         args.lr_scale = 0.4  # cifar10-fast default peak LR
@@ -382,7 +415,7 @@ def main(argv=None):
 
     model = build_model_and_config(args)
     check_trainable(model)
-    train_loader, test_loader = get_data_loaders(args)
+    train_loader, test_loader = main_first(lambda: get_data_loaders(args))
     compute_loss_train, compute_loss_val = make_cv_losses(
         model, compute_dtype=torch.bfloat16 if args.do_bf16 else None)
     layout = ParamLayout(model)
@@ -390,7 +423,8 @@ def main(argv=None):
                    else None)
     fed_model = FedModel(model, compute_loss_train, args, compute_loss_val,
                          num_clients=train_loader.dataset.num_clients,
-                         init_params=init_params, device=device)
+                         init_params=init_params, device=device,
+                         group=group)
     opt = FedOptimizer(fed_model, args,
                        param_groups=build_param_groups(args, layout))
     lr_schedule = PiecewiseLinear([0, args.pivot_epoch, args.num_epochs],
@@ -407,7 +441,7 @@ def main(argv=None):
                         resume_mid=resume_mid)
     finally:
         fed_model.finalize()
-    if args.do_checkpoint:
+    if args.do_checkpoint and fed_model.is_main:
         os.makedirs(args.checkpoint_path, exist_ok=True)
         save_checkpoint(os.path.join(args.checkpoint_path, args.model),
                         flax_from_port(fed_model.params,

@@ -18,7 +18,12 @@ per-coordinate last-changed round index, in the resident layout of the
 weights (chunked in sketch mode, flat otherwise).
 
 The round runs on one device, its per-client state on that device too
-(``rounds.init_client_states``; no host offload). DP noise draws from a
+(``rounds.init_client_states``; no host offload), or over a client group
+(``group``, a ``parallel/mesh.ClientGroup``: one process per GPU, the
+device ``cuda:LOCAL_RANK``, every rank holding the replicated weights and
+client state and running its slots of each round; ``--server_shard`` and
+``--collective_plan`` pick the sharded server and its wire dtypes). Only
+the group's rank 0 writes files. DP noise draws from a
 ``torch.Generator`` on the device, seeded with ``args.seed + 1`` as the
 JAX package seeds its key. Options of the JAX package that the port does
 not carry raise ``NotImplementedError`` naming the ROADMAP item
@@ -55,6 +60,11 @@ from commefficient_torch.federated.server import (
 )
 from commefficient_torch.federated.worker import WorkerConfig
 from commefficient_torch.models.layers import torch_conv_init_
+from commefficient_torch.ops.collectives import (
+    parse_collective_plan,
+    plan_from_reduce_dtype,
+    sr_generator,
+)
 from commefficient_torch.ops.flat import ParamLayout
 from commefficient_torch.ops.sketch import make_sketch
 
@@ -137,13 +147,24 @@ def server_config_from_args(args, grad_size: int) -> ServerConfig:
         fused_epilogue=bool(getattr(args, "fused_epilogue", False)))
 
 
+def collective_plan_from_args(args):
+    """``--collective_plan`` (flat), else the ``--reduce_dtype`` alias."""
+    spec = (getattr(args, "collective_plan", None) or "").strip()
+    if spec:
+        return parse_collective_plan(spec)
+    return plan_from_reduce_dtype(getattr(args, "reduce_dtype", None)
+                                  or "float32")
+
+
 def round_config_from_args(args, grad_size: int) -> RoundConfig:
     return RoundConfig(
         worker=worker_config_from_args(args),
         server=server_config_from_args(args, grad_size), grad_size=grad_size,
         do_test=bool(getattr(args, "do_test", False)),
         stream_sketch=bool(getattr(args, "stream_sketch", False)),
-        sketch_coalesce=bool(getattr(args, "sketch_coalesce", False)))
+        sketch_coalesce=bool(getattr(args, "sketch_coalesce", False)),
+        server_shard=bool(getattr(args, "server_shard", False)),
+        collective_plan=collective_plan_from_args(args))
 
 
 def _h2d(arr, device, staged: list, dtype=None) -> torch.Tensor:
@@ -192,15 +213,21 @@ class FedModel:
     def __init__(self, model: torch.nn.Module, compute_loss_train: Callable,
                  args, compute_loss_val: Optional[Callable] = None,
                  num_clients: Optional[int] = None,
-                 init_params: Optional[torch.Tensor] = None, device=None):
+                 init_params: Optional[torch.Tensor] = None, device=None,
+                 group=None):
         """``init_params``: the flat ``(d,)`` weights in JAX ravel order
         (``convert.flat_from_jax``); None draws the model's ``init_`` (GPT-2:
         flax's initializers) or PyTorch's default conv/linear init from a
         generator seeded with ``args.seed``. ``device`` defaults to
-        ``args.device``, and that to ``cuda``."""
+        ``args.device``, and that to ``cuda``; with ``group`` (a
+        ``ClientGroup``) it is the group's device."""
         from commefficient_torch.config import reject_unported
 
         reject_unported(args)
+        self.group = group
+        if group is not None:
+            assert group.active, "an idle rank runs no rounds"
+            device = group.device
         self.device = resolve_device(device if device is not None
                                      else getattr(args, "device", None))
         set_fp32_numerics()
@@ -235,9 +262,10 @@ class FedModel:
                                       args.num_rows, seed=args.seed,
                                       num_blocks=args.num_blocks,
                                       device=self.device)
+        self.round_config = cfg
         self.steps = build_round_step(
             compute_loss_train, compute_loss_val or compute_loss_train,
-            self.param_layout, cfg, self.sketch)
+            self.param_layout, cfg, self.sketch, group=group)
         self.layout = self.steps.layout
         flat = flat.to(self.device)
         self.ps_weights = (self.layout.chunk(flat) if self.layout is not None
@@ -293,14 +321,22 @@ class FedModel:
     def zero_grad(self):
         pass  # gradients are per-call values
 
+    @property
+    def is_main(self) -> bool:
+        """True on the process that writes files (rank 0 of the group, or
+        the only one)."""
+        return self.group is None or self.group.is_main
+
     def save_pretrained(self, log_dir: str) -> str:
         """Write the weights and model state as ``<log_dir>/model.npz`` in
         the JAX package's ``save_checkpoint`` format (its
-        ``load_checkpoint`` reads it back to the same tree). Returns the
-        path."""
+        ``load_checkpoint`` reads it back to the same tree); rank 0 only.
+        Returns the path."""
         path = os.path.join(log_dir, "model")
-        save_checkpoint(path, flax_from_port(self.params, self.param_layout),
-                        model_state=self._model_state)
+        if self.is_main:
+            save_checkpoint(path, flax_from_port(self.params,
+                                                 self.param_layout),
+                            model_state=self._model_state)
         return path + ".npz"
 
     @property
@@ -378,12 +414,25 @@ class FedModel:
             out.append([m[h.valid] for m in ms] + [download, h.upload])
         return out
 
+    def sr_generators(self, round_no: int):
+        """The quantized legs' stochastic-rounding generators for round
+        ``round_no`` on this rank (``ops/collectives.sr_generator``), None
+        under an exact plan."""
+        plan = self.round_config.collective_plan
+        if plan is None or not plan.quantized:
+            return None
+        rank = self.group.rank if self.group is not None else 0
+        return {leg: sr_generator(self.args.seed, round_no, rank, leg,
+                                  self.device) for leg in ("up", "down")}
+
     def _apply_server(self, server_state, lr):
         """Phase 2 for ``FedOptimizer.step()``."""
         self.ps_weights, new_state, self.client_states = \
             self.steps.server_step(self.ps_weights, server_state,
                                    self.client_states, self._round_ctx, lr,
-                                   self._rng)
+                                   self._rng,
+                                   sr=self.sr_generators(
+                                       self._rounds_dispatched - 1))
         self._round_ctx = None
         return new_state
 
@@ -452,9 +501,12 @@ class FedOptimizer:
         self.param_groups = param_groups or [(None, 1.0)]
         self._lr_factor = 0.0
         self._lr = 0.0
-        self.server_state = init_server_state(fed_model.server_config,
-                                              fed_model.sketch,
-                                              device=fed_model.device)
+        rc = fed_model.round_config
+        self.server_state = init_server_state(
+            fed_model.server_config, fed_model.sketch,
+            device=fed_model.device,
+            shard_n=fed_model.group.size if rc.server_shard else 0,
+            plan=rc.collective_plan)
         self._base_lr_vec = None
         if len(self.param_groups) > 1 or self.param_groups[0][0] is not None:
             vec = np.zeros(fed_model.grad_size, np.float32)

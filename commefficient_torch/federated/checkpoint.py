@@ -24,13 +24,22 @@
 The run state holds the state the port has: ``ps_weights``,
 ``client/{velocities,errors,weights}``, ``model_state/*``,
 ``server/{velocity,error}``, ``np_rng/keys``, the download accounting
-(``acct/*``) and the meta. The device generator (DP noise) is saved under
+(``acct/*``) and the meta. Over a client group every rank joins the save
+and rank 0 writes: the sharded server's dense velocity and error are
+all-gathered to the full ``(d,)`` view, and the quantized collectives'
+carries to the JAX package's global layouts (``server/qres`` stacked
+``(n, ...)`` over the ranks, ``server/dres`` the gathered tiles); on
+restore each rank takes its slice. A replicated run state restores into
+the sharded plane and the other way round; a carry the file lacks, or
+holds at another group size, restarts from zero with a warning (an
+error-feedback remainder may). The device generator (DP noise) is saved under
 the port's own key, ``torch_rng/state``: the JAX package's ``rng`` holds
 JAX key data, which a JAX file's restore in the port ignores (and refuses
 under ``--dp``, whose noise streams differ); the JAX package's restore
 reads ``rng``, so it does not restore a port run state. A file that
 carries a plane the port does not have (``part/*``, ``pop/*``, ``io/*``,
-``server/qres*``, ``server/dres*``, a ``client_store`` snapshot, a
+the per-axis ``server/qres.*`` / ``server/dres.*``, a ``client_store``
+snapshot, a
 ``--client_dropout`` stream that has been drawn from) raises
 ``NotImplementedError`` naming its ROADMAP item. The JAX package saves its
 dropout stream (``drop_rng/*``) on every run; one still at its seed
@@ -54,8 +63,8 @@ _UNPORTED_PLANES = (
     ("part/", f"{_Q1} item 6 (runtime planes: participation)"),
     ("pop/", f"{_Q1} item 6 (runtime planes: population churn)"),
     ("io/", f"{_Q1} item 6 (runtime planes: storage faults)"),
-    ("server/qres", f"{_Q1} item 5 (multi-GPU: quantized collectives)"),
-    ("server/dres", f"{_Q1} item 5 (multi-GPU: quantized collectives)"),
+    ("server/qres.", f"{_Q1} item 5a (per-axis collective plans)"),
+    ("server/dres.", f"{_Q1} item 5a (per-axis collective plans)"),
 )
 _UNPORTED_META = (
     ("client_store", f"{_Q1} item 6 (runtime planes: host offload)"),
@@ -207,8 +216,26 @@ def save_run_state(path: str, fed_model, optimizer, lr_scheduler,
             arrays["client/" + name] = _host(arr)
     arrays.update({"model_state/" + k: _host(v)
                    for k, v in fm._model_state.items()})
-    arrays["server/velocity"] = _host(optimizer.server_state.velocity)
-    arrays["server/error"] = _host(optimizer.server_state.error)
+    st = optimizer.server_state
+    group = getattr(fm, "group", None)
+    sharded = group is not None and fm.round_config.server_shard
+    if sharded:
+        from commefficient_torch.ops.collectives import all_gather_tiled
+
+        def gather(t):
+            return all_gather_tiled(t, group)
+
+        dense = fm.server_config.mode != "sketch"
+        for name, t in (("velocity", st.velocity), ("error", st.error)):
+            arrays["server/" + name] = _host(
+                gather(t)[:fm.grad_size] if dense else t)
+        if st.qres is not None:
+            arrays["server/qres"] = _host(gather(st.qres[None]))
+        if st.dres is not None:
+            arrays["server/dres"] = _host(gather(st.dres))
+    else:
+        arrays["server/velocity"] = _host(st.velocity)
+        arrays["server/error"] = _host(st.error)
     arrays["torch_rng/state"] = fm._rng.get_state().numpy()
     np_name, np_keys, np_pos, np_has_gauss, np_cached = \
         np.random.get_state()
@@ -257,8 +284,12 @@ def save_run_state(path: str, fed_model, optimizer, lr_scheduler,
     # expected name; the tmp name keeps the .npz suffix so np.savez does
     # not append another one
     tmp = path[:-len(".npz")] + ".tmp.npz"
-    np.savez(tmp, **arrays)
-    os.replace(tmp, path)
+    if getattr(fm, "is_main", True):
+        np.savez(tmp, **arrays)
+        os.replace(tmp, path)
+    if group is not None:
+        # no rank reads the file before rank 0 has written it
+        torch.distributed.barrier(group=group.group)
     return path
 
 
@@ -271,8 +302,9 @@ def maybe_save_run_state(args, epoch: int, fed_model, optimizer,
             fed_model, optimizer, lr_scheduler, next_epoch=epoch + 1,
             totals=totals)
         print(f"run state saved to {path} (epoch {epoch + 1})")
-        prune_run_states(args.checkpoint_path,
-                         getattr(args, "keep_checkpoints", 0))
+        if getattr(fed_model, "is_main", True):
+            prune_run_states(args.checkpoint_path,
+                             getattr(args, "keep_checkpoints", 0))
 
 
 def save_round_state(args, epoch: int, rounds_done: int, sampler_state,
@@ -290,8 +322,9 @@ def save_round_state(args, epoch: int, rounds_done: int, sampler_state,
                    "extras": extras or {}})
     print(f"run state saved to {path} "
           f"(epoch {epoch + 1}, round {rounds_done})")
-    prune_run_states(args.checkpoint_path,
-                     getattr(args, "keep_checkpoints", 0))
+    if getattr(fed_model, "is_main", True):
+        prune_run_states(args.checkpoint_path,
+                         getattr(args, "keep_checkpoints", 0))
     return path
 
 
@@ -438,9 +471,13 @@ def load_run_state(path: str, fed_model, optimizer, lr_scheduler,
     dev = fm.device
     check_shape("ps_weights", flat["ps_weights"].shape, (fm.grad_size,))
     cur = optimizer.server_state
+    group = getattr(fm, "group", None)
+    dense_sharded = (group is not None and fm.round_config.server_shard
+                     and fm.server_config.mode != "sketch")
+    server_shape = (fm.grad_size,) if dense_sharded else cur.velocity.shape
     check_shape("server velocity", flat["server/velocity"].shape,
-                cur.velocity.shape)
-    check_shape("server error", flat["server/error"].shape, cur.error.shape)
+                server_shape)
+    check_shape("server error", flat["server/error"].shape, server_shape)
     cs = {}
     for name in ("velocities", "errors", "weights"):
         key = "client/" + name
@@ -492,9 +529,44 @@ def load_run_state(path: str, fed_model, optimizer, lr_scheduler,
                        for k, v in sorted(mstate.items())}
     if "torch_rng/state" in flat:
         fm._rng.set_state(torch.from_numpy(flat["torch_rng/state"].copy()))
+    def server_resident(arr):
+        # the file holds the full (d,) view; a sharded dense run takes its
+        # slice of the d_pad-padded vector
+        t = torch.from_numpy(np.array(arr)).to(dev)
+        if dense_sharded:
+            per = cur.velocity.shape[0]
+            t = torch.nn.functional.pad(t, (0, per * group.size - t.shape[0]))
+            t = t[group.rank * per:(group.rank + 1) * per].clone()
+        return t
+
+    def restore_carry(name, have, what):
+        """This rank's slice of a quantized collective's carry when the
+        file holds one at this geometry, else zeros (with a warning)."""
+        import warnings
+
+        if have is None:
+            return None
+        key = "server/" + name
+        n = group.size
+        arr = flat.get(key)
+        if name == "qres":
+            want = (n,) + tuple(have.shape)
+        else:
+            want = (n * have.shape[0],) + tuple(have.shape[1:])
+        if arr is not None and tuple(arr.shape) == want:
+            a = arr[group.rank] if name == "qres" else \
+                arr[group.rank * have.shape[0]:
+                    (group.rank + 1) * have.shape[0]]
+            return torch.from_numpy(np.array(a)).to(dev)
+        warnings.warn(f"checkpoint has no matching {key} carry; "
+                      f"re-initializing the {what} residual to zero")
+        return torch.zeros_like(have)
+
     optimizer.server_state = ServerState(
-        velocity=torch.from_numpy(flat["server/velocity"].copy()).to(dev),
-        error=torch.from_numpy(flat["server/error"].copy()).to(dev))
+        velocity=server_resident(flat["server/velocity"]),
+        error=server_resident(flat["server/error"]),
+        qres=restore_carry("qres", cur.qres, "quantized-reduce"),
+        dres=restore_carry("dres", cur.dres, "quantized-downlink"))
     np_meta = meta["np_rng"]
     np.random.set_state((np_meta["name"], flat["np_rng/keys"],
                          np_meta["pos"], np_meta["has_gauss"],

@@ -1,6 +1,6 @@
-"""The federated round on one device: the port of
-``commefficient_tpu/federated/rounds.py`` (the unsharded round, without
-guards and telemetry).
+"""The federated round on one device or over a client group: the port
+of ``commefficient_tpu/federated/rounds.py`` (without guards and
+telemetry).
 
 One round, in the JAX package's order:
 
@@ -62,10 +62,25 @@ The model state is ResNet9's BatchNorm running statistics under
 statistics, computed from the round's state over its microbatches in
 order, and the round's new state is their slot-masked average
 (``average_model_state``), on both client-phase forms.
+
+Over a client group (``group``, a ``parallel/mesh.ClientGroup``: one
+process per GPU) every rank receives the whole round's batch and runs its
+``W / n`` slots. Without ``server_shard`` the rank's transmit sum is
+all-reduced before the ``/count`` division; with it the unreduced sum goes
+to ``server.sharded_server_update``, which owns the reduce. The model
+state is the slot-weighted mean over the ranks (a rank whose slots are
+all padding adds 0 to the numerator and the denominator). The per-client
+path all-gathers the slots' new state rows and metrics, so every rank's
+replicated client state stays identical. Every rank draws what the
+single-rank round draws for each slot: the fused phase draws the dropout
+masks of all W clients and takes its own, and the per-client path gives
+each slot its own generator, seeded from the round generator's state
+(``slot_generators``).
 """
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass, replace as dc_replace
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -76,6 +91,12 @@ from commefficient_torch.federated.server import (
     ServerConfig,
     ServerState,
     server_update,
+    sharded_server_update,
+)
+from commefficient_torch.ops.collectives import (
+    CollectivePlan,
+    all_gather_tiled,
+    all_reduce_sum,
 )
 from commefficient_torch.federated.worker import (
     WorkerConfig,
@@ -121,21 +142,49 @@ def _broadcast_state(model_state, W: int):
             model_state.items()}
 
 
-def average_model_state(new_ms, model_state, worker_mask: torch.Tensor):
+def average_model_state(new_ms, model_state, worker_mask: torch.Tensor,
+                        group=None):
     """The slot-masked cross-client average of the per-client model states
     (``new_ms``, a leading W axis), as the JAX package's round takes it
     (``commefficient_tpu/federated/rounds.py:847-869``): ``sum_c mask_c
     x_c / max(sum(mask), 1)``; an all-padding round keeps ``model_state``.
-    An empty state (no BatchNorm) stays empty."""
+    An empty state (no BatchNorm) stays empty. Over a ``group`` the
+    rank's slots are averaged, then the ranks' means weighted by their
+    slot counts: ``sum_r w_r m_r / max(sum_r w_r, 1)``."""
     if not model_state:
         return model_state
     wsum = worker_mask.sum()
     denom = torch.clamp(wsum, min=1.0)
-    return {k: torch.where(wsum > 0,
-                           torch.einsum("c,c...->...", worker_mask,
-                                        new_ms[k]) / denom,
-                           model_state[k])
+    local = {k: torch.einsum("c,c...->...", worker_mask, new_ms[k]) / denom
+             for k in model_state}
+    if group is not None:
+        total_w = all_reduce_sum(wsum.clone(), group)
+        tdenom = torch.clamp(total_w, min=1.0)
+        local = {k: all_reduce_sum(v * wsum, group) / tdenom
+                 for k, v in local.items()}
+        wsum = total_w
+    return {k: torch.where(wsum > 0, local[k], model_state[k])
             for k in model_state}
+
+
+def slot_generators(rng: Optional[torch.Generator], W: int):
+    """One generator for each of the round's W slots (the per-client
+    path's worker DP noise and dropout, built only where a slot draws
+    either), seeded from a hash of the round
+    generator's state and the slot index, so a slot draws the same
+    numbers on any rank of any group size; the round generator then moves
+    on by one draw. Reading a generator's state and seeding one are
+    host-only (no wait on the device). None without a round generator."""
+    if rng is None:
+        return [None] * W
+    base = hashlib.sha256(rng.get_state().numpy().tobytes()).digest()
+    gens = []
+    for i in range(W):
+        h = hashlib.sha256(base + i.to_bytes(8, "little")).digest()
+        gens.append(torch.Generator(device=rng.device).manual_seed(
+            int.from_bytes(h[:8], "little") >> 1))
+    torch.rand(1, generator=rng, device=rng.device)
+    return gens
 
 
 class RoundContext(NamedTuple):
@@ -151,6 +200,9 @@ class RoundContext(NamedTuple):
     stale_rows: Optional[torch.Tensor]
     new_vel: Optional[torch.Tensor]
     new_err: Optional[torch.Tensor]
+    # the sharded server: gradient is this rank's unreduced sum and count
+    # the round's data count (divided out after the reduce)
+    count: Optional[torch.Tensor] = None
 
 
 def init_client_states(num_clients: int, grad_size: int, wcfg: WorkerConfig,
@@ -193,6 +245,10 @@ class RoundConfig:
     # one accumulate launch per group of adjacent leaves (--sketch_coalesce;
     # only inside the streaming client phase)
     sketch_coalesce: bool = False
+    # the sharded server over the client group (--server_shard) and the
+    # wire dtype of each collective leg (--collective_plan; None: fp32)
+    server_shard: bool = False
+    collective_plan: Optional[CollectivePlan] = None
 
 
 class FederatedSteps(NamedTuple):
@@ -210,9 +266,23 @@ class FederatedSteps(NamedTuple):
 def build_round_step(compute_loss_train: Callable,
                      compute_loss_val: Callable, params: ParamLayout,
                      cfg: RoundConfig,
-                     sketch: Optional[CountSketch] = None) -> FederatedSteps:
+                     sketch: Optional[CountSketch] = None,
+                     group=None) -> FederatedSteps:
+    """The round's steps; ``group`` (a ``ClientGroup``) splits the slots
+    over ranks (None: the single-device round)."""
     wcfg, scfg = cfg.worker, cfg.server
     assert wcfg.mode == scfg.mode, (wcfg.mode, scfg.mode)
+    server_shard = bool(cfg.server_shard)
+    plan = cfg.collective_plan
+    if server_shard:
+        assert group is not None, \
+            "--server_shard needs a client group (a process group)"
+        assert not wcfg.do_topk_down, \
+            "--server_shard is incompatible with --topk_down (stale-" \
+            "weight math lives on dense client rows)"
+    if plan is not None and plan.quantized:
+        assert server_shard, \
+            "quantized collective legs require --server_shard"
     assert params.d == cfg.grad_size, (params.d, cfg.grad_size)
     if wcfg.mode == "sketch":
         assert sketch is not None and sketch.d == cfg.grad_size, \
@@ -260,31 +330,40 @@ def build_round_step(compute_loss_train: Callable,
         return layout.unchunk(w) if chunked else w
 
     draw_rng = getattr(compute_loss_train, "draw_rng", None)
+    slot_draws = draw_rng is not None or (wcfg.do_dp
+                                          and wcfg.dp_mode == "worker")
 
-    def vmapped_losses(p, mstates, micro, rng):
-        """The W clients' losses on one microbatch under ``vmap``. A loss
-        that draws dropout masks (``draw_rng``) gets each client's own,
-        drawn here from the round's generator before the ``vmap`` and
-        passed in as a batched input, so the masks differ per client and
-        per microbatch and follow from the seed."""
+    def vmapped_losses(p, mstates, micro_full, rng, lo, hi):
+        """Clients ``[lo, hi)``'s losses on one microbatch under ``vmap``
+        (``micro_full`` holds all W). A loss that draws dropout masks
+        (``draw_rng``) gets each client's own, drawn here for all W
+        clients from the round's generator before the ``vmap`` and passed
+        in as a batched input, so the masks differ per client and per
+        microbatch, follow from the seed, and do not depend on the
+        group's size."""
         def per_client(ms, b, keep):
             return compute_loss_train(p, ms, b, keep, True)
 
+        micro = {k: v[lo:hi] for k, v in micro_full.items()}
         if draw_rng is None:
             return vmap(per_client, in_dims=(0, 0, None))(mstates, micro,
                                                           None)
         if rng is None:
             raise ValueError("this loss draws dropout masks; the fused "
                              "client phase needs the round's generator")
-        return vmap(per_client)(mstates, micro, draw_rng(rng, micro))
+        return vmap(per_client)(mstates, micro,
+                                draw_rng(rng, micro_full)[lo:hi])
 
-    def fused_clients(ps, model_state, batch, worker_mask, rng):
-        """One-gradient client phase. Returns (summed gradient incl. weight
-        decay in the resident layout, the per-client model states stacked
-        on a leading W axis, per-client metrics). Each client's model
-        state runs through its microbatches in order, from the round's
-        state, as the JAX package's scan carries it."""
-        W, B = batch["mask"].shape
+    def fused_clients(ps, model_state, batch, worker_mask, rng, lo, hi):
+        """One-gradient client phase over clients ``[lo, hi)`` of the
+        round (``batch`` holds all W; ``worker_mask`` is this rank's).
+        Returns (summed gradient incl. weight decay in the resident
+        layout, the per-client model states stacked on a leading axis,
+        per-client metrics). Each client's model state runs through its
+        microbatches in order, from the round's state, as the JAX
+        package's scan carries it."""
+        B = batch["mask"].shape[1]
+        W = hi - lo
         mb, n_iters, pad = microbatch_plan(B, wcfg.microbatch_size)
         stacked = split_microbatches(batch, mb, n_iters, pad, example_dim=1)
         # differentiate by leaf and lay the leaf gradients out once
@@ -299,7 +378,8 @@ def build_round_step(compute_loss_train: Callable,
         m_sums = None
         for it in range(n_iters):
             micro = {k: v[it] for k, v in stacked.items()}
-            ls, ms, cs, mstates = vmapped_losses(p, mstates, micro, rng)
+            ls, ms, cs, mstates = vmapped_losses(p, mstates, micro, rng, lo,
+                                                 hi)
             mstates = {k: v.detach() for k, v in mstates.items()}
             total = torch.sum(ls * worker_mask)
             g = torch.zeros_like(ps)
@@ -320,7 +400,8 @@ def build_round_step(compute_loss_train: Callable,
             + (counts,)
         return g_sum, mstates, metrics
 
-    def fused_clients_stream(ps3, model_state, batch, worker_mask, rng):
+    def fused_clients_stream(ps3, model_state, batch, worker_mask, rng, lo,
+                             hi):
         """Streaming client phase: like ``fused_clients``, but the
         microbatch loop carries the ``(r, c_pad)`` table instead of a
         d-sized gradient. The backward pass differentiates with respect to
@@ -334,7 +415,8 @@ def build_round_step(compute_loss_train: Callable,
         With one microbatch and no weight decay the table equals the
         composed ``sketch_chunks(g_sum)`` under ``==``; several microbatches
         or weight decay reorder float32 sums, as in the JAX package."""
-        W, B = batch["mask"].shape
+        B = batch["mask"].shape[1]
+        W = hi - lo
         mb, n_iters, pad = microbatch_plan(B, wcfg.microbatch_size)
         stacked = split_microbatches(batch, mb, n_iters, pad, example_dim=1)
         leaves = params.leaves(flat_res(ps3))
@@ -347,7 +429,8 @@ def build_round_step(compute_loss_train: Callable,
         m_sums = None
         for it in range(n_iters):
             micro = {k: v[it] for k, v in stacked.items()}
-            ls, ms, cs, mstates = vmapped_losses(p, mstates, micro, rng)
+            ls, ms, cs, mstates = vmapped_losses(p, mstates, micro, rng, lo,
+                                                 hi)
             mstates = {k: v.detach() for k, v in mstates.items()}
             total = torch.sum(ls * worker_mask)
             grads = torch.autograd.grad(total, leaves)
@@ -417,11 +500,12 @@ def build_round_step(compute_loss_train: Callable,
         return transmit, new_vel, new_err, new_ms, metrics
 
     def per_client_path(ps, vel_rows, err_rows, stale_rows, model_state,
-                        batch, lr, rng, worker_mask):
-        """The per-client path: the W slots one after the other, each
-        through ``one_client``; the transmits summed in slot order. The
-        worker math runs on the flat vector, so a chunked round
-        materializes the flat view once here."""
+                        batch, lr, gens, worker_mask):
+        """The per-client path: the slots one after the other, each
+        through ``one_client`` with its own generator (``gens``); the
+        transmits summed in slot order. The worker math runs on the flat
+        vector, so a chunked round materializes the flat view once
+        here."""
         ps_flat = layout.unchunk(ps) if chunked else ps
         total = None
         vels, errs, mss, metrics = [], [], [], []
@@ -430,7 +514,7 @@ def build_round_step(compute_loss_train: Callable,
                 ps_flat, None if vel_rows is None else vel_rows[i],
                 None if err_rows is None else err_rows[i],
                 None if stale_rows is None else stale_rows[i], model_state,
-                {k: v[i] for k, v in batch.items()}, lr, rng,
+                {k: v[i] for k, v in batch.items()}, lr, gens[i],
                 worker_mask[i])
             total = t if total is None else total + t
             vels.append(nv)
@@ -460,6 +544,10 @@ def build_round_step(compute_loss_train: Callable,
         worker_mask = batch["worker_mask"]
         data = {k: v for k, v in batch.items()
                 if k not in ("client_ids", "worker_mask")}
+        W = worker_mask.shape[0]
+        # this rank's slots (all of them without a group)
+        lo, hi = group.slots(W) if group is not None else (0, W)
+        local_mask = worker_mask[lo:hi]
         vel_rows = _rows(client_states.velocities, ids)
         err_rows = _rows(client_states.errors, ids)
         stale_rows = _rows(client_states.weights, ids)
@@ -467,15 +555,34 @@ def build_round_step(compute_loss_train: Callable,
             if stream:
                 # the streaming phase's sum is already the table
                 total, new_ms, metrics = fused_clients_stream(
-                    ps, model_state, data, worker_mask, rng)
+                    ps, model_state, data, local_mask, rng, lo, hi)
             else:
-                total, new_ms, metrics = fused_clients(ps, model_state, data,
-                                                       worker_mask, rng)
+                total, new_ms, metrics = fused_clients(
+                    ps, model_state, data, local_mask, rng, lo, hi)
             new_vel, new_err = vel_rows, err_rows
         else:
+            # a slot draws only dropout masks and worker DP noise; without
+            # either the round generator is left as it was
+            gens = (slot_generators(rng, W)[lo:hi] if slot_draws
+                    else [None] * (hi - lo))
+
+            def mine(x):
+                return None if x is None else x[lo:hi]
+
             total, new_vel, new_err, new_ms, metrics = per_client_path(
-                ps, vel_rows, err_rows, stale_rows, model_state, data, lr,
-                rng, worker_mask)
+                ps, mine(vel_rows), mine(err_rows), mine(stale_rows),
+                model_state, {k: v[lo:hi] for k, v in data.items()}, lr,
+                gens, local_mask)
+            if group is not None:
+                # every rank keeps the whole replicated client state
+                new_vel = (None if new_vel is None
+                           else all_gather_tiled(new_vel, group))
+                new_err = (None if new_err is None
+                           else all_gather_tiled(new_err, group))
+        if group is not None:
+            # the W slots' metrics on every rank, in slot order
+            metrics = tuple(all_gather_tiled(
+                torch.stack(metrics, 1).contiguous(), group).unbind(1))
         if sketch_after_sum and not stream:
             # one sketch of the dense sum; the fused gradient is already in
             # the (T, S, 128) layout
@@ -483,22 +590,38 @@ def build_round_step(compute_loss_train: Callable,
                      else sketch_vec(sketch, total))
         # data-weighted average
         total_count = torch.clamp(batch["mask"].sum(), min=1.0)
-        ctx = RoundContext(total / total_count, ids, worker_mask, vel_rows,
-                           err_rows, stale_rows, new_vel, new_err)
-        return ctx, average_model_state(new_ms, model_state, worker_mask), \
-            metrics
+        if server_shard:
+            # the sharded server reduces, then divides
+            gradient, count = total, total_count
+        elif group is not None:
+            gradient, count = all_reduce_sum(total, group) / total_count, \
+                None
+        else:
+            gradient, count = total / total_count, None
+        ctx = RoundContext(gradient, ids, worker_mask, vel_rows, err_rows,
+                           stale_rows, new_vel, new_err, count)
+        return ctx, average_model_state(new_ms, model_state, local_mask,
+                                        group), metrics
 
     def server_step(ps, server_state: ServerState,
                     client_states: ClientStates, ctx: RoundContext, lr,
-                    rng: Optional[torch.Generator]):
+                    rng: Optional[torch.Generator], sr=None):
         """Phase 2: the server rule, the weight update, and the client-state
         scatter. Returns (new weights, new server state, client states);
-        the client-state arrays are updated in place."""
+        the client-state arrays are updated in place. ``sr``: the
+        quantized legs' stochastic-rounding generators (``{"up": ...,
+        "down": ...}``, the sharded server only)."""
         # fedavg applies the lr on the clients; the server sees lr = 1
         eff_lr = 1.0 if wcfg.mode == "fedavg" else lr
-        update, new_state = server_update(ctx.gradient, server_state, scfg,
-                                          eff_lr, sketch=sketch, rng=rng,
-                                          layout=layout)
+        resketched = None
+        if server_shard:
+            update, new_state, resketched = sharded_server_update(
+                ctx.gradient, server_state, scfg, eff_lr, ctx.count, group,
+                sketch=sketch, layout=layout, rng=rng, plan=plan, sr=sr)
+        else:
+            update, new_state = server_update(ctx.gradient, server_state,
+                                              scfg, eff_lr, sketch=sketch,
+                                              rng=rng, layout=layout)
         new_ps = ps - update
 
         # the server's masks of the participating clients' state:
@@ -510,9 +633,15 @@ def build_round_step(compute_loss_train: Callable,
         if wcfg.mode == "true_topk" and wcfg.local_momentum > 0:
             keep_vel = (update == 0).to(torch.float32)[None, :]
         elif wcfg.mode == "sketch" and (wcfg.has_velocity or wcfg.has_error):
-            resketch = sketch_chunks if chunked else sketch_vec
-            cell_keep = (resketch(sketch, update) == 0).to(
-                torch.float32)[None]
+            if resketched is not None and not torch.is_tensor(eff_lr):
+                # the sharded server's summed partial re-sketch of the
+                # unscaled update: linear, so scaled by the scalar lr it
+                # is the re-sketch of the scaled update
+                sketched_update = resketched * eff_lr
+            else:
+                resketch = sketch_chunks if chunked else sketch_vec
+                sketched_update = resketch(sketch, update)
+            cell_keep = (sketched_update == 0).to(torch.float32)[None]
             keep_vel = keep_err = cell_keep
 
         def scatter(state_arr, old_rows, new_rows, keep):

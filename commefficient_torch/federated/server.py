@@ -23,6 +23,19 @@ learning rate) and the new state:
   sweep over the estimates (``ops/sketch.fused_epilogue_chunks``),
   bit-identical to the composed pair.
 
+``sharded_server_update`` is the sharded server data plane
+(``--server_shard``, the JAX package's ``sharded_server_update``): each
+rank of a ``parallel/mesh.ClientGroup`` takes its unreduced transmit sum,
+the reduce runs in the server step (reduce-scatter of the dense
+transmit, all-reduce of the sketch table; exact, or a quantized
+error-feedback collective under a ``CollectivePlan``), the ``/count``
+division follows it, the server rule runs on this rank's slice (dense
+modes: a ``d_pad / n`` slice of velocity and error, ``d_pad = n * ceil(d /
+n)``; sketch mode: the replicated table algebra and ``ceil(T / n)`` chunks
+of the estimate plane, ``t0 = rank * ceil(T / n)``), the top-k threshold
+comes from the counts exchanged over the group, and the update slice is
+all-gathered (quantized under a quantized downlink leg).
+
 The legality asserts of ``ServerConfig`` are the JAX package's, verbatim.
 """
 
@@ -34,14 +47,26 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from commefficient_torch.ops.flat import ChunkLayout
+from commefficient_torch.ops.collectives import (
+    FP32_PLAN,
+    all_gather_tiled,
+    all_reduce_sum,
+    quantized_all_gather,
+    quantized_psum,
+    quantized_psum_scatter,
+    reduce_scatter_sum,
+)
 from commefficient_torch.ops.sketch import (
     CountSketch,
     estimates_chunks,
+    estimates_chunks_local,
     fused_epilogue_chunks,
+    fused_epilogue_chunks_local,
     sketch_chunks,
+    sketch_chunks_local,
     unsketch_chunks,
 )
-from commefficient_torch.ops.topk import topk
+from commefficient_torch.ops.topk import topk, topk_dense_nd
 
 MODES = ("sketch", "true_topk", "local_topk", "fedavg", "uncompressed")
 ERROR_TYPES = ("none", "local", "virtual")
@@ -89,26 +114,58 @@ class ServerConfig:
 
 class ServerState(NamedTuple):
     """(velocity, error): ``(num_rows, c_pad)`` tables in sketch mode,
-    else ``(grad_size,)`` vectors."""
+    else ``(grad_size,)`` vectors; under the sharded server's dense modes
+    this rank's ``(d_pad / n,)`` slices.
+
+    The quantized collectives' error-feedback carries (this rank's; None
+    where the leg is exact): ``qres``, the uplink's (the dense transmit
+    reduce, ``(d_pad,)``) or the table leg's (``(r, c_pad)``) remainder;
+    ``dres``, the downlink's remainder of this rank's update tile (sketch
+    mode ``(ceil(T / n), S, 128)``, dense ``(d_pad / n,)``)."""
 
     velocity: torch.Tensor
     error: torch.Tensor
+    qres: Optional[torch.Tensor] = None
+    dres: Optional[torch.Tensor] = None
 
 
 def init_server_state(cfg: ServerConfig,
                       sketch: Optional[CountSketch] = None,
-                      device=None) -> ServerState:
+                      device=None, shard_n: int = 0,
+                      plan=None) -> ServerState:
     """Zero state on ``device`` (the sketch's device in sketch mode, else
-    ``device``, default ``cuda``)."""
+    ``device``, default ``cuda``). ``shard_n > 0`` is the sharded server
+    over a group of that size (this rank's slices of dense state);
+    ``plan`` (a ``CollectivePlan``) decides which carries exist: ``qres``
+    where the mode's uplink leg (``uplink``, sketch mode ``table``) is
+    quantized, ``dres`` where the ``downlink`` is. A quantized leg needs
+    ``shard_n``."""
+    plan = FP32_PLAN if plan is None else plan
     if cfg.mode == "sketch":
         assert sketch is not None
         shape, device = sketch.table_shape, sketch.device
     else:
-        shape = (cfg.grad_size,)
+        d = cfg.grad_size
+        shape = (-(-d // shard_n),) if shard_n else (d,)
         device = torch.device(device if device is not None else "cuda")
-    return ServerState(
-        velocity=torch.zeros(shape, dtype=torch.float32, device=device),
-        error=torch.zeros(shape, dtype=torch.float32, device=device))
+
+    def zeros(sh):
+        return torch.zeros(sh, dtype=torch.float32, device=device)
+
+    up = plan.table if cfg.mode == "sketch" else plan.uplink
+    qres = dres = None
+    if up != "float32":
+        assert shard_n > 0, \
+            "quantized collective legs require --server_shard"
+        qres = zeros(shape if cfg.mode == "sketch"
+                     else (shape[0] * shard_n,))
+    if plan.downlink != "float32":
+        assert shard_n > 0, \
+            "quantized collective legs require --server_shard"
+        dres = zeros((-(-sketch.T // shard_n), sketch.sublanes, 128)
+                     if cfg.mode == "sketch" else shape)
+    return ServerState(velocity=zeros(shape), error=zeros(shape),
+                       qres=qres, dres=dres)
 
 
 def server_update(gradient: torch.Tensor, state: ServerState,
@@ -194,3 +251,122 @@ def _sketched(sketched_grad, state, cfg, lr, sketch: CountSketch,
         # the reference aliases Verror and Vvelocity after masking
         error = velocity
     return update * lr, ServerState(velocity, error)
+
+
+def sharded_server_update(transmit_local: torch.Tensor, state: ServerState,
+                          cfg: ServerConfig, lr, count, group,
+                          sketch: Optional[CountSketch] = None,
+                          layout: Optional[ChunkLayout] = None,
+                          rng: Optional[torch.Generator] = None, plan=None,
+                          sr: Optional[dict] = None):
+    """One sharded server step on this rank of ``group`` (a
+    ``ClientGroup``). ``transmit_local`` is this rank's UNREDUCED transmit
+    sum (the ``(r, c_pad)`` table, or the flat ``(d,)`` sum); ``count`` the
+    round's data count, divided out after the reduce, so the reduced sum
+    is the replicated round's. ``state`` holds this rank's slices.
+    ``plan`` picks each leg's wire dtype; a quantized leg draws its
+    stochastic-rounding uniforms from ``sr[leg]`` (``"up"``, ``"down"``)
+    and carries its remainder in ``qres`` / ``dres``. ``rng`` draws server
+    DP noise: one ``(d_pad,)`` draw on every rank, sliced locally, so the
+    ranks agree on the noise vector.
+
+    Returns ``(the lr-scaled full update, this rank's new state, the
+    re-sketched update table or None)``: in sketch mode the sum of the
+    ranks' partial re-sketches, whose nonzero cells mask the state (the
+    round reuses it for the client tables)."""
+    plan = FP32_PLAN if plan is None else plan
+    sr = sr or {}
+    n, rank = group.size, group.rank
+    up = plan.table if cfg.mode == "sketch" else plan.uplink
+    down = plan.downlink
+    up_q, down_q = up != "float32", down != "float32"
+    if up_q:
+        assert state.qres is not None, \
+            "quantized uplink/table leg needs the qres carry " \
+            "(init_server_state plan=)"
+    if down_q:
+        assert state.dres is not None, \
+            "quantized downlink leg needs the dres carry " \
+            "(init_server_state plan=)"
+    zero = torch.zeros((), dtype=torch.float32,
+                       device=transmit_local.device)
+
+    if cfg.mode == "sketch":
+        assert sketch is not None and layout is not None
+        if up_q:
+            # one scale a table row (c_pad = S * 128)
+            table, new_qres = quantized_psum(
+                transmit_local, group, sr.get("up"), residual=state.qres,
+                block=sketch.c_pad, dtype=up)
+        else:
+            table = all_reduce_sum(transmit_local.clone(), group)
+            new_qres = state.qres
+        table = table / count
+        velocity = table + cfg.virtual_momentum * state.velocity
+        if cfg.error_type == "virtual":
+            error = state.error + velocity
+        else:  # "local", and "none" (see _sketched)
+            error = velocity
+        Tn = -(-sketch.T // n)
+        t0 = rank * Tn
+        est_local = estimates_chunks_local(sketch, error, t0, Tn)
+        if cfg.fused_epilogue:
+            upd_local, part = fused_epilogue_chunks_local(
+                sketch, est_local, t0, cfg.k, group)
+        else:
+            upd_local = topk_dense_nd(est_local, cfg.k, group)
+            part = sketch_chunks_local(sketch, upd_local, t0)
+        resketched = all_reduce_sum(part, group)
+        cell_nz = resketched != 0
+        if cfg.error_type == "virtual":
+            error = torch.where(cell_nz, zero, error)
+        velocity = torch.where(cell_nz, zero, velocity)
+        if cfg.error_type == "local":
+            error = velocity
+        if down_q:
+            # one scale a resident (S, 128) chunk
+            full, new_dres = quantized_all_gather(
+                upd_local, group, sr.get("down"), residual=state.dres,
+                block=sketch.sublanes * 128, dtype=down)
+        else:
+            full, new_dres = all_gather_tiled(upd_local, group), state.dres
+        update = full[:sketch.T]
+        return (update * lr, ServerState(velocity, error, new_qres,
+                                         new_dres), resketched)
+
+    d = cfg.grad_size
+    d_pad = -(-d // n) * n
+    x = torch.nn.functional.pad(transmit_local, (0, d_pad - d))
+    if up_q:
+        tile, new_qres = quantized_psum_scatter(
+            x, group, sr.get("up"), residual=state.qres, dtype=up)
+    else:
+        tile, new_qres = reduce_scatter_sum(x, group), state.qres
+    grad = tile / count
+    velocity = grad + cfg.virtual_momentum * state.velocity
+    error = state.error
+    if cfg.mode == "true_topk":
+        error = error + velocity
+        upd_local = topk_dense_nd(error, cfg.k, group)
+        nz = upd_local != 0
+        error = torch.where(nz, zero, error)
+        velocity = torch.where(nz, zero, velocity)
+    else:  # uncompressed, local_topk, fedavg: the update is the velocity
+        upd_local = velocity
+        if cfg.mode == "uncompressed" and cfg.do_dp \
+                and cfg.dp_mode == "server":
+            assert rng is not None, "server DP needs a generator"
+            per = d_pad // n
+            noise = torch.randn(d_pad, generator=rng, dtype=torch.float32,
+                                device=upd_local.device)
+            upd_local = upd_local + cfg.noise_multiplier * \
+                noise[rank * per:(rank + 1) * per]
+    if down_q:
+        full, new_dres = quantized_all_gather(
+            upd_local, group, sr.get("down"), residual=state.dres,
+            dtype=down)
+    else:
+        full, new_dres = all_gather_tiled(upd_local, group), state.dres
+    update = full[:d]
+    return (update * lr, ServerState(velocity, error, new_qres, new_dres),
+            None)

@@ -22,13 +22,22 @@ The model is the full GPT-2-small double-heads geometry (vocabulary
 ``max(50262, len(tokenizer))``, 1,024 positions), or, under ``--test`` or
 ``COMMEFFICIENT_TINY_MODEL``, n_embd 64, 2 layers (or
 ``COMMEFFICIENT_TINY_LAYERS``), 2 heads, vocabulary ``max(512,
-len(tokenizer))``. It starts from the seeded initializers: HF weights
-(``load_hf_gpt2``) and ``--finetune`` are not ported (ROADMAP.md queue 1
-item 4a). The tokenizer is the port's byte-level BPE
+len(tokenizer))``. It starts from the seeded initializers, then, in the
+JAX package's order: HF weights from the local directory
+``--model_checkpoint`` (``models/gpt2.load_hf_gpt2``: ``pytorch_model.bin``
+or ``model.safetensors``) with the embedding grown to the model's
+vocabulary (``resize_token_embeddings``), else a saved run dir's ``model.npz``
+(``checkpoint.load_matching``, at least one tensor loaded). Nothing is
+downloaded: without weight files the run keeps the seeded init.
+``--finetune`` points the model load at ``--finetune_path`` (a saved run
+dir), keeps the base tokenizer, and only evaluates. The tokenizer is the
+port's byte-level BPE
 (``data_utils/tokenization.py``) and the data the seeded synthetic
 PersonaChat when no ``personachat_self_original.json`` is under
 ``--dataset_dir``. Runs on ``cuda`` unless ``--device cpu``; float32
 (TF32 off), the forward and backward in bfloat16 under ``--bf16``.
+Under ``torchrun --nproc_per_node N`` the round's slots split over the
+ranks, as in ``cv_train``; rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -40,11 +49,8 @@ import random
 import numpy as np
 import torch
 
-from commefficient_torch.config import (
-    ITEM_FINETUNE,
-    ITEM_GPT2_HF,
-    parse_args,
-)
+from commefficient_torch.config import parse_args
+from commefficient_torch.convert import flax_from_port, params_from_flax
 from commefficient_torch.data_utils import (
     FedLoader,
     FedPERSONA,
@@ -56,10 +62,13 @@ from commefficient_torch.data_utils.tokenization import (
 )
 from commefficient_torch.federated import FedModel, FedOptimizer, LambdaLR
 from commefficient_torch.federated.aggregator import (
+    init_model_,
     resolve_device,
     set_fp32_numerics,
 )
 from commefficient_torch.federated.checkpoint import (
+    load_checkpoint,
+    load_matching,
     maybe_save_run_state,
     restore_mid_epoch,
     resume_run,
@@ -70,7 +79,18 @@ from commefficient_torch.federated.engine import (
     cohort_lookahead,
 )
 from commefficient_torch.federated.losses import make_gpt2_losses
-from commefficient_torch.models.gpt2 import GPT2DoubleHeads
+from commefficient_torch.models.gpt2 import (
+    GPT2DoubleHeads,
+    load_hf_gpt2,
+    resize_token_embeddings,
+)
+from commefficient_torch.ops.flat import ParamLayout
+from commefficient_torch.parallel import (
+    destroy_distributed,
+    main_first,
+    quiet_unless_main,
+    start_client_group,
+)
 from commefficient_torch.utils import (
     PiecewiseLinear,
     TableLogger,
@@ -80,7 +100,6 @@ from commefficient_torch.utils import (
 
 # the model's vocabulary at full width: GPT-2's 50,257 and 5 special tokens
 FULL_VOCAB = 50257 + 5
-HF_WEIGHT_FILES = ("pytorch_model.bin", "model.safetensors", "model.npz")
 
 
 def get_data_loaders(args, tokenizer):
@@ -117,6 +136,39 @@ def build_model(args, len_tokenizer: int) -> GPT2DoubleHeads:
             n_head=2)
     return GPT2DoubleHeads(vocab_size=max(FULL_VOCAB, len_tokenizer),
                            n_positions=1024)
+
+
+def initial_weights(args, model: GPT2DoubleHeads, len_tokenizer: int):
+    """The run's starting flat weights, in the JAX package's order: the
+    seeded init; over it HF weights from ``args.model_checkpoint``, else a
+    saved run dir's ``model.npz`` (every leaf whose path and shape match;
+    at least one must). Returns ``(flat weights, what was loaded)``.
+
+    The HF embedding grows to the model's vocabulary, ``max(50,262,
+    len(tokenizer))`` (``build_model``). The JAX package grows it to
+    ``len(tokenizer)``, the same size with GPT-2's own tokenizer; with a
+    smaller one (the vendored vocabulary without a checkpoint's
+    ``vocab.json``) its table and model disagree and it cannot start."""
+    layout = ParamLayout(model)
+    init_model_(model, args.seed)
+    template = flax_from_port(dict(model.named_parameters()), layout)
+    tree, what = template, "seeded init"
+    pretrained = load_hf_gpt2(template, args.model_checkpoint)
+    npz = os.path.join(args.model_checkpoint, "model.npz")
+    if pretrained is not None:
+        tree = resize_token_embeddings(
+            pretrained, max(len_tokenizer, model.vocab_size))
+        what = "local pretrained GPT-2 weights"
+    elif os.path.exists(npz):
+        ckpt_params, _ = load_checkpoint(npz[:-len(".npz")])
+        tree, loaded, skipped = load_matching(template, ckpt_params)
+        assert loaded > 0, (
+            f"--finetune checkpoint {args.model_checkpoint} shares no "
+            f"tensor shapes with the current model geometry "
+            f"(COMMEFFICIENT_TINY_MODEL / --max_seq_len mismatch?); "
+            f"refusing to silently train from scratch")
+        what = f"saved run dir: {loaded} tensors, fresh: {len(skipped)}"
+    return layout.flatten(params_from_flax(tree, layout)), what
 
 
 def run_batches(model, opt, lr_scheduler, loader, args, timer, training,
@@ -239,21 +291,29 @@ def train_gpt2(model, opt, scheduler, train_loader, val_loader, args,
     return test_gpt2(model, val_loader, args, timer=timer)
 
 
-def train(argv=None):
+def train(argv=None, init_method=None):
+    """``init_method``: the process group's rendezvous under ``torchrun``
+    (default ``env://``)."""
     args = parse_args(default_lr=4e-2, argv=argv)
-    if args.do_finetune or args.finetuned_from:
-        raise NotImplementedError(
-            f"--finetune is not ported for GPT-2 yet ({ITEM_FINETUNE})")
-    device = resolve_device(args.device)
+    group = start_client_group(args, init_method)
+    try:
+        if group is not None and not group.active:
+            print(f"rank {group.rank} idle: the client group has "
+                  f"{group.size} ranks")
+            return None
+        return _train(args, group)
+    finally:
+        if group is not None:
+            destroy_distributed()
+
+
+def _train(args, group):
+    quiet_unless_main()
+    device = resolve_device(group.device if group is not None
+                            else args.device)
     set_fp32_numerics()
     if not args.dataset_name:
         args.dataset_name = "PERSONA"
-    if os.path.isdir(args.model_checkpoint) and any(
-            os.path.exists(os.path.join(args.model_checkpoint, f))
-            for f in HF_WEIGHT_FILES):
-        raise NotImplementedError(
-            f"loading weights from {args.model_checkpoint} is not ported "
-            f"yet ({ITEM_GPT2_HF})")
     print(args)
     sync = torch.cuda.synchronize if device.type == "cuda" else None
     timer = Timer(synch=sync)
@@ -263,25 +323,38 @@ def train(argv=None):
     tokenizer = get_tokenizer(args.model_checkpoint)
     print(f"tokenizer: {type(tokenizer).__name__} (vocab {len(tokenizer)})")
     tokenizer.add_special_tokens(ATTR_TO_SPECIAL_TOKEN)
+    # --finetune loads the model from a saved run dir and keeps the base
+    # tokenizer; the run then only evaluates
+    if args.do_finetune and not args.do_test:
+        args.model_checkpoint = args.finetune_path
     model = build_model(args, len(tokenizer))
     compute_loss_train, compute_loss_val = make_gpt2_losses(
         model, args.lm_coef, args.mc_coef,
         compute_dtype=torch.bfloat16 if args.do_bf16 else None)
 
     log_dir = make_logdir(args)
-    os.makedirs(log_dir, exist_ok=True)
-    tokenizer.save_pretrained(log_dir)
-    train_loader, val_loader = get_data_loaders(args, tokenizer)
+    if group is None or group.is_main:
+        os.makedirs(log_dir, exist_ok=True)
+        tokenizer.save_pretrained(log_dir)
+    train_loader, val_loader = main_first(
+        lambda: get_data_loaders(args, tokenizer))
 
+    init_params, what = initial_weights(args, model, len(tokenizer))
+    print(f"initial weights: {what}")
     fed_model = FedModel(model, compute_loss_train, args, compute_loss_val,
                          num_clients=train_loader.dataset.num_clients,
-                         device=device)
+                         init_params=init_params, device=device,
+                         group=group)
     opt = FedOptimizer(fed_model, args)
     spe = train_loader.steps_per_epoch()
     print("Steps per epoch", spe)
     lr_schedule = PiecewiseLinear([0, args.num_epochs * spe],
                                   [args.lr_scale, 0.0])
     scheduler = LambdaLR(opt, lr_lambda=lambda s: lr_schedule(s))
+    if args.do_finetune:
+        # the JAX package's eval-only finetune path
+        return test_gpt2(fed_model, val_loader, args, logger=TableLogger(),
+                         timer=timer)
     start_epoch, totals, resume_mid = resume_run(args, fed_model, opt,
                                                  scheduler)
     try:

@@ -30,12 +30,22 @@ batched input a ``torch.func.vmap`` over clients takes,
 ``dropout_numel`` long). ``dropout=None`` is the deterministic (eval)
 forward. A kept value is ``x / (1 - p)``, as in flax.
 
+``load_hf_gpt2`` reads HF-format GPT-2 weights from a local directory
+(``pytorch_model.bin`` through ``torch.load(weights_only=True)``, else
+``model.safetensors`` parsed here with ``torch.frombuffer``; BF16 tensors
+become float32, exactly) into a flax-layout parameter tree: HF's
+``Conv1D`` weights are stored ``(in, out)``, as flax's ``kernel`` is, so
+each lands in the leaf's declared layout and crosses into the modules
+through ``convert.params_from_flax``. Nothing is downloaded.
+
 Tensor, sequence, pipeline and expert parallelism are not ported
-(ROADMAP.md queue 1 item 7); neither is ``load_hf_gpt2``.
+(ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -44,7 +54,7 @@ from torch import nn
 from torch.nn import functional as F
 
 __all__ = ["GPT2Config", "GPT2DoubleHeads", "Block", "GeneratorKeep",
-           "MaskKeep", "resize_token_embeddings"]
+           "MaskKeep", "resize_token_embeddings", "load_hf_gpt2"]
 
 LN_EPSILON = 1e-5
 
@@ -288,4 +298,96 @@ def resize_token_embeddings(params: dict, new_vocab_size: int,
                                dtype=wte.dtype)
     out = dict(params)
     out["wte"] = {"embedding": torch.cat([wte, extra.to(wte.device)])}
+    return out
+
+
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool}
+
+
+def _load_safetensors(path: str) -> dict:
+    """Read a ``.safetensors`` file without the ``safetensors`` package:
+    an 8-byte little-endian header length, a JSON header mapping each
+    tensor's name to ``{dtype, shape, data_offsets}``, then the raw bytes.
+    Returns ``{name: CPU tensor}`` (BF16 as ``torch.bfloat16``)."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n).decode("utf-8"))
+        buf = bytearray(f.read())
+    out = {}
+    for name, spec in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _SAFETENSORS_DTYPES[spec["dtype"]]
+        lo, hi = spec["data_offsets"]
+        if hi == lo:
+            t = torch.empty(0, dtype=dtype)
+        else:
+            t = torch.frombuffer(buf, dtype=dtype, offset=lo,
+                                 count=(hi - lo) // torch.empty(
+                                     (), dtype=dtype).element_size())
+        out[name] = t.reshape(spec["shape"]).clone()
+    return out
+
+
+def _numpy_f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).cpu().numpy().copy()
+    return np.array(x, np.float32)
+
+
+def load_hf_gpt2(params_template: dict, checkpoint_dir: str):
+    """HF GPT-2 weights from ``checkpoint_dir`` (``pytorch_model.bin``
+    first, then ``model.safetensors``) in the flax layout of
+    ``params_template`` (a flax-style tree, e.g. ``convert.flax_from_port``
+    of the model's parameters): a tree of float32 numpy arrays, with every
+    leaf HF has loaded and the others (``mc_head``) copied from the
+    template. The loaded ``wte`` keeps HF's vocabulary
+    (``resize_token_embeddings`` grows it). None when neither file
+    exists; nothing is fetched."""
+    candidates = [os.path.join(checkpoint_dir, f)
+                  for f in ("pytorch_model.bin", "model.safetensors")]
+    path = next((p for p in candidates if os.path.exists(p)), None)
+    if path is None:
+        return None
+    if path.endswith(".bin"):
+        state = torch.load(path, map_location="cpu", weights_only=True)
+    else:
+        state = _load_safetensors(path)
+
+    def copy(tree):
+        return {k: copy(v) if isinstance(v, dict) else _numpy_f32(v)
+                for k, v in tree.items()}
+
+    out = copy(params_template)
+
+    def put(node, key, name):
+        arr = _numpy_f32(state[name])
+        if name != "transformer.wte.weight" and \
+                arr.shape != node[key].shape:
+            raise ValueError(f"{name}: shape {arr.shape}, the model's leaf "
+                             f"is {node[key].shape}")
+        node[key] = arr
+
+    put(out["wte"], "embedding", "transformer.wte.weight")
+    put(out["wpe"], "embedding", "transformer.wpe.weight")
+    n_layer = sum(1 for k in out if k.startswith("h") and k[1:].isdigit())
+    for i in range(n_layer):
+        p = f"transformer.h.{i}."
+        blk = out[f"h{i}"]
+        for leaf, hf in (("ln_1", "ln_1"), ("ln_2", "ln_2")):
+            put(blk[leaf], "scale", p + hf + ".weight")
+            put(blk[leaf], "bias", p + hf + ".bias")
+        for leaf, hf in (("attn_qkv", "attn.c_attn"),
+                         ("attn_proj", "attn.c_proj"),
+                         ("mlp_fc", "mlp.c_fc"),
+                         ("mlp_proj", "mlp.c_proj")):
+            # Conv1D (in, out) is flax's kernel layout
+            put(blk[leaf], "kernel", p + hf + ".weight")
+            put(blk[leaf], "bias", p + hf + ".bias")
+    put(out["ln_f"], "scale", "transformer.ln_f.weight")
+    put(out["ln_f"], "bias", "transformer.ln_f.bias")
     return out

@@ -1,0 +1,437 @@
+"""The sharded server data plane's transmit collectives: the port of
+``commefficient_tpu/ops/collectives.py`` (part 2, the flat plans).
+
+Every collective takes a ``parallel/mesh.ClientGroup`` (its process group,
+rank and size) and runs on the group's backend (NCCL on the card):
+
+- ``reduce_scatter_sum`` / ``all_gather_tiled``: the reduce-scatter ->
+  per-shard update -> all-gather pair of the sharded server
+  (``--server_shard``);
+- ``quantized_psum_scatter`` / ``quantized_psum`` /
+  ``quantized_all_gather``: block-scaled stochastic-rounding collectives
+  with an explicit error-feedback remainder. Each rank adds its carried
+  remainder to its contribution, quantizes it (one float32 scale a
+  block), moves the payload and the scales (one ``all_to_all`` for the
+  reduces, one ``all_gather`` for the gather), and the receiver
+  dequantizes (and sums in float32). The un-transmitted remainder ``(x +
+  residual) - Q(x + residual)`` is returned, persisted by the caller
+  (``ServerState.qres`` for the reduce legs, ``dres`` for the gather) and
+  folded into the next round's contribution.
+
+Wire dtypes (``quantize_blocks``): ``int8`` (scale ``max|block| / 127``,
+integer stochastic rounding), ``fp8_e4m3`` (``/ 448``, stochastic
+rounding between the two neighbouring e4m3fn values; the value is clipped
+to 448 first, since a cast to ``torch.float8_e4m3fn`` does not saturate)
+and ``int4`` (``/ 7``, two values nibble-packed a byte). ``payload_bytes``
+prices each.
+
+The JAX package computes the quantizers in XLA, not in a Pallas kernel;
+here they are plain PyTorch on tensors. The stochastic-rounding uniforms
+are an argument of the rounding helpers (``u``): the collectives draw them
+from an explicit ``torch.Generator`` (``sr_generator``: seeded from the
+run's seed, the round, the rank and the leg), and a test can pass the JAX
+package's own ``jax.random.uniform`` draws instead and compare payloads bit
+for bit. ``CollectivePlan`` / ``parse_collective_plan`` choose the wire
+dtype of each leg (``uplink``: the dense transmit reduce, ``table``: the
+sketch-table exchange, ``downlink``: the update all-gather).
+
+Not ported here (ROADMAP.md queue 1 item 5a): the per-mesh-axis
+(hierarchical) plans and ``--collective_plan auto``.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from commefficient_torch.config import ITEM_MULTI_2D
+
+__all__ = [
+    "DEFAULT_QUANT_BLOCK", "QUANT_DTYPES", "WIRE_DTYPES", "PLAN_LEGS",
+    "payload_bytes", "reduce_scatter_sum", "all_gather_tiled",
+    "all_reduce_sum", "quantize_blocks", "dequantize_blocks",
+    "quantized_psum_scatter", "quantized_psum", "quantized_all_gather",
+    "CollectivePlan", "FP32_PLAN", "parse_collective_plan",
+    "plan_from_reduce_dtype", "sr_generator",
+]
+
+# 64 sublanes x 128 lanes per float32 scale, as in the JAX package; the
+# chunked sketch plane passes its (S, 128) chunk size, the table exchange
+# one table row (c_pad)
+DEFAULT_QUANT_BLOCK = 64 * 128
+
+_INT8_MAX = 127.0
+_INT4_MAX = 7.0
+_FP8_MAX = 448.0          # max finite float8_e4m3fn
+_FP8_MAX_BITS = 0x7E      # magnitude bits of 448.0 (0x7F is NaN)
+
+QUANT_DTYPES = ("int8", "fp8_e4m3", "int4")
+WIRE_DTYPES = ("float32",) + QUANT_DTYPES
+PLAN_LEGS = ("uplink", "table", "downlink")
+
+
+
+def payload_bytes(size: int, dtype: str = "int8",
+                  block=DEFAULT_QUANT_BLOCK) -> int:
+    """Wire bytes of a ``size``-element operand at ``dtype``: 4 B an
+    element at float32; else the payload (1 B an element, int4 packed
+    ``ceil(b / 2)`` bytes a ``b``-element block) plus one float32 scale a
+    block."""
+    assert dtype in WIRE_DTYPES, dtype
+    size = int(size)
+    if dtype == "float32":
+        return 4 * size
+    block = int(DEFAULT_QUANT_BLOCK if block is None else block)
+    nb = -(-size // block)
+    if dtype == "int4":
+        nfull, tail = divmod(size, block)
+        elem = nfull * ((block + 1) // 2) + (tail + 1) // 2
+    else:
+        elem = size
+    return elem + 4 * nb
+
+
+def _pg(cg):
+    return None if cg is None else cg.group
+
+
+def all_reduce_sum(x: torch.Tensor, cg) -> torch.Tensor:
+    """``x`` summed over the group (in place; returns ``x``)."""
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=_pg(cg))
+    return x
+
+
+def reduce_scatter_sum(x: torch.Tensor, cg) -> torch.Tensor:
+    """Sum ``x`` over the group and return this rank's dim-0 tile
+    (``x.shape[0]`` divisible by the group's size)."""
+    n = cg.size
+    assert x.shape[0] % n == 0, (tuple(x.shape), n)
+    out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, x.contiguous(), op=dist.ReduceOp.SUM,
+                               group=_pg(cg))
+    return out
+
+
+def all_gather_tiled(x: torch.Tensor, cg) -> torch.Tensor:
+    """The ranks' dim-0 tiles concatenated in rank order (exact data
+    movement)."""
+    out = torch.empty((cg.size * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x.contiguous(), group=_pg(cg))
+    return out
+
+
+def _all_to_all(x: torch.Tensor, cg) -> torch.Tensor:
+    """Send dim-0 tile ``j`` to rank ``j``; receive every rank's tile for
+    this rank, stacked in rank order."""
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=_pg(cg))
+    return out
+
+
+# --------------------------------------------------------------------------
+# quantizers
+# --------------------------------------------------------------------------
+
+def _sr_int(y: torch.Tensor, u: torch.Tensor, qmax: float) -> torch.Tensor:
+    """Integer stochastic rounding of ``y`` to ``[-qmax, qmax]``:
+    ``floor(y) + (u < frac)``."""
+    lo = torch.floor(y)
+    q = lo + (u < (y - lo)).to(y.dtype)
+    return torch.clamp(q, -qmax, qmax)
+
+
+def _f8_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    return bits.view(torch.float8_e4m3fn).to(torch.float32)
+
+
+def _sr_fp8(y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Stochastic rounding of ``y`` to float8_e4m3fn between the two
+    neighbouring representable values (sign-magnitude bit layout, uint8
+    bits +-1), with probability proportional to proximity. The magnitude
+    is clipped to 448 before the cast (the cast does not saturate)."""
+    # jnp.sign keeps the sign of a zero (torch.sign gives +0.0), and the
+    # sign of a zero reaches the payload's bits
+    sign = torch.where(y == 0, y, torch.sign(y))
+    a = torch.clamp(torch.abs(y), max=_FP8_MAX)
+    f8 = a.to(torch.float8_e4m3fn)
+    c = f8.to(torch.float32)  # the round-to-nearest neighbour
+    bits = f8.view(torch.uint8)
+    lo_bits = torch.where(c <= a, bits, bits - 1)
+    hi_bits = torch.clamp(lo_bits + 1, max=_FP8_MAX_BITS).to(torch.uint8)
+    lo = _f8_from_bits(lo_bits)
+    hi = _f8_from_bits(hi_bits)
+    gap = hi - lo
+    pos = gap > 0
+    frac = torch.where(pos, (a - lo) / torch.where(pos, gap,
+                                                    torch.ones_like(gap)),
+                       torch.zeros_like(gap))
+    mag = torch.where(u < frac, hi, lo)
+    return (sign * mag).to(torch.float8_e4m3fn)
+
+
+def _pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """Two int4 values (float in [-7, 7]) a byte along the last axis:
+    ``value + 8`` in 4 bits, the even position in the low nibble; an odd
+    last dimension gets one padding nibble (8, a zero)."""
+    v = q.to(torch.int32) + 8
+    if v.shape[-1] % 2:
+        v = torch.cat([v, torch.full(v.shape[:-1] + (1,), 8,
+                                     dtype=v.dtype, device=v.device)], -1)
+    v = v.reshape(v.shape[:-1] + (-1, 2))
+    return (v[..., 0] | (v[..., 1] << 4)).to(torch.uint8)
+
+
+def _unpack_int4(p: torch.Tensor, block: int) -> torch.Tensor:
+    lo = (p & 0xF).to(torch.int32) - 8
+    hi = (p >> 4).to(torch.int32) - 8
+    q = torch.stack([lo, hi], -1).reshape(p.shape[:-1] + (2 * p.shape[-1],))
+    return q[..., :block].to(torch.float32)
+
+
+def quantize_blocks(x: torch.Tensor, u: torch.Tensor, dtype: str = "int8"):
+    """Block-scaled stochastic-rounding quantization of ``x`` (``(...,
+    block)``) with the uniforms ``u`` (``x``'s shape, [0, 1)). Returns
+    ``(payload, scale)``: one float32 scale a block, ``max|block| /
+    qmax``, and the payload in its wire layout (int8; float8_e4m3fn;
+    nibble-packed uint8 of ``ceil(block / 2)`` bytes). An all-zero block
+    has scale 0 and payload 0."""
+    assert dtype in QUANT_DTYPES, dtype
+    assert tuple(u.shape) == tuple(x.shape), (tuple(u.shape), tuple(x.shape))
+    qmax = {"int8": _INT8_MAX, "fp8_e4m3": _FP8_MAX, "int4": _INT4_MAX}[dtype]
+    scale = torch.amax(torch.abs(x), dim=-1) / qmax
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    y = x / safe[..., None]
+    if dtype == "int8":
+        q = _sr_int(y, u, _INT8_MAX).to(torch.int8)
+    elif dtype == "fp8_e4m3":
+        q = _sr_fp8(y, u)
+    else:
+        q = _pack_int4(_sr_int(y, u, _INT4_MAX))
+    return q, scale
+
+
+def dequantize_blocks(q: torch.Tensor, scale: torch.Tensor,
+                      dtype: str = "int8", block=None) -> torch.Tensor:
+    """Payload and per-block scales -> float32 values (``block`` is
+    needed for int4, whose payload is packed)."""
+    assert dtype in QUANT_DTYPES, dtype
+    if dtype == "int4":
+        assert block is not None, "int4 dequantize needs the block size"
+        v = _unpack_int4(q, int(block))
+    else:
+        v = q.to(torch.float32)
+    return v * scale[..., None]
+
+
+def _wire(q: torch.Tensor, dtype: str) -> torch.Tensor:
+    # fp8 travels as its bytes
+    return q.view(torch.uint8) if dtype == "fp8_e4m3" else q
+
+
+def _unwire(q: torch.Tensor, dtype: str) -> torch.Tensor:
+    return q.view(torch.float8_e4m3fn) if dtype == "fp8_e4m3" else q
+
+
+def sr_generator(seed: int, round_no: int, rank: int, leg: str,
+                 device) -> torch.Generator:
+    """The stochastic-rounding generator of one leg on one rank in one
+    round, seeded from ``(seed, round, rank, leg)`` (a hash, so streams of
+    neighbouring ranks and rounds are unrelated). Seeding is host-only."""
+    key = f"{int(seed)}/{int(round_no)}/{int(rank)}/{leg}".encode()
+    s = int.from_bytes(hashlib.sha256(key).digest()[:8], "little") >> 1
+    return torch.Generator(device=device).manual_seed(s)
+
+
+def _uniforms(shape, x: torch.Tensor, gen: Optional[torch.Generator],
+              u: Optional[torch.Tensor]) -> torch.Tensor:
+    if u is not None:
+        assert tuple(u.shape) == tuple(shape), (tuple(u.shape), shape)
+        return u.to(device=x.device, dtype=torch.float32)
+    assert gen is not None, "stochastic rounding needs a generator or u"
+    return torch.rand(shape, generator=gen, dtype=torch.float32,
+                      device=x.device)
+
+
+def quantized_psum_scatter(x: torch.Tensor, cg, gen=None,
+                           residual: Optional[torch.Tensor] = None,
+                           block: int = DEFAULT_QUANT_BLOCK,
+                           dtype: str = "int8",
+                           u: Optional[torch.Tensor] = None):
+    """Error-feedback quantized reduce-scatter over dim 0 (``x.shape[0]``
+    divisible by the group's size ``n``). Each destination tile is
+    blocked on its own (zero-padded to a block multiple), quantized with
+    uniforms ``u`` (``(n, blocks, block)``, else drawn from ``gen``),
+    moved by one ``all_to_all`` of payloads and one of scales, and the
+    ``n`` dequantized contributions are summed in float32 in rank order.
+    Returns ``(this rank's tile of sum_r Q(x_r + residual_r), new
+    residual (x + residual) - Q(x + residual))``."""
+    n = cg.size
+    if residual is not None:
+        x = x + residual
+    shape = tuple(x.shape)
+    assert shape[0] % n == 0, (shape, n)
+    per = shape[0] // n
+    tile_elems = x.numel() // n
+    nbd = -(-tile_elems // block)
+    rows = torch.nn.functional.pad(x.reshape(n, tile_elems),
+                                   (0, nbd * block - tile_elems))
+    xb = rows.reshape(n, nbd, block)
+    q, scale = quantize_blocks(xb, _uniforms(xb.shape, x, gen, u), dtype)
+    new_residual = (xb - dequantize_blocks(q, scale, dtype, block)) \
+        .reshape(n, nbd * block)[:, :tile_elems].reshape(shape)
+    q_in = _unwire(_all_to_all(_wire(q, dtype), cg), dtype)
+    s_in = _all_to_all(scale, cg)
+    parts = dequantize_blocks(q_in, s_in, dtype, block)
+    tile = parts[0]
+    for j in range(1, n):
+        tile = tile + parts[j]
+    tile = tile.reshape(-1)[:tile_elems]
+    return tile.reshape((per,) + shape[1:]), new_residual
+
+
+def quantized_psum(x: torch.Tensor, cg, gen=None,
+                   residual: Optional[torch.Tensor] = None,
+                   block: int = DEFAULT_QUANT_BLOCK, dtype: str = "int8",
+                   u: Optional[torch.Tensor] = None):
+    """Error-feedback quantized all-reduce: the quantized reduce-scatter
+    over a padded flat view, then an exact float32 all-gather, so every
+    rank holds the same sum. The block shrinks to the per-rank tile for
+    a small array; tiles are block multiples, so a caller's block
+    boundary (one table row) is never straddled. Returns ``(sum, new
+    residual)`` in ``x``'s shape."""
+    n = cg.size
+    size = x.numel()
+    block = min(block, max(1, -(-size // n)))
+    tile = -(-size // (n * block)) * block
+    flat = torch.nn.functional.pad(x.reshape(-1), (0, n * tile - size))
+    res_flat = None
+    if residual is not None:
+        res_flat = torch.nn.functional.pad(residual.reshape(-1),
+                                           (0, n * tile - size))
+    local, new_res = quantized_psum_scatter(flat, cg, gen, residual=res_flat,
+                                            block=block, dtype=dtype, u=u)
+    full = all_gather_tiled(local, cg)[:size].reshape(x.shape)
+    return full, new_res[:size].reshape(x.shape)
+
+
+def quantized_all_gather(x: torch.Tensor, cg, gen=None,
+                         residual: Optional[torch.Tensor] = None,
+                         block: int = DEFAULT_QUANT_BLOCK,
+                         dtype: str = "int8",
+                         u: Optional[torch.Tensor] = None):
+    """Error-feedback quantized all-gather over dim 0 (the downlink): each
+    rank quantizes its tile plus its carried remainder, the payloads and
+    scales are gathered, and every rank dequantizes the ``n`` tiles.
+    Returns ``(the concatenated quantized tiles, this rank's new
+    residual)``; the gathered array is the same on every rank."""
+    n = cg.size
+    if residual is not None:
+        x = x + residual
+    shape = tuple(x.shape)
+    elems = x.numel()
+    nbd = -(-elems // block)
+    xb = torch.nn.functional.pad(x.reshape(-1),
+                                 (0, nbd * block - elems)).reshape(nbd, block)
+    q, scale = quantize_blocks(xb, _uniforms(xb.shape, x, gen, u), dtype)
+    new_residual = (xb - dequantize_blocks(q, scale, dtype, block)) \
+        .reshape(-1)[:elems].reshape(shape)
+    q_all = _unwire(all_gather_tiled(_wire(q, dtype), cg), dtype)
+    s_all = all_gather_tiled(scale, cg)
+    full = dequantize_blocks(q_all, s_all, dtype, block)
+    full = full.reshape(n, nbd * block)[:, :elems] \
+        .reshape((n * shape[0],) + shape[1:])
+    return full, new_residual
+
+
+# --------------------------------------------------------------------------
+# the per-leg plan
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class CollectivePlan:
+    """Wire dtype of each leg; ``float32`` legs run the exact
+    collectives."""
+
+    uplink: str = "float32"
+    table: str = "float32"
+    downlink: str = "float32"
+
+    def __post_init__(self):
+        for leg in PLAN_LEGS:
+            dt = getattr(self, leg)
+            if ":" in dt:
+                raise NotImplementedError(
+                    f"per-axis collective plan leg {leg}={dt!r} is not "
+                    f"ported ({ITEM_MULTI_2D})")
+            assert dt in WIRE_DTYPES, \
+                f"collective plan leg {leg}={dt!r}: choose from " \
+                f"{WIRE_DTYPES}"
+
+    @property
+    def quantized(self) -> bool:
+        return any(getattr(self, leg) != "float32" for leg in PLAN_LEGS)
+
+    def spec(self) -> str:
+        return ",".join(f"{leg}={getattr(self, leg)}" for leg in PLAN_LEGS)
+
+
+FP32_PLAN = CollectivePlan()
+
+
+def parse_collective_plan(spec: Optional[str]) -> CollectivePlan:
+    """``--collective_plan`` -> ``CollectivePlan``: empty/None is the fp32
+    plan; one bare dtype sets every leg; comma-separated ``leg=dtype``
+    pairs set those legs (unnamed legs stay float32). ``fp32`` spells
+    ``float32`` and ``fp8`` ``fp8_e4m3``. ``auto`` and the per-axis
+    ``axis:dtype`` forms raise ``NotImplementedError``."""
+    if not spec:
+        return FP32_PLAN
+    spec = spec.strip()
+    if spec == "auto":
+        raise NotImplementedError(
+            f"--collective_plan auto is not ported ({ITEM_MULTI_2D})")
+
+    def norm(dt):
+        dt = dt.strip()
+        if ":" in dt:
+            raise NotImplementedError(
+                f"per-axis collective plan {dt!r} is not ported "
+                f"({ITEM_MULTI_2D})")
+        dt = {"fp32": "float32", "fp8": "fp8_e4m3"}.get(dt, dt)
+        assert dt in WIRE_DTYPES, \
+            f"collective plan dtype {dt!r}: choose from {WIRE_DTYPES}"
+        return dt
+
+    if "=" not in spec:
+        dt = norm(spec)
+        return CollectivePlan(uplink=dt, table=dt, downlink=dt)
+    kv = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        assert "=" in part, \
+            f"collective plan entry {part!r}: expected leg=dtype"
+        leg, dt = part.split("=", 1)
+        leg = leg.strip()
+        assert leg in PLAN_LEGS, \
+            f"collective plan leg {leg!r}: choose from {PLAN_LEGS}"
+        assert leg not in kv, f"collective plan names leg {leg!r} twice"
+        kv[leg] = norm(dt)
+    return CollectivePlan(**{leg: kv.get(leg, "float32")
+                             for leg in PLAN_LEGS})
+
+
+def plan_from_reduce_dtype(reduce_dtype: str) -> CollectivePlan:
+    """The legacy ``--reduce_dtype`` alias: ``int8`` quantizes every
+    leg."""
+    assert reduce_dtype in ("float32", "int8"), reduce_dtype
+    if reduce_dtype == "int8":
+        return CollectivePlan(uplink="int8", table="int8", downlink="int8")
+    return FP32_PLAN

@@ -235,6 +235,16 @@ def sketch_chunks(cs: CountSketch, v3: torch.Tensor,
     return out.view(cs.r, cs.c_pad)
 
 
+def sketch_chunks_local(cs: CountSketch, v3: torch.Tensor,
+                        t0: int) -> torch.Tensor:
+    """The partial ``(r, c_pad)`` table of ``Tn`` chunks from global chunk
+    ``t0`` (the sharded server's re-sketch of its update slice). Chunks
+    past ``T`` must be zero; their shift columns are zero padding. The sum
+    of the ranks' partials equals ``sketch_chunks`` up to float32
+    summation order, so the server reads it for its zero pattern only."""
+    return sketch_chunks(cs, v3, t0=int(t0))
+
+
 def sketch_vec(cs: CountSketch, v: torch.Tensor) -> torch.Tensor:
     """Accumulate a dense ``(d,)`` vector into an ``(r, c_pad)`` table."""
     return sketch_chunks(cs, _chunks3(cs, v))
@@ -434,14 +444,14 @@ def sketch_estimates(table3: torch.Tensor, cs: CountSketch,
     writes the mask itself; the plain version rolls by the inverse shifts
     and masks after; both give the same values."""
     Tn = cs.T if Tn is None else Tn
-    if t0 == 0 and Tn == cs.T:
-        fq, fw, iq, iw = cs.shift_q, cs.shift_w, cs.inv_q, cs.inv_w
-    else:
-        fq, fw = _shift_cols(cs.shift_q, cs.shift_w, t0, Tn)
-        iq, iw = _shift_cols(cs.inv_q, cs.inv_w, t0, Tn)
+    full = t0 == 0 and Tn == cs.T
     if table3.device.type == "cpu":
+        iq, iw = ((cs.inv_q, cs.inv_w) if full
+                  else _shift_cols(cs.inv_q, cs.inv_w, t0, Tn))
         est = _sketch_estimates_plain(table3, iq, iw, cs.sign_keys, t0)
         return est if n_valid is None else _mask_from(est, t0, n_valid)
+    fq, fw = ((cs.shift_q, cs.shift_w) if full
+              else _shift_cols(cs.shift_q, cs.shift_w, t0, Tn))
     from commefficient_torch import kernels
 
     return kernels.sketch_estimates(table3.contiguous(), fq, fw,
@@ -454,6 +464,18 @@ def estimates_chunks(cs: CountSketch, table: torch.Tensor) -> torch.Tensor:
     the same launch)."""
     table3 = table.reshape(cs.r, cs.sublanes, LANES)
     return sketch_estimates(table3, cs, n_valid=cs.d)
+
+
+def estimates_chunks_local(cs: CountSketch, table: torch.Tensor, t0: int,
+                           Tn: int) -> torch.Tensor:
+    """The sharded server's slice of ``estimates_chunks``: the ``Tn``
+    chunks from global chunk ``t0``, per chunk the full query's values,
+    every position whose global coordinate is ``>= d`` (the padded tail,
+    and whole chunks past ``T`` on the last ranks of an uneven split)
+    +0.0. One query launch on the card."""
+    table3 = table.reshape(cs.r, cs.sublanes, LANES)
+    return sketch_estimates(table3, cs, t0=int(t0), Tn=int(Tn),
+                            n_valid=cs.d)
 
 
 def estimates(cs: CountSketch, table: torch.Tensor) -> torch.Tensor:
@@ -513,6 +535,21 @@ def fused_epilogue_chunks(cs: CountSketch, est3: torch.Tensor, k: int):
     p = resolve_threshold(est3, k)
     upd, table = fused_epilogue(est3, p, cs.shift_q, cs.shift_w,
                                 cs.sign_keys, 0)
+    return upd, table.view(cs.r, cs.c_pad)
+
+
+def fused_epilogue_chunks_local(cs: CountSketch, est3: torch.Tensor, t0: int,
+                                k: int, group):
+    """The sharded server's fused epilogue over this rank's ``Tn``
+    estimate chunks from global chunk ``t0``: the threshold is the global
+    one (the per-pass descent over counts exchanged in ``group``), and the
+    table is this rank's partial re-sketch. Per chunk the values are the
+    full epilogue's."""
+    est3 = est3.contiguous()
+    Tn = est3.shape[0]
+    p = resolve_threshold(est3, k, group)
+    q, w = _shift_cols(cs.shift_q, cs.shift_w, int(t0), Tn)
+    upd, table = fused_epilogue(est3, p, q, w, cs.sign_keys, int(t0))
     return upd, table.view(cs.r, cs.c_pad)
 
 

@@ -23,6 +23,12 @@ chooses one launch for the whole search (``topk_descent``): on the card a
 3-pass histogram radix select (``csrc/topk_descent.cu``), whose plain
 version is the 8-pass descent. All of them count exact integers, so they
 return the same threshold on every input.
+
+The sharded server's threshold exchange (``group``, a
+``parallel/mesh.ClientGroup``): each rank counts over its local slice and
+each pass's 16 counts are summed over the group as int64
+(``all_reduce``), 16 integers a pass instead of the full vector. The
+sharded path always takes the per-pass descent, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -113,11 +119,28 @@ def fused_descent_enabled() -> bool:
     return os.environ.get(FUSED_DESCENT_ENV) == "1"
 
 
-def resolve_threshold(vec: torch.Tensor, k: int) -> torch.Tensor:
+def exchanged_count(group):
+    """The count pass of the threshold exchange: the local counts summed
+    over ``group`` as int64."""
+    from commefficient_torch.ops.collectives import all_reduce_sum
+
+    def count(bits, ts):
+        return all_reduce_sum(topk_count_ge(bits, ts).to(torch.int64),
+                              group)
+
+    return count
+
+
+def resolve_threshold(vec: torch.Tensor, k: int,
+                      group=None) -> torch.Tensor:
     """The k-th-largest-magnitude bit pattern of ``vec`` (any shape,
     float32) as a 0-d int32 tensor on its device, by the one-launch
-    descent or the per-pass one (``fused_descent_enabled``)."""
+    descent or the per-pass one (``fused_descent_enabled``). With
+    ``group``, ``vec`` is this rank's slice and the threshold is the
+    global one, from the per-pass descent over exchanged counts."""
     raw = vec.contiguous().view(torch.int32).reshape(-1)
+    if group is not None:
+        return _descent(raw, k, exchanged_count(group))
     if fused_descent_enabled():
         return topk_descent(raw, k)
     return _descent(raw, k, topk_count_ge)
@@ -134,14 +157,16 @@ def _apply_threshold(raw: torch.Tensor, vec: torch.Tensor,
     return torch.where(m > _INF_BITS, vec, out)
 
 
-def topk_dense_nd(vec: torch.Tensor, k: int) -> torch.Tensor:
+def topk_dense_nd(vec: torch.Tensor, k: int, group=None) -> torch.Tensor:
     """Shape-preserving global magnitude top-k over every element of
     ``vec`` (the chunked-resident round's entry point). Zero positions
     (a chunk layout's masked tail) never win a nonzero threshold; when
-    fewer than k nonzeros exist, everything is kept."""
+    fewer than k nonzeros exist, everything is kept. With ``group``,
+    ``vec`` is this rank's slice of the vector and the threshold comes
+    from the exchange over the group."""
     vec = vec.contiguous()
     raw = vec.view(torch.int32)
-    return _apply_threshold(raw, vec, resolve_threshold(vec, k))
+    return _apply_threshold(raw, vec, resolve_threshold(vec, k, group))
 
 
 def topk(vec: torch.Tensor, k: int, method: str = "threshold") -> torch.Tensor:

@@ -346,13 +346,11 @@ def test_gpt2_train_refuses_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             gpt2_train.train(TRAIN_ARGV[2:])
-    with pytest.raises(NotImplementedError, match="item 4a"):
-        gpt2_train.train(TRAIN_ARGV + ["--finetune"])
-    (tmp_path / "hf").mkdir()
-    (tmp_path / "hf" / "pytorch_model.bin").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 4a"):
-        gpt2_train.train(TRAIN_ARGV + ["--model_checkpoint",
-                                       str(tmp_path / "hf")])
+    with pytest.raises(NotImplementedError, match="item 5a"):
+        gpt2_train.train(TRAIN_ARGV + ["--shard_devices", "2"])
+    with pytest.raises(NotImplementedError, match="item 5a"):
+        gpt2_train.train(TRAIN_ARGV + ["--collective_plan",
+                                       "table=ici:fp32/dcn:int8"])
     with pytest.raises(NotImplementedError, match="item 7"):
         gpt2_train.train(TRAIN_ARGV + ["--seq_parallel", "ring"])
     assert os.environ.get("COMMEFFICIENT_RUN_DIR") is None

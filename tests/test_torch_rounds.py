@@ -185,12 +185,12 @@ def test_cv_train_main_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--state_dir", "x"], ["--guards"],
-                                  ["--server_shard"], ["--telemetry"],
+                                  ["--shard_devices", "2"], ["--telemetry"],
                                   ["--inject_fault", "2:nan"],
                                   ["--seq_parallel", "ring"],
                                   ["--participation", "0.5"],
                                   ["--churn", "0.1"],
-                                  ["--num_devices", "4"]])
+                                  ["--collective_plan", "auto"]])
 def test_unported_options_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_parse(argv=ARGV + ["--device", "cpu"] + flag)

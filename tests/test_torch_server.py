@@ -120,12 +120,14 @@ def test_legality_asserts_verbatim():
 def test_other_modes_not_ported():
     """The name is kept from when the dense modes were not ported: now
     ``init_server_state`` gives ``(d,)`` zero velocity and error for each
-    of them, on the device asked for."""
+    of them, on the device asked for, and no collective carries (the fp32
+    plan)."""
     for mode, err in (("uncompressed", "none"), ("true_topk", "virtual"),
                       ("local_topk", "local"), ("fedavg", "none")):
         cfg = tsrv.ServerConfig(mode=mode, error_type=err, grad_size=D)
         st = tsrv.init_server_state(cfg, device="cpu")
-        for t in st:
+        assert st.qres is None and st.dres is None
+        for t in (st.velocity, st.error):
             assert t.shape == (D,) and t.dtype == torch.float32
             assert t.device.type == "cpu" and not t.any()
         assert st.velocity.data_ptr() != st.error.data_ptr()

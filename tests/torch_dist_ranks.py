@@ -1,0 +1,404 @@
+"""Rank bodies of the port's multi-process tests, and the harness that
+spawns them: ``gloo`` process groups on the CPU, one process a rank.
+
+This module imports neither JAX nor the JAX package, so a child starts
+fast; the tests compute the JAX side in the parent and pass numpy arrays
+in and out. ``start_ranks`` starts the children from a ``spawn`` context
+and ``Ranks.join`` joins them with a timeout (killing them and failing
+on it); the parent can compute its side in between. One spawn runs
+several bodies in turn, each on a process group of its own that meets at
+a ``FileStore`` under the test's temporary directory (never a fixed TCP
+port: several test workers run at once). Each child runs with one
+thread.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import time
+import traceback
+
+import numpy as np
+
+TIMEOUT = 110  # seconds for all the ranks of one spawn
+
+
+def _entry(rank: int, items, tmp: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    out_path = os.path.join(tmp, f"rank{rank}.pkl")
+    outs = []
+    try:
+        for i, (body, payload, k) in enumerate(items):
+            if rank >= k:  # this body runs on the first k ranks
+                outs.append(None)
+                continue
+            init = f"file://{tmp}/store{i}"
+            if body.startswith("cli_"):
+                # an entry point under torchrun's environment: it starts
+                # and ends the process group itself
+                env = dict(os.environ)
+                os.environ.update(RANK=str(rank), WORLD_SIZE=str(k),
+                                  LOCAL_RANK=str(rank))
+                outs.append(globals()[body](init, payload))
+                os.environ.clear()
+                os.environ.update(env)
+            else:
+                dist.init_process_group("gloo", init_method=init,
+                                        rank=rank, world_size=k)
+                from commefficient_torch.parallel import ClientGroup
+
+                cg = ClientGroup(None, rank, k, torch.device("cpu"))
+                outs.append(globals()[body](cg, payload))
+                dist.destroy_process_group()
+        with open(out_path, "wb") as f:
+            pickle.dump(("ok", outs), f)
+    except BaseException:  # noqa: BLE001 -- reported to the parent
+        with open(out_path, "wb") as f:
+            pickle.dump(("error", traceback.format_exc()), f)
+        raise
+
+
+class Ranks:
+    """The children of one ``start_ranks`` call. As a context manager it
+    kills any child still running when its block ends (a parent that
+    failed before ``join``)."""
+
+    def __init__(self, n, items, tmp_path, timeout):
+        import multiprocessing as mp
+
+        self.n, self.items, self.timeout = n, items, timeout
+        self.tmp = os.path.join(str(tmp_path),
+                                f"ranks_{n}_{time.time_ns()}")
+        os.makedirs(self.tmp)
+        ctx = mp.get_context("spawn")
+        self.procs = [ctx.Process(target=_entry, args=(r, items, self.tmp))
+                      for r in range(n)]
+        for p in self.procs:
+            p.start()
+        self.deadline = time.time() + timeout
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+    def join(self):
+        """Each item's results in rank order (its first k ranks). A
+        child's exception, a nonzero exit or the timeout raises
+        ``RuntimeError``."""
+        for p in self.procs:
+            p.join(max(0.0, self.deadline - time.time()))
+        hung = [r for r, p in enumerate(self.procs) if p.is_alive()]
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        per_rank, errors = [], []
+        for r, p in enumerate(self.procs):
+            path = os.path.join(self.tmp, f"rank{r}.pkl")
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    status, val = pickle.load(f)
+                if status != "ok":
+                    errors.append(f"rank {r}:\n{val}")
+                per_rank.append(val)
+            else:
+                errors.append(f"rank {r}: no result (exit {p.exitcode})")
+        names = [body for body, _, _ in self.items]
+        if hung:
+            raise RuntimeError(f"{names}: ranks {hung} timed out after "
+                               f"{self.timeout} s\n" + "\n".join(errors))
+        if errors:
+            raise RuntimeError(f"{names} failed\n" + "\n".join(errors))
+        return [[per_rank[r][i] for r in range(k)]
+                for i, (_, _, k) in enumerate(self.items)]
+
+
+def start_ranks(n: int, items, tmp_path, timeout=TIMEOUT) -> Ranks:
+    """Start ``n`` gloo ranks that run ``items`` in turn: each a ``(body,
+    payload)`` on all n ranks or a ``(body, payload, k)`` on the first k,
+    as ``body(group, payload)`` (a ``cli_`` body: ``body(init_method,
+    payload)``)."""
+    items = [(it[0], it[1], it[2] if len(it) > 2 else n) for it in items]
+    assert all(1 <= k <= n for _, _, k in items), items
+    return Ranks(n, items, tmp_path, timeout)
+
+
+def _t(a):
+    import torch
+
+    return torch.from_numpy(np.array(a))
+
+
+def _np(t):
+    return None if t is None else t.detach().cpu().numpy().copy()
+
+
+# --------------------------------------------------------------------------
+# collectives
+# --------------------------------------------------------------------------
+
+def body_collectives(cg, cases):
+    """Each case: ``op`` and this rank's ``x`` (and ``u``, ``residual``,
+    ``block``, ``dtype``) from per-rank stacks."""
+    from commefficient_torch.ops import collectives as C
+
+    r = cg.rank
+    out = []
+    for case in cases:
+        x = _t(case["x"][r])
+        op = case["op"]
+        if op == "reduce_scatter":
+            out.append({"tile": _np(C.reduce_scatter_sum(x, cg)),
+                        "sum": _np(C.all_reduce_sum(x.clone(), cg))})
+        elif op == "all_gather":
+            out.append({"full": _np(C.all_gather_tiled(x, cg))})
+        else:
+            fn = {"qscatter": C.quantized_psum_scatter,
+                  "qpsum": C.quantized_psum,
+                  "qgather": C.quantized_all_gather}[op]
+            res = case.get("residual")
+            got, new_res = fn(
+                x, cg, residual=None if res is None else _t(res[r]),
+                block=case["block"], dtype=case["dtype"],
+                u=_t(case["u"][r]))
+            out.append({"out": _np(got), "res": _np(new_res)})
+    return out
+
+
+# --------------------------------------------------------------------------
+# the sharded server step
+# --------------------------------------------------------------------------
+
+def body_server(cg, cases):
+    """Each case: this rank's transmit into ``sharded_server_update``, and
+    the replicated step on the all-reduced transmit; this rank's slices
+    and the full outputs."""
+    import torch
+
+    from commefficient_torch.federated import server as S
+    from commefficient_torch.ops.collectives import (
+        all_reduce_sum,
+        parse_collective_plan,
+        sr_generator,
+    )
+    from commefficient_torch.ops.sketch import make_sketch
+
+    r, n = cg.rank, cg.size
+    out = []
+    for c in cases:
+        cfg = S.ServerConfig(mode=c["mode"], error_type=c["error_type"],
+                             k=c["k"], grad_size=c["d"],
+                             virtual_momentum=c["vm"],
+                             fused_epilogue=c.get("fused", False))
+        sk = layout = None
+        if c["mode"] == "sketch":
+            sk = make_sketch(c["d"], c["c"], c["r"], seed=c["seed"],
+                             num_blocks=1, device="cpu")
+            layout = sk.chunk_layout
+        plan = parse_collective_plan(c.get("plan", ""))
+        vel0, err0 = _t(c["vel0"]), _t(c["err0"])
+        base = S.init_server_state(cfg, sk, device="cpu", shard_n=n,
+                                   plan=plan)
+        if c["mode"] == "sketch":
+            st = base._replace(velocity=vel0.clone(), error=err0.clone())
+        else:
+            per = base.velocity.shape[0]
+            pad = per * n - c["d"]
+            sl = slice(r * per, (r + 1) * per)
+            st = base._replace(
+                velocity=torch.nn.functional.pad(vel0, (0, pad))[sl],
+                error=torch.nn.functional.pad(err0, (0, pad))[sl])
+        tr = _t(c["transmits"][r])
+        lr = c["lr"]
+        count = torch.tensor(c["count"], dtype=torch.float32)
+        rounds = []
+        for rnd in range(c.get("rounds", 1)):
+            sr = {leg: sr_generator(0, rnd, r, leg, "cpu")
+                  for leg in ("up", "down")}
+            old = st
+            upd, st, rs = S.sharded_server_update(
+                tr, st, cfg, lr, count, cg, sketch=sk, layout=layout,
+                plan=plan, sr=sr)
+            rounds.append({"update": _np(upd), "vel": _np(st.velocity),
+                           "err": _np(st.error), "resketched": _np(rs),
+                           "qres": _np(st.qres), "dres": _np(st.dres),
+                           "old_qres": _np(old.qres),
+                           "old_dres": _np(old.dres)})
+        reduced = all_reduce_sum(tr.clone(), cg)
+        rep_upd, rep_st = S.server_update(
+            reduced / count, S.ServerState(vel0.clone(), err0.clone()), cfg,
+            lr, sketch=sk, layout=layout)
+        out.append({"rounds": rounds, "reduced": _np(reduced),
+                    "rep_update": _np(rep_upd),
+                    "rep_vel": _np(rep_st.velocity),
+                    "rep_err": _np(rep_st.error)})
+    return out
+
+
+# --------------------------------------------------------------------------
+# rounds through FedModel / FedOptimizer
+# --------------------------------------------------------------------------
+
+TINY = (("prep", 8), ("layer1", 16), ("layer2", 16), ("layer3", 32))
+
+
+def _resnet9_model(spec, group, argv=None, init=True):
+    from commefficient_torch.config import parse_args
+    from commefficient_torch.convert import flat_from_jax
+    from commefficient_torch.federated import FedModel, FedOptimizer
+    from commefficient_torch.federated.losses import make_cv_losses
+    from commefficient_torch.models import ResNet9
+    from commefficient_torch.ops.flat import ParamLayout
+
+    args = parse_args(argv=list(argv if argv is not None else spec["argv"])
+                      + ["--device", "cpu"])
+    m = ResNet9(channels=TINY, do_batchnorm=args.do_batchnorm)
+    train, val = make_cv_losses(m)
+    fm = FedModel(m, train, args, val, num_clients=spec["num_clients"],
+                  init_params=flat_from_jax(spec["flat0"], ParamLayout(m))
+                  if init else None, device="cpu", group=group)
+    opt = FedOptimizer(fm, args)
+    opt.set_lr_factor(spec["lr"])
+    return fm, opt
+
+
+def _weights(fm):
+    w = fm.layout.unchunk(fm.ps_weights) if fm.layout is not None \
+        else fm.ps_weights
+    return _np(w)
+
+
+def body_rounds(cg, spec):
+    """``spec["runs"]``: argv lists; each runs ``spec["batches"]`` through
+    a fresh model on this group. Per run and round: the fetched results
+    and the weights; at the end the server and client state."""
+    out = []
+    for argv in spec["runs"]:
+        fm, opt = _resnet9_model(spec, cg, argv)
+        rounds = []
+        for b in spec["batches"]:
+            res = fm(b)
+            opt.step()
+            rounds.append({"res": res, "w": _weights(fm),
+                           "ms": {k: _np(v)
+                                  for k, v in fm._model_state.items()}})
+        st = opt.server_state
+        out.append({"rounds": rounds, "vel": _np(st.velocity),
+                    "err": _np(st.error),
+                    "cvel": _np(fm.client_states.velocities),
+                    "cerr": _np(fm.client_states.errors),
+                    "ms": {k: _np(v) for k, v in fm._model_state.items()}})
+    return out
+
+
+def body_rounds_and_single(cg, spec):
+    """``body_rounds`` on this group, and on rank 0 also without a group
+    (the single-device round of the same runs; None on other ranks)."""
+    return (body_rounds(cg, spec),
+            body_rounds(None, spec) if cg.rank == 0 else None)
+
+
+def body_gpt2_dropout(cg, spec):
+    """One fused GPT-2 round with dropout on this group (or, with
+    ``spec["single"]``, without a group on rank 0): the per-slot
+    metrics and every dropout draw of the round's generator."""
+    import torch
+
+    from commefficient_torch.config import parse_args
+    from commefficient_torch.federated import FedModel, FedOptimizer
+    from commefficient_torch.federated.losses import make_gpt2_losses
+    from commefficient_torch.models.gpt2 import GPT2DoubleHeads
+
+    group = None if spec.get("single") else cg
+    if group is None and cg.rank != 0:
+        return None
+    args = parse_args(argv=spec["argv"] + ["--device", "cpu"])
+    m = GPT2DoubleHeads(vocab_size=64, n_positions=8, n_embd=16, n_layer=1,
+                        n_head=2, dropout=0.1)
+    train, val = make_gpt2_losses(m)
+    draws = []
+    inner = train.draw_rng
+
+    def spy(gen, micro):
+        keep = inner(gen, micro)
+        draws.append(keep.numpy().copy())
+        return keep
+
+    train.draw_rng = spy
+    fm = FedModel(m, train, args, val, num_clients=spec["num_clients"],
+                  device="cpu", group=group)
+    opt = FedOptimizer(fm, args)
+    opt.set_lr_factor(0.1)
+    res = fm({k: torch.as_tensor(v).numpy() for k, v in
+              spec["batch"].items()})
+    opt.step()
+    return {"res": res, "draws": draws, "w": _weights(fm)}
+
+
+def body_checkpoint(cg, spec):
+    """Run a plan, save its run state, restore it into each of
+    ``spec["restore"]`` argv (same group), and report the restored server
+    state (this rank's) and the weights."""
+    import warnings
+
+    from commefficient_torch.federated.checkpoint import (
+        load_run_state,
+        save_run_state,
+    )
+    from commefficient_torch.federated.aggregator import LambdaLR
+
+    fm, opt = _resnet9_model(spec, cg)
+    sched = LambdaLR(opt, lambda s: spec["lr"])
+    for b in spec["batches"]:
+        sched.step()
+        fm(b)
+        opt.step()
+    path = save_run_state(f"{spec['dir']}/run_state_ep1", fm, opt, sched,
+                          next_epoch=1)
+    st = opt.server_state
+    out = {"saved": {"vel": _np(st.velocity), "err": _np(st.error),
+                     "qres": _np(st.qres), "dres": _np(st.dres),
+                     "w": _weights(fm)}, "restored": []}
+    for argv in spec["restore"]:
+        fm2, opt2 = _resnet9_model(spec, cg, argv, init=False)
+        sched2 = LambdaLR(opt2, lambda s: spec["lr"])
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            load_run_state(path, fm2, opt2, sched2)
+        st2 = opt2.server_state
+        # one more round from the restored state
+        fm2(spec["batches"][0])
+        opt2.step()
+        out["restored"].append({
+            "vel": _np(st2.velocity), "err": _np(st2.error),
+            "qres": _np(st2.qres), "dres": _np(st2.dres),
+            "warnings": [str(w.message) for w in caught],
+            "w_next": _weights(fm2)})
+    return out
+
+
+def cli_cv_train(init_method, spec):
+    """``cv_train.main`` as a rank of ``torchrun`` would run it."""
+    os.environ.update(spec["env"])
+    from commefficient_torch import cv_train
+
+    summary = cv_train.main(spec["argv"], init_method=init_method)
+    return {k: float(v) for k, v in summary.items()}
+
+
+def cli_gpt2_train(init_method, spec):
+    """``gpt2_train.train`` as a rank of ``torchrun`` would run it."""
+    os.environ.update(spec["env"])
+    from commefficient_torch import gpt2_train
+
+    stats = gpt2_train.train(spec["argv"], init_method=init_method)
+    return {k: float(v) for k, v in stats.items()}
