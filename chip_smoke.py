@@ -166,6 +166,40 @@ Phases (any failure exits non-zero; nothing is caught):
    ``--finetune`` on its run dir (a finite val NLL, the saved leaves
    loaded bit for bit).
 
+12. the observability plane and the health guards
+   (``phase_observability``): (1) the headline and the opt-in ResNet9
+   round and GPT-2-small float32 with telemetry, histograms, watch and
+   guards on, the launches of their rounds checked exactly (the planes
+   launch no port kernel), and one server step each whose metric vector,
+   computed on the card, equals ``device_round_metrics`` computed on the
+   CPU from the fetched planes (counts, update_nnz, topk_threshold and
+   guard_ok exact, norms within ``OBS_NORM_RTOL``), with the device ms
+   and operations of the metric vector and of the guard per round
+   (``torch.profiler``); (2) 10 headline rounds with telemetry and guards
+   on bit-equal to the same rounds with both off (cuDNN deterministic);
+   (3) 24 engine rounds with everything on, each non-drain submit under
+   ``set_sync_debug_mode("error")`` with no fetch and each drain one
+   fetch, every round in the event log with the full schema; (4)
+   ``--inject_fault`` on the headline and the opt-in round (all six
+   kernels): a NaN and an inf round each trip the verdict, leave weights,
+   server state and client rows bit-equal to the state before, show the
+   non-finite transmit with guard_ok 0, and give the same update, verdict
+   and metrics through the kernels and the plain versions (NaN positions
+   matched); a second consecutive trip restores the snapshot bit for bit
+   and a third raises ``RuntimeError`` (``--max_guard_trips 3``); (5)
+   ``python -m commefficient_torch.cv_train`` with the telemetry defaults
+   and ``--guards --inject_fault 3:nan --trace_rounds 2:2``: its
+   ``telemetry.jsonl`` read back with ``read_events`` holds the trip and
+   ``trace_captured``, and ``trace_round_000002/trace.json`` exists; (6)
+   rounds/sec with telemetry on against ``--no_telemetry`` and guards on
+   against off, at the ResNet9 headline and GPT-2 f32, in 20 and 5
+   alternating pairs of 20 engine rounds each, the ratios printed with
+   their spread, and the host's side of telemetry on and off: the
+   recorder's hooks' ms a round, and the operators' self time, operators
+   and launches a round of one profiled window each
+   (data: no exit code depends on them). Phases 1-11 run with
+   ``--no_telemetry``, as before the plane existed.
+
 Then one JSON line of the kernels (launches per timed window of the path
 that runs each: phase 4 for the accumulate, the query and the count pass,
 phase 5 for the running accumulate, the epilogue and the descent; and a
@@ -223,6 +257,7 @@ from commefficient_torch.federated.losses import (
 from commefficient_torch.federated.rounds import ClientStates
 from commefficient_torch.federated.server import (
     init_server_state,
+    round_health,
     server_update,
 )
 from commefficient_torch.federated.worker import microbatch_plan
@@ -231,13 +266,23 @@ from commefficient_torch.ops.flat import ChunkLayout
 from commefficient_torch.ops import sketch as tsk
 from commefficient_torch.ops import topk as ttk
 from commefficient_torch.profiling import host_sync_monitor
+from commefficient_torch.telemetry import (
+    DEFAULT_WATCH_RULES,
+    METRIC_FIELDS,
+    RunTelemetry,
+    WatchEngine,
+    device_round_metrics,
+    parse_watch_rules,
+    read_events,
+)
 from commefficient_torch.utils import PiecewiseLinear
 
 HEADLINE = ["--mode", "sketch", "--error_type", "virtual",
             "--local_momentum", "0", "--virtual_momentum", "0.9",
             "--num_rows", "5", "--num_cols", "500000", "--k", "50000",
             "--num_workers", "8", "--local_batch_size", "8",
-            "--dataset_name", "CIFAR10", "--device", "cuda"]
+            "--dataset_name", "CIFAR10", "--device", "cuda",
+            "--no_telemetry"]
 OPT_IN = ["--stream_sketch", "--sketch_coalesce", "--fused_epilogue"]
 TIMED_ROUNDS = 20
 HEADLINE_KERNELS = ("sketch_accumulate", "sketch_estimates", "topk_count_ge")
@@ -1097,7 +1142,8 @@ def phase_cv_train():
 # phase 7: (name, workers, flags, one-launch descent)
 MODES_BASE = ["--num_rows", "5", "--num_cols", "500000", "--k", "50000",
               "--local_batch_size", "8", "--dataset_name", "CIFAR10",
-              "--device", "cuda", "--num_clients", "16", "--seed", "0"]
+              "--device", "cuda", "--num_clients", "16", "--seed", "0",
+              "--no_telemetry"]
 VIRTUAL = ["--error_type", "virtual", "--local_momentum", "0",
            "--virtual_momentum", "0.9"]
 MODE_CONFIGS = (
@@ -1585,7 +1631,8 @@ GPT2_BASE = ["--mode", "sketch", "--error_type", "virtual",
              "--num_blocks", "20", "--num_workers", str(GPT2_W),
              "--local_batch_size", str(GPT2_B),
              "--num_candidates", str(GPT2_C), "--max_seq_len", str(GPT2_T),
-             "--valid_batch_size", "2", "--device", "cuda", "--seed", "0"]
+             "--valid_batch_size", "2", "--device", "cuda", "--seed", "0",
+             "--no_telemetry"]
 GPT2_TIMED_ROUNDS = 10
 GPT2_LEGS = (("gpt2 f32", []), ("gpt2 bf16", ["--bf16"]),
              ("gpt2 opt-in", OPT_IN))
@@ -1749,7 +1796,7 @@ FEMNIST_BASE = ["--mode", "sketch", "--error_type", "virtual",
                 "--num_workers", str(FEMNIST_W),
                 "--local_batch_size", str(FEMNIST_B),
                 "--dataset_name", "EMNIST", "--model", "ResNet101LN",
-                "--device", "cuda", "--seed", "0"]
+                "--device", "cuda", "--seed", "0", "--no_telemetry"]
 FEMNIST_ROUNDS = 24
 IMAGENET_D = 25_504_030
 IMAGENET_W, IMAGENET_B = 7, 64
@@ -1760,7 +1807,7 @@ IMAGENET_BASE = ["--mode", "uncompressed", "--error_type", "none",
                  "--microbatch_size", "16", "--dataset_name", "ImageNet",
                  "--model", "FixupResNet50", "--iid",
                  "--num_clients", str(IMAGENET_W), "--device", "cuda",
-                 "--seed", "0"]
+                 "--seed", "0", "--no_telemetry"]
 IMAGENET_TIMED_ROUNDS = 5
 
 
@@ -2849,6 +2896,542 @@ def phase_multi(card: str, headline_rps: float, gpt2_f32: dict) -> dict:
     return out
 
 
+# phase 12: the observability plane and the health guards
+OBS_ON = ["--telemetry", "--telemetry_hist", "--watch", "--guards"]
+OBS_IDENTITY_ROUNDS = 10
+OBS_AUDIT_ROUNDS = 24
+# alternating pairs of the cost phase: the host-bound ResNet9 round moves
+# 10-40% between windows of one call, the GPT-2 round under 1%
+OBS_PAIRS = {"headline": 20, "gpt2 f32": 5}
+OBS_PAIR_ROUNDS = 20
+# the profiled window of the host split: one drain cycle of the engine
+# (the profiler's event processing is slow at GPT-2's 7,800 operators a
+# round)
+OBS_HOST_ROUNDS = 8
+# the metric vector on the card against the same function on the CPU:
+# norms to float32 summation order, counts, nnz, threshold and verdict
+# exact
+OBS_NORM_RTOL = 1e-5
+OBS_EXACT = ("update_nnz", "topk_threshold", "guard_ok", "qres_norm",
+             "dres_norm") + tuple(f for f in METRIC_FIELDS if "_hist_" in f)
+
+
+def _cpu_state(state):
+    return type(state)(*(None if x is None else x.detach().cpu()
+                         for x in state))
+
+
+def _clone_states(fm):
+    return ClientStates(*(None if x is None else x.clone()
+                          for x in fm.client_states))
+
+
+def metric_vector_check(label: str, fm, opt, batch) -> dict:
+    """One server step of ``fm`` (telemetry, histograms and guards on)
+    from the round context of ``batch``: its metric vector, computed on
+    the card, against ``device_round_metrics`` on the CPU from the
+    fetched planes (the transmit, the update recomputed by the same
+    ``server_update``, the new weights and state). Returns the tensors
+    for the cost phase."""
+    fm.begin_round(batch)
+    ctx, lr = fm._round_ctx, opt.get_lr()
+    ps, ss = fm.ps_weights, opt.server_state
+    new_ps, new_ss, _, ok, tel = fm.steps.server_step(
+        ps, ss, _clone_states(fm), ctx, lr, fm._rng)
+    update, st = server_update(ctx.gradient, ss, fm.server_config, lr,
+                               sketch=fm.sketch, layout=fm.layout)
+    torch.cuda.synchronize()
+    assert bool(ok), f"{label}: a healthy round tripped the guard"
+    assert bit_equal(new_ps, ps - update), f"{label}: weights differ"
+    assert bit_equal(new_ss.error, st.error), f"{label}: error differs"
+    want = device_round_metrics(
+        ctx.gradient.cpu(), update.cpu(), new_ps.cpu(), _cpu_state(new_ss),
+        guard_ok=ok.cpu(), hists=True).numpy()
+    got = tel.cpu().numpy()
+    assert got.shape == (len(METRIC_FIELDS),), got.shape
+    worst = 0.0
+    for i, name in enumerate(METRIC_FIELDS):
+        if name in OBS_EXACT:
+            assert got[i] == want[i], f"{label} {name}: {got[i]} != {want[i]}"
+        else:
+            assert np.isclose(got[i], want[i], rtol=OBS_NORM_RTOL, atol=0), \
+                f"{label} {name}: {got[i]} vs {want[i]}"
+            if want[i]:
+                worst = max(worst, abs(got[i] - want[i]) / abs(want[i]))
+    print(f"{label} metric vector on the card equals the CPU's: counts, "
+          f"nnz ({int(got[3])}), threshold ({got[4]:.6g}) and verdict "
+          f"exact; norms within rtol {worst:.3g} (limit {OBS_NORM_RTOL})")
+    print(f"{label} metrics: " + json.dumps(
+        {k: float(v) for k, v in zip(METRIC_FIELDS, got)}))
+    fm._round_ctx = None
+    return {"transmit": ctx.gradient, "update": update, "new_ps": new_ps,
+            "state": new_ss, "ps": ps, "old_state": ss, "ok": ok}
+
+
+def reduction_costs(label: str, planes: dict, n: int = 5) -> dict:
+    """Device ms and kernels per call of the metric vector and of the
+    guard (verdict and selects) on one round's tensors
+    (``torch.profiler``)."""
+
+    def metrics():
+        device_round_metrics(planes["transmit"], planes["update"],
+                             planes["new_ps"], planes["state"],
+                             guard_ok=planes["ok"], hists=True)
+
+    def guard():
+        ok = round_health(planes["transmit"], planes["new_ps"])
+        torch.where(ok, planes["new_ps"], planes["ps"])
+        for new, old in zip(planes["state"], planes["old_state"]):
+            if new is not None:
+                torch.where(ok, new, old)
+
+    out = {}
+    for name, fn in (("metrics", metrics), ("guard", guard)):
+        fn()
+        rows, _ = device_rows(fn, n)
+        out[name] = {"device_ms": sum(dev_us(e) for e in rows) / 1e3 / n,
+                     "device_ops": sum(e.count for e in rows) / n}
+        for e in rows[:6]:
+            print(f"  {label} {name}: {dev_us(e) / n / 1e3:7.4f} ms "
+                  f"{e.count / n:4.1f} x {e.key[:80]}")
+    print(f"{label} per round: metric vector {out['metrics']['device_ms']:.4f}"
+          f" device ms in {out['metrics']['device_ops']:g} device "
+          f"operations, guard {out['guard']['device_ms']:.4f} ms in "
+          f"{out['guard']['device_ops']:g}")
+    return out
+
+
+def obs_identity(label: str, build, batches) -> None:
+    """OBS_IDENTITY_ROUNDS rounds with telemetry and guards on against the
+    same rounds with both off, cuDNN deterministic: losses, weights,
+    server state and client rows bit-equal."""
+    runs = []
+    for extra in (OBS_ON, []):
+        with deterministic_cudnn():
+            _, fm, opt, _, one_round = build(extra)
+            losses = [one_round(batches[i % len(batches)])[0]
+                      for i in range(OBS_IDENTITY_ROUNDS)]
+            torch.cuda.synchronize()
+        runs.append((losses, fm, opt))
+    (la, fa, oa), (lb, fb, ob) = runs
+    for a, b in zip(la, lb):
+        assert np.array_equal(a, b), f"{label}: losses differ on/off"
+    pairs = [("weights", fa.ps_weights, fb.ps_weights)]
+    pairs += [(n, a, b) for n, a, b in zip(
+        oa.server_state._fields, oa.server_state, ob.server_state)
+        if a is not None]
+    pairs += [(f"client {n}", a, b) for n, a, b in zip(
+        ClientStates._fields, fa.client_states, fb.client_states)
+        if a is not None]
+    for name, a, b in pairs:
+        assert bit_equal(a, b), f"{label}: {name} differs on/off"
+    print(f"{label}: {OBS_IDENTITY_ROUNDS} rounds with telemetry and guards "
+          f"on equal to the rounds with both off, bit for bit: losses, "
+          + ", ".join(n for n, _, _ in pairs))
+    del runs, fa, fb, oa, ob
+    torch.cuda.empty_cache()
+
+
+def attach_recorder(fm, path: str):
+    """A run event log at ``path`` with the default watch rules."""
+    rt = RunTelemetry(path, run_info={"mode": fm.args.mode,
+                                      "grad_size": fm.grad_size},
+                      schema=METRIC_FIELDS)
+    rt.watch = WatchEngine(parse_watch_rules(",".join(DEFAULT_WATCH_RULES)),
+                           telemetry=rt)
+    fm.telemetry = rt
+    return rt
+
+
+def obs_audit(tmp: str) -> dict:
+    """The strict audit with telemetry, histograms, watch and guards on:
+    OBS_AUDIT_ROUNDS headline rounds through the engine (window 2, drain
+    every 8), every non-drain submit under ``set_sync_debug_mode("error")``
+    with no fetch, every drain one counted fetch; the event log holds every
+    round with the full schema, healthy."""
+    _, fm, opt, sched, _ = build_round(OBS_ON + ["--snapshot_every", "4"])
+    rt = attach_recorder(fm, os.path.join(tmp, "audit", "telemetry.jsonl"))
+    eng = PipelinedRoundEngine(fm, opt, sched, window=2, drain_every=8)
+    batches = [synthetic_batch(s) for s in range(8)]
+    drains, audited = [], 0
+    torch.cuda.synchronize()
+    for i in range(OBS_AUDIT_ROUNDS):
+        if eng.pending + 1 < eng.drain_every:
+            with host_sync_monitor(strict=True) as counter:
+                assert eng.submit(batches[i % 8]) == []
+            assert counter.count == 0, f"round {i}: {counter.count} fetches"
+            audited += 1
+        else:
+            with host_sync_monitor() as counter:
+                eng.submit(batches[i % 8])
+            drains.append(counter.count)
+    eng.drain()
+    rt.close()
+    assert drains == [1] * (OBS_AUDIT_ROUNDS // 8), drains
+    events = list(read_events(rt.path))
+    rounds = [e for e in events if e["ev"] == "round"]
+    assert [e["round"] for e in rounds] == list(range(OBS_AUDIT_ROUNDS))
+    for e in rounds:
+        assert set(e["metrics"]) == set(METRIC_FIELDS) and e["guard_ok"]
+    assert fm.guard_trips == 0 and fm._snapshot is not None
+    print(f"audit: {audited} non-drain submits with telemetry, histograms, "
+          f"watch and guards on under set_sync_debug_mode('error'), 0 "
+          f"fetches; {len(drains)} drains of one fetch each; "
+          f"{len(rounds)} round lines, {rt.watch.alerts} watch alerts")
+    del fm, opt, sched, eng
+    torch.cuda.empty_cache()
+    return {"audited": audited, "drain_fetches": drains}
+
+
+def _state_of(fm, opt):
+    return ([("weights", fm.ps_weights)]
+            + [(n, x) for n, x in zip(opt.server_state._fields,
+                                      opt.server_state) if x is not None]
+            + [(f"client {n}", x) for n, x in zip(ClientStates._fields,
+                                                  fm.client_states)
+               if x is not None])
+
+
+def _snapshot_of(fm, opt):
+    return [(n, x.clone()) for n, x in _state_of(fm, opt)]
+
+
+def _assert_state(label, fm, opt, snap, what):
+    for (n, a), (_, b) in zip(_state_of(fm, opt), snap):
+        assert bit_equal(a, b), f"{label}: {n} differs from {what}"
+
+
+def poisoned_round(label: str, fm, opt, sched, batch, kind: str) -> None:
+    """Round ``fm.rounds_dispatched`` is poisoned (``--inject_fault``):
+    its server step through the kernels and through the plain versions
+    gives the same update, verdict and metrics (NaN positions matched);
+    the real step trips the verdict, leaves weights, server state and
+    client rows bit-equal to the state before it, and its metric vector
+    shows the non-finite transmit with guard_ok 0."""
+    before = _snapshot_of(fm, opt)
+    sched.step()
+    h = fm.begin_round(batch)
+    ctx, lr = fm._round_ctx, opt.get_lr()
+    assert not bool(torch.isfinite(ctx.gradient).all()), "not poisoned"
+    out_k = fm.steps.server_step(fm.ps_weights, opt.server_state,
+                                 _clone_states(fm), ctx, lr, fm._rng)
+    with plain_kernels():
+        out_p = fm.steps.server_step(fm.ps_weights, opt.server_state,
+                                     _clone_states(fm), ctx, lr, fm._rng)
+    upd_k = server_update(ctx.gradient, opt.server_state, fm.server_config,
+                          lr, sketch=fm.sketch, layout=fm.layout)[0]
+    with plain_kernels():
+        upd_p = server_update(ctx.gradient, opt.server_state,
+                              fm.server_config, lr, sketch=fm.sketch,
+                              layout=fm.layout)[0]
+    torch.cuda.synchronize()
+    assert nan_equal(upd_k, upd_p), f"{label}: poisoned update differs"
+    assert torch.equal(out_k[3], out_p[3]) and not bool(out_k[3])
+    assert nan_equal(out_k[4], out_p[4]), f"{label}: metrics differ"
+    for x, y in zip((out_k[0], *out_k[1], *out_k[2]),
+                    (out_p[0], *out_p[1], *out_p[2])):
+        if x is not None:
+            assert bit_equal(x, y), f"{label}: state kernels != plain"
+    n_nan = int(torch.isnan(upd_k).sum())
+    opt.step()
+    h = fm.seal_round(h)
+    tel = h.telemetry.cpu().numpy()
+    assert not bool(h.guard), f"{label}: the verdict did not trip"
+    fm.finish_round(h)
+    _assert_state(label, fm, opt, before, "the state before the round")
+    m = dict(zip(METRIC_FIELDS, tel))
+    assert m["guard_ok"] == 0 and not np.isfinite(m["transmit_norm"]) \
+        and not np.isfinite(m["transmit_max_abs"]), m
+    print(f"{label} {kind} round {h.round_no}: verdict tripped; weights, "
+          f"server state and client rows bit-equal to before; update "
+          f"({n_nan} NaN), verdict and metrics equal through kernels and "
+          f"plain versions; transmit_norm {m['transmit_norm']}, "
+          f"update_hist_7 {m['update_hist_7']:g}, guard_ok 0")
+
+
+def guard_ladder(label: str, extra) -> dict:
+    """Fault injection through the kernels of the round ``extra`` names,
+    through the engine with a drain every round (the guard ladder runs at
+    the drain): one model trips once on a NaN (logged, state kept) and
+    then trains on; a second trips on inf at round 3 (kept), again at 4
+    (the snapshot of round 2 restored, bit-equal) and at 5
+    (``--max_guard_trips 3``: the raise is asserted)."""
+    batches = [synthetic_batch(s) for s in range(8)]
+
+    def engine(inject, *more):
+        _, fm, opt, sched, _ = build_round(
+            extra + OBS_ON + ["--snapshot_every", "1", "--inject_fault",
+                              inject, *more])
+        return fm, opt, sched, PipelinedRoundEngine(fm, opt, sched,
+                                                    window=2, drain_every=1)
+
+    fm, opt, sched, eng = engine("3:nan")
+    for i in range(3):
+        eng.submit(batches[i])
+    poisoned_round(label, fm, opt, sched, batches[3], "nan")
+    (res,) = eng.submit(batches[4])
+    assert np.all(np.isfinite(res.values[0])) and fm.guard_trips == 1
+    del fm, opt, sched, eng
+    fm, opt, sched, eng = engine("3:inf,4:nan,5:inf", "--max_guard_trips",
+                                 "3")
+    with tempfile.TemporaryDirectory() as tmp:
+        rt = attach_recorder(fm, os.path.join(tmp, "telemetry.jsonl"))
+        eng.telemetry = rt
+        _ladder_rollback_abort(label, fm, opt, sched, eng, batches)
+        rt.close()
+        ladder = [(e["ev"], e.get("round")) for e in read_events(rt.path)
+                  if e["ev"] in ("guard_trip", "rollback", "guard_fatal")]
+    assert ladder == [("guard_trip", 3), ("guard_trip", 4), ("rollback", 4),
+                      ("guard_trip", 5), ("guard_fatal", 5)], ladder
+    print(f"{label}: two consecutive trips restored the snapshot bit for "
+          f"bit; the third raised RuntimeError; events {ladder}")
+    del fm, opt, sched, eng
+    torch.cuda.empty_cache()
+    return {"events": ladder}
+
+
+def _ladder_rollback_abort(label, fm, opt, sched, eng, batches) -> None:
+    for i in range(3):
+        eng.submit(batches[i])
+    snap = _snapshot_of(fm, opt)
+    poisoned_round(label, fm, opt, sched, batches[3], "inf")
+    eng.submit(batches[4])   # the second consecutive trip rolls back
+    assert fm.guard_trips == 2
+    _assert_state(label, fm, opt, snap, "the snapshot")
+    try:
+        eng.submit(batches[5])
+    except RuntimeError as e:
+        assert "health guard tripped 3 consecutive rounds" in str(e), e
+    else:
+        raise AssertionError(f"{label}: --max_guard_trips 3 did not raise")
+
+
+def obs_cli(tmp: str) -> dict:
+    """``python -m commefficient_torch.cv_train`` with the telemetry
+    defaults and ``--guards --inject_fault 3:nan --trace_rounds 2:2``:
+    the event log read back with the port's ``read_events`` holds round
+    3's trip and the capture of rounds 2-3, whose directory exists."""
+    run = os.path.join(tmp, "cli_run")
+    argv = [a for a in HEADLINE if a != "--no_telemetry"] + [
+        "--model", "ResNet9", "--iid", "--num_clients", "16",
+        "--num_epochs", "1", "--seed", "0", "--dataset_dir",
+        os.path.join(tmp, "c10"), "--guards", "--inject_fault", "3:nan",
+        "--trace_rounds", "2:2"]
+    out = run_cv_train(argv, {"COMMEFFICIENT_SYNTHETIC_PER_CLASS": 64,
+                              "COMMEFFICIENT_RUN_DIR": run})
+    events = list(read_events(os.path.join(run, "telemetry.jsonl")))
+    kinds = [e["ev"] for e in events]
+    trips = [e for e in events if e["ev"] == "guard_trip"]
+    caps = [e for e in events if e["ev"] == "trace_captured"]
+    assert kinds[0] == "run_start" and kinds[-1] == "run_end", kinds
+    assert [e["round"] for e in trips] == [3], trips
+    assert caps and caps[0]["round_start"] == 2 \
+        and caps[0]["round_until"] == 3, caps
+    trace_dir = os.path.join(run, "trace_round_000002")
+    assert os.path.isfile(os.path.join(trace_dir, "trace.json")), trace_dir
+    rounds = {e["round"]: e for e in events if e["ev"] == "round"}
+    assert rounds[3]["guard_ok"] is False
+    assert rounds[3]["metrics"]["transmit_norm"] == "nan"
+    size = os.path.getsize(os.path.join(trace_dir, "trace.json"))
+    print(f"cv_train CLI: {len(events)} events ({len(rounds)} rounds), the "
+          f"trip at round 3, trace of rounds 2-3 in {trace_dir} "
+          f"({size:,} B); " + json.dumps(out))
+    return {"events": len(events), "rounds": len(rounds)}
+
+
+def clock_recorder(rt) -> dict:
+    """Wrap the recorder's host hooks (the spans, the metric records with
+    the watch engine, the event writes) with a clock: ``spent["s"]`` sums
+    the seconds of the outermost calls."""
+    spent = {"s": 0.0, "depth": 0}
+    for name in ("on_dispatch", "on_complete", "on_metrics", "on_drained",
+                 "event"):
+        def timed(*a, _fn=getattr(rt, name), **k):
+            spent["depth"] += 1
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                spent["depth"] -= 1
+                if spent["depth"] == 0:
+                    spent["s"] += time.perf_counter() - t
+        setattr(rt, name, timed)
+    return spent
+
+
+def engine_host_ops(eng, batch) -> dict:
+    """The host's operators over OBS_HOST_ROUNDS engine rounds and their
+    drain under ``torch.profiler`` (CPU only): self time, operators and
+    kernel launches a round."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(OBS_HOST_ROUNDS):
+            eng.submit(batch)
+        eng.drain()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    n = OBS_HOST_ROUNDS
+    return {"self_cpu_ms_per_round": sum(e.self_cpu_time_total
+                                         for e in rows) / n / 1e3,
+            "aten_ops_per_round": sum(e.count for e in rows
+                                      if e.key.startswith("aten::")) / n,
+            "launches_per_round": sum(e.count for e in rows
+                                      if e.key == "cudaLaunchKernel") / n}
+
+
+def obs_costs(card: str, label: str, build, batch, per_round, tmp) -> dict:
+    """Rounds/sec with telemetry (histograms, watch, the event log) on
+    against ``--no_telemetry``, and with guards on against off, through
+    the engine (window 2, drain every 8), in ``OBS_PAIRS[label]``
+    alternating pairs of OBS_PAIR_ROUNDS rounds each; the launches of
+    every timed window checked (the planes launch no port kernel). The
+    host's side of telemetry on and off: the recorder's hooks' seconds a
+    round in the timed windows (``clock_recorder``), and one profiled
+    window each (``engine_host_ops``). Data: no exit code depends on a
+    ratio."""
+    engines = {}
+    for cfg, extra in (("off", []), ("telemetry", ["--telemetry"]),
+                       ("guards", ["--guards"])):
+        _, fm, opt, sched, _ = build(extra)
+        if cfg == "telemetry":
+            rec = clock_recorder(attach_recorder(
+                fm, os.path.join(tmp, label.replace(" ", "_"),
+                                 "telemetry.jsonl")))
+        engines[cfg] = PipelinedRoundEngine(fm, opt, sched, window=2,
+                                            drain_every=8)
+        for _ in range(3):
+            engines[cfg].submit(batch)
+        engines[cfg].drain()
+
+    rec_ms = []
+
+    def run(cfg):
+        eng = engines[cfg]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        rec0 = rec["s"]
+        t0 = time.perf_counter()
+        for _ in range(OBS_PAIR_ROUNDS):
+            eng.submit(batch)
+        eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if cfg == "telemetry":
+            rec_ms.append((rec["s"] - rec0) / OBS_PAIR_ROUNDS * 1e3)
+        counts = kernels.launch_counts()
+        want = {k.name: per_round.get(k.name, 0) * OBS_PAIR_ROUNDS
+                for k in kernels.KERNELS}
+        assert counts == want, f"{label} {cfg}: launches {counts}"
+        return OBS_PAIR_ROUNDS / wall
+
+    ratios = {"telemetry": [], "guards": []}
+    rps = {"off": [], "telemetry": [], "guards": []}
+    pairs = OBS_PAIRS[label]
+    for p in range(pairs):
+        for cmp in ("telemetry", "guards"):
+            order = ("off", cmp) if p % 2 == 0 else (cmp, "off")
+            r = {c: run(c) for c in order}
+            for c, v in r.items():
+                rps[c].append(v)
+            ratios[cmp].append(r[cmp] / r["off"])
+    host = {cfg: engine_host_ops(engines[cfg], batch)
+            for cfg in ("off", "telemetry")}
+    host["recorder_ms_per_round"] = statistics.median(rec_ms)
+    row = {"phase": "observability", "leg": label,
+           "pairs": pairs, "rounds_per_window": OBS_PAIR_ROUNDS,
+           "rounds_per_sec": rps,
+           **{f"{k}_ratio": {"median": statistics.median(v),
+                             "min": min(v), "max": max(v), "all": v}
+              for k, v in ratios.items()},
+           "host": host, "card": card}
+    print(json.dumps(row))
+    for k, v in ratios.items():
+        print(f"{label} {k} on / off: median {statistics.median(v):.4f} "
+              f"(spread {min(v):.4f}-{max(v):.4f}) against the JAX "
+              f"package's budget of >= 0.98 (data, not a gate)")
+    off, on = host["off"], host["telemetry"]
+    print(f"{label} host a round, telemetry on / off: operators' self "
+          f"time {on['self_cpu_ms_per_round']:.3f} / "
+          f"{off['self_cpu_ms_per_round']:.3f} ms, "
+          f"{on['aten_ops_per_round']:.1f} / "
+          f"{off['aten_ops_per_round']:.1f} operators, "
+          f"{on['launches_per_round']:.1f} / "
+          f"{off['launches_per_round']:.1f} launches; the recorder's "
+          f"hooks {host['recorder_ms_per_round']:.3f} ms")
+    for eng in engines.values():
+        rt = getattr(eng.model, "telemetry", None)
+        if rt is not None:
+            rt.close()
+    del engines
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_observability(card: str) -> dict:
+    """Phase 12: the observability plane and the health guards at full
+    width (cuDNN deterministic where bits are compared)."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (1) the metric vector on the card against the CPU's, with the
+        # launches of each leg's rounds checked
+        planes = {}
+        for label, extra in (("headline", []), ("opt-in", OPT_IN)):
+            if extra:   # the one-launch descent of the opt-in round
+                os.environ[ttk.FUSED_DESCENT_ENV] = "1"
+            args, fm, opt, _, one_round = build_round(extra + OBS_ON)
+            per_round = (HEADLINE_PER_ROUND if not extra
+                         else opt_in_per_round(fm, args))
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            for s in range(3):
+                one_round(synthetic_batch(s))
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            assert counts == {k.name: 3 * per_round.get(k.name, 0)
+                              for k in kernels.KERNELS}, (label, counts)
+            planes[label] = metric_vector_check(label, fm, opt,
+                                                synthetic_batch(3))
+            out[f"{label} costs"] = reduction_costs(label, planes[label])
+            del fm, opt, one_round, planes[label]
+            torch.cuda.empty_cache()
+            os.environ.pop(ttk.FUSED_DESCENT_ENV, None)
+        _, fm, opt, _, one_round = build_gpt2(OBS_ON)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        for s in range(2):
+            one_round(gpt2_batch(s))
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == {
+            k.name: 2 * HEADLINE_PER_ROUND.get(k.name, 0)
+            for k in kernels.KERNELS}
+        gp = metric_vector_check("gpt2 f32", fm, opt, gpt2_batch(2))
+        out["gpt2 f32 costs"] = reduction_costs("gpt2 f32", gp)
+        del fm, opt, one_round, gp
+        torch.cuda.empty_cache()
+
+        # (2) on / off identity, (3) the strict audit
+        obs_identity("headline", build_round,
+                     [synthetic_batch(s) for s in range(4)])
+        out["audit"] = obs_audit(tmp)
+
+        # (4) poisoned rounds through the headline and the opt-in kernels
+        out["ladder"] = {"headline": guard_ladder("headline", [])}
+        os.environ[ttk.FUSED_DESCENT_ENV] = "1"
+        out["ladder"]["opt-in"] = guard_ladder("opt-in", OPT_IN)
+        del os.environ[ttk.FUSED_DESCENT_ENV]
+
+        # (5) the CLI, (6) the cost pairs
+        out["cli"] = obs_cli(tmp)
+        out["costs"] = [
+            obs_costs(card, "headline", build_round, synthetic_batch(),
+                      HEADLINE_PER_ROUND, tmp),
+            obs_costs(card, "gpt2 f32", build_gpt2, gpt2_batch(),
+                      HEADLINE_PER_ROUND, tmp)]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-times", nargs="*", metavar="NAME",
@@ -2923,6 +3506,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     multi = phase_multi(card, rps, gpt2["legs"]["gpt2 f32"])
     wall["11 multi-GPU and HF"] = time.perf_counter() - t
+    t = time.perf_counter()
+    obs = phase_observability(card)
+    wall["12 observability and guards"] = time.perf_counter() - t
     print("phase wall seconds (phase 3 includes the build): " + json.dumps(
         {k: round(v, 2) for k, v in wall.items()}))
 
@@ -2970,6 +3556,11 @@ def main(argv=None) -> int:
                           k: v["rounds_per_sec"]
                           for k, v in multi["nccl"]["legs"].items()},
                       "hf_gpt2_tokens_per_sec": multi["hf"]["tokens_per_sec"],
+                      "observability_on_off_median": {
+                          row["leg"]: {
+                              k: row[f"{k}_ratio"]["median"]
+                              for k in ("telemetry", "guards")}
+                          for row in obs["costs"]},
                       **{"opt_in_" + k: v for k, v in opt_prof.items()}}))
     print(json.dumps(summary))
     print(card)

@@ -40,10 +40,21 @@ resume flags (``--checkpoint``, ``--checkpoint_path``,
 ``--metrics_drain_every``, with the JAX package's names, defaults and
 help.
 
-Every flag of the JAX package that this slice does not carry is still
-parsed, so that using it raises ``NotImplementedError`` naming the ROADMAP
-item that ports it instead of being ignored (``reject_unported``).
-``--no_telemetry`` is accepted: the port has no telemetry plane yet.
+The observability plane and the health guards are carried with the JAX
+package's names, defaults and help: ``--telemetry`` / ``--no_telemetry``,
+``--telemetry_hist`` / ``--no_telemetry_hist`` and ``--watch`` /
+``--no_watch`` (all on by default), ``--watch_rules``, ``--trace_rounds``,
+``--tensorboard``, ``--profile`` / ``--profile_dir`` / ``--profile_steps``,
+``--guards``, ``--guard_max_abs``, ``--snapshot_every``,
+``--max_guard_trips`` and ``--inject_fault`` (``parse_inject_fault``).
+``--port``, ``--share_ps_gpu``, ``--nan_threshold`` and
+``--num_results_*`` are accepted and ignored, as the JAX package ignores
+them; ``--rng_impl threefry2x32`` is a no-op and its JAX-only PRNGs raise.
+
+Every other flag of the JAX package is parsed with its type and default
+(``UNPORTED``); a value other than the default raises
+``NotImplementedError`` naming the ROADMAP item that ports it
+(``reject_unported``).
 """
 
 from __future__ import annotations
@@ -60,32 +71,98 @@ _Q1 = "ROADMAP.md queue 1"
 ITEM_MULTI_2D = (f"{_Q1} item 5a (the 2-D clients x shard plane, "
                  f"per-axis collective plans, --collective_plan auto, the "
                  f"multi-host seam)")
-ITEM_RUNTIME = f"{_Q1} item 6 (runtime planes)"
+ITEM_PARTICIPATION = (f"{_Q1} item 6c (participation, stragglers and "
+                      f"async buffering)")
+ITEM_HOST_STATE = (f"{_Q1} item 6d (host state: the row store, host "
+                   f"offload, storage faults)")
+ITEM_SERVICE = f"{_Q1} item 6e (the open-world service: --churn)"
 ITEM_PARALLEL = (f"{_Q1} item 7 (parallel/: sequence, tensor, pipeline "
                  f"and expert parallelism)")
 
-# (flag, dest, takes a value, roadmap item)
+# The flags of planes the port does not carry yet, with the JAX package's
+# types and defaults: (option strings, add_argument keywords, item). Each
+# is parsed; a value other than its default raises naming the item.
 UNPORTED = (
-    ("--tensorboard", "use_tensorboard", False, ITEM_RUNTIME),
-    ("--plan_error_budget", "plan_error_budget", True, ITEM_MULTI_2D),
-    ("--profile", "do_profile", False, ITEM_RUNTIME),
-    ("--state_dir", "state_dir", True, ITEM_RUNTIME),
-    ("--seq_parallel", "seq_parallel", True, ITEM_PARALLEL),
-    ("--model_devices", "model_devices", True, ITEM_PARALLEL),
-    ("--pipeline_devices", "pipeline_devices", True, ITEM_PARALLEL),
-    ("--n_experts", "n_experts", True, ITEM_PARALLEL),
-    ("--client_dropout", "client_dropout", True, ITEM_RUNTIME),
-    ("--participation", "participation", True, ITEM_RUNTIME),
-    ("--inject_client_fault", "inject_client_fault", True, ITEM_RUNTIME),
-    ("--churn", "churn", True, ITEM_RUNTIME),
-    ("--async_buffer", "async_buffer", True, ITEM_RUNTIME),
-    ("--telemetry", "telemetry", False, ITEM_RUNTIME),
-    ("--watch_rules", "watch_rules", True, ITEM_RUNTIME),
-    ("--trace_rounds", "trace_rounds", True, ITEM_RUNTIME),
-    ("--guards", "guards", False, ITEM_RUNTIME),
-    ("--inject_io_fault", "inject_io_fault", True, ITEM_RUNTIME),
-    ("--inject_fault", "inject_fault", True, ITEM_RUNTIME),
+    ("--plan_error_budget", dict(type=float, default=0.05),
+     ITEM_MULTI_2D),
+    ("--client_dropout", dict(type=float, default=0.0),
+     ITEM_PARTICIPATION),
+    ("--participation", dict(type=str, default=""), ITEM_PARTICIPATION),
+    ("--participation_sampling",
+     dict(choices=["uniform", "weighted", "stratified"], default="uniform"),
+     ITEM_PARTICIPATION),
+    ("--inject_client_fault", dict(type=str, default=""),
+     ITEM_PARTICIPATION),
+    ("--staleness_decay", dict(type=float, default=0.5),
+     ITEM_PARTICIPATION),
+    ("--client_retry_limit", dict(type=int, default=3),
+     ITEM_PARTICIPATION),
+    ("--async_buffer", dict(type=int, default=0), ITEM_PARTICIPATION),
+    ("--state_dir", dict(type=str, default=""), ITEM_HOST_STATE),
+    ("--inject_io_fault", dict(type=str, default=""), ITEM_HOST_STATE),
+    ("--io_retries", dict(type=int, default=3), ITEM_HOST_STATE),
+    ("--io_backoff_ms", dict(type=float, default=5.0), ITEM_HOST_STATE),
+    ("--io_deadline_ms", dict(type=float, default=30000.0),
+     ITEM_HOST_STATE),
+    ("--io_queue_bound", dict(type=int, default=0), ITEM_HOST_STATE),
+    ("--io_checksums", dict(action="store_true", dest="io_checksums",
+                            default=True), ITEM_HOST_STATE),
+    ("--no_io_checksums", dict(action="store_false", dest="io_checksums"),
+     ITEM_HOST_STATE),
+    ("--io_scrub_rows", dict(type=int, default=0), ITEM_HOST_STATE),
+    ("--churn", dict(type=str, default=""), ITEM_SERVICE),
+    ("--seq_parallel", dict(choices=["none", "ring", "ulysses"],
+                            default="none"), ITEM_PARALLEL),
+    ("--seq_devices", dict(type=int, default=2), ITEM_PARALLEL),
+    ("--model_devices", dict(type=int, default=1), ITEM_PARALLEL),
+    ("--pipeline_devices", dict(type=int, default=1), ITEM_PARALLEL),
+    ("--pp_microbatches", dict(type=int, default=4), ITEM_PARALLEL),
+    ("--n_experts", dict(type=int, default=0), ITEM_PARALLEL),
+    ("--expert_devices", dict(type=int, default=1), ITEM_PARALLEL),
+    ("--moe_dispatch", dict(choices=["dense", "sparse"], default="dense"),
+     ITEM_PARALLEL),
+    ("--moe_capacity_factor", dict(type=float, default=1.25),
+     ITEM_PARALLEL),
+    ("--moe_aux_coef", dict(type=float, default=0.01), ITEM_PARALLEL),
 )
+
+
+def _unported_defaults():
+    """``(flag, dest, default, item)`` for every unported value: a
+    ``store_false`` twin names itself, since only it moves the value off
+    its default."""
+    out = {}
+    for flag, kw, item in UNPORTED:
+        dest = kw.get("dest", flag.lstrip("-"))
+        if kw.get("action") == "store_false":
+            out[dest] = (flag, dest, out[dest][2], item)
+        else:
+            out[dest] = (flag, dest, kw.get("default"), item)
+    return tuple(out.values())
+
+
+def parse_inject_fault(spec: str):
+    """``--inject_fault`` spec -> {round_index: poison_value}. The spec is
+    'ROUND:KIND[,ROUND:KIND...]' with KIND in {nan, inf}; a malformed spec
+    fails here at parse time, not rounds into a run."""
+    values = {"nan": float("nan"), "inf": float("inf")}
+    out = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            rnd, kind = part.split(":")
+            rnd = int(rnd)
+        except ValueError:
+            raise ValueError(
+                f"--inject_fault: bad entry {part!r}; expected ROUND:KIND "
+                f"(e.g. '5:nan' or '2:nan,7:inf')") from None
+        assert kind in values, (
+            f"--inject_fault: unknown kind {kind!r}; use nan|inf")
+        assert rnd >= 0, f"--inject_fault: round {rnd} must be >= 0"
+        out[rnd] = values[kind]
+    return out
 
 
 def _model_names():
@@ -178,9 +255,6 @@ def build_parser(default_lr=None) -> argparse.ArgumentParser:
     parser.add_argument("--dp_mode", choices=DP_MODES, default="worker")
     parser.add_argument("--l2_norm_clip", type=float, default=1.0)
     parser.add_argument("--noise_multiplier", type=float, default=0.0)
-    parser.add_argument("--no_telemetry", action="store_false",
-                        dest="telemetry", default=False,
-                        help="Accepted; the port has no telemetry plane.")
 
     parser.add_argument("--batchnorm", action="store_true",
                         dest="do_batchnorm")
@@ -248,24 +322,116 @@ def build_parser(default_lr=None) -> argparse.ArgumentParser:
                              "leaves with one launch (requires "
                              "--stream_sketch).")
 
-    for flag, dest, valued, _item in UNPORTED:
-        if valued:
-            parser.add_argument(flag, type=str, dest=dest, default=None,
-                                help="Not ported yet.")
-        else:
-            parser.add_argument(flag, action="store_true", dest=dest,
-                                default=False, help="Not ported yet.")
+    # accepted and ignored, as the JAX package ignores them
+    parser.add_argument("--port", type=int, default=5315,
+                        help="Accepted for compatibility; unused.")
+    parser.add_argument("--share_ps_gpu", action="store_true",
+                        help="Accepted for compatibility; unused.")
+    parser.add_argument("--nan_threshold", type=float, default=999,
+                        help="Accepted for compatibility; unused.")
+    parser.add_argument("--num_results_train", type=int, default=2,
+                        help="Accepted for compatibility; unused.")
+    parser.add_argument("--num_results_val", type=int, default=2,
+                        help="Accepted for compatibility; unused.")
+    parser.add_argument("--rng_impl",
+                        choices=["threefry2x32", "rbg", "unsafe_rbg"],
+                        default="threefry2x32",
+                        help="The JAX package's PRNG choice: threefry2x32 "
+                             "is accepted as a no-op; rbg and unsafe_rbg "
+                             "name JAX PRNGs and are refused.")
+
+    # observability (the JAX package's flags, names, defaults and help)
+    parser.add_argument("--tensorboard", dest="use_tensorboard",
+                        action="store_true",
+                        help="Per-epoch scalars to a TensorBoard writer in "
+                             "the run dir (console only when "
+                             "torch.utils.tensorboard is missing).")
+    parser.add_argument("--profile", action="store_true", dest="do_profile",
+                        help="torch.profiler trace of --profile_steps "
+                             "rounds of each epoch, from loop index 2.")
+    parser.add_argument("--profile_dir", type=str, default="profiles")
+    parser.add_argument("--profile_steps", type=int, default=3)
+    parser.add_argument("--telemetry", action="store_true", dest="telemetry",
+                        default=True,
+                        help="Per-round on-device metrics + JSONL run "
+                             "event log (the default).")
+    parser.add_argument("--no_telemetry", action="store_false",
+                        dest="telemetry",
+                        help="Disable the telemetry plane (bit-identical "
+                             "trajectories either way).")
+    parser.add_argument("--telemetry_hist", action="store_true",
+                        dest="telemetry_hist", default=True,
+                        help="Append the schema-v3 log-magnitude "
+                             "histogram block (emitted update + error "
+                             "carry) to the on-device round metrics "
+                             "(the default with telemetry on).")
+    parser.add_argument("--no_telemetry_hist", action="store_false",
+                        dest="telemetry_hist",
+                        help="Drop the histogram block (12-field v2 "
+                             "metric schema; bit-identical trajectories "
+                             "either way).")
+    parser.add_argument("--watch", action="store_true", dest="watch",
+                        default=True,
+                        help="Evaluate watch rules over the drained "
+                             "metric stream (the default with telemetry "
+                             "on; alerts land as watch_alert events).")
+    parser.add_argument("--no_watch", action="store_false", dest="watch",
+                        help="Disable the watch/alert plane.")
+    parser.add_argument("--watch_rules", type=str, default="",
+                        help="Watch rules 'METRIC{>|<}BOUND[@N]"
+                             "[->log|trace[:R]|checkpoint]' joined by "
+                             "','; BOUND a float or ewma*F (drift vs the "
+                             "metric's own EWMA). Empty = the default "
+                             "rule set.")
+    parser.add_argument("--trace_rounds", type=str, default="",
+                        help="Windowed round-aligned profiler capture(s) "
+                             "'START:COUNT[,START:COUNT...]' over global "
+                             "round_no; traces land in the run dir named "
+                             "by the start round.")
+
+    # health guards and fault injection (the JAX package's flags)
+    parser.add_argument("--guards", action="store_true", dest="guards",
+                        help="Enable per-round on-device health guards: "
+                             "non-finite (or over-magnitude) rounds are "
+                             "quarantined without touching (velocity, "
+                             "error) and training continues.")
+    parser.add_argument("--guard_max_abs", type=float, default=0.0,
+                        help="Magnitude guard: trip when any updated PS "
+                             "weight exceeds this absolute value "
+                             "(0 = finiteness-only).")
+    parser.add_argument("--snapshot_every", type=int, default=64,
+                        help="Refresh the device-resident last-good server "
+                             "snapshot every N healthy drained rounds "
+                             "(guards only; 0 disables rollback).")
+    parser.add_argument("--max_guard_trips", type=int, default=3,
+                        help="Consecutive guard trips before aborting with "
+                             "a fatal error (guards only).")
+    parser.add_argument("--inject_fault", type=str, default="",
+                        help="Debug: 'ROUND:KIND[,ROUND:KIND...]' with KIND "
+                             "in {nan,inf} — overwrite one element of that "
+                             "round's aggregated transmit with the value "
+                             "before the server phase.")
+
+    for flag, kw, item in UNPORTED:
+        parser.add_argument(flag, **kw, help=f"Not ported yet ({item}).")
     return parser
 
 
 def reject_unported(args) -> None:
     """Raise ``NotImplementedError`` for any option this slice does not
-    carry. Attributes an ``args`` object lacks count as unset."""
-    for flag, dest, valued, item in UNPORTED:
-        val = getattr(args, dest, None)
-        if (val is not None) if valued else bool(val):
+    carry, naming its ROADMAP item, and ``ValueError`` for a JAX PRNG
+    (``--rng_impl rbg|unsafe_rbg``). Attributes an ``args`` object lacks
+    count as unset."""
+    for flag, dest, default, item in _unported_defaults():
+        if getattr(args, dest, default) != default:
             raise NotImplementedError(
                 f"{flag} is not ported yet ({item})")
+    rng_impl = getattr(args, "rng_impl", "threefry2x32")
+    if rng_impl != "threefry2x32":
+        raise ValueError(
+            f"--rng_impl {rng_impl} names a JAX PRNG, which has no meaning "
+            "in the port (its randomness comes from torch.Generator); "
+            "leave it at threefry2x32")
     if int(getattr(args, "shard_devices", 1) or 1) > 1:
         raise NotImplementedError(
             f"--shard_devices {args.shard_devices} is not ported "
@@ -274,6 +440,32 @@ def reject_unported(args) -> None:
     if spec == "auto" or ":" in spec:
         raise NotImplementedError(
             f"--collective_plan {spec} is not ported ({ITEM_MULTI_2D})")
+
+
+def check_observability(args) -> None:
+    """The JAX package's checks of the telemetry, watch, trace and guard
+    flags: malformed specs fail at parse time, not rounds into a run."""
+    from commefficient_torch.profiling import parse_trace_rounds
+    from commefficient_torch.telemetry import parse_watch_rules
+
+    assert args.max_guard_trips >= 1, "--max_guard_trips must be >= 1"
+    assert args.snapshot_every >= 0, "--snapshot_every must be >= 0"
+    if args.watch_rules:
+        rules = parse_watch_rules(args.watch_rules)
+        if any(r.action == "checkpoint" for r in rules) \
+                and args.train_dataloader_workers > 0:
+            print("NOTE: a watch 'checkpoint' reaction needs "
+                  "--train_dataloader_workers 0 for a resumable save "
+                  "(same constraint as --checkpoint_every_rounds); the "
+                  "reaction will be skipped with a message")
+    if args.trace_rounds:
+        parse_trace_rounds(args.trace_rounds)
+    if args.inject_fault:
+        parse_inject_fault(args.inject_fault)
+        if not args.guards:
+            print("NOTE: --inject_fault without --guards will poison the "
+                  "run with nothing to catch it (intentional only for "
+                  "demonstrating the failure mode)")
 
 
 def check_collectives(args) -> None:
@@ -309,6 +501,7 @@ def parse_args(default_lr=None, argv=None):
     args = build_parser(default_lr).parse_args(argv)
     reject_unported(args)
     check_collectives(args)
+    check_observability(args)
     if args.mode == "fedavg":
         assert args.local_batch_size == -1, "fedavg requires local_batch_size == -1"
         assert args.local_momentum == 0, "fedavg requires local_momentum == 0"

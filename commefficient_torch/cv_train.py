@@ -50,6 +50,22 @@ puts flax's BatchNorm in every ResNet9 cell. Runs on ``cuda`` unless
 ``--device cpu``; float32 (TF32 off), the forward and backward in
 bfloat16 under ``--bf16``.
 
+The observability plane is on by default, as in the JAX package: each
+round's metric vector and the run's events go to
+``<run_dir>/telemetry.jsonl`` (``runs/<time>_w..._c..._<mode>...``, or
+``$COMMEFFICIENT_RUN_DIR``; ``scripts/obs_report.py`` renders it), the
+watch rules run over the drained rounds (their checkpoint reaction saves
+the run state at the next round boundary; under ``torchrun``, where rank
+0 alone runs them, every rank takes the request at the next drain),
+``--trace_rounds`` windows land in ``<run_dir>/trace_round_<N>/``,
+``--profile`` traces ``--profile_steps`` rounds of each epoch on rank 0
+into ``--profile_dir`` and
+``--tensorboard`` writes per-epoch scalars to the run dir. ``--guards``
+quarantines a non-finite round on the device, rolls back to the last
+snapshot after two consecutive trips and stops the run at
+``--max_guard_trips``; ``--inject_fault ROUND:nan|inf`` poisons a round's
+transmit to exercise it.
+
 On N GPUs, one process per GPU:
 
     torchrun --nproc_per_node N -m commefficient_torch.cv_train ... \
@@ -111,10 +127,18 @@ from commefficient_torch.parallel import (
     quiet_unless_main,
     start_client_group,
 )
+from commefficient_torch.profiling import StepProfiler
+from commefficient_torch.telemetry import (
+    attach_run_telemetry,
+    close_run_telemetry,
+    take_watch_checkpoint,
+    watch_can_checkpoint,
+)
 from commefficient_torch.utils import (
     PiecewiseLinear,
     TableLogger,
     Timer,
+    make_logdir,
 )
 
 
@@ -174,8 +198,14 @@ def run_batches(model, opt, lr_scheduler, loader, training, epoch_fraction,
         engine = PipelinedRoundEngine(
             model, opt, lr_scheduler, window=args.round_window,
             drain_every=args.metrics_drain_every)
+        prof = StepProfiler(args.profile_dir, num_steps=args.profile_steps,
+                            enabled=args.do_profile and model.is_main)
         nan_loss = False
         save_every = int(args.checkpoint_every_rounds or 0)
+        # the watch plane's checkpoint reaction is serviced here, at a
+        # round boundary, like --checkpoint_every_rounds
+        rt = getattr(model, "telemetry", None)
+        watch_armed = watch_can_checkpoint(args)
 
         def consume(results):
             nonlocal nan_loss, client_download, client_upload
@@ -191,30 +221,52 @@ def run_batches(model, opt, lr_scheduler, loader, training, epoch_fraction,
                 losses.extend(loss.tolist())
                 accs.extend(acc.tolist())
 
-        for i, batch in enumerate(cohort_lookahead(loader, model)):
-            if i0 + i > spe * epoch_fraction:
-                break
-            consume(engine.submit(batch))
-            if nan_loss:
-                return np.nan, np.nan, np.nan, np.nan
-            if save_every and (i0 + i + 1) % save_every == 0:
-                # drain first: the saved sampler and RNG position must
-                # describe exactly the rounds folded into the run state
-                consume(engine.drain())
+        try:
+            for i, batch in enumerate(cohort_lookahead(loader, model)):
+                if i0 + i > spe * epoch_fraction:
+                    break
+                prof.step(i)
+                done = engine.submit(batch)
+                consume(done)
                 if nan_loss:
                     return np.nan, np.nan, np.nan, np.nan
-                save_round_state(
-                    args, epoch, i0 + i + 1, loader.sampler.get_state(),
-                    model, opt, lr_scheduler, totals,
-                    extras={"download": client_download,
-                            "upload": client_upload,
-                            "losses": np.asarray(losses, np.float64),
-                            "accs": np.asarray(accs, np.float64)})
-            if args.do_test:
-                break
-        consume(engine.drain())
-        if nan_loss:
-            return np.nan, np.nan, np.nan, np.nan
+                do_save = bool(save_every and (i0 + i + 1) % save_every == 0)
+                forced = False
+                if take_watch_checkpoint(model, watch_armed, bool(done)):
+                    if args.train_dataloader_workers == 0:
+                        do_save = forced = True
+                    else:
+                        print("watch: checkpoint reaction skipped (needs "
+                              "--train_dataloader_workers 0 for a "
+                              "resumable save)")
+                if do_save:
+                    # drain first: the saved sampler and RNG position must
+                    # describe exactly the rounds folded into the run state
+                    consume(engine.drain())
+                    if nan_loss:
+                        return np.nan, np.nan, np.nan, np.nan
+                    save_round_state(
+                        args, epoch, i0 + i + 1, loader.sampler.get_state(),
+                        model, opt, lr_scheduler, totals,
+                        extras={"download": client_download,
+                                "upload": client_upload,
+                                "losses": np.asarray(losses, np.float64),
+                                "accs": np.asarray(accs, np.float64)})
+                    if rt is not None:
+                        # `round` is the global round index the round and
+                        # guard events share
+                        rt.event("checkpoint", epoch=epoch,
+                                 round=model.rounds_dispatched - 1,
+                                 round_in_epoch=i0 + i + 1,
+                                 **({"forced_by_watch": True} if forced
+                                    else {}))
+                if args.do_test:
+                    break
+            consume(engine.drain())
+            if nan_loss:
+                return np.nan, np.nan, np.nan, np.nan
+        finally:
+            prof.close()
         return (np.mean(losses), np.mean(accs), client_download,
                 client_upload)
     for batch in loader:
@@ -228,7 +280,7 @@ def run_batches(model, opt, lr_scheduler, loader, training, epoch_fraction,
 
 def train(model, opt, lr_scheduler, train_loader, test_loader, args,
           loggers=(), timer=None, start_epoch=0, totals=(0.0, 0.0),
-          resume_mid=None):
+          resume_mid=None, writer=None):
     timer = timer or Timer()
     total_download, total_upload = totals
     if args.eval_before_start and start_epoch == 0:
@@ -257,7 +309,7 @@ def train(model, opt, lr_scheduler, train_loader, test_loader, args,
         total_upload += upload_mb
         test_loss, test_acc, _, _ = run_batches(model, None, None,
                                                 test_loader, False, 1, args)
-        timer()
+        test_time = timer()
         epoch_stats = {
             "train_time": train_time,
             "train_loss": train_loss,
@@ -272,8 +324,23 @@ def train(model, opt, lr_scheduler, train_loader, test_loader, args,
         summary = {"epoch": epoch + 1, "lr": lr, **epoch_stats}
         for logger in loggers:
             logger.append(summary)
+        if getattr(model, "telemetry", None) is not None:
+            model.telemetry.event(
+                "epoch", epoch=epoch + 1, lr=float(lr),
+                **{k.split(" ")[0]: float(v)
+                   for k, v in epoch_stats.items()})
         maybe_save_run_state(args, epoch, model, opt, lr_scheduler,
                              (total_download, total_upload))
+        if writer is not None:
+            for key, val in (("Loss/train", train_loss),
+                             ("Loss/test", test_loss),
+                             ("Acc/train", train_acc),
+                             ("Acc/test", test_acc),
+                             ("Time/train", train_time),
+                             ("Time/test", test_time),
+                             ("Time/total", timer.total_time),
+                             ("Lr", lr)):
+                writer.add_scalar(key, val, epoch)
     print(f"Total Download (MiB): {total_download:0.2f}")
     print(f"Total Upload (MiB): {total_upload:0.2f}")
     n = train_loader.dataset.num_clients
@@ -371,6 +438,20 @@ def finetune_init(args, model, layout: ParamLayout) -> torch.Tensor:
     return layout.flatten(params_from_flax(tree, layout))
 
 
+def open_writer(args, log_dir: str):
+    """``--tensorboard``: a ``SummaryWriter`` in the run dir, or None
+    (console logging only) where ``torch.utils.tensorboard`` cannot be
+    imported, as in the JAX package."""
+    if not args.use_tensorboard:
+        return None
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        print("tensorboard unavailable; console logging only")
+        return None
+    return SummaryWriter(log_dir=log_dir)
+
+
 def check_trainable(model) -> None:
     """A model with BatchNorm that ``--batchnorm`` does not gate raises:
     the JAX package's ``cv_train`` cannot train it (``has_bn``,
@@ -431,15 +512,26 @@ def _main(args, group):
                                   [0, args.lr_scale, 0])
     spe = train_loader.steps_per_epoch()
     lr_scheduler = LambdaLR(opt, lr_lambda=lambda step: lr_schedule(step / spe))
+    log_dir = make_logdir(args)
+    writer = open_writer(args, log_dir) if fed_model.is_main else None
+    # the telemetry plane (on by default): the metric vectors and the run
+    # event log <log_dir>/telemetry.jsonl, and the round tracer
+    rt = attach_run_telemetry(args, fed_model, log_dir, "cv_train")
     start_epoch, totals, resume_mid = resume_run(args, fed_model, opt,
                                                  lr_scheduler)
+    if rt is not None and (start_epoch or resume_mid is not None):
+        rt.event("resume", start_epoch=start_epoch,
+                 mid_epoch=resume_mid is not None)
     print(f"Finished initializing in {timer():.2f} seconds")
     try:
         summary = train(fed_model, opt, lr_scheduler, train_loader,
                         test_loader, args, loggers=(TableLogger(),),
                         timer=timer, start_epoch=start_epoch, totals=totals,
-                        resume_mid=resume_mid)
+                        resume_mid=resume_mid, writer=writer)
     finally:
+        close_run_telemetry(fed_model, rt)
+        if writer is not None:
+            writer.close()
         fed_model.finalize()
     if args.do_checkpoint and fed_model.is_main:
         os.makedirs(args.checkpoint_path, exist_ok=True)

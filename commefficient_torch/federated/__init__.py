@@ -1,6 +1,8 @@
 """The federated round on PyTorch: configs, the round steps, the
 FedModel / FedOptimizer / LambdaLR call surface, the pipelined round
-engine, and the checkpoint and run state (``checkpoint``)."""
+engine, the health verdict (``round_health``), and the checkpoint and run
+state (``checkpoint``). The observability plane is
+``commefficient_torch.telemetry``."""
 
 from commefficient_torch.federated.aggregator import (
     FedModel,
@@ -16,6 +18,7 @@ from commefficient_torch.federated.server import (
     ServerConfig,
     ServerState,
     init_server_state,
+    round_health,
     server_update,
 )
 from commefficient_torch.federated.worker import WorkerConfig
@@ -23,4 +26,5 @@ from commefficient_torch.federated.worker import WorkerConfig
 __all__ = ["FedModel", "FedOptimizer", "LambdaLR", "PipelinedRoundEngine",
            "cohort_lookahead", "RoundConfig",
            "build_round_step", "ServerConfig", "ServerState",
-           "init_server_state", "server_update", "WorkerConfig"]
+           "init_server_state", "round_health", "server_update",
+           "WorkerConfig"]

@@ -37,6 +37,16 @@ fetches go through ``profiling.materialize``: ``finish_rounds`` stacks the
 metrics and download counts of several rounds and copies them once
 (``federated/engine.PipelinedRoundEngine`` drains that way). The model
 state is ResNet9's BatchNorm running statistics under ``--batchnorm``.
+
+Under ``--guards`` and ``--telemetry`` the server step's verdict and
+metric vector wait on the device until ``seal_round`` puts them on their
+round's handle, and come back in the drain's one fetch; the drain then
+gives each round, in dispatch order, to the run's recorder
+(``telemetry.RunTelemetry``, attached as ``self.telemetry``) and to the
+guard ladder (``_note_guard``: a trip is logged, a second consecutive one
+restores the device-resident snapshot, ``--max_guard_trips`` raise), as
+the JAX package does. ``--inject_fault ROUND:nan|inf`` writes the poison
+into a round's transmit on the device.
 """
 
 from __future__ import annotations
@@ -111,7 +121,11 @@ class RoundHandle(NamedTuple):
     ``staged`` keeps the pinned host buffers of the round's host-to-device
     copies alive until the round is drained, and ``done`` is the CUDA event
     recorded after its server phase (``FedModel.seal_round``; None on the
-    CPU)."""
+    CPU). ``guard`` (``--guards``, the 0-dim bool verdict) and
+    ``telemetry`` (``--telemetry``, the metric vector) are attached by
+    ``seal_round`` and stay on the device until the drain.
+    ``staleness``: rounds since each participant last joined (download
+    regime (b) only; host data)."""
 
     metrics: Tuple[Any, ...]
     valid: np.ndarray
@@ -121,6 +135,9 @@ class RoundHandle(NamedTuple):
     round_no: int = -1
     staged: Tuple[Any, ...] = ()
     done: Optional[Any] = None
+    guard: Optional[Any] = None
+    telemetry: Optional[Any] = None
+    staleness: Optional[np.ndarray] = None
 
 
 def worker_config_from_args(args) -> WorkerConfig:
@@ -157,6 +174,7 @@ def collective_plan_from_args(args):
 
 
 def round_config_from_args(args, grad_size: int) -> RoundConfig:
+    telemetry = bool(getattr(args, "telemetry", False))
     return RoundConfig(
         worker=worker_config_from_args(args),
         server=server_config_from_args(args, grad_size), grad_size=grad_size,
@@ -164,7 +182,12 @@ def round_config_from_args(args, grad_size: int) -> RoundConfig:
         stream_sketch=bool(getattr(args, "stream_sketch", False)),
         sketch_coalesce=bool(getattr(args, "sketch_coalesce", False)),
         server_shard=bool(getattr(args, "server_shard", False)),
-        collective_plan=collective_plan_from_args(args))
+        collective_plan=collective_plan_from_args(args),
+        guards=bool(getattr(args, "guards", False)),
+        guard_max_abs=float(getattr(args, "guard_max_abs", 0.0) or 0.0),
+        telemetry=telemetry,
+        telemetry_hist=telemetry and bool(getattr(args, "telemetry_hist",
+                                                  False)))
 
 
 def _h2d(arr, device, staged: list, dtype=None) -> torch.Tensor:
@@ -304,6 +327,33 @@ class FedModel:
         self._prev_ps = self.ps_weights
         # the global dispatch counter (RoundHandle.round_no)
         self._rounds_dispatched = 0
+        self._last_staleness = None
+
+        # the observability plane: the run's recorder and round tracer
+        # (telemetry.attach_run_telemetry; rank 0 only), and the verdict
+        # of the last drained round for the heartbeat (None without
+        # --guards)
+        self.telemetry = None
+        self.tracer = None
+        self.last_guard_ok = None
+        # the last server phase's verdict and metric vector, until
+        # seal_round puts them on their round's handle
+        self._pending_guard = None
+        self._pending_telemetry = None
+        # the guard ladder (_note_guard) and its device-resident snapshot
+        self.guard_trips = 0
+        self._consecutive_trips = 0
+        self._max_guard_trips = int(getattr(args, "max_guard_trips", 3))
+        self._snapshot_every = int(getattr(args, "snapshot_every", 0) or 0)
+        self._rounds_since_snapshot = 0
+        self._snapshot = None
+        self._optimizer = None   # set by FedOptimizer (the server state)
+        # --inject_fault: {dispatch round: poison value}
+        from commefficient_torch.config import parse_inject_fault
+
+        inject = getattr(args, "inject_fault", "") or ""
+        self._inject = (parse_inject_fault(inject) if isinstance(inject, str)
+                        else dict(inject))
 
     # -- reference API surface -------------------------------------------
 
@@ -373,14 +423,39 @@ class FedModel:
                                    self._rng)
         round_no = self._rounds_dispatched
         self._rounds_dispatched += 1
+        poison = self._inject.get(round_no)
+        if poison is not None:
+            self._poison_transmit(round_no, poison)
+        staleness, self._last_staleness = self._last_staleness, None
         return RoundHandle(metrics=metrics, valid=wmask > 0,
                            participating=participating,
                            download=download_dev, upload=upload,
-                           round_no=round_no, staged=tuple(staged))
+                           round_no=round_no, staged=tuple(staged),
+                           staleness=staleness)
+
+    def _poison_transmit(self, round_no: int, poison: float) -> None:
+        """``--inject_fault``: overwrite element ``(0,) * ndim`` of the
+        round's transmit with ``poison`` before the server phase, on the
+        device. Under ``--server_shard`` that element is rank 0's partial
+        sum, so only rank 0 writes it; elsewhere the transmit is the
+        reduced one, written on every rank."""
+        rc = self.round_config
+        if rc.server_shard and self.group.rank != 0:
+            return
+        ctx = self._round_ctx
+        g = ctx.gradient.clone()
+        g.view(-1)[0].fill_(poison)   # on the device: no host copy
+        self._round_ctx = ctx._replace(gradient=g)
+        print(f"inject_fault: poisoned round {round_no} transmit "
+              f"with {poison}")
 
     def seal_round(self, handle: RoundHandle) -> RoundHandle:
-        """After the round's server phase: on the card, record the event
-        the round engine's window waits on."""
+        """After the round's server phase: attach its guard verdict and
+        metric vector (device tensors) to the handle, and on the card
+        record the event the round engine's window waits on."""
+        handle = handle._replace(guard=self._pending_guard,
+                                 telemetry=self._pending_telemetry)
+        self._pending_guard = self._pending_telemetry = None
         if self.device.type != "cuda":
             return handle
         done = torch.cuda.Event()
@@ -392,16 +467,24 @@ class FedModel:
         upload]``."""
         return self.finish_rounds([handle])[0]
 
-    def finish_rounds(self, handles: Sequence[RoundHandle]):
+    def finish_rounds(self, handles: Sequence[RoundHandle], on_round=None):
         """Fetch the results of several rounds with one counted
-        ``materialize``: their metrics and download counts are stacked and
+        ``materialize``: their metrics, download counts, guard verdicts
+        and (with a recorder attached) metric vectors are stacked and
         copied once. Each round's values are the ones ``finish_round``
-        alone gives, bit for bit."""
+        alone gives, bit for bit. Then, round by round in dispatch order:
+        the recorder's ``on_metrics``, the guard ladder (``_note_guard``,
+        which may raise), and ``on_round(handle, values)`` (the engine's
+        per-round host work), as the JAX package does them."""
+        from commefficient_torch.telemetry import METRIC_FIELDS
+
+        record = self.telemetry is not None
         tensors = []
         for h in handles:
             tensors.extend(h.metrics)
-            if h.download is not None:
-                tensors.append(h.download)
+            tensors.extend(t for t in (
+                h.download, h.guard, h.telemetry if record else None)
+                if t is not None)
         host = iter(_fetch_all(tensors))
         out = []
         for h in handles:
@@ -411,8 +494,105 @@ class FedModel:
                 counts = next(host)
                 if len(h.participating):
                     download[h.participating] = 4.0 * counts
-            out.append([m[h.valid] for m in ms] + [download, h.upload])
+            guard_ok = bool(next(host)) if h.guard is not None else None
+            vals = next(host) if record and h.telemetry is not None \
+                else None
+            values = [m[h.valid] for m in ms] + [download, h.upload]
+            self.last_guard_ok = guard_ok
+            if vals is not None:
+                loss = (float(np.mean(ms[0][h.valid]))
+                        if len(ms) and np.any(h.valid) else None)
+                cohort = {"participants": int(len(h.participating)),
+                          "slots": int(np.sum(h.valid))}
+                if h.staleness is not None and len(h.staleness):
+                    cohort["staleness_mean"] = float(np.mean(h.staleness))
+                    cohort["staleness_max"] = int(np.max(h.staleness))
+                self.telemetry.on_metrics(
+                    h.round_no,
+                    {k: float(v) for k, v in zip(METRIC_FIELDS, vals)},
+                    loss=loss, guard_ok=guard_ok, cohort=cohort)
+            if guard_ok is not None:
+                self._note_guard(guard_ok, round_no=h.round_no)
+            if on_round is not None:
+                on_round(h, values)
+            out.append(values)
         return out
+
+    # -- the guard ladder (--guards) ----------------------------------------
+
+    def _note_guard(self, ok: bool, round_no: int = -1) -> None:
+        """The host's reaction to a drained verdict (the JAX package's
+        ladder): a healthy round counts toward the next snapshot; a trip
+        is logged (the round was already quarantined on the device); from
+        the second consecutive trip the snapshot, if one was taken, is
+        restored; at ``--max_guard_trips`` consecutive trips the run
+        raises ``RuntimeError``. Every rank of a group sees the same
+        verdicts and takes the same steps."""
+        if ok:
+            self._consecutive_trips = 0
+            self._rounds_since_snapshot += 1
+            if self._snapshot_every and \
+                    self._rounds_since_snapshot >= self._snapshot_every:
+                self._take_snapshot()
+            return
+        self.guard_trips += 1
+        self._consecutive_trips += 1
+        print(f"HEALTH GUARD tripped (trip {self.guard_trips}, "
+              f"{self._consecutive_trips} consecutive): round quarantined — "
+              "contribution and error-feedback carry discarded")
+        if self.telemetry is not None:
+            self.telemetry.event("guard_trip", round=round_no,
+                                 trip=self.guard_trips,
+                                 consecutive=self._consecutive_trips)
+        if self._consecutive_trips >= self._max_guard_trips:
+            if self.telemetry is not None:
+                self.telemetry.event("guard_fatal", round=round_no,
+                                     consecutive=self._consecutive_trips)
+            raise RuntimeError(
+                f"health guard tripped {self._consecutive_trips} consecutive "
+                f"rounds (--max_guard_trips {self._max_guard_trips}): the "
+                "aggregated transmit or updated weights are persistently "
+                "non-finite/over-magnitude. Inspect the data pipeline and "
+                "LR schedule; resume from the last good run-state "
+                "checkpoint with --resume auto.")
+        if self._consecutive_trips >= 2 and self._snapshot is not None:
+            self._restore_snapshot()
+            if self.telemetry is not None:
+                self.telemetry.event("rollback", round=round_no,
+                                     consecutive=self._consecutive_trips)
+
+    @staticmethod
+    def _clone_state(state):
+        ps, ss, ms = state
+        return (ps.clone(),
+                type(ss)(*(None if x is None else x.clone() for x in ss)),
+                {k: v.clone() for k, v in ms.items()})
+
+    def _take_snapshot(self) -> None:
+        """Refresh the device-resident last-good snapshot: clones of the
+        weights, the server state and the model state (the rounds update
+        client rows in place and replace the rest; a clone stays as
+        taken)."""
+        if self._optimizer is None:
+            return
+        self._snapshot = self._clone_state(
+            (self.ps_weights, self._optimizer.server_state,
+             self._model_state))
+        self._rounds_since_snapshot = 0
+
+    def _restore_snapshot(self) -> None:
+        """Roll the weights, server state and model state back to a fresh
+        clone of the snapshot (which stays intact for later rollbacks).
+        Per-client state is not in the snapshot, as in the JAX package:
+        the guard kept its rows finite, and error feedback absorbs the
+        skew; bit-exact recovery is ``--resume``."""
+        ps, ss, ms = self._clone_state(self._snapshot)
+        self.ps_weights = ps
+        self._optimizer.server_state = ss
+        self._model_state = ms
+        self._prev_ps = ps
+        print("HEALTH GUARD: consecutive trips — rolled server state back "
+              "to the last-good snapshot; training continues")
 
     def sr_generators(self, round_no: int):
         """The quantized legs' stochastic-rounding generators for round
@@ -426,13 +606,18 @@ class FedModel:
                                   self.device) for leg in ("up", "down")}
 
     def _apply_server(self, server_state, lr):
-        """Phase 2 for ``FedOptimizer.step()``."""
-        self.ps_weights, new_state, self.client_states = \
-            self.steps.server_step(self.ps_weights, server_state,
-                                   self.client_states, self._round_ctx, lr,
-                                   self._rng,
-                                   sr=self.sr_generators(
-                                       self._rounds_dispatched - 1))
+        """Phase 2 for ``FedOptimizer.step()``; the verdict and the metric
+        vector wait on the device for ``seal_round``."""
+        out = self.steps.server_step(self.ps_weights, server_state,
+                                     self.client_states, self._round_ctx, lr,
+                                     self._rng,
+                                     sr=self.sr_generators(
+                                         self._rounds_dispatched - 1))
+        self.ps_weights, new_state, self.client_states = out[:3]
+        extra = iter(out[3:])
+        rc = self.round_config
+        self._pending_guard = next(extra) if rc.guards else None
+        self._pending_telemetry = next(extra) if rc.telemetry else None
         self._round_ctx = None
         return new_state
 
@@ -476,6 +661,10 @@ class FedModel:
                              dtype=torch.int32)
                 download_dev = torch.stack([
                     torch.sum(self._last_changed >= s) for s in since])
+            # the cohort's staleness (the telemetry cohort record)
+            self._last_staleness = (
+                self._round_idx
+                - self._client_part_round[participating]).astype(np.int64)
             self._client_part_round[participating] = self._round_idx
         return download_dev, upload
 
@@ -501,6 +690,8 @@ class FedOptimizer:
         self.param_groups = param_groups or [(None, 1.0)]
         self._lr_factor = 0.0
         self._lr = 0.0
+        # the guard's snapshot and rollback reach the server state here
+        fed_model._optimizer = self
         rc = fed_model.round_config
         self.server_state = init_server_state(
             fed_model.server_config, fed_model.sketch,

@@ -21,6 +21,17 @@ and client state), never its fetched values, so the engine:
   (``torch.cuda.Event.synchronize``, a completion wait, not a transfer;
   nothing to wait for on the CPU).
 
+The engine also drives the observability plane when the model has one
+(``telemetry.attach_run_telemetry``): the recorder's spans (``on_dispatch``
+with the window's occupancy after the seal, ``on_complete`` when the
+window's event wait for a round returns, ``on_drained`` writing each
+drained round's line), the round tracer (``on_submit`` before a dispatch,
+``on_drained`` after a drain, with a ``trace_captured`` event), the
+heartbeat with the round's mean loss and guard verdict, and one ``drain``
+event a drain. The per-round host work of a drain runs in dispatch order
+inside ``FedModel.finish_rounds`` (``on_round``), after that round's
+guard ladder, as the JAX package orders it.
+
 Between drains a submit neither fetches nor waits on the stream:
 ``profiling.host_sync_monitor`` counts zero fetches, and on the card
 ``host_sync_monitor(strict=True)`` (``torch.cuda.set_sync_debug_mode(
@@ -29,6 +40,7 @@ Between drains a submit neither fetches nor waits on the stream:
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from typing import Any, Deque, List, NamedTuple, Tuple
 
@@ -99,11 +111,19 @@ class PipelinedRoundEngine:
         self._next_index = 0
         self.drains = 0
         self.window_waits = 0
+        # the model's recorder and round tracer (attach_run_telemetry)
+        self.telemetry = getattr(model, "telemetry", None)
         self.heartbeat = Heartbeat()
+        self.tracer = getattr(model, "tracer", None)
 
     def submit(self, batch) -> List[RoundResult]:
         """Dispatch one training round; nothing is fetched here unless
         this is a drain round (every ``drain_every``-th)."""
+        t_start = time.monotonic()
+        if self.tracer is not None:
+            # may start a capture before the dispatch, so the round is in it
+            self.tracer.on_submit(getattr(self.model, "rounds_dispatched",
+                                          self._next_index))
         with annotate("fed_round"):
             if self.lr_scheduler is not None:
                 self.lr_scheduler.step()
@@ -114,15 +134,21 @@ class PipelinedRoundEngine:
                 handle = seal(handle)
         self._pending.append((self._next_index, handle))
         self._next_index += 1
+        if self.telemetry is not None:
+            self.telemetry.on_dispatch(
+                self._round_no(handle, self._next_index - 1), t_start,
+                occupancy=len(self._pending))
 
         if len(self._pending) > self.window:
             # bound the host's run-ahead: wait for the completion of the
             # round `window` back; its values stay on the device
-            _, old = self._pending[-1 - self.window]
+            oidx, old = self._pending[-1 - self.window]
             done = getattr(old, "done", None)
             if done is not None:
                 done.synchronize()
                 self.window_waits += 1
+            if self.telemetry is not None:
+                self.telemetry.on_complete(self._round_no(old, oidx))
 
         if len(self._pending) >= self.drain_every:
             return self.drain()
@@ -140,16 +166,35 @@ class PipelinedRoundEngine:
             return []
         items = list(self._pending)
         self._pending.clear()
-        with annotate("fed_drain"):
-            values = self.model.finish_rounds([h for _, h in items])
-        results = [RoundResult(idx, v) for (idx, _), v in zip(items, values)]
-        if self.heartbeat.enabled:
-            for (idx, handle), res in zip(items, results):
-                loss = res.values[0]
+        order = iter(items)
+        t0 = t_last = time.monotonic()
+
+        def on_round(handle, values):
+            """One drained round's host work, in dispatch order."""
+            nonlocal t_last
+            rn = self._round_no(handle, next(order)[0])
+            if self.heartbeat.enabled:
+                loss = values[0]
                 self.heartbeat.round(
-                    self._round_no(handle, idx),
-                    loss=float(np.mean(loss)) if np.size(loss) else None)
+                    rn, loss=float(np.mean(loss)) if np.size(loss) else None,
+                    guard_ok=getattr(self.model, "last_guard_ok", None))
+            now = time.monotonic()
+            if self.telemetry is not None:
+                self.telemetry.on_drained(rn, now - t_last)
+            t_last = now
+            if self.tracer is not None:
+                cap = self.tracer.on_drained(rn)
+                if cap is not None and self.telemetry is not None:
+                    self.telemetry.event("trace_captured", **cap)
+
+        with annotate("fed_drain"):
+            values = self.model.finish_rounds([h for _, h in items],
+                                              on_round=on_round)
+        results = [RoundResult(idx, v) for (idx, _), v in zip(items, values)]
         self.drains += 1
+        if self.telemetry is not None:
+            self.telemetry.event("drain", rounds=len(results),
+                                 ms=round((time.monotonic() - t0) * 1e3, 3))
         return results
 
     def close(self) -> List[RoundResult]:

@@ -1,6 +1,5 @@
 """The federated round on one device or over a client group: the port
-of ``commefficient_tpu/federated/rounds.py`` (without guards and
-telemetry).
+of ``commefficient_tpu/federated/rounds.py``.
 
 One round, in the JAX package's order:
 
@@ -11,7 +10,13 @@ One round, in the JAX package's order:
    (``server.server_update``; fedavg's lr is applied on the clients, so the
    server sees lr = 1), ``ps -= update``, the masking of the per-client
    state rows and their delta scatter, and the topk-down stale-weight
-   advance.
+   advance. Under ``--guards`` the whole transition is gated by the
+   round's health verdict (``server.round_health``) with a select, so a
+   poisoned round leaves weights, server state and client rows as they
+   were; under ``--telemetry`` the round's metric vector
+   (``telemetry.device_round_metrics``) is computed after the select.
+   Both are returned after the state, verdict first, and both stay on the
+   device.
 
 The client phase takes one of two forms, decided as the JAX package
 decides them:
@@ -90,6 +95,7 @@ from torch.func import vmap
 from commefficient_torch.federated.server import (
     ServerConfig,
     ServerState,
+    round_health,
     server_update,
     sharded_server_update,
 )
@@ -123,6 +129,7 @@ from commefficient_torch.ops.sketch import (
     sketch_chunks_accum,
     sketch_vec,
 )
+from commefficient_torch.telemetry import device_round_metrics
 
 
 class ClientStates(NamedTuple):
@@ -249,9 +256,22 @@ class RoundConfig:
     # wire dtype of each collective leg (--collective_plan; None: fp32)
     server_shard: bool = False
     collective_plan: Optional[CollectivePlan] = None
+    # the health guard (--guards): server.round_health gates the whole
+    # state transition, and server_step returns the verdict
+    guards: bool = False
+    # its magnitude ceiling (0 = finiteness only)
+    guard_max_abs: float = 0.0
+    # the metric vector (--telemetry; telemetry.device_round_metrics),
+    # returned after the verdict; with its histograms (--telemetry_hist)
+    telemetry: bool = False
+    telemetry_hist: bool = False
 
 
 class FederatedSteps(NamedTuple):
+    """``server_step`` returns ``(weights, server state, client states)``,
+    then the guard verdict under ``RoundConfig.guards`` and the metric
+    vector under ``RoundConfig.telemetry``, in that order."""
+
     client_step: Callable
     server_step: Callable
     val_step: Callable
@@ -607,10 +627,11 @@ def build_round_step(compute_loss_train: Callable,
                     client_states: ClientStates, ctx: RoundContext, lr,
                     rng: Optional[torch.Generator], sr=None):
         """Phase 2: the server rule, the weight update, and the client-state
-        scatter. Returns (new weights, new server state, client states);
-        the client-state arrays are updated in place. ``sr``: the
-        quantized legs' stochastic-rounding generators (``{"up": ...,
-        "down": ...}``, the sharded server only)."""
+        scatter. Returns (new weights, new server state, client states),
+        then the guard verdict (``cfg.guards``) and the metric vector
+        (``cfg.telemetry``); the client-state arrays are updated in place.
+        ``sr``: the quantized legs' stochastic-rounding generators
+        (``{"up": ..., "down": ...}``, the sharded server only)."""
         # fedavg applies the lr on the clients; the server sees lr = 1
         eff_lr = 1.0 if wcfg.mode == "fedavg" else lr
         resketched = None
@@ -623,6 +644,23 @@ def build_round_step(compute_loss_train: Callable,
                                               scfg, eff_lr, sketch=sketch,
                                               rng=rng, layout=layout)
         new_ps = ps - update
+
+        # the health guard: one verdict gates the whole transition by
+        # select (never by a product: NaN x 0 is NaN), so a tripped round
+        # leaves the weights, the server state with its carries and every
+        # client row as they were
+        guard_ok = transmit_max = None
+        if cfg.guards or cfg.telemetry:
+            transmit_max = torch.linalg.vector_norm(ctx.gradient,
+                                                    ord=float("inf"))
+        if cfg.guards:
+            guard_ok = round_health(ctx.gradient, new_ps, cfg.guard_max_abs,
+                                    transmit_max=transmit_max,
+                                    group=group if server_shard else None)
+            new_ps = torch.where(guard_ok, new_ps, ps)
+            new_state = ServerState(*(
+                None if new is None else torch.where(guard_ok, new, old)
+                for new, old in zip(new_state, server_state)))
 
         # the server's masks of the participating clients' state:
         # true_topk's momentum factor masking of local velocities at the
@@ -644,6 +682,14 @@ def build_round_step(compute_loss_train: Callable,
             cell_keep = (sketched_update == 0).to(torch.float32)[None]
             keep_vel = keep_err = cell_keep
 
+        def gated(delta):
+            """A quarantined round's row deltas become -0.0, which leaves
+            every row bit for bit as it was (x + -0.0 == x, -0.0
+            included)."""
+            if guard_ok is None:
+                return delta
+            return torch.where(guard_ok, delta, -0.0)
+
         def scatter(state_arr, old_rows, new_rows, keep):
             """Add each participating slot's (masked new row - old row) to
             its client's row, in place. A padded slot repeats client id 0
@@ -654,7 +700,8 @@ def build_round_step(compute_loss_train: Callable,
                 return None
             final = new_rows if keep is None else new_rows * keep
             w = ctx.wmask.reshape((-1,) + (1,) * (old_rows.ndim - 1))
-            return state_arr.index_add_(0, ctx.ids, (final - old_rows) * w)
+            return state_arr.index_add_(0, ctx.ids,
+                                        gated((final - old_rows) * w))
 
         cs = ClientStates(
             velocities=scatter(client_states.velocities, ctx.vel_rows,
@@ -668,8 +715,21 @@ def build_round_step(compute_loss_train: Callable,
             used = torch.stack([get_new_worker_weights(ps, s, wcfg.k, True)
                                 for s in ctx.stale_rows])
             w = ctx.wmask.reshape(-1, 1)
-            cs.weights.index_add_(0, ctx.ids, (used - ctx.stale_rows) * w)
-        return new_ps, new_state, cs
+            cs.weights.index_add_(0, ctx.ids,
+                                  gated((used - ctx.stale_rows) * w))
+        ret = (new_ps, new_state, cs)
+        if cfg.guards:
+            ret += (guard_ok,)
+        if cfg.telemetry:
+            # after the select: a quarantined round shows what tripped in
+            # its transmit and update, and the carries it kept
+            ret += (device_round_metrics(
+                ctx.gradient, update, new_ps, new_state, guard_ok=guard_ok,
+                hists=cfg.telemetry_hist,
+                group=group if server_shard else None,
+                sharded_state=server_shard and wcfg.mode != "sketch",
+                transmit_max=transmit_max),)
+        return ret
 
     def val_step(ps, model_state, batch):
         w = layout.unchunk(ps) if (chunked and ps.ndim != 1) else ps

@@ -253,6 +253,32 @@ def _sketched(sketched_grad, state, cfg, lr, sketch: CountSketch,
     return update * lr, ServerState(velocity, error)
 
 
+def round_health(transmit: torch.Tensor, new_ps: torch.Tensor,
+                 max_abs: float = 0.0, transmit_max=None, group=None
+                 ) -> torch.Tensor:
+    """The round's health verdict as a 0-dim bool device tensor (no host
+    sync): True iff the transmit and the candidate weights are all finite
+    and, when ``max_abs > 0``, every weight is within ``max_abs`` (the
+    JAX package's ``round_health``). A tensor is all finite iff its
+    largest magnitude is (NaN propagates through the max), so one
+    reduction a tensor decides it; ``transmit_max`` is the transmit's if
+    the caller has it. Under ``--server_shard`` (``group``) the transmit
+    is this rank's unreduced sum: the verdicts are AND-ed over the group
+    (one all-reduce of a scalar), so every rank applies or quarantines
+    the round alike; the weights are the same on every rank."""
+    inf = float("inf")
+    if transmit_max is None:
+        transmit_max = torch.linalg.vector_norm(transmit, ord=inf)
+    ps_max = torch.linalg.vector_norm(new_ps, ord=inf)
+    ok = torch.isfinite(transmit_max) & torch.isfinite(ps_max)
+    if max_abs > 0:
+        ok = ok & (ps_max <= max_abs)
+    if group is not None:
+        bad = all_reduce_sum((~ok).to(torch.float32), group)
+        ok = bad == 0
+    return ok
+
+
 def sharded_server_update(transmit_local: torch.Tensor, state: ServerState,
                           cfg: ServerConfig, lr, count, group,
                           sketch: Optional[CountSketch] = None,

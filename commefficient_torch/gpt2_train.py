@@ -37,7 +37,10 @@ PersonaChat when no ``personachat_self_original.json`` is under
 ``--dataset_dir``. Runs on ``cuda`` unless ``--device cpu``; float32
 (TF32 off), the forward and backward in bfloat16 under ``--bf16``.
 Under ``torchrun --nproc_per_node N`` the round's slots split over the
-ranks, as in ``cv_train``; rank 0 alone prints and writes.
+ranks, as in ``cv_train``; rank 0 alone prints and writes. The
+observability plane and the guards are ``cv_train``'s (the event log is
+``<log_dir>/telemetry.jsonl``); as in the JAX package, ``gpt2_train``
+writes no TensorBoard scalars.
 """
 
 from __future__ import annotations
@@ -90,6 +93,13 @@ from commefficient_torch.parallel import (
     main_first,
     quiet_unless_main,
     start_client_group,
+)
+from commefficient_torch.profiling import StepProfiler
+from commefficient_torch.telemetry import (
+    attach_run_telemetry,
+    close_run_telemetry,
+    take_watch_checkpoint,
+    watch_can_checkpoint,
 )
 from commefficient_torch.utils import (
     PiecewiseLinear,
@@ -201,6 +211,11 @@ def run_batches(model, opt, lr_scheduler, loader, args, timer, training,
     engine = PipelinedRoundEngine(model, opt, lr_scheduler,
                                   window=args.round_window,
                                   drain_every=args.metrics_drain_every)
+    prof = StepProfiler(args.profile_dir, num_steps=args.profile_steps,
+                        enabled=args.do_profile and model.is_main)
+    # the watch plane's checkpoint reaction, serviced at a round boundary
+    rt = getattr(model, "telemetry", None)
+    watch_armed = watch_can_checkpoint(args)
     meta_by_round = {}
 
     def consume(results):
@@ -225,28 +240,49 @@ def run_batches(model, opt, lr_scheduler, loader, args, timer, training,
                     "up (MiB)": round(upload.sum() / (1024 * 1024)),
                 })
 
-    for batch_idx, batch in enumerate(cohort_lookahead(loader, model)):
-        if batch_idx > 2 and args.do_test and batch_idx < spe - 10:
-            continue
-        if i0 + batch_idx > spe * epoch_fraction:
-            break
-        done = engine.submit(batch)
-        # the scheduler stepped inside submit(): this round's row logs the
-        # batch index and the learning rate it ran with
-        meta_by_round[engine.rounds_submitted - 1] = (
-            i0 + batch_idx + 1, lr_scheduler.get_last_lr()[0])
-        consume(done)
-        if save_every and (i0 + batch_idx + 1) % save_every == 0:
-            # drain first: the saved sampler position must describe
-            # exactly the rounds folded into the run state
-            consume(engine.drain())
-            save_round_state(
-                args, epoch, i0 + batch_idx + 1, loader.sampler.get_state(),
-                model, opt, lr_scheduler, totals,
-                extras={"download": client_download,
-                        "upload": client_upload,
-                        "losses": np.asarray(losses, np.float64)})
-    consume(engine.drain())
+    try:
+        for batch_idx, batch in enumerate(cohort_lookahead(loader, model)):
+            if batch_idx > 2 and args.do_test and batch_idx < spe - 10:
+                continue
+            if i0 + batch_idx > spe * epoch_fraction:
+                break
+            prof.step(batch_idx)
+            done = engine.submit(batch)
+            # the scheduler stepped inside submit(): this round's row logs
+            # the batch index and the learning rate it ran with
+            meta_by_round[engine.rounds_submitted - 1] = (
+                i0 + batch_idx + 1, lr_scheduler.get_last_lr()[0])
+            consume(done)
+            do_save = bool(save_every
+                           and (i0 + batch_idx + 1) % save_every == 0)
+            forced = False
+            if take_watch_checkpoint(model, watch_armed, bool(done)):
+                if args.train_dataloader_workers == 0:
+                    do_save = forced = True
+                else:
+                    print("watch: checkpoint reaction skipped (needs "
+                          "--train_dataloader_workers 0 for a "
+                          "resumable save)")
+            if do_save:
+                # drain first: the saved sampler position must describe
+                # exactly the rounds folded into the run state
+                consume(engine.drain())
+                save_round_state(
+                    args, epoch, i0 + batch_idx + 1,
+                    loader.sampler.get_state(), model, opt, lr_scheduler,
+                    totals,
+                    extras={"download": client_download,
+                            "upload": client_upload,
+                            "losses": np.asarray(losses, np.float64)})
+                if rt is not None:
+                    rt.event("checkpoint", epoch=epoch,
+                             round=model.rounds_dispatched - 1,
+                             round_in_epoch=i0 + batch_idx + 1,
+                             **({"forced_by_watch": True} if forced
+                                else {}))
+        consume(engine.drain())
+    finally:
+        prof.close()
     return np.mean(losses), client_download, client_upload
 
 
@@ -355,8 +391,13 @@ def _train(args, group):
         # the JAX package's eval-only finetune path
         return test_gpt2(fed_model, val_loader, args, logger=TableLogger(),
                          timer=timer)
+    # the telemetry plane (on by default): <log_dir>/telemetry.jsonl
+    rt = attach_run_telemetry(args, fed_model, log_dir, "gpt2_train")
     start_epoch, totals, resume_mid = resume_run(args, fed_model, opt,
                                                  scheduler)
+    if rt is not None and (start_epoch or resume_mid is not None):
+        rt.event("resume", start_epoch=start_epoch,
+                 mid_epoch=resume_mid is not None)
     try:
         if args.eval_before_start and start_epoch == 0 \
                 and resume_mid is None:
@@ -366,6 +407,7 @@ def _train(args, group):
                            timer=timer, start_epoch=start_epoch,
                            totals=totals, resume_mid=resume_mid)
     finally:
+        close_run_telemetry(fed_model, rt)
         fed_model.finalize()
     return stats
 

@@ -156,10 +156,14 @@ class _StubModel:
     def seal_round(self, h):
         return _Handle(h.round_no, _Event(self.waits, h.round_no))
 
-    def finish_rounds(self, handles):
+    def finish_rounds(self, handles, on_round=None):
         self.finished.append([h.round_no for h in handles])
-        return [[np.zeros(1), np.zeros(1), np.zeros(1), np.zeros(1)]
-                for _ in handles]
+        out = [[np.zeros(1), np.zeros(1), np.zeros(1), np.zeros(1)]
+               for _ in handles]
+        for h, values in zip(handles, out):
+            if on_round is not None:
+                on_round(h, values)
+        return out
 
 
 class _StubOpt:

@@ -184,9 +184,13 @@ def test_cv_train_main_cpu(tmp_path, monkeypatch):
     assert summary["up (MiB)"] > 0
 
 
-@pytest.mark.parametrize("flag", [["--state_dir", "x"], ["--guards"],
-                                  ["--shard_devices", "2"], ["--telemetry"],
-                                  ["--inject_fault", "2:nan"],
+# (--guards, --telemetry and --inject_fault are ported now; their places
+# are taken by flags of planes still unported)
+@pytest.mark.parametrize("flag", [["--state_dir", "x"],
+                                  ["--staleness_decay", "0.25"],
+                                  ["--shard_devices", "2"],
+                                  ["--io_retries", "5"],
+                                  ["--pp_microbatches", "2"],
                                   ["--seq_parallel", "ring"],
                                   ["--participation", "0.5"],
                                   ["--churn", "0.1"],

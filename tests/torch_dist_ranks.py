@@ -402,3 +402,103 @@ def cli_gpt2_train(init_method, spec):
 
     stats = gpt2_train.train(spec["argv"], init_method=init_method)
     return {k: float(v) for k, v in stats.items()}
+
+
+# --------------------------------------------------------------------------
+# the observability plane and the guard on one server step
+# --------------------------------------------------------------------------
+
+def flat_model(d):
+    """A stand-in for a model of ``d`` parameters in one flax leaf
+    (``params/w``, kind ``asis``): enough for ``FedModel`` to lay out the
+    flat vector when a test hands the server step its round context
+    directly."""
+    import torch
+
+    class Flat(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.zeros(d))
+
+        def jax_param_path(self, name):
+            return ("params", "w")
+
+        def jax_param_kind(self, name):
+            return "asis"
+
+        def initial_model_state(self):
+            return {}
+
+    return Flat()
+
+
+def obs_server_step(c, group=None):
+    """One server step of ``FedModel`` (``c["argv"]``: telemetry, guards)
+    from a round context built of ``c``'s arrays: this rank's transmit
+    (the all-reduced one without ``--server_shard``), the weights
+    ``ps0``, the state (this rank's slices of ``vel0`` / ``err0`` in the
+    sharded dense modes). ``c["poison"]``: ``--inject_fault``'s write of
+    element 0 of the transmit (rank 0's partial under ``--server_shard``).
+    Returns the step's outputs and the update of the same step recomputed
+    (for the JAX package's ``device_round_metrics`` on the same planes)."""
+    import torch
+
+    from commefficient_torch.config import parse_args
+    from commefficient_torch.federated import FedModel, FedOptimizer
+    from commefficient_torch.federated import server as S
+    from commefficient_torch.federated.rounds import RoundContext
+
+    args = parse_args(argv=list(c["argv"]) + ["--device", "cpu"])
+    d = c["d"]
+
+    def loss(*a):
+        raise AssertionError("the client phase does not run here")
+
+    fm = FedModel(flat_model(d), loss, args, num_clients=4,
+                  init_params=_t(c["ps0"]), device="cpu", group=group)
+    opt = FedOptimizer(fm, args)
+    sharded = fm.round_config.server_shard
+    n = group.size if sharded else 1
+    r = group.rank if sharded else 0
+    st = opt.server_state
+    vel0, err0 = _t(c["vel0"]), _t(c["err0"])
+    if sharded and not c["mode"].startswith("sketch"):
+        per = st.velocity.shape[0]
+        sl = slice(r * per, (r + 1) * per)
+        pad = per * n - d
+        vel0 = torch.nn.functional.pad(vel0, (0, pad))[sl]
+        err0 = torch.nn.functional.pad(err0, (0, pad))[sl]
+    st = st._replace(velocity=vel0.clone(), error=err0.clone())
+    opt.server_state = st
+    tr = _t(c["transmits"][r] if sharded else c["transmits"].sum(0)
+            / np.float32(c["count"]))
+    count = torch.tensor(c["count"], dtype=torch.float32)
+    ids = torch.arange(2)
+    fm._round_ctx = RoundContext(tr, ids, torch.ones(2), None, None, None,
+                                 None, None, count if sharded else None)
+    if c.get("poison"):
+        fm._poison_transmit(0, float("nan"))
+    ctx = fm._round_ctx
+    lr = c["lr"]
+    ps = fm.ps_weights
+    out = fm.steps.server_step(ps, st, fm.client_states, ctx, lr, fm._rng,
+                               sr=fm.sr_generators(0))
+    new_ps, new_st, _, ok, tel = out
+    if sharded:
+        upd, _, _ = S.sharded_server_update(
+            ctx.gradient, st, fm.server_config, lr, count, group,
+            sketch=fm.sketch, layout=fm.layout,
+            plan=fm.round_config.collective_plan, sr=fm.sr_generators(0))
+    else:
+        upd, _ = S.server_update(ctx.gradient, st, fm.server_config, lr,
+                                 sketch=fm.sketch, layout=fm.layout)
+    return {"tel": _np(tel), "ok": bool(ok), "transmit": _np(ctx.gradient),
+            "update": _np(upd), "ps": _np(ps), "new_ps": _np(new_ps),
+            "vel": _np(new_st.velocity), "err": _np(new_st.error),
+            "qres": _np(new_st.qres), "dres": _np(new_st.dres),
+            "old_vel": _np(st.velocity), "old_err": _np(st.error)}
+
+
+def body_observability(cg, cases):
+    """``obs_server_step`` of each case on this rank of the group."""
+    return [obs_server_step(c, cg) for c in cases]
