@@ -199,6 +199,29 @@ Phases (any failure exits non-zero; nothing is caught):
    and launches a round of one profiled window each
    (data: no exit code depends on them). Phases 1-11 run with
    ``--no_telemetry``, as before the plane existed.
+13. client participation, stragglers and async buffering
+   (``phase_participation``, ``--no_telemetry``): (1) the headline with
+   the layer attached and nothing set (``--participation 1.0``), 10
+   rounds bit-equal to the same rounds without it; (2) the headline with
+   a 0.75 cohort (6 of 8 slots) under ``--inject_client_fault
+   drop=0.1,slow=0.2,corrupt=0.05,delay=2,seed=7 --staleness_decay 0.5``
+   for 20 engine rounds: the fault pattern equal to a CPU controller's,
+   the launches of kernels 1, 3 and 5 as derived from it (a straggler
+   round sketches twice), each non-drain submit under
+   ``set_sync_debug_mode("error")`` with no fetch, every late landing's
+   folded table against (S_now + w S_late) / (C_now + w C_late) computed
+   in float64 from the held tensors (within 1e-6 of its largest
+   magnitude), and one server step of a folded table through the kernels
+   and the plain versions; (3) the opt-in round under the same faults,
+   kernels 2, 3, 4 and 6 as derived; (4) ``--async_buffer 3``: launches
+   as derived (a buffered dispatch launches no query and no count pass),
+   a NaN-poisoned buffered contribution masked out of its fold and
+   counted, a resume taken mid-buffer bit-equal to the continuous run;
+   (5) GPT-2-small f32 with ``slow=0.25,delay=1``: launches as derived,
+   tokens/sec and peak memory, the held sum the (5, 500,096) table; (6)
+   rounds/sec (GPT-2: tokens/sec) with the layer on against off in
+   alternating engine pairs, with their spread, and the device ms of one
+   straggler dispatch (``torch.profiler``; data, not a gate).
 
 Then one JSON line of the kernels (launches per timed window of the path
 that runs each: phase 4 for the accumulate, the query and the count pass,
@@ -3432,6 +3455,469 @@ def phase_observability(card: str) -> dict:
     return out
 
 
+# phase 13: client participation, stragglers and async buffering
+PART_FAULTS = "drop=0.1,slow=0.2,corrupt=0.05,delay=2,seed=7"
+PART_ON = ["--participation", "0.75", "--inject_client_fault", PART_FAULTS,
+           "--staleness_decay", "0.5"]
+PART_ASYNC = ["--async_buffer", "3"]
+PART_ROUNDS = 20
+PART_IDENTITY_ROUNDS = 10
+PART_OPT_IN_ROUNDS = 8
+PART_ASYNC_ROUNDS = 12
+PART_RESUME_ROUNDS = 8
+PART_GPT2_ROUNDS = 6
+GPT2_SLOW = ["--inject_client_fault", "slow=0.25,delay=1,seed=7"]
+# alternating on / off pairs of the cost step, and engine rounds a window
+PART_PAIRS = {"headline": 10, "gpt2 f32": 4}
+PART_PAIR_ROUNDS = {"headline": 20, "gpt2 f32": 8}
+HEADLINE_CLIENT = {"sketch_accumulate": 1}
+HEADLINE_SERVER = {"sketch_accumulate": 1, "sketch_estimates": 1,
+                   "topk_count_ge": 8}
+
+
+def part_batch(seed: int = 0):
+    """A headline batch of a 0.75 cohort: 6 clients in the 8 slots and 2
+    padded ones (zero masks), as the loader pads a short cohort."""
+    b = synthetic_batch(seed)
+    b["mask"][6:] = 0.0
+    b["worker_mask"][6:] = 0.0
+    b["client_ids"][6:] = 0
+    return b
+
+
+def attach_layer(args, fm):
+    from commefficient_torch.federated.participation import (
+        attach_participation,
+    )
+
+    ctl = attach_participation(args, fm)
+    assert ctl is not None
+    return ctl
+
+
+def record_layer(ctl) -> dict:
+    """Wrap the controller's ``apply_faults``, ``fold_due`` and
+    ``async_step`` to record each dispatch's on-time and late worker
+    masks, each synchronous fold's operands (the on-time table and count,
+    the due cohorts, the folded table) and each async fold decision.
+    Records only: no device value is read."""
+    log = {"masks": [], "late": [], "folds": [], "fold": []}
+    apply, fold_due, async_step = (ctl.apply_faults, ctl.fold_due,
+                                   ctl.async_step)
+
+    def rec_apply(batch, rnd):
+        p, late, info = apply(batch, rnd)
+        log["masks"].append(np.asarray(p["worker_mask"]).copy())
+        log["late"].append(None if late is None
+                           else np.asarray(late["worker_mask"]).copy())
+        return p, late, info
+
+    def rec_fold(ctx, rnd, sharded, count):
+        due = [c for c in ctl.pending if c.due_round <= rnd]
+        new, landed = fold_due(ctx, rnd, sharded, count)
+        log["fold"].append(True)
+        if due:
+            log["folds"].append((ctx.gradient, count, due, rnd,
+                                 new.gradient))
+        return new, landed
+
+    def rec_async(ctx, rnd, sharded, count, ids=None):
+        out = async_step(ctx, rnd, sharded, count, ids)
+        log["fold"].append(out[1])
+        return out
+
+    ctl.apply_faults, ctl.fold_due, ctl.async_step = (rec_apply, rec_fold,
+                                                      rec_async)
+    return log
+
+
+def derived_launches(log, client: dict, server: dict) -> dict:
+    """The launches the recorded dispatches must have made: ``client``
+    for the on-time client phase and again for a straggler dispatch,
+    ``server`` for each dispatch that ran its server phase."""
+    want = {k.name: 0 for k in kernels.KERNELS}
+    for late, fold in zip(log["late"], log["fold"]):
+        for name, n in client.items():
+            want[name] += n * (2 if late is not None else 1)
+        if fold:
+            for name, n in server.items():
+                want[name] += n
+    return want
+
+
+def check_pattern(log, batches, label: str) -> None:
+    """The card run's fault pattern is the one a CPU controller with the
+    same schedule draws from the same batches."""
+    from commefficient_torch.federated.participation import (
+        ParticipationController,
+        parse_client_fault,
+    )
+
+    spec = PART_FAULTS if label != "gpt2 f32" else GPT2_SLOW[1]
+    cpu = ParticipationController(schedule=parse_client_fault(spec))
+    for i, (mask, late) in enumerate(zip(log["masks"], log["late"])):
+        p, lt, _ = cpu.apply_faults(batches[i], i)
+        assert np.array_equal(p["worker_mask"], mask), (label, i)
+        assert (lt is None) == (late is None), (label, i)
+        if lt is not None:
+            assert np.array_equal(lt["worker_mask"], late), (label, i)
+
+
+def check_folds(log, decay: float, label: str) -> dict:
+    """Each late landing's folded table against (S_now + w S_late) /
+    (C_now + w C_late) computed in float64 from the held tensors: the
+    largest difference at most 1e-6 of the table's largest magnitude."""
+    worst = 0.0
+    for g, count, due, rnd, got in log["folds"]:
+        c = float(np.float32(count))
+        num = g.double() * c
+        den = c
+        for coh in due:
+            w = decay ** (rnd - coh.dispatch_round)
+            num = num + w * coh.transmit_sum.double()
+            den += w * coh.count
+        want = num / den
+        err = float((got.double() - want).abs().max()
+                    / want.abs().max().clamp_min(1e-30))
+        worst = max(worst, err)
+    assert log["folds"], f"{label}: no straggler landed"
+    assert worst <= 1e-6, f"{label}: late landing off by {worst:.3g}"
+    return {"landings": len(log["folds"]), "max_rel_err": worst}
+
+
+def part_engine(label, extra, batches, client, server, n, audit=True):
+    """``n`` engine rounds (window 2, drain every 8) of the headline round
+    plus ``extra`` with the layer attached and recorded, each non-drain
+    submit under ``set_sync_debug_mode("error")`` (with ``audit``); the
+    launches checked against the recorded pattern (``client``: a dict, or
+    a function of the model and its args that gives one). Returns the
+    model, optimizer, controller, log and audit."""
+    args, fm, opt, sched, _ = build_round(extra)
+    if callable(client):
+        client = client(fm, args)
+    ctl = attach_layer(args, fm)
+    log = record_layer(ctl)
+    eng = PipelinedRoundEngine(fm, opt, sched, window=2, drain_every=8)
+    audit_ = {"audited": 0, "fetches": 0, "drains": 0}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = []
+    for i in range(n):
+        b = batches[i % len(batches)]
+        got.extend(audited_submit(eng, b, audit_) if audit
+                   else eng.submit(b))
+    got.extend(eng.drain())
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = derived_launches(log, client, server)
+    assert counts == want, f"{label}: launches {counts}, derived {want}"
+    assert audit_["fetches"] == 0, f"{label}: fetches between drains"
+    assert len(got) == n
+    for r in got:
+        assert np.all(np.isfinite(r.values[0])), f"{label}: loss"
+    assert bool(torch.isfinite(fm.ps_weights).all()), f"{label}: weights"
+    late = sum(x is not None for x in log["late"])
+    print(f"{label}: {n} engine rounds, {late} straggler dispatches, "
+          f"{sum(log['fold'])} server phases, launches as derived "
+          + json.dumps({k: v for k, v in counts.items() if v}) + "; "
+          f"{audit_['audited']} non-drain submits audited, "
+          f"{audit_['fetches']} fetches; counters "
+          + json.dumps(ctl.counters()))
+    return fm, opt, ctl, log, audit_
+
+
+def part_identity() -> None:
+    """(1) The layer attached with nothing set (``--participation 1.0``):
+    PART_IDENTITY_ROUNDS headline rounds bit-equal to the same rounds
+    without the layer."""
+    ws = []
+    with deterministic_cudnn():
+        for extra in ([], ["--participation", "1.0"]):
+            args, fm, opt, _, one_round = build_round(extra)
+            if extra:
+                attach_layer(args, fm)
+            for s in range(PART_IDENTITY_ROUNDS):
+                one_round(synthetic_batch(s % 4))
+            torch.cuda.synchronize()
+            ws.append((fm.ps_weights, opt.server_state.velocity,
+                       opt.server_state.error))
+            del fm, opt, one_round
+    for name, a, b in zip(("weights", "velocity", "error"), *ws):
+        assert bit_equal(a, b), f"full participation: {name} differs"
+    print(f"full participation: {PART_IDENTITY_ROUNDS} rounds with the "
+          "layer attached bit-equal to the rounds without it")
+    del ws
+    torch.cuda.empty_cache()
+
+
+def part_headline(card: str) -> dict:
+    """(2) The headline under faults: PART_ROUNDS engine rounds, the
+    pattern against a CPU controller's, the launches as derived, the late
+    landings against the hand-computed fold, the strict audit, and one
+    server step through the kernels and the plain versions."""
+    batches = [part_batch(s) for s in range(4)]
+    fm, opt, ctl, log, audit = part_engine(
+        "headline faults", PART_ON, batches, HEADLINE_CLIENT,
+        HEADLINE_SERVER, PART_ROUNDS)
+    check_pattern(log, [batches[i % 4] for i in range(PART_ROUNDS)],
+                  "headline")
+    folds = check_folds(log, 0.5, "headline")
+    table = log["folds"][-1][4]
+    state, lr = opt.server_state, opt.get_lr()
+    upd_k, st_k = server_update(table, state, fm.server_config, lr,
+                                sketch=fm.sketch, layout=fm.layout)
+    with plain_kernels():
+        upd_p, st_p = server_update(table, state, fm.server_config, lr,
+                                    sketch=fm.sketch, layout=fm.layout)
+    torch.cuda.synchronize()
+    for name, a, b in (("update", upd_k, upd_p),
+                       ("velocity", st_k.velocity, st_p.velocity),
+                       ("error", st_k.error, st_p.error)):
+        # equal under ==: a zero median's sign is free
+        assert nan_equal(a, b), f"folded server {name}: kernels != plain"
+    out = {"phase": "participation", "leg": "headline faults",
+           "rounds": PART_ROUNDS, **folds, "counters": ctl.counters(),
+           "audited_submits": audit["audited"], "fetches": audit["fetches"],
+           "card": card}
+    print(json.dumps(out))
+    del fm, opt, ctl, log, table
+    torch.cuda.empty_cache()
+    return out
+
+
+def part_opt_in(card: str) -> dict:
+    """(3) The opt-in round with stragglers: kernels 2, 3, 4, 6, launches
+    as derived from the pattern and the coalescing plan."""
+    def client(fm, args):
+        per = opt_in_per_round(fm, args)
+        return {"sketch_accumulate_into": per["sketch_accumulate_into"]}
+
+    os.environ[ttk.FUSED_DESCENT_ENV] = "1"
+    try:
+        batches = [part_batch(s) for s in range(4)]
+        fm, opt, ctl, log, _ = part_engine(
+            "opt-in faults", OPT_IN + PART_ON, batches, client,
+            {"sketch_estimates": 1, "topk_descent": 1, "fused_epilogue": 1},
+            PART_OPT_IN_ROUNDS, audit=False)
+        folds = check_folds(log, 0.5, "opt-in") if log["folds"] else {}
+    finally:
+        os.environ.pop(ttk.FUSED_DESCENT_ENV, None)
+    out = {"phase": "participation", "leg": "opt-in faults",
+           "rounds": PART_OPT_IN_ROUNDS, **folds,
+           "counters": ctl.counters(), "card": card}
+    print(json.dumps(out))
+    del fm, opt, ctl, log
+    torch.cuda.empty_cache()
+    return out
+
+
+def part_async(card: str) -> dict:
+    """(4) ``--async_buffer 3`` at the headline: the launches as derived
+    (a buffered dispatch launches the client sketch only), a NaN-poisoned
+    buffered contribution masked out of its fold and counted, and a
+    resume taken mid-buffer bit-equal to the continuous run."""
+    batches = [part_batch(s) for s in range(4)]
+    fm, opt, ctl, log, _ = part_engine(
+        "async K=3", PART_ON + PART_ASYNC, batches, HEADLINE_CLIENT,
+        HEADLINE_SERVER, PART_ASYNC_ROUNDS)
+    buffered = len(log["fold"]) - sum(log["fold"])
+    assert buffered and sum(log["fold"]), log["fold"]
+    out = {"phase": "participation", "leg": "async K=3",
+           "rounds": PART_ASYNC_ROUNDS, "buffered_dispatches": buffered,
+           "counters": ctl.counters()}
+    del fm, opt, ctl, log
+    # dispatch 0 is buffered (the buffer starts empty), its transmit
+    # poisoned with NaN: the fold masks it
+    fm, opt, ctl, log, _ = part_engine(
+        "async poisoned", PART_ON + PART_ASYNC + ["--inject_fault", "0:nan"],
+        batches, HEADLINE_CLIENT, HEADLINE_SERVER, 6, audit=False)
+    assert not log["fold"][0] and ctl.masked == 1, ctl.counters()
+    out["poisoned"] = ctl.counters()
+    del fm, opt, ctl, log
+
+    with deterministic_cudnn():
+        argv = PART_ON + PART_ASYNC
+        args_a, fa, oa, sa, one_a = build_round(argv)
+        attach_layer(args_a, fa)
+        for i in range(PART_RESUME_ROUNDS):
+            one_a(batches[i % 4])
+        args, fb, ob, sb, one_b = build_round(argv)
+        cb = attach_layer(args, fb)
+        done = 0
+        while done < 3 or not cb.buffer:
+            one_b(batches[done % 4])
+            done += 1
+        assert done < PART_RESUME_ROUNDS, "no mid-buffer point"
+        sampler = {"permuted": np.arange(64, dtype=np.int64),
+                   "cursor": np.zeros(64, np.int64)}
+        with tempfile.TemporaryDirectory() as tmp:
+            args.checkpoint_path = tmp
+            path = save_round_state(args, 0, done, sampler, fb, ob, sb,
+                                    (0.0, 0.0))
+            held = len(cb.buffer) + len(cb.pending)
+            del fb, ob, sb, one_b, cb
+            args_c, fc, oc, sc, one_c = build_round(argv)
+            attach_layer(args_c, fc)
+            load_run_state(path, fc, oc, sc)
+        for i in range(done, PART_RESUME_ROUNDS):
+            one_c(batches[i % 4])
+        torch.cuda.synchronize()
+        for name, a, b in (("weights", fc.ps_weights, fa.ps_weights),
+                           ("velocity", oc.server_state.velocity,
+                            oa.server_state.velocity),
+                           ("error", oc.server_state.error,
+                            oa.server_state.error)):
+            assert bit_equal(a, b), f"async resume: {name} differs"
+    print(f"async resume after {done} dispatches ({held} contributions "
+          f"held): {PART_RESUME_ROUNDS} dispatches bit-equal to the "
+          "continuous run")
+    out.update(resume_at=done, resume_held=held, card=card)
+    print(json.dumps(out))
+    del fa, oa, fc, oc
+    torch.cuda.empty_cache()
+    return out
+
+
+def part_gpt2(card: str) -> dict:
+    """(5) GPT-2-small float32 with ``slow=0.25`` (delay 1): launches as
+    derived, tokens/sec and peak memory of the timed rounds, and the held
+    sum is the (r, c_pad) table, not a d-sized tensor."""
+    args, fm, opt, sched, one_round = build_gpt2(GPT2_SLOW)
+    ctl = attach_layer(args, fm)
+    log = record_layer(ctl)
+    batch = gpt2_batch()
+    for _ in range(2):
+        one_round(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    held = None
+    for _ in range(PART_GPT2_ROUNDS):
+        one_round(batch)
+        if ctl.pending:
+            held = ctl.pending[-1].transmit_sum
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    timed = {k: v[2:] for k, v in log.items() if k in ("late", "fold")}
+    want = derived_launches(timed, HEADLINE_CLIENT, HEADLINE_SERVER)
+    assert counts == want, f"gpt2 slow: launches {counts}, derived {want}"
+    check_pattern(log, [batch] * (2 + PART_GPT2_ROUNDS), "gpt2 f32")
+    assert held is not None, "gpt2 slow: no straggler held"
+    assert tuple(held.shape) == tuple(fm.sketch.table_shape), held.shape
+    assert held.numel() < fm.grad_size // 20
+    tokens = GPT2_W * GPT2_B * GPT2_C * GPT2_T
+    rps = PART_GPT2_ROUNDS / wall
+    out = {"phase": "participation", "leg": "gpt2 f32 slow=0.25",
+           "rounds": PART_GPT2_ROUNDS, "tokens_per_round": tokens,
+           "tokens_per_sec": rps * tokens,
+           "straggler_dispatches": sum(x is not None
+                                       for x in timed["late"]),
+           "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
+           "held_shape": list(held.shape), "d": fm.grad_size,
+           "counters": ctl.counters(), "card": card}
+    print(json.dumps(out))
+    del fm, opt, sched, one_round, ctl, held, log
+    torch.cuda.empty_cache()
+    return out
+
+
+def straggler_device_ms(fm, late_batch, n: int = 3) -> float:
+    """Device ms of one straggler dispatch (its client phase) under
+    ``torch.profiler``."""
+    from commefficient_torch.federated.aggregator import _to_device
+
+    staged = []   # the pinned buffers, kept until the copies ran
+    dlate = _to_device(late_batch, fm.device, staged)
+    rows, _ = device_rows(lambda: fm.steps.client_step(
+        fm.ps_weights, fm.client_states, fm._model_state, dlate,
+        fm._opt_lr, fm._rng), n)
+    del staged
+    return sum(dev_us(e) for e in rows) / 1e3 / n
+
+
+def part_costs(card: str, label: str, build, on, batch) -> dict:
+    """(6) Rounds/sec with the layer on (``on``) against off through the
+    engine, in PART_PAIRS[label] alternating pairs of
+    PART_PAIR_ROUNDS[label] rounds, and the device ms of one straggler
+    dispatch. Data: no exit code depends on a ratio."""
+    engines = {}
+    for cfg, extra in (("off", []), ("on", on)):
+        args, fm, opt, sched, _ = build(extra)
+        if cfg == "on":
+            attach_layer(args, fm)
+        engines[cfg] = PipelinedRoundEngine(fm, opt, sched, window=2,
+                                            drain_every=8)
+        for _ in range(3):
+            engines[cfg].submit(batch)
+        engines[cfg].drain()
+    n = PART_PAIR_ROUNDS[label]
+
+    def run(cfg):
+        eng = engines[cfg]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.submit(batch)
+        eng.drain()
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t0)
+
+    rps = {"off": [], "on": []}
+    ratios = []
+    for p in range(PART_PAIRS[label]):
+        order = ("off", "on") if p % 2 == 0 else ("on", "off")
+        r = {c: run(c) for c in order}
+        for c, v in r.items():
+            rps[c].append(v)
+        ratios.append(r["on"] / r["off"])
+    fm_on = engines["on"].model
+    late = dict(batch)
+    wm = np.zeros_like(batch["worker_mask"])
+    wm[:2] = 1.0
+    late["worker_mask"] = wm
+    late["mask"] = (batch["mask"] * wm.reshape(
+        (-1,) + (1,) * (batch["mask"].ndim - 1))).astype(np.float32)
+    strag_ms = straggler_device_ms(fm_on, late)
+    ctl = fm_on._participation
+    row = {"phase": "participation", "leg": f"{label} cost",
+           "pairs": PART_PAIRS[label], "rounds_per_window": n,
+           "rounds_per_sec": rps,
+           "on_off_ratio": {"median": statistics.median(ratios),
+                            "min": min(ratios), "max": max(ratios),
+                            "all": ratios},
+           "straggler_dispatch_device_ms": strag_ms,
+           "counters_on": ctl.counters(), "card": card}
+    if label.startswith("gpt2"):
+        tokens = GPT2_W * GPT2_B * GPT2_C * GPT2_T
+        row["tokens_per_sec"] = {c: [v * tokens for v in vs]
+                                 for c, vs in rps.items()}
+    print(json.dumps(row))
+    print(f"{label} participation on / off: median "
+          f"{statistics.median(ratios):.4f} (spread {min(ratios):.4f}-"
+          f"{max(ratios):.4f}), straggler dispatch {strag_ms:.3f} device "
+          f"ms ({card}; data, not a gate)")
+    del engines, fm_on
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_participation(card: str) -> dict:
+    """Phase 13: client participation, stragglers and async buffering at
+    full width."""
+    out = {}
+    part_identity()
+    out["headline"] = part_headline(card)
+    out["opt-in"] = part_opt_in(card)
+    out["async"] = part_async(card)
+    out["gpt2"] = part_gpt2(card)
+    out["costs"] = [
+        part_costs(card, "headline", build_round, PART_ON, part_batch()),
+        part_costs(card, "gpt2 f32", build_gpt2, GPT2_SLOW, gpt2_batch())]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-times", nargs="*", metavar="NAME",
@@ -3509,6 +3995,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     obs = phase_observability(card)
     wall["12 observability and guards"] = time.perf_counter() - t
+    t = time.perf_counter()
+    part = phase_participation(card)
+    wall["13 participation"] = time.perf_counter() - t
     print("phase wall seconds (phase 3 includes the build): " + json.dumps(
         {k: round(v, 2) for k, v in wall.items()}))
 
@@ -3561,6 +4050,11 @@ def main(argv=None) -> int:
                               k: row[f"{k}_ratio"]["median"]
                               for k in ("telemetry", "guards")}
                           for row in obs["costs"]},
+                      "participation_on_off_median": {
+                          row["leg"]: row["on_off_ratio"]["median"]
+                          for row in part["costs"]},
+                      "participation_gpt2_tokens_per_sec":
+                          part["gpt2"]["tokens_per_sec"],
                       **{"opt_in_" + k: v for k, v in opt_prof.items()}}))
     print(json.dumps(summary))
     print(card)

@@ -47,6 +47,12 @@ package's names, defaults and help: ``--telemetry`` / ``--no_telemetry``,
 ``--tensorboard``, ``--profile`` / ``--profile_dir`` / ``--profile_steps``,
 ``--guards``, ``--guard_max_abs``, ``--snapshot_every``,
 ``--max_guard_trips`` and ``--inject_fault`` (``parse_inject_fault``).
+
+Client participation (``federated/participation.py``) is carried with
+the JAX package's names, defaults, help and checks
+(``check_participation``): ``--client_dropout``, ``--participation``,
+``--participation_sampling``, ``--inject_client_fault``,
+``--staleness_decay``, ``--client_retry_limit`` and ``--async_buffer``.
 ``--port``, ``--share_ps_gpu``, ``--nan_threshold`` and
 ``--num_results_*`` are accepted and ignored, as the JAX package ignores
 them; ``--rng_impl threefry2x32`` is a no-op and its JAX-only PRNGs raise.
@@ -71,8 +77,6 @@ _Q1 = "ROADMAP.md queue 1"
 ITEM_MULTI_2D = (f"{_Q1} item 5a (the 2-D clients x shard plane, "
                  f"per-axis collective plans, --collective_plan auto, the "
                  f"multi-host seam)")
-ITEM_PARTICIPATION = (f"{_Q1} item 6c (participation, stragglers and "
-                      f"async buffering)")
 ITEM_HOST_STATE = (f"{_Q1} item 6d (host state: the row store, host "
                    f"offload, storage faults)")
 ITEM_SERVICE = f"{_Q1} item 6e (the open-world service: --churn)"
@@ -85,19 +89,6 @@ ITEM_PARALLEL = (f"{_Q1} item 7 (parallel/: sequence, tensor, pipeline "
 UNPORTED = (
     ("--plan_error_budget", dict(type=float, default=0.05),
      ITEM_MULTI_2D),
-    ("--client_dropout", dict(type=float, default=0.0),
-     ITEM_PARTICIPATION),
-    ("--participation", dict(type=str, default=""), ITEM_PARTICIPATION),
-    ("--participation_sampling",
-     dict(choices=["uniform", "weighted", "stratified"], default="uniform"),
-     ITEM_PARTICIPATION),
-    ("--inject_client_fault", dict(type=str, default=""),
-     ITEM_PARTICIPATION),
-    ("--staleness_decay", dict(type=float, default=0.5),
-     ITEM_PARTICIPATION),
-    ("--client_retry_limit", dict(type=int, default=3),
-     ITEM_PARTICIPATION),
-    ("--async_buffer", dict(type=int, default=0), ITEM_PARTICIPATION),
     ("--state_dir", dict(type=str, default=""), ITEM_HOST_STATE),
     ("--inject_io_fault", dict(type=str, default=""), ITEM_HOST_STATE),
     ("--io_retries", dict(type=int, default=3), ITEM_HOST_STATE),
@@ -322,6 +313,55 @@ def build_parser(default_lr=None) -> argparse.ArgumentParser:
                              "leaves with one launch (requires "
                              "--stream_sketch).")
 
+    # client participation, faults, late landing and async buffering
+    # (federated/participation.py; the JAX package's flags and help)
+    parser.add_argument("--client_dropout", type=float, default=0.0,
+                        help="Per-round probability that a sampled client "
+                             "drops out (0 disables).")
+    parser.add_argument("--participation", type=str, default="",
+                        help="Per-round cohort as a fraction of "
+                             "--num_workers in (0,1] or an absolute client "
+                             "count; unused worker slots are zero-masked "
+                             "and the data-weighted round mean makes the "
+                             "missing clients an exact reweighting. Empty "
+                             "= full participation (bit-identical legacy "
+                             "path).")
+    parser.add_argument("--participation_sampling",
+                        choices=["uniform", "weighted", "stratified"],
+                        default="uniform",
+                        help="Cohort draw for --participation: uniform "
+                             "(legacy np.random.choice), weighted "
+                             "(probability ~ remaining items), or "
+                             "stratified (one pick per remaining-size "
+                             "stratum).")
+    parser.add_argument("--inject_client_fault", type=str, default="",
+                        help="Debug: seeded per-client fault schedule "
+                             "'drop=P,slow=P,corrupt=P,delay=N,seed=N,"
+                             "quarantine_after=N' — per round each live "
+                             "slot independently drops (items requeued "
+                             "with bounded retries), straggles (transmit "
+                             "lands delay rounds late with the staleness "
+                             "decay), or is corrupted (masked out BEFORE "
+                             "the round sum — the guard never trips; "
+                             "repeat offenders are client-quarantined).")
+    parser.add_argument("--staleness_decay", type=float, default=0.5,
+                        help="Late-landing weight w(delta) = decay**delta "
+                             "for straggler cohorts landing delta rounds "
+                             "late (1.0 = undecayed).")
+    parser.add_argument("--client_retry_limit", type=int, default=3,
+                        help="Max requeues per client per epoch for "
+                             "dropped-client data before the drop is "
+                             "abandoned (participation layer).")
+    parser.add_argument("--async_buffer", type=int, default=0,
+                        help="Buffered-asynchronous federation: fold a "
+                             "server update whenever K contributions have "
+                             "landed instead of once per dispatch; "
+                             "contributions carry exact model-version "
+                             "staleness and fold with w(delta) = "
+                             "--staleness_decay**delta. 0 (default) = "
+                             "synchronous rounds (bit-identical legacy "
+                             "path).")
+
     # accepted and ignored, as the JAX package ignores them
     parser.add_argument("--port", type=int, default=5315,
                         help="Accepted for compatibility; unused.")
@@ -497,11 +537,54 @@ def check_collectives(args) -> None:
             "weight reconstruction lives on dense per-client rows)")
 
 
+def check_participation(args) -> None:
+    """The JAX package's checks of the participation flags: ranges, and
+    the participation and fault specs parsed here, not rounds into a
+    run."""
+    from commefficient_torch.federated.participation import (
+        parse_client_fault,
+        parse_participation,
+    )
+
+    assert 0.0 <= args.client_dropout < 1.0, (
+        f"--client_dropout {args.client_dropout} must be in [0, 1)")
+    assert 0.0 < args.staleness_decay <= 1.0, (
+        f"--staleness_decay {args.staleness_decay} must be in (0, 1]")
+    assert args.client_retry_limit >= 0, (
+        "--client_retry_limit must be >= 0")
+    assert args.async_buffer >= 0, (
+        f"--async_buffer {args.async_buffer} must be >= 0 (0 = "
+        f"synchronous rounds)")
+    if args.async_buffer:
+        print(f"async buffered federation: fold every "
+              f"{args.async_buffer} landed contribution(s), "
+              f"w(Δ)={args.staleness_decay:g}**Δ exact-version staleness; "
+              f"buffered dispatches fold the TRANSMIT only — client "
+              f"carries advance on fold dispatches")
+    if args.participation:
+        parse_participation(args.participation, args.num_workers)
+    fault_spec = (args.inject_client_fault or "").strip()
+    if fault_spec:
+        sched = parse_client_fault(fault_spec)
+        assert args.train_dataloader_workers == 0, (
+            "--inject_client_fault needs --train_dataloader_workers 0: "
+            "dropped clients requeue into the live sampler epoch, and a "
+            "prefetch thread would have drawn rounds past the requeue "
+            "point (same constraint as --checkpoint_every_rounds)")
+        if sched.slow and (args.local_momentum > 0
+                           or args.error_type == "local"
+                           or args.do_topk_down):
+            print("NOTE: straggler late landings fold the TRANSMIT only — "
+                  "per-client velocity/error/stale-weight state does not "
+                  "advance for a straggler cohort")
+
+
 def parse_args(default_lr=None, argv=None):
     args = build_parser(default_lr).parse_args(argv)
     reject_unported(args)
     check_collectives(args)
     check_observability(args)
+    check_participation(args)
     if args.mode == "fedavg":
         assert args.local_batch_size == -1, "fedavg requires local_batch_size == -1"
         assert args.local_momentum == 0, "fedavg requires local_momentum == 0"

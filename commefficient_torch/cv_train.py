@@ -119,6 +119,10 @@ from commefficient_torch.federated.engine import (
     cohort_lookahead,
 )
 from commefficient_torch.federated.losses import make_cv_losses
+from commefficient_torch.federated.participation import (
+    attach_participation,
+    expire_participation,
+)
 from commefficient_torch.models import ResNet9
 from commefficient_torch.ops.flat import ParamLayout
 from commefficient_torch.parallel import (
@@ -508,6 +512,10 @@ def _main(args, group):
                          group=group)
     opt = FedOptimizer(fed_model, args,
                        param_groups=build_param_groups(args, layout))
+    # the participation layer (--participation, --inject_client_fault,
+    # --async_buffer): the sampler's cohorts, faults, late landing
+    pc = attach_participation(args, fed_model,
+                              sampler=getattr(train_loader, "sampler", None))
     lr_schedule = PiecewiseLinear([0, args.pivot_epoch, args.num_epochs],
                                   [0, args.lr_scale, 0])
     spe = train_loader.steps_per_epoch()
@@ -529,6 +537,7 @@ def _main(args, group):
                         timer=timer, start_epoch=start_epoch, totals=totals,
                         resume_mid=resume_mid, writer=writer)
     finally:
+        expire_participation(pc, rt)
         close_run_telemetry(fed_model, rt)
         if writer is not None:
             writer.close()

@@ -59,6 +59,7 @@ import torch
 
 from commefficient_torch.convert import flax_from_port
 from commefficient_torch.federated.checkpoint import save_checkpoint
+from commefficient_torch.federated.participation import _f32, _transmit_sum
 from commefficient_torch.federated.rounds import (
     RoundConfig,
     build_round_step,
@@ -125,7 +126,12 @@ class RoundHandle(NamedTuple):
     ``telemetry`` (``--telemetry``, the metric vector) are attached by
     ``seal_round`` and stay on the device until the drain.
     ``staleness``: rounds since each participant last joined (download
-    regime (b) only; host data)."""
+    regime (b) only; host data). ``cohort``: the participation layer's
+    host record of the round (cohort target, drop / slow / corrupt counts,
+    the retry ladder, late landings, the async record), merged into the
+    telemetry ``cohort`` span at the drain; None without the layer.
+    ``async_masked``: an async fold's device count of masked
+    contributions, fetched with the drain (None elsewhere)."""
 
     metrics: Tuple[Any, ...]
     valid: np.ndarray
@@ -138,6 +144,8 @@ class RoundHandle(NamedTuple):
     guard: Optional[Any] = None
     telemetry: Optional[Any] = None
     staleness: Optional[np.ndarray] = None
+    cohort: Optional[dict] = None
+    async_masked: Optional[Any] = None
 
 
 def worker_config_from_args(args) -> WorkerConfig:
@@ -325,6 +333,14 @@ class FedModel:
                                               device=self.device)
             self._client_part_round = np.zeros(self.num_clients, np.int64)
         self._prev_ps = self.ps_weights
+        # --client_dropout draws from a stream of its own (the JAX
+        # package's seed + 2; a run state carries it), not the global one
+        self._drop_rng = np.random.RandomState(int(args.seed) + 2)
+        # the participation layer (participation.attach_participation);
+        # None: every sampled client takes part on time
+        self._participation = None
+        # an async buffered dispatch skips its server phase
+        self._async_skip_server = False
         # the global dispatch counter (RoundHandle.round_no)
         self._rounds_dispatched = 0
         self._last_staleness = None
@@ -409,29 +425,98 @@ class FedModel:
         """Run the client phase; metrics and the download count stay on
         the device in the returned handle. Nothing here waits on the
         stream: host data reaches the card through pinned buffers
-        (``_h2d``), which the handle keeps."""
+        (``_h2d``), which the handle keeps.
+
+        ``--client_dropout`` masks each sampled client out with its
+        probability (a round where all would drop keeps its cohort). With
+        the participation layer attached, its fault schedule splits the
+        batch into the on-time slots and the stragglers; the stragglers'
+        client phase runs now, against this round's weights and the model
+        state before the round, and its un-normalized transmit sum is held
+        until its due round (its model state and rows are discarded: a late
+        landing folds the transmit only). Then the due stragglers fold
+        into this round (``fold_due``), or, under ``--async_buffer``, the
+        dispatch folds the buffer or is buffered (``async_step``)."""
         ids = np.asarray(batch["client_ids"])
         wmask = np.asarray(batch["worker_mask"])
-        participating = np.unique(ids[wmask > 0])
+        drop_p = getattr(self.args, "client_dropout", 0.0) or 0.0
+        if drop_p > 0:
+            drop = (self._drop_rng.random_sample(wmask.shape) < drop_p) \
+                & (wmask > 0)
+            if drop[wmask > 0].all():
+                drop[:] = False
+            wmask = np.where(drop, 0.0, wmask).astype(np.float32)
+            batch = dict(batch)
+            batch["worker_mask"] = wmask
+            mask = np.asarray(batch["mask"])
+            batch["mask"] = (mask * wmask.reshape(
+                wmask.shape + (1,) * (mask.ndim - 1))).astype(mask.dtype)
+        part = self._participation
+        round_no = self._rounds_dispatched
+        late_batch = cohort_info = None
+        if part is not None:
+            batch, late_batch, cohort_info = part.apply_faults(batch,
+                                                               round_no)
+            wmask = np.asarray(batch["worker_mask"])
+        live = wmask > 0
+        if late_batch is not None:
+            # stragglers download this round's model and upload a
+            # transmit: the byte accounting counts them
+            live = live | (np.asarray(late_batch["worker_mask"]) > 0)
+        participating = np.unique(ids[live])
         staged = []
         download_dev, upload = self._account_bytes_deferred(participating,
                                                             staged)
         dbatch = _to_device(batch, self.device, staged)
+        pre_model_state = self._model_state
         self._round_ctx, self._model_state, metrics = \
             self.steps.client_step(self.ps_weights, self.client_states,
                                    self._model_state, dbatch, self._opt_lr,
                                    self._rng)
-        round_no = self._rounds_dispatched
         self._rounds_dispatched += 1
+        sharded = self.round_config.server_shard
+        if late_batch is not None:
+            late_wmask = np.asarray(late_batch["worker_mask"])
+            late_count = float(max(np.asarray(late_batch["mask"]).sum(),
+                                   1.0))
+            # every rank of a group runs this dispatch (its collectives)
+            late_ctx, _, _ = self.steps.client_step(
+                self.ps_weights, self.client_states, pre_model_state,
+                _to_device(late_batch, self.device, staged), self._opt_lr,
+                self._rng)
+            late_sum = (late_ctx.gradient if sharded else
+                        _transmit_sum(late_ctx.gradient, _f32(late_count)))
+            part.hold(late_sum, late_count, np.unique(ids[late_wmask > 0]),
+                      round_no)
         poison = self._inject.get(round_no)
         if poison is not None:
             self._poison_transmit(round_no, poison)
+        async_masked = None
+        count = float(max(np.asarray(batch["mask"]).sum(), 1.0))
+        if part is not None and part.async_k:
+            ctx, fold, async_info = part.async_step(
+                self._round_ctx, round_no, sharded=sharded, count=count,
+                ids=participating)
+            self._round_ctx = ctx
+            self._async_skip_server = not fold
+            async_masked = async_info.pop("masked_dev", None)
+            cohort_info = dict(cohort_info or {})
+            cohort_info["async"] = async_info
+        elif part is not None:
+            self._round_ctx, landed = part.fold_due(
+                self._round_ctx, round_no, sharded=sharded, count=count)
+            if cohort_info is not None:
+                if landed:
+                    cohort_info["landed"] = landed
+                if part.pending:
+                    cohort_info["pending"] = len(part.pending)
         staleness, self._last_staleness = self._last_staleness, None
         return RoundHandle(metrics=metrics, valid=wmask > 0,
                            participating=participating,
                            download=download_dev, upload=upload,
                            round_no=round_no, staged=tuple(staged),
-                           staleness=staleness)
+                           staleness=staleness, cohort=cohort_info or None,
+                           async_masked=async_masked)
 
     def _poison_transmit(self, round_no: int, poison: float) -> None:
         """``--inject_fault``: overwrite element ``(0,) * ndim`` of the
@@ -483,8 +568,8 @@ class FedModel:
         for h in handles:
             tensors.extend(h.metrics)
             tensors.extend(t for t in (
-                h.download, h.guard, h.telemetry if record else None)
-                if t is not None)
+                h.download, h.guard, h.telemetry if record else None,
+                h.async_masked) if t is not None)
         host = iter(_fetch_all(tensors))
         out = []
         for h in handles:
@@ -497,9 +582,21 @@ class FedModel:
             guard_ok = bool(next(host)) if h.guard is not None else None
             vals = next(host) if record and h.telemetry is not None \
                 else None
+            if h.async_masked is not None:
+                # an async fold's masked contributions: counted, and in
+                # the round's async record
+                n_masked = int(round(float(next(host))))
+                if self._participation is not None:
+                    self._participation.note_masked(n_masked)
+                if n_masked and h.cohort and "async" in h.cohort:
+                    h.cohort["async"]["masked"] = n_masked
             values = [m[h.valid] for m in ms] + [download, h.upload]
             self.last_guard_ok = guard_ok
-            if vals is not None:
+            # a buffered async dispatch has no server phase and no metric
+            # vector, but its round record still lands with its async
+            # record
+            has_async = bool(h.cohort and "async" in h.cohort)
+            if record and (vals is not None or has_async):
                 loss = (float(np.mean(ms[0][h.valid]))
                         if len(ms) and np.any(h.valid) else None)
                 cohort = {"participants": int(len(h.participating)),
@@ -507,9 +604,12 @@ class FedModel:
                 if h.staleness is not None and len(h.staleness):
                     cohort["staleness_mean"] = float(np.mean(h.staleness))
                     cohort["staleness_max"] = int(np.max(h.staleness))
+                if h.cohort:
+                    cohort.update(h.cohort)
                 self.telemetry.on_metrics(
                     h.round_no,
-                    {k: float(v) for k, v in zip(METRIC_FIELDS, vals)},
+                    ({k: float(v) for k, v in zip(METRIC_FIELDS, vals)}
+                     if vals is not None else None),
                     loss=loss, guard_ok=guard_ok, cohort=cohort)
             if guard_ok is not None:
                 self._note_guard(guard_ok, round_no=h.round_no)
@@ -607,7 +707,14 @@ class FedModel:
 
     def _apply_server(self, server_state, lr):
         """Phase 2 for ``FedOptimizer.step()``; the verdict and the metric
-        vector wait on the device for ``seal_round``."""
+        vector wait on the device for ``seal_round``. An async buffered
+        dispatch skips it: the weights, the server state and the client
+        rows stay as they are, the generator is not drawn, and there is no
+        verdict and no vector."""
+        if self._async_skip_server:
+            self._async_skip_server = False
+            self._round_ctx = None
+            return server_state
         out = self.steps.server_step(self.ps_weights, server_state,
                                      self.client_states, self._round_ctx, lr,
                                      self._rng,

@@ -23,9 +23,19 @@
 
 The run state holds the state the port has: ``ps_weights``,
 ``client/{velocities,errors,weights}``, ``model_state/*``,
-``server/{velocity,error}``, ``np_rng/keys``, the download accounting
-(``acct/*``) and the meta. Over a client group every rank joins the save
-and rank 0 writes: the sharded server's dense velocity and error are
+``server/{velocity,error}``, ``np_rng/keys``, the ``--client_dropout``
+stream (``drop_rng/*``, saved on every run as the JAX package saves it),
+the download accounting (``acct/*``), the participation layer's state
+(``part/*`` and meta ``participation``: the fault RNG, the counters and
+ledgers, each pending straggler's and buffered async contribution's held
+sum; under ``--server_shard`` the held partial sums are gathered to the
+JAX package's ``(n, ...)`` stack and each rank takes its own back, so
+held sums restore on the plane and group size that saved them), the
+sampler's ``retry`` / ``quarantined`` with a mid-epoch position, and the
+meta. A run state with participation state loaded into a run without the
+layer warns and ignores it; a fault run resumed from a state without it
+warns and starts the schedule from its seed. Over a client group every
+rank joins the save and rank 0 writes: the sharded server's dense velocity and error are
 all-gathered to the full ``(d,)`` view, and the quantized collectives'
 carries to the JAX package's global layouts (``server/qres`` stacked
 ``(n, ...)`` over the ranks, ``server/dres`` the gathered tiles); on
@@ -37,13 +47,9 @@ the port's own key, ``torch_rng/state``: the JAX package's ``rng`` holds
 JAX key data, which a JAX file's restore in the port ignores (and refuses
 under ``--dp``, whose noise streams differ); the JAX package's restore
 reads ``rng``, so it does not restore a port run state. A file that
-carries a plane the port does not have (``part/*``, ``pop/*``, ``io/*``,
-the per-axis ``server/qres.*`` / ``server/dres.*``, a ``client_store``
-snapshot, a
-``--client_dropout`` stream that has been drawn from) raises
-``NotImplementedError`` naming its ROADMAP item. The JAX package saves its
-dropout stream (``drop_rng/*``) on every run; one still at its seed
-carries nothing and is passed over.
+carries a plane the port does not have (``pop/*``, ``io/*``, the
+per-axis ``server/qres.*`` / ``server/dres.*``, a ``client_store``
+snapshot) raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -57,20 +63,24 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-_Q1 = "ROADMAP.md queue 1"
-# run-state planes of the JAX package that the port does not have yet
+from commefficient_torch.config import (
+    ITEM_HOST_STATE,
+    ITEM_MULTI_2D,
+    ITEM_SERVICE,
+)
+
+# run-state planes of the JAX package that the port does not have yet,
+# with the ROADMAP item that ports each
 _UNPORTED_PLANES = (
-    ("part/", f"{_Q1} item 6 (runtime planes: participation)"),
-    ("pop/", f"{_Q1} item 6 (runtime planes: population churn)"),
-    ("io/", f"{_Q1} item 6 (runtime planes: storage faults)"),
-    ("server/qres.", f"{_Q1} item 5a (per-axis collective plans)"),
-    ("server/dres.", f"{_Q1} item 5a (per-axis collective plans)"),
+    ("pop/", ITEM_SERVICE),
+    ("io/", ITEM_HOST_STATE),
+    ("server/qres.", ITEM_MULTI_2D),
+    ("server/dres.", ITEM_MULTI_2D),
 )
 _UNPORTED_META = (
-    ("client_store", f"{_Q1} item 6 (runtime planes: host offload)"),
-    ("participation", f"{_Q1} item 6 (runtime planes: participation)"),
-    ("population", f"{_Q1} item 6 (runtime planes: population churn)"),
-    ("io_fault", f"{_Q1} item 6 (runtime planes: storage faults)"),
+    ("client_store", ITEM_HOST_STATE),
+    ("population", ITEM_SERVICE),
+    ("io_fault", ITEM_HOST_STATE),
 )
 
 
@@ -240,6 +250,23 @@ def save_run_state(path: str, fed_model, optimizer, lr_scheduler,
     np_name, np_keys, np_pos, np_has_gauss, np_cached = \
         np.random.get_state()
     arrays["np_rng/keys"] = np_keys
+    _, d_keys, d_pos, d_gauss, d_cached = fm._drop_rng.get_state()
+    arrays["drop_rng/keys"] = d_keys
+    arrays["drop_rng/meta"] = np.asarray([d_pos, d_gauss], np.int64)
+    arrays["drop_rng/cached"] = np.asarray([d_cached], np.float64)
+    part = getattr(fm, "_participation", None)
+    meta_participation = None
+    if part is not None:
+        if sharded:
+            from commefficient_torch.ops.collectives import all_gather_tiled
+
+            # the ranks' partial sums, stacked (n, ...) as JAX saves them
+            def held(t):
+                return _host(all_gather_tiled(t[None].contiguous(), group))
+        else:
+            held = _host
+        p_arrays, meta_participation = part.state_payload(held)
+        arrays.update({"part/" + k: v for k, v in p_arrays.items()})
     if fm._simple_download:
         arrays["acct/updated_since_init"] = canon(fm._updated_since_init)
     else:
@@ -261,6 +288,8 @@ def save_run_state(path: str, fed_model, optimizer, lr_scheduler,
         "round_idx": int(getattr(fm, "_round_idx", 0)),
         "rounds_dispatched": int(fm.rounds_dispatched),
     }
+    if meta_participation is not None:
+        meta["participation"] = meta_participation
     if mid_epoch is not None:
         sampler = mid_epoch.get("sampler")
         assert sampler is not None, (
@@ -269,6 +298,12 @@ def save_run_state(path: str, fed_model, optimizer, lr_scheduler,
         arrays["sampler/permuted"] = np.asarray(sampler["permuted"],
                                                 np.int64)
         arrays["sampler/cursor"] = np.asarray(sampler["cursor"], np.int64)
+        # the participation layer's bookkeeping (absent in older states)
+        if "retry" in sampler:
+            arrays["sampler/retry"] = np.asarray(sampler["retry"], np.int64)
+        if "quarantined" in sampler:
+            arrays["sampler/quarantined"] = np.asarray(
+                sampler["quarantined"], bool)
         extras = mid_epoch.get("extras") or {}
         for name, val in extras.items():
             arrays["mid/" + name] = np.asarray(val)
@@ -399,22 +434,7 @@ def find_resume_checkpoint(checkpoint_path: str,
     return None
 
 
-def _reject_unported(flat: Dict[str, np.ndarray], meta: dict,
-                     seed: int) -> None:
-    if "drop_rng/keys" in flat:
-        # the JAX package saves its --client_dropout stream on every run;
-        # a stream still at its seed (no dropout drawn) carries nothing
-        _, keys, pos, gauss, cached = np.random.RandomState(
-            seed + 2).get_state()
-        pos_gauss = [int(x) for x in flat["drop_rng/meta"]]
-        if not (np.array_equal(flat["drop_rng/keys"], keys)
-                and pos_gauss == [pos, gauss]):
-            raise NotImplementedError(
-                "the run state carries a --client_dropout stream that has "
-                f"been drawn from ({_Q1} item 6 (runtime planes: client "
-                "dropout))")
-        for key in ("drop_rng/keys", "drop_rng/meta", "drop_rng/cached"):
-            flat.pop(key, None)
+def _reject_unported(flat: Dict[str, np.ndarray], meta: dict) -> None:
     for prefix, item in _UNPORTED_PLANES:
         keys = sorted(k for k in flat if k.startswith(prefix))
         if keys:
@@ -450,13 +470,17 @@ def load_run_state(path: str, fed_model, optimizer, lr_scheduler,
         flat = _read_npz(path)
         meta = json.loads(bytes(flat.pop("meta_json")).decode())
         _verify_checksum(flat, meta, path)
-    _reject_unported(flat, meta, int(fm.args.seed))
+    _reject_unported(flat, meta)
     mid = None
     if meta.get("mid_epoch") is not None:
+        sampler_state = {"permuted": flat.pop("sampler/permuted"),
+                         "cursor": flat.pop("sampler/cursor")}
+        for key in ("retry", "quarantined"):
+            if "sampler/" + key in flat:
+                sampler_state[key] = flat.pop("sampler/" + key)
         mid = {
             "rounds_done": int(meta["mid_epoch"]["rounds_done"]),
-            "sampler": {"permuted": flat.pop("sampler/permuted"),
-                        "cursor": flat.pop("sampler/cursor")},
+            "sampler": sampler_state,
             "extras": {name: flat.pop("mid/" + name)
                        for name in meta["mid_epoch"]["extras"]},
         }
@@ -571,6 +595,11 @@ def load_run_state(path: str, fed_model, optimizer, lr_scheduler,
     np.random.set_state((np_meta["name"], flat["np_rng/keys"],
                          np_meta["pos"], np_meta["has_gauss"],
                          np_meta["cached"]))
+    if "drop_rng/keys" in flat:
+        d_pos, d_gauss = (int(x) for x in flat["drop_rng/meta"])
+        fm._drop_rng.set_state(("MT19937", flat["drop_rng/keys"], d_pos,
+                                d_gauss, float(flat["drop_rng/cached"][0])))
+    _restore_participation(fm, flat, meta, group)
     if fm._simple_download:
         fm._updated_since_init = resident(flat["acct/updated_since_init"])
     else:
@@ -588,6 +617,46 @@ def load_run_state(path: str, fed_model, optimizer, lr_scheduler,
         lr_scheduler.lr_lambda(meta["lr_step_count"]))
     return (meta["next_epoch"],
             (meta["total_download"], meta["total_upload"]), mid)
+
+
+def _restore_participation(fm, flat, meta, group) -> None:
+    """The participation layer's ``part/*`` and meta (a mismatch between
+    the file and the run warns, as in the JAX package). Under
+    ``--server_shard`` a held sum is saved as the ``(n, ...)`` stack of
+    the ranks' partial sums, and each rank takes its own back."""
+    import warnings
+
+    part = getattr(fm, "_participation", None)
+    part_flat = {k[len("part/"):]: flat.pop(k) for k in list(flat)
+                 if k.startswith("part/")}
+    if meta.get("participation") is None:
+        if part is not None and part.schedule is not None:
+            warnings.warn(
+                "this run injects client faults but the checkpoint predates "
+                "the participation layer; the fault schedule restarts from "
+                "its seed")
+        return
+    if part is None:
+        warnings.warn(
+            "checkpoint carries participation/fault-injection state but "
+            "this run has no participation layer attached; ignoring it")
+        return
+    sharded = group is not None and fm.round_config.server_shard
+    want = (tuple(fm.sketch.table_shape) if fm.sketch is not None
+            else tuple(fm.ps_weights.shape))
+
+    def as_device(a):
+        a = np.asarray(a)
+        if sharded and a.shape == (group.size,) + want:
+            a = a[group.rank]
+        assert tuple(a.shape) == want, (
+            f"checkpoint geometry mismatch: a held transmit sum has shape "
+            f"{tuple(a.shape)} but this run's transmit is {want} (a run "
+            f"state's held sums restore on the plane and group size that "
+            f"saved them)")
+        return torch.from_numpy(np.array(a, np.float32)).to(fm.device)
+
+    part.restore_state(part_flat, meta["participation"], as_device)
 
 
 def restore_mid_epoch(resume_mid, loader, client_download, client_upload):

@@ -27,7 +27,9 @@ with the window's occupancy after the seal, ``on_complete`` when the
 window's event wait for a round returns, ``on_drained`` writing each
 drained round's line), the round tracer (``on_submit`` before a dispatch,
 ``on_drained`` after a drain, with a ``trace_captured`` event), the
-heartbeat with the round's mean loss and guard verdict, and one ``drain``
+heartbeat with the round's mean loss and guard verdict (and, under
+``--async_buffer``, the buffer's depth and its oldest contribution's
+age), and one ``drain``
 event a drain. The per-round host work of a drain runs in dispatch order
 inside ``FedModel.finish_rounds`` (``on_round``), after that round's
 guard ladder, as the JAX package orders it.
@@ -175,9 +177,18 @@ class PipelinedRoundEngine:
             rn = self._round_no(handle, next(order)[0])
             if self.heartbeat.enabled:
                 loss = values[0]
+                # --async_buffer: the buffer's depth and its oldest
+                # contribution's age (absent on the synchronous path)
+                buf = stale = None
+                part = getattr(self.model, "_participation", None)
+                if part is not None and part.async_k:
+                    buf = len(part.buffer)
+                    stale = part.oldest_age(getattr(
+                        self.model, "rounds_dispatched", self._next_index))
                 self.heartbeat.round(
                     rn, loss=float(np.mean(loss)) if np.size(loss) else None,
-                    guard_ok=getattr(self.model, "last_guard_ok", None))
+                    guard_ok=getattr(self.model, "last_guard_ok", None),
+                    buffer=buf, stale=stale)
             now = time.monotonic()
             if self.telemetry is not None:
                 self.telemetry.on_drained(rn, now - t_last)

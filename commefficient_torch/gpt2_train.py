@@ -82,6 +82,10 @@ from commefficient_torch.federated.engine import (
     cohort_lookahead,
 )
 from commefficient_torch.federated.losses import make_gpt2_losses
+from commefficient_torch.federated.participation import (
+    attach_participation,
+    expire_participation,
+)
 from commefficient_torch.models.gpt2 import (
     GPT2DoubleHeads,
     load_hf_gpt2,
@@ -391,6 +395,10 @@ def _train(args, group):
         # the JAX package's eval-only finetune path
         return test_gpt2(fed_model, val_loader, args, logger=TableLogger(),
                          timer=timer)
+    # the participation layer (--participation, --inject_client_fault,
+    # --async_buffer): the sampler's cohorts, faults, late landing
+    pc = attach_participation(args, fed_model,
+                              sampler=getattr(train_loader, "sampler", None))
     # the telemetry plane (on by default): <log_dir>/telemetry.jsonl
     rt = attach_run_telemetry(args, fed_model, log_dir, "gpt2_train")
     start_epoch, totals, resume_mid = resume_run(args, fed_model, opt,
@@ -407,6 +415,7 @@ def _train(args, group):
                            timer=timer, start_epoch=start_epoch,
                            totals=totals, resume_mid=resume_mid)
     finally:
+        expire_participation(pc, rt)
         close_run_telemetry(fed_model, rt)
         fed_model.finalize()
     return stats

@@ -93,7 +93,8 @@ def host_sync_monitor(strict: bool = False):
 class Heartbeat:
     """Per-round liveness lines for an external supervisor: armed by
     ``COMMEFFICIENT_HEARTBEAT=1`` (or ``enabled=True``), each drained
-    round prints ``HEARTBEAT round=N [epoch=E] [loss=X] [guard=ok|TRIP]``
+    round prints ``HEARTBEAT round=N [epoch=E] [loss=X] [guard=ok|TRIP]
+    [buf=B] [stale=S]``
     to stderr, flushed: the JAX package's format, which its
     ``parse_heartbeat`` reads. The round index is the model's global
     dispatch counter (``RoundHandle.round_no``). A no-op when disarmed
@@ -106,7 +107,13 @@ class Heartbeat:
 
     def round(self, index: int, epoch: int | None = None,
               loss: float | None = None,
-              guard_ok: bool | None = None) -> None:
+              guard_ok: bool | None = None,
+              buffer: int | None = None,
+              stale: int | None = None) -> None:
+        """``buffer`` / ``stale`` (``--async_buffer``): the depth of the
+        landed, unfolded buffer and the dispatch age of the oldest
+        unfolded contribution, so a buffer that never folds shows on the
+        line."""
         if not self.enabled:
             return
         line = f"HEARTBEAT round={index}"
@@ -116,6 +123,10 @@ class Heartbeat:
             line += f" loss={loss:.6g}"
         if guard_ok is not None:
             line += f" guard={'ok' if guard_ok else 'TRIP'}"
+        if buffer is not None:
+            line += f" buf={int(buffer)}"
+        if stale is not None:
+            line += f" stale={int(stale)}"
         print(line, file=sys.stderr, flush=True)
 
 

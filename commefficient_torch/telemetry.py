@@ -626,7 +626,9 @@ class RunTelemetry:
                    guard_ok: Optional[bool] = None,
                    cohort: Optional[Dict[str, Any]] = None,
                    offload: Optional[Dict[str, Any]] = None) -> None:
-        """The round's fetched values (``FedModel.finish_rounds``)."""
+        """The round's fetched values (``FedModel.finish_rounds``);
+        ``metrics`` is None for an async buffered dispatch, which has no
+        server phase."""
         span = self._spans.setdefault(round_no, {})
         if metrics is not None:
             span["metrics"] = metrics
@@ -731,18 +733,36 @@ def attach_run_telemetry(args, fed_model, log_dir: str,
         "backend": fed_model.device.type,
         "ledger": ledger,
     }
-    # the participation, churn, async and host-state planes are not ported
-    # (ROADMAP queue 1 items 6c-6e): their header fields as the JAX
-    # package writes them with those planes off
+    # the participation layer's config (the fault schedule is seeded, so
+    # spec and seed are the schedule); churn is not ported (ROADMAP
+    # queue 1 item 6e) and writes its field as the JAX package does with
+    # churn off
     run_info["participation"] = (getattr(args, "participation", "")
                                  or "1.0")
     run_info["participation_sampling"] = getattr(
         args, "participation_sampling", "uniform")
     run_info["staleness_decay"] = float(getattr(args, "staleness_decay",
                                                 0.5))
-    run_info["client_fault"] = None
+    fault_spec = (getattr(args, "inject_client_fault", "") or "").strip()
+    if fault_spec:
+        from commefficient_torch.federated.participation import (
+            parse_client_fault,
+        )
+
+        sched = parse_client_fault(fault_spec)
+        run_info["client_fault"] = {
+            "spec": sched.spec(), "drop": sched.drop, "slow": sched.slow,
+            "corrupt": sched.corrupt, "delay": sched.delay,
+            "seed": sched.seed,
+            "quarantine_after": sched.quarantine_after}
+    else:
+        run_info["client_fault"] = None
     run_info["churn"] = None
-    run_info["async"] = None
+    async_k = int(getattr(args, "async_buffer", 0) or 0)
+    run_info["async"] = ({"buffer": async_k,
+                          "staleness_decay": float(
+                              getattr(args, "staleness_decay", 0.5))}
+                         if async_k else None)
     if plan is not None:
         run_info["collective_plan"] = plan.spec()
     run_info["telemetry_hist"] = hists

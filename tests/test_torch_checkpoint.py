@@ -19,7 +19,8 @@ against the JAX package's on the CPU, and its resume.
 - ``cv_train`` resumed mid-epoch (``--checkpoint_every_rounds 2``, then
   ``--resume auto``) ends bit-identical to the run it continues.
 - Corrupt, truncated, half-written, pruned, mismatched and unported
-  files fail or are skipped as the JAX package's are.
+  files fail or are skipped as the JAX package's are; a drawn
+  ``--client_dropout`` stream restores and draws on as JAX's does.
 """
 
 import json
@@ -254,9 +255,9 @@ def test_port_file_keys_match_jax(runs):
     tflat = jck._read_npz(runs["tpath"])
     jmeta = json.loads(bytes(jflat.pop("meta_json")).decode())
     tmeta = json.loads(bytes(tflat.pop("meta_json")).decode())
-    # the JAX package also saves its --client_dropout stream, untouched
-    # without dropout, which the port does not have
-    jonly = {"rng", "drop_rng/keys", "drop_rng/meta", "drop_rng/cached"}
+    # the JAX package's key data of its PRNG, which the port's generator
+    # state replaces
+    jonly = {"rng"}
     assert set(jflat) - jonly == set(tflat) - {"torch_rng/state"}
     for k in set(jflat) & set(tflat):
         assert tflat[k].shape == jflat[k].shape, k
@@ -373,7 +374,7 @@ def _fault(case, src, tmp):
     elif case == "tmp":
         shutil.copy(src, os.path.join(tmp, "run_state_ep1_r6.tmp.npz"))
     elif case == "unported":
-        flat["part/pending"] = np.zeros(3, np.float32)
+        flat["pop/live"] = np.zeros(3, bool)
         meta["checksum"] = tck._content_checksum(flat)
         _write(good, flat, meta)
     elif case == "dropout":
@@ -432,12 +433,16 @@ def test_faults(runs, case, tmp_path, capsys):
         np.testing.assert_array_equal(_flat(fm2), w0)  # nothing restored
     elif case == "unported":
         with pytest.raises(NotImplementedError,
-                           match="part/pending.*item 6"):
+                           match="pop/live.*item 6e"):
             tck.load_run_state(good, fm, opt, sched)
     elif case == "dropout":
-        with pytest.raises(NotImplementedError,
-                           match="client_dropout.*item 6"):
-            tck.load_run_state(good, fm, opt, sched)
+        # the drawn --client_dropout stream restores, and the next draw is
+        # the one JAX's stream gives
+        tck.load_run_state(good, fm, opt, sched)
+        rs = np.random.RandomState(0 + 2)
+        rs.random_sample(4)
+        np.testing.assert_array_equal(fm._drop_rng.random_sample(5),
+                                      rs.random_sample(5))
 
 
 def test_dp_refuses_jax_rng(runs):

@@ -276,7 +276,7 @@ def test_per_axis_run_state_carries_raise_item_5a(key):
     from commefficient_torch.federated import checkpoint as tck
 
     with pytest.raises(NotImplementedError, match="item 5a"):
-        tck._reject_unported({key: np.zeros(3, np.float32)}, {}, 0)
+        tck._reject_unported({key: np.zeros(3, np.float32)}, {})
 
 
 @pytest.mark.parametrize("argv", [["--shard_devices", "2"],

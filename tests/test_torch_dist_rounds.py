@@ -13,8 +13,12 @@ weights ``rtol=1e-4, atol=1e-6``, kept sets overlapping by 0.99 a round
 sharded plane (``true_topk``, the fused client phase, ``d_pad / n``
 slices) is held the same way. Within the port: both ranks end with the
 same weights bit for bit, and at n = 2 the sharded run equals the
-replicated one bit for bit. ``cv_train.main`` and ``gpt2_train.train``
-run on 2 ranks as under ``torchrun``. One spawn of 2 ranks runs every
+replicated one bit for bit. The participation layer under
+``--server_shard`` (faults with late landing, and ``--async_buffer 2``):
+each rank folds its partial sums, and the cohort records, the counters
+and (within the tolerance above) the weights of 5 rounds equal JAX's on
+its 2-device mesh. ``cv_train.main`` and ``gpt2_train.train`` run on 2
+ranks as under ``torchrun``. One spawn of 2 ranks runs every
 body of this file in turn while the parent runs JAX's rounds.
 """
 
@@ -31,6 +35,9 @@ from commefficient_tpu.config import parse_args as j_parse  # noqa: E402
 from commefficient_tpu.federated import FedModel as JFedModel  # noqa: E402
 from commefficient_tpu.federated import FedOptimizer as JFedOptimizer  # noqa: E402
 from commefficient_tpu.federated.losses import make_cv_losses as j_losses  # noqa: E402
+from commefficient_tpu.federated.participation import (  # noqa: E402
+    attach_participation as j_attach_participation,
+)
 from commefficient_tpu.models import ResNet9 as JResNet9  # noqa: E402
 from tests.torch_dist_ranks import TINY, start_ranks  # noqa: E402
 
@@ -129,6 +136,26 @@ def _gpt2_train_spec(tmp):
 
 
 MODES = {"sketch": SKETCH, "true_topk": TOPK}
+PART = ["--server_shard", "--inject_client_fault",
+        "drop=0.1,slow=0.3,corrupt=0.1,delay=1,seed=3"]
+PART_RUNS = [SKETCH + COMMON + PART,
+             SKETCH + COMMON + PART + ["--async_buffer", "2"]]
+PART_ROUNDS = 5
+
+
+def _jax_participation(argv):
+    """JAX's rounds with the layer attached: per round the weights, the
+    cohort record and the counters."""
+    jfm, jopt = _jax_model(argv)
+    ctl = j_attach_participation(jfm.args, jfm)
+    out = []
+    for rnd in range(PART_ROUNDS):
+        h = jfm.begin_round(_batch(rnd))
+        jopt.step()
+        jfm.finish_round(h)
+        out.append({"w": np.asarray(ravel_pytree(jfm.params)[0]),
+                    "cohort": h.cohort, "counters": ctl.counters()})
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -149,14 +176,21 @@ def spawned(tmp_path_factory):
                        "batches": [_batch(r) for r in range(3)],
                        "flat0": flat0, "num_clients": NCLIENTS, "lr": LR}))
     items += [("cli_cv_train", _cv_train_spec(tmp)),
-              ("cli_gpt2_train", _gpt2_train_spec(tmp))]
+              ("cli_gpt2_train", _gpt2_train_spec(tmp)),
+              ("body_participation",
+               {"runs": PART_RUNS,
+                "batches": [_batch(r) for r in range(PART_ROUNDS)],
+                "flat0": items[0][1]["flat0"], "num_clients": NCLIENTS,
+                "lr": LR, "save_at": 2, "dir": str(tmp)})]
     with start_ranks(2, items, tmp) as ranks:
         jax_out = {mode: [_jax_rounds(*m) for m in ms]
                    for mode, ms in jax_models.items()}
+        jax_part = [_jax_participation(argv) for argv in PART_RUNS]
         outs = ranks.join()
     res = {mode: (items[i][1]["flat0"], jax_out[mode], outs[i])
            for i, mode in enumerate(MODES)}
-    res.update(tmp=tmp, cv_train=outs[2], gpt2_train=outs[3])
+    res.update(tmp=tmp, cv_train=outs[2], gpt2_train=outs[3],
+               participation=(jax_part, outs[4]))
     return res
 
 
@@ -198,3 +232,33 @@ def test_gpt2_train_entry_point_on_two_ranks(spawned):
         o.pop("total_time")
     assert outs[0] == outs[1] and np.isfinite(outs[0]["val_nll"])
     assert os.path.exists(spawned["tmp"] / "run" / "model.npz")
+
+
+def test_participation_server_shard_fold_matches_jax(spawned):
+    """Faults with late landing and ``--async_buffer 2`` under
+    ``--server_shard`` on 2 ranks: each rank folds its partial sums (the
+    finiteness verdict AND-ed over the ranks), and the cohort records and
+    counters equal JAX's, the weights within the tolerance of the rounds
+    above; both ranks hold the same weights bit for bit, and a run state
+    saved after 2 rounds (the held partial sums stacked as JAX stacks
+    them) resumes bit-equal to the continuous run."""
+    jax_part, outs = spawned["participation"]
+    for run, jrun in enumerate(jax_part):
+        for r in (0, 1):
+            assert outs[r][run]["held_at_save"] > 0, (run, r)
+            np.testing.assert_array_equal(
+                outs[r][run]["resumed_w"].view(np.uint32),
+                outs[r][run]["rounds"][-1]["w"].view(np.uint32))
+            for rnd, (t, j) in enumerate(zip(outs[r][run]["rounds"],
+                                             jrun)):
+                what = f"run {run} rank {r} round {rnd}"
+                assert t["cohort"] == j["cohort"], what
+                assert t["counters"] == j["counters"], what
+                np.testing.assert_allclose(t["w"], j["w"], rtol=1e-4,
+                                           atol=1e-6, err_msg=what)
+        for a, b in zip(outs[0][run]["rounds"], outs[1][run]["rounds"]):
+            np.testing.assert_array_equal(a["w"].view(np.uint32),
+                                          b["w"].view(np.uint32))
+        c = jrun[-1]["counters"]
+        assert c["slows"] and c["landed"], c
+    assert jax_part[1][-1]["counters"]["folds"] >= 2

@@ -184,15 +184,16 @@ def test_cv_train_main_cpu(tmp_path, monkeypatch):
     assert summary["up (MiB)"] > 0
 
 
-# (--guards, --telemetry and --inject_fault are ported now; their places
-# are taken by flags of planes still unported)
+# (--guards, --telemetry, --inject_fault, --staleness_decay and
+# --participation are ported now; their places are taken by flags of
+# planes still unported)
 @pytest.mark.parametrize("flag", [["--state_dir", "x"],
-                                  ["--staleness_decay", "0.25"],
+                                  ["--inject_io_fault", "eio=0.1"],
                                   ["--shard_devices", "2"],
                                   ["--io_retries", "5"],
                                   ["--pp_microbatches", "2"],
                                   ["--seq_parallel", "ring"],
-                                  ["--participation", "0.5"],
+                                  ["--n_experts", "2"],
                                   ["--churn", "0.1"],
                                   ["--collective_plan", "auto"]])
 def test_unported_options_raise(flag):

@@ -467,10 +467,6 @@ def test_cv_train_log_renders_with_obs_report(tmp_path):
 # flags still unported -> the item their NotImplementedError names
 UNPORTED_ITEMS = {
     "--plan_error_budget": "item 5a", "--shard_devices": "item 5a",
-    "--client_dropout": "item 6c", "--participation": "item 6c",
-    "--participation_sampling": "item 6c",
-    "--inject_client_fault": "item 6c", "--staleness_decay": "item 6c",
-    "--client_retry_limit": "item 6c", "--async_buffer": "item 6c",
     "--state_dir": "item 6d", "--inject_io_fault": "item 6d",
     "--io_retries": "item 6d", "--io_backoff_ms": "item 6d",
     "--io_deadline_ms": "item 6d", "--io_queue_bound": "item 6d",

@@ -307,6 +307,51 @@ def body_rounds_and_single(cg, spec):
             body_rounds(None, spec) if cg.rank == 0 else None)
 
 
+def body_participation(cg, spec):
+    """``spec["runs"]``: argv lists with the participation layer's flags;
+    each runs ``spec["batches"]`` through a fresh model on this group with
+    the layer attached. Per run and round: the weights, the cohort record
+    and the counters. Each run also saves its run state after
+    ``spec["save_at"]`` rounds and restores it into a fresh model, which
+    runs the rest: its final weights come back as ``resumed_w``, with the
+    count of held sums the file carried."""
+    from commefficient_torch.federated.aggregator import LambdaLR
+    from commefficient_torch.federated.checkpoint import (
+        load_run_state,
+        save_run_state,
+    )
+    from commefficient_torch.federated.participation import (
+        attach_participation,
+    )
+
+    out = []
+    for n, argv in enumerate(spec["runs"]):
+        fm, opt = _resnet9_model(spec, cg, argv)
+        ctl = attach_participation(fm.args, fm)
+        rounds = []
+        for i, b in enumerate(spec["batches"]):
+            h = fm.begin_round(b)
+            opt.step()
+            fm.finish_round(h)
+            rounds.append({"w": _weights(fm), "cohort": h.cohort,
+                           "counters": ctl.counters()})
+            if i + 1 == spec["save_at"]:
+                held = len(ctl.pending) + len(ctl.buffer)
+                path = save_run_state(
+                    f"{spec['dir']}/part{n}/run_state_ep1", fm, opt,
+                    LambdaLR(opt, lambda s: spec["lr"]), next_epoch=1)
+        fm2, opt2 = _resnet9_model(spec, cg, argv, init=False)
+        attach_participation(fm2.args, fm2)
+        load_run_state(path, fm2, opt2, LambdaLR(opt2, lambda s: spec["lr"]))
+        for b in spec["batches"][spec["save_at"]:]:
+            h = fm2.begin_round(b)
+            opt2.step()
+            fm2.finish_round(h)
+        out.append({"rounds": rounds, "resumed_w": _weights(fm2),
+                    "held_at_save": held})
+    return out
+
+
 def body_gpt2_dropout(cg, spec):
     """One fused GPT-2 round with dropout on this group (or, with
     ``spec["single"]``, without a group on rank 0): the per-slot
