@@ -222,6 +222,31 @@ Phases (any failure exits non-zero; nothing is caught):
    rounds/sec (GPT-2: tokens/sec) with the layer on against off in
    alternating engine pairs, with their spread, and the device ms of one
    straggler dispatch (``torch.profiler``; data, not a gate).
+14. per-client state off the card (``phase_offload``, sketch-local at
+   ResNet9's full width, the 5 x 500,000 sketch, W = 8; state under a
+   temporary directory): (1) 10 engine rounds at 64 clients in the
+   ``hbm``, ``host`` and ``disk`` tiers (forced with the budget
+   overrides), each with prefetch on and off, bit-equal in weights and
+   every touched row, 10 / 1 / 8 launches a round of kernels 1 / 3 / 5 in
+   each, every non-drain submit under ``set_sync_debug_mode("error")``
+   with no fetch; 6 rounds of 0.75 cohorts under client faults on the
+   disk tier bit-equal to the hbm tier; (2) the plan at the EMNIST
+   population (3,500 clients, 65.21 GiB) from the planner's own probes
+   with ``MemTotal``, then the host tier at 3,500 clients or, where the
+   planner puts them on disk, at the largest multiple of 500 it places
+   in host, against the hbm tier forced at the same population, in 2
+   alternating pairs of 20 engine rounds (rounds/sec, device memory, the
+   resident set); (3) 10^5 clients on the disk tier the planner picks
+   (2.0 TB logical): 20 timed rounds (prefetch hit share,
+   ``gather_io_ms``, ``scatter_io_ms``, the allocation of the row files
+   against the rows touched, the resident set), a run state after round
+   10 and a resume bit-exact at round 20 with a byte flipped on disk
+   repaired from the snapshot, ``--inject_io_fault
+   eio=0.02,short=0.01,torn=0.01`` over rounds 11-20 bit-identical, and
+   a ``flip=0.01`` drill with ``--io_scrub_rows 8`` whose detections,
+   repairs and ``io_corrupt`` watch alert land in the event log; (4)
+   local top-k with dense local error and momentum at 3,500 clients
+   (183.9 GB) on the tier the planner picks: 64 count passes a round.
 
 Then one JSON line of the kernels (launches per timed window of the path
 that runs each: phase 4 for the accumulate, the query and the count pass,
@@ -3918,6 +3943,578 @@ def phase_participation(card: str) -> dict:
     return out
 
 
+# phase 14: per-client state off the card
+OFF_BASE = ["--mode", "sketch", "--error_type", "local",
+            "--local_momentum", "0.9", "--virtual_momentum", "0",
+            "--num_rows", "5", "--num_cols", "500000", "--k", "50000",
+            "--num_workers", "8", "--local_batch_size", "8",
+            "--dataset_name", "CIFAR10", "--device", "cuda",
+            "--no_telemetry", "--seed", "0"]
+OFF_TOPK = ["--mode", "local_topk", "--error_type", "local",
+            "--local_momentum", "0.9", "--virtual_momentum", "0",
+            "--k", "50000", "--num_workers", "8", "--local_batch_size", "8",
+            "--dataset_name", "CIFAR10", "--device", "cuda",
+            "--no_telemetry", "--seed", "0"]
+# kernels 1 / 3 / 5 a sketch-local round: 8 client tables, the re-sketch
+# and the keep mask's re-sketch; one query; 8 count passes. Local top-k:
+# 8 count passes in each of the 8 slots
+OFF_PER_ROUND = {"sketch_accumulate": 10, "sketch_estimates": 1,
+                 "topk_count_ge": 8}
+OFF_TOPK_PER_ROUND = {"topk_count_ge": 64}
+_BIG = str(2 ** 62)
+OFF_TIERS = {"hbm": {"COMMEFFICIENT_STATE_HBM_BUDGET": _BIG},
+             "host": {"COMMEFFICIENT_STATE_HBM_BUDGET": "1",
+                      "COMMEFFICIENT_STATE_HOST_BUDGET": _BIG},
+             "disk": {"COMMEFFICIENT_STATE_HBM_BUDGET": "1",
+                      "COMMEFFICIENT_STATE_HOST_BUDGET": "1"}}
+OFF_IDENTITY_CLIENTS = 64
+OFF_IDENTITY_ROUNDS = 10
+OFF_PART_ROUNDS = 6
+OFF_EMNIST = 3500
+OFF_POP_ROUNDS = 20
+OFF_POP_PAIRS = 2
+OFF_LARGE = 100_000
+OFF_LARGE_ROUNDS = 20
+OFF_TOPK_ROUNDS = 5
+OFF_IO_FAULT = "eio=0.02,short=0.01,torn=0.01,seed=3"
+OFF_FLIP = "flip=0.01,seed=5"
+RESNET9_D = 6_568_640
+
+
+def off_batch(seed: int, n_clients: int, live: int = 8):
+    """A round of 8 slots at a population of ``n_clients``: ``live``
+    clients drawn without replacement, the rest padding (client 0, zero
+    masks), as the loader pads a short cohort."""
+    rng = np.random.RandomState(1000 + seed)
+    b = {"inputs": rng.randn(8, 8, 32, 32, 3).astype(np.float32),
+         "targets": rng.randint(0, 10, size=(8, 8)).astype(np.int64),
+         "mask": np.ones((8, 8), np.float32),
+         "client_ids": rng.choice(n_clients, 8, replace=False)
+         .astype(np.int32),
+         "worker_mask": np.ones(8, np.float32)}
+    b["mask"][live:] = 0.0
+    b["worker_mask"][live:] = 0.0
+    b["client_ids"][live:] = 0
+    return b
+
+
+def build_offload(extra, num_clients: int, env: dict, state_dir: str,
+                  base=OFF_BASE, prefetch: bool = True):
+    """FedModel / FedOptimizer / LambdaLR (constant lr 0.1) at full width
+    with the tier the plan resolves under ``env`` (the budget overrides;
+    empty: the planner's own probes) and the disk tier in ``state_dir``."""
+    env = dict(env, COMMEFFICIENT_COHORT_PREFETCH="1" if prefetch else "0")
+    with env_vars(**env):
+        args = parse_args(argv=base + list(extra) + [
+            "--num_clients", str(num_clients), "--state_dir", state_dir])
+        model = ResNet9()
+        train_loss, val_loss = make_cv_losses(model)
+        fm = FedModel(model, train_loss, args, val_loss,
+                      num_clients=num_clients)
+    opt = FedOptimizer(fm, args)
+    sched = LambdaLR(opt, lambda step: 0.1)
+    return args, fm, opt, sched
+
+
+def off_engine(fm, opt, sched, batches, audit=None, offloads=None):
+    """The batches through ``PipelinedRoundEngine(window=2,
+    drain_every=8)`` and ``cohort_lookahead`` (the prefetcher's path);
+    non-drain submits audited when ``audit`` is a dict; each round's
+    ``offload`` record appended to ``offloads``."""
+    from commefficient_torch.federated.engine import cohort_lookahead
+
+    if offloads is not None:
+        seal = fm.seal_round
+
+        def recording_seal(h):
+            h = seal(h)
+            offloads.append(h.offload)
+            return h
+
+        fm.seal_round = recording_seal
+    eng = PipelinedRoundEngine(fm, opt, sched, window=2, drain_every=8)
+    got = []
+    for b in cohort_lookahead(batches, fm):
+        got.extend(audited_submit(eng, b, audit) if audit is not None
+                   else eng.submit(b))
+    got.extend(eng.drain())
+    if offloads is not None:
+        del fm.seal_round
+    for r in got:
+        assert np.all(np.isfinite(r.values[0])), "offload: non-finite loss"
+    return got
+
+
+def rows_of(fm, ids) -> dict:
+    """The client rows of ``ids`` on the card, read from the model's tier
+    after a drain of its worker."""
+    ids = np.unique(np.asarray(ids, np.int64))
+    fm.drain_client_state()
+    if fm._row_store is not None:
+        s = fm._row_store.gather(ids)
+        s.wait_ready()
+        return {m: getattr(s.proxy, m).clone()
+                for m in fm._row_store.row_shapes}
+    if fm._row_stream is not None:
+        idx = torch.from_numpy(ids)
+        return {m: a[idx].to(fm.device) for m, a in
+                fm._row_stream.arrays.items()}
+    cs = fm.client_states
+    idx = torch.from_numpy(ids).to(fm.device)
+    return {m: getattr(cs, m)[idx].clone()
+            for m in ("velocities", "errors", "weights")
+            if getattr(cs, m) is not None}
+
+
+def check_launches(label: str, per_round: dict, n: int) -> dict:
+    counts = kernels.launch_counts()
+    want = {k.name: per_round.get(k.name, 0) * n for k in kernels.KERNELS}
+    assert counts == want, f"{label}: launches {counts}, expected {want}"
+    return {k: v // n for k, v in counts.items() if v}
+
+
+def same_state(label: str, a, b) -> None:
+    (wa, ra), (wb, rb) = a, b
+    assert bit_equal(wa, wb), f"{label}: weights differ"
+    assert sorted(ra) == sorted(rb), f"{label}: members differ"
+    for m in ra:
+        assert bit_equal(ra[m], rb[m]), f"{label}: {m} rows differ"
+
+
+def mem_status() -> dict:
+    """The process's resident set now (``/proc/self/status`` VmRSS) and
+    its peak over the process's life (``getrusage`` ru_maxrss), GiB."""
+    import resource
+
+    out = {"peak": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+           * 1024 / 2 ** 30}
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                out["now"] = int(line.split()[1]) * 1024 / 2 ** 30
+    return out
+
+
+def fs_used(path: str) -> int:
+    """Bytes in use on the filesystem that holds ``path``
+    (``statvfs``)."""
+    st = os.statvfs(path)
+    return (st.f_blocks - st.f_bfree) * st.f_frsize
+
+
+def off_identity(tmp: str) -> dict:
+    """(1) Sketch-local at 64 clients: 10 engine rounds in each tier, with
+    prefetch on and off, bit-equal (weights and every touched row);
+    kernels 1 / 3 / 5 at 10 / 1 / 8 a round in each; every non-drain
+    submit under the strict audit with no fetch. Then 0.75 cohorts under
+    client faults on the disk tier against the hbm tier."""
+    n = OFF_IDENTITY_CLIENTS
+    batches = [off_batch(s, n) for s in range(OFF_IDENTITY_ROUNDS)]
+    ids = np.concatenate([b["client_ids"] for b in batches])
+    res, pf_counts = {}, {}
+    with deterministic_cudnn():
+        for tier in ("hbm", "host", "disk"):
+            for pf in (True, False):
+                d = tempfile.mkdtemp(dir=tmp)
+                _, fm, opt, sched = build_offload([], n, OFF_TIERS[tier],
+                                                  d, prefetch=pf)
+                assert fm.memory_plan.placement == tier, \
+                    fm.memory_plan.placement
+                audit = {"audited": 0, "fetches": 0, "drains": 0}
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                off_engine(fm, opt, sched, batches, audit)
+                torch.cuda.synchronize()
+                per = check_launches(f"offload {tier}", OFF_PER_ROUND,
+                                     OFF_IDENTITY_ROUNDS)
+                assert audit["fetches"] == 0, f"{tier}: fetches"
+                res[(tier, pf)] = (fm.ps_weights.clone(), rows_of(fm, ids))
+                pf_counts[f"{tier} prefetch {'on' if pf else 'off'}"] = (
+                    fm._prefetcher.counters() if fm._prefetcher else None)
+                fm.finalize()
+                del fm, opt, sched
+                shutil.rmtree(d)
+        ref = res[("hbm", True)]
+        for key, val in res.items():
+            same_state(f"offload identity {key}", val, ref)
+        touched = len(np.unique(ids))
+        print(f"offload identity: {OFF_IDENTITY_ROUNDS} sketch-local "
+              f"rounds at {n} clients bit-equal over hbm / host / disk with "
+              f"prefetch on and off (weights and {touched} touched rows x "
+              f"2 members); launches per round " + json.dumps(per)
+              + " in every tier; strict audit: 0 fetches; prefetch "
+              + json.dumps(pf_counts))
+        del res
+        torch.cuda.empty_cache()
+        # a 0.75 cohort (6 of 8 slots) under client faults
+        part = [off_batch(s, n, live=6) for s in range(OFF_PART_ROUNDS)]
+        pids = np.concatenate([b["client_ids"] for b in part])
+        states = {}
+        for tier in ("hbm", "disk"):
+            d = tempfile.mkdtemp(dir=tmp)
+            args, fm, opt, sched = build_offload(PART_ON, n,
+                                                 OFF_TIERS[tier], d)
+            ctl = attach_layer(args, fm)
+            off_engine(fm, opt, sched, part)
+            states[tier] = ((fm.ps_weights.clone(), rows_of(fm, pids)),
+                            ctl.counters())
+            fm.finalize()
+            del fm, opt, sched
+            shutil.rmtree(d)
+        same_state("offload participation disk vs hbm", states["disk"][0],
+                   states["hbm"][0])
+        assert states["disk"][1] == states["hbm"][1]
+        print(f"offload participation: {OFF_PART_ROUNDS} rounds of 0.75 "
+              f"cohorts under {PART_FAULTS} on the disk tier bit-equal to "
+              f"the hbm tier; counters " + json.dumps(states["disk"][1]))
+    return {"prefetch": pf_counts}
+
+
+def off_population(card: str, tmp: str) -> dict:
+    """(2) The EMNIST population, sketch-local: the plan from the
+    planner's own probes, then the host tier (at 3,500 clients if the
+    planner puts them there, else at the largest population in steps of
+    500 that it places in host with only the device budget forced)
+    against the hbm tier forced at the same population, in alternating
+    pairs of 20 engine rounds."""
+    from commefficient_torch.federated import memory as fmem
+
+    mem_total = None
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                mem_total = int(line.split()[1]) * 1024
+    args = parse_args(argv=OFF_BASE + ["--num_clients", str(OFF_EMNIST)])
+    from commefficient_torch.federated.aggregator import (
+        worker_config_from_args,
+    )
+
+    wcfg = worker_config_from_args(args)
+    dev = torch.device(args.device)
+    sk = tsk.make_sketch(RESNET9_D, args.num_cols, args.num_rows, seed=0,
+                         num_blocks=args.num_blocks, device=dev)
+
+    def plan(n, **kw):
+        return fmem.plan_client_state_memory(n, RESNET9_D, wcfg, sketch=sk,
+                                             device=dev, **kw)
+
+    p = plan(OFF_EMNIST)
+    # the budgets the planner used: the probes, unless overridden
+    hbm_b = int(os.environ.get("COMMEFFICIENT_STATE_HBM_BUDGET")
+                or fmem._device_hbm_budget(dev))
+    host_b = int(os.environ.get("COMMEFFICIENT_STATE_HOST_BUDGET")
+                 or fmem._host_ram_budget())
+    print(f"offload plan at {OFF_EMNIST} clients (probes: device budget "
+          f"{hbm_b / 2**30:.2f} GiB = half of "
+          f"{torch.cuda.mem_get_info()[1] / 2**30:.2f} GiB, host budget "
+          f"{host_b / 2**30:.2f} GiB = half of MemTotal "
+          f"{mem_total / 2**30:.2f} GiB): {p.summary()}; row "
+          f"{p.row_bytes:,} B")
+    # two members of r x c_pad float32 a client: 70,013,440,000 B
+    assert p.total_bytes == 2 * OFF_EMNIST * sk.r * sk.c_pad * 4, \
+        p.total_bytes
+    if p.placement == "host":
+        n, env_host = OFF_EMNIST, {}
+        why = "the planner places the EMNIST population in host"
+    elif plan(OFF_EMNIST, hbm_budget_bytes=1).placement == "host":
+        n, env_host = OFF_EMNIST, {"COMMEFFICIENT_STATE_HBM_BUDGET": "1"}
+        why = ("the planner keeps the EMNIST population on the card; the "
+               "host leg forces the device budget to 1 B")
+    else:
+        n = max(k for k in range(500, OFF_EMNIST + 1, 500)
+                if plan(k, hbm_budget_bytes=1).placement == "host")
+        env_host = {"COMMEFFICIENT_STATE_HBM_BUDGET": "1"}
+        why = (f"the planner resolves {p.placement} at {OFF_EMNIST} clients "
+               f"({p.total_bytes / 2**30:.2f} GiB > the host budget "
+               f"{host_b / 2**30:.2f} GiB); the host leg runs at {n} "
+               f"clients ({plan(n).total_bytes / 2**30:.2f} GiB), the "
+               f"largest multiple of 500 it places in host with the device "
+               f"budget forced to 1 B")
+    print("offload population: " + why)
+    batches = [off_batch(s, n) for s in range(OFF_POP_ROUNDS)]
+    models = {}
+    for tier, env in (("host", env_host), ("hbm", OFF_TIERS["hbm"])):
+        models[tier] = build_offload([], n, env,
+                                     tempfile.mkdtemp(dir=tmp))
+        assert models[tier][1].memory_plan.placement == tier
+        off_engine(*models[tier][1:], [off_batch(90 + s, n)
+                                       for s in range(2)])
+    rps = {"host": [], "hbm": []}
+    peak_dev, rss = {"host": [], "hbm": []}, {"host": [], "hbm": []}
+    above = {"host": [], "hbm": []}
+    host_off = []  # the host tier's offload records (its waits and adds)
+    for p_ in range(OFF_POP_PAIRS):
+        for tier in (("host", "hbm") if p_ % 2 == 0 else ("hbm", "host")):
+            _, fm, opt, sched = models[tier]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            off_engine(fm, opt, sched, batches,
+                       offloads=host_off if tier == "host" else None)
+            torch.cuda.synchronize()
+            rps[tier].append(OFF_POP_ROUNDS / (time.perf_counter() - t0))
+            check_launches(f"offload population {tier}", OFF_PER_ROUND,
+                           OFF_POP_ROUNDS)
+            peak = torch.cuda.max_memory_allocated()
+            peak_dev[tier].append(peak / 2**30)
+            above[tier].append((peak - start) / 2**30)
+            rss[tier].append(mem_status())
+    row = {"phase": "offload", "leg": "population", "clients": n,
+           "state_GiB": plan(n).total_bytes / 2**30,
+           "planner_at_3500": p.placement, "why": why,
+           "mem_total_GiB": mem_total / 2**30,
+           "device_budget_GiB": hbm_b / 2**30,
+           "host_budget_GiB": host_b / 2**30,
+           "rounds_per_window": OFF_POP_ROUNDS, "pairs": OFF_POP_PAIRS,
+           "rounds_per_sec": rps,
+           # both models stay alive for the pairs: the process's peak
+           # holds the hbm tier's state either way; above the window's
+           # start is the round's own working set
+           "peak_device_GiB": peak_dev, "window_peak_above_start_GiB": above,
+           "state_on_card_GiB": {
+               t: (plan(n).total_bytes / 2**30
+                   if models[t][1].memory_plan.placement == "hbm" else 0.0)
+               for t in models},
+           "rss_GiB": rss,
+           "host_gather_wait_ms": [o["gather_ms"] for o in host_off],
+           "host_scatter_dispatch_ms": [o["scatter_ms"] for o in host_off],
+           "host_worker_last_ms": {
+               "gather": models["host"][1]._row_stream.last_gather_ms,
+               "scatter": models["host"][1]._row_stream.last_scatter_ms},
+           "card": card}
+    print(json.dumps(row))
+    print(f"offload population ({n} clients, sketch-local): host tier "
+          f"{statistics.median(rps['host']):.3f} rounds/sec against hbm "
+          f"{statistics.median(rps['hbm']):.3f} ({card}); a window's "
+          f"device peak above its start {max(above['host']):.2f} / "
+          f"{max(above['hbm']):.2f} GiB")
+    for tier in models:
+        models[tier][1].finalize()
+    del models
+    torch.cuda.empty_cache()
+    return row
+
+
+def off_large(card: str, tmp: str) -> dict:
+    """(3) 10^5 clients, sketch-local, on the disk tier the planner picks:
+    20 timed rounds with a run state saved after round 10; the prefetch
+    hit share, gather_io_ms and scatter_io_ms, the blocks allocated in the
+    row files against the rows touched (``st_blocks``, or the
+    filesystem's own use where ``st_blocks`` reports the logical size),
+    the resident set; a resume from round 10, with one byte of a row
+    flipped on disk after the snapshot (detected and repaired from it),
+    bit-exact at round 20; an injected EIO / short / torn drill over
+    rounds 11-20 bit-identical to the clean run; a flip drill with a scrub
+    whose detections, repairs and watch alerts land in the event log."""
+    n = OFF_LARGE
+    half = OFF_LARGE_ROUNDS // 2
+    batches = [off_batch(s, n) for s in range(OFF_LARGE_ROUNDS)]
+    ids = np.concatenate([b["client_ids"] for b in batches])
+    ck = os.path.join(tmp, "ck")
+    out = {}
+    with deterministic_cudnn():
+        d = tempfile.mkdtemp(dir=tmp)
+        rss0 = mem_status()
+        used0 = fs_used(d)
+        args, fm, opt, sched = build_offload([], n, {}, d)
+        plan = fm.memory_plan
+        assert plan.placement == "disk", plan.placement
+        print(f"offload 10^5: {plan.summary()}")
+        offloads, wall = [], 0.0
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        for first, part in ((True, batches[:half]),
+                            (False, batches[half:])):
+            t0 = time.perf_counter()
+            off_engine(fm, opt, sched, part, offloads=offloads)
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            if first:
+                path = save_round_state(
+                    argparse.Namespace(checkpoint_path=ck,
+                                       keep_checkpoints=0),
+                    0, half, {"permuted": np.arange(8, dtype=np.int64),
+                              "cursor": np.zeros(n, np.int64)},
+                    fm, opt, sched, (0.0, 0.0))
+        per = check_launches("offload 10^5", OFF_PER_ROUND,
+                             OFF_LARGE_ROUNDS)
+        fm.drain_client_state()
+        rss1 = mem_status()
+        st = fm._row_store
+        blocks = {}
+        touched = np.unique(ids)
+        used = fs_used(d) - used0
+        for m in st.row_shapes:
+            nb = st._row_nbytes[m]
+            pages = set()
+            for r in map(int, touched):
+                pages.update(range(r * nb // 4096,
+                                   -(-(r + 1) * nb // 4096)))
+            stt = os.stat(st.member_path(m))
+            got = stt.st_blocks * 512
+            blocks[m] = {"st_blocks_bytes": got, "st_size": stt.st_size,
+                         "rows_x_row_bytes": len(touched) * nb,
+                         "pages_bytes": len(pages) * 4096}
+            if got < stt.st_size:
+                # the filesystem reports a sparse file's allocation
+                assert len(touched) * nb <= got <= len(pages) * 4096 \
+                    + (8 << 20), (m, blocks[m])
+        want = sum(b["pages_bytes"] for b in blocks.values())
+        truthful = all(b["st_blocks_bytes"] < b["st_size"]
+                       for b in blocks.values())
+        blocks["filesystem_used_delta"] = used
+        blocks["st_blocks_reports_allocation"] = truthful
+        # where st_blocks reports the logical size, the filesystem's own
+        # use (statvfs) must still be of the rows touched, not of the
+        # population
+        assert used <= 4 * want + (1 << 30), (used, want)
+        hits = sum(o["prefetch"] == "hit" for o in offloads)
+        ref = (fm.ps_weights.clone(), rows_of(fm, ids))
+        row = {"phase": "offload", "leg": "10^5 disk", "clients": n,
+               "logical_TB": plan.total_bytes / 1e12,
+               "rounds": OFF_LARGE_ROUNDS,
+               "rounds_per_sec": OFF_LARGE_ROUNDS / wall,
+               "launches_per_round": per,
+               "prefetch_hit_share": hits / len(offloads),
+               "gather_ms": [o["gather_ms"] for o in offloads],
+               "gather_io_ms": [o["gather_io_ms"] for o in offloads],
+               "scatter_io_ms": [o["scatter_io_ms"] for o in offloads],
+               "blocks": blocks, "touched_rows": int(len(touched)),
+               "rss_GiB_before": rss0, "rss_GiB_after": rss1,
+               "card": card}
+        # the W-row working set, not the population, is what is resident
+        assert rss1["now"] - rss0["now"] < 8.0, (rss0, rss1)
+        print(json.dumps(row))
+        out["large"] = row
+        fm.finalize()
+        del fm, opt, sched
+        shutil.rmtree(d)
+
+        def resumed(label, extra=(), corrupt=False):
+            """A new model restored from the round-10 run state runs
+            rounds 11-20 (under ``extra``); with ``corrupt``, one byte of
+            a row that round 11 reads is flipped on disk first."""
+            dd = tempfile.mkdtemp(dir=tmp)
+            a, fm2, opt2, sched2 = build_offload(extra, n, {}, dd)
+            load_run_state(path, fm2, opt2, sched2)
+            if corrupt:
+                # a row of the snapshot, clean since the restore
+                row = int(batches[half]["client_ids"][0])
+                s2 = fm2._row_store
+                nb = s2._row_nbytes["errors"]
+                fd = s2._fd["errors"]
+                b = bytearray(os.pread(fd, 1, row * nb + 12345))
+                b[0] ^= 0x5A
+                os.pwrite(fd, bytes(b), row * nb + 12345)
+            off_engine(fm2, opt2, sched2, batches[half:])
+            same_state(label, (fm2.ps_weights.clone(), rows_of(fm2, ids)),
+                       ref)
+            c = fm2._row_store.io_counters()
+            fm2.finalize()
+            shutil.rmtree(dd)
+            return c
+
+        c = resumed("offload 10^5 resume", corrupt=True)
+        assert c["corrupt"] >= 1 and c["repaired"] >= 1 \
+            and c["quarantined"] == 0, c
+        print(f"offload 10^5: run state saved after round {half} "
+              f"({path}, .rows beside it); resumed with one byte of a row "
+              f"flipped on disk after the snapshot, detected and repaired "
+              f"from it: rounds {half + 1}-{OFF_LARGE_ROUNDS} bit-exact "
+              f"(weights and all {len(np.unique(ids))} touched rows); "
+              f"counters " + json.dumps(c))
+        # the injected transient drill over rounds 11-20
+        c3 = resumed("offload 10^5 EIO drill",
+                     ["--inject_io_fault", OFF_IO_FAULT])
+        assert c3["retries"] > 0 and c3["quarantined"] == 0, c3
+        print(f"offload 10^5: --inject_io_fault {OFF_IO_FAULT} over rounds "
+              f"{half + 1}-{OFF_LARGE_ROUNDS} bit-identical to the clean "
+              f"run; counters " + json.dumps(c3))
+        # the silent-corruption drill with a scrub and the watch plane
+        dd = tempfile.mkdtemp(dir=tmp)
+        _, fm4, opt4, sched4 = build_offload(
+            ["--inject_io_fault", OFF_FLIP, "--io_scrub_rows", "8",
+             "--telemetry"], n, {}, dd)
+        log = os.path.join(dd, "telemetry.jsonl")
+        rt = attach_recorder(fm4, log)
+        off_engine(fm4, opt4, sched4, batches[:half])
+        c4 = fm4._row_store.io_counters()
+        from commefficient_torch.telemetry import close_run_telemetry
+
+        close_run_telemetry(fm4, rt)
+        fm4.finalize()
+        events = list(read_events(log))
+        alerts = sorted({e.get("rule", "") for e in events
+                         if e.get("ev") == "watch_alert"})
+        kinds = sorted({e["ev"] for e in events
+                        if e["ev"].startswith(("row_", "io_"))})
+        assert c4["corrupt"] > 0 and c4["repaired"] > 0, c4
+        assert any("io_corrupt" in a for a in alerts), alerts
+        print(f"offload 10^5: {OFF_FLIP} with --io_scrub_rows 8 over "
+              f"{half} rounds: counters " + json.dumps(c4) + "; events "
+              + json.dumps(kinds) + "; watch alerts " + json.dumps(alerts))
+        out["flip"] = {"counters": c4, "alerts": alerts}
+        shutil.rmtree(dd)
+    return out
+
+
+def off_topk(card: str, tmp: str) -> dict:
+    """(4) Local top-k with dense local error and momentum at 3,500
+    clients (183.9 GB): the tier the planner resolves, 5 rounds, 64 count
+    passes a round."""
+    d = tempfile.mkdtemp(dir=tmp)
+    _, fm, opt, sched = build_offload([], OFF_EMNIST, {}, d, base=OFF_TOPK)
+    plan = fm.memory_plan
+    # two dense members of d float32 a client: 183,921,920,000 B
+    assert plan.total_bytes == 2 * OFF_EMNIST * fm.grad_size * 4, \
+        plan.total_bytes
+    print(f"offload local top-k: {plan.summary()}")
+    off_engine(fm, opt, sched, [off_batch(50, OFF_EMNIST)])
+    offloads = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    off_engine(fm, opt, sched, [off_batch(60 + s, OFF_EMNIST)
+                                for s in range(OFF_TOPK_ROUNDS)],
+               offloads=offloads)
+    torch.cuda.synchronize()
+    rps = OFF_TOPK_ROUNDS / (time.perf_counter() - t0)
+    per = check_launches("offload local top-k", OFF_TOPK_PER_ROUND,
+                         OFF_TOPK_ROUNDS)
+    row = {"phase": "offload", "leg": "local top-k", "clients": OFF_EMNIST,
+           "state_GB": plan.total_bytes / 1e9, "tier": plan.placement,
+           "rounds_per_sec": rps, "launches_per_round": per,
+           "offload": offloads, "card": card}
+    print(json.dumps(row))
+    fm.finalize()
+    shutil.rmtree(d)
+    return row
+
+
+def phase_offload(card: str) -> dict:
+    """Phase 14: per-client state off the card at ResNet9's full width."""
+    tmp = tempfile.mkdtemp(prefix="offload_")
+    out, wall = {}, {}
+    try:
+        for name, leg in (("identity", lambda: off_identity(tmp)),
+                          ("population", lambda: off_population(card, tmp)),
+                          ("large", lambda: off_large(card, tmp)),
+                          ("topk", lambda: off_topk(card, tmp))):
+            t = time.perf_counter()
+            got = leg()
+            if name == "large":
+                out.update(got)
+            else:
+                out[name] = got
+            wall[name] = round(time.perf_counter() - t, 2)
+            print(f"offload leg wall seconds: {json.dumps(wall)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-times", nargs="*", metavar="NAME",
@@ -3998,6 +4595,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     part = phase_participation(card)
     wall["13 participation"] = time.perf_counter() - t
+    t = time.perf_counter()
+    offload = phase_offload(card)
+    wall["14 client state off the card"] = time.perf_counter() - t
     print("phase wall seconds (phase 3 includes the build): " + json.dumps(
         {k: round(v, 2) for k, v in wall.items()}))
 
@@ -4055,6 +4655,10 @@ def main(argv=None) -> int:
                           for row in part["costs"]},
                       "participation_gpt2_tokens_per_sec":
                           part["gpt2"]["tokens_per_sec"],
+                      "offload_population_rounds_per_sec":
+                          offload["population"]["rounds_per_sec"],
+                      "offload_large_rounds_per_sec":
+                          offload["large"]["rounds_per_sec"],
                       **{"opt_in_" + k: v for k, v in opt_prof.items()}}))
     print(json.dumps(summary))
     print(card)

@@ -48,6 +48,13 @@ package's names, defaults and help: ``--telemetry`` / ``--no_telemetry``,
 ``--guards``, ``--guard_max_abs``, ``--snapshot_every``,
 ``--max_guard_trips`` and ``--inject_fault`` (``parse_inject_fault``).
 
+Per-client state off the card (``federated/memory.py``,
+``federated/host_state.py``) is carried with the JAX package's names,
+defaults, help and checks (``check_host_state``): ``--state_dir``,
+``--inject_io_fault``, ``--io_retries``, ``--io_backoff_ms``,
+``--io_deadline_ms``, ``--io_queue_bound``, ``--io_checksums`` /
+``--no_io_checksums`` and ``--io_scrub_rows``.
+
 Client participation (``federated/participation.py``) is carried with
 the JAX package's names, defaults, help and checks
 (``check_participation``): ``--client_dropout``, ``--participation``,
@@ -77,8 +84,6 @@ _Q1 = "ROADMAP.md queue 1"
 ITEM_MULTI_2D = (f"{_Q1} item 5a (the 2-D clients x shard plane, "
                  f"per-axis collective plans, --collective_plan auto, the "
                  f"multi-host seam)")
-ITEM_HOST_STATE = (f"{_Q1} item 6d (host state: the row store, host "
-                   f"offload, storage faults)")
 ITEM_SERVICE = f"{_Q1} item 6e (the open-world service: --churn)"
 ITEM_PARALLEL = (f"{_Q1} item 7 (parallel/: sequence, tensor, pipeline "
                  f"and expert parallelism)")
@@ -89,18 +94,6 @@ ITEM_PARALLEL = (f"{_Q1} item 7 (parallel/: sequence, tensor, pipeline "
 UNPORTED = (
     ("--plan_error_budget", dict(type=float, default=0.05),
      ITEM_MULTI_2D),
-    ("--state_dir", dict(type=str, default=""), ITEM_HOST_STATE),
-    ("--inject_io_fault", dict(type=str, default=""), ITEM_HOST_STATE),
-    ("--io_retries", dict(type=int, default=3), ITEM_HOST_STATE),
-    ("--io_backoff_ms", dict(type=float, default=5.0), ITEM_HOST_STATE),
-    ("--io_deadline_ms", dict(type=float, default=30000.0),
-     ITEM_HOST_STATE),
-    ("--io_queue_bound", dict(type=int, default=0), ITEM_HOST_STATE),
-    ("--io_checksums", dict(action="store_true", dest="io_checksums",
-                            default=True), ITEM_HOST_STATE),
-    ("--no_io_checksums", dict(action="store_false", dest="io_checksums"),
-     ITEM_HOST_STATE),
-    ("--io_scrub_rows", dict(type=int, default=0), ITEM_HOST_STATE),
     ("--churn", dict(type=str, default=""), ITEM_SERVICE),
     ("--seq_parallel", dict(choices=["none", "ring", "ulysses"],
                             default="none"), ITEM_PARALLEL),
@@ -176,6 +169,13 @@ def build_parser(default_lr=None) -> argparse.ArgumentParser:
     parser.add_argument("--finetune_path", type=str, default="./finetune")
     parser.add_argument("--finetuned_from", type=str, choices=DATASETS,
                         help="Name of the dataset you pretrained on.")
+    parser.add_argument("--state_dir", type=str, default="",
+                        help="Backing directory for disk-tier per-client "
+                             "state (the sparse row store). Default: a "
+                             "client_state/ directory under "
+                             "--checkpoint_path. Only used when the "
+                             "memory plan resolves the disk placement "
+                             "tier.")
     parser.add_argument("--dataset_name", type=str, default="",
                         choices=DATASETS + [""])
     parser.add_argument("--dataset_dir", type=str, default="./dataset")
@@ -361,6 +361,63 @@ def build_parser(default_lr=None) -> argparse.ArgumentParser:
                              "--staleness_decay**delta. 0 (default) = "
                              "synchronous rounds (bit-identical legacy "
                              "path).")
+
+    # the disk tier's storage-fault plane and integrity plane (the JAX
+    # package's flags, names, defaults and help)
+    parser.add_argument("--inject_io_fault", type=str, default="",
+                        help="Debug: seeded storage-fault schedule "
+                             "'eio=P,short=P,torn=P,stall=P,stall_ms=N,"
+                             "seed=N,persist_after=N' injected at the "
+                             "disk-tier row store's pread/pwrite seam — "
+                             "transient EIO / short reads / torn writes "
+                             "are retried (bit-invisible below the "
+                             "budget), stalls exercise the watchdog, and "
+                             "a row failing persist_after consecutive "
+                             "attempts is quarantined (re-initialized "
+                             "from its base row).")
+    parser.add_argument("--io_retries", type=int, default=3,
+                        help="Bounded retries per row-store I/O op "
+                             "(exponential backoff + jitter) before the "
+                             "ladder degrades to row quarantine.")
+    parser.add_argument("--io_backoff_ms", type=float, default=5.0,
+                        help="Base backoff between row-store I/O retries "
+                             "(doubles per attempt, jittered).")
+    parser.add_argument("--io_deadline_ms", type=float, default=30000.0,
+                        help="Per-op watchdog deadline for row-store I/O: "
+                             "a pread/pwrite in flight longer than this "
+                             "declares the store unusable with one "
+                             "actionable timeout error instead of "
+                             "wedging the worker silently (0 disables "
+                             "the watchdog).")
+    parser.add_argument("--io_queue_bound", type=int, default=0,
+                        help="Row-store work-queue bound (ops): a slow "
+                             "disk applies backpressure to the dispatch "
+                             "path instead of accumulating unbounded "
+                             "pending scatter deltas in host RAM. 0 = "
+                             "auto (max(8, 4 x --round_window)).")
+    parser.add_argument("--io_checksums", action="store_true",
+                        dest="io_checksums", default=True,
+                        help="Per-row CRC32 verification of the disk-"
+                             "tier row store: every row read checks a "
+                             "write-time sidecar checksum; mismatches "
+                             "repair from the CRC'd .rows snapshot or "
+                             "quarantine (the default for the disk "
+                             "tier).")
+    parser.add_argument("--no_io_checksums", action="store_false",
+                        dest="io_checksums",
+                        help="Disable per-row checksums (bit-identical "
+                             "trajectories on the clean path either "
+                             "way; COMMEFFICIENT_IO_CHECKSUMS=0 is the "
+                             "no-restart kill-switch).")
+    parser.add_argument("--io_scrub_rows", type=int, default=0,
+                        help="Background scrub budget: verify this many "
+                             "cold rows per round against the checksum "
+                             "sidecar on the store's ordered I/O worker "
+                             "(rolling cursor over the population), so "
+                             "corruption in rows no cohort touches is "
+                             "found and repaired before the next "
+                             "snapshot inherits it (0 = off; requires "
+                             "--io_checksums).")
 
     # accepted and ignored, as the JAX package ignores them
     parser.add_argument("--port", type=int, default=5315,
@@ -579,12 +636,33 @@ def check_participation(args) -> None:
                   "advance for a straggler cohort")
 
 
+def check_host_state(args) -> None:
+    """The JAX package's checks of the storage-fault flags: a malformed
+    ``--inject_io_fault`` or a nonsensical ladder fails here, not rounds
+    into a run."""
+    io_spec = (getattr(args, "inject_io_fault", "") or "").strip()
+    if io_spec:
+        from commefficient_torch.federated.host_state import parse_io_fault
+
+        parse_io_fault(io_spec)
+    assert args.io_retries >= 0, "--io_retries must be >= 0"
+    assert args.io_backoff_ms >= 0, "--io_backoff_ms must be >= 0"
+    assert args.io_deadline_ms >= 0, "--io_deadline_ms must be >= 0"
+    assert args.io_queue_bound >= 0, "--io_queue_bound must be >= 0"
+    assert args.io_scrub_rows >= 0, "--io_scrub_rows must be >= 0"
+    if args.io_scrub_rows and not args.io_checksums:
+        print("NOTE: --io_scrub_rows verifies rows against the per-row "
+              "checksum sidecar; with --no_io_checksums there is nothing "
+              "to verify and the scrub is inert")
+
+
 def parse_args(default_lr=None, argv=None):
     args = build_parser(default_lr).parse_args(argv)
     reject_unported(args)
     check_collectives(args)
     check_observability(args)
     check_participation(args)
+    check_host_state(args)
     if args.mode == "fedavg":
         assert args.local_batch_size == -1, "fedavg requires local_batch_size == -1"
         assert args.local_momentum == 0, "fedavg requires local_momentum == 0"

@@ -17,13 +17,31 @@ of coordinates changed since it last participated, from a device-resident
 per-coordinate last-changed round index, in the resident layout of the
 weights (chunked in sketch mode, flat otherwise).
 
-The round runs on one device, its per-client state on that device too
-(``rounds.init_client_states``; no host offload), or over a client group
+The round runs on one device, or over a client group
 (``group``, a ``parallel/mesh.ClientGroup``: one process per GPU, the
 device ``cuda:LOCAL_RANK``, every rank holding the replicated weights and
 client state and running its slots of each round; ``--server_shard`` and
 ``--collective_plan`` pick the sharded server and its wire dtypes). Only
-the group's rank 0 writes files. DP noise draws from a
+the group's rank 0 writes files.
+
+Per-client state takes the tier the memory plan picks
+(``federated/memory.py``, the JAX package's planner): ``hbm`` keeps the
+rows on the model's device and the round indexes them; ``host`` keeps
+them in CPU tensors (``host_state.RowStreamer``) and ``disk`` in the sparse
+row files of ``host_state.MemmapRowStore`` (``--state_dir``, default
+``<checkpoint_path>/client_state``; ``<state_dir>/rank<r>`` on each rank
+of a client group, since every rank holds every row). In both the round
+runs on a W-row proxy of the participating rows with ``client_ids :=
+arange(W)``: ``begin_round`` takes the rows from the ``CohortPrefetcher``
+(a hit when ``engine.cohort_lookahead`` asked for them while the previous
+round ran), the straggler dispatch rides the same proxy, and
+``_apply_server`` hands ``new_proxy - old`` to the tier's ordered worker;
+an async buffered dispatch drops the proxy. Each round's ``offload``
+record (tier, prefetch hit, gather and scatter times, the storage-fault
+counters' deltas) rides its handle to the telemetry round line, and the
+disk tier's ladder events become telemetry events at the next dispatch.
+``finalize`` drains and joins the tier's worker; an I/O error surfaced
+there fails the run. DP noise draws from a
 ``torch.Generator`` on the device, seeded with ``args.seed + 1`` as the
 JAX package seeds its key. Options of the JAX package that the port does
 not carry raise ``NotImplementedError`` naming the ROADMAP item
@@ -52,6 +70,8 @@ into a round's transmit on the device.
 from __future__ import annotations
 
 import os
+import sys
+import time
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -59,8 +79,19 @@ import torch
 
 from commefficient_torch.convert import flax_from_port
 from commefficient_torch.federated.checkpoint import save_checkpoint
+from commefficient_torch.federated.host_state import (
+    CohortPrefetcher,
+    MemmapRowStore,
+    RowStreamer,
+    parse_io_fault,
+)
+from commefficient_torch.federated.memory import (
+    plan_client_state_memory,
+    state_device,
+)
 from commefficient_torch.federated.participation import _f32, _transmit_sum
 from commefficient_torch.federated.rounds import (
+    ClientStates,
     RoundConfig,
     build_round_step,
     init_client_states,
@@ -78,6 +109,7 @@ from commefficient_torch.ops.collectives import (
 )
 from commefficient_torch.ops.flat import ParamLayout
 from commefficient_torch.ops.sketch import make_sketch
+from commefficient_torch.profiling import annotate
 
 DEFAULT_NUM_CLIENTS = {"EMNIST": 3500, "PERSONA": 17568}
 
@@ -131,7 +163,9 @@ class RoundHandle(NamedTuple):
     the retry ladder, late landings, the async record), merged into the
     telemetry ``cohort`` span at the drain; None without the layer.
     ``async_masked``: an async fold's device count of masked
-    contributions, fetched with the drain (None elsewhere)."""
+    contributions, fetched with the drain (None elsewhere). ``offload``:
+    the streamed tiers' host record of the round (the telemetry round
+    line's ``offload`` span; None in the ``hbm`` tier)."""
 
     metrics: Tuple[Any, ...]
     valid: np.ndarray
@@ -146,6 +180,7 @@ class RoundHandle(NamedTuple):
     staleness: Optional[np.ndarray] = None
     cohort: Optional[dict] = None
     async_masked: Optional[Any] = None
+    offload: Optional[dict] = None
 
 
 def worker_config_from_args(args) -> WorkerConfig:
@@ -301,9 +336,7 @@ class FedModel:
         flat = flat.to(self.device)
         self.ps_weights = (self.layout.chunk(flat) if self.layout is not None
                            else flat)
-        self.client_states = init_client_states(
-            self.num_clients, self.grad_size, cfg.worker, init_weights=flat,
-            sketch=self.sketch, device=self.device)
+        self._init_client_state(args, cfg.worker, flat)
         self._round_ctx = None
         # DP noise (worker and server); the JAX package seeds its key with
         # seed + 1 too (the streams differ)
@@ -376,8 +409,148 @@ class FedModel:
     def train(self, training: bool):
         self.training = training
 
+    def _init_client_state(self, args, wcfg: WorkerConfig,
+                           flat: torch.Tensor) -> None:
+        """The memory plan, its tier, and the client rows in it (see the
+        module docstring); the startup lines say what a round moves."""
+        plan = plan_client_state_memory(self.num_clients, self.grad_size,
+                                        wcfg, sketch=self.sketch,
+                                        device=self.device)
+        self.memory_plan = plan
+        if plan.total_bytes:
+            print(plan.summary())
+        has_state = wcfg.has_velocity or wcfg.has_error or wcfg.do_topk_down
+        self._row_stream = self._row_store = self._prefetcher = None
+        self._stream_round = None
+        self._pending_offload = None
+        io_spec = (getattr(args, "inject_io_fault", "") or "").strip()
+        # each round enqueues one gather and one scatter; a slow tier then
+        # blocks the dispatch path instead of piling up deltas
+        queue_bound = int(getattr(args, "io_queue_bound", 0) or 0) \
+            or max(8, 4 * int(getattr(args, "round_window", 2)))
+        if plan.placement == "disk" and has_state:
+            row_shapes = {}
+            state_shape = (self.sketch.table_shape if wcfg.mode == "sketch"
+                           else (self.grad_size,))
+            if wcfg.has_velocity:
+                row_shapes["velocities"] = state_shape
+            if wcfg.has_error:
+                row_shapes["errors"] = state_shape
+            init_rows = {}
+            if wcfg.do_topk_down:
+                row_shapes["weights"] = (self.grad_size,)
+                # rows stored as deltas off the initial weights: no
+                # O(clients x d) write at startup
+                init_rows["weights"] = flat.detach().cpu().numpy().astype(
+                    np.float32)
+            self._row_store = MemmapRowStore(
+                self._state_dir(args), self.num_clients, row_shapes,
+                device=self.device, init_rows=init_rows,
+                inject=parse_io_fault(io_spec) if io_spec else None,
+                io_retries=int(getattr(args, "io_retries", 3)),
+                io_backoff_ms=float(getattr(args, "io_backoff_ms", 5.0)),
+                io_deadline_ms=float(getattr(args, "io_deadline_ms",
+                                             30000.0)),
+                queue_bound=queue_bound,
+                checksums=bool(getattr(args, "io_checksums", True)),
+                scrub_rows=int(getattr(args, "io_scrub_rows", 0) or 0))
+            # the per-round offload span carries counter deltas
+            self._io_counts_last = self._row_store.io_counters()
+            self._prefetcher = CohortPrefetcher(self._row_store.gather_async)
+            self.client_states = ClientStates(None, None, None)
+        else:
+            if io_spec:
+                print(f"NOTE: --inject_io_fault targets the disk-tier row "
+                      f"store; this run resolved the {plan.placement} "
+                      f"tier, so the schedule is inert")
+            where = (state_device(plan, self.device) if has_state
+                     else self.device)
+            self.client_states = init_client_states(
+                self.num_clients, self.grad_size, wcfg, init_weights=flat,
+                sketch=self.sketch, device=where)
+            if plan.placement == "host" and has_state:
+                self._row_stream = RowStreamer(self.client_states,
+                                               self.device,
+                                               queue_bound=queue_bound)
+                self._prefetcher = CohortPrefetcher(
+                    self._row_stream.gather_async)
+        if self._prefetcher is None:
+            return
+        n_members = len([m for m in (wcfg.has_velocity, wcfg.has_error,
+                                     wcfg.do_topk_down) if m])
+        # one slot's bytes over every member (rows can differ in size)
+        self._slot_bytes = plan.total_bytes // max(self.num_clients, 1)
+        per_round = args.num_workers * self._slot_bytes
+        print(f"client state host-offload ({plan.placement} tier): "
+              f"streaming {args.num_workers} row slots/round x "
+              f"{self._slot_bytes / 2**20:.2f} MiB/slot "
+              f"({n_members} state array(s)) = "
+              f"{per_round / 2**20:.2f} MiB/round "
+              "around the device step"
+              + ("" if self._prefetcher.enabled else
+                 " (cohort prefetch OFF: COMMEFFICIENT_COHORT_"
+                 "PREFETCH=0)"))
+        st = self._row_store
+        if st is not None:
+            print(f"row-store I/O plane: queue bound {st.queue_bound} "
+                  f"ops (backpressure), retry ladder {st.io_retries} "
+                  f"retries x {st.io_backoff_ms:g} ms backoff, "
+                  f"watchdog deadline {st.io_deadline_ms:g} ms, row "
+                  f"quarantine after {st.quarantine_after} failed "
+                  f"attempts, per-row checksums "
+                  + ("ON" if st.checksums else "OFF (--no_io_checksums)")
+                  + (f" + scrub {st.scrub_rows} rows/round"
+                     if st.scrub_rows else "")
+                  + (f", fault injection {st.inject.schedule.spec()}"
+                     if st.inject is not None else ""))
+
     def finalize(self):
-        """No worker processes or I/O threads to join."""
+        """Drain and join the streamed tier's worker, so every scatter has
+        landed (bounded: ``close`` reports a hung worker or a surfaced
+        error instead of abandoning it). Both entry points call it on
+        every exit path. An I/O error that first surfaces here fails the
+        run, unless another exception is already propagating (that one
+        carries the failure)."""
+        tier = self._row_store or self._row_stream
+        if tier is None:
+            return
+        report = tier.close()
+        if report.get("error") and sys.exc_info()[0] is None:
+            raise RuntimeError(
+                f"row store close surfaced an I/O error: "
+                f"{report['error']} — the final rounds' client state "
+                f"may not be durable; resume from the last checkpoint "
+                f"with --resume auto")
+
+    def _state_dir(self, args) -> str:
+        """The disk tier's directory: ``--state_dir``, else
+        ``<checkpoint_path>/client_state``; each rank of a client group
+        of several ranks keeps its own copy under ``rank<r>``."""
+        base = (getattr(args, "state_dir", "") or "") or os.path.join(
+            getattr(args, "checkpoint_path", "."), "client_state")
+        if self.group is not None and self.group.size > 1:
+            return os.path.join(base, f"rank{self.group.rank}")
+        return base
+
+    @property
+    def streaming(self) -> bool:
+        """True when per-client state is row-streamed around the round
+        (host or disk tier) instead of indexed inside it."""
+        return self._prefetcher is not None
+
+    def prefetch_cohort(self, batch: dict) -> None:
+        """Enqueue round t+1's row gather while round t computes
+        (``engine.cohort_lookahead``); a no-op in the ``hbm`` tier or with
+        ``COMMEFFICIENT_COHORT_PREFETCH=0``."""
+        if self._prefetcher is not None:
+            self._prefetcher.prefetch(np.asarray(batch["client_ids"]))
+
+    def drain_client_state(self) -> None:
+        """Barrier on the streamed tier's worker (a run-state save reads
+        the rows after it); raises a worker error."""
+        tier = self._row_store or self._row_stream
+        if tier is not None:
+            tier.drain()
 
     def __call__(self, batch: dict):
         if self.training:
@@ -468,9 +641,14 @@ class FedModel:
         download_dev, upload = self._account_bytes_deferred(participating,
                                                             staged)
         dbatch = _to_device(batch, self.device, staged)
+        states_in = self.client_states
+        proxy_ids = None
+        if self.streaming:
+            states_in, proxy_ids = self._take_rows(ids, round_no, staged)
+            dbatch["client_ids"] = proxy_ids
         pre_model_state = self._model_state
         self._round_ctx, self._model_state, metrics = \
-            self.steps.client_step(self.ps_weights, self.client_states,
+            self.steps.client_step(self.ps_weights, states_in,
                                    self._model_state, dbatch, self._opt_lr,
                                    self._rng)
         self._rounds_dispatched += 1
@@ -479,11 +657,15 @@ class FedModel:
             late_wmask = np.asarray(late_batch["worker_mask"])
             late_count = float(max(np.asarray(late_batch["mask"]).sum(),
                                    1.0))
-            # every rank of a group runs this dispatch (its collectives)
+            # every rank of a group runs this dispatch (its collectives);
+            # streamed, the stragglers are a mask split of the cohort the
+            # proxy holds, so they ride it with the same ids
+            dlate = _to_device(late_batch, self.device, staged)
+            if proxy_ids is not None:
+                dlate["client_ids"] = proxy_ids
             late_ctx, _, _ = self.steps.client_step(
-                self.ps_weights, self.client_states, pre_model_state,
-                _to_device(late_batch, self.device, staged), self._opt_lr,
-                self._rng)
+                self.ps_weights, states_in, pre_model_state, dlate,
+                self._opt_lr, self._rng)
             late_sum = (late_ctx.gradient if sharded else
                         _transmit_sum(late_ctx.gradient, _f32(late_count)))
             part.hold(late_sum, late_count, np.unique(ids[late_wmask > 0]),
@@ -518,6 +700,53 @@ class FedModel:
                            staleness=staleness, cohort=cohort_info or None,
                            async_masked=async_masked)
 
+    def _take_rows(self, ids: np.ndarray, round_no: int, staged: list):
+        """The round's W-row proxy from the prefetcher (the upload's event
+        joins the round's stream; its staging buffers join the handle's),
+        the proxy ids ``arange(W)``, and the round's ``offload`` record:
+        ``gather_ms`` is the dispatch thread's wait, ``gather_io_ms`` the
+        disk worker's read and upload; on the disk tier the storage-fault
+        counters' deltas and queue, and the ladder's events become
+        telemetry events here, on the dispatch thread."""
+        t0 = time.perf_counter()
+        with annotate("fed_offload_gather"):
+            stream, hit = self._prefetcher.take(ids)
+        stream.wait_ready()
+        staged.extend(stream.staged)
+        self._stream_round = stream
+        off = {"tier": self.memory_plan.placement,
+               "prefetch": "hit" if hit else (
+                   "miss" if self._prefetcher.enabled else "off"),
+               "gather_ms": round((time.perf_counter() - t0) * 1e3, 3)}
+        st = self._row_store
+        if st is not None:
+            off["gather_io_ms"] = round(st.last_gather_ms, 3)
+            counts = st.io_counters()
+            last = self._io_counts_last
+            off.update({
+                "io_retries": counts["retries"] - last["retries"],
+                "io_errors": counts["errors"] - last["errors"],
+                "io_quarantined": (counts["quarantined"]
+                                   - last["quarantined"]),
+                "io_corrupt": counts["corrupt"] - last["corrupt"],
+                "io_repaired": counts["repaired"] - last["repaired"],
+                "scrub_rows": (counts["scrub_checked"]
+                               - last["scrub_checked"]),
+                "scrub_mismatch": (counts["scrub_mismatch"]
+                                   - last["scrub_mismatch"]),
+                "queue_depth": st.queue_depth(),
+                "queue_age_ms": round(st.queue_age_ms(), 3),
+            })
+            self._io_counts_last = counts
+            for ev in st.pop_events():
+                if self.telemetry is not None:
+                    kind = ev.pop("kind", "row_quarantined")
+                    self.telemetry.event(kind, round=round_no, **ev)
+        self._pending_offload = off
+        proxy_ids = torch.arange(len(ids), dtype=torch.int64,
+                                 device=self.device)
+        return stream.proxy, proxy_ids
+
     def _poison_transmit(self, round_no: int, poison: float) -> None:
         """``--inject_fault``: overwrite element ``(0,) * ndim`` of the
         round's transmit with ``poison`` before the server phase, on the
@@ -539,8 +768,10 @@ class FedModel:
         metric vector (device tensors) to the handle, and on the card
         record the event the round engine's window waits on."""
         handle = handle._replace(guard=self._pending_guard,
-                                 telemetry=self._pending_telemetry)
+                                 telemetry=self._pending_telemetry,
+                                 offload=self._pending_offload)
         self._pending_guard = self._pending_telemetry = None
+        self._pending_offload = None
         if self.device.type != "cuda":
             return handle
         done = torch.cuda.Event()
@@ -610,7 +841,8 @@ class FedModel:
                     h.round_no,
                     ({k: float(v) for k, v in zip(METRIC_FIELDS, vals)}
                      if vals is not None else None),
-                    loss=loss, guard_ok=guard_ok, cohort=cohort)
+                    loss=loss, guard_ok=guard_ok, cohort=cohort,
+                    offload=h.offload)
             if guard_ok is not None:
                 self._note_guard(guard_ok, round_no=h.round_no)
             if on_round is not None:
@@ -709,18 +941,50 @@ class FedModel:
         """Phase 2 for ``FedOptimizer.step()``; the verdict and the metric
         vector wait on the device for ``seal_round``. An async buffered
         dispatch skips it: the weights, the server state and the client
-        rows stay as they are, the generator is not drawn, and there is no
-        verdict and no vector."""
+        rows stay as they are (a streamed proxy is dropped unscattered),
+        the generator is not drawn, and there is no verdict and no vector.
+
+        Streamed, the server step updates the W-row proxy and the deltas
+        against the rows before the round (the round context's ``*_rows``,
+        copies) go to the tier's worker; on the disk tier a scrub pass
+        follows the scatter on the same worker."""
         if self._async_skip_server:
             self._async_skip_server = False
             self._round_ctx = None
+            self._stream_round = None
             return server_state
+        ctx = self._round_ctx
+        stream = self._stream_round
+        states = self.client_states if stream is None else stream.proxy
         out = self.steps.server_step(self.ps_weights, server_state,
-                                     self.client_states, self._round_ctx, lr,
-                                     self._rng,
+                                     states, ctx, lr, self._rng,
                                      sr=self.sr_generators(
                                          self._rounds_dispatched - 1))
-        self.ps_weights, new_state, self.client_states = out[:3]
+        self.ps_weights, new_state, new_states = out[:3]
+        if stream is None:
+            self.client_states = new_states
+        else:
+            proxy = stream.proxy
+            old = ClientStates(
+                velocities=(ctx.vel_rows if proxy.velocities is not None
+                            else None),
+                errors=ctx.err_rows if proxy.errors is not None else None,
+                weights=(ctx.stale_rows if proxy.weights is not None
+                         else None))
+            t0 = time.perf_counter()
+            tier = self._row_store or self._row_stream
+            tier.scatter(stream, old, new_states)
+            if self._row_store is not None:
+                self._row_store.scrub_async()
+            self._stream_round = None
+            if self._pending_offload is not None:
+                self._pending_offload["scatter_ms"] = round(
+                    (time.perf_counter() - t0) * 1e3, 3)
+                if self._row_store is not None:
+                    # the last completed write (this round's overlaps the
+                    # next round's compute)
+                    self._pending_offload["scatter_io_ms"] = round(
+                        self._row_store.last_scatter_ms, 3)
         extra = iter(out[3:])
         rc = self.round_config
         self._pending_guard = next(extra) if rc.guards else None

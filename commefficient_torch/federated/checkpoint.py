@@ -47,9 +47,24 @@ the port's own key, ``torch_rng/state``: the JAX package's ``rng`` holds
 JAX key data, which a JAX file's restore in the port ignores (and refuses
 under ``--dp``, whose noise streams differ); the JAX package's restore
 reads ``rng``, so it does not restore a port run state. A file that
-carries a plane the port does not have (``pop/*``, ``io/*``, the
-per-axis ``server/qres.*`` / ``server/dres.*``, a ``client_store``
-snapshot) raises ``NotImplementedError`` naming its ROADMAP item.
+carries a plane the port does not have (``pop/*``, the per-axis
+``server/qres.*`` / ``server/dres.*``) raises ``NotImplementedError``
+naming its ROADMAP item.
+
+Client rows follow their tier (``federated/host_state.py``). The ``hbm``
+and ``host`` tiers store ``client/*`` in the archive (the host tier after
+a drain of its worker). The disk tier snapshots its row files beside the
+archive as ``<name>.rows/`` (a sparse copy with logical-content CRCs, the
+per-row CRC sidecars and ``store.json``; rank 0 writes it, tmp directory
+and rename, before the ``.npz``), records the snapshot in meta
+``client_store``, and the storage-fault injector's RNG and per-row failure
+counts as ``io/*`` with meta ``io_fault``: the JAX package's layout, so
+either package restores the other's disk-tier run state. A restore
+crosses tiers: full arrays are written into a disk-tier store
+(``write_full``), and a snapshot is lifted into full arrays for the
+``hbm`` and ``host`` tiers (``read_snapshot_member``). ``--resume auto``
+skips a candidate whose ``.rows`` snapshot is missing or fails its CRC,
+and ``--keep_checkpoints`` prunes a run state's ``.rows`` with it.
 """
 
 from __future__ import annotations
@@ -57,30 +72,24 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import zlib
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from commefficient_torch.config import (
-    ITEM_HOST_STATE,
-    ITEM_MULTI_2D,
-    ITEM_SERVICE,
-)
+from commefficient_torch.config import ITEM_MULTI_2D, ITEM_SERVICE
 
 # run-state planes of the JAX package that the port does not have yet,
 # with the ROADMAP item that ports each
 _UNPORTED_PLANES = (
     ("pop/", ITEM_SERVICE),
-    ("io/", ITEM_HOST_STATE),
     ("server/qres.", ITEM_MULTI_2D),
     ("server/dres.", ITEM_MULTI_2D),
 )
 _UNPORTED_META = (
-    ("client_store", ITEM_HOST_STATE),
     ("population", ITEM_SERVICE),
-    ("io_fault", ITEM_HOST_STATE),
 )
 
 
@@ -213,6 +222,13 @@ def save_run_state(path: str, fed_model, optimizer, lr_scheduler,
     assert getattr(fm, "_round_ctx", None) is None, (
         "save_run_state called with a round in flight (begin_round without "
         "opt.step()); drain the engine before saving")
+    assert getattr(fm, "_stream_round", None) is None, (
+        "save_run_state called with a host-offload row stream in flight; "
+        "drain the engine before saving")
+    # every scatter has landed in the streamed tier's rows
+    drain = getattr(fm, "drain_client_state", None)
+    if drain is not None:
+        drain()
     layout = fm.layout
 
     def canon(t):
@@ -312,6 +328,10 @@ def save_run_state(path: str, fed_model, optimizer, lr_scheduler,
     if not path.endswith(".npz"):
         path = path + ".npz"
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    store = getattr(fm, "_row_store", None)
+    if store is not None:
+        _save_row_snapshot(path, store, arrays, meta,
+                           getattr(fm, "is_main", True))
     meta["checksum"] = _content_checksum(arrays)
     arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(),
                                         dtype=np.uint8)
@@ -326,6 +346,41 @@ def save_run_state(path: str, fed_model, optimizer, lr_scheduler,
         # no rank reads the file before rank 0 has written it
         torch.distributed.barrier(group=group.group)
     return path
+
+
+def _save_row_snapshot(path: str, store, arrays, meta: dict,
+                       write: bool) -> None:
+    """The disk tier's part of a run state (module docstring). ``write``
+    is rank 0's: the other ranks hold the same rows and only drain."""
+    stem = path[:-len(".npz")]
+    if write:
+        tmp_rows = stem + ".tmp.rows"
+        if os.path.isdir(tmp_rows):
+            shutil.rmtree(tmp_rows)
+        store_meta = store.save_snapshot(tmp_rows)
+        if os.path.isdir(stem + ".rows"):
+            shutil.rmtree(stem + ".rows")
+        os.replace(tmp_rows, stem + ".rows")
+        # the snapshot is the store's repair source: re-point it at the
+        # renamed directory
+        store.snapshot_moved(stem + ".rows")
+    else:
+        store.drain()
+        store_meta = {"backend": store.backend, "rows": store.num_rows,
+                      "members": {}}
+    store_meta["dir"] = os.path.basename(stem) + ".rows"
+    meta["client_store"] = store_meta
+    if store.inject is not None:
+        _, io_keys, io_pos, io_gauss, io_cached = \
+            store.inject.rng.get_state()
+        arrays["io/rng_keys"] = io_keys
+        arrays["io/rng_meta"] = np.asarray([io_pos, io_gauss], np.int64)
+        arrays["io/rng_cached"] = np.asarray([io_cached], np.float64)
+        meta["io_fault"] = {"spec": store.inject.schedule.spec(),
+                            "injected": dict(store.inject.injected)}
+    if store._row_fails:
+        arrays["io/row_fails"] = np.asarray(
+            sorted(store._row_fails.items()), np.int64).reshape(-1, 2)
 
 
 def maybe_save_run_state(args, epoch: int, fed_model, optimizer,
@@ -410,16 +465,50 @@ def prune_run_states(checkpoint_path: str, keep: int) -> None:
     for path in _run_state_files(checkpoint_path)[keep:]:
         try:
             os.remove(path)
+            # a disk-tier run state's row snapshot lives beside it
+            rows = path[:-len(".npz")] + ".rows"
+            if os.path.isdir(rows):
+                shutil.rmtree(rows)
             print(f"pruned old run state {path} (--keep_checkpoints {keep})")
         except OSError as e:
             print(f"could not prune {path}: {e}")
 
 
+def _verify_row_snapshot(path: str, meta: dict) -> None:
+    """A disk-tier run state's ``.rows`` snapshot against the CRCs in its
+    meta (part of ``--resume auto``: the ``.rows`` directory lands before
+    the ``.npz`` and names repeat across resumes, so a crash between the
+    two renames can pair an older archive with newer rows)."""
+    store = meta.get("client_store")
+    if store is None:
+        return
+    from commefficient_torch.federated.host_state import (
+        _file_crc,
+        _row_extents,
+        _snapshot_rows,
+    )
+
+    snap_dir = os.path.join(os.path.dirname(path) or ".", store["dir"])
+    for name, m in store["members"].items():
+        fn = os.path.join(snap_dir, f"{name}.f32")
+        if not os.path.exists(fn):
+            raise RuntimeError(f"row-store snapshot missing {fn}")
+        # read only the rows the snapshot's CRC sidecar records as written
+        nb = int(np.prod(m["shape"])) * 4
+        crc = _file_crc(fn, _row_extents(_snapshot_rows(snap_dir, name, nb),
+                                         nb, int(store["rows"]) * nb))
+        if crc != int(m["crc"]):
+            raise RuntimeError(
+                f"row-store snapshot corrupt ({fn}): content CRC "
+                f"{crc:#010x} != recorded {int(m['crc']):#010x}")
+
+
 def find_resume_checkpoint(checkpoint_path: str,
                            return_contents: bool = False):
     """``--resume auto``: the newest run state under ``checkpoint_path``
-    that reads and checksums clean; corrupt or truncated candidates are
-    reported and skipped. None when nothing valid exists.
+    that reads and checksums clean, its ``.rows`` snapshot included;
+    corrupt or truncated candidates are reported and skipped. None when
+    nothing valid exists.
     ``return_contents=True`` returns ``(path, (flat, meta))`` for
     ``load_run_state(preloaded=...)``, so the file is read once."""
     for path in _run_state_files(checkpoint_path):
@@ -429,6 +518,12 @@ def find_resume_checkpoint(checkpoint_path: str,
             _verify_checksum(flat, meta, path)
         except Exception as e:  # corrupt candidate: fall back to older
             print(f"--resume auto: skipping {path}: corrupt npz ({e})")
+            continue
+        try:
+            _verify_row_snapshot(path, meta)
+        except Exception as e:
+            print(f"--resume auto: skipping {path}: bad .rows snapshot "
+                  f"({e})")
             continue
         return (path, (flat, meta)) if return_contents else path
     return None
@@ -502,20 +597,54 @@ def load_run_state(path: str, fed_model, optimizer, lr_scheduler,
     check_shape("server velocity", flat["server/velocity"].shape,
                 server_shape)
     check_shape("server error", flat["server/error"].shape, server_shape)
-    cs = {}
-    for name in ("velocities", "errors", "weights"):
-        key = "client/" + name
-        have = getattr(fm.client_states, name)
-        if key in flat:
-            assert have is not None, (
-                f"checkpoint has client {name} but this config allocates "
-                f"none")
-            check_shape(f"client {name}", flat[key].shape, have.shape)
-            cs[name] = torch.from_numpy(flat[key].copy()).to(dev)
-        else:
-            assert have is None, (
-                f"config allocates client {name} but checkpoint has none")
-            cs[name] = None
+    store = getattr(fm, "_row_store", None)
+    store_meta = meta.get("client_store")
+    rows_dir = (os.path.join(os.path.dirname(path) or ".", store_meta["dir"])
+                if store_meta is not None else None)
+    cs = None
+    if store is None:
+        if store_meta is not None:
+            # a disk-tier run state into the hbm or host tier: lift each
+            # snapshot member to a full array (RAM must hold it)
+            from commefficient_torch.federated.host_state import (
+                read_snapshot_member,
+            )
+
+            for name in store_meta["members"]:
+                flat["client/" + name] = read_snapshot_member(
+                    rows_dir, store_meta, name)
+        cs = {}
+        for name in ("velocities", "errors", "weights"):
+            key = "client/" + name
+            have = getattr(fm.client_states, name)
+            if key in flat:
+                assert have is not None, (
+                    f"checkpoint has client {name} but this config "
+                    f"allocates none")
+                check_shape(f"client {name}", flat[key].shape, have.shape)
+                cs[name] = torch.from_numpy(flat[key].copy()).to(
+                    have.device)
+            else:
+                assert have is None, (
+                    f"config allocates client {name} but checkpoint has "
+                    f"none")
+                cs[name] = None
+    else:
+        for name in ("velocities", "errors", "weights"):
+            key = "client/" + name
+            if name in store.row_shapes:
+                if store_meta is None:
+                    assert key in flat, (
+                        f"config allocates client {name} but checkpoint "
+                        f"has none")
+                    check_shape(f"client {name}", flat[key].shape,
+                                (store.num_rows,) + store.row_shapes[name])
+            else:
+                assert key not in flat and (
+                    store_meta is None
+                    or name not in store_meta["members"]), (
+                    f"checkpoint has client {name} but this config "
+                    f"allocates none")
     mstate = {k[len("model_state/"):]: v for k, v in flat.items()
               if k.startswith("model_state/")}
     assert sorted(mstate) == sorted(fm._model_state), (
@@ -548,7 +677,23 @@ def load_run_state(path: str, fed_model, optimizer, lr_scheduler,
         return c
 
     fm.ps_weights = resident(flat["ps_weights"])
-    fm.client_states = ClientStates(**cs)
+    prefetcher = getattr(fm, "_prefetcher", None)
+    if prefetcher is not None:
+        # a prefetched cohort was read from the rows before the restore
+        prefetcher.invalidate()
+    if store is not None:
+        if store_meta is not None:
+            store.restore_snapshot(rows_dir, store_meta)
+        else:
+            for name in store.row_shapes:
+                store.write_full(name, flat.pop("client/" + name))
+        _restore_io(store, flat, meta)
+    else:
+        fm.client_states = ClientStates(**cs)
+        stream = getattr(fm, "_row_stream", None)
+        if stream is not None:
+            stream.load(fm.client_states)
+            fm.client_states = stream.states
     fm._model_state = {k: torch.from_numpy(v.copy()).to(dev, torch.float32)
                        for k, v in sorted(mstate.items())}
     if "torch_rng/state" in flat:
@@ -617,6 +762,33 @@ def load_run_state(path: str, fed_model, optimizer, lr_scheduler,
         lr_scheduler.lr_lambda(meta["lr_step_count"]))
     return (meta["next_epoch"],
             (meta["total_download"], meta["total_upload"]), mid)
+
+
+def _restore_io(store, flat, meta) -> None:
+    """The storage-fault injector's RNG and counts and the per-row failure
+    counts (``io/*``, meta ``io_fault``); a run state without them
+    restarts the schedule from its seed, one with them into a run without
+    a schedule warns and ignores them, as in the JAX package."""
+    import warnings
+
+    io_flat = {k: flat.pop(k) for k in list(flat) if k.startswith("io/")}
+    if meta.get("io_fault") is not None:
+        if store.inject is not None:
+            store.inject.rng.set_state(
+                ("MT19937", io_flat["io/rng_keys"],
+                 int(io_flat["io/rng_meta"][0]),
+                 int(io_flat["io/rng_meta"][1]),
+                 float(io_flat["io/rng_cached"][0])))
+            store.inject.injected.update(
+                {k: int(v) for k, v in
+                 meta["io_fault"].get("injected", {}).items()})
+        else:
+            warnings.warn(
+                "checkpoint carries --inject_io_fault state but this run "
+                "has no injection schedule; ignoring it")
+    if "io/row_fails" in io_flat:
+        store._row_fails = {int(r): int(c)
+                            for r, c in io_flat["io/row_fails"]}
 
 
 def _restore_participation(fm, flat, meta, group) -> None:

@@ -58,9 +58,11 @@ launch per group of adjacent leaves under ``--sketch_coalesce``), weight
 decay goes in as one more full-range accumulate after the microbatch
 loop, and no d-sized gradient exists.
 
-Per-client state lives on the round's device (``init_client_states``):
-``(num_clients, d)`` rows, or ``(num_clients, r, c_pad)`` tables in sketch
-mode.
+Per-client state (``init_client_states``) is ``(num_clients, d)`` rows,
+or ``(num_clients, r, c_pad)`` tables in sketch mode, on the round's
+device; when the memory plan puts it on the host or on disk
+(``federated/host_state.py``), the round runs on a W-row proxy of it with
+``client_ids := arange(W)``, unchanged.
 
 The model state is ResNet9's BatchNorm running statistics under
 ``--batchnorm`` (empty otherwise): each client's loss returns its updated
@@ -89,6 +91,7 @@ import hashlib
 from dataclasses import dataclass, replace as dc_replace
 from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.func import vmap
 
@@ -229,6 +232,10 @@ def init_client_states(num_clients: int, grad_size: int, wcfg: WorkerConfig,
         state_shape = (num_clients, grad_size)
 
     def alloc():
+        if device.type == "cpu":
+            # calloc semantics (the host tier): only the pages of rows a
+            # round touches become resident
+            return torch.from_numpy(np.zeros(state_shape, np.float32))
         return torch.zeros(state_shape, dtype=torch.float32, device=device)
 
     weights = None

@@ -11,7 +11,9 @@ device, the CPU included. On the card, ``host_sync_monitor(strict=True)``
 also arms ``torch.cuda.set_sync_debug_mode("error")``, so that any call
 that waits on the stream in the monitored extent raises, counted seam or
 not. A completion wait on a ``torch.cuda.Event`` (the round engine's
-window) is not a stream synchronization and passes.
+window) is not a stream synchronization and passes. ``offpath_fetches``
+declares a thread's extent off the dispatch path (the row stores' I/O
+worker), so the monitor does not count its fetches.
 
 ``RoundTracer`` (``--trace_rounds`` windows and the watch plane's trace
 reaction, addressed by global round) and ``StepProfiler`` (``--profile``,
@@ -34,7 +36,8 @@ import numpy as np
 import torch
 
 __all__ = ["materialize", "SyncCounter", "host_sync_monitor", "Heartbeat",
-           "annotate", "parse_trace_rounds", "RoundTracer", "StepProfiler"]
+           "annotate", "parse_trace_rounds", "RoundTracer", "StepProfiler",
+           "offpath_fetches"]
 
 
 class SyncCounter:
@@ -53,18 +56,40 @@ class SyncCounter:
 
 _lock = threading.Lock()
 _active: list = []
+# per thread: the depth of offpath_fetches extents
+_offpath = threading.local()
 
 
 def materialize(x) -> np.ndarray:
     """Blocking device-to-host fetch of ``x`` as a numpy array, counted by
     every active ``host_sync_monitor`` (a tensor on any device counts; a
-    numpy array passes through uncounted)."""
+    numpy array passes through uncounted), unless the calling thread is
+    inside ``offpath_fetches``."""
     if isinstance(x, torch.Tensor):
-        with _lock:
-            for c in _active:
-                c.count += 1
+        if not getattr(_offpath, "n", 0):
+            with _lock:
+                for c in _active:
+                    c.count += 1
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+@contextlib.contextmanager
+def offpath_fetches():
+    """Declare the dynamic extent, on the calling thread only, a fetch off
+    the round's dispatch path: ``materialize`` there is not counted by any
+    ``host_sync_monitor``. The row stores' ordered I/O worker
+    (``federated/host_state.py``) runs its operations inside it: its
+    fetches overlap the next round's compute by design, and the monitor
+    stays an audit of the thread that dispatches rounds. The worker waits
+    on CUDA events and reads pinned buffers rather than blocking copies,
+    since ``host_sync_monitor(strict=True)``'s sync debug mode is
+    process-wide."""
+    _offpath.n = getattr(_offpath, "n", 0) + 1
+    try:
+        yield
+    finally:
+        _offpath.n -= 1
 
 
 @contextlib.contextmanager

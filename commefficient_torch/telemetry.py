@@ -763,6 +763,30 @@ def attach_run_telemetry(args, fed_model, log_dir: str,
                           "staleness_decay": float(
                               getattr(args, "staleness_decay", 0.5))}
                          if async_k else None)
+    # the client-state tier and what a round streams, and the disk tier's
+    # resolved I/O plane (obs_report's "Host offload" section)
+    mem_plan = getattr(fed_model, "memory_plan", None)
+    if mem_plan is not None and getattr(fed_model, "streaming", False):
+        run_info["state_placement"] = mem_plan.placement
+        run_info["state_row_bytes"] = int(mem_plan.row_bytes)
+        run_info["state_slot_bytes"] = int(
+            getattr(fed_model, "_slot_bytes", mem_plan.row_bytes))
+        run_info["state_rows_per_round"] = int(args.num_workers)
+    elif mem_plan is not None and mem_plan.total_bytes:
+        run_info["state_placement"] = mem_plan.placement
+    store = getattr(fed_model, "_row_store", None)
+    if store is not None:
+        run_info["state_io"] = {
+            "queue_bound": int(store.queue_bound),
+            "retries": int(store.io_retries),
+            "backoff_ms": float(store.io_backoff_ms),
+            "deadline_ms": float(store.io_deadline_ms),
+            "quarantine_after": int(store.quarantine_after),
+            "checksums": bool(store.checksums),
+            "scrub_rows": int(store.scrub_rows),
+            "inject": (store.inject.schedule.spec()
+                       if store.inject is not None else None),
+        }
     if plan is not None:
         run_info["collective_plan"] = plan.spec()
     run_info["telemetry_hist"] = hists
@@ -784,13 +808,19 @@ def attach_run_telemetry(args, fed_model, log_dir: str,
 
 def close_run_telemetry(fed_model, rt: Optional[RunTelemetry]) -> None:
     """Run end (the entry points' ``finally``): stop a trace window left
-    open, its record still going to the log, and close the log with
-    ``run_end``."""
+    open, its record still going to the log; on the disk tier log the
+    storage-fault terminal error (``io_fatal``) and the run's I/O and
+    integrity totals (``io_counters``); close the log with ``run_end``."""
     tracer = getattr(fed_model, "tracer", None)
     if tracer is not None:
         cap = tracer.close()
         if cap is not None and rt is not None:
             rt.event("trace_captured", **cap)
+    store = getattr(fed_model, "_row_store", None)
+    if store is not None and rt is not None:
+        if store.fatal_error is not None:
+            rt.event("io_fatal", error=str(store.fatal_error))
+        rt.event("io_counters", **store.io_counters())
     if rt is not None:
         rt.close()
 

@@ -184,13 +184,13 @@ def test_cv_train_main_cpu(tmp_path, monkeypatch):
     assert summary["up (MiB)"] > 0
 
 
-# (--guards, --telemetry, --inject_fault, --staleness_decay and
-# --participation are ported now; their places are taken by flags of
-# planes still unported)
-@pytest.mark.parametrize("flag", [["--state_dir", "x"],
-                                  ["--inject_io_fault", "eio=0.1"],
+# (--guards, --telemetry, --inject_fault, --staleness_decay,
+# --participation and the host-state flags are ported now; their places
+# are taken by flags of planes still unported)
+@pytest.mark.parametrize("flag", [["--plan_error_budget", "0.1"],
+                                  ["--model_devices", "2"],
                                   ["--shard_devices", "2"],
-                                  ["--io_retries", "5"],
+                                  ["--expert_devices", "2"],
                                   ["--pp_microbatches", "2"],
                                   ["--seq_parallel", "ring"],
                                   ["--n_experts", "2"],
@@ -252,7 +252,7 @@ def test_batchnorm_names_its_roadmap_item():
     assert t_parse(argv=ARGV + ["--device", "cpu",
                                 "--batchnorm"]).do_batchnorm is True
     with pytest.raises(NotImplementedError, match="item 6"):
-        t_parse(argv=ARGV + ["--device", "cpu", "--state_dir", "x"])
+        t_parse(argv=ARGV + ["--device", "cpu", "--churn", "join=1"])
 
 
 def test_per_client_worker_path_not_ported():

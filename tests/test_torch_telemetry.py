@@ -467,10 +467,6 @@ def test_cv_train_log_renders_with_obs_report(tmp_path):
 # flags still unported -> the item their NotImplementedError names
 UNPORTED_ITEMS = {
     "--plan_error_budget": "item 5a", "--shard_devices": "item 5a",
-    "--state_dir": "item 6d", "--inject_io_fault": "item 6d",
-    "--io_retries": "item 6d", "--io_backoff_ms": "item 6d",
-    "--io_deadline_ms": "item 6d", "--io_queue_bound": "item 6d",
-    "--no_io_checksums": "item 6d", "--io_scrub_rows": "item 6d",
     "--churn": "item 6e", "--seq_parallel": "item 7",
     "--seq_devices": "item 7", "--model_devices": "item 7",
     "--pipeline_devices": "item 7", "--pp_microbatches": "item 7",

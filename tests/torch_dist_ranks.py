@@ -547,3 +547,47 @@ def obs_server_step(c, group=None):
 def body_observability(cg, cases):
     """``obs_server_step`` of each case on this rank of the group."""
     return [obs_server_step(c, cg) for c in cases]
+
+
+# --------------------------------------------------------------------------
+# per-client state off the card
+# --------------------------------------------------------------------------
+
+def body_offload(cg, spec):
+    """``spec["runs"]``: ``(argv, env)`` pairs, ``env`` forcing the memory
+    plan's tier through its budget overrides; each runs
+    ``spec["batches"]`` through a fresh model on this group (the disk
+    tier under ``spec["dir"]/off<n>/rank<r>``). Per run: the tier, the
+    weights after each round, and the final client rows."""
+    out = []
+    for n, (argv, env) in enumerate(spec["runs"]):
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            fm, opt = _resnet9_model(
+                spec, cg, list(argv) + ["--state_dir",
+                                        f"{spec['dir']}/off{n}"])
+            ws = []
+            for b in spec["batches"]:
+                h = fm.begin_round(b)
+                opt.step()
+                fm.finish_round(h)
+                ws.append(_weights(fm))
+            fm.drain_client_state()
+            st = fm._row_store
+            rows = ({m: st.read_full(m) for m in st.row_shapes}
+                    if st is not None else
+                    {m: _np(getattr(fm.client_states, m))
+                     for m in ("velocities", "errors")})
+            out.append({"tier": fm.memory_plan.placement, "w": ws,
+                        "rows": rows,
+                        "dirs": sorted(os.listdir(f"{spec['dir']}/off{n}"))
+                        if st is not None else None})
+            fm.finalize()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return out
