@@ -247,6 +247,32 @@ Phases (any failure exits non-zero; nothing is caught):
    repairs and ``io_corrupt`` watch alert land in the event log; (4)
    local top-k with dense local error and momentum at 3,500 clients
    (183.9 GB) on the tier the planner picks: 64 count passes a round.
+15. the open-world service (``phase_service``; its children run with a
+   ``sitecustomize.py`` that holds cuDNN deterministic and writes their
+   launch counts at exit): (A) ``python -m commefficient_torch.cv_train``
+   at the headline's full width with telemetry on, 200 iid clients under
+   ``--churn join=2,depart=1.5,init=0.5,seed=3`` and a run state every 5
+   rounds (2 kept), (i) alone: 2 / 1 / 8 launches a round, every
+   heartbeat with ``population=``, the churn audit ok; (ii) under ``python
+   -m commefficient_torch.scripts.supervise`` with a SIGKILL at a seeded
+   heartbeat round, while ``python -m commefficient_torch.scripts.serve``
+   follows the checkpoint directory under a query every 0.2 s: the final
+   weights bit-equal to (i), one relaunch with ``--resume auto``, the same
+   audit, the replica swapped, its versions monotone, every file its
+   lease named present whenever read, finite answers; the served over
+   solo wall ratio printed (data); (B) phase 14's sketch-local round at
+   128 clients on disk under ``--churn
+   join=1,depart=0.7,init=0.6,seed=3,compact=4`` for 30 rounds with a
+   save every 5, through ``cv_train.main`` in this process: 10 / 1 / 8
+   launches a round, ``rows_retired`` and ``rows_compacted`` in the log,
+   the directory checked against the masks after every save, each
+   compaction's ms and bytes moved, and a resume from the last save
+   after a compaction bit-equal to the continuous run; (C) two tenants of
+   10 headline rounds under ``python -m
+   commefficient_torch.scripts.orchestrate --max-concurrent 2``: the
+   second admitted after the first's first heartbeat, admitted =
+   finished + gave up, each tenant's weights bit-equal to a solo run of
+   the same command.
 
 Then one JSON line of the kernels (launches per timed window of the path
 that runs each: phase 4 for the accumulate, the query and the count pass,
@@ -279,6 +305,7 @@ import dataclasses
 import itertools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -4515,6 +4542,457 @@ def phase_offload(card: str) -> dict:
     return out
 
 
+# phase 15: the open-world service
+_HERE = os.path.dirname(os.path.abspath(__file__))
+# the leg A headline: the phase-4 round with telemetry on, 200 iid clients
+# under churn, a run state every 5 rounds with 2 kept
+SERVICE_A = [a for a in HEADLINE if a != "--no_telemetry"] + [
+    "--iid", "--num_clients", "200", "--num_epochs", "1", "--seed", "0",
+    "--lr_scale", "0.1", "--pivot_epoch", "0.5",
+    "--train_dataloader_workers", "0",
+    "--churn", "join=2,depart=1.5,init=0.5,seed=3",
+    "--checkpoint", "--checkpoint_every_rounds", "5",
+    "--keep_checkpoints", "2"]
+SERVICE_A_PER_CLASS = 320       # 3,200 images: at most 50 rounds of 64
+SERVICE_KILL_SEED = 15
+SERVICE_QUERY_S = 0.2
+# leg B: phase 14's sketch-local round, 128 clients on disk, compaction
+SERVICE_B = [a for a in OFF_BASE if a != "--no_telemetry"] + [
+    "--iid", "--num_clients", "128", "--num_epochs", "1",
+    "--lr_scale", "0.1", "--pivot_epoch", "0.5",
+    "--train_dataloader_workers", "0",
+    "--churn", "join=1,depart=0.7,init=0.6,seed=3,compact=4",
+    "--checkpoint", "--checkpoint_every_rounds", "5"]
+SERVICE_B_PER_CLASS = 192       # 1,920 images: at most 30 rounds of 64
+# leg C: two tenants of 10 headline rounds
+SERVICE_C = HEADLINE + ["--iid", "--num_clients", "16", "--num_epochs",
+                        "1", "--seed", "0", "--lr_scale", "0.1",
+                        "--pivot_epoch", "0.5", "--checkpoint"]
+SERVICE_C_PER_CLASS = 64        # 640 images: 10 rounds of 64
+# the children's sitecustomize: cuDNN held deterministic (the bit-equal
+# resume needs it, as in phase 8), and the kernel launch counts written
+# at a clean exit
+_SITE = """import atexit, json, os
+import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+_out = os.environ.get("SMOKE_LAUNCH_COUNTS")
+if _out:
+    def _dump():
+        from commefficient_torch import kernels
+        with open(_out, "w") as f:
+            json.dump(kernels.launch_counts(), f)
+    atexit.register(_dump)
+"""
+
+
+def service_env(tmp: str, **extra) -> dict:
+    """The environment of a phase-15 child: the sitecustomize above and
+    the checkout on ``PYTHONPATH``, heartbeats on, output unbuffered."""
+    site = os.path.join(tmp, "site")
+    if not os.path.isdir(site):
+        os.makedirs(site)
+        with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+            f.write(_SITE)
+    env = dict(os.environ)
+    env.update({"PYTHONPATH": os.pathsep.join(
+        [site, _HERE] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                         else [])),
+        "COMMEFFICIENT_HEARTBEAT": "1", "PYTHONUNBUFFERED": "1"})
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def final_npz(ckpt: str) -> dict:
+    with np.load(os.path.join(ckpt, "ResNet9.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def same_npz(label: str, a: dict, b: dict) -> None:
+    assert sorted(a) == sorted(b), f"{label}: tensor sets differ"
+    for k in a:
+        assert np.array_equal(a[k], b[k]), f"{label}: {k} differs"
+
+
+def cv_child(argv, env, timeout=600) -> dict:
+    """``python -m commefficient_torch.cv_train`` to its end: its wall
+    seconds and the heartbeats it printed."""
+    from commefficient_torch.profiling import parse_heartbeat
+
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "commefficient_torch.cv_train", *argv],
+        env=env, cwd=_HERE, capture_output=True, text=True,
+        timeout=timeout)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-6000:], sep="\n")
+        raise RuntimeError(f"cv_train exited {proc.returncode}")
+    beats = [hb for hb in map(parse_heartbeat, proc.stderr.splitlines())
+             if hb is not None]
+    return {"wall_s": wall, "beats": beats, "stdout": proc.stdout}
+
+
+def run_events(run_dir: str) -> list:
+    return list(read_events(os.path.join(run_dir, "telemetry.jsonl")))
+
+
+def service_audit(label: str, events: list) -> dict:
+    audits = [e for e in events if e["ev"] == "churn_audit"]
+    assert audits, f"{label}: no churn_audit event"
+    assert audits[-1]["ok"], f"{label}: churn audit failed {audits[-1]}"
+    return {k: v for k, v in audits[-1].items() if k not in ("ev", "t")}
+
+
+def service_launches(label: str, path: str, per_round: dict,
+                     rounds: int) -> dict:
+    with open(path) as f:
+        counts = json.load(f)
+    want = {k.name: per_round.get(k.name, 0) * rounds
+            for k in kernels.KERNELS}
+    assert counts == want, f"{label}: launches {counts}, expected {want}"
+    return {k: v // rounds for k, v in counts.items() if v}
+
+
+class _QueryLoad:
+    """A query to the replica every ``SERVICE_QUERY_S`` seconds, and a
+    watch on the replica's pin leases: every run state a lease names must
+    exist whenever the lease is read (``prune_run_states`` never deletes
+    a pinned file)."""
+
+    def __init__(self, serve_dir: str, ckpt: str):
+        import threading
+
+        self.serve_dir, self.ckpt = serve_dir, ckpt
+        self.rids, self.pin_reads, self.pin_missing = [], 0, []
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=f, daemon=True)
+                         for f in (self._query, self._pins)]
+        for t in self._threads:
+            t.start()
+
+    def _query(self):
+        from commefficient_torch.federated.serving import submit_request
+
+        i = 0
+        while not self._stop.wait(SERVICE_QUERY_S):
+            self.rids.append(submit_request(self.serve_dir, op="query",
+                                            probe_seed=i))
+            i += 1
+
+    def _pins(self):
+        while not self._stop.wait(0.05):
+            for n in os.listdir(self.ckpt) if os.path.isdir(self.ckpt) \
+                    else []:
+                if not n.endswith(".pin"):
+                    continue
+                try:
+                    with open(os.path.join(self.ckpt, n)) as f:
+                        paths = json.load(f)["paths"]
+                except (OSError, ValueError):
+                    continue
+                self.pin_reads += 1
+                self.pin_missing += [
+                    p for p in paths
+                    if not os.path.exists(os.path.join(self.ckpt, p))]
+
+    def stop(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(10)
+
+
+def service_headline(card: str, tmp: str) -> dict:
+    """Leg A: the headline under churn (i) alone and (ii) under the
+    port's supervisor with a SIGKILL at a seeded heartbeat round, while
+    the port's replica follows the checkpoint directory under a query
+    every 0.2 s."""
+    import random
+    import signal
+
+    from commefficient_torch.federated.serving import read_response
+    from commefficient_torch.profiling import parse_heartbeat
+
+    data = os.path.join(tmp, "a_data")
+    base = SERVICE_A + ["--dataset_dir", data]
+    counts = os.path.join(tmp, "a_launches.json")
+    ck1, run1 = os.path.join(tmp, "a_ck1"), os.path.join(tmp, "a_run1")
+    solo = cv_child(base + ["--checkpoint_path", ck1], service_env(
+        tmp, COMMEFFICIENT_SYNTHETIC_PER_CLASS=SERVICE_A_PER_CLASS,
+        COMMEFFICIENT_RUN_DIR=run1, SMOKE_LAUNCH_COUNTS=counts))
+    rounds = len(solo["beats"])
+    assert rounds >= 20, f"service: {rounds} rounds"
+    assert all("population" in hb for hb in solo["beats"]), \
+        "service: a heartbeat without population="
+    per_round = service_launches("service headline", counts,
+                                 HEADLINE_PER_ROUND, rounds)
+    audit = service_audit("service solo", run_events(run1))
+
+    ck2, run2 = os.path.join(tmp, "a_ck2"), os.path.join(tmp, "a_run2")
+    serve = os.path.join(tmp, "a_serve")
+    os.makedirs(ck2)
+    stop = os.path.join(tmp, "a_stop")
+    env = service_env(tmp, COMMEFFICIENT_SYNTHETIC_PER_CLASS=
+                      SERVICE_A_PER_CLASS, COMMEFFICIENT_RUN_DIR=run2)
+    kill_round = random.Random(SERVICE_KILL_SEED).randint(
+        8, max(9, rounds - 8))
+    with open(os.path.join(tmp, "a_replica.log"), "w") as rlog:
+        replica = subprocess.Popen(
+            [sys.executable, "-m", "commefficient_torch.scripts.serve",
+             "--checkpoint_path", ck2, "--serve_dir", serve,
+             "--owner", "smoke", "--poll_interval", "0.05",
+             "--stop_file", stop], env=env, cwd=_HERE, stdout=rlog,
+            stderr=subprocess.STDOUT)
+        load = _QueryLoad(serve, ck2)
+        events = os.path.join(tmp, "a_supervise.jsonl")
+        t = time.perf_counter()
+        sup = subprocess.Popen(
+            [sys.executable, "-m", "commefficient_torch.scripts.supervise",
+             "--heartbeat-timeout", "120", "--startup-grace", "300",
+             "--max-restarts", "2", "--backoff", "1", "--events", events,
+             "--", sys.executable, "-m", "commefficient_torch.cv_train",
+             *base, "--checkpoint_path", ck2], env=env, cwd=_HERE,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        pid = attempt = None
+        killed_at = None
+        tail = []
+        try:
+            for line in sup.stdout:
+                tail = (tail + [line])[-40:]
+                m = re.search(r"\[supervise\] launch attempt=(\d+) "
+                              r"pid\(s\)=\[(\d+)", line)
+                if m:
+                    attempt, pid = int(m.group(1)), int(m.group(2))
+                    continue
+                hb = parse_heartbeat(line)
+                if (hb is not None and killed_at is None and attempt == 1
+                        and hb["round"] + 1 >= kill_round):
+                    os.kill(pid, signal.SIGKILL)
+                    killed_at = hb["round"]
+            rc = sup.wait(timeout=600)
+        finally:
+            if sup.poll() is None:
+                sup.kill()
+                sup.wait()
+        served_wall = time.perf_counter() - t
+        load.stop()
+        open(stop, "w").close()
+        try:
+            replica.wait(timeout=60)
+        finally:
+            if replica.poll() is None:
+                replica.kill()
+                replica.wait()
+    if rc != 0:
+        print("".join(tail))
+    assert rc == 0, f"service: the supervisor exited {rc}"
+    assert killed_at is not None, "service: the kill round never came"
+    sup_evs = [json.loads(ln) for ln in open(events)]
+    launches = [e for e in sup_evs if e["ev"] == "supervisor_launch"]
+    assert len(launches) == 2 and launches[1]["resume"], \
+        f"service: supervisor launches {launches}"
+    same_npz("service supervised vs solo", final_npz(ck1), final_npz(ck2))
+    audit2 = service_audit("service supervised", run_events(run2))
+    assert audit2 == audit, "service: the audits differ"
+    # the replica
+    answers = []
+    for rid in load.rids:
+        try:
+            answers.append(read_response(serve, rid, timeout=0.5,
+                                         poll=0.05))
+        except TimeoutError:
+            pass
+    sv = [json.loads(ln) for ln in open(os.path.join(serve,
+                                                     "serving.jsonl"))]
+    swaps = [e for e in sv if e["ev"] == "serving_swap"]
+    versions = [e["model_version"] for e in sv
+                if e["ev"] in ("serving_swap", "serving_answer")]
+    assert swaps, "service: the replica never swapped"
+    assert versions == sorted(versions), "service: versions not monotone"
+    assert load.pin_reads and not load.pin_missing, (
+        f"service: pinned files pruned {load.pin_missing} "
+        f"({load.pin_reads} lease reads)")
+    assert sv[-1]["ev"] == "serving_stop"
+    ok = [a for a in answers if "error" not in a]
+    assert ok and all(np.isfinite(a["value"]) for a in ok), \
+        "service: no finite query answer"
+    lat = [a["latency_ms"] for a in ok]
+    out = {"rounds": rounds, "launches_per_round": per_round,
+           "solo_wall_s": round(solo["wall_s"], 2),
+           "served_wall_s": round(served_wall, 2),
+           "served_over_solo": served_wall / solo["wall_s"],
+           "killed_at_round": killed_at, "audit": audit,
+           "population_last": solo["beats"][-1]["population"],
+           "swaps": len(swaps),
+           "swap_load_ms": [e["load_ms"] for e in swaps],
+           "queries": len(load.rids), "answered": len(answers),
+           "query_latency_ms_median": statistics.median(lat),
+           "pin_reads": load.pin_reads, "card": card}
+    print(json.dumps({"phase": "service", "leg": "headline", **out}))
+    return out
+
+
+def service_disk(card: str, tmp: str) -> dict:
+    """Leg B: the row directory on disk: phase 14's sketch-local round at
+    128 clients under churn with compaction, run in this process through
+    ``cv_train.main``; the directory checked against the masks after each
+    save, a compaction timed, and a resume from a save after a compaction
+    bit-equal to the continuous run."""
+    from commefficient_torch import cv_train
+    from commefficient_torch.federated import checkpoint as tck
+    from commefficient_torch.federated.host_state import MemmapRowStore
+
+    data = os.path.join(tmp, "b_data")
+    models, compactions, checks = [], [], []
+
+    class Capture(FedModel):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            models.append(self)
+
+    compact = MemmapRowStore.compact
+
+    def timed_compact(store):
+        t = time.perf_counter()
+        stats = compact(store)
+        compactions.append({
+            "ms": (time.perf_counter() - t) * 1e3, **stats,
+            "bytes_moved": stats["moved"] * sum(store._row_nbytes.values())})
+        return stats
+
+    snapshot = tck._save_row_snapshot
+
+    def checked_snapshot(path, store, arrays, meta, write):
+        snapshot(path, store, arrays, meta, write)
+        models[-1]._population.check_directory()
+        checks.append(os.path.basename(path))
+
+    def run(ckpt, extra=()):
+        kernels.reset_launch_counts()
+        with env_vars(COMMEFFICIENT_SYNTHETIC_PER_CLASS=SERVICE_B_PER_CLASS,
+                      COMMEFFICIENT_RUN_DIR=os.path.join(ckpt, "run"),
+                      **OFF_TIERS["disk"]), deterministic_cudnn(), \
+                mock.patch.object(cv_train, "FedModel", Capture), \
+                mock.patch.object(MemmapRowStore, "compact", timed_compact), \
+                mock.patch.object(tck, "_save_row_snapshot",
+                                  checked_snapshot):
+            cv_train.main(SERVICE_B + [
+                "--dataset_dir", data, "--checkpoint_path", ckpt,
+                "--state_dir", os.path.join(ckpt, "state"), *extra])
+        fm = models[-1]
+        return fm.rounds_dispatched, kernels.launch_counts()
+
+    full = os.path.join(tmp, "b_full")
+    t = time.perf_counter()
+    rounds, counts = run(full)
+    full_wall = time.perf_counter() - t
+    cont_compactions = list(compactions)
+    want = {k.name: OFF_PER_ROUND.get(k.name, 0) * rounds
+            for k in kernels.KERNELS}
+    assert counts == want, f"service disk: launches {counts}, {want}"
+    evs = run_events(os.path.join(full, "run"))
+    kinds = [e["ev"] for e in evs]
+    assert "rows_retired" in kinds and "rows_compacted" in kinds, \
+        "service disk: no retirement or no compaction"
+    audit = service_audit("service disk", evs)
+    assert cont_compactions and len(checks) >= rounds // 5, (
+        cont_compactions, checks)
+    # the last save after a compaction that leaves rounds to run
+    saves = sorted((f for f in os.listdir(full) if f.endswith(".npz")
+                    and f.startswith("run_state")),
+                   key=lambda f: tck._run_state_progress(f))
+    pick = None
+    for f in reversed(saves[:-1]):
+        with np.load(os.path.join(full, f)) as z:
+            meta = json.loads(bytes(z["meta_json"]).decode())
+        if meta["client_store"]["directory"]["compactions"] > 0:
+            pick = f
+            break
+    assert pick is not None, f"service disk: no save after a compaction"
+    res = os.path.join(tmp, "b_res")
+    os.makedirs(res)
+    shutil.copy(os.path.join(full, pick), os.path.join(res, pick))
+    shutil.copytree(os.path.join(full, pick[:-4] + ".rows"),
+                    os.path.join(res, pick[:-4] + ".rows"))
+    run(res, ["--resume", "auto"])
+    same_npz("service disk resume", final_npz(full), final_npz(res))
+    out = {"rounds": rounds,
+           "launches_per_round": {k: v // rounds for k, v in counts.items()
+                                  if v},
+           "saves_checked": len(checks), "resumed_from": pick,
+           "compactions": cont_compactions, "audit": audit,
+           "continuous_wall_s": round(full_wall, 2), "card": card}
+    print(json.dumps({"phase": "service", "leg": "disk", **out}))
+    return out
+
+
+def service_fleet(card: str, tmp: str) -> dict:
+    """Leg C: two tenants of 10 headline rounds on the card under the
+    port's orchestrator (``--max-concurrent 2``, warm admission), each
+    against a solo run of the same command."""
+    from commefficient_torch.scripts.orchestrate import orchestrate
+
+    data = os.path.join(tmp, "c_data")
+    argv = SERVICE_C + ["--dataset_dir", data]
+    env = service_env(tmp, COMMEFFICIENT_SYNTHETIC_PER_CLASS=
+                      SERVICE_C_PER_CLASS)
+    solo_ck = os.path.join(tmp, "c_solo")
+    solo = cv_child(argv + ["--checkpoint_path", solo_ck], dict(
+        env, COMMEFFICIENT_RUN_DIR=os.path.join(tmp, "c_solo_run")))
+    fleet = os.path.join(tmp, "c_fleet")
+    t = time.perf_counter()
+    with env_vars(**{k: env[k] for k in (
+            "PYTHONPATH", "COMMEFFICIENT_HEARTBEAT", "PYTHONUNBUFFERED",
+            "COMMEFFICIENT_SYNTHETIC_PER_CLASS")}), \
+            open(os.path.join(tmp, "c_fleet.log"), "w") as log:
+        rc = orchestrate([["-m", "commefficient_torch.cv_train", *argv]] * 2,
+                         fleet_dir=fleet, max_concurrent=2,
+                         heartbeat_timeout=120, startup_grace=300,
+                         max_restarts=1, out=log)
+    wall = time.perf_counter() - t
+    assert rc == 0, f"service fleet: rc {rc}"
+    evs = [json.loads(ln)
+           for ln in open(os.path.join(fleet, "fleet_events.jsonl"))]
+    idx = {id(e): i for i, e in enumerate(evs)}
+    admits = [e for e in evs if e["ev"] == "tenant_admit"]
+    assert [e["tenant"] for e in admits] == [0, 1]
+    first0 = next(e for e in evs if e["ev"] == "tenant_progress"
+                  and e["tenant"] == 0)
+    assert idx[id(admits[1])] > idx[id(first0)], \
+        "service fleet: tenant 1 admitted before tenant 0's heartbeat"
+    done = evs[-1]
+    assert done["ev"] == "fleet_done" and done["admitted"] == \
+        done["finished"] + done["gave_up"] == 2, done
+    want = final_npz(solo_ck)
+    for i in range(2):
+        same_npz(f"service fleet tenant {i}", want,
+                 final_npz(os.path.join(fleet, f"t{i}", "ckpt")))
+    out = {"solo_wall_s": round(solo["wall_s"], 2),
+           "fleet_wall_s": round(wall, 2),
+           "fleet_rounds": done["total_rounds"],
+           "rounds_per_sec": done["rounds_per_sec"], "card": card}
+    print(json.dumps({"phase": "service", "leg": "fleet", **out}))
+    return out
+
+
+def phase_service(card: str) -> dict:
+    """Phase 15: the open-world service."""
+    tmp = tempfile.mkdtemp(prefix="service_")
+    out, wall = {}, {}
+    try:
+        for name, leg in (("headline", service_headline),
+                          ("disk", service_disk),
+                          ("fleet", service_fleet)):
+            t = time.perf_counter()
+            out[name] = leg(card, tmp)
+            wall[name] = round(time.perf_counter() - t, 2)
+            print(f"service leg wall seconds: {json.dumps(wall)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = wall
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-times", nargs="*", metavar="NAME",
@@ -4598,6 +5076,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     offload = phase_offload(card)
     wall["14 client state off the card"] = time.perf_counter() - t
+    t = time.perf_counter()
+    service = phase_service(card)
+    wall["15 open-world service"] = time.perf_counter() - t
     print("phase wall seconds (phase 3 includes the build): " + json.dumps(
         {k: round(v, 2) for k, v in wall.items()}))
 
@@ -4659,6 +5140,11 @@ def main(argv=None) -> int:
                           offload["population"]["rounds_per_sec"],
                       "offload_large_rounds_per_sec":
                           offload["large"]["rounds_per_sec"],
+                      "service_served_over_solo":
+                          service["headline"]["served_over_solo"],
+                      "service_compactions":
+                          service["disk"]["compactions"],
+                      "service_wall_s": service["wall_s"],
                       **{"opt_in_" + k: v for k, v in opt_prof.items()}}))
     print(json.dumps(summary))
     print(card)

@@ -59,7 +59,8 @@ Client participation (``federated/participation.py``) is carried with
 the JAX package's names, defaults, help and checks
 (``check_participation``): ``--client_dropout``, ``--participation``,
 ``--participation_sampling``, ``--inject_client_fault``,
-``--staleness_decay``, ``--client_retry_limit`` and ``--async_buffer``.
+``--staleness_decay``, ``--client_retry_limit``, ``--async_buffer`` and
+the open-world population's ``--churn``.
 ``--port``, ``--share_ps_gpu``, ``--nan_threshold`` and
 ``--num_results_*`` are accepted and ignored, as the JAX package ignores
 them; ``--rng_impl threefry2x32`` is a no-op and its JAX-only PRNGs raise.
@@ -84,7 +85,6 @@ _Q1 = "ROADMAP.md queue 1"
 ITEM_MULTI_2D = (f"{_Q1} item 5a (the 2-D clients x shard plane, "
                  f"per-axis collective plans, --collective_plan auto, the "
                  f"multi-host seam)")
-ITEM_SERVICE = f"{_Q1} item 6e (the open-world service: --churn)"
 ITEM_PARALLEL = (f"{_Q1} item 7 (parallel/: sequence, tensor, pipeline "
                  f"and expert parallelism)")
 
@@ -94,7 +94,6 @@ ITEM_PARALLEL = (f"{_Q1} item 7 (parallel/: sequence, tensor, pipeline "
 UNPORTED = (
     ("--plan_error_budget", dict(type=float, default=0.05),
      ITEM_MULTI_2D),
-    ("--churn", dict(type=str, default=""), ITEM_SERVICE),
     ("--seq_parallel", dict(choices=["none", "ring", "ulysses"],
                             default="none"), ITEM_PARALLEL),
     ("--seq_devices", dict(type=int, default=2), ITEM_PARALLEL),
@@ -352,6 +351,15 @@ def build_parser(default_lr=None) -> argparse.ArgumentParser:
                         help="Max requeues per client per epoch for "
                              "dropped-client data before the drop is "
                              "abandoned (participation layer).")
+    parser.add_argument("--churn", type=str, default="",
+                        help="Seeded population-churn schedule "
+                             "'join=R,depart=R,init=F,seed=N,compact=N': "
+                             "R = expected clients per round (Poisson "
+                             "draws), init = fraction registered at "
+                             "round 0, compact = disk-tier hole count "
+                             "that triggers checkpoint-time row-store "
+                             "compaction. Empty = closed population "
+                             "(docs/service.md).")
     parser.add_argument("--async_buffer", type=int, default=0,
                         help="Buffered-asynchronous federation: fold a "
                              "server update whenever K contributions have "
@@ -595,9 +603,9 @@ def check_collectives(args) -> None:
 
 
 def check_participation(args) -> None:
-    """The JAX package's checks of the participation flags: ranges, and
-    the participation and fault specs parsed here, not rounds into a
-    run."""
+    """The JAX package's checks of the participation and churn flags:
+    ranges, and the participation, fault and churn specs parsed here, not
+    rounds into a run."""
     from commefficient_torch.federated.participation import (
         parse_client_fault,
         parse_participation,
@@ -634,6 +642,16 @@ def check_participation(args) -> None:
             print("NOTE: straggler late landings fold the TRANSMIT only — "
                   "per-client velocity/error/stale-weight state does not "
                   "advance for a straggler cohort")
+    churn_spec = (getattr(args, "churn", "") or "").strip()
+    if churn_spec:
+        from commefficient_torch.federated.participation import parse_churn
+
+        parse_churn(churn_spec)
+        assert args.train_dataloader_workers == 0, (
+            "--churn needs --train_dataloader_workers 0: the sampler "
+            "steps the churn clock in-order on the main thread, and a "
+            "prefetch thread would have drawn rounds past the churn "
+            "point (same constraint as --inject_client_fault)")
 
 
 def check_host_state(args) -> None:

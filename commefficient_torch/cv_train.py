@@ -66,6 +66,14 @@ snapshot after two consecutive trips and stops the run at
 ``--max_guard_trips``; ``--inject_fault ROUND:nan|inf`` poisons a round's
 transmit to exercise it.
 
+``--churn join=R,depart=R,init=F,seed=N,compact=N`` opens the client
+population (``federated/participation.attach_churn``): the sampler draws
+from the live clients only, the churn records and the end-of-run
+``churn_audit`` go to the event log, and an epoch that draws no cohort
+ends training. ``python -m commefficient_torch.scripts.supervise``
+restarts a crashed or hung run with ``--resume auto``, and ``python -m
+commefficient_torch.scripts.serve`` serves its newest checkpoint.
+
 On N GPUs, one process per GPU:
 
     torchrun --nproc_per_node N -m commefficient_torch.cv_train ... \
@@ -120,7 +128,9 @@ from commefficient_torch.federated.engine import (
 )
 from commefficient_torch.federated.losses import make_cv_losses
 from commefficient_torch.federated.participation import (
+    attach_churn,
     attach_participation,
+    audit_churn,
     expire_participation,
 )
 from commefficient_torch.models import ResNet9
@@ -271,6 +281,11 @@ def run_batches(model, opt, lr_scheduler, loader, training, epoch_fraction,
                 return np.nan, np.nan, np.nan, np.nan
         finally:
             prof.close()
+        if not losses and getattr(model, "_population", None) is not None:
+            # --churn's open-world end: the live population emptied before
+            # this epoch drew a cohort and no joiner can refill it, a clean
+            # end of training, not a NaN
+            return None, None, client_download, client_upload
         return (np.mean(losses), np.mean(accs), client_download,
                 client_upload)
     for batch in loader:
@@ -303,6 +318,10 @@ def train(model, opt, lr_scheduler, train_loader, test_loader, args,
             args, epoch=epoch,
             resume_mid=(resume_mid if epoch == start_epoch else None),
             totals=(total_download, total_upload))
+        if train_loss is None:
+            print("ending training: live population is empty with no "
+                  "pending joiners (--churn open-world end state)")
+            break
         if np.isnan(train_loss):
             print("TERMINATING TRAINING DUE TO NAN LOSS")
             return
@@ -516,6 +535,10 @@ def _main(args, group):
     # --async_buffer): the sampler's cohorts, faults, late landing
     pc = attach_participation(args, fed_model,
                               sampler=getattr(train_loader, "sampler", None))
+    # the open-world population (--churn): the sampler draws from the live
+    # population; the disk tier's rows follow it
+    pm = attach_churn(args, fed_model,
+                      sampler=getattr(train_loader, "sampler", None))
     lr_schedule = PiecewiseLinear([0, args.pivot_epoch, args.num_epochs],
                                   [0, args.lr_scale, 0])
     spe = train_loader.steps_per_epoch()
@@ -538,6 +561,7 @@ def _main(args, group):
                         resume_mid=resume_mid, writer=writer)
     finally:
         expire_participation(pc, rt)
+        audit_churn(pm, rt)
         close_run_telemetry(fed_model, rt)
         if writer is not None:
             writer.close()

@@ -1,6 +1,5 @@
 """FedSampler: random client sampling with per-client cursors, the port's
-own copy of ``commefficient_tpu/data_utils/fed_sampler.py`` (population
-churn, ROADMAP.md queue 1 item 6e, is not carried).
+own copy of ``commefficient_tpu/data_utils/fed_sampler.py``.
 
 Per epoch: shuffle within each client, then per step sample a cohort from
 the non-exhausted, non-quarantined set and take ``local_batch_size`` (or
@@ -22,6 +21,15 @@ The participation layer (``federated/participation.py``):
   rolls back), at most ``retry_limit`` times a client an epoch, after
   which the drop is abandoned.
 - ``quarantine`` excludes a client from all later draws of the run.
+
+Population churn (``--churn``, ``federated/participation.PopulationManager``):
+with ``_population`` set, each cohort draw steps the churn clock once and
+only the live population can be sampled; an empty live population with
+joiners still holding data spins the clock (at most ``MAX_IDLE_SPIN``
+rounds, then the run raises), and a cohort that churn leaves short of the
+participation target is clamped and counted. Churn draws from its own
+``RandomState``; the cohort draws keep the global stream, so a run without
+churn draws exactly as before.
 
 ``get_state`` / ``set_state`` are the checkpoint seam: the JAX keys
 ``permuted``, ``cursor``, ``retry`` and ``quarantined``; a state without
@@ -49,6 +57,8 @@ class FedSampler:
         n = int(dataset.num_clients)
         self._retry = np.zeros(n, np.int64)       # requeues this epoch
         self._quarantined = np.zeros(n, bool)      # excluded for the run
+        # the open-world population (PopulationManager); None: closed
+        self._population = None
         self.requeues = 0
         self.abandoned = 0
         self._permuted = None   # active epoch's within-client permutation
@@ -93,14 +103,40 @@ class FedSampler:
             # retry budgets are per epoch; quarantine lasts the run
             self._retry[:] = 0
         self._permuted, self._cursor = permuted, cursor
+        pop = self._population
         while True:
-            alive = np.where((cursor < data_per_client)
-                             & ~self._quarantined)[0]
+            has_data = (cursor < data_per_client) & ~self._quarantined
+            if pop is None:
+                alive = np.where(has_data)[0]
+            else:
+                # one churn step a cohort draw; only the live population
+                # can be sampled
+                pop.step()
+                alive = np.where(has_data & pop.live)[0]
+                spins = 0
+                while (len(alive) == 0
+                       and np.any(has_data & pop.joinable())):
+                    # empty for now, but joiners still hold data: spin the
+                    # churn clock, bounded so a bad schedule fails loudly
+                    spins += 1
+                    if spins > pop.MAX_IDLE_SPIN:
+                        raise RuntimeError(
+                            f"--churn: live population stayed empty for "
+                            f"{spins} churn rounds with joiners still "
+                            f"pending — join rate too low to ever refill "
+                            f"the pool?")
+                    pop.step(idle=True)
+                    alive = np.where(has_data & pop.live)[0]
             if len(alive) == 0:
                 return
             target = (self.num_workers if self.participation is None
                       else min(int(self.participation), self.num_workers))
             n = min(target, len(alive))
+            if (pop is not None and self.participation is not None
+                    and n < target and np.any(has_data & ~pop.live)):
+                # churn, not the epoch's end, left the pool short of the
+                # target: the cohort is clamped and the shortfall counted
+                pop.note_cohort_short(target, n)
             workers = self._draw_cohort(
                 alive, n, data_per_client[alive] - cursor[alive])
             remaining = data_per_client[workers] - cursor[workers]

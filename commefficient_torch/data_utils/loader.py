@@ -101,6 +101,16 @@ class FedLoader:
             return self.steps_per_epoch()
         return int(np.ceil(len(self.dataset) / self.val_batch_size))
 
+    def _pad_id(self, workers):
+        """Client id of a short cohort's padding slots: 0 for a closed
+        population (a masked slot scatters an exactly zero delta), a live
+        cohort member under ``--churn``, where client 0 may have no row in
+        the disk tier's directory."""
+        if getattr(self.sampler, "_population", None) is not None \
+                and len(workers):
+            return int(workers[0])
+        return 0
+
     def _fetch(self, idx_list):
         items = []
         for i in idx_list:
@@ -120,7 +130,7 @@ class FedLoader:
         W, B = self.num_workers, self.batch_pad
         for workers, idx_lists in self.sampler.iter_structured():
             n = len(workers)
-            client_ids = np.zeros(W, np.int32)
+            client_ids = np.full(W, self._pad_id(workers), np.int32)
             client_ids[:n] = workers
             worker_mask = np.zeros(W, np.float32)
             worker_mask[:n] = 1.0
@@ -195,7 +205,7 @@ class FedLoader:
         access = self.dataset.native_train_access()
         for workers, idx_lists in self.sampler.iter_structured():
             n = len(workers)
-            client_ids = np.zeros(W, np.int32)
+            client_ids = np.full(W, self._pad_id(workers), np.int32)
             client_ids[:n] = workers
             worker_mask = np.zeros(W, np.float32)
             worker_mask[:n] = 1.0

@@ -372,6 +372,11 @@ class FedModel:
         # the participation layer (participation.attach_participation);
         # None: every sampled client takes part on time
         self._participation = None
+        # the open-world population (participation.attach_churn): the
+        # sampler's live mask, the disk tier's row directory, the
+        # heartbeat's population= and the pop/* checkpoint keys; None: a
+        # closed population
+        self._population = None
         # an async buffered dispatch skips its server phase
         self._async_skip_server = False
         # the global dispatch counter (RoundHandle.round_no)
@@ -631,6 +636,14 @@ class FedModel:
             batch, late_batch, cohort_info = part.apply_faults(batch,
                                                                round_no)
             wmask = np.asarray(batch["worker_mask"])
+        pop = self._population
+        if pop is not None and self.telemetry is not None:
+            # the churn records the sampler buffered (churn_join,
+            # churn_depart, cohort_short), keyed to the round that sampled
+            # the changed population
+            for ev in pop.pop_events():
+                kind = ev.pop("kind")
+                self.telemetry.event(kind, round=round_no, **ev)
         live = wmask > 0
         if late_batch is not None:
             # stragglers download this round's model and upload a

@@ -19,7 +19,8 @@
 - ``--resume auto`` (``find_resume_checkpoint``) takes the newest run
   state that reads and checksums clean, skipping corrupt candidates and
   never a ``.tmp.npz``; ``--keep_checkpoints N`` prunes
-  (``prune_run_states``).
+  (``prune_run_states``), never a file that a ``*.pin`` lease names
+  (``pinned_run_states``: a serving replica's, ``federated/serving.py``).
 
 The run state holds the state the port has: ``ps_weights``,
 ``client/{velocities,errors,weights}``, ``model_state/*``,
@@ -31,10 +32,14 @@ ledgers, each pending straggler's and buffered async contribution's held
 sum; under ``--server_shard`` the held partial sums are gathered to the
 JAX package's ``(n, ...)`` stack and each rank takes its own back, so
 held sums restore on the plane and group size that saved them), the
-sampler's ``retry`` / ``quarantined`` with a mid-epoch position, and the
+sampler's ``retry`` / ``quarantined`` with a mid-epoch position, the
+churn layer's masks and RNG (``pop/*`` and meta ``population``; on the
+disk tier the row directory rides the ``.rows`` snapshot's meta, and the
+save flushes retired rows and compacts before the snapshot), and the
 meta. A run state with participation state loaded into a run without the
 layer warns and ignores it; a fault run resumed from a state without it
-warns and starts the schedule from its seed. Over a client group every
+warns and starts the schedule from its seed; churn state mismatches
+warn the same way. Over a client group every
 rank joins the save and rank 0 writes: the sharded server's dense velocity and error are
 all-gathered to the full ``(d,)`` view, and the quantized collectives'
 carries to the JAX package's global layouts (``server/qres`` stacked
@@ -47,9 +52,9 @@ the port's own key, ``torch_rng/state``: the JAX package's ``rng`` holds
 JAX key data, which a JAX file's restore in the port ignores (and refuses
 under ``--dp``, whose noise streams differ); the JAX package's restore
 reads ``rng``, so it does not restore a port run state. A file that
-carries a plane the port does not have (``pop/*``, the per-axis
-``server/qres.*`` / ``server/dres.*``) raises ``NotImplementedError``
-naming its ROADMAP item.
+carries a plane the port does not have (the per-axis ``server/qres.*`` /
+``server/dres.*``) raises ``NotImplementedError`` naming its ROADMAP
+item.
 
 Client rows follow their tier (``federated/host_state.py``). The ``hbm``
 and ``host`` tiers store ``client/*`` in the archive (the host tier after
@@ -79,17 +84,13 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from commefficient_torch.config import ITEM_MULTI_2D, ITEM_SERVICE
+from commefficient_torch.config import ITEM_MULTI_2D
 
 # run-state planes of the JAX package that the port does not have yet,
 # with the ROADMAP item that ports each
 _UNPORTED_PLANES = (
-    ("pop/", ITEM_SERVICE),
     ("server/qres.", ITEM_MULTI_2D),
     ("server/dres.", ITEM_MULTI_2D),
-)
-_UNPORTED_META = (
-    ("population", ITEM_SERVICE),
 )
 
 
@@ -283,6 +284,12 @@ def save_run_state(path: str, fed_model, optimizer, lr_scheduler,
             held = _host
         p_arrays, meta_participation = part.state_payload(held)
         arrays.update({"part/" + k: v for k, v in p_arrays.items()})
+    # the churn layer's masks and RNG; a run without churn writes no pop/*
+    pop = getattr(fm, "_population", None)
+    meta_population = None
+    if pop is not None:
+        pop_arrays, meta_population = pop.state_payload()
+        arrays.update({"pop/" + k: v for k, v in pop_arrays.items()})
     if fm._simple_download:
         arrays["acct/updated_since_init"] = canon(fm._updated_since_init)
     else:
@@ -306,6 +313,8 @@ def save_run_state(path: str, fed_model, optimizer, lr_scheduler,
     }
     if meta_participation is not None:
         meta["participation"] = meta_participation
+    if meta_population is not None:
+        meta["population"] = meta_population
     if mid_epoch is not None:
         sampler = mid_epoch.get("sampler")
         assert sampler is not None, (
@@ -353,6 +362,14 @@ def _save_row_snapshot(path: str, store, arrays, meta: dict,
     """The disk tier's part of a run state (module docstring). ``write``
     is rank 0's: the other ranks hold the same rows and only drain."""
     stem = path[:-len(".npz")]
+    if store.directory is not None:
+        # the save is the drain barrier the row lifecycle needs: retired
+        # rows zero and become holes, and a compaction (at the hole
+        # threshold) packs the files, so this snapshot records the packed
+        # layout and its directory together. Every rank keeps its store
+        # in step.
+        store.flush_retired()
+        store.maybe_compact()
     if write:
         tmp_rows = stem + ".tmp.rows"
         if os.path.isdir(tmp_rows):
@@ -457,12 +474,44 @@ def _run_state_files(checkpoint_path: str):
     return sorted(cands, key=key, reverse=True)
 
 
+def pinned_run_states(checkpoint_path: str) -> set:
+    """The run states a reader pins (absolute paths): each ``*.pin`` file
+    in the directory is a JSON lease ``{"paths": [...], "owner": ...}``,
+    written atomically by a serving replica and removed when it releases.
+    An unreadable lease pins nothing and is reported."""
+    pinned = set()
+    try:
+        names = os.listdir(checkpoint_path)
+    except OSError:
+        return pinned
+    for n in names:
+        if not n.endswith(".pin"):
+            continue
+        fn = os.path.join(checkpoint_path, n)
+        try:
+            with open(fn) as f:
+                lease = json.load(f)
+            for p in lease.get("paths", []):
+                if not os.path.isabs(p):
+                    p = os.path.join(checkpoint_path, p)
+                pinned.add(os.path.abspath(p))
+        except (OSError, ValueError) as e:
+            print(f"ignoring unreadable pin file {fn}: {e}")
+    return pinned
+
+
 def prune_run_states(checkpoint_path: str, keep: int) -> None:
     """``--keep_checkpoints N``: drop all but the newest N run-state files
-    (``keep`` <= 0 keeps everything, the default)."""
+    (``keep`` <= 0 keeps everything, the default). A run state that a
+    ``*.pin`` lease names is never deleted and does not count against
+    ``keep``."""
     if not keep or keep <= 0:
         return
+    pinned = pinned_run_states(checkpoint_path)
     for path in _run_state_files(checkpoint_path)[keep:]:
+        if os.path.abspath(path) in pinned:
+            print(f"keeping pinned run state {path} (serving lease)")
+            continue
         try:
             os.remove(path)
             # a disk-tier run state's row snapshot lives beside it
@@ -504,14 +553,24 @@ def _verify_row_snapshot(path: str, meta: dict) -> None:
 
 
 def find_resume_checkpoint(checkpoint_path: str,
-                           return_contents: bool = False):
+                           return_contents: bool = False, exclude=()):
     """``--resume auto``: the newest run state under ``checkpoint_path``
     that reads and checksums clean, its ``.rows`` snapshot included;
     corrupt or truncated candidates are reported and skipped. None when
-    nothing valid exists.
+    nothing valid exists. ``exclude`` and the ``os.pathsep``-joined
+    ``COMMEFFICIENT_RESUME_EXCLUDE`` name candidates to skip whatever
+    their validity: the supervisor's poison-checkpoint seam
+    (``commefficient_torch/scripts/supervise.py``).
     ``return_contents=True`` returns ``(path, (flat, meta))`` for
     ``load_run_state(preloaded=...)``, so the file is read once."""
+    excluded = {os.path.abspath(p) for p in exclude}
+    env = os.environ.get("COMMEFFICIENT_RESUME_EXCLUDE", "")
+    excluded |= {os.path.abspath(p) for p in env.split(os.pathsep) if p}
     for path in _run_state_files(checkpoint_path):
+        if os.path.abspath(path) in excluded:
+            print(f"--resume auto: skipping {path}: excluded "
+                  f"(poison-checkpoint list)")
+            continue
         try:
             flat = _read_npz(path)
             meta = json.loads(bytes(flat.pop("meta_json")).decode())
@@ -536,11 +595,6 @@ def _reject_unported(flat: Dict[str, np.ndarray], meta: dict) -> None:
             raise NotImplementedError(
                 f"the run state carries {keys[0]!r}, a plane the port does "
                 f"not have yet ({item})")
-    for name, item in _UNPORTED_META:
-        if meta.get(name) is not None:
-            raise NotImplementedError(
-                f"the run state carries {name!r} state, which the port "
-                f"does not have yet ({item})")
 
 
 def load_run_state(path: str, fed_model, optimizer, lr_scheduler,
@@ -745,6 +799,7 @@ def load_run_state(path: str, fed_model, optimizer, lr_scheduler,
         fm._drop_rng.set_state(("MT19937", flat["drop_rng/keys"], d_pos,
                                 d_gauss, float(flat["drop_rng/cached"][0])))
     _restore_participation(fm, flat, meta, group)
+    _restore_population(fm, flat, meta)
     if fm._simple_download:
         fm._updated_since_init = resident(flat["acct/updated_since_init"])
     else:
@@ -789,6 +844,30 @@ def _restore_io(store, flat, meta) -> None:
     if "io/row_fails" in io_flat:
         store._row_fails = {int(r): int(c)
                             for r, c in io_flat["io/row_fails"]}
+
+
+def _restore_population(fm, flat, meta) -> None:
+    """The churn layer's ``pop/*`` and meta ``population``; the row
+    directory has restored with the ``.rows`` snapshot, and the manager
+    checks the two agree. A mismatch between the file and the run warns,
+    as in the JAX package (on the disk tier the snapshot's restore has
+    already refused a missing or unexpected directory)."""
+    import warnings
+
+    pop = getattr(fm, "_population", None)
+    pop_flat = {k[len("pop/"):]: flat.pop(k) for k in list(flat)
+                if k.startswith("pop/")}
+    if meta.get("population") is not None:
+        if pop is not None:
+            pop.restore_state(pop_flat, meta["population"])
+        else:
+            warnings.warn(
+                "checkpoint carries population-churn state but this run "
+                "has no --churn; the closed-population run ignores it")
+    elif pop is not None:
+        warnings.warn(
+            "this run churns the population but the checkpoint predates "
+            "the churn layer; the churn schedule restarts from its seed")
 
 
 def _restore_participation(fm, flat, meta, group) -> None:

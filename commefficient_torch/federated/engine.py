@@ -185,10 +185,13 @@ class PipelinedRoundEngine:
                     buf = len(part.buffer)
                     stale = part.oldest_age(getattr(
                         self.model, "rounds_dispatched", self._next_index))
+                # --churn: the live population (absent for a closed one)
+                pop = getattr(self.model, "_population", None)
                 self.heartbeat.round(
                     rn, loss=float(np.mean(loss)) if np.size(loss) else None,
                     guard_ok=getattr(self.model, "last_guard_ok", None),
-                    buffer=buf, stale=stale)
+                    buffer=buf, stale=stale,
+                    population=pop.population if pop is not None else None)
             now = time.monotonic()
             if self.telemetry is not None:
                 self.telemetry.on_drained(rn, now - t_last)

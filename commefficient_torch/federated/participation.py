@@ -1,7 +1,8 @@
 """Client participation, stragglers and async buffered federation: the
 port of ``commefficient_tpu/federated/participation.py`` (its lines up to
-``attach_participation``; population churn, ``--churn``, is ROADMAP
-queue 1 item 6e and stays unported).
+``attach_participation``, and the open-world population churn of
+``--churn``: ``ChurnSchedule``, ``parse_churn``, ``PopulationManager`` and
+``attach_churn``).
 
 Three mechanisms, as in the JAX package:
 
@@ -41,6 +42,16 @@ error and stale-weight rows do not advance for a straggler cohort (their
 slots are masked at dispatch, so the scatter leaves their rows as they
 were). The same holds for buffered async dispatches.
 
+5. **Population churn** (``--churn``): seeded Poisson joins and
+   departures decide which of the dataset's clients can be sampled in
+   which round. A departed client is never sampled again; a joiner
+   registers at churn round r and can be sampled from round r + 1. The
+   ``PopulationManager`` is stepped once a cohort draw by the sampler, on
+   its own ``RandomState``; on the disk tier it drives the store's
+   ``RowDirectory`` (joiners get rows, reusing retired ones; departed
+   clients' rows retire at the next drain barrier; checkpoints compact).
+   It is host numpy only.
+
 The fold helpers are plain PyTorch on tensors already on the device; the
 weights and counts enter as Python floats (float32 values computed on the
 host, as the JAX package computes them) or 0-d device tensors, and none
@@ -63,11 +74,16 @@ import torch
 __all__ = [
     "SAMPLING_CHOICES",
     "AsyncContribution",
+    "ChurnSchedule",
     "FaultSchedule",
     "LateCohort",
     "ParticipationController",
+    "PopulationManager",
+    "attach_churn",
     "attach_participation",
+    "audit_churn",
     "expire_participation",
+    "parse_churn",
     "parse_client_fault",
     "parse_participation",
     "staleness_weight",
@@ -729,3 +745,342 @@ def expire_participation(pc, rt) -> None:
     a_expired = pc.expire_buffer() if pc.async_k else 0
     if a_expired and rt is not None:
         rt.event("async_expired", count=a_expired)
+
+
+# -- open-world population churn (--churn) -----------------------------------
+
+
+@dataclass(frozen=True)
+class ChurnSchedule:
+    """Seeded population-churn schedule (``--churn``).
+
+    ``join`` / ``depart`` are the expected clients a round: each round
+    draws the counts from Poisson(rate) on the schedule's own
+    ``RandomState``, so the trajectory depends on ``seed`` alone. ``init``
+    is the fraction of the clients registered before round 0 (the rest
+    form the join pool). ``compact`` is the disk tier's hole threshold: at
+    that many retired rows the next checkpoint compacts the row store (0:
+    never)."""
+
+    join: float = 0.0
+    depart: float = 0.0
+    init: float = 1.0
+    seed: int = 0
+    compact: int = 0
+
+    @property
+    def active(self) -> bool:
+        return bool(self.join or self.depart or self.init < 1.0)
+
+    def spec(self) -> str:
+        return (f"join={self.join:g},depart={self.depart:g},"
+                f"init={self.init:g},seed={self.seed},"
+                f"compact={self.compact}")
+
+
+def parse_churn(spec: str) -> ChurnSchedule:
+    """``--churn`` grammar: ``join=R,depart=R,init=F,seed=N,compact=N``,
+    every key optional. The schedule must churn something (join or depart
+    > 0, or init < 1), and a population that starts empty needs a join
+    rate. Fails at parse time, naming the bad entry."""
+    fields: Dict[str, Any] = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            key, val = (x.strip() for x in part.split("="))
+        except ValueError:
+            raise ValueError(
+                f"--churn: bad entry {part!r}; expected KEY=VALUE with "
+                f"KEY in join|depart|init|seed|compact") from None
+        if key in ("join", "depart"):
+            r = float(val)
+            assert r >= 0.0, f"--churn: {key}={val} must be >= 0"
+            fields[key] = r
+        elif key == "init":
+            f = float(val)
+            assert 0.0 <= f <= 1.0, (
+                f"--churn: init={val} must be in [0, 1]")
+            fields[key] = f
+        elif key in ("seed", "compact"):
+            fields[key] = int(val)
+        else:
+            raise ValueError(
+                f"--churn: unknown key {key!r}; use "
+                f"join|depart|init|seed|compact")
+    sched = ChurnSchedule(**fields)
+    assert sched.active, (
+        "--churn: schedule churns nothing (join=0, depart=0, init=1); "
+        "omit the flag for a closed population")
+    assert sched.compact >= 0, "--churn: compact must be >= 0"
+    assert sched.init > 0.0 or sched.join > 0.0, (
+        "--churn: init=0 with join=0 is a forever-empty population")
+    return sched
+
+
+class PopulationManager:
+    """Who is registered, live and departed, and on the disk tier which
+    backing-file row each live client owns (``host_state.RowDirectory``).
+    ``FedSampler`` steps it once a cohort draw, on the main thread and in
+    order (``--train_dataloader_workers 0``), so the timeline is
+    deterministic and rides checkpoints exactly (``pop/*``)."""
+
+    # an empty live population waits for joiners at most this many churn
+    # rounds; then the run fails instead of spinning on a bad schedule
+    MAX_IDLE_SPIN = 100_000
+
+    def __init__(self, schedule: ChurnSchedule, num_clients: int,
+                 store=None, sampler=None):
+        self.schedule = schedule
+        self.num_clients = int(num_clients)
+        self.sampler = sampler
+        self.rng = np.random.RandomState(schedule.seed)
+        self.registered = np.zeros(self.num_clients, bool)
+        self.departed = np.zeros(self.num_clients, bool)
+        # live: sampleable now; a joiner is registered a round before it
+        # enters the pool
+        self.live = np.zeros(self.num_clients, bool)
+        self._pending_join = np.array([], np.int64)
+        self.round = 0          # churn rounds stepped (its own clock)
+        self.joins = 0          # registrations after round 0
+        self.departs = 0
+        self.cohort_short = 0   # rounds the live pool undershot the target
+        self.idle_rounds = 0    # rounds spent waiting on an empty pool
+        self._events: List[dict] = []
+        self.store = store
+        self.directory = None
+        if store is not None:
+            from commefficient_torch.federated.host_state import RowDirectory
+
+            d = RowDirectory(capacity=store.num_rows,
+                             compact_after=schedule.compact)
+            store.attach_directory(d)
+            self.directory = d
+        # the initial population: a seeded uniform subset, sampleable at
+        # once (rows allocated in ascending id order)
+        if schedule.init >= 1.0:
+            first = np.arange(self.num_clients, dtype=np.int64)
+        else:
+            n0 = int(round(schedule.init * self.num_clients))
+            first = (np.sort(self.rng.choice(self.num_clients, size=n0,
+                                             replace=False)).astype(np.int64)
+                     if n0 > 0 else np.array([], np.int64))
+        self.initial = int(len(first))
+        self.registered[first] = True
+        self.live[first] = True
+        if self.directory is not None:
+            for c in first:
+                self.directory.allocate(int(c))
+
+    # -- the churn clock ---------------------------------------------------
+
+    @property
+    def population(self) -> int:
+        """Registered and not departed (live plus pending joiners): the
+        heartbeat's ``population=``."""
+        return int(self.registered.sum() - self.departed.sum())
+
+    def joinable(self) -> np.ndarray:
+        """Clients that can still enter the pool: the pending joiners and,
+        when the schedule joins at all, the never registered."""
+        mask = np.zeros(self.num_clients, bool)
+        mask[self._pending_join] = True
+        if self.schedule.join > 0:
+            mask |= ~self.registered
+        return mask
+
+    def step(self, idle: bool = False) -> None:
+        """One churn round: last round's joiners go live, then this round's
+        departures and registrations are drawn. ``idle`` marks a round the
+        sampler spent waiting on an empty pool."""
+        self.round += 1
+        if idle:
+            self.idle_rounds += 1
+        if len(self._pending_join):
+            self.live[self._pending_join] = True
+            self._pending_join = np.array([], np.int64)
+        sch = self.schedule
+        if sch.depart > 0:
+            pool = np.where(self.live)[0]
+            n = min(int(self.rng.poisson(sch.depart)), len(pool))
+            if n:
+                gone = np.sort(self.rng.choice(pool, size=n, replace=False))
+                self.live[gone] = False
+                self.departed[gone] = True
+                self.departs += n
+                if self.directory is not None:
+                    # the mapping dies now; the row retires at the next
+                    # drain barrier (MemmapRowStore.flush_retired), so an
+                    # in-flight straggler's scatter still lands on it
+                    for c in gone:
+                        self.directory.retire(int(c))
+                self._events.append({
+                    "kind": "churn_depart", "churn_round": self.round,
+                    "clients": [int(c) for c in gone],
+                    "population": self.population})
+        if sch.join > 0:
+            pool = np.where(~self.registered)[0]
+            n = min(int(self.rng.poisson(sch.join)), len(pool))
+            if n:
+                new = np.sort(self.rng.choice(pool, size=n, replace=False))
+                self.registered[new] = True
+                self.joins += n
+                if self.directory is not None:
+                    # the row is allocated at registration (perhaps a
+                    # zeroed hole: a zero row is a fresh client's state)
+                    for c in new:
+                        self.directory.allocate(int(c))
+                self._pending_join = new
+                self._events.append({
+                    "kind": "churn_join", "churn_round": self.round,
+                    "clients": [int(c) for c in new],
+                    "population": self.population})
+
+    def note_cohort_short(self, target: int, got: int) -> None:
+        """Churn left the live pool below the participation target: the
+        cohort is clamped (the data-weighted mean makes it exact) and the
+        shortfall counted."""
+        self.cohort_short += 1
+        self._events.append({"kind": "cohort_short", "target": int(target),
+                             "got": int(got),
+                             "population": self.population})
+
+    def pop_events(self) -> List[dict]:
+        """The buffered churn records (the model relays them to telemetry
+        with its round number)."""
+        out, self._events = self._events, []
+        return out
+
+    # -- the conservation audit --------------------------------------------
+
+    def audit(self) -> Dict[str, Any]:
+        """End-of-run audit: every client that ever registered is exactly
+        one of active, departed or quarantined; ``ok`` also checks the
+        masks against the running counters."""
+        registered = int(self.registered.sum())
+        departed = int(self.departed.sum())
+        live_now = self.live.copy()
+        live_now[self._pending_join] = True
+        q_mask = np.zeros(self.num_clients, bool)
+        if self.sampler is not None:
+            q_mask = np.asarray(self.sampler._quarantined, bool)
+        quarantined = int(np.count_nonzero(
+            q_mask & self.registered & ~self.departed))
+        active = int(np.count_nonzero(live_now & ~q_mask))
+        ok = (registered == active + departed + quarantined
+              and registered == self.initial + self.joins
+              and departed == self.departs)
+        out = {"registered": registered, "active": active,
+               "departed": departed, "quarantined": quarantined,
+               "ok": bool(ok), "initial": self.initial,
+               "joins": self.joins, "departs": self.departs,
+               "cohort_short": self.cohort_short,
+               "idle_rounds": self.idle_rounds,
+               "churn_rounds": self.round}
+        if self.directory is not None:
+            out["rows_live"] = self.directory.live_count
+            out["rows_holes"] = self.directory.holes()
+            out["compactions"] = self.directory.compactions
+        return out
+
+    # -- the checkpoint seam (pop/* keys) ----------------------------------
+
+    def state_payload(self) -> Tuple[Dict[str, np.ndarray], dict]:
+        arrays = {
+            "registered": self.registered.copy(),
+            "departed": self.departed.copy(),
+            "live": self.live.copy(),
+            "pending_join": np.asarray(self._pending_join, np.int64),
+        }
+        _, keys, pos, has_gauss, cached = self.rng.get_state()
+        arrays["rng_keys"] = keys
+        arrays["rng_meta"] = np.asarray([pos, has_gauss], np.int64)
+        arrays["rng_cached"] = np.asarray([cached], np.float64)
+        meta = {"spec": self.schedule.spec(), "round": self.round,
+                "initial": self.initial, "joins": self.joins,
+                "departs": self.departs,
+                "cohort_short": self.cohort_short,
+                "idle_rounds": self.idle_rounds}
+        return arrays, meta
+
+    def restore_state(self, arrays: Dict[str, np.ndarray],
+                      meta: dict) -> None:
+        """Inverse of ``state_payload``. The directory restores from the
+        ``.rows`` snapshot; the two are checked against each other, since
+        the ``.npz`` and the ``.rows`` land by separate renames."""
+        if meta.get("spec") != self.schedule.spec():
+            warnings.warn(
+                f"--churn spec changed across resume "
+                f"({meta.get('spec')!r} -> {self.schedule.spec()!r}); "
+                f"the churn timeline continues under the new schedule")
+        self.registered = np.asarray(arrays["registered"], bool).copy()
+        self.departed = np.asarray(arrays["departed"], bool).copy()
+        self.live = np.asarray(arrays["live"], bool).copy()
+        self._pending_join = np.asarray(arrays["pending_join"],
+                                        np.int64).copy()
+        pos, has_gauss = (int(x) for x in arrays["rng_meta"])
+        self.rng.set_state(("MT19937", arrays["rng_keys"], pos, has_gauss,
+                            float(arrays["rng_cached"][0])))
+        self.round = int(meta.get("round", 0))
+        self.initial = int(meta.get("initial", 0))
+        self.joins = int(meta.get("joins", 0))
+        self.departs = int(meta.get("departs", 0))
+        self.cohort_short = int(meta.get("cohort_short", 0))
+        self.idle_rounds = int(meta.get("idle_rounds", 0))
+        if self.directory is not None:
+            self.check_directory()
+
+    def check_directory(self) -> None:
+        """The directory holds a row for exactly the registered, not
+        departed clients."""
+        have = np.zeros(self.num_clients, bool)
+        for c in self.directory.client_ids():
+            have[c] = True
+        expect = self.registered & ~self.departed
+        assert np.array_equal(have, expect), (
+            "client directory and population masks disagree after "
+            "restore — the .rows snapshot and the run-state .npz are "
+            "from different saves; fall back to an older checkpoint")
+
+
+def attach_churn(args, fed_model, sampler):
+    """Entry-point hook (after ``attach_participation``): parse
+    ``--churn``, build the ``PopulationManager`` over the sampler's
+    clients, attach the disk tier's row directory where there is one, and
+    set it on the model (heartbeat, checkpoint, audit) and the sampler
+    (the churn clock). Returns it, or None without the flag (the sampler's
+    closed-population path)."""
+    spec = (getattr(args, "churn", "") or "").strip()
+    if not spec:
+        return None
+    assert sampler is not None, (
+        "--churn needs the federated sampler (does this loader build "
+        "one?) — the sampler steps the churn clock")
+    schedule = parse_churn(spec)
+    pm = PopulationManager(
+        schedule, num_clients=int(sampler.dataset.num_clients),
+        store=getattr(fed_model, "_row_store", None), sampler=sampler)
+    fed_model._population = pm
+    sampler._population = pm
+    tier = ("disk row directory" if pm.directory is not None
+            else "mask-only (id==row on this state tier)")
+    print(f"churn layer: {schedule.spec()} over "
+          f"{pm.num_clients} potential clients, "
+          f"{pm.population} registered at round 0; {tier}")
+    return pm
+
+
+def audit_churn(pm, rt) -> None:
+    """The end-of-run churn audit: the records drawn after the last
+    dispatched round (no ``begin_round`` left to relay them) are flushed,
+    then ``churn_audit`` is written; a failed audit is printed."""
+    if pm is None:
+        return
+    audit = pm.audit()
+    if rt is not None:
+        for ev in pm.pop_events():
+            rt.event(ev.pop("kind"), **ev)
+        rt.event("churn_audit", **audit)
+    if not audit["ok"]:
+        print(f"CHURN AUDIT FAILED: {audit}")

@@ -83,7 +83,9 @@ from commefficient_torch.federated.engine import (
 )
 from commefficient_torch.federated.losses import make_gpt2_losses
 from commefficient_torch.federated.participation import (
+    attach_churn,
     attach_participation,
+    audit_churn,
     expire_participation,
 )
 from commefficient_torch.models.gpt2 import (
@@ -287,6 +289,10 @@ def run_batches(model, opt, lr_scheduler, loader, args, timer, training,
         consume(engine.drain())
     finally:
         prof.close()
+    if not losses and getattr(model, "_population", None) is not None:
+        # --churn's open-world end: the live population emptied before this
+        # epoch drew a cohort and no joiner can refill it
+        return None, client_download, client_upload
     return np.mean(losses), client_download, client_upload
 
 
@@ -310,11 +316,15 @@ def train_gpt2(model, opt, scheduler, train_loader, val_loader, args,
             epoch_fraction = args.num_epochs - epoch
         else:
             epoch_fraction = 1
-        _, download, upload = run_batches(
+        train_loss, download, upload = run_batches(
             model, opt, scheduler, train_loader, args, timer, training=True,
             epoch=epoch, epoch_fraction=epoch_fraction, logger=logger,
             resume_mid=(resume_mid if epoch == start_epoch else None),
             totals=(total_download, total_upload))
+        if train_loss is None:
+            print("ending training: live population is empty with no "
+                  "pending joiners (--churn open-world end state)")
+            break
         if epoch == 0:
             # download tracking is valid in epoch 1 only (the reference's)
             total_download += download.sum() / (1024 * 1024)
@@ -399,6 +409,9 @@ def _train(args, group):
     # --async_buffer): the sampler's cohorts, faults, late landing
     pc = attach_participation(args, fed_model,
                               sampler=getattr(train_loader, "sampler", None))
+    # the open-world population (--churn)
+    pm = attach_churn(args, fed_model,
+                      sampler=getattr(train_loader, "sampler", None))
     # the telemetry plane (on by default): <log_dir>/telemetry.jsonl
     rt = attach_run_telemetry(args, fed_model, log_dir, "gpt2_train")
     start_epoch, totals, resume_mid = resume_run(args, fed_model, opt,
@@ -416,6 +429,7 @@ def _train(args, group):
                            totals=totals, resume_mid=resume_mid)
     finally:
         expire_participation(pc, rt)
+        audit_churn(pm, rt)
         close_run_telemetry(fed_model, rt)
         fed_model.finalize()
     return stats

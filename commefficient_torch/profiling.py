@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import re
 import sys
 import threading
 
@@ -36,7 +37,7 @@ import numpy as np
 import torch
 
 __all__ = ["materialize", "SyncCounter", "host_sync_monitor", "Heartbeat",
-           "annotate", "parse_trace_rounds", "RoundTracer", "StepProfiler",
+           "HEARTBEAT_RE", "parse_heartbeat", "annotate", "parse_trace_rounds", "RoundTracer", "StepProfiler",
            "offpath_fetches"]
 
 
@@ -115,13 +116,55 @@ def host_sync_monitor(strict: bool = False):
             _active.remove(counter)
 
 
+# the heartbeat line's one format: Heartbeat.round writes it and
+# parse_heartbeat reads it (the supervisor and the crash matrix key on it);
+# the optional fields follow the leading round=N
+HEARTBEAT_RE = re.compile(
+    r"HEARTBEAT round=(\d+)"
+    r"(?: epoch=(\d+))?"
+    r"(?: loss=(\S+))?"
+    r"(?: guard=(ok|TRIP))?"
+    r"(?: buf=(\d+))?"
+    r"(?: stale=(\d+))?"
+    r"(?: population=(\d+))?"
+    r"(?: serve_lag=(\d+))?")
+
+
+def parse_heartbeat(line: str):
+    """One ``Heartbeat.round`` line -> ``{"round": int}`` plus the optional
+    fields it carried (``epoch``, ``loss``, ``guard_ok``, ``buf``,
+    ``stale``, ``population``, ``serve_lag``); None for any other line."""
+    m = HEARTBEAT_RE.match(line.strip())
+    if m is None:
+        return None
+    out = {"round": int(m.group(1))}
+    if m.group(2) is not None:
+        out["epoch"] = int(m.group(2))
+    if m.group(3) is not None:
+        try:
+            out["loss"] = float(m.group(3))
+        except ValueError:
+            pass
+    if m.group(4) is not None:
+        out["guard_ok"] = m.group(4) == "ok"
+    if m.group(5) is not None:
+        out["buf"] = int(m.group(5))
+    if m.group(6) is not None:
+        out["stale"] = int(m.group(6))
+    if m.group(7) is not None:
+        out["population"] = int(m.group(7))
+    if m.group(8) is not None:
+        out["serve_lag"] = int(m.group(8))
+    return out
+
+
 class Heartbeat:
     """Per-round liveness lines for an external supervisor: armed by
     ``COMMEFFICIENT_HEARTBEAT=1`` (or ``enabled=True``), each drained
     round prints ``HEARTBEAT round=N [epoch=E] [loss=X] [guard=ok|TRIP]
-    [buf=B] [stale=S]``
-    to stderr, flushed: the JAX package's format, which its
-    ``parse_heartbeat`` reads. The round index is the model's global
+    [buf=B] [stale=S] [population=P] [serve_lag=L]``
+    to stderr, flushed: the JAX package's format; ``parse_heartbeat``
+    here and the JAX package's read it. The round index is the model's global
     dispatch counter (``RoundHandle.round_no``). A no-op when disarmed
     (the default)."""
 
@@ -134,11 +177,15 @@ class Heartbeat:
               loss: float | None = None,
               guard_ok: bool | None = None,
               buffer: int | None = None,
-              stale: int | None = None) -> None:
+              stale: int | None = None,
+              population: int | None = None,
+              serve_lag: int | None = None) -> None:
         """``buffer`` / ``stale`` (``--async_buffer``): the depth of the
         landed, unfolded buffer and the dispatch age of the oldest
         unfolded contribution, so a buffer that never folds shows on the
-        line."""
+        line. ``population`` (``--churn``) is the live population;
+        ``serve_lag`` (a serving replica's line) is the newest available
+        minus the served model version."""
         if not self.enabled:
             return
         line = f"HEARTBEAT round={index}"
@@ -152,6 +199,10 @@ class Heartbeat:
             line += f" buf={int(buffer)}"
         if stale is not None:
             line += f" stale={int(stale)}"
+        if population is not None:
+            line += f" population={int(population)}"
+        if serve_lag is not None:
+            line += f" serve_lag={int(serve_lag)}"
         print(line, file=sys.stderr, flush=True)
 
 

@@ -733,10 +733,8 @@ def attach_run_telemetry(args, fed_model, log_dir: str,
         "backend": fed_model.device.type,
         "ledger": ledger,
     }
-    # the participation layer's config (the fault schedule is seeded, so
-    # spec and seed are the schedule); churn is not ported (ROADMAP
-    # queue 1 item 6e) and writes its field as the JAX package does with
-    # churn off
+    # the participation layer's config and the churn schedule (both are
+    # seeded, so spec and seed are the whole trajectory)
     run_info["participation"] = (getattr(args, "participation", "")
                                  or "1.0")
     run_info["participation_sampling"] = getattr(
@@ -757,7 +755,17 @@ def attach_run_telemetry(args, fed_model, log_dir: str,
             "quarantine_after": sched.quarantine_after}
     else:
         run_info["client_fault"] = None
-    run_info["churn"] = None
+    churn_spec = (getattr(args, "churn", "") or "").strip()
+    if churn_spec:
+        from commefficient_torch.federated.participation import parse_churn
+
+        csched = parse_churn(churn_spec)
+        run_info["churn"] = {
+            "spec": csched.spec(), "join": csched.join,
+            "depart": csched.depart, "init": csched.init,
+            "seed": csched.seed, "compact": csched.compact}
+    else:
+        run_info["churn"] = None
     async_k = int(getattr(args, "async_buffer", 0) or 0)
     run_info["async"] = ({"buffer": async_k,
                           "staleness_decay": float(

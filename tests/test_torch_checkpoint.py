@@ -374,7 +374,8 @@ def _fault(case, src, tmp):
     elif case == "tmp":
         shutil.copy(src, os.path.join(tmp, "run_state_ep1_r6.tmp.npz"))
     elif case == "unported":
-        flat["pop/live"] = np.zeros(3, bool)
+        # 5a's per-axis carry (pop/* is ported: the churn layer)
+        flat["server/qres.clients"] = np.zeros(3, np.float32)
         meta["checksum"] = tck._content_checksum(flat)
         _write(good, flat, meta)
     elif case == "dropout":
@@ -433,7 +434,7 @@ def test_faults(runs, case, tmp_path, capsys):
         np.testing.assert_array_equal(_flat(fm2), w0)  # nothing restored
     elif case == "unported":
         with pytest.raises(NotImplementedError,
-                           match="pop/live.*item 6e"):
+                           match="server/qres.clients.*item 5a"):
             tck.load_run_state(good, fm, opt, sched)
     elif case == "dropout":
         # the drawn --client_dropout stream restores, and the next draw is

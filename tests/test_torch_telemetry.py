@@ -467,7 +467,7 @@ def test_cv_train_log_renders_with_obs_report(tmp_path):
 # flags still unported -> the item their NotImplementedError names
 UNPORTED_ITEMS = {
     "--plan_error_budget": "item 5a", "--shard_devices": "item 5a",
-    "--churn": "item 6e", "--seq_parallel": "item 7",
+    "--seq_parallel": "item 7",
     "--seq_devices": "item 7", "--model_devices": "item 7",
     "--pipeline_devices": "item 7", "--pp_microbatches": "item 7",
     "--n_experts": "item 7", "--expert_devices": "item 7",
