@@ -192,7 +192,7 @@ Phases (any failure exits non-zero; nothing is caught):
    ``telemetry.jsonl`` read back with ``read_events`` holds the trip and
    ``trace_captured``, and ``trace_round_000002/trace.json`` exists; (6)
    rounds/sec with telemetry on against ``--no_telemetry`` and guards on
-   against off, at the ResNet9 headline and GPT-2 f32, in 20 and 5
+   against off, at the ResNet9 headline and GPT-2 f32, in 16 and 4
    alternating pairs of 20 engine rounds each, the ratios printed with
    their spread, and the host's side of telemetry on and off: the
    recorder's hooks' ms a round, and the operators' self time, operators
@@ -273,12 +273,36 @@ Phases (any failure exits non-zero; nothing is caught):
    second admitted after the first's first heartbeat, admitted =
    finished + gave up, each tenant's weights bit-equal to a solo run of
    the same command.
+16. the 2-D (clients x shard) plane (``phase_grid``): four gloo ranks on
+   ``cuda:0`` (two NCCL ranks cannot share a card; gloo stages every
+   collective through the host, so nothing here measures NVLink), the
+   process group numbered by the tuple index as ``cv_train`` starts it,
+   ``COMMEFFICIENT_FORCE_DCN_AXIS=clients`` and cuDNN deterministic: (a)
+   the headline round under ``--server_shard --num_devices 2
+   --shard_devices 2`` (fp32) bit-equal on every rank to the same ranks
+   as one clients axis (``--num_devices 4``), 2 / 1 / 8 launches a round
+   on each rank (rank 3 at ``t0 = 12``: two valid chunks and a padded
+   tail), 1 / 1 / 8 / 1 under ``--fused_epilogue``; (b)
+   ``--collective_plan table=shard:fp32/clients:int8,downlink=dcn:int8``
+   for 3 rounds: finite, the ranks equal, within 5% of the fp32 run's
+   weights (the JAX package's bound), the carries tuples with None at the
+   fp32 level, and each quantized level's error-feedback identity on the
+   card (``GRID_EF_RTOL``); (c) ``uncompressed`` under
+   ``uplink=shard:fp32/clients:int8`` for 2 rounds: finite, the ranks
+   equal; (d) the 2-D run state after round 1 restored on the 1-D
+   four-rank plane: round 2's weights and server state bit-equal to the
+   2-D run's; (e) ``torchrun --nproc_per_node 1 -m
+   commefficient_torch.cv_train --server_shard --collective_plan auto``
+   with telemetry: exit 0, finite losses, the probe's report (round trips
+   timed on the card) and its plan in ``run_start``. Rounds/sec of the
+   2-D, the 1-D and the per-axis round in alternating triples (data).
 
 Then one JSON line of the kernels (launches per timed window of the path
 that runs each: phase 4 for the accumulate, the query and the count pass,
 phase 5 for the running accumulate, the epilogue and the descent; and a
 ``sharded`` object each: its launches a round per rank on phase 11's
-sharded round and its largest error at ``t0 > 0``), the
+sharded round and its largest error at ``t0 > 0``; and its launches a
+round on rank 3 of phase 16's 2-D round), the
 card's line, and ``{"ok": true, "device": {...}}`` as the last line.
 Without a card it exits with an error before printing any result.
 
@@ -2977,7 +3001,7 @@ OBS_IDENTITY_ROUNDS = 10
 OBS_AUDIT_ROUNDS = 24
 # alternating pairs of the cost phase: the host-bound ResNet9 round moves
 # 10-40% between windows of one call, the GPT-2 round under 1%
-OBS_PAIRS = {"headline": 20, "gpt2 f32": 5}
+OBS_PAIRS = {"headline": 16, "gpt2 f32": 4}
 OBS_PAIR_ROUNDS = 20
 # the profiled window of the host split: one drain cycle of the engine
 # (the profiler's event processing is slow at GPT-2's 7,800 operators a
@@ -4993,6 +5017,351 @@ def phase_service(card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 16: the 2-D (clients x shard) plane
+# --------------------------------------------------------------------------
+
+GRID_2D = ["--server_shard", "--num_devices", "2", "--shard_devices", "2"]
+GRID_1D = ["--server_shard", "--num_devices", "4", "--shard_devices", "1"]
+# the per-axis leg: the table's clients level int8, the downlink's dcn
+# level (clients, forced to dcn) int8
+GRID_PLAN = "table=shard:fp32/clients:int8,downlink=dcn:int8"
+GRID_DENSE = ["--mode", "uncompressed", "--error_type", "none",
+              "--collective_plan", "uplink=shard:fp32/clients:int8"]
+GRID_PLAN_ROUNDS = 3
+GRID_PAIRS = 3
+GRID_PAIR_ROUNDS = 4
+# the error-feedback identity's bound, relative to the largest magnitude
+GRID_EF_RTOL = 1e-6
+
+
+def grid_ef_identity(fm, opt, grid, batch, label: str) -> dict:
+    """The per-level error-feedback identity of the per-axis leg on the
+    card, at full width, on this rank of the 2-D grid: the round's own
+    table through the table leg's ``hierarchical_psum`` (its clients
+    level int8) with the carries it holds and the round's generators,
+    where the sum plus the clients axis' new carries equals the exact
+    shard sums plus their old carries; and an update-sized tile through
+    the downlink's ``hierarchical_all_gather``, where this rank's
+    gathered chunks plus its new carry equal the tile plus its old carry.
+    Bound: ``GRID_EF_RTOL`` times the largest magnitude."""
+    from commefficient_torch.ops import collectives as coll
+
+    low = fm._plan_lowering
+    cs = fm.sketch
+    fm.begin_round(batch)
+    table = fm._round_ctx.gradient
+    st = opt.server_state
+    sr = fm.sr_generators(fm.rounds_dispatched - 1)
+    out = {}
+    got, new = coll.hierarchical_psum(table, low["table"], grid, sr["up"],
+                                      residuals=st.qres, block=cs.c_pad)
+    assert new[0] is None and st.qres[0] is None, label
+    clients = grid.axis("clients")
+    exact = coll.all_reduce_sum(table.clone(), grid.axis("shard"))
+    lhs = got + coll.all_reduce_sum(new[1].clone(), clients)
+    rhs = coll.all_reduce_sum(exact + st.qres[1], clients)
+    scale = float(rhs.abs().max())
+    err = float((lhs - rhs).abs().max())
+    assert err <= GRID_EF_RTOL * scale, f"{label}: table identity {err}"
+    out["table_identity_max_err"] = err
+    out["table_identity_scale"] = scale
+    Tn = -(-cs.T // grid.size)
+    t0 = grid.rank * Tn
+    upd = tsk.unsketch_chunks(cs, st.error, fm.server_config.k)[t0:t0 + Tn]
+    upd = torch.nn.functional.pad(upd, (0, 0, 0, 0, 0, Tn - upd.shape[0]))
+    full, new = coll.hierarchical_all_gather(
+        upd, low["downlink"], grid, sr["down"], residuals=st.dres,
+        block=cs.sublanes * 128)
+    assert new[0] is None and st.dres[0] is None, label
+    mine = full[grid.rank * Tn:(grid.rank + 1) * Tn]
+    contrib = upd + st.dres[1]
+    scale = float(contrib.abs().max())
+    err = float((mine + new[1] - contrib).abs().max())
+    assert err <= GRID_EF_RTOL * max(scale, 1e-30), \
+        f"{label}: downlink identity {err}"
+    out["downlink_identity_max_err"] = err
+    out["downlink_identity_scale"] = scale
+    opt.step()
+    return out
+
+
+def _grid_rank(index: int, tmp: str) -> None:
+    """One rank of phase 16: gloo on ``cuda:0``, the process group
+    numbered by the tuple index of device ``index`` (as ``cv_train``
+    starts it), cuDNN deterministic; every leg's weights, launches and
+    checks written to ``tmp``."""
+    import torch.distributed as dist
+
+    from commefficient_torch.federated.checkpoint import save_run_state
+    from commefficient_torch.parallel import make_client_group, tuple_index
+
+    p = tuple_index(index, 2, 2)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=p, world_size=4)
+    out = {"rank": p}
+
+    def save(name, t):
+        np.save(os.path.join(tmp, f"{name}{p}.npy"), t.cpu().numpy())
+
+    try:
+        kernels.library()
+        # the headline's device (cuda), its first card
+        dev = torch.device(HEADLINE[HEADLINE.index("--device") + 1], 0)
+        g2 = make_client_group(8, 2, dev, shard_devices=2)
+        g1 = make_client_group(8, 4, dev)
+        assert g2.rank == g1.rank == p and g2.size == g1.size == 4
+        assert g2.server_axes == ("shard", "clients")
+        out["placement"] = g2.axis_placement()
+        with deterministic_cudnn():
+            # (a) the 2-D and the 1-D fp32 round, and the 2-D run state
+            _, fm2, opt2, sched2, r2 = _build_group_round(GRID_2D, g2)
+            assert fm2.collective_plan.spec() == \
+                "uplink=float32,table=float32,downlink=float32"
+            kernels.reset_launch_counts()
+            loss = r2(synthetic_batch(0))[0]
+            out["launches_2d"] = kernels.launch_counts()
+            assert np.all(np.isfinite(loss))
+            save("w2d_r1_", _weights(fm2))
+            state = save_run_state(os.path.join(tmp, "rs2d"), fm2, opt2,
+                                   sched2, next_epoch=1)
+            r2(synthetic_batch(1))
+            save("w2d_r2_", _weights(fm2))
+            save("vel2d_r2_", opt2.server_state.velocity)
+            save("err2d_r2_", opt2.server_state.error)
+            r2(synthetic_batch(2))
+            w2d_r3 = _weights(fm2)
+            _, fm1, opt1, sched1, r1 = _build_group_round(GRID_1D, g1)
+            kernels.reset_launch_counts()
+            r1(synthetic_batch(0))
+            out["launches_1d"] = kernels.launch_counts()
+            save("w1d_r1_", _weights(fm1))
+            _, fmf, optf, schedf, rf = _build_group_round(
+                GRID_2D + ["--fused_epilogue"], g2)
+            kernels.reset_launch_counts()
+            loss = rf(synthetic_batch(0))[0]
+            out["launches_2d_fused"] = kernels.launch_counts()
+            assert np.all(np.isfinite(loss))
+            del fmf, optf, schedf, rf
+            # (d) the 2-D run state on the 1-D plane, one more round
+            _, fmr, optr, schedr, rr = _build_group_round(GRID_1D, g1)
+            load_run_state(state, fmr, optr, schedr)
+            rr(synthetic_batch(1))
+            save("wrs_r2_", _weights(fmr))
+            save("velrs_r2_", optr.server_state.velocity)
+            save("errrs_r2_", optr.server_state.error)
+            del fmr, optr, schedr, rr
+            # (b) the per-axis plan, 3 rounds and the identity
+            _, fmq, optq, schedq, rq = _build_group_round(
+                GRID_2D + ["--collective_plan", GRID_PLAN], g2)
+            out["lowering"] = {k: (list(map(list, v)) if isinstance(v, tuple)
+                                   else v)
+                               for k, v in fmq._plan_lowering.items()}
+            out["plan_losses"] = []
+            for i in range(GRID_PLAN_ROUNDS):
+                kernels.reset_launch_counts()
+                loss = rq(synthetic_batch(i))[0]
+                out["plan_losses"].append(float(np.mean(loss)))
+            out["launches_plan"] = kernels.launch_counts()
+            wq = _weights(fmq)
+            save("wq_r3_", wq)
+            out["plan_rel_diff_vs_fp32"] = float(
+                (wq - w2d_r3).abs().max() / w2d_r3.abs().max())
+            out["ef"] = grid_ef_identity(fmq, optq, g2, synthetic_batch(3),
+                                         "per-axis")
+            st = optq.server_state
+            out["carries"] = {name: [None if c is None else float(
+                c.abs().max()) for c in getattr(st, name)]
+                for name in ("qres", "dres")}
+            # (c) uncompressed under a per-axis uplink, 2 rounds
+            _, fmu, optu, schedu, ru = _build_group_round(
+                GRID_2D + GRID_DENSE, g2)
+            out["dense_losses"] = [float(np.mean(ru(synthetic_batch(i))[0]))
+                                   for i in range(2)]
+            save("wu_r2_", fmu.ps_weights)
+            out["dense_carries"] = [None if c is None else float(
+                c.abs().max()) for c in optu.server_state.qres]
+            del fmu, optu, schedu, ru
+            torch.cuda.empty_cache()
+            # rounds/sec in alternating pairs (the 2-D, the 1-D and the
+            # per-axis round), on rank 0's clock
+            batch = synthetic_batch(4)
+            times = {"2d fp32": [], "1d fp32": [], "2d per-axis": []}
+            for _ in range(GRID_PAIRS):
+                for name, one in (("2d fp32", r2), ("1d fp32", r1),
+                                  ("2d per-axis", rq)):
+                    dist.barrier()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    for _ in range(GRID_PAIR_ROUNDS):
+                        one(batch)
+                    torch.cuda.synchronize()
+                    times[name].append(GRID_PAIR_ROUNDS
+                                       / (time.perf_counter() - t))
+            out["rounds_per_sec"] = times
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{p}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def grid_auto_run(card: str) -> dict:
+    """Step (e): ``torchrun --nproc_per_node 1 -m
+    commefficient_torch.cv_train --server_shard --collective_plan auto``
+    on synthetic CIFAR10 with telemetry on: exit 0, finite losses, and
+    the run log's ``run_start`` holding the probe's report, its round
+    trips timed on the card (every candidate's ``probe_ms`` > 0), and the
+    plan the report's own rule picks."""
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        env = dict(os.environ, COMMEFFICIENT_SYNTHETIC_PER_CLASS="16",
+                   COMMEFFICIENT_RUN_DIR=run_dir,
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        env.pop("COMMEFFICIENT_FORCE_DCN_AXIS", None)
+        argv = [a for a in HEADLINE if a != "--no_telemetry"]
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "commefficient_torch.cv_train",
+               *argv, "--server_shard", "--collective_plan", "auto",
+               "--dataset_dir", os.path.join(tmp, "cifar10"), "--iid",
+               "--num_clients", "16", "--num_epochs", "1", "--seed", "0"]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=300)
+        wall = time.perf_counter() - t
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:])
+            print(proc.stderr[-4000:], file=sys.stderr)
+        assert proc.returncode == 0, \
+            f"torchrun cv_train auto exit {proc.returncode}"
+        events = list(read_events(os.path.join(run_dir, "telemetry.jsonl")))
+    row = table_row(proc.stdout, "train_loss")
+    for key in ("train_loss", "test_loss"):
+        assert np.isfinite(float(row[key])), row
+    start = next(e for e in events if e["ev"] == "run_start")
+    report = start["collective_plan_probe"]
+    budget = 0.05
+    chosen = {}
+    for leg, rows in report.items():
+        best = ("float32", rows["float32"]["bytes_per_round"], 0.0)
+        for dt, r in rows.items():
+            assert "error" not in r, (leg, dt, r)
+            if dt == "float32":
+                continue
+            assert r["probe_ms"] > 0, (leg, dt, r)
+            if r["rel_err"] <= budget and (
+                    r["bytes_per_round"] < best[1]
+                    or (r["bytes_per_round"] == best[1]
+                        and r["rel_err"] < best[2])):
+                best = (dt, r["bytes_per_round"], r["rel_err"])
+        chosen[leg] = best[0]
+    assert set(report) == {"table", "downlink"}, report
+    want = ",".join(f"{leg}={chosen.get(leg, 'float32')}"
+                    for leg in ("uplink", "table", "downlink"))
+    assert start["collective_plan"] == want, (start["collective_plan"], want)
+    out = {"phase": "2-D plane", "step": "torchrun cv_train auto",
+           "plan": start["collective_plan"], "probe": report, "row": row,
+           "wall_s": wall, "card": card}
+    print(json.dumps(out))
+    return out
+
+
+def phase_grid(card: str) -> dict:
+    """Phase 16: the 2-D (clients x shard) plane. Four gloo ranks on
+    ``cuda:0`` (two NCCL ranks cannot share a card; gloo stages every
+    collective through the host, so nothing here measures NVLink) with
+    ``COMMEFFICIENT_FORCE_DCN_AXIS=clients`` and cuDNN deterministic:
+    (a) the headline round under ``--num_devices 2 --shard_devices 2``
+    (fp32) bit-equal to the same ranks as one clients axis
+    (``--num_devices 4``) on every rank, 2 / 1 / 8 launches a round per
+    rank (rank 3: ``t0 = 12``, two valid chunks and a padded tail) and
+    SHARDED_FUSED_PER_ROUND under ``--fused_epilogue``; (b) GRID_PLAN for
+    3 rounds: finite, the ranks equal, within 5% of the fp32 run's
+    weights, each quantized level's error-feedback identity on the card;
+    (c) ``uncompressed`` under a per-axis uplink for 2 rounds: finite,
+    the ranks equal; (d) the 2-D run state restored on the 1-D plane:
+    the next round's weights and server state bit-equal; (e)
+    ``grid_auto_run``. Rounds/sec of the 2-D, the 1-D and the per-axis
+    round in GRID_PAIRS alternating triples (data, no claim)."""
+    import multiprocessing as mp
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, \
+            env_vars(COMMEFFICIENT_FORCE_DCN_AXIS="clients"):
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_grid_rank, args=(i, tmp))
+                 for i in range(4)]
+        for pr in procs:
+            pr.start()
+        for pr in procs:
+            pr.join(max(1.0, 400 - (time.perf_counter() - t)))
+        alive = [pr for pr in procs if pr.is_alive()]
+        for pr in alive:
+            pr.kill()
+            pr.join()
+        assert not alive, "phase 16 ranks timed out"
+        assert all(pr.exitcode == 0 for pr in procs), \
+            [pr.exitcode for pr in procs]
+        ranks = []
+        for p in range(4):
+            with open(os.path.join(tmp, f"rank{p}.json")) as f:
+                ranks.append(json.load(f))
+        w = {name: [np.load(os.path.join(tmp, f"{name}{p}.npy"))
+                    .view(np.uint32) for p in range(4)]
+             for name in ("w2d_r1_", "w1d_r1_", "w2d_r2_", "vel2d_r2_",
+                          "err2d_r2_", "wrs_r2_", "velrs_r2_", "errrs_r2_",
+                          "wq_r3_", "wu_r2_")}
+    ranks_s = time.perf_counter() - t
+
+    def nonzero(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    for p, r in enumerate(ranks):
+        assert r["placement"] == {"clients": "dcn", "shard": "ici"}, r
+        for key, want in (("launches_2d", SHARDED_PER_ROUND),
+                          ("launches_1d", SHARDED_PER_ROUND),
+                          ("launches_2d_fused", SHARDED_FUSED_PER_ROUND),
+                          ("launches_plan", SHARDED_PER_ROUND)):
+            assert nonzero(r[key]) == want, (p, key, r[key], want)
+        assert r["lowering"] == {
+            "uplink": "float32",
+            "table": [["shard", "float32"], ["clients", "int8"]],
+            "downlink": [["shard", "float32"], ["clients", "int8"]]}, r
+        assert all(np.isfinite(r["plan_losses"])), r["plan_losses"]
+        assert r["plan_rel_diff_vs_fp32"] < 0.05, r["plan_rel_diff_vs_fp32"]
+        assert all(np.isfinite(r["dense_losses"])), r["dense_losses"]
+        for name in ("qres", "dres"):
+            assert r["carries"][name][0] is None, (p, name)
+        assert r["dense_carries"][0] is None and r["dense_carries"][1] > 0
+    assert max(r["carries"]["qres"][1] for r in ranks) > 0
+    assert max(r["carries"]["dres"][1] for r in ranks) > 0
+    for p in range(4):
+        assert np.array_equal(w["w2d_r1_"][p], w["w1d_r1_"][p]), \
+            f"rank {p}: 2-D round != 1-D round"
+        for name in ("w2d_r1_", "w2d_r2_", "wq_r3_", "wu_r2_"):
+            assert np.array_equal(w[name][p], w[name][0]), (name, p)
+        for a, b in (("wrs_r2_", "w2d_r2_"), ("velrs_r2_", "vel2d_r2_"),
+                     ("errrs_r2_", "err2d_r2_")):
+            assert np.array_equal(w[a][p], w[b][p]), \
+                f"rank {p}: restored 1-D {a} != 2-D {b}"
+    rps = ranks[0]["rounds_per_sec"]
+    out = {"phase": "2-D plane", "card": card,
+           "launches_per_round_rank3": nonzero(ranks[3]["launches_2d"]),
+           "launches_per_round_rank3_fused": nonzero(
+               ranks[3]["launches_2d_fused"]),
+           "plan_rel_diff_vs_fp32": max(r["plan_rel_diff_vs_fp32"]
+                                        for r in ranks),
+           "ef": [r["ef"] for r in ranks],
+           "rounds_per_sec": rps,
+           "rounds_per_sec_median": {k: statistics.median(v)
+                                     for k, v in rps.items()},
+           "ranks_wall_s": ranks_s,
+           "note": "gloo stages every collective through the host: these "
+                   "rates measure nothing of NVLink"}
+    print(json.dumps(out))
+    out["auto"] = grid_auto_run(card)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-times", nargs="*", metavar="NAME",
@@ -5079,6 +5448,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     service = phase_service(card)
     wall["15 open-world service"] = time.perf_counter() - t
+    t = time.perf_counter()
+    grid = phase_grid(card)
+    wall["16 2-D plane"] = time.perf_counter() - t
     print("phase wall seconds (phase 3 includes the build): " + json.dumps(
         {k: round(v, 2) for k, v in wall.items()}))
 
@@ -5099,12 +5471,18 @@ def main(argv=None) -> int:
         return {"launches_per_round_per_rank": got.get(name, 0),
                 "max_abs_err": max(errs) if errs else None}
 
+    # the 2-D plane (phase 16): rank 3's launches a round (t0 = 12)
+    grid_launches = {**grid["launches_per_round_rank3"],
+                     "fused_epilogue": grid[
+                         "launches_per_round_rank3_fused"].get(
+                         "fused_epilogue", 0)}
     summary = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
          **{key: rows[k.name][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}, "sharded": sharded(k.name)}
+             "library_ms")}, "sharded": sharded(k.name),
+         "grid_2d_launches_per_round_per_rank": grid_launches.get(k.name, 0)}
         for k in kernels.KERNELS]}
     print(json.dumps({"rounds_per_sec": rps,
                       "opt_in_rounds_per_sec": opt_rps,
@@ -5145,6 +5523,8 @@ def main(argv=None) -> int:
                       "service_compactions":
                           service["disk"]["compactions"],
                       "service_wall_s": service["wall_s"],
+                      "grid_2d_rounds_per_sec_median":
+                          grid["rounds_per_sec_median"],
                       **{"opt_in_" + k: v for k, v in opt_prof.items()}}))
     print(json.dumps(summary))
     print(card)

@@ -23,10 +23,13 @@ the CPU). Under ``torchrun`` (``WORLD_SIZE`` set) each rank is one GPU
 (``cuda:LOCAL_RANK``, NCCL; gloo with ``--device cpu``) and the round's
 client slots split over ``min(--num_devices, world)`` ranks, reduced to
 the largest divisor of ``--num_workers`` (``parallel/mesh.py``);
-``--server_shard``, ``--reduce_dtype`` and the flat ``--collective_plan``
-forms carry the JAX package's checks. ``--shard_devices > 1``, the
-per-axis plans and ``--collective_plan auto`` raise naming queue 1 item
-5a.
+``--shard_devices N`` factors them into the 2-D (clients x shard) grid.
+``--server_shard``, ``--shard_devices``, ``--reduce_dtype``,
+``--collective_plan`` (flat, per-axis and ``auto``) and
+``--plan_error_budget`` carry the JAX package's names, defaults, help and
+checks (``check_collectives``). The JAX package's cohort seam
+(``COMMEFFICIENT_NUM_PROCS`` / ``_PROC_ID`` / ``_COORDINATOR``) starts the
+process group too.
 
 The opt-in sketch paths ``--stream_sketch``, ``--sketch_coalesce`` and
 ``--fused_epilogue`` are carried, with the JAX package's notes for
@@ -82,9 +85,6 @@ DATASETS = ["CIFAR10", "CIFAR100", "EMNIST", "ImageNet", "PERSONA"]
 DP_MODES = ["worker", "server"]
 
 _Q1 = "ROADMAP.md queue 1"
-ITEM_MULTI_2D = (f"{_Q1} item 5a (the 2-D clients x shard plane, "
-                 f"per-axis collective plans, --collective_plan auto, the "
-                 f"multi-host seam)")
 ITEM_PARALLEL = (f"{_Q1} item 7 (parallel/: sequence, tensor, pipeline "
                  f"and expert parallelism)")
 
@@ -92,8 +92,6 @@ ITEM_PARALLEL = (f"{_Q1} item 7 (parallel/: sequence, tensor, pipeline "
 # types and defaults: (option strings, add_argument keywords, item). Each
 # is parsed; a value other than its default raises naming the item.
 UNPORTED = (
-    ("--plan_error_budget", dict(type=float, default=0.05),
-     ITEM_MULTI_2D),
     ("--seq_parallel", dict(choices=["none", "ring", "ulysses"],
                             default="none"), ITEM_PARALLEL),
     ("--seq_devices", dict(type=int, default=2), ITEM_PARALLEL),
@@ -216,8 +214,11 @@ def build_parser(default_lr=None) -> argparse.ArgumentParser:
                              "client group (reduce-scatter -> per-shard "
                              "update -> all-gather).")
     parser.add_argument("--shard_devices", type=int, default=1,
-                        help="The 2-D (clients x shard) plane: not ported, "
-                             "only 1.")
+                        help="Devices on the intra-host 'shard' server "
+                             "axis of the 2D (clients x shard) mesh; 1 = "
+                             "the flat 1D worker axis. Requires "
+                             "--server_shard (the shard axis only carries "
+                             "the sharded server plane).")
     parser.add_argument("--reduce_dtype", choices=["float32", "int8"],
                         default="float32",
                         help="Legacy alias of --collective_plan: int8 sets "
@@ -228,8 +229,22 @@ def build_parser(default_lr=None) -> argparse.ArgumentParser:
                         help="Per-leg wire dtypes: 'leg=dtype,...' over "
                              "legs {uplink,table,downlink} and dtypes "
                              "{fp32,int8,fp8_e4m3,int4} (unnamed legs stay "
-                             "fp32), or one bare dtype for every leg. "
-                             "Quantized legs require --server_shard.")
+                             "fp32), one bare dtype for every leg, or "
+                             "'auto' (one-time on-chip probe picks the "
+                             "cheapest dtype per leg within "
+                             "--plan_error_budget). A leg value may also "
+                             "pick a dtype PER MESH AXIS as slash-joined "
+                             "'axis:dtype' pairs — axis is a mesh axis "
+                             "name or the placement alias ici/dcn (e.g. "
+                             "table=ici:fp32/dcn:int8 quantizes only the "
+                             "cross-host level). Empty = derive from "
+                             "--reduce_dtype. Quantized legs require "
+                             "--server_shard.")
+    parser.add_argument("--plan_error_budget", type=float, default=0.05,
+                        help="Relative L2 round-trip error budget per leg "
+                             "for --collective_plan auto (a candidate "
+                             "dtype is admissible iff its calibration "
+                             "error is within this).")
 
     parser.add_argument("--iid", action="store_true", dest="do_iid")
     parser.add_argument("--train_dataloader_workers", type=int, default=0)
@@ -537,14 +552,6 @@ def reject_unported(args) -> None:
             f"--rng_impl {rng_impl} names a JAX PRNG, which has no meaning "
             "in the port (its randomness comes from torch.Generator); "
             "leave it at threefry2x32")
-    if int(getattr(args, "shard_devices", 1) or 1) > 1:
-        raise NotImplementedError(
-            f"--shard_devices {args.shard_devices} is not ported "
-            f"({ITEM_MULTI_2D})")
-    spec = (getattr(args, "collective_plan", None) or "").strip()
-    if spec == "auto" or ":" in spec:
-        raise NotImplementedError(
-            f"--collective_plan {spec} is not ported ({ITEM_MULTI_2D})")
 
 
 def check_observability(args) -> None:
@@ -588,14 +595,27 @@ def check_collectives(args) -> None:
             "--collective_plan and --reduce_dtype int8 both name wire "
             "dtypes; use --collective_plan alone (the int8 alias equals "
             "--collective_plan int8)")
-        # fail at parse time, not rounds into a run
-        plan = parse_collective_plan(plan_spec)
-        if plan.quantized:
+        if plan_spec == "auto":
             assert args.server_shard, (
-                "quantized --collective_plan legs require "
-                "--server_shard (the block-scaled collectives live on "
-                "the sharded server plane)")
-    assert args.shard_devices >= 1, "--shard_devices must be >= 1"
+                "--collective_plan auto probes the quantized collectives "
+                "of the sharded server plane; it requires --server_shard")
+        else:
+            # fail at parse time, not rounds into a run
+            plan = parse_collective_plan(plan_spec)
+            if plan.quantized:
+                assert args.server_shard, (
+                    "quantized --collective_plan legs require "
+                    "--server_shard (the block-scaled collectives live on "
+                    "the sharded server plane)")
+    assert args.plan_error_budget > 0, (
+        "--plan_error_budget must be > 0")
+    assert getattr(args, "shard_devices", 1) >= 1, (
+        "--shard_devices must be >= 1")
+    if getattr(args, "shard_devices", 1) > 1:
+        assert args.server_shard, (
+            "--shard_devices factors the server reduce into the 2D "
+            "(clients x shard) mesh; the shard axis only carries the "
+            "sharded server plane, so it requires --server_shard")
     if args.server_shard:
         assert not args.do_topk_down, (
             "--server_shard is incompatible with --topk_down (stale-"

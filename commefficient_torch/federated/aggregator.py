@@ -21,8 +21,14 @@ The round runs on one device, or over a client group
 (``group``, a ``parallel/mesh.ClientGroup``: one process per GPU, the
 device ``cuda:LOCAL_RANK``, every rank holding the replicated weights and
 client state and running its slots of each round; ``--server_shard`` and
-``--collective_plan`` pick the sharded server and its wire dtypes). Only
-the group's rank 0 writes files.
+``--collective_plan`` pick the sharded server and its wire dtypes). On
+the 2-D (clients x shard) grid (``--shard_devices``) the server reduces
+over the ordered axes ``("shard", "clients")`` (``_server_axes``,
+``_axis_sizes``; ``_n_shard`` is their product), and the plan is resolved
+once before the round's steps are built (``_resolve_plan``): ``auto``
+runs the probe over this config's leg geometries, a per-axis spec is
+resolved against the grid (``_plan_lowering``). Only the group's rank 0
+writes files.
 
 Per-client state takes the tier the memory plan picks
 (``federated/memory.py``, the JAX package's planner): ``hbm`` keeps the
@@ -69,6 +75,7 @@ into a round's transmit on the device.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import time
@@ -99,13 +106,18 @@ from commefficient_torch.federated.rounds import (
 from commefficient_torch.federated.server import (
     ServerConfig,
     init_server_state,
+    leg_lowerings,
 )
 from commefficient_torch.federated.worker import WorkerConfig
 from commefficient_torch.models.layers import torch_conv_init_
 from commefficient_torch.ops.collectives import (
+    DEFAULT_QUANT_BLOCK,
+    autotune_collective_plan,
+    leg_quantized,
+    level_sr_generators,
     parse_collective_plan,
     plan_from_reduce_dtype,
-    sr_generator,
+    plan_lowering,
 )
 from commefficient_torch.ops.flat import ParamLayout
 from commefficient_torch.ops.sketch import make_sketch
@@ -208,8 +220,11 @@ def server_config_from_args(args, grad_size: int) -> ServerConfig:
 
 
 def collective_plan_from_args(args):
-    """``--collective_plan`` (flat), else the ``--reduce_dtype`` alias."""
+    """``--collective_plan``, else the ``--reduce_dtype`` alias; None for
+    ``auto``, which ``FedModel`` resolves by its probe."""
     spec = (getattr(args, "collective_plan", None) or "").strip()
+    if spec == "auto":
+        return None
     if spec:
         return parse_collective_plan(spec)
     return plan_from_reduce_dtype(getattr(args, "reduce_dtype", None)
@@ -328,6 +343,19 @@ class FedModel:
                                       args.num_rows, seed=args.seed,
                                       num_blocks=args.num_blocks,
                                       device=self.device)
+        # the server reduce axes of the grid and the resolved plan (an
+        # explicit spec, the probe's pick under 'auto', or the
+        # --reduce_dtype alias), before the round's steps are built
+        self._server_axes = (group.server_axes if group is not None
+                             else "clients")
+        self._axis_sizes = group.axis_sizes if group is not None else None
+        self._n_shard = (group.size if cfg.server_shard and group is not None
+                         else 0)
+        self.collective_plan, self.plan_report = self._resolve_plan(
+            args, cfg.collective_plan)
+        self._plan_lowering = (plan_lowering(self.collective_plan, group)
+                               if cfg.server_shard else None)
+        cfg = dataclasses.replace(cfg, collective_plan=self.collective_plan)
         self.round_config = cfg
         self.steps = build_round_step(
             compute_loss_train, compute_loss_val or compute_loss_train,
@@ -909,8 +937,13 @@ class FedModel:
     @staticmethod
     def _clone_state(state):
         ps, ss, ms = state
-        return (ps.clone(),
-                type(ss)(*(None if x is None else x.clone() for x in ss)),
+
+        def clone(x):
+            if isinstance(x, tuple):  # per-level carries
+                return tuple(clone(v) for v in x)
+            return None if x is None else x.clone()
+
+        return (ps.clone(), type(ss)(*(clone(x) for x in ss)),
                 {k: v.clone() for k, v in ms.items()})
 
     def _take_snapshot(self) -> None:
@@ -941,14 +974,73 @@ class FedModel:
 
     def sr_generators(self, round_no: int):
         """The quantized legs' stochastic-rounding generators for round
-        ``round_no`` on this rank (``ops/collectives.sr_generator``), None
-        under an exact plan."""
+        ``round_no`` on this rank (``ops/collectives.level_sr_generators``:
+        a generator a flat quantized leg, a tuple a level of a per-axis
+        one), None under an exact plan."""
         plan = self.round_config.collective_plan
         if plan is None or not plan.quantized:
             return None
-        rank = self.group.rank if self.group is not None else 0
-        return {leg: sr_generator(self.args.seed, round_no, rank, leg,
-                                  self.device) for leg in ("up", "down")}
+        low = leg_lowerings(plan, self._plan_lowering)
+        up = low["table"] if self.server_config.mode == "sketch" \
+            else low["uplink"]
+        return {name: level_sr_generators(self.args.seed, round_no, name,
+                                          leg, self.group, self.device)
+                for name, leg in (("up", up), ("down", low["downlink"]))}
+
+    def _plan_leg_geoms(self) -> dict:
+        """``{leg: (elements, quant block)}`` of the wire legs this config
+        runs, at the blocks the collectives use (the probe measures the
+        real geometry): sketch mode has a table and a downlink leg, the
+        dense modes an uplink and a downlink."""
+        n = max(self._n_shard, 1)
+        if self.server_config.mode == "sketch":
+            sk = self.sketch
+            return {"table": (sk.r * sk.c_pad, sk.c_pad),
+                    "downlink": (-(-sk.T // n) * n * sk.sublanes * 128,
+                                 sk.sublanes * 128)}
+        d_pad = -(-self.grad_size // n) * n
+        return {"uplink": (d_pad, DEFAULT_QUANT_BLOCK),
+                "downlink": (d_pad, DEFAULT_QUANT_BLOCK)}
+
+    def _resolve_plan(self, args, plan):
+        """The collective plan, resolved once before the round's steps are
+        built: ``plan`` is the parsed ``--collective_plan`` (or the
+        ``--reduce_dtype`` alias), None under ``auto``, which runs the
+        probe over this config's leg geometries on this device. Returns
+        ``(plan, probe report or None)``; both reach the telemetry
+        ``run_start`` event. A per-axis plan is resolved against the grid
+        by ``plan_lowering`` next, so an axis the grid lacks fails at
+        start-up with the axis list."""
+        report = None
+        if plan is None:
+            assert self._n_shard, \
+                "--collective_plan auto requires --server_shard (the " \
+                "quantized collectives live on the sharded server plane)"
+            budget = float(getattr(args, "plan_error_budget", 0.05) or 0.05)
+            plan, report = autotune_collective_plan(
+                self._plan_leg_geoms(), error_budget=budget,
+                seed=int(getattr(args, "seed", 0)), device=self.device)
+            print(f"collective_plan auto -> {plan.spec()} "
+                  f"(error budget {budget:g}; probe report in the "
+                  "telemetry run_start event)")
+        elif "=" in (getattr(args, "collective_plan", "") or ""):
+            # a named leg this mode never runs would log compression it
+            # does not do
+            unused = ("uplink" if self.server_config.mode == "sketch"
+                      else "table")
+            if leg_quantized(getattr(plan, unused)):
+                import warnings
+
+                warnings.warn(
+                    f"--collective_plan names {unused}="
+                    f"{getattr(plan, unused)}, but mode="
+                    f"{self.server_config.mode} has no {unused} leg — "
+                    "that entry will not compress anything")
+        if plan.quantized:
+            assert self._n_shard, \
+                "quantized collective legs (--collective_plan / " \
+                "--reduce_dtype int8) require --server_shard"
+        return plan, report
 
     def _apply_server(self, server_state, lr):
         """Phase 2 for ``FedOptimizer.step()``; the verdict and the metric
@@ -1080,8 +1172,9 @@ class FedOptimizer:
         self.server_state = init_server_state(
             fed_model.server_config, fed_model.sketch,
             device=fed_model.device,
-            shard_n=fed_model.group.size if rc.server_shard else 0,
-            plan=rc.collective_plan)
+            shard_n=fed_model._n_shard, plan=rc.collective_plan,
+            lowering=fed_model._plan_lowering,
+            axis_sizes=fed_model._axis_sizes)
         self._base_lr_vec = None
         if len(self.param_groups) > 1 or self.param_groups[0][0] is not None:
             vec = np.zeros(fed_model.grad_size, np.float32)

@@ -44,17 +44,19 @@ rank joins the save and rank 0 writes: the sharded server's dense velocity and e
 all-gathered to the full ``(d,)`` view, and the quantized collectives'
 carries to the JAX package's global layouts (``server/qres`` stacked
 ``(n, ...)`` over the ranks, ``server/dres`` the gathered tiles); on
-restore each rank takes its slice. A replicated run state restores into
-the sharded plane and the other way round; a carry the file lacks, or
-holds at another group size, restarts from zero with a warning (an
-error-feedback remainder may). The device generator (DP noise) is saved under
+restore each rank takes its slice. A per-axis plan's carries are saved a
+level a key, as the JAX package saves them: ``server/qres.<j>`` stacked
+over the reduce tuple, ``server/dres.<j>`` gathered over axes ``0..j``
+(the group ``ClientGroup.prefix(j)``); fp32 levels have no key. A
+replicated run state restores into the sharded plane, the 2-D grid's into
+the 1-D plane and the other way round (the canonical views do not depend
+on the grid); a carry the file lacks, or holds at another geometry or
+under another plan (a flat key never matches a level key), restarts from
+zero with a warning (an error-feedback remainder may). The device generator (DP noise) is saved under
 the port's own key, ``torch_rng/state``: the JAX package's ``rng`` holds
 JAX key data, which a JAX file's restore in the port ignores (and refuses
 under ``--dp``, whose noise streams differ); the JAX package's restore
-reads ``rng``, so it does not restore a port run state. A file that
-carries a plane the port does not have (the per-axis ``server/qres.*`` /
-``server/dres.*``) raises ``NotImplementedError`` naming its ROADMAP
-item.
+reads ``rng``, so it does not restore a port run state.
 
 Client rows follow their tier (``federated/host_state.py``). The ``hbm``
 and ``host`` tiers store ``client/*`` in the archive (the host tier after
@@ -83,15 +85,6 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-
-from commefficient_torch.config import ITEM_MULTI_2D
-
-# run-state planes of the JAX package that the port does not have yet,
-# with the ROADMAP item that ports each
-_UNPORTED_PLANES = (
-    ("server/qres.", ITEM_MULTI_2D),
-    ("server/dres.", ITEM_MULTI_2D),
-)
 
 
 def _read_npz(path: str) -> Dict[str, np.ndarray]:
@@ -256,10 +249,18 @@ def save_run_state(path: str, fed_model, optimizer, lr_scheduler,
         for name, t in (("velocity", st.velocity), ("error", st.error)):
             arrays["server/" + name] = _host(
                 gather(t)[:fm.grad_size] if dense else t)
-        if st.qres is not None:
-            arrays["server/qres"] = _host(gather(st.qres[None]))
-        if st.dres is not None:
-            arrays["server/dres"] = _host(gather(st.dres))
+        for name, carry in (("qres", st.qres), ("dres", st.dres)):
+            if isinstance(carry, tuple):
+                # one key a quantized level
+                for j, slot in enumerate(carry):
+                    if slot is None:
+                        continue
+                    arrays[f"server/{name}.{j}"] = _host(
+                        gather(slot[None]) if name == "qres" else
+                        all_gather_tiled(slot, group.prefix(j)))
+            elif carry is not None:
+                arrays["server/" + name] = _host(
+                    gather(carry[None] if name == "qres" else carry))
     else:
         arrays["server/velocity"] = _host(st.velocity)
         arrays["server/error"] = _host(st.error)
@@ -588,13 +589,21 @@ def find_resume_checkpoint(checkpoint_path: str,
     return None
 
 
-def _reject_unported(flat: Dict[str, np.ndarray], meta: dict) -> None:
-    for prefix, item in _UNPORTED_PLANES:
-        keys = sorted(k for k in flat if k.startswith(prefix))
-        if keys:
-            raise NotImplementedError(
-                f"the run state carries {keys[0]!r}, a plane the port does "
-                f"not have yet ({item})")
+def _carry_part(arr, name: str, shape, group, tiles):
+    """This rank's part of a saved carry in the JAX package's global
+    layout: row ``group.rank`` of a ``qres`` stack over the reduce tuple
+    (``(group.size,) + shape``), tile ``tiles.rank`` of a ``dres`` gathered
+    over ``tiles`` (``(tiles.size * shape[0],) + shape[1:]``). None when
+    the file has no such array or holds it at another geometry."""
+    if name == "qres":
+        want = (group.size,) + tuple(shape)
+    else:
+        want = (tiles.size * shape[0],) + tuple(shape[1:])
+    if arr is None or tuple(arr.shape) != want:
+        return None
+    if name == "qres":
+        return np.array(arr[group.rank])
+    return np.array(arr[tiles.rank * shape[0]:(tiles.rank + 1) * shape[0]])
 
 
 def load_run_state(path: str, fed_model, optimizer, lr_scheduler,
@@ -619,7 +628,6 @@ def load_run_state(path: str, fed_model, optimizer, lr_scheduler,
         flat = _read_npz(path)
         meta = json.loads(bytes(flat.pop("meta_json")).decode())
         _verify_checksum(flat, meta, path)
-    _reject_unported(flat, meta)
     mid = None
     if meta.get("mid_epoch") is not None:
         sampler_state = {"permuted": flat.pop("sampler/permuted"),
@@ -764,26 +772,38 @@ def load_run_state(path: str, fed_model, optimizer, lr_scheduler,
 
     def restore_carry(name, have, what):
         """This rank's slice of a quantized collective's carry when the
-        file holds one at this geometry, else zeros (with a warning)."""
+        file holds one at this geometry, else zeros (with a warning); a
+        per-level tuple slot by slot against ``server/<name>.<j>``."""
         import warnings
 
         if have is None:
             return None
+        if isinstance(have, tuple):
+            slots = []
+            for j, slot in enumerate(have):
+                if slot is None:
+                    slots.append(None)
+                    continue
+                key = f"server/{name}.{j}"
+                got = _carry_part(flat.get(key), name, tuple(slot.shape),
+                                  group, group.prefix(j))
+                if got is None:
+                    warnings.warn(
+                        f"checkpoint has no matching {key} carry; "
+                        f"re-initializing the {what} level-{j} residual "
+                        f"to zero")
+                    slots.append(torch.zeros_like(slot))
+                else:
+                    slots.append(torch.from_numpy(got).to(dev))
+            return tuple(slots)
         key = "server/" + name
-        n = group.size
-        arr = flat.get(key)
-        if name == "qres":
-            want = (n,) + tuple(have.shape)
-        else:
-            want = (n * have.shape[0],) + tuple(have.shape[1:])
-        if arr is not None and tuple(arr.shape) == want:
-            a = arr[group.rank] if name == "qres" else \
-                arr[group.rank * have.shape[0]:
-                    (group.rank + 1) * have.shape[0]]
-            return torch.from_numpy(np.array(a)).to(dev)
-        warnings.warn(f"checkpoint has no matching {key} carry; "
-                      f"re-initializing the {what} residual to zero")
-        return torch.zeros_like(have)
+        got = _carry_part(flat.get(key), name, tuple(have.shape), group,
+                          group)
+        if got is None:
+            warnings.warn(f"checkpoint has no matching {key} carry; "
+                          f"re-initializing the {what} residual to zero")
+            return torch.zeros_like(have)
+        return torch.from_numpy(got).to(dev)
 
     optimizer.server_state = ServerState(
         velocity=server_resident(flat["server/velocity"]),

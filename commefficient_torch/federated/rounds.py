@@ -74,7 +74,11 @@ Over a client group (``group``, a ``parallel/mesh.ClientGroup``: one
 process per GPU) every rank receives the whole round's batch and runs its
 ``W / n`` slots. Without ``server_shard`` the rank's transmit sum is
 all-reduced before the ``/count`` division; with it the unreduced sum goes
-to ``server.sharded_server_update``, which owns the reduce. The model
+to ``server.sharded_server_update``, which owns the reduce. On the 2-D
+(clients x shard) grid the group is the server reduce tuple: rank ``p``
+runs slots ``[p * W/N, (p + 1) * W/N)``, and a per-axis plan is resolved
+against the grid's axes when the steps are built
+(``ops/collectives.plan_lowering``). The model
 state is the slot-weighted mean over the ranks (a rank whose slots are
 all padding adds 0 to the numerator and the denominator). The per-client
 path all-gathers the slots' new state rows and metrics, so every rank's
@@ -106,6 +110,7 @@ from commefficient_torch.ops.collectives import (
     CollectivePlan,
     all_gather_tiled,
     all_reduce_sum,
+    plan_lowering,
 )
 from commefficient_torch.federated.worker import (
     WorkerConfig,
@@ -290,6 +295,16 @@ class FederatedSteps(NamedTuple):
     stream_groups: Optional[Tuple[SegmentGroup, ...]] = None
 
 
+def _select(ok, new, old):
+    """``new`` where ``ok``, else ``old``: a tensor, None, or a tuple of
+    per-level carries (None at float32 levels)."""
+    if new is None:
+        return None
+    if isinstance(new, tuple):
+        return tuple(_select(ok, a, b) for a, b in zip(new, old))
+    return torch.where(ok, new, old)
+
+
 def build_round_step(compute_loss_train: Callable,
                      compute_loss_val: Callable, params: ParamLayout,
                      cfg: RoundConfig,
@@ -310,6 +325,8 @@ def build_round_step(compute_loss_train: Callable,
     if plan is not None and plan.quantized:
         assert server_shard, \
             "quantized collective legs require --server_shard"
+    # a per-axis plan's legs resolved on the grid (None: a flat plan)
+    lowering = plan_lowering(plan, group) if server_shard else None
     assert params.d == cfg.grad_size, (params.d, cfg.grad_size)
     if wcfg.mode == "sketch":
         assert sketch is not None and sketch.d == cfg.grad_size, \
@@ -645,7 +662,8 @@ def build_round_step(compute_loss_train: Callable,
         if server_shard:
             update, new_state, resketched = sharded_server_update(
                 ctx.gradient, server_state, scfg, eff_lr, ctx.count, group,
-                sketch=sketch, layout=layout, rng=rng, plan=plan, sr=sr)
+                sketch=sketch, layout=layout, rng=rng, plan=plan, sr=sr,
+                lowering=lowering)
         else:
             update, new_state = server_update(ctx.gradient, server_state,
                                               scfg, eff_lr, sketch=sketch,
@@ -666,7 +684,7 @@ def build_round_step(compute_loss_train: Callable,
                                     group=group if server_shard else None)
             new_ps = torch.where(guard_ok, new_ps, ps)
             new_state = ServerState(*(
-                None if new is None else torch.where(guard_ok, new, old)
+                _select(guard_ok, new, old)
                 for new, old in zip(new_state, server_state)))
 
         # the server's masks of the participating clients' state:

@@ -34,7 +34,17 @@ modes: a ``d_pad / n`` slice of velocity and error, ``d_pad = n * ceil(d /
 n)``; sketch mode: the replicated table algebra and ``ceil(T / n)`` chunks
 of the estimate plane, ``t0 = rank * ceil(T / n)``), the top-k threshold
 comes from the counts exchanged over the group, and the update slice is
-all-gathered (quantized under a quantized downlink leg).
+all-gathered (quantized under a quantized downlink leg). On the 2-D
+(clients x shard) grid the group is the server reduce tuple (rank ``p``,
+size ``N``), and a leg that a per-axis plan lowers to an ``((axis,
+dtype), ...)`` tuple runs the hierarchical collectives over the grid's
+axis subgroups: the table by ``hierarchical_psum``, the dense uplink by
+``hierarchical_psum_scatter``, the downlink by
+``hierarchical_all_gather``, each with a tuple of per-level carries (None
+at float32 levels). Server DP noise comes from its own generator, never
+from the stochastic-rounding streams, so the JAX package's fold of the
+noise key under a quantized plan has no counterpart here: the streams
+are already independent.
 
 The legality asserts of ``ServerConfig`` are the JAX package's, verbatim.
 """
@@ -48,9 +58,15 @@ import torch
 
 from commefficient_torch.ops.flat import ChunkLayout
 from commefficient_torch.ops.collectives import (
+    DEFAULT_QUANT_BLOCK,
     FP32_PLAN,
+    PLAN_LEGS,
     all_gather_tiled,
     all_reduce_sum,
+    hierarchical_all_gather,
+    hierarchical_psum,
+    hierarchical_psum_scatter,
+    leg_quantized,
     quantized_all_gather,
     quantized_psum,
     quantized_psum_scatter,
@@ -121,7 +137,14 @@ class ServerState(NamedTuple):
     where the leg is exact): ``qres``, the uplink's (the dense transmit
     reduce, ``(d_pad,)``) or the table leg's (``(r, c_pad)``) remainder;
     ``dres``, the downlink's remainder of this rank's update tile (sketch
-    mode ``(ceil(T / n), S, 128)``, dense ``(d_pad / n,)``)."""
+    mode ``(ceil(T / n), S, 128)``, dense ``(d_pad / n,)``). A leg that a
+    per-axis plan lowers hierarchically carries a tuple of slots aligned
+    with its lowering, None at float32 levels: uplink slot ``j`` has the
+    shape of level ``j``'s input (the dense tile divided by the sizes of
+    the axes reduced before it; the table at every level), downlink slot
+    ``j`` that of level ``j``'s gather input (the gathered layout divided
+    by the sizes of axes ``0..j``), the same on the ranks along the axes
+    after ``j``."""
 
     velocity: torch.Tensor
     error: torch.Tensor
@@ -129,18 +152,35 @@ class ServerState(NamedTuple):
     dres: Optional[torch.Tensor] = None
 
 
+def leg_lowerings(plan, lowering=None) -> dict:
+    """``{leg: dtype | ((axis, dtype), ...)}``: ``lowering`` (a per-axis
+    plan resolved on the grid, ``ops/collectives.plan_lowering``), else
+    the flat plan's dtypes."""
+    if lowering is not None:
+        return lowering
+    plan = FP32_PLAN if plan is None else plan
+    assert not plan.per_axis, \
+        "per-axis collective plans must pass lowering= (the " \
+        "resolve_leg_lowering dict): the leg strings alone do not size " \
+        "the per-axis carry slots"
+    return {leg: getattr(plan, leg) for leg in PLAN_LEGS}
+
+
 def init_server_state(cfg: ServerConfig,
                       sketch: Optional[CountSketch] = None,
                       device=None, shard_n: int = 0,
-                      plan=None) -> ServerState:
+                      plan=None, lowering=None,
+                      axis_sizes=None) -> ServerState:
     """Zero state on ``device`` (the sketch's device in sketch mode, else
     ``device``, default ``cuda``). ``shard_n > 0`` is the sharded server
     over a group of that size (this rank's slices of dense state);
     ``plan`` (a ``CollectivePlan``) decides which carries exist: ``qres``
     where the mode's uplink leg (``uplink``, sketch mode ``table``) is
     quantized, ``dres`` where the ``downlink`` is. A quantized leg needs
-    ``shard_n``."""
-    plan = FP32_PLAN if plan is None else plan
+    ``shard_n``. ``lowering`` (a per-axis plan's, with ``axis_sizes``,
+    ``{axis: size}``) gives a hierarchical leg its tuple of per-level
+    carries (see ``ServerState``)."""
+    lowering = leg_lowerings(plan, lowering)
     if cfg.mode == "sketch":
         assert sketch is not None
         shape, device = sketch.table_shape, sketch.device
@@ -152,18 +192,40 @@ def init_server_state(cfg: ServerConfig,
     def zeros(sh):
         return torch.zeros(sh, dtype=torch.float32, device=device)
 
-    up = plan.table if cfg.mode == "sketch" else plan.uplink
+    up = lowering["table"] if cfg.mode == "sketch" else lowering["uplink"]
+    down = lowering["downlink"]
+    if leg_quantized(up) or leg_quantized(down):
+        assert shard_n > 0, \
+            "quantized collective legs require --server_shard"
+    # the dense transmit (d_pad) and the gathered update layout
+    n = max(shard_n, 1)
+    up_full = shape if cfg.mode == "sketch" else (shape[0] * n,)
+    down_full = ((-(-sketch.T // n) * n, sketch.sublanes, 128)
+                 if cfg.mode == "sketch" else (shape[0] * n,))
     qres = dres = None
-    if up != "float32":
-        assert shard_n > 0, \
-            "quantized collective legs require --server_shard"
-        qres = zeros(shape if cfg.mode == "sketch"
-                     else (shape[0] * shard_n,))
-    if plan.downlink != "float32":
-        assert shard_n > 0, \
-            "quantized collective legs require --server_shard"
-        dres = zeros((-(-sketch.T // shard_n), sketch.sublanes, 128)
-                     if cfg.mode == "sketch" else shape)
+    if isinstance(up, tuple):
+        assert axis_sizes is not None, \
+            "a hierarchical lowering needs axis_sizes={axis: size}"
+        slots, seen = [], 1
+        for ax, dt in up:
+            slots.append(None if dt == "float32" else zeros(
+                up_full if cfg.mode == "sketch"
+                else (up_full[0] // seen,)))
+            seen *= int(axis_sizes[ax])
+        qres = tuple(slots)
+    elif up != "float32":
+        qres = zeros(up_full)
+    if isinstance(down, tuple):
+        assert axis_sizes is not None, \
+            "a hierarchical lowering needs axis_sizes={axis: size}"
+        slots, seen = [], 1
+        for ax, dt in down:
+            seen *= int(axis_sizes[ax])
+            slots.append(None if dt == "float32" else zeros(
+                (down_full[0] // seen,) + down_full[1:]))
+        dres = tuple(slots)
+    elif down != "float32":
+        dres = zeros((down_full[0] // n,) + down_full[1:])
     return ServerState(velocity=zeros(shape), error=zeros(shape),
                        qres=qres, dres=dres)
 
@@ -284,28 +346,34 @@ def sharded_server_update(transmit_local: torch.Tensor, state: ServerState,
                           sketch: Optional[CountSketch] = None,
                           layout: Optional[ChunkLayout] = None,
                           rng: Optional[torch.Generator] = None, plan=None,
-                          sr: Optional[dict] = None):
+                          sr: Optional[dict] = None, lowering=None,
+                          u: Optional[dict] = None):
     """One sharded server step on this rank of ``group`` (a
-    ``ClientGroup``). ``transmit_local`` is this rank's UNREDUCED transmit
-    sum (the ``(r, c_pad)`` table, or the flat ``(d,)`` sum); ``count`` the
-    round's data count, divided out after the reduce, so the reduced sum
-    is the replicated round's. ``state`` holds this rank's slices.
-    ``plan`` picks each leg's wire dtype; a quantized leg draws its
-    stochastic-rounding uniforms from ``sr[leg]`` (``"up"``, ``"down"``)
-    and carries its remainder in ``qres`` / ``dres``. ``rng`` draws server
-    DP noise: one ``(d_pad,)`` draw on every rank, sliced locally, so the
+    ``ClientGroup``; on the 2-D grid the reduce tuple). ``transmit_local``
+    is this rank's UNREDUCED transmit sum (the ``(r, c_pad)`` table, or
+    the flat ``(d,)`` sum); ``count`` the round's data count, divided out
+    after the reduce, so the reduced sum is the replicated round's.
+    ``state`` holds this rank's slices. ``plan`` picks each leg's wire
+    dtype, ``lowering`` (``ops/collectives.plan_lowering``) a per-axis
+    plan's levels; a quantized leg draws its stochastic-rounding uniforms
+    from ``sr[leg]`` (``"up"``, ``"down"``: a generator, or a tuple a
+    level, ``ops/collectives.level_sr_generators``), or takes them from
+    ``u[leg]`` (the same layout; a test passes the JAX package's), and
+    carries its remainder in ``qres`` / ``dres``. ``rng`` draws server DP
+    noise: one ``(d_pad,)`` draw on every rank, sliced locally, so the
     ranks agree on the noise vector.
 
     Returns ``(the lr-scaled full update, this rank's new state, the
     re-sketched update table or None)``: in sketch mode the sum of the
     ranks' partial re-sketches, whose nonzero cells mask the state (the
     round reuses it for the client tables)."""
-    plan = FP32_PLAN if plan is None else plan
+    lowering = leg_lowerings(plan, lowering)
     sr = sr or {}
+    u = u or {}
     n, rank = group.size, group.rank
-    up = plan.table if cfg.mode == "sketch" else plan.uplink
-    down = plan.downlink
-    up_q, down_q = up != "float32", down != "float32"
+    up = lowering["table"] if cfg.mode == "sketch" else lowering["uplink"]
+    down = lowering["downlink"]
+    up_q, down_q = leg_quantized(up), leg_quantized(down)
     if up_q:
         assert state.qres is not None, \
             "quantized uplink/table leg needs the qres carry " \
@@ -317,13 +385,29 @@ def sharded_server_update(transmit_local: torch.Tensor, state: ServerState,
     zero = torch.zeros((), dtype=torch.float32,
                        device=transmit_local.device)
 
+    def gather(upd_local, block):
+        """The update all-gather: exact, quantized, or level by level."""
+        if isinstance(down, tuple):
+            return hierarchical_all_gather(
+                upd_local, down, group, sr.get("down"), residuals=state.dres,
+                block=block, u=u.get("down"))
+        if down_q:
+            return quantized_all_gather(
+                upd_local, group, sr.get("down"), residual=state.dres,
+                block=block, dtype=down, u=u.get("down"))
+        return all_gather_tiled(upd_local, group), state.dres
+
     if cfg.mode == "sketch":
         assert sketch is not None and layout is not None
-        if up_q:
+        if isinstance(up, tuple):
+            table, new_qres = hierarchical_psum(
+                transmit_local, up, group, sr.get("up"),
+                residuals=state.qres, block=sketch.c_pad, u=u.get("up"))
+        elif up_q:
             # one scale a table row (c_pad = S * 128)
             table, new_qres = quantized_psum(
                 transmit_local, group, sr.get("up"), residual=state.qres,
-                block=sketch.c_pad, dtype=up)
+                block=sketch.c_pad, dtype=up, u=u.get("up"))
         else:
             table = all_reduce_sum(transmit_local.clone(), group)
             new_qres = state.qres
@@ -349,13 +433,8 @@ def sharded_server_update(transmit_local: torch.Tensor, state: ServerState,
         velocity = torch.where(cell_nz, zero, velocity)
         if cfg.error_type == "local":
             error = velocity
-        if down_q:
-            # one scale a resident (S, 128) chunk
-            full, new_dres = quantized_all_gather(
-                upd_local, group, sr.get("down"), residual=state.dres,
-                block=sketch.sublanes * 128, dtype=down)
-        else:
-            full, new_dres = all_gather_tiled(upd_local, group), state.dres
+        # one scale a resident (S, 128) chunk
+        full, new_dres = gather(upd_local, sketch.sublanes * 128)
         update = full[:sketch.T]
         return (update * lr, ServerState(velocity, error, new_qres,
                                          new_dres), resketched)
@@ -363,9 +442,14 @@ def sharded_server_update(transmit_local: torch.Tensor, state: ServerState,
     d = cfg.grad_size
     d_pad = -(-d // n) * n
     x = torch.nn.functional.pad(transmit_local, (0, d_pad - d))
-    if up_q:
+    if isinstance(up, tuple):
+        tile, new_qres = hierarchical_psum_scatter(
+            x, up, group, sr.get("up"), residuals=state.qres,
+            u=u.get("up"))
+    elif up_q:
         tile, new_qres = quantized_psum_scatter(
-            x, group, sr.get("up"), residual=state.qres, dtype=up)
+            x, group, sr.get("up"), residual=state.qres, dtype=up,
+            u=u.get("up"))
     else:
         tile, new_qres = reduce_scatter_sum(x, group), state.qres
     grad = tile / count
@@ -387,12 +471,7 @@ def sharded_server_update(transmit_local: torch.Tensor, state: ServerState,
                                 device=upd_local.device)
             upd_local = upd_local + cfg.noise_multiplier * \
                 noise[rank * per:(rank + 1) * per]
-    if down_q:
-        full, new_dres = quantized_all_gather(
-            upd_local, group, sr.get("down"), residual=state.dres,
-            dtype=down)
-    else:
-        full, new_dres = all_gather_tiled(upd_local, group), state.dres
+    full, new_dres = gather(upd_local, DEFAULT_QUANT_BLOCK)
     update = full[:d]
     return (update * lr, ServerState(velocity, error, new_qres, new_dres),
             None)

@@ -35,28 +35,51 @@ for bit. ``CollectivePlan`` / ``parse_collective_plan`` choose the wire
 dtype of each leg (``uplink``: the dense transmit reduce, ``table``: the
 sketch-table exchange, ``downlink``: the update all-gather).
 
-Not ported here (ROADMAP.md queue 1 item 5a): the per-mesh-axis
-(hierarchical) plans and ``--collective_plan auto``.
+Per-axis plans (part 3 of the JAX module). On the 2-D (clients x shard)
+grid a leg may carry slash-joined ``axis:dtype`` pairs
+(``uplink=ici:fp32/dcn:int8``; ``ici`` / ``dcn`` are placement aliases of
+``parallel/mesh.mesh_axis_placement``, mesh axis names work too, axes no
+entry covers stay float32). ``resolve_leg_lowering`` turns such a leg
+into an ordered ``((axis, dtype), ...)`` lowering over the server reduce
+axes (``shard`` first, ``clients`` last), collapsed to the flat dtype when
+every level agrees; ``hierarchical_psum_scatter`` / ``hierarchical_psum``
+/ ``hierarchical_all_gather`` run it level by level over the grid's axis
+subgroups, each quantized level with its own error-feedback carry. A
+level's stochastic-rounding stream is keyed on ``(seed, round, leg,
+level, this rank's index along the level's axis)``
+(``level_sr_generators``), never on the global rank: in the gather,
+sibling ranks along the axes already gathered quantize identical data
+and must draw identical uniforms, or the replicas' updates diverge.
+
+``autotune_collective_plan`` (``--collective_plan auto``) probes each
+{leg x dtype} candidate's quantize -> dequantize round trip on the
+JAX package's calibration data and picks the cheapest dtype a leg within
+an error budget, as the JAX package does; the round trip is timed with
+CUDA events on the card and the host clock on the CPU.
 """
 
 from __future__ import annotations
 
 import hashlib
+import time
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from commefficient_torch.config import ITEM_MULTI_2D
-
 __all__ = [
     "DEFAULT_QUANT_BLOCK", "QUANT_DTYPES", "WIRE_DTYPES", "PLAN_LEGS",
-    "payload_bytes", "reduce_scatter_sum", "all_gather_tiled",
-    "all_reduce_sum", "quantize_blocks", "dequantize_blocks",
-    "quantized_psum_scatter", "quantized_psum", "quantized_all_gather",
+    "PLACEMENT_ALIASES", "payload_bytes", "reduce_scatter_sum",
+    "all_gather_tiled", "all_reduce_sum", "quantize_blocks",
+    "dequantize_blocks", "quantized_psum_scatter", "quantized_psum",
+    "quantized_all_gather", "hierarchical_psum_scatter",
+    "hierarchical_psum", "hierarchical_all_gather", "leg_axis_entries",
+    "leg_quantized", "resolve_leg_lowering", "plan_lowering",
     "CollectivePlan", "FP32_PLAN", "parse_collective_plan",
-    "plan_from_reduce_dtype", "sr_generator",
+    "plan_from_reduce_dtype", "sr_generator", "level_sr_generators",
+    "autotune_collective_plan",
 ]
 
 # 64 sublanes x 128 lanes per float32 scale, as in the JAX package; the
@@ -72,7 +95,8 @@ _FP8_MAX_BITS = 0x7E      # magnitude bits of 448.0 (0x7F is NaN)
 QUANT_DTYPES = ("int8", "fp8_e4m3", "int4")
 WIRE_DTYPES = ("float32",) + QUANT_DTYPES
 PLAN_LEGS = ("uplink", "table", "downlink")
-
+# placement aliases a per-axis plan entry may use instead of an axis name
+PLACEMENT_ALIASES = ("ici", "dcn")
 
 
 def payload_bytes(size: int, dtype: str = "int8",
@@ -350,13 +374,200 @@ def quantized_all_gather(x: torch.Tensor, cg, gen=None,
 
 
 # --------------------------------------------------------------------------
+# per-axis hierarchical collectives (the 2-D grid)
+# --------------------------------------------------------------------------
+
+def _level(seq, lvl):
+    return None if seq is None else seq[lvl]
+
+
+def hierarchical_psum_scatter(x: torch.Tensor, lowering, cg, gens=None,
+                              residuals=None,
+                              block: int = DEFAULT_QUANT_BLOCK, u=None):
+    """Level-by-level reduce-scatter over an ordered ``((axis, dtype),
+    ...)`` lowering (``resolve_leg_lowering``) on the grid ``cg``, each
+    level over this rank's group along its axis (``cg.axis``), at its own
+    wire dtype and with its own error-feedback carry. Reducing level by
+    level in the tuple order tiles as the flat tuple collective does
+    (both first-name-major). ``gens``, ``residuals`` and ``u`` (the
+    uniforms of ``quantized_psum_scatter``) are aligned with the lowering,
+    None at float32 levels; a level-``j`` carry has the shape of that
+    level's input (the tile shrinks by each reduced axis). Returns
+    ``(this rank's tile of the sum, new carries)``, the carries a tuple
+    aligned with the lowering (None at float32 levels)."""
+    new_residuals = []
+    t = x
+    for lvl, (ax, dt) in enumerate(lowering):
+        g = cg.axis(ax)
+        if dt == "float32":
+            t = reduce_scatter_sum(t, g)
+            new_residuals.append(None)
+        else:
+            t, nr = quantized_psum_scatter(
+                t, g, _level(gens, lvl), residual=_level(residuals, lvl),
+                block=block, dtype=dt, u=_level(u, lvl))
+            new_residuals.append(nr)
+    return t, tuple(new_residuals)
+
+
+def hierarchical_psum(x: torch.Tensor, lowering, cg, gens=None,
+                      residuals=None, block: int = DEFAULT_QUANT_BLOCK,
+                      u=None):
+    """Level-by-level all-reduce over an ordered lowering: the table
+    leg's hierarchical form. Each level runs the exact all-reduce
+    (float32) or ``quantized_psum`` with its own carry, ``x``-shaped at
+    every level. Returns ``(sum, new carries)``."""
+    new_residuals = []
+    t = x
+    for lvl, (ax, dt) in enumerate(lowering):
+        g = cg.axis(ax)
+        if dt == "float32":
+            t = all_reduce_sum(t.clone(), g)
+            new_residuals.append(None)
+        else:
+            t, nr = quantized_psum(
+                t, g, _level(gens, lvl), residual=_level(residuals, lvl),
+                block=block, dtype=dt, u=_level(u, lvl))
+            new_residuals.append(nr)
+    return t, tuple(new_residuals)
+
+
+def hierarchical_all_gather(x: torch.Tensor, lowering, cg, gens=None,
+                            residuals=None,
+                            block: int = DEFAULT_QUANT_BLOCK, u=None):
+    """Level-by-level all-gather over an ordered lowering, in REVERSE
+    level order (the last-reduced axis gathers first), which reassembles
+    the tiling ``hierarchical_psum_scatter`` made. Carry slot ``j`` stays
+    aligned with level ``j``: it has the shape of level ``j``'s gather
+    input, and ranks along the axes already gathered hold the same data
+    there and draw the same uniforms (``level_sr_generators`` keys on the
+    level's own axis index), so the slot is replicated over them.
+    Returns ``(gathered, new carries)``."""
+    new_residuals = [None] * len(lowering)
+    t = x
+    for lvl in reversed(range(len(lowering))):
+        ax, dt = lowering[lvl]
+        g = cg.axis(ax)
+        if dt == "float32":
+            t = all_gather_tiled(t, g)
+        else:
+            t, nr = quantized_all_gather(
+                t, g, _level(gens, lvl), residual=_level(residuals, lvl),
+                block=block, dtype=dt, u=_level(u, lvl))
+            new_residuals[lvl] = nr
+    return t, tuple(new_residuals)
+
+
+# --------------------------------------------------------------------------
 # the per-leg plan
 # --------------------------------------------------------------------------
+
+def _norm_dtype(dt: str) -> str:
+    dt = dt.strip()
+    return {"fp32": "float32", "fp8": "fp8_e4m3"}.get(dt, dt)
+
+
+def leg_axis_entries(value: str):
+    """One leg value's per-axis form, ``axis:dtype`` pairs joined by
+    ``/`` (``ici:fp32/dcn:int8``), as ``[(token, dtype), ...]`` with the
+    dtypes in ``WIRE_DTYPES`` spelling; None for a plain dtype. Raises
+    ``ValueError`` on a malformed pair, an unknown dtype or a token named
+    twice (the checks against the grid are ``resolve_leg_lowering``'s)."""
+    if ":" not in value:
+        return None
+    entries = []
+    seen = set()
+    for part in value.split("/"):
+        part = part.strip()
+        if not part:
+            continue
+        if ":" not in part:
+            raise ValueError(
+                f"collective plan per-axis entry {part!r}: expected "
+                f"axis:dtype (e.g. dcn:int8)")
+        tok, dt = part.split(":", 1)
+        tok = tok.strip()
+        dt = _norm_dtype(dt)
+        if not tok:
+            raise ValueError(
+                f"collective plan per-axis entry {part!r}: empty axis name")
+        if dt not in WIRE_DTYPES:
+            raise ValueError(
+                f"collective plan per-axis dtype {dt!r}: choose from "
+                f"{WIRE_DTYPES}")
+        if tok in seen:
+            raise ValueError(
+                f"collective plan names axis {tok!r} twice in one leg")
+        seen.add(tok)
+        entries.append((tok, dt))
+    if not entries:
+        raise ValueError(f"collective plan leg {value!r}: no axis:dtype "
+                         f"entries")
+    return entries
+
+
+def leg_quantized(value) -> bool:
+    """True iff the leg moves any bytes that are not float32 (a lowering
+    tuple, or a per-axis value with a quantized entry)."""
+    if isinstance(value, tuple):
+        return any(dt != "float32" for _, dt in value)
+    entries = leg_axis_entries(value)
+    if entries is None:
+        return value != "float32"
+    return any(dt != "float32" for _, dt in entries)
+
+
+def resolve_leg_lowering(value: str, axis_order, placement: dict):
+    """One leg value resolved against the grid: a plain dtype is itself; a
+    per-axis value is an ordered ``((axis, dtype), ...)`` lowering over
+    ``axis_order`` (the server reduce axes, a name or an ordered tuple).
+    A token is an axis of ``axis_order`` or a placement alias (``ici`` /
+    ``dcn``: every reduce axis with that placement). Axes no entry covers
+    stay float32. A token that matches no axis raises ``ValueError``
+    naming the axes and their placements. When every axis lands on one
+    dtype the leg collapses to that plain dtype: the flat tuple
+    collective over the same order is the same sum, in one hop."""
+    entries = leg_axis_entries(value)
+    if entries is None:
+        return value
+    axes = (axis_order,) if isinstance(axis_order, str) else tuple(axis_order)
+    resolved = {}
+    for tok, dt in entries:
+        if tok in axes:
+            targets = [tok]
+        elif tok in PLACEMENT_ALIASES:
+            targets = [a for a in axes if placement.get(a) == tok]
+            if not targets:
+                raise ValueError(
+                    f"collective plan entry {tok}:{dt} resolves to no mesh "
+                    f"axis: no server reduce axis has {tok!r} placement "
+                    f"(axes: " + ", ".join(
+                        f"{a}={placement.get(a, '?')}" for a in axes) + ")")
+        else:
+            raise ValueError(
+                f"collective plan entry names mesh axis {tok!r} which the "
+                f"resolved mesh does not have (server reduce axes: "
+                + ", ".join(f"{a}={placement.get(a, '?')}" for a in axes)
+                + f"; placement aliases: {'/'.join(PLACEMENT_ALIASES)})")
+        for a in targets:
+            if a in resolved:
+                raise ValueError(
+                    f"collective plan covers mesh axis {a!r} twice "
+                    f"(entry {tok}:{dt} overlaps an earlier entry)")
+            resolved[a] = dt
+    lowering = tuple((a, resolved.get(a, "float32")) for a in axes)
+    dtypes = {dt for _, dt in lowering}
+    if len(dtypes) == 1:
+        return next(iter(dtypes))
+    return lowering
+
 
 @dataclass(frozen=True)
 class CollectivePlan:
     """Wire dtype of each leg; ``float32`` legs run the exact
-    collectives."""
+    collectives. A leg may hold a per-axis value (``ici:fp32/dcn:int8``,
+    ``leg_axis_entries``'s grammar), which lowers hierarchically on the
+    2-D grid (``resolve_leg_lowering``) with one carry a level."""
 
     uplink: str = "float32"
     table: str = "float32"
@@ -366,16 +577,20 @@ class CollectivePlan:
         for leg in PLAN_LEGS:
             dt = getattr(self, leg)
             if ":" in dt:
-                raise NotImplementedError(
-                    f"per-axis collective plan leg {leg}={dt!r} is not "
-                    f"ported ({ITEM_MULTI_2D})")
+                leg_axis_entries(dt)  # the grammar; raises ValueError
+                continue
             assert dt in WIRE_DTYPES, \
                 f"collective plan leg {leg}={dt!r}: choose from " \
-                f"{WIRE_DTYPES}"
+                f"{WIRE_DTYPES} or per-axis axis:dtype pairs"
 
     @property
     def quantized(self) -> bool:
-        return any(getattr(self, leg) != "float32" for leg in PLAN_LEGS)
+        return any(leg_quantized(getattr(self, leg)) for leg in PLAN_LEGS)
+
+    @property
+    def per_axis(self) -> bool:
+        """True iff a leg holds a per-axis value."""
+        return any(":" in getattr(self, leg) for leg in PLAN_LEGS)
 
     def spec(self) -> str:
         return ",".join(f"{leg}={getattr(self, leg)}" for leg in PLAN_LEGS)
@@ -388,22 +603,23 @@ def parse_collective_plan(spec: Optional[str]) -> CollectivePlan:
     """``--collective_plan`` -> ``CollectivePlan``: empty/None is the fp32
     plan; one bare dtype sets every leg; comma-separated ``leg=dtype``
     pairs set those legs (unnamed legs stay float32). ``fp32`` spells
-    ``float32`` and ``fp8`` ``fp8_e4m3``. ``auto`` and the per-axis
-    ``axis:dtype`` forms raise ``NotImplementedError``."""
+    ``float32`` and ``fp8`` ``fp8_e4m3``. A leg's dtype may be per axis
+    (``uplink=ici:fp32/dcn:int8``; a bare per-axis value sets every leg);
+    the axes are checked against the grid by ``resolve_leg_lowering``.
+    ``auto`` is resolved by ``autotune_collective_plan``, not here."""
     if not spec:
         return FP32_PLAN
     spec = spec.strip()
-    if spec == "auto":
-        raise NotImplementedError(
-            f"--collective_plan auto is not ported ({ITEM_MULTI_2D})")
+    assert spec != "auto", \
+        "resolve --collective_plan auto via autotune_collective_plan " \
+        "before parsing"
 
     def norm(dt):
         dt = dt.strip()
         if ":" in dt:
-            raise NotImplementedError(
-                f"per-axis collective plan {dt!r} is not ported "
-                f"({ITEM_MULTI_2D})")
-        dt = {"fp32": "float32", "fp8": "fp8_e4m3"}.get(dt, dt)
+            # the per-axis form: normalize each pair's dtype
+            return "/".join(f"{tok}:{d}" for tok, d in leg_axis_entries(dt))
+        dt = _norm_dtype(dt)
         assert dt in WIRE_DTYPES, \
             f"collective plan dtype {dt!r}: choose from {WIRE_DTYPES}"
         return dt
@@ -435,3 +651,132 @@ def plan_from_reduce_dtype(reduce_dtype: str) -> CollectivePlan:
     if reduce_dtype == "int8":
         return CollectivePlan(uplink="int8", table="int8", downlink="int8")
     return FP32_PLAN
+
+
+def plan_lowering(plan: Optional[CollectivePlan], cg):
+    """``{leg: resolve_leg_lowering(...)}`` of a per-axis plan on the grid
+    ``cg`` (a ``ClientGroup``: its server reduce axes and their
+    placement); None for a flat plan, whose legs are their dtypes."""
+    if plan is None or not plan.per_axis:
+        return None
+    assert cg is not None, \
+        "a per-axis collective plan needs the client grid (--server_shard)"
+    return {leg: resolve_leg_lowering(getattr(plan, leg), cg.server_axes,
+                                      cg.axis_placement())
+            for leg in PLAN_LEGS}
+
+
+def level_sr_generators(seed: int, round_no: int, leg: str, lowering, cg,
+                        device):
+    """The stochastic-rounding generators of a leg: one for a flat
+    quantized leg (keyed on this rank's index ``cg.rank``), or one a
+    quantized level of a lowering tuple, keyed on ``(seed, round, leg,
+    level, this rank's index along the level's axis)`` (None at float32
+    levels); None for a float32 leg."""
+    if isinstance(lowering, tuple):
+        return tuple(
+            None if dt == "float32" else
+            sr_generator(seed, round_no, cg.axis(ax).rank, f"{leg}.{lvl}",
+                         device)
+            for lvl, (ax, dt) in enumerate(lowering))
+    if lowering == "float32":
+        return None
+    return sr_generator(seed, round_no, cg.rank if cg is not None else 0,
+                        leg, device)
+
+
+def _round_trip_ms(fn, x: torch.Tensor, reps: int = 3) -> float:
+    """The best of ``reps`` calls of ``fn(x)`` after one warm-up, in ms:
+    CUDA events on the card, the host clock on the CPU."""
+    fn(x)
+    best = float("inf")
+    for _ in range(reps):
+        if x.device.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn(x)
+            b.record()
+            b.synchronize()
+            ms = a.elapsed_time(b)
+        else:
+            t0 = time.perf_counter()
+            fn(x)
+            ms = (time.perf_counter() - t0) * 1e3
+        best = min(best, ms)
+    return best
+
+
+def autotune_collective_plan(leg_geoms, error_budget: float = 0.05,
+                             seed: int = 0, sample_cap: int = 1 << 20,
+                             candidates=QUANT_DTYPES, device="cpu",
+                             u: Optional[dict] = None):
+    """``--collective_plan auto``: the JAX package's probe, which picks the
+    cheapest wire dtype a leg within an error budget.
+
+    ``leg_geoms``: ``{leg: (elements, block)}`` of the legs the config
+    runs (absent legs are float32). A leg's calibration transmit is the
+    JAX package's, ``np.random.RandomState(seed).randn(nb, block)`` with
+    ``nb = max(1, min(elements, sample_cap) // block)``; each candidate's
+    quantize -> dequantize round trip is timed (``_round_trip_ms``) and
+    its relative L2 error measured. A candidate is admissible iff its
+    error is within ``error_budget``; among the admissible ones (float32
+    always is, at error 0) the fewest ``payload_bytes`` win, ties broken
+    by the lower error. The uniforms are drawn from a generator seeded
+    with ``seed``, or taken from ``u[leg]`` (``(nb, block)``: a test
+    passes the JAX package's).
+
+    Returns ``(plan, report)``, ``report[leg][dtype]`` holding
+    ``{"rel_err", "probe_ms", "bytes_per_round"}`` (or ``{"error"}`` for a
+    candidate that failed to run), the JAX package's schema."""
+    device = torch.device(device)
+    report = {}
+    chosen = {}
+    for leg in PLAN_LEGS:
+        geom = leg_geoms.get(leg)
+        if geom is None:
+            chosen[leg] = "float32"
+            continue
+        elems, block = geom
+        elems = int(elems)
+        block = int(min(block or DEFAULT_QUANT_BLOCK, max(1, elems)))
+        n_elem = min(elems, int(sample_cap))
+        nb = max(1, n_elem // block)
+        cal = torch.from_numpy(np.random.RandomState(seed).randn(
+            nb, block).astype(np.float32)).to(device)
+        cal_norm = float(torch.sqrt(torch.sum(torch.square(cal))))
+        if u is not None and u.get(leg) is not None:
+            uni = torch.as_tensor(np.array(u[leg], np.float32)).to(device)
+        else:
+            gen = torch.Generator(device=device).manual_seed(int(seed))
+            uni = torch.rand(cal.shape, generator=gen, dtype=torch.float32,
+                             device=device)
+        rows = {"float32": {"rel_err": 0.0, "probe_ms": 0.0,
+                            "bytes_per_round": payload_bytes(
+                                elems, "float32", block)}}
+        best = ("float32", rows["float32"]["bytes_per_round"], 0.0)
+        for dt in candidates:
+            bytes_ = payload_bytes(elems, dt, block)
+
+            def rt(x, dt=dt):
+                q, s = quantize_blocks(x, uni, dt)
+                return dequantize_blocks(q, s, dt, block)
+
+            try:
+                y = rt(cal)
+                probe_ms = _round_trip_ms(rt, cal)
+            except RuntimeError as e:  # a device without the dtype
+                rows[dt] = {"error": f"{type(e).__name__}: {str(e)[:120]}"}
+                continue
+            rel = float(torch.sqrt(torch.sum(torch.square(cal - y)))) \
+                / max(cal_norm, 1e-30)
+            rows[dt] = {"rel_err": round(rel, 6),
+                        "probe_ms": round(probe_ms, 3),
+                        "bytes_per_round": bytes_}
+            if rel <= error_budget and (
+                    bytes_ < best[1]
+                    or (bytes_ == best[1] and rel < best[2])):
+                best = (dt, bytes_, rel)
+        chosen[leg] = best[0]
+        report[leg] = rows
+    return CollectivePlan(**chosen), report

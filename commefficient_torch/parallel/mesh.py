@@ -1,25 +1,50 @@
-"""The client group: the port of ``commefficient_tpu/parallel/mesh.py``'s
-1-D ``clients`` mesh (``default_client_mesh``), in PyTorch's idiom of one
-process per GPU.
+"""The client grid: the port of ``commefficient_tpu/parallel/mesh.py``'s
+``clients`` mesh and its 2-D (clients x shard) server plane
+(``default_client_mesh``, ``server_reduce_axes``, ``mesh_axis_placement``,
+``maybe_init_distributed``), in PyTorch's idiom of one process per GPU.
 
 The world comes from ``torchrun``'s environment (``RANK``,
-``WORLD_SIZE``, ``LOCAL_RANK``; ``MASTER_ADDR``/``MASTER_PORT`` reach
-``init_process_group`` through its ``env://`` default) or from the
-caller. A rank's device is ``cuda:LOCAL_RANK``; the backend is ``nccl``
-on the card and ``gloo`` where the caller asks for the CPU. A caller may
-name another backend explicitly (a test running ``gloo`` on CUDA
-tensors); nothing picks one at run time, and a process group that fails
-to start raises.
+``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``;
+``MASTER_ADDR``/``MASTER_PORT`` reach ``init_process_group`` through its
+``env://`` default), from the JAX package's cohort seam
+(``COMMEFFICIENT_NUM_PROCS`` / ``COMMEFFICIENT_PROC_ID`` /
+``COMMEFFICIENT_COORDINATOR``: one process a node, the coordinator's
+``host:port`` the rendezvous) or from the caller. A rank's device is
+``cuda:LOCAL_RANK``; the backend is ``nccl`` on the card and ``gloo``
+where the caller asks for the CPU. A caller may name another backend
+explicitly (a test running ``gloo`` on CUDA tensors); nothing picks one
+at run time, and a process group that fails to start raises.
 
-The client group's size follows the JAX package's policy:
-``min(--num_devices, world)`` (``-1``: the world), reduced to the largest
-divisor of ``num_workers`` so the round's W slots split evenly. Ranks past
-the group's size are idle (``ClientGroup.active`` is False), as the
-devices past the JAX mesh are. A world of 1 keeps the process-group path
-live, as the JAX package's 1-device mesh does.
+The grid follows the JAX package's policy (``grid_shape``): the ``shard``
+axis (``--shard_devices``) is claimed first and must divide
+``num_workers``; the ``clients`` axis is ``min(--num_devices, world //
+shard)`` (``-1``: all of it), reduced until ``clients x shard`` divides
+``num_workers``. Ranks past the grid are idle (``ClientGroup.active`` is
+False), as the devices past the JAX mesh are. A world of 1 keeps the
+process-group path live, as the JAX package's 1-device mesh does.
 
-Rank ``i`` of the group runs slots ``[i * W/n, (i + 1) * W/n)`` of every
-round (``ClientGroup.slots``).
+Placement. Device ``i`` (torchrun's ``RANK``: node-major across nodes)
+sits at ``c = i // n_shard``, ``s = i % n_shard``, so ``clients`` is the
+axis that spans nodes, as JAX's leading axis spans hosts. The server
+reduces over the ordered tuple ``("shard", "clients")``, whose index is
+``p = s * n_clients + c`` (``tuple_index``); rank ``p`` runs slots ``[p *
+W/N, (p + 1) * W/N)`` (``ClientGroup.slots``), starts its sketch chunks at
+``t0 = p * ceil(T / N)`` and takes tile ``p`` of the server's DP noise.
+
+The process group is started with ``rank = p``: gloo and NCCL associate
+an n-rank sum in rank order, and ``new_group`` sorts its ranks, so with
+the world numbered by ``p`` the flat tuple collective is the plain world
+collective and adds the slots in the order of the 1-D plane (the fp32
+2-D round is the 1-D round bit for bit). The axis subgroups come out in
+axis order: ``{s * n_clients + c : s}`` (the ``shard`` axis of column
+``c``) and ``{s * n_clients + c : c}`` (the ``clients`` axis of row
+``s``); every rank creates all of them, in the same order.
+
+``mesh_axis_placement``: ``clients`` rides ``dcn`` exactly when the world
+spans more than one node (``LOCAL_WORLD_SIZE < WORLD_SIZE``), every other
+axis ``ici``; ``COMMEFFICIENT_FORCE_DCN_AXIS=<axis>`` forces one axis to
+``dcn``, as in the JAX package. On several nodes the clients axis must
+divide by the node count (JAX's multi-host check).
 """
 
 from __future__ import annotations
@@ -27,24 +52,38 @@ from __future__ import annotations
 import os
 import warnings
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+CLIENTS_AXIS = "clients"
+SHARD_AXIS = "shard"
 
 
 @dataclass(frozen=True)
 class ClientGroup:
     """A process group over which the round's client slots are split.
     ``group`` is the torch process group (None: the default group),
-    ``rank``/``size`` this process's position in it, ``device`` its
-    device. ``active`` is False on a rank outside the group."""
+    ``rank``/``size`` this process's position in it (on the 2-D grid the
+    tuple index ``p`` and ``clients x shard``), ``device`` its device.
+    ``active`` is False on a rank outside the group.
+
+    On the 2-D grid ``axes`` holds this rank's group along each server
+    reduce axis, in level order (``(("shard", g_s), ("clients", g_c))``;
+    ``g.rank`` is this rank's index along that axis); on the 1-D plane it
+    is empty and the ``clients`` axis is the group itself. ``placement``
+    is ``mesh_axis_placement``'s ``(axis, "ici" | "dcn")`` pairs and
+    ``nodes`` the node count of the world."""
 
     group: Any
     rank: int
     size: int
     device: torch.device
     active: bool = True
+    axes: Tuple[Tuple[str, "ClientGroup"], ...] = ()
+    placement: Tuple[Tuple[str, str], ...] = ()
+    nodes: int = 1
 
     def slots(self, W: int) -> Tuple[int, int]:
         """This rank's ``[lo, hi)`` of a round's ``W`` slots."""
@@ -56,16 +95,102 @@ class ClientGroup:
     def is_main(self) -> bool:
         return self.rank == 0
 
+    @property
+    def server_axes(self):
+        """The axis (or ordered axis tuple) the server reduces over:
+        ``clients``, or ``("shard", "clients")`` on the 2-D grid (the JAX
+        package's ``server_reduce_axes``)."""
+        if not self.axes:
+            return CLIENTS_AXIS
+        return tuple(name for name, _ in self.axes)
 
-def world_from_env() -> Optional[Tuple[int, int, int]]:
-    """``(rank, world_size, local_rank)`` from ``torchrun``'s environment,
-    or None when ``WORLD_SIZE`` is unset."""
-    if "WORLD_SIZE" not in os.environ:
+    @property
+    def axis_sizes(self) -> dict:
+        """``{axis: size}`` of the server reduce axes."""
+        if not self.axes:
+            return {CLIENTS_AXIS: self.size}
+        return {name: g.size for name, g in self.axes}
+
+    def axis(self, name: str) -> "ClientGroup":
+        """This rank's group along server reduce axis ``name``."""
+        if not self.axes and name == CLIENTS_AXIS:
+            return self
+        for ax, g in self.axes:
+            if ax == name:
+                return g
+        raise KeyError(f"no server reduce axis {name!r} (axes: "
+                       f"{self.server_axes})")
+
+    def prefix(self, j: int) -> "ClientGroup":
+        """The group over reduce axes ``0..j`` that holds this rank: the
+        axes after ``j`` fixed at this rank's indices. It tiles the axes
+        first-name-major, as a JAX spec over ``axes[:j + 1]`` does."""
+        levels = self.axes or ((CLIENTS_AXIS, self),)
+        assert 0 <= j < len(levels), (j, len(levels))
+        if j == len(levels) - 1:
+            return self
+        assert j == 0 and len(levels) == 2, \
+            "the port's grid has at most two server reduce axes"
+        return levels[0][1]
+
+    def axis_placement(self) -> dict:
+        """``{axis: "ici" | "dcn"}`` (``mesh_axis_placement``)."""
+        return dict(self.placement) or {CLIENTS_AXIS: "ici"}
+
+    def topology(self) -> dict:
+        """The grid for the telemetry ``run_start`` event, in the JAX
+        package's ``mesh`` schema: the axes in mesh order (``clients``
+        first) with sizes and placements, and the process count."""
+        sizes = self.axis_sizes
+        place = self.axis_placement()
+        names = [CLIENTS_AXIS] + [a for a in sizes if a != CLIENTS_AXIS]
+        return {"process_count": int(self.size),
+                "nodes": int(self.nodes),
+                "axes": [{"name": a, "size": int(sizes[a]),
+                          "placement": place.get(a, "ici")}
+                         for a in names]}
+
+
+class World(NamedTuple):
+    """A process's place in the launch: its launcher rank (node-major
+    device index), the world size, its local rank and the processes on
+    its node, and the rendezvous (None: ``env://``)."""
+
+    rank: int
+    size: int
+    local_rank: int
+    local_size: int
+    init_method: Optional[str] = None
+
+    @property
+    def nodes(self) -> int:
+        return max(1, self.size // max(1, self.local_size))
+
+
+def world_from_env() -> Optional[World]:
+    """This process's ``World`` from ``torchrun``'s environment, else from
+    the JAX package's cohort seam (``COMMEFFICIENT_NUM_PROCS`` > 1: one
+    process a node, rank ``COMMEFFICIENT_PROC_ID``, the rendezvous
+    ``tcp://COMMEFFICIENT_COORDINATOR``), else None. A seam without a
+    coordinator raises ``ValueError``, as the JAX package's
+    ``maybe_init_distributed`` does."""
+    if "WORLD_SIZE" in os.environ:
+        world = int(os.environ["WORLD_SIZE"])
+        rank = int(os.environ.get("RANK", 0))
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        local_size = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        return World(rank, world, local, local_size)
+    n = int(os.environ.get("COMMEFFICIENT_NUM_PROCS", "0") or 0)
+    if n <= 1:
         return None
-    world = int(os.environ["WORLD_SIZE"])
-    rank = int(os.environ.get("RANK", 0))
-    local = int(os.environ.get("LOCAL_RANK", rank))
-    return rank, world, local
+    coord = os.environ.get("COMMEFFICIENT_COORDINATOR", "")
+    pid = int(os.environ.get("COMMEFFICIENT_PROC_ID", "0") or 0)
+    if not coord:
+        raise ValueError(
+            "COMMEFFICIENT_NUM_PROCS is set but COMMEFFICIENT_COORDINATOR "
+            "is not (expected host:port of process 0's coordinator)")
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    return World(pid, n, local, 1, f"tcp://{coord}")
 
 
 def init_distributed(device_type: str = "cuda", backend: Optional[str] = None,
@@ -83,10 +208,10 @@ def init_distributed(device_type: str = "cuda", backend: Optional[str] = None,
             raise RuntimeError(
                 "init_distributed needs rank and world_size, or torchrun's "
                 "RANK / WORLD_SIZE / LOCAL_RANK environment")
-        rank = env[0] if rank is None else rank
-        world_size = env[1] if world_size is None else world_size
+        rank = env.rank if rank is None else rank
+        world_size = env.size if world_size is None else world_size
         if local_rank is None:
-            local_rank = env[2]
+            local_rank = env.local_rank
     if local_rank is None:
         local_rank = rank
     if device_type == "cuda":
@@ -115,53 +240,133 @@ def destroy_distributed() -> None:
         dist.destroy_process_group()
 
 
-def client_group_size(num_workers: int, num_devices: int, world: int) -> int:
-    """The JAX package's clients-axis policy: ``min(num_devices, world)``
-    (``num_devices <= 0``: the world), reduced to the largest divisor of
-    ``num_workers``; a warning when it differs from an explicit
-    request."""
-    requested = num_devices if num_devices and num_devices > 0 else world
-    n = max(1, min(requested, world))
-    while num_workers % n:
+def grid_shape(num_workers: int, num_devices: int = -1,
+               shard_devices: int = 1, world: int = 1) -> Tuple[int, int]:
+    """``(n_clients, n_shard)``: the JAX package's ``default_client_mesh``
+    policy over ``world`` devices without the seq, model, stage and
+    expert axes, its clamps and warnings word for word. The shard axis is
+    claimed first and reduced to a divisor of ``num_workers``; the
+    clients axis is ``min(num_devices, world // n_shard)`` (``num_devices
+    <= 0``: all of it), reduced until ``n_clients * n_shard`` divides
+    ``num_workers``."""
+    n_avail = world
+    nsh = max(1, min(shard_devices, n_avail))
+    while num_workers % nsh:
+        nsh -= 1
+    if shard_devices > nsh:
+        warnings.warn(f"--shard_devices {shard_devices} reduced to {nsh} "
+                      f"(must divide num_workers={num_workers}; "
+                      f"{n_avail} devices available, 1 "
+                      f"claimed by seq/model/stage/expert)", stacklevel=2)
+    requested = num_devices if num_devices and num_devices > 0 \
+        else n_avail
+    n = max(1, min(requested, n_avail // nsh))
+    while num_workers % (n * nsh):
         n -= 1
-    if 0 < num_devices != n:
-        warnings.warn(f"--num_devices {num_devices} reduced to {n} (must "
-                      f"divide num_workers={num_workers}; world of "
-                      f"{world})", stacklevel=2)
-    return n
+    if 0 < num_devices != n and num_devices != n * nsh:
+        warnings.warn(
+            f"--num_devices {num_devices} reduced to {n} on the clients axis "
+            f"(must divide num_workers={num_workers}; {nsh} shard x 1 seq "
+            f"x 1 model x 1 stage x 1 expert device(s) per client "
+            f"shard; {n_avail} available devices)",
+            stacklevel=2)
+    return n, nsh
+
+
+def client_group_size(num_workers: int, num_devices: int, world: int) -> int:
+    """The clients axis of the 1-D plane (``grid_shape`` with one shard)."""
+    return grid_shape(num_workers, num_devices, 1, world)[0]
+
+
+def tuple_index(device_index: int, n_clients: int, n_shard: int) -> int:
+    """The server reduce tuple's index ``p = s * n_clients + c`` of the
+    device at ``c = i // n_shard``, ``s = i % n_shard``; a device past the
+    grid keeps its index."""
+    if device_index >= n_clients * n_shard:
+        return device_index
+    c, s = divmod(device_index, n_shard)
+    return s * n_clients + c
+
+
+def mesh_axis_placement(n_shard: int = 1, nodes: int = 1) -> dict:
+    """``{axis: "ici" | "dcn"}``: ``clients`` is ``dcn`` when the world
+    spans more than one node, every other axis ``ici``;
+    ``COMMEFFICIENT_FORCE_DCN_AXIS=<axis>`` forces that axis to ``dcn``
+    (the seam a one-node run uses to exercise the ``dcn`` legs)."""
+    placement = {CLIENTS_AXIS: "dcn" if nodes > 1 else "ici"}
+    if n_shard > 1:
+        placement[SHARD_AXIS] = "ici"
+    forced = os.environ.get("COMMEFFICIENT_FORCE_DCN_AXIS", "")
+    if forced and forced in placement:
+        placement[forced] = "dcn"
+    return placement
 
 
 def make_client_group(num_workers: int, num_devices: int = -1,
-                      device: Optional[torch.device] = None
+                      device: Optional[torch.device] = None,
+                      shard_devices: int = 1, nodes: int = 1
                       ) -> Optional[ClientGroup]:
-    """The client group of a running process group (None when none is
-    initialized: the single-device round). Every rank must call it: a
-    group smaller than the world is a new subgroup of the first ``n``
-    ranks, and the other ranks get ``active=False``."""
+    """The client grid of a running process group whose ranks are the
+    tuple indices (``tuple_index``), or None when none is initialized
+    (the single-device round). Every rank must call it: a grid smaller
+    than the world is a new subgroup of the first ``N`` ranks, the axis
+    subgroups are new groups, and the ranks past the grid get
+    ``active=False``. ``nodes``: the world's node count (placement and
+    the multi-node check)."""
     if not (dist.is_available() and dist.is_initialized()):
         return None
     world = dist.get_world_size()
     rank = dist.get_rank()
-    n = client_group_size(num_workers, num_devices, world)
+    nc, nsh = grid_shape(num_workers, num_devices, shard_devices, world)
+    n = nc * nsh
+    if nodes > 1 and n == world and nc % nodes:
+        raise ValueError(
+            f"multi-node grid: the clients axis clients={nc} must be "
+            f"divisible by the node count {nodes}")
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if dist.get_backend() == "nccl" else torch.device("cpu"))
+    placement = tuple(mesh_axis_placement(nsh, nodes).items())
     group = None if n == world else dist.new_group(list(range(n)))
-    if rank >= n:
-        return ClientGroup(group, rank, n, device, active=False)
-    return ClientGroup(group, rank, n, device)
+    axes = ()
+    if nsh > 1:
+        # every rank creates every axis group, in one order
+        shard_groups = [dist.new_group([s * nc + c for s in range(nsh)])
+                        for c in range(nc)]
+        client_groups = [dist.new_group([s * nc + c for c in range(nc)])
+                         for s in range(nsh)]
+        if rank < n:
+            s, c = divmod(rank, nc)
+            axes = ((SHARD_AXIS, ClientGroup(shard_groups[c], s, nsh,
+                                             device)),
+                    (CLIENTS_AXIS, ClientGroup(client_groups[s], c, nc,
+                                               device)))
+    return ClientGroup(group, rank, n, device, active=rank < n, axes=axes,
+                       placement=placement, nodes=nodes)
 
 
 def start_client_group(args, init_method: Optional[str] = None
                        ) -> Optional[ClientGroup]:
-    """An entry point's group: under ``torchrun`` (``WORLD_SIZE`` set) the
-    process group on ``args.device`` (``cuda:LOCAL_RANK`` with NCCL, or
-    gloo on the CPU; ``init_method`` defaults to ``env://``) and its
-    client group; else None (one device)."""
-    if world_from_env() is None:
+    """An entry point's grid: under ``torchrun`` or the cohort seam
+    (``world_from_env``) the process group on ``args.device``
+    (``cuda:LOCAL_RANK`` with NCCL, or gloo on the CPU; ``init_method``
+    defaults to the launch's rendezvous), numbered by the tuple index,
+    and its grid; else None (one device)."""
+    env = world_from_env()
+    if env is None:
         return None
-    device = init_distributed(args.device, init_method=init_method)
-    return make_client_group(args.num_workers, args.num_devices, device)
+    shard = int(getattr(args, "shard_devices", 1) or 1)
+    with warnings.catch_warnings():
+        # make_client_group warns once the group is up
+        warnings.simplefilter("ignore")
+        nc, nsh = grid_shape(args.num_workers, args.num_devices, shard,
+                             env.size)
+    device = init_distributed(
+        args.device, init_method=init_method or env.init_method,
+        rank=tuple_index(env.rank, nc, nsh), world_size=env.size,
+        local_rank=env.local_rank)
+    return make_client_group(args.num_workers, args.num_devices, device,
+                             shard_devices=shard, nodes=env.nodes)
 
 
 def main_first(fn, group: Optional[ClientGroup] = None):

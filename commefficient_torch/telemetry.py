@@ -161,6 +161,29 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(x * x))
 
 
+def _carry_sq(x, zero, group, downlink: bool) -> torch.Tensor:
+    """This rank's share of a piece's sum of squares: a tensor's own, or a
+    per-level carry tuple's sum over its slots (one combined norm, the JAX
+    package's ``l2_carry``). Downlink slot ``j`` is the same on the ranks
+    along the axes after ``j``; its share is divided by their count, so
+    the group's sum counts it once."""
+    if x is None:
+        return zero
+    if not isinstance(x, tuple):
+        return _sq(x)
+    sizes = list(group.axis_sizes.values())
+    total = zero
+    for j, slot in enumerate(x):
+        if slot is None:
+            continue
+        copies = 1
+        if downlink:
+            for size in sizes[j + 1:]:
+                copies *= size
+        total = total + _sq(slot) / copies
+    return total
+
+
 def device_round_metrics(transmit, update, new_ps, state, guard_ok=None,
                          hists: bool = False, group=None,
                          sharded_state: bool = False,
@@ -175,7 +198,8 @@ def device_round_metrics(transmit, update, new_ps, state, guard_ok=None,
     histogram); no host sync.
 
     ``group`` (the sharded server's ``ClientGroup``): ``transmit`` is this
-    rank's unreduced sum and ``qres`` / ``dres`` this rank's carries,
+    rank's unreduced sum and ``qres`` / ``dres`` this rank's carries (a
+    per-axis plan's: tuples of per-level slots, ``_carry_sq``),
     ``velocity`` / ``error`` this rank's slices when ``sharded_state``
     (the dense modes); their sums of squares, the transmit's largest
     magnitude and (``sharded_state``) the error histogram are combined
@@ -207,7 +231,8 @@ def device_round_metrics(transmit, update, new_ps, state, guard_ok=None,
     else:
         from commefficient_torch.ops.collectives import all_gather_tiled
 
-        local = [zero if x is None else _sq(x) for x in pieces]
+        local = [_carry_sq(x, zero, group, i == 2)
+                 for i, x in enumerate(pieces)]
         local = torch.stack(local + [transmit_max.to(f32)]).to(
             torch.float64)
         if hists and sharded_state:
@@ -235,25 +260,25 @@ def device_round_metrics(transmit, update, new_ps, state, guard_ok=None,
 
 def collective_ledger(mode: str, grad_size: int, *, sketch=None,
                       n_shard: int = 0, reduce_dtype: str = "float32",
-                      k: int = 0, plan=None,
-                      lowering=None) -> Dict[str, Dict[str, Any]]:
-    """The static per-round wire-byte ledger, one entry per flat
-    collective leg, priced by ``ops.collectives.payload_bytes`` as the
-    JAX package's ``collective_ledger`` prices them (logical payload per
-    device per round; ring factors excluded). ``plan`` prices each leg at
-    its wire dtype (``reduce_dtype`` is the legacy alias). A per-axis
-    ``lowering`` (the hierarchical legs) raises ``NotImplementedError``
-    naming ROADMAP queue 1 item 5a."""
-    from commefficient_torch.config import ITEM_MULTI_2D
+                      k: int = 0, plan=None, lowering=None, axis_sizes=None,
+                      axis_placement=None) -> Dict[str, Dict[str, Any]]:
+    """The static per-round wire-byte ledger, one entry per collective
+    leg, priced by ``ops.collectives.payload_bytes`` as the JAX package's
+    ``collective_ledger`` prices them (logical payload per device per
+    round; ring factors excluded). ``plan`` prices each leg at its wire
+    dtype (``reduce_dtype`` is the legacy alias). A leg that ``lowering``
+    (``ops/collectives.plan_lowering``) makes hierarchical gains
+    ``bytes_per_axis`` (``{axis: {dtype, elements, bytes_per_round,
+    placement}}``), each level priced at its real input size: the
+    scatter and gather levels shrink by each axis already reduced
+    (``axis_sizes``), the table all-reduce moves the whole table at every
+    level; ``axis_placement`` labels each axis ``ici`` / ``dcn``."""
     from commefficient_torch.ops.collectives import (
         DEFAULT_QUANT_BLOCK,
         payload_bytes,
         plan_from_reduce_dtype,
     )
 
-    if any(isinstance(v, tuple) for v in (lowering or {}).values()):
-        raise NotImplementedError(
-            f"the per-axis collective ledger is not ported ({ITEM_MULTI_2D})")
     if plan is None:
         plan = plan_from_reduce_dtype(reduce_dtype)
     d = int(grad_size)
@@ -267,11 +292,45 @@ def collective_ledger(mode: str, grad_size: int, *, sketch=None,
                         "bytes_per_round": int(payload_bytes(int(elems),
                                                              dtype, block))}
 
+    def leg_low(name):
+        # the leg's lowering tuple, or None for a flat leg
+        key = {"transmit_reduce": "table" if mode == "sketch" else "uplink",
+               "update_all_gather": "downlink"}[name]
+        low = (lowering or {}).get(key)
+        return low if isinstance(low, tuple) else None
+
+    def per_axis_leg(name, collective, elems, low,
+                     block=DEFAULT_QUANT_BLOCK, shrink=False):
+        # one wire level an axis, in reduce order
+        per_axis = {}
+        total, seen = 0, 1
+        for ax, dt in low:
+            lvl = int(elems) // seen if shrink else int(elems)
+            b = int(payload_bytes(lvl, dt, block))
+            per_axis[ax] = {
+                "dtype": dt, "elements": lvl, "bytes_per_round": b,
+                "placement": (axis_placement or {}).get(ax, "ici")}
+            total += b
+            if shrink:
+                assert axis_sizes is not None, \
+                    "per-axis ledger needs axis_sizes={axis: size}"
+                seen *= int(axis_sizes[ax])
+        ledger[name] = {
+            "collective": f"{collective} (per-axis)",
+            "elements": int(elems),
+            "dtype": "/".join(f"{ax}:{dt}" for ax, dt in low),
+            "bytes_per_round": total,
+            "bytes_per_axis": per_axis}
+
     if mode == "sketch":
         table_elems = sketch.r * sketch.c_pad if sketch is not None else 0
         c_pad = sketch.c_pad if sketch is not None else None
         leg("client_uplink", "transmit", table_elems, "float32")
-        if plan.table != "float32":
+        if leg_low("transmit_reduce") is not None:
+            per_axis_leg("transmit_reduce", "hierarchical_psum",
+                         table_elems, leg_low("transmit_reduce"),
+                         block=c_pad)
+        elif plan.table != "float32":
             leg("transmit_reduce", "quantized_psum", table_elems,
                 plan.table, block=c_pad)
         else:
@@ -280,7 +339,10 @@ def collective_ledger(mode: str, grad_size: int, *, sketch=None,
         per_client = k if mode == "local_topk" else d
         leg("client_uplink", "transmit", per_client, "float32")
         d_pad = -(-d // n_shard) * n_shard if n_shard else d
-        if n_shard and plan.uplink != "float32":
+        if n_shard and leg_low("transmit_reduce") is not None:
+            per_axis_leg("transmit_reduce", "hierarchical_psum_scatter",
+                         d_pad, leg_low("transmit_reduce"), shrink=True)
+        elif n_shard and plan.uplink != "float32":
             leg("transmit_reduce", "quantized_psum_scatter", d_pad,
                 plan.uplink)
         elif n_shard:
@@ -296,7 +358,11 @@ def collective_ledger(mode: str, grad_size: int, *, sketch=None,
         else:
             up_elems = -(-d // n_shard) * n_shard
             down_block = DEFAULT_QUANT_BLOCK
-        if plan.downlink != "float32":
+        if leg_low("update_all_gather") is not None:
+            per_axis_leg("update_all_gather", "hierarchical_all_gather",
+                         up_elems, leg_low("update_all_gather"),
+                         block=down_block, shrink=True)
+        elif plan.downlink != "float32":
             leg("update_all_gather", "quantized_all_gather", up_elems,
                 plan.downlink, block=down_block)
         else:
@@ -713,13 +779,15 @@ def attach_run_telemetry(args, fed_model, log_dir: str,
     hists = bool(getattr(args, "telemetry_hist", False))
     path = os.path.join(log_dir, "telemetry.jsonl")
     plan = fed_model.round_config.collective_plan
-    n_shard = fed_model.group.size if fed_model.round_config.server_shard \
-        else 0
+    group = fed_model.group
     ledger = collective_ledger(
         args.mode, fed_model.grad_size, sketch=fed_model.sketch,
-        n_shard=n_shard,
+        n_shard=fed_model._n_shard,
         reduce_dtype=getattr(args, "reduce_dtype", "float32") or "float32",
-        k=args.k, plan=plan)
+        k=args.k, plan=plan, lowering=fed_model._plan_lowering,
+        axis_sizes=fed_model._axis_sizes,
+        axis_placement=(group.axis_placement() if group is not None
+                        else None))
     run_info = {
         "entrypoint": entrypoint,
         "mode": args.mode,
@@ -733,6 +801,10 @@ def attach_run_telemetry(args, fed_model, log_dir: str,
         "backend": fed_model.device.type,
         "ledger": ledger,
     }
+    if group is not None:
+        # the grid: axes, sizes, placements and the process count, so the
+        # log alone says whether a leg's bytes crossed nodes
+        run_info["mesh"] = group.topology()
     # the participation layer's config and the churn schedule (both are
     # seeded, so spec and seed are the whole trajectory)
     run_info["participation"] = (getattr(args, "participation", "")
@@ -797,6 +869,9 @@ def attach_run_telemetry(args, fed_model, log_dir: str,
         }
     if plan is not None:
         run_info["collective_plan"] = plan.spec()
+    if getattr(fed_model, "plan_report", None):
+        # the --collective_plan auto probe's report
+        run_info["collective_plan_probe"] = fed_model.plan_report
     run_info["telemetry_hist"] = hists
     rule_spec = (getattr(args, "watch_rules", "") or "").strip()
     rules = (parse_watch_rules(rule_spec) if rule_spec

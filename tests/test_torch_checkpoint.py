@@ -374,8 +374,8 @@ def _fault(case, src, tmp):
     elif case == "tmp":
         shutil.copy(src, os.path.join(tmp, "run_state_ep1_r6.tmp.npz"))
     elif case == "unported":
-        # 5a's per-axis carry (pop/* is ported: the churn layer)
-        flat["server/qres.clients"] = np.zeros(3, np.float32)
+        # a per-axis plan's level carry (once unported, item 5a)
+        flat["server/qres.1"] = np.zeros((4, 3), np.float32)
         meta["checksum"] = tck._content_checksum(flat)
         _write(good, flat, meta)
     elif case == "dropout":
@@ -433,9 +433,11 @@ def test_faults(runs, case, tmp_path, capsys):
             tck.load_run_state(good, fm2, opt2, sched2)
         np.testing.assert_array_equal(_flat(fm2), w0)  # nothing restored
     elif case == "unported":
-        with pytest.raises(NotImplementedError,
-                           match="server/qres.clients.*item 5a"):
-            tck.load_run_state(good, fm, opt, sched)
+        # restored, not refused: the replicated plane has no carries, so
+        # the level's key is not read, and the weights are the file's
+        tck.load_run_state(good, fm, opt, sched)
+        np.testing.assert_array_equal(
+            _flat(fm), tck._read_npz(good)["ps_weights"])
     elif case == "dropout":
         # the drawn --client_dropout stream restores, and the next draw is
         # the one JAX's stream gives

@@ -7,8 +7,11 @@ mirroring ``tests/test_compressed_collectives.py``.
   and int4 (the packing, an odd block, an all-zero block included), and
   so do the dequantized values.
 - ``payload_bytes``, ``parse_collective_plan`` (the same spellings
-  accepted and refused; the per-axis forms and ``auto`` raise naming
-  queue 1 item 5a) and the ``--reduce_dtype`` alias.
+  accepted and refused, the per-axis forms included; ``auto`` is refused
+  by both parsers, as it is resolved by the probe) and the
+  ``--reduce_dtype`` alias; a run state's per-level carries sliced as the
+  JAX package lays them out; the 2-D plane's flags checked as the JAX
+  package checks them.
 - Stochastic rounding is unbiased on the port's own generator.
 - On 2 and 4 ``gloo`` ranks (``tests/torch_dist_ranks.py``) against
   ``shard_map`` over a 2- and 4-device slice of the 8-device CPU mesh,
@@ -117,8 +120,19 @@ def test_parse_collective_plan_like_jax(spec):
 @pytest.mark.parametrize("spec", ["auto", "uplink=ici:fp32/dcn:int8",
                                   "ici:fp32/dcn:int8"])
 def test_deferred_plans_raise_item_5a(spec):
-    with pytest.raises(NotImplementedError, match="item 5a"):
-        C.parse_collective_plan(spec)
+    """The plans that once raised naming item 5a: ``auto`` is refused by
+    both parsers (the probe resolves it first), and a per-axis spec
+    parses to the JAX package's plan."""
+    if spec == "auto":
+        with pytest.raises(AssertionError, match="autotune"):
+            J.parse_collective_plan(spec)
+        with pytest.raises(AssertionError, match="autotune"):
+            C.parse_collective_plan(spec)
+        return
+    want, got = J.parse_collective_plan(spec), C.parse_collective_plan(spec)
+    assert got.spec() == want.spec()
+    assert got.per_axis and want.per_axis
+    assert got.quantized == want.quantized
 
 
 def test_legacy_alias_like_jax():
@@ -271,12 +285,36 @@ def test_collectives_across_ranks_equal_jax(n, across_ranks):
 
 @pytest.mark.parametrize("key", ["server/qres.0", "server/dres.1"])
 def test_per_axis_run_state_carries_raise_item_5a(key):
-    """A run state of the JAX package's per-axis plans (tuple carries,
-    one key a level) is refused naming queue 1 item 5a."""
+    """A run state of the JAX package's per-axis plans (one key a level)
+    is no longer refused: each rank of a (clients = 2) x (shard = 2) grid
+    takes its part of the level's global array, as the JAX package lays
+    it out (``qres.<j>`` stacked over the reduce tuple, ``dres.<j>``
+    tiled over axes ``0..j``), and a geometry the run does not have is
+    no part (the restore then starts the level from zero)."""
+    from types import SimpleNamespace
+
     from commefficient_torch.federated import checkpoint as tck
 
-    with pytest.raises(NotImplementedError, match="item 5a"):
-        tck._reject_unported({key: np.zeros(3, np.float32)}, {})
+    name, j = key.split("/")[1].split(".")
+    j = int(j)
+    n_clients = n_shard = 2
+    glob = np.arange(4 * 6, dtype=np.float32).reshape(4, 6) \
+        if name == "qres" else np.arange(8 * 3, dtype=np.float32)
+    for p in range(4):
+        s, c = divmod(p, n_clients)
+        group = SimpleNamespace(rank=p, size=4)
+        shard_axis = SimpleNamespace(rank=s, size=n_shard)
+        tiles = shard_axis if j == 0 else group
+        if name == "qres":
+            got = tck._carry_part(glob, name, (6,), group, tiles)
+            np.testing.assert_array_equal(got, glob[p])
+        else:
+            per = glob.shape[0] // tiles.size
+            got = tck._carry_part(glob, name, (per,), group, tiles)
+            np.testing.assert_array_equal(
+                got, glob[tiles.rank * per:(tiles.rank + 1) * per])
+        assert tck._carry_part(glob, name, (5,), group, tiles) is None
+        assert tck._carry_part(None, name, (6,), group, tiles) is None
 
 
 @pytest.mark.parametrize("argv", [["--shard_devices", "2"],
@@ -284,10 +322,23 @@ def test_per_axis_run_state_carries_raise_item_5a(key):
                                   ["--collective_plan",
                                    "uplink=ici:fp32/dcn:int8"]])
 def test_deferred_flags_raise_item_5a(argv):
-    from commefficient_torch.config import parse_args
+    """The flags that once raised naming item 5a carry the JAX package's
+    checks: alone each needs ``--server_shard`` (the same message from
+    both parsers); with it both parsers give the same values."""
+    from commefficient_tpu.config import parse_args as j_parse
+    from commefficient_torch.config import parse_args as t_parse
 
-    with pytest.raises(NotImplementedError, match="item 5a"):
-        parse_args(argv=["--device", "cpu"] + argv)
+    with pytest.raises(AssertionError, match="require") as want:
+        j_parse(argv=argv + ["--no_telemetry"])
+    with pytest.raises(AssertionError, match="require") as got:
+        t_parse(argv=["--device", "cpu"] + argv)
+    assert str(got.value) == str(want.value)
+    argv = argv + ["--server_shard"]
+    ja = j_parse(argv=argv + ["--no_telemetry"])
+    ta = t_parse(argv=["--device", "cpu"] + argv)
+    for dest in ("shard_devices", "collective_plan", "plan_error_budget",
+                 "server_shard"):
+        assert getattr(ta, dest) == getattr(ja, dest), dest
 
 
 @pytest.mark.parametrize("argv,msg", [

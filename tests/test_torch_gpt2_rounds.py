@@ -346,9 +346,10 @@ def test_gpt2_train_refuses_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             gpt2_train.train(TRAIN_ARGV[2:])
-    with pytest.raises(NotImplementedError, match="item 5a"):
+    # the 2-D plane's flags are ported, with the JAX package's checks
+    with pytest.raises(AssertionError, match="requires --server_shard"):
         gpt2_train.train(TRAIN_ARGV + ["--shard_devices", "2"])
-    with pytest.raises(NotImplementedError, match="item 5a"):
+    with pytest.raises(AssertionError, match="require --server_shard"):
         gpt2_train.train(TRAIN_ARGV + ["--collective_plan",
                                        "table=ici:fp32/dcn:int8"])
     with pytest.raises(NotImplementedError, match="item 7"):

@@ -186,7 +186,12 @@ def test_cv_train_main_cpu(tmp_path, monkeypatch):
 
 # (--guards, --telemetry, --inject_fault, --staleness_decay,
 # --participation, the host-state flags and --churn are ported now; their
-# places are taken by flags of planes still unported)
+# places are taken by flags of planes still unported). The 2-D plane's
+# flags (--plan_error_budget, --shard_devices, --collective_plan auto)
+# are ported too: they parse as the JAX package parses them.
+PORTED_2D = ("--plan_error_budget", "--shard_devices", "--collective_plan")
+
+
 @pytest.mark.parametrize("flag", [["--plan_error_budget", "0.1"],
                                   ["--model_devices", "2"],
                                   ["--shard_devices", "2"],
@@ -197,8 +202,15 @@ def test_cv_train_main_cpu(tmp_path, monkeypatch):
                                   ["--pipeline_devices", "2"],
                                   ["--collective_plan", "auto"]])
 def test_unported_options_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_parse(argv=ARGV + ["--device", "cpu"] + flag)
+    if flag[0] not in PORTED_2D:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t_parse(argv=ARGV + ["--device", "cpu"] + flag)
+        return
+    argv = ARGV + flag + (["--server_shard"] if flag[0] != "--plan_error_budget"
+                          else [])
+    ja, ta = j_parse(argv=argv), t_parse(argv=argv + ["--device", "cpu"])
+    dest = flag[0].lstrip("-")
+    assert getattr(ta, dest) == getattr(ja, dest), flag
 
 
 def test_churn_parse_error_names_the_entry():

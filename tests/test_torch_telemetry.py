@@ -466,7 +466,6 @@ def test_cv_train_log_renders_with_obs_report(tmp_path):
 
 # flags still unported -> the item their NotImplementedError names
 UNPORTED_ITEMS = {
-    "--plan_error_budget": "item 5a", "--shard_devices": "item 5a",
     "--seq_parallel": "item 7",
     "--seq_devices": "item 7", "--model_devices": "item 7",
     "--pipeline_devices": "item 7", "--pp_microbatches": "item 7",
@@ -480,6 +479,7 @@ IGNORED = ("--port", "--share_ps_gpu", "--nan_threshold",
 # values that make a flag valid on its own
 VALUES = {
     "--reduce_dtype": ["int8", "--server_shard"],
+    "--shard_devices": ["2", "--server_shard"],
     "--collective_plan": ["float32"], "--inject_fault": ["2:nan"],
     "--watch_rules": ["loss>2"], "--trace_rounds": ["1:1"],
     "--participation": ["0.5"], "--churn": ["join=1"],

@@ -39,10 +39,13 @@ def _entry(rank: int, items, tmp: str) -> None:
             init = f"file://{tmp}/store{i}"
             if body.startswith("cli_"):
                 # an entry point under torchrun's environment: it starts
-                # and ends the process group itself
+                # and ends the process group itself; "local_world" places
+                # the k ranks node-major on k / local_world nodes
                 env = dict(os.environ)
+                lw = int(payload.get("local_world", k))
                 os.environ.update(RANK=str(rank), WORLD_SIZE=str(k),
-                                  LOCAL_RANK=str(rank))
+                                  LOCAL_RANK=str(rank % lw),
+                                  LOCAL_WORLD_SIZE=str(lw))
                 outs.append(globals()[body](init, payload))
                 os.environ.clear()
                 os.environ.update(env)
@@ -590,4 +593,259 @@ def body_offload(cg, spec):
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
+    return out
+
+
+# --------------------------------------------------------------------------
+# the 2-D (clients x shard) grid
+# --------------------------------------------------------------------------
+
+class TorchTiny:
+    """The port's copy of the JAX tests' ``nn.Dense(4, use_bias=False)``
+    on 3 inputs: one ``Dense_0/kernel`` leaf (built in the child, where
+    ``torch`` is imported)."""
+
+    @staticmethod
+    def make():
+        import torch
+
+        class Tiny(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.kernel = torch.nn.Parameter(torch.zeros(4, 3))
+
+            def jax_param_path(self, name):
+                return ("Dense_0", "kernel")
+
+            def jax_param_kind(self, name):
+                return "dense"
+
+            def initial_model_state(self):
+                return {}
+
+        return Tiny()
+
+
+def tiny_loss(params, model_state, batch, rng, train):
+    """The JAX tests' loss of the tiny Dense model: the masked sum of the
+    mean squared error."""
+    import torch
+
+    pred = batch["inputs"] @ params["kernel"].T
+    err = pred - batch["targets"]
+    mask = batch["mask"]
+    return torch.sum(torch.square(err).mean(-1) * mask), (), \
+        torch.sum(mask), model_state
+
+
+def grid_of(num_workers: int, num_devices: int, shard: int, nodes: int = 1):
+    """The client grid over this spawn's process group, whose ranks are
+    the tuple indices."""
+    import torch
+
+    from commefficient_torch.parallel.mesh import make_client_group
+
+    return make_client_group(num_workers, num_devices, torch.device("cpu"),
+                             shard_devices=shard, nodes=nodes)
+
+
+def _carry(x):
+    if isinstance(x, tuple):
+        return tuple(_np(v) for v in x)
+    return _np(x)
+
+
+def _tiny_model(spec, run, group, init=True):
+    from commefficient_torch.config import parse_args
+    from commefficient_torch.convert import flat_from_jax
+    from commefficient_torch.federated import FedModel, FedOptimizer
+    from commefficient_torch.federated.aggregator import LambdaLR
+    from commefficient_torch.ops.flat import ParamLayout
+
+    args = parse_args(argv=list(run["argv"]) + ["--device", "cpu"])
+    model = TorchTiny.make()
+    fm = FedModel(model, tiny_loss, args, num_clients=spec["num_clients"],
+                  init_params=flat_from_jax(spec["flat0"],
+                                            ParamLayout(model))
+                  if init else None, device="cpu", group=group)
+    opt = FedOptimizer(fm, args)
+    opt.set_lr_factor(spec["lr"])
+    sched = LambdaLR(opt, lambda s: spec["lr"])
+    return fm, opt, sched
+
+
+def _server_state(opt):
+    st = opt.server_state
+    return {"vel": _np(st.velocity), "err": _np(st.error),
+            "qres": _carry(st.qres), "dres": _carry(st.dres)}
+
+
+def body_grid_rounds(cg, spec):
+    """``spec["runs"]``: each ``{"argv", "num_devices", "shard"}`` runs
+    ``spec["batches"]`` through a fresh tiny model on its grid of this
+    spawn's ranks. Per run: the grid, the lowering, the weights after each
+    round, the server state, and with ``"save"`` the run state written
+    after ``spec["save_at"]`` rounds and restored on each grid of
+    ``"restore"`` (``(num_devices, shard)``), which runs the remaining
+    rounds."""
+    from commefficient_torch.federated.checkpoint import save_run_state
+
+    out = []
+    for i, run in enumerate(spec["runs"]):
+        group = grid_of(spec["W"], run["num_devices"], run["shard"])
+        if run.get("load"):
+            out.append(_restored_rounds(spec, run, group, run["load"],
+                                        spec["batches"]))
+            continue
+        fm, opt, sched = _tiny_model(spec, run, group)
+        rec = {"axes": group.server_axes, "sizes": group.axis_sizes,
+               "rank": group.rank, "lowering": fm._plan_lowering,
+               "plan": fm.collective_plan.spec(), "w": [],
+               "init": _server_state(opt)}
+        path = None
+        for r, b in enumerate(spec["batches"]):
+            fm(b)
+            opt.step()
+            rec["w"].append(_weights(fm))
+            if run.get("save") and r + 1 == spec["save_at"]:
+                path = save_run_state(f"{spec['dir']}/grid{i}/rs", fm, opt,
+                                      sched, next_epoch=1)
+        rec["state"] = _server_state(opt)
+        if path is not None:
+            argvs = run.get("restore_argvs") or [None] * len(run["restore"])
+            rec["restored"] = []
+            for (nd, sh), argv in zip(run["restore"], argvs):
+                g2 = grid_of(spec["W"], nd, sh)
+                rrun = dict(run, argv=argv or run["argv"])
+                if nd * sh != run["num_devices"] * run["shard"] or \
+                        (nd, sh) != (run["num_devices"], run["shard"]):
+                    rrun["argv"] = _regrid(rrun["argv"], nd, sh)
+                rec["restored"].append(_restored_rounds(
+                    spec, rrun, g2, path + ".npz" if not
+                    path.endswith(".npz") else path,
+                    spec["batches"][spec["save_at"]:]))
+        out.append(rec)
+    return out
+
+
+def _regrid(argv, num_devices: int, shard: int):
+    """``argv`` with its grid flags set to ``num_devices`` x ``shard``."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+            continue
+        if a in ("--num_devices", "--shard_devices"):
+            skip = True
+            continue
+        out.append(a)
+    return out + ["--num_devices", str(num_devices), "--shard_devices",
+                  str(shard)]
+
+
+def _restored_rounds(spec, run, group, path, batches):
+    """A fresh tiny model on ``group`` restored from the run state
+    ``path``: its server state and weights at load, the carry warnings,
+    the weights after each of ``batches`` and the final server state."""
+    import warnings
+
+    from commefficient_torch.federated.checkpoint import load_run_state
+
+    fm, opt, sched = _tiny_model(spec, run, group, init=False)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        load_run_state(path, fm, opt, sched)
+    got = {"at_load": _server_state(opt), "w_load": _weights(fm),
+           "warnings": [str(w.message) for w in caught
+                        if "carry" in str(w.message)],
+           "w": []}
+    for b in batches:
+        fm(b)
+        opt.step()
+        got["w"].append(_weights(fm))
+    got["state"] = _server_state(opt)
+    return got
+
+
+def body_hier(cg, cases):
+    """Each case: one hierarchical collective (``op``: ``scatter``,
+    ``psum`` or ``gather``) over ``lowering`` on the (clients = 2) x
+    (shard = 2) grid of this spawn's 4 ranks, with this rank's ``x``, its
+    per-level ``residuals`` and the JAX package's per-level uniforms
+    ``u`` (stacked by tuple index). Returns the output and the new
+    carries."""
+    from commefficient_torch.ops import collectives as C
+
+    grid = grid_of(4, 2, 2)
+    p = grid.rank
+    fn = {"scatter": C.hierarchical_psum_scatter,
+          "psum": C.hierarchical_psum,
+          "gather": C.hierarchical_all_gather}
+    out = []
+    for case in cases:
+        low = tuple(tuple(lv) for lv in case["lowering"])
+
+        def level(seq):
+            if seq is None:
+                return None
+            return [None if a is None else _t(a[p]) for a in seq]
+
+        got, new = fn[case["op"]](
+            _t(case["x"][p]), low, grid,
+            residuals=level(case.get("residuals")), block=case["block"],
+            u=level(case["u"]))
+        out.append({"out": _np(got), "res": _carry(new)})
+    return out
+
+
+def body_server_2d(cg, cases):
+    """Each case: one ``sharded_server_update`` on the (clients = 2) x
+    (shard = 2) grid under a per-axis ``plan`` resolved on the grid, with
+    this rank's transmit and the JAX package's uniforms (``u``: per leg,
+    per level, stacked by tuple index). Returns the update, the state and
+    the old and new carries."""
+    import torch
+
+    from commefficient_torch.federated import server as S
+    from commefficient_torch.ops.collectives import (
+        parse_collective_plan,
+        plan_lowering,
+    )
+    from commefficient_torch.ops.sketch import make_sketch
+
+    out = []
+    for c in cases:
+        if c.get("force_dcn"):
+            os.environ["COMMEFFICIENT_FORCE_DCN_AXIS"] = c["force_dcn"]
+        grid = grid_of(4, 2, 2)
+        os.environ.pop("COMMEFFICIENT_FORCE_DCN_AXIS", None)
+        p = grid.rank
+        cfg = S.ServerConfig(mode=c["mode"], error_type=c["error_type"],
+                             k=c["k"], grad_size=c["d"],
+                             virtual_momentum=c["vm"])
+        sk = layout = None
+        if c["mode"] == "sketch":
+            sk = make_sketch(c["d"], c["c"], c["r"], seed=c["seed"],
+                             num_blocks=1, device="cpu")
+            layout = sk.chunk_layout
+        plan = parse_collective_plan(c["plan"])
+        low = plan_lowering(plan, grid)
+        st = S.init_server_state(cfg, sk, device="cpu", shard_n=grid.size,
+                                 plan=plan, lowering=low,
+                                 axis_sizes=grid.axis_sizes)
+        count = torch.tensor(c["count"], dtype=torch.float32)
+        rounds = []
+        for rnd, u_round in enumerate(c["u"]):
+            u = {leg: tuple(None if a is None else _t(a[p]) for a in lv)
+                 for leg, lv in u_round.items()}
+            old = st
+            upd, st, rs = S.sharded_server_update(
+                _t(c["transmits"][rnd][p]), st, cfg, c["lr"], count, grid,
+                sketch=sk, layout=layout, plan=plan, lowering=low, u=u)
+            rounds.append({"update": _np(upd), "vel": _np(st.velocity),
+                           "err": _np(st.error), "resketched": _np(rs),
+                           "qres": _carry(st.qres), "dres": _carry(st.dres),
+                           "old_qres": _carry(old.qres),
+                           "old_dres": _carry(old.dres)})
+        out.append({"lowering": low, "rounds": rounds})
     return out
