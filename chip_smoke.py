@@ -15,7 +15,8 @@ Phases (any failure exits non-zero; nothing is caught):
    a multiple of 128, a partial last chunk, even r, t0 != 0, a row length
    not a multiple of the accumulate's 1,024-cell tile, NaN, inf and
    subnormal cells, ties at the top-k threshold): exact equality, then
-   CUDA-event times (median of 30, L2 flushed before each launch by a
+   CUDA-event times (median of 30, the plain versions' of 10, L2 flushed
+   before each launch by a
    read of 96 MB, ``time_ms``) beside the bound the card's memory rate or
    issue rates set (the sign hashes' int32 operations count for the four
    sketch kernels, ``HASH_ALU_OPS`` and ``QUERY_ALU_OPS_*``), and the time
@@ -66,7 +67,7 @@ Phases (any failure exits non-zero; nothing is caught):
    ``COMMEFFICIENT_PALLAS_TOPK_FUSED=1``), ``local-topk`` (local error and
    momentum), ``sketch-local`` (local error and momentum in sketch space,
    5 x 500,000) and ``fedavg`` (1 local epoch in chunks of 4): 2 warm-up
-   and 10 timed rounds each, rounds/sec beside the card's line, a finite
+   and 6 timed rounds each, rounds/sec beside the card's line, a finite
    loss, the launches per round derived from the code's structure
    (``modes_per_round``; 0 for the kernels a path does not run), the
    device's busy share and time by kernel over 3 profiled rounds, and one
@@ -78,12 +79,12 @@ Phases (any failure exits non-zero; nothing is caught):
    deterministic, ``torch.backends.cudnn.deterministic = True`` and
    ``benchmark = False``, where bits are compared): the headline and the
    opt-in round through ``PipelinedRoundEngine(window=2,
-   drain_every=8)`` for 24 rounds, bit-equal to the synchronous loop
+   drain_every=8)`` for 16 rounds, bit-equal to the synchronous loop
    from the same state, every non-drain submit under
    ``torch.cuda.set_sync_debug_mode("error")`` (any synchronizing call
    raises) with 0 counted fetches, 2 / 1 / 8 launches a headline round;
    rounds/sec and the device's busy share (``torch.profiler``) of the
-   loop and the engine in 5 alternating pairs of 48 rounds, for both
+   loop and the engine in 2 alternating pairs of 24 rounds, for both
    rounds, beside
    the card's line (data, no claim); resume: 6 rounds straight against 3
    rounds, ``save_round_state``, a new FedModel / FedOptimizer / LambdaLR
@@ -106,7 +107,7 @@ Phases (any failure exits non-zero; nothing is caught):
    versions at this geometry (Tn = 249 chunks; the count pass and the
    descent over 124,523,904 patterns), exact and timed; three legs
    through FedModel, the headline round in float32 and under ``--bf16``
-   and the opt-in round in float32, each 2 warm-up and 10 timed rounds
+   and the opt-in round in float32, each 2 warm-up and 6 timed rounds
    with tokens/sec and rounds/sec, the launches a round checked exactly
    (2 / 1 / 8, and the coalescing plan's count), the client / server
    split, the device's busy share and time by kernel over 3 profiled
@@ -177,7 +178,7 @@ Phases (any failure exits non-zero; nothing is caught):
    and operations of the metric vector and of the guard per round
    (``torch.profiler``); (2) 10 headline rounds with telemetry and guards
    on bit-equal to the same rounds with both off (cuDNN deterministic);
-   (3) 24 engine rounds with everything on, each non-drain submit under
+   (3) 16 engine rounds with everything on, each non-drain submit under
    ``set_sync_debug_mode("error")`` with no fetch and each drain one
    fetch, every round in the event log with the full schema; (4)
    ``--inject_fault`` on the headline and the opt-in round (all six
@@ -192,7 +193,7 @@ Phases (any failure exits non-zero; nothing is caught):
    ``telemetry.jsonl`` read back with ``read_events`` holds the trip and
    ``trace_captured``, and ``trace_round_000002/trace.json`` exists; (6)
    rounds/sec with telemetry on against ``--no_telemetry`` and guards on
-   against off, at the ResNet9 headline and GPT-2 f32, in 16 and 4
+   against off, at the ResNet9 headline and GPT-2 f32, in 6 and 1
    alternating pairs of 20 engine rounds each, the ratios printed with
    their spread, and the host's side of telemetry on and off: the
    recorder's hooks' ms a round, and the operators' self time, operators
@@ -234,15 +235,15 @@ Phases (any failure exits non-zero; nothing is caught):
    population (3,500 clients, 65.21 GiB) from the planner's own probes
    with ``MemTotal``, then the host tier at 3,500 clients or, where the
    planner puts them on disk, at the largest multiple of 500 it places
-   in host, against the hbm tier forced at the same population, in 2
-   alternating pairs of 20 engine rounds (rounds/sec, device memory, the
+   in host, against the hbm tier forced at the same population, in 1
+   pair of 20 engine rounds (rounds/sec, device memory, the
    resident set); (3) 10^5 clients on the disk tier the planner picks
-   (2.0 TB logical): 20 timed rounds (prefetch hit share,
+   (2.0 TB logical): 16 timed rounds (prefetch hit share,
    ``gather_io_ms``, ``scatter_io_ms``, the allocation of the row files
    against the rows touched, the resident set), a run state after round
-   10 and a resume bit-exact at round 20 with a byte flipped on disk
+   8 and a resume bit-exact at round 16 with a byte flipped on disk
    repaired from the snapshot, ``--inject_io_fault
-   eio=0.02,short=0.01,torn=0.01`` over rounds 11-20 bit-identical, and
+   eio=0.02,short=0.01,torn=0.01`` over rounds 9-16 bit-identical, and
    a ``flip=0.01`` drill with ``--io_scrub_rows 8`` whose detections,
    repairs and ``io_corrupt`` watch alert land in the event log; (4)
    local top-k with dense local error and momentum at 3,500 clients
@@ -296,13 +297,29 @@ Phases (any failure exits non-zero; nothing is caught):
    with telemetry: exit 0, finite losses, the probe's report (round trips
    timed on the card) and its plan in ``run_start``. Rounds/sec of the
    2-D, the 1-D and the per-axis round in alternating triples (data).
+17. GPT-2's sequence parallelism (``phase_seq``) at GPT-2-small's full
+   width (phase 9's round, dropout 0, T = 256) on gloo ranks on
+   ``cuda:0``: (a) the one-rank round in this process, its summed
+   gradient and losses; (b) two ranks as (clients 1) x (seq 2) under
+   ``--seq_parallel ring``, then ``ulysses``: round 1's summed gradient
+   within ``SEQ_GRAD_ATOL`` / ``SEQ_GRAD_RTOL`` and its losses within
+   ``SEQ_LOSS_RTOL`` of the one-rank round's, 3 finite rounds, both
+   ranks' weights bit-equal (their SHA-256), 2 / 1 / 8 launches of the
+   accumulate, the query and the count pass a round on each rank; (c)
+   meanwhile two more ranks run ``gpt2_train`` under ``--seq_parallel
+   ring --bf16`` (finite val NLL, the ranks alike, the headline kernels
+   launched); (d) four ranks as (clients 2) x (seq 2) under ring: 2
+   finite rounds, the four ranks' weights bit-equal, 2 / 1 / 8 launches;
+   (e) tokens/sec of the (clients 2) x (seq 2) round beside the one-rank
+   round's (data: gloo stages the 497.8 MB gradient sum through the host).
 
 Then one JSON line of the kernels (launches per timed window of the path
 that runs each: phase 4 for the accumulate, the query and the count pass,
 phase 5 for the running accumulate, the epilogue and the descent; and a
 ``sharded`` object each: its launches a round per rank on phase 11's
-sharded round and its largest error at ``t0 > 0``; and its launches a
-round on rank 3 of phase 16's 2-D round), the
+sharded round and its largest error at ``t0 > 0``; its launches a
+round on rank 3 of phase 16's 2-D round; and on a rank of phase 17's
+(clients 2) x (seq 2) grid), the
 card's line, and ``{"ok": true, "device": {...}}`` as the last line.
 Without a card it exits with an error before printing any result.
 
@@ -387,6 +404,8 @@ TIMED_ROUNDS = 20
 HEADLINE_KERNELS = ("sketch_accumulate", "sketch_estimates", "topk_count_ge")
 OPT_IN_KERNELS = ("sketch_accumulate_into", "fused_epilogue", "topk_descent")
 REPS = 30
+# the plain PyTorch versions (milliseconds each at the large geometries)
+PLAIN_REPS = 10
 
 _FLUSH = {}
 
@@ -642,7 +661,7 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed, k=None):
                              **bound(nbytes, int_ops, flops, peak))
         if timed:
             results[name]["ms"] = time_ms(kernel_fn)
-            results[name]["plain_ms"] = time_ms(plain_fn)
+            results[name]["plain_ms"] = time_ms(plain_fn, reps=PLAIN_REPS)
             results[name]["library_ms"] = (time_ms(library_fn)
                                            if library_fn else None)
 
@@ -1259,7 +1278,7 @@ MODE_CONFIGS = (
                    "--num_fedavg_epochs", "1", "--fedavg_batch_size", "4"],
      False),
 )
-MODE_TIMED_ROUNDS = 10
+MODE_TIMED_ROUNDS = 6
 
 
 def modes_per_round(fm, one_launch_descent: bool) -> dict:
@@ -1419,9 +1438,9 @@ def phase_modes(card: str) -> dict:
 
 
 # phase 8: the run lifecycle
-ENGINE_ROUNDS = 24
-PAIR_ROUNDS = 48
-PAIRS = 5
+ENGINE_ROUNDS = 16
+PAIR_ROUNDS = 24
+PAIRS = 2
 BN_ROUNDS = 10
 HEADLINE_PER_ROUND = {"sketch_accumulate": 2, "sketch_estimates": 1,
                       "topk_count_ge": 8}
@@ -1663,7 +1682,7 @@ def phase_lifecycle(card: str) -> dict:
     loop, no stream synchronization in a non-drain submit (under
     ``set_sync_debug_mode("error")``) and no fetch, 2 / 1 / 8 launches a
     headline round; then rounds/sec and busy share, loop against engine,
-    in 5 alternating pairs (data, no claim);
+    in PAIRS alternating pairs (data, no claim);
     (b) resume: 6 rounds straight against 3 + ``save_round_state`` + a
     new model restored by ``load_run_state`` + 3, bit-equal (the headline
     round, and the sketch-local round with its client tables);
@@ -1732,7 +1751,7 @@ GPT2_BASE = ["--mode", "sketch", "--error_type", "virtual",
              "--num_candidates", str(GPT2_C), "--max_seq_len", str(GPT2_T),
              "--valid_batch_size", "2", "--device", "cuda", "--seed", "0",
              "--no_telemetry"]
-GPT2_TIMED_ROUNDS = 10
+GPT2_TIMED_ROUNDS = 6
 GPT2_LEGS = (("gpt2 f32", []), ("gpt2 bf16", ["--bf16"]),
              ("gpt2 opt-in", OPT_IN))
 
@@ -1907,7 +1926,7 @@ IMAGENET_BASE = ["--mode", "uncompressed", "--error_type", "none",
                  "--model", "FixupResNet50", "--iid",
                  "--num_clients", str(IMAGENET_W), "--device", "cuda",
                  "--seed", "0", "--no_telemetry"]
-IMAGENET_TIMED_ROUNDS = 5
+IMAGENET_TIMED_ROUNDS = 3
 
 
 @contextlib.contextmanager
@@ -2998,10 +3017,10 @@ def phase_multi(card: str, headline_rps: float, gpt2_f32: dict) -> dict:
 # phase 12: the observability plane and the health guards
 OBS_ON = ["--telemetry", "--telemetry_hist", "--watch", "--guards"]
 OBS_IDENTITY_ROUNDS = 10
-OBS_AUDIT_ROUNDS = 24
+OBS_AUDIT_ROUNDS = 16
 # alternating pairs of the cost phase: the host-bound ResNet9 round moves
 # 10-40% between windows of one call, the GPT-2 round under 1%
-OBS_PAIRS = {"headline": 16, "gpt2 f32": 4}
+OBS_PAIRS = {"headline": 6, "gpt2 f32": 1}
 OBS_PAIR_ROUNDS = 20
 # the profiled window of the host split: one drain cycle of the engine
 # (the profiler's event processing is slow at GPT-2's 7,800 operators a
@@ -3544,7 +3563,7 @@ PART_RESUME_ROUNDS = 8
 PART_GPT2_ROUNDS = 6
 GPT2_SLOW = ["--inject_client_fault", "slow=0.25,delay=1,seed=7"]
 # alternating on / off pairs of the cost step, and engine rounds a window
-PART_PAIRS = {"headline": 10, "gpt2 f32": 4}
+PART_PAIRS = {"headline": 4, "gpt2 f32": 2}
 PART_PAIR_ROUNDS = {"headline": 20, "gpt2 f32": 8}
 HEADLINE_CLIENT = {"sketch_accumulate": 1}
 HEADLINE_SERVER = {"sketch_accumulate": 1, "sketch_estimates": 1,
@@ -4023,9 +4042,9 @@ OFF_IDENTITY_ROUNDS = 10
 OFF_PART_ROUNDS = 6
 OFF_EMNIST = 3500
 OFF_POP_ROUNDS = 20
-OFF_POP_PAIRS = 2
+OFF_POP_PAIRS = 1
 OFF_LARGE = 100_000
-OFF_LARGE_ROUNDS = 20
+OFF_LARGE_ROUNDS = 16
 OFF_TOPK_ROUNDS = 5
 OFF_IO_FAULT = "eio=0.02,short=0.01,torn=0.01,seed=3"
 OFF_FLIP = "flip=0.01,seed=5"
@@ -4226,8 +4245,8 @@ def off_population(card: str, tmp: str) -> dict:
     planner's own probes, then the host tier (at 3,500 clients if the
     planner puts them there, else at the largest population in steps of
     500 that it places in host with only the device budget forced)
-    against the hbm tier forced at the same population, in alternating
-    pairs of 20 engine rounds."""
+    against the hbm tier forced at the same population, in OFF_POP_PAIRS
+    pair(s) of 20 engine rounds (host first, then alternating)."""
     from commefficient_torch.federated import memory as fmem
 
     mem_total = None
@@ -4350,14 +4369,14 @@ def off_population(card: str, tmp: str) -> dict:
 
 def off_large(card: str, tmp: str) -> dict:
     """(3) 10^5 clients, sketch-local, on the disk tier the planner picks:
-    20 timed rounds with a run state saved after round 10; the prefetch
+    OFF_LARGE_ROUNDS timed rounds with a run state saved halfway; the prefetch
     hit share, gather_io_ms and scatter_io_ms, the blocks allocated in the
     row files against the rows touched (``st_blocks``, or the
     filesystem's own use where ``st_blocks`` reports the logical size),
-    the resident set; a resume from round 10, with one byte of a row
-    flipped on disk after the snapshot (detected and repaired from it),
-    bit-exact at round 20; an injected EIO / short / torn drill over
-    rounds 11-20 bit-identical to the clean run; a flip drill with a scrub
+    the resident set; a resume from the halfway save, with one byte of a
+    row flipped on disk after the snapshot (detected and repaired from
+    it), bit-exact at the last round; an injected EIO / short / torn drill
+    over the second half bit-identical to the clean run; a flip drill with a scrub
     whose detections, repairs and watch alerts land in the event log."""
     n = OFF_LARGE
     half = OFF_LARGE_ROUNDS // 2
@@ -4444,9 +4463,9 @@ def off_large(card: str, tmp: str) -> dict:
         shutil.rmtree(d)
 
         def resumed(label, extra=(), corrupt=False):
-            """A new model restored from the round-10 run state runs
-            rounds 11-20 (under ``extra``); with ``corrupt``, one byte of
-            a row that round 11 reads is flipped on disk first."""
+            """A new model restored from the halfway run state runs the
+            second half (under ``extra``); with ``corrupt``, one byte of
+            a row that its first round reads is flipped on disk first."""
             dd = tempfile.mkdtemp(dir=tmp)
             a, fm2, opt2, sched2 = build_offload(extra, n, {}, dd)
             load_run_state(path, fm2, opt2, sched2)
@@ -4476,7 +4495,7 @@ def off_large(card: str, tmp: str) -> dict:
               f"from it: rounds {half + 1}-{OFF_LARGE_ROUNDS} bit-exact "
               f"(weights and all {len(np.unique(ids))} touched rows); "
               f"counters " + json.dumps(c))
-        # the injected transient drill over rounds 11-20
+        # the injected transient drill over the second half
         c3 = resumed("offload 10^5 EIO drill",
                      ["--inject_io_fault", OFF_IO_FAULT])
         assert c3["retries"] > 0 and c3["quarantined"] == 0, c3
@@ -5029,7 +5048,7 @@ GRID_PLAN = "table=shard:fp32/clients:int8,downlink=dcn:int8"
 GRID_DENSE = ["--mode", "uncompressed", "--error_type", "none",
               "--collective_plan", "uplink=shard:fp32/clients:int8"]
 GRID_PLAN_ROUNDS = 3
-GRID_PAIRS = 3
+GRID_PAIRS = 2
 GRID_PAIR_ROUNDS = 4
 # the error-feedback identity's bound, relative to the largest magnitude
 GRID_EF_RTOL = 1e-6
@@ -5084,6 +5103,20 @@ def grid_ef_identity(fm, opt, grid, batch, label: str) -> dict:
     out["downlink_identity_scale"] = scale
     opt.step()
     return out
+
+
+def release_card() -> dict:
+    """Free what this process no longer uses on the card before spawned
+    ranks need it: collect unreachable objects (a model kept alive by a
+    reference cycle holds its device memory until the collector runs),
+    then return the allocator's cached blocks. Returns what stays held."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"allocated_GiB": torch.cuda.memory_allocated() / 2**30,
+            "reserved_GiB": torch.cuda.memory_reserved() / 2**30}
 
 
 def _grid_rank(index: int, tmp: str) -> None:
@@ -5284,6 +5317,9 @@ def phase_grid(card: str) -> dict:
     round in GRID_PAIRS alternating triples (data, no claim)."""
     import multiprocessing as mp
 
+    held = release_card()
+    print("phase 16: this process holds " + json.dumps(held)
+          + " on the card before its ranks start")
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp, \
             env_vars(COMMEFFICIENT_FORCE_DCN_AXIS="clients"):
@@ -5359,6 +5395,334 @@ def phase_grid(card: str) -> dict:
                    "rates measure nothing of NVLink"}
     print(json.dumps(out))
     out["auto"] = grid_auto_run(card)
+    return out
+
+
+# phase 17: GPT-2's sequence parallelism (item 7.1) at GPT-2-small's full
+# width (config 5): two gloo ranks as (clients 1) x (seq 2) under ring and
+# Ulysses attention, four as (clients 2) x (seq 2), and gpt2_train
+SEQ_ROUNDS = 3
+SEQ_GRID_ROUNDS = 2
+SEQ_TIMED_ROUNDS = 3
+# the seq-parallel summed gradient against the one-rank round's: fp32
+# sums in another order (the ring's blockwise online softmax and the
+# Ulysses head split, matrix products at half the sequence, the seq
+# all-reduce of the two halves' partial gradients); elementwise
+# |seq - dense| <= SEQ_GRAD_ATOL * max|dense| + SEQ_GRAD_RTOL * |dense|
+SEQ_GRAD_ATOL = 2e-5
+SEQ_GRAD_RTOL = 1e-3
+# per-client losses: the CPU tests' GPT-2 tolerance
+SEQ_LOSS_RTOL = 1e-4
+
+
+def seq_batch(seed: int):
+    """``gpt2_batch`` with the collate's ``lm_labels_shifted`` (the target
+    of position t over the whole sequence, -1 at the last slot)."""
+    b = gpt2_batch(seed)
+    shifted = np.full_like(b["lm_labels"], -1)
+    shifted[..., :-1] = b["lm_labels"][..., 1:]
+    b["lm_labels_shifted"] = shifted
+    return b
+
+
+def build_seq_gpt2(extra, group=None):
+    """Phase 9's GPT-2 round at dropout 0 (so the seq-parallel and the
+    one-rank rounds compute the same function), on ``group`` with its
+    seq axis under ``--seq_parallel``; returns ``(fm, one_round)``."""
+    args = parse_args(default_lr=4e-2, argv=GPT2_BASE + list(extra) + [
+        "--dataset_name", "PERSONA", "--num_clients", "8"])
+    seq = group.seq if group is not None else None
+    model = GPT2DoubleHeads(**GPT2_MODEL, dropout=0.0,
+                            **({"attn_impl": args.seq_parallel,
+                                "seq_group": seq} if seq else {}))
+    train_loss, val_loss = make_gpt2_losses(model, seq_group=seq)
+    fm = FedModel(model, train_loss, args, val_loss, num_clients=8,
+                  group=group)
+    assert fm.grad_size == GPT2_D, fm.grad_size
+    opt = FedOptimizer(fm, args)
+    schedule = PiecewiseLinear([0, 100], [args.lr_scale, 0.0])
+    sched = LambdaLR(opt, lambda step: schedule(step))
+
+    def one_round(batch):
+        sched.step()
+        out = fm(batch)
+        opt.step()
+        return out
+
+    return fm, one_round
+
+
+@contextlib.contextmanager
+def summed_gradient(store: list):
+    """Record the fused client phase's summed gradient (the chunked
+    ``(T, S, 128)`` plane handed to the one client sketch), on the card."""
+    from commefficient_torch.federated import rounds
+
+    inner = rounds.sketch_chunks
+
+    def spy(sketch, x):
+        store.append(x.detach().clone())
+        return inner(sketch, x)
+
+    with mock.patch.object(rounds, "sketch_chunks", spy):
+        yield
+
+
+def seq_device() -> torch.device:
+    """The GPT-2 round's device (``cuda``), its first card."""
+    return torch.device(GPT2_BASE[GPT2_BASE.index("--device") + 1], 0)
+
+
+def w_hash(fm) -> str:
+    """SHA-256 of the weights' bytes: equal hashes, bit-equal weights."""
+    import hashlib
+
+    return hashlib.sha256(_weights(fm).cpu().numpy().tobytes()).hexdigest()
+
+
+def _seq_pair(i: int, tmp: str) -> dict:
+    """Stage 1 on ranks 0 and 1: (clients 1) x (seq 2) under ring, then
+    Ulysses: round 1's summed gradient and losses against the one-rank
+    round's (``tmp/dense_*``), SEQ_ROUNDS finite rounds with 2 / 1 / 8
+    launches each, and the weights' hash."""
+    import torch.distributed as dist
+
+    from commefficient_torch.parallel import make_client_group
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store_a",
+                            rank=i, world_size=2)
+    out = {}
+    try:
+        dev = seq_device()
+        g = make_client_group(GPT2_W, 1, dev, seq_devices=2)
+        assert (g.rank, g.size, g.seq.rank, g.seq.size) == (0, 1, i, 2)
+        ref = torch.from_numpy(np.load(os.path.join(tmp, "dense_g.npy")))
+        ref = ref.to(dev)
+        ref_loss = np.load(os.path.join(tmp, "dense_loss.npy"))
+        scale = float(ref.abs().max())
+        for impl in ("ring", "ulysses"):
+            fm, one = build_seq_gpt2(["--seq_parallel", impl,
+                                      "--seq_devices", "2",
+                                      "--num_devices", "1"], g)
+            assert fm.worker_config.seq_axis == "seq"
+            rec = {"launches": [], "losses": []}
+            for r in range(SEQ_ROUNDS):
+                grads = []
+                kernels.reset_launch_counts()
+                with summed_gradient(grads):
+                    loss = one(seq_batch(r))[0]
+                torch.cuda.synchronize()
+                rec["launches"].append(kernels.launch_counts())
+                rec["losses"].append(loss.tolist())
+                assert np.all(np.isfinite(loss)), (impl, r, loss)
+                if r == 0:
+                    err = (grads[0] - ref).abs()
+                    bound = SEQ_GRAD_ATOL * scale + SEQ_GRAD_RTOL * ref.abs()
+                    rec["grad_max_abs_err"] = float(err.max())
+                    rec["grad_scale"] = scale
+                    rec["grad_within"] = bool((err <= bound).all())
+                    rec["loss_max_rel_err"] = float(np.max(
+                        np.abs(loss - ref_loss) / np.abs(ref_loss)))
+            rec["w_hash"] = w_hash(fm)
+            rec["peak_memory_GB"] = torch.cuda.max_memory_allocated() / 1e9
+            out[impl] = rec
+            del fm, one
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _seq_cli(i: int, tmp: str) -> dict:
+    """Stage 1 on ranks 2 and 3: ``gpt2_train`` under ``--seq_parallel
+    ring --bf16`` on two gloo ranks on ``cuda:0`` (dropout 0.1: each seq
+    rank draws its own masks), a fraction of an epoch of the synthetic
+    PersonaChat, and the val pass."""
+    from commefficient_torch import gpt2_train
+
+    os.environ.update(RANK=str(i - 2), WORLD_SIZE="2", LOCAL_RANK="0",
+                      LOCAL_WORLD_SIZE="2",
+                      COMMEFFICIENT_SYNTHETIC_CLIENTS="8",
+                      COMMEFFICIENT_RUN_DIR=os.path.join(tmp, "cli_run"))
+    kernels.reset_launch_counts()
+    stats = gpt2_train.train(GPT2_BASE + [
+        "--dataset_dir", os.path.join(tmp, "persona"), "--num_epochs",
+        "0.3", "--bf16", "--seq_parallel", "ring", "--seq_devices", "2",
+        "--num_devices", "1"],
+        init_method=f"file://{tmp}/store_cli", backend="gloo")
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        os.environ.pop(key)
+    return {"stats": {k: float(v) for k, v in stats.items()},
+            "launches": kernels.launch_counts()}
+
+
+def _seq_grid(i: int, tmp: str) -> dict:
+    """Stage 2 on all four ranks: the (clients 2) x (seq 2) grid under
+    ring, SEQ_GRID_ROUNDS finite rounds with 2 / 1 / 8 launches each, the
+    weights' hash, then SEQ_TIMED_ROUNDS timed rounds."""
+    import torch.distributed as dist
+
+    from commefficient_torch.parallel import make_client_group, tuple_index
+
+    rank = tuple_index(i, 2, 1, 2)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store_b",
+                            rank=rank, world_size=4)
+    try:
+        g = make_client_group(GPT2_W, 2, seq_device(), seq_devices=2)
+        assert (g.rank * 2 + g.seq.rank, g.size, g.seq.size) == (rank, 2, 2)
+        fm, one = build_seq_gpt2(["--seq_parallel", "ring", "--seq_devices",
+                                  "2", "--num_devices", "2"], g)
+        rec = {"rank": rank, "launches": [], "losses": []}
+        for r in range(SEQ_GRID_ROUNDS):
+            kernels.reset_launch_counts()
+            loss = one(seq_batch(r))[0]
+            torch.cuda.synchronize()
+            rec["launches"].append(kernels.launch_counts())
+            rec["losses"].append(loss.tolist())
+            assert np.all(np.isfinite(loss)), (r, loss)
+        rec["w_hash"] = w_hash(fm)
+        batch = seq_batch(SEQ_GRID_ROUNDS)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(SEQ_TIMED_ROUNDS):
+            one(batch)
+        torch.cuda.synchronize()
+        rec["rounds_per_sec"] = SEQ_TIMED_ROUNDS / (time.perf_counter() - t)
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
+def _seq_rank(i: int, tmp: str) -> None:
+    """One process of phase 17: stage 1 (ranks 0-1: ``_seq_pair``; ranks
+    2-3: ``_seq_cli``), then stage 2 (``_seq_grid``); its record written
+    to ``tmp``."""
+    kernels.library()
+    with deterministic_cudnn():
+        out = {"stage1": (_seq_pair if i < 2 else _seq_cli)(i, tmp)}
+        out["stage2"] = _seq_grid(i, tmp)
+    with open(os.path.join(tmp, f"seq{i}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_seq(card: str) -> dict:
+    """Phase 17: GPT-2's sequence parallelism at GPT-2-small's full width
+    (config 5: d = 124,444,417, T = 256, 4 clients x 2 examples x 2
+    candidates, the 5 x 500,000 sketch, k = 50,000) on gloo ranks on
+    ``cuda:0`` (two NCCL ranks cannot share a card; gloo stages every
+    collective, the 497.8 MB gradient sum over seq included, through the
+    host), dropout 0 and cuDNN deterministic:
+
+    (a) the one-rank round in this process: its summed gradient and
+        losses, and its rounds/sec;
+    (b) two ranks as (clients 1) x (seq 2), ring and then Ulysses: round
+        1's summed gradient within SEQ_GRAD_ATOL / SEQ_GRAD_RTOL of the
+        one-rank round's and its losses within SEQ_LOSS_RTOL, SEQ_ROUNDS
+        finite rounds, the two ranks' weights bit-equal, 2 / 1 / 8
+        launches of kernels 1 / 3 / 5 a round on each rank;
+    (c) meanwhile, two more ranks: ``gpt2_train`` under ``--seq_parallel
+        ring --bf16``: finite val NLL, both ranks alike, the headline
+        kernels launched;
+    (d) four ranks as (clients 2) x (seq 2) under ring: SEQ_GRID_ROUNDS
+        finite rounds, weights bit-equal on all four, 2 / 1 / 8 launches;
+    (e) tokens/sec of the (clients 2) x (seq 2) round, with nothing else
+        on the card, beside the one-rank round's (data, no claim)."""
+    import multiprocessing as mp
+
+    release_card()
+    t = time.perf_counter()
+    tokens = GPT2_W * GPT2_B * GPT2_C * GPT2_T
+    with tempfile.TemporaryDirectory() as tmp, deterministic_cudnn():
+        fm, one = build_seq_gpt2([])
+        grads = []
+        with summed_gradient(grads):
+            loss = one(seq_batch(0))[0]
+        np.save(os.path.join(tmp, "dense_g.npy"), grads[0].cpu().numpy())
+        np.save(os.path.join(tmp, "dense_loss.npy"), loss)
+        one(seq_batch(1))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(SEQ_TIMED_ROUNDS):
+            one(seq_batch(SEQ_ROUNDS))
+        torch.cuda.synchronize()
+        dense_rps = SEQ_TIMED_ROUNDS / (time.perf_counter() - t1)
+        del fm, one, grads
+        held = release_card()
+        print("phase 17: this process holds " + json.dumps(held)
+              + " on the card before its ranks start")
+        dense_s = time.perf_counter() - t
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_seq_rank, args=(i, tmp))
+                 for i in range(4)]
+        for pr in procs:
+            pr.start()
+        for pr in procs:
+            pr.join(max(1.0, 300 - (time.perf_counter() - t)))
+        alive = [pr for pr in procs if pr.is_alive()]
+        for pr in alive:
+            pr.kill()
+            pr.join()
+        assert not alive, "phase 17 ranks timed out"
+        assert all(pr.exitcode == 0 for pr in procs), \
+            [pr.exitcode for pr in procs]
+        ranks = []
+        for i in range(4):
+            with open(os.path.join(tmp, f"seq{i}.json")) as f:
+                ranks.append(json.load(f))
+
+    def nonzero(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    pair = [r["stage1"] for r in ranks[:2]]
+    for impl in ("ring", "ulysses"):
+        for i, p in enumerate(pair):
+            rec = p[impl]
+            assert rec["grad_within"], (impl, i, rec["grad_max_abs_err"],
+                                        rec["grad_scale"])
+            assert rec["loss_max_rel_err"] <= SEQ_LOSS_RTOL, \
+                (impl, i, rec["loss_max_rel_err"])
+            for counts in rec["launches"]:
+                assert nonzero(counts) == HEADLINE_PER_ROUND, \
+                    (impl, i, counts)
+        assert pair[0][impl]["w_hash"] == pair[1][impl]["w_hash"], \
+            f"{impl}: the seq ranks' weights differ"
+        assert pair[0][impl]["losses"] == pair[1][impl]["losses"], impl
+    cli = [r["stage1"] for r in ranks[2:]]
+    keys = ("val_nll", "val_acc", "val_ppl")
+    for c in cli:
+        assert np.isfinite(c["stats"]["val_nll"]), c
+        assert all((c["launches"][k] > 0) == (k in HEADLINE_KERNELS)
+                   for k in c["launches"]), c["launches"]
+    assert [cli[0]["stats"][k] for k in keys] == \
+        [cli[1]["stats"][k] for k in keys], cli
+    grid = [r["stage2"] for r in ranks]
+    assert sorted(g["rank"] for g in grid) == [0, 1, 2, 3]
+    assert len({g["w_hash"] for g in grid}) == 1, \
+        "the 2 x 2 grid's ranks' weights differ"
+    for g in grid:
+        for counts in g["launches"]:
+            assert nonzero(counts) == HEADLINE_PER_ROUND, (g["rank"], counts)
+    grid_rps = grid[0]["rounds_per_sec"]
+    out = {"phase": "sequence parallelism", "card": card,
+           "grad_max_abs_err": {impl: max(p[impl]["grad_max_abs_err"]
+                                          for p in pair)
+                                for impl in ("ring", "ulysses")},
+           "grad_scale": pair[0]["ring"]["grad_scale"],
+           "loss_max_rel_err": {impl: max(p[impl]["loss_max_rel_err"]
+                                          for p in pair)
+                                for impl in ("ring", "ulysses")},
+           "launches_per_round_per_rank": nonzero(grid[0]["launches"][0]),
+           "peak_memory_GB_rank0": {impl: pair[0][impl]["peak_memory_GB"]
+                                    for impl in ("ring", "ulysses")},
+           "cli": cli[0]["stats"],
+           "tokens_per_sec": {"one rank": dense_rps * tokens,
+                              "clients 2 x seq 2 ring": grid_rps * tokens},
+           "one_rank_s": dense_s, "wall_s": time.perf_counter() - t,
+           "note": "gloo stages the 497.8 MB gradient sum over seq (and "
+                   "every other collective) through the host: these rates "
+                   "measure nothing of NVLink"}
+    print(json.dumps(out))
     return out
 
 
@@ -5451,6 +5815,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     grid = phase_grid(card)
     wall["16 2-D plane"] = time.perf_counter() - t
+    t = time.perf_counter()
+    seq = phase_seq(card)
+    wall["17 sequence parallelism"] = time.perf_counter() - t
     print("phase wall seconds (phase 3 includes the build): " + json.dumps(
         {k: round(v, 2) for k, v in wall.items()}))
 
@@ -5482,7 +5849,9 @@ def main(argv=None) -> int:
          **{key: rows[k.name][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")}, "sharded": sharded(k.name),
-         "grid_2d_launches_per_round_per_rank": grid_launches.get(k.name, 0)}
+         "grid_2d_launches_per_round_per_rank": grid_launches.get(k.name, 0),
+         "seq_launches_per_round_per_rank": seq[
+             "launches_per_round_per_rank"].get(k.name, 0)}
         for k in kernels.KERNELS]}
     print(json.dumps({"rounds_per_sec": rps,
                       "opt_in_rounds_per_sec": opt_rps,
@@ -5525,6 +5894,7 @@ def main(argv=None) -> int:
                       "service_wall_s": service["wall_s"],
                       "grid_2d_rounds_per_sec_median":
                           grid["rounds_per_sec_median"],
+                      "seq_tokens_per_sec": seq["tokens_per_sec"],
                       **{"opt_in_" + k: v for k, v in opt_prof.items()}}))
     print(json.dumps(summary))
     print(card)

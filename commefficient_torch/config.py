@@ -15,7 +15,10 @@ or a saved run dir's ``model.npz``; nothing is downloaded),
 ``--personality_permutations``, ``--max_seq_len`` (256, or
 ``COMMEFFICIENT_GPT2_SEQ_LEN``), ``--eval_before_start`` and ``--bf16``
 (the forward and backward in bfloat16 over float32 master weights; the
-CV losses take it too).
+CV losses take it too). GPT-2's sequence parallelism: ``--seq_parallel
+ring|ulysses`` and ``--seq_devices`` (the JAX package's names, defaults,
+help and ``--max_seq_len`` check, ``check_seq_parallel``); the realized
+grid decides it (``gpt2_train``), and ``cv_train`` refuses it.
 
 Deviations: ``--device`` takes ``{cuda, cpu}`` with ``cuda`` the default
 (a CUDA request on a host without a card raises; there is no fallback to
@@ -92,9 +95,6 @@ ITEM_PARALLEL = (f"{_Q1} item 7 (parallel/: sequence, tensor, pipeline "
 # types and defaults: (option strings, add_argument keywords, item). Each
 # is parsed; a value other than its default raises naming the item.
 UNPORTED = (
-    ("--seq_parallel", dict(choices=["none", "ring", "ulysses"],
-                            default="none"), ITEM_PARALLEL),
-    ("--seq_devices", dict(type=int, default=2), ITEM_PARALLEL),
     ("--model_devices", dict(type=int, default=1), ITEM_PARALLEL),
     ("--pipeline_devices", dict(type=int, default=1), ITEM_PARALLEL),
     ("--pp_microbatches", dict(type=int, default=4), ITEM_PARALLEL),
@@ -280,6 +280,16 @@ def build_parser(default_lr=None) -> argparse.ArgumentParser:
                             "COMMEFFICIENT_GPT2_SEQ_LEN", 256)),
                         help="GPT-2 static sequence length (pad/left-"
                              "truncate PersonaChat examples to this).")
+    # GPT-2's sequence parallelism (parallel/ring.py, parallel/ulysses.py):
+    # the ranks gain a `seq` axis of --seq_devices; the sequence is split
+    # over it and attention runs exactly over the global sequence
+    parser.add_argument("--seq_parallel", choices=["none", "ring", "ulysses"],
+                        default="none",
+                        help="Sequence-parallel attention over a `seq` mesh "
+                             "axis (GPT-2 only).")
+    parser.add_argument("--seq_devices", type=int, default=2,
+                        help="Size of the seq mesh axis when --seq_parallel "
+                             "is enabled.")
 
     # checkpoint, resume and the round engine (the JAX package's flags)
     parser.add_argument("--checkpoint", action="store_true",
@@ -694,9 +704,19 @@ def check_host_state(args) -> None:
               "to verify and the scrub is inert")
 
 
+def check_seq_parallel(args) -> None:
+    """The JAX package's check of the sequence split: the static sequence
+    length must divide by ``--seq_devices``."""
+    if args.seq_parallel != "none":
+        assert args.max_seq_len % args.seq_devices == 0, (
+            f"--max_seq_len {args.max_seq_len} must divide by "
+            f"--seq_devices {args.seq_devices}")
+
+
 def parse_args(default_lr=None, argv=None):
     args = build_parser(default_lr).parse_args(argv)
     reject_unported(args)
+    check_seq_parallel(args)
     check_collectives(args)
     check_observability(args)
     check_participation(args)

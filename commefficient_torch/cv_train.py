@@ -32,6 +32,8 @@ masks, ``build_param_groups``). A model with BatchNorm that
 ``norm="batch"``) raises: the JAX package cannot train it either.
 ``--train_dataloader_workers`` / ``--val_dataloader_workers`` > 0 put
 the loaders behind ``PrefetchLoader``.
+``--seq_parallel`` (GPT-2's sequence parallelism) raises
+``ValueError`` (``check_no_seq_parallel``).
 
 CLI and loop parity with ``cv_train.py`` of the JAX package: the same flags
 (config.py), a ``PiecewiseLinear`` LR peaking at ``--pivot_epoch``, the NaN
@@ -489,10 +491,25 @@ def check_trainable(model) -> None:
             "batch_stats), so neither does the port (ROADMAP.md queue 3)")
 
 
+def check_no_seq_parallel(args) -> None:
+    """``--seq_parallel`` is GPT-2's: a CV batch has no sequence to split,
+    so each seq rank would compute the whole gradient, and the sum over
+    the seq axis multiplies it by the axis size. The JAX package's
+    ``cv_train`` takes the flag and trains on that scaled gradient; the
+    port refuses it (ROADMAP.md queue 3)."""
+    if getattr(args, "seq_parallel", "none") != "none":
+        raise ValueError(
+            f"--seq_parallel {args.seq_parallel} splits GPT-2's sequence; "
+            "cv_train has no sequence to split (under the flag the JAX "
+            "package's cv_train sums each seq rank's whole gradient, "
+            "scaling it by --seq_devices), so the port refuses it")
+
+
 def main(argv=None, init_method=None):
     """``init_method``: the process group's rendezvous under ``torchrun``
     (default ``env://``)."""
     args = parse_args(argv=argv)
+    check_no_seq_parallel(args)
     group = start_client_group(args, init_method)
     try:
         if group is not None and not group.active:

@@ -20,10 +20,11 @@ batches).
   ``lm_labels`` -1 except on the correct (last) candidate's reply;
 - ``make_personachat_collate_fn`` gives static ``(B, num_candidates,
   max_seq_len)`` arrays, left-truncating an over-long sequence so the
-  reply and the classification token survive.
-
-The JAX package's ``emit_shifted`` (sequence parallelism) and its ragged
-reference collate are not carried (ROADMAP.md queue 1 item 7).
+  reply and the classification token survive; with ``emit_shifted``
+  (sequence parallelism) it adds ``lm_labels_shifted``, the next-token
+  targets shifted over the global sequence;
+- ``personachat_collate_fn`` is the reference's ragged collate (padded to
+  the batch's longest sequence), kept for the API.
 """
 
 from __future__ import annotations
@@ -40,10 +41,11 @@ from commefficient_torch.data_utils.fed_dataset import FedDataset
 from commefficient_torch.data_utils.tokenization import SPECIAL_TOKENS
 
 __all__ = ["FedPERSONA", "make_personachat_collate_fn",
-           "build_input_from_segments"]
+           "personachat_collate_fn", "build_input_from_segments"]
 
 MODEL_INPUTS = ["input_ids", "mc_token_ids", "lm_labels", "mc_labels",
                 "token_type_ids"]
+PADDED_INPUTS = ["input_ids", "lm_labels", "token_type_ids"]
 
 
 def _synthetic_personachat(seed=0):
@@ -279,10 +281,14 @@ class FedPERSONA(FedDataset):
         return os.path.join(self.dataset_dir, "validation.json")
 
 
-def make_personachat_collate_fn(max_seq_len: int, num_candidates: int):
+def make_personachat_collate_fn(max_seq_len: int, num_candidates: int,
+                                emit_shifted: bool = False):
     """Static-shape collate: ``(B, num_candidates, max_seq_len)`` padded
     arrays (the reference pads to the per-batch maximum; the port keeps
-    the JAX package's fixed width)."""
+    the JAX package's fixed width). ``emit_shifted`` adds
+    ``lm_labels_shifted``: the target of position t (``lm_labels[t +
+    1]``, -1 at the last slot), which the seq-parallel loss needs because
+    the shift crosses the ranks' slices of the sequence."""
 
     def collate(items):
         B = len(items)
@@ -307,12 +313,38 @@ def make_personachat_collate_fn(max_seq_len: int, num_candidates: int):
                 lm_labels[b, c, :L] = lm[c][off:]
                 mc_token_ids[b, c] = min(max(mc_tok[c] - off, 0), L - 1,
                                          T - 1)
-        return {
+        out = {
             "input_ids": input_ids,
             "mc_token_ids": mc_token_ids,
             "lm_labels": lm_labels,
             "mc_labels": mc_labels,
             "token_type_ids": token_type_ids,
         }
+        if emit_shifted:
+            shifted = np.full_like(lm_labels, -1)
+            shifted[..., :-1] = lm_labels[..., 1:]
+            out["lm_labels_shifted"] = shifted
+        return out
 
     return collate
+
+
+def personachat_collate_fn(records):
+    """The reference's ragged collate: ``(client_id, *MODEL_INPUTS)`` with
+    the padded inputs at the batch's longest sequence (ids and token
+    types padded with 0, ``lm_labels`` with -1), ``(B, candidates, L)``;
+    the rest stacked."""
+    max_l = max(len(ids) for record in records for ids in record[1])
+    ncand = len(records[0][1])
+    out = []
+    for i, name in enumerate(["client_id"] + MODEL_INPUTS):
+        if name in PADDED_INPUTS:
+            pad_val = 0 if name != "lm_labels" else -1
+            seqs = [s for record in records for s in record[i]]
+            padded = np.full((len(seqs), max_l), pad_val, np.int64)
+            for r, s in enumerate(seqs):
+                padded[r, :len(s)] = s
+            out.append(padded.reshape(len(records), ncand, -1))
+        else:
+            out.append(np.asarray([record[i] for record in records]))
+    return tuple(out)

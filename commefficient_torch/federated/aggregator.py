@@ -121,6 +121,7 @@ from commefficient_torch.ops.collectives import (
 )
 from commefficient_torch.ops.flat import ParamLayout
 from commefficient_torch.ops.sketch import make_sketch
+from commefficient_torch.parallel.mesh import SEQ_AXIS
 from commefficient_torch.profiling import annotate
 
 DEFAULT_NUM_CLIENTS = {"EMNIST": 3500, "PERSONA": 17568}
@@ -195,7 +196,14 @@ class RoundHandle(NamedTuple):
     offload: Optional[dict] = None
 
 
-def worker_config_from_args(args) -> WorkerConfig:
+def worker_config_from_args(args, group=None) -> WorkerConfig:
+    """The worker's config; its ``seq_axis`` comes from the REALIZED grid
+    (``group``): the grid policy may have reduced ``--seq_devices`` to 1,
+    and a config naming an axis the grid lacks would fail in the round."""
+    seq_axis = None
+    if getattr(args, "seq_parallel", "none") != "none" and \
+            group is not None and group.seq is not None:
+        seq_axis = SEQ_AXIS
     return WorkerConfig(
         mode=args.mode, error_type=args.error_type, k=args.k,
         num_workers=args.num_workers, weight_decay=args.weight_decay,
@@ -207,7 +215,7 @@ def worker_config_from_args(args) -> WorkerConfig:
         num_fedavg_epochs=args.num_fedavg_epochs,
         fedavg_batch_size=args.fedavg_batch_size,
         fedavg_lr_decay=args.fedavg_lr_decay,
-        do_topk_down=args.do_topk_down)
+        do_topk_down=args.do_topk_down, seq_axis=seq_axis)
 
 
 def server_config_from_args(args, grad_size: int) -> ServerConfig:
@@ -231,10 +239,10 @@ def collective_plan_from_args(args):
                                   or "float32")
 
 
-def round_config_from_args(args, grad_size: int) -> RoundConfig:
+def round_config_from_args(args, grad_size: int, group=None) -> RoundConfig:
     telemetry = bool(getattr(args, "telemetry", False))
     return RoundConfig(
-        worker=worker_config_from_args(args),
+        worker=worker_config_from_args(args, group),
         server=server_config_from_args(args, grad_size), grad_size=grad_size,
         do_test=bool(getattr(args, "do_test", False)),
         stream_sketch=bool(getattr(args, "stream_sketch", False)),
@@ -335,7 +343,7 @@ class FedModel:
         self._model_state = {k: v.to(self.device) for k, v in
                              model.initial_model_state().items()}
 
-        cfg = round_config_from_args(args, self.grad_size)
+        cfg = round_config_from_args(args, self.grad_size, group)
         self.worker_config, self.server_config = cfg.worker, cfg.server
         self.sketch = None
         if args.mode == "sketch":
@@ -558,11 +566,16 @@ class FedModel:
     def _state_dir(self, args) -> str:
         """The disk tier's directory: ``--state_dir``, else
         ``<checkpoint_path>/client_state``; each rank of a client group
-        of several ranks keeps its own copy under ``rank<r>``."""
+        of several ranks keeps its own copy under ``rank<r>`` (``r`` the
+        process rank: the seq ranks of one tuple index each keep one)."""
         base = (getattr(args, "state_dir", "") or "") or os.path.join(
             getattr(args, "checkpoint_path", "."), "client_state")
-        if self.group is not None and self.group.size > 1:
-            return os.path.join(base, f"rank{self.group.rank}")
+        g = self.group
+        if g is not None and g.seq is not None:
+            return os.path.join(base,
+                                f"rank{g.rank * g.seq.size + g.seq.rank}")
+        if g is not None and g.size > 1:
+            return os.path.join(base, f"rank{g.rank}")
         return base
 
     @property
@@ -598,6 +611,12 @@ class FedModel:
         """True on the process that writes files (rank 0 of the group, or
         the only one)."""
         return self.group is None or self.group.is_main
+
+    def state_dict(self) -> dict:
+        """The current weights as a flax-layout tree of numpy arrays (the
+        JAX package's ``FedModel.state_dict``: ``convert.flax_from_port``
+        of ``params``)."""
+        return flax_from_port(self.params, self.param_layout)
 
     def save_pretrained(self, log_dir: str) -> str:
         """Write the weights and model state as ``<log_dir>/model.npz`` in

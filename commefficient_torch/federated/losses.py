@@ -14,10 +14,21 @@ loss's ``draw_rng(generator, microbatch)`` (the fused client phase draws
 one per client and microbatch before its ``torch.func.vmap``, whose
 ``randomness`` cannot take an explicit generator). A loss without
 dropout has no ``draw_rng`` and ignores ``rng``.
+
+GPT-2's losses under sequence parallelism (``seq_group``) see this rank's
+slice of the sequence: the next-token targets come pre-shifted over the
+global sequence (``lm_labels_shifted``, the collate's ``emit_shifted``),
+the per-example NLL sum is summed over the group through
+``ops/collectives.psum_repct`` (identity backward: the loss is replicated
+over the group) and the valid-token count through a plain sum, so the
+loss is the dense one on every rank and each rank's gradient is its
+slice's part. Each seq rank draws its own dropout masks, from a generator
+seeded by the round's generator and its seq index (``seq_generator``).
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Optional
 
 import torch
@@ -25,6 +36,7 @@ from torch.func import functional_call
 from torch.nn import functional as F
 
 from commefficient_torch.models.gpt2 import GeneratorKeep, MaskKeep
+from commefficient_torch.ops.collectives import psum_repct
 
 
 def make_cv_losses(model: torch.nn.Module,
@@ -87,15 +99,35 @@ def _mc_ce_acc(mc_logits, mc_labels):
     return ce, acc
 
 
-def _lm_nll_per_example(lm_logits, lm_labels):
+def seq_generator(generator: torch.Generator, index: int
+                  ) -> torch.Generator:
+    """A generator of this seq rank's own: seeded from a hash of
+    ``generator``'s state and the seq index ``index`` (host-only: no wait
+    on the device); ``generator`` then moves on by one draw, on every seq
+    rank alike, so what it draws next (DP noise) stays replicated."""
+    base = hashlib.sha256(generator.get_state().numpy().tobytes() +
+                          b"seq" + int(index).to_bytes(8, "little")).digest()
+    gen = torch.Generator(device=generator.device).manual_seed(
+        int.from_bytes(base[:8], "little") >> 1)
+    torch.rand(1, generator=generator, device=generator.device)
+    return gen
+
+
+def _lm_nll_per_example(lm_logits, batch, seq_group=None):
     """Per-example token-mean NLL of the next token (position t predicts
     t + 1; label -1 is ignored), as the JAX package takes it (a documented
     deviation from the reference's batch-wide token mean, identical when
     the examples have equal valid-token counts): ``logsumexp`` minus the
     gathered logit, accumulated in float32, so no ``(..., V)`` log-prob
-    tensor is formed."""
-    logits = lm_logits[..., :-1, :]
-    labels = lm_labels[..., 1:].to(torch.int64)
+    tensor is formed. With ``seq_group`` the logits are this rank's slice,
+    the targets ``lm_labels_shifted`` (shifted over the global sequence),
+    and the sums run over the group."""
+    if seq_group is not None:
+        logits = lm_logits
+        labels = batch["lm_labels_shifted"].to(torch.int64)
+    else:
+        logits = lm_logits[..., :-1, :]
+        labels = batch["lm_labels"][..., 1:].to(torch.int64)
     valid = labels != -1
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     lse = torch.logsumexp(logits.to(torch.float32), dim=-1)
@@ -104,14 +136,21 @@ def _lm_nll_per_example(lm_logits, lm_labels):
     tok_nll = (lse - picked) * valid
     nll_sum = tok_nll.sum(dim=(-2, -1))
     n_valid = valid.sum(dim=(-2, -1))
+    if seq_group is not None:
+        # the loss is replicated over the group, so the sum's backward is
+        # the identity; the count carries no gradient
+        nll_sum = psum_repct(nll_sum, seq_group)
+        n_valid = psum_repct(n_valid, seq_group)
     return nll_sum / torch.clamp(n_valid, min=1)
 
 
 def make_gpt2_losses(model: torch.nn.Module, lm_coef: float = 1.0,
                      mc_coef: float = 1.0,
-                     compute_dtype: Optional[torch.dtype] = None):
-    """GPT-2 double-heads losses (the JAX package's ``make_gpt2_losses``,
-    dense attention). Train: ``lm_coef * lm_nll + mc_coef * mc_ce`` per
+                     compute_dtype: Optional[torch.dtype] = None,
+                     seq_group=None):
+    """GPT-2 double-heads losses (the JAX package's ``make_gpt2_losses``).
+    ``seq_group``: the model's ``seq`` group under sequence parallelism
+    (the module docstring), None for the dense model. Train: ``lm_coef * lm_nll + mc_coef * mc_ce`` per
     example, summed under the mask, with no metrics. Val: ``(nll, (mc
     accuracy,))`` sums; perplexity is ``exp(mean nll)``, taken by the entry
     point. ``compute_dtype=torch.bfloat16`` (``--bf16``) casts the
@@ -121,8 +160,12 @@ def make_gpt2_losses(model: torch.nn.Module, lm_coef: float = 1.0,
 
     The train loss carries ``draw_rng(generator, micro)``: the flat keep
     masks of one microbatch for each client, ``(W, n)`` booleans for
-    ``micro`` with a leading client axis."""
+    ``micro`` with a leading client axis (under sequence parallelism this
+    rank's masks for its slice, from ``seq_generator``)."""
     keep_prob = 1.0 - float(model.dropout)
+    assert (seq_group is None) == (getattr(model, "seq_group", None)
+                                   is None), \
+        "the loss and the model must share the seq group"
 
     def _forward(params, batch, keep):
         if compute_dtype is not None:
@@ -137,6 +180,8 @@ def make_gpt2_losses(model: torch.nn.Module, lm_coef: float = 1.0,
         if not train or model.dropout == 0.0:
             return None
         if isinstance(rng, torch.Generator):
+            if seq_group is not None:
+                rng = seq_generator(rng, seq_group.rank)
             return GeneratorKeep(rng, keep_prob)
         if isinstance(rng, torch.Tensor):
             return MaskKeep(rng)
@@ -148,7 +193,7 @@ def make_gpt2_losses(model: torch.nn.Module, lm_coef: float = 1.0,
         lm_logits, mc_logits = _forward(params, batch, keep)
         if isinstance(keep, MaskKeep):
             keep.check_consumed()
-        lm_nll = _lm_nll_per_example(lm_logits, batch["lm_labels"])
+        lm_nll = _lm_nll_per_example(lm_logits, batch, seq_group)
         mc_ce, _ = _mc_ce_acc(mc_logits, batch["mc_labels"])
         mask = batch["mask"]
         loss_sum = torch.sum((lm_coef * lm_nll + mc_coef * mc_ce) * mask)
@@ -157,6 +202,8 @@ def make_gpt2_losses(model: torch.nn.Module, lm_coef: float = 1.0,
     def draw_rng(generator: torch.Generator, micro) -> torch.Tensor:
         ids = micro["input_ids"]
         W, T = ids.shape[0], ids.shape[-1]
+        if seq_group is not None:
+            generator = seq_generator(generator, seq_group.rank)
         n = model.dropout_numel(ids[0].numel() // T, T)
         return torch.stack([
             torch.rand(n, generator=generator, device=ids.device) < keep_prob
@@ -167,7 +214,7 @@ def make_gpt2_losses(model: torch.nn.Module, lm_coef: float = 1.0,
 
     def compute_val(params, model_state, batch, rng, train):
         lm_logits, mc_logits = _forward(params, batch, None)
-        lm_nll = _lm_nll_per_example(lm_logits, batch["lm_labels"])
+        lm_nll = _lm_nll_per_example(lm_logits, batch, seq_group)
         _, acc = _mc_ce_acc(mc_logits, batch["mc_labels"])
         mask = batch["mask"]
         return (torch.sum(lm_nll * mask), (torch.sum(acc * mask),),

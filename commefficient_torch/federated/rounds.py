@@ -87,6 +87,17 @@ single-rank round draws for each slot: the fused phase draws the dropout
 masks of all W clients and takes its own, and the per-client path gives
 each slot its own generator, seeded from the round generator's state
 (``slot_generators``).
+
+Under GPT-2's sequence parallelism (``WorkerConfig.seq_axis``: the
+group's ``seq`` axis, ``ClientGroup.seq``) the seq ranks of one tuple
+index run the same slots, each on its ``T / n`` slice of the batch leaves
+named in ``RoundConfig.seq_sharded_keys`` (cut on their last axis; the
+other leaves are whole on every rank). A rank's gradient is its slice's
+part, so the fused phase sums its gradient (or, streaming, its table)
+over the seq axis before weight decay, as the JAX package does, and the
+per-client worker sums each client's gradient over it
+(``worker.forward_grad``, ``worker.fedavg_local``). From there on the
+seq ranks hold the same values and run the same server step.
 """
 
 from __future__ import annotations
@@ -277,6 +288,27 @@ class RoundConfig:
     # returned after the verdict; with its histograms (--telemetry_hist)
     telemetry: bool = False
     telemetry_hist: bool = False
+    # the batch leaves whose last axis is the (globally ordered) sequence,
+    # cut over the seq axis under sequence parallelism; every other leaf
+    # is whole on each seq rank
+    seq_sharded_keys: Tuple[str, ...] = ("input_ids", "token_type_ids",
+                                         "lm_labels_shifted")
+
+
+def seq_slice(batch: dict, keys, seq_group) -> dict:
+    """``batch`` with the leaves named in ``keys`` cut to this seq rank's
+    slice of their last axis (the sequence, in rank order); no cut
+    without a seq group."""
+    if seq_group is None:
+        return batch
+    n, q = seq_group.size, seq_group.rank
+
+    def cut(v):
+        T = v.shape[-1]
+        assert T % n == 0, f"sequence length {T} does not divide by {n}"
+        return v[..., q * (T // n):(q + 1) * (T // n)].contiguous()
+
+    return {k: cut(v) if k in keys else v for k, v in batch.items()}
 
 
 class FederatedSteps(NamedTuple):
@@ -328,6 +360,11 @@ def build_round_step(compute_loss_train: Callable,
     # a per-axis plan's legs resolved on the grid (None: a flat plan)
     lowering = plan_lowering(plan, group) if server_shard else None
     assert params.d == cfg.grad_size, (params.d, cfg.grad_size)
+    seq_group = None
+    if wcfg.seq_axis is not None:
+        assert group is not None and group.seq is not None, \
+            f"seq_axis {wcfg.seq_axis!r} not in the client group's axes"
+        seq_group = group.axis(wcfg.seq_axis)
     if wcfg.mode == "sketch":
         assert sketch is not None and sketch.d == cfg.grad_size, \
             "sketch mode needs the sketch geometry of the flat vector"
@@ -435,6 +472,10 @@ def build_round_step(compute_loss_train: Callable,
             m_sums = ms if m_sums is None else tuple(
                 a + m for a, m in zip(m_sums, ms))
             counts = counts + cs.detach()
+        if seq_group is not None:
+            # each seq rank backpropagated its slice of the sequence
+            # (linear: one sum of the sum replaces the per-client sums)
+            g_sum = all_reduce_sum(g_sum, seq_group)
         if wcfg.weight_decay != 0:
             wd_scale = torch.sum(worker_mask * counts)
             g_sum = g_sum + ((wcfg.weight_decay / wcfg.num_workers)
@@ -485,6 +526,10 @@ def build_round_step(compute_loss_train: Callable,
             m_sums = ms if m_sums is None else tuple(
                 a + m for a, m in zip(m_sums, ms))
             counts = counts + cs.detach()
+        if seq_group is not None:
+            # the fused phase's seq sum, riding the table (sketches are
+            # linear); weight decay goes in after it, as there
+            table = all_reduce_sum(table, seq_group)
         if wcfg.weight_decay != 0:
             wd_scale = torch.sum(worker_mask * counts)
             coef = (wcfg.weight_decay / wcfg.num_workers) * wd_scale
@@ -526,14 +571,15 @@ def build_round_step(compute_loss_train: Callable,
         elif wcfg.mode == "fedavg":
             res, new_ms = fedavg_local(compute_loss_train, weights_used,
                                        params, model_state,
-                                       batch_row, rng, lr, wcfg)
+                                       batch_row, rng, lr, wcfg,
+                                       seq_group=seq_group)
             transmit, new_vel, new_err, metrics = (res.transmit, vel_row,
                                                    err_row, res.metrics)
         else:
             res, new_ms = local_step(compute_loss_train, weights_used,
                                      params, model_state, vel_row,
                                      err_row, batch_row, rng, inner_wcfg,
-                                     sketch)
+                                     sketch, seq_group=seq_group)
             transmit, new_vel, new_err, metrics = (
                 res.transmit, res.new_velocity, res.new_error, res.metrics)
         transmit = transmit * slot_mask
@@ -586,8 +632,9 @@ def build_round_step(compute_loss_train: Callable,
         of a loss that has dropout (GPT-2)."""
         ids = batch["client_ids"].to(torch.int64)
         worker_mask = batch["worker_mask"]
-        data = {k: v for k, v in batch.items()
-                if k not in ("client_ids", "worker_mask")}
+        data = seq_slice({k: v for k, v in batch.items()
+                          if k not in ("client_ids", "worker_mask")},
+                         cfg.seq_sharded_keys, seq_group)
         W = worker_mask.shape[0]
         # this rank's slots (all of them without a group)
         lo, hi = group.slots(W) if group is not None else (0, W)
@@ -758,8 +805,12 @@ def build_round_step(compute_loss_train: Callable,
 
     def val_step(ps, model_state, batch):
         w = layout.unchunk(ps) if (chunked and ps.ndim != 1) else ps
+        # the loss sums its token sums over seq: the metrics come back
+        # replicated
         return forward_metrics(compute_loss_val, params.params(w),
-                               model_state, batch)
+                               model_state,
+                               seq_slice(batch, cfg.seq_sharded_keys,
+                                         seq_group))
 
     return FederatedSteps(client_step=client_step, server_step=server_step,
                           val_step=val_step, layout=layout,

@@ -20,7 +20,11 @@ Semantics preserved:
   is clipped by its ``l2estimate``;
 - fedavg: ``num_fedavg_epochs`` of local SGD over ``fedavg_batch_size``
   chunks with per-step decay, transmitting ``(w0 - w_final) x count``;
-- microbatched gradient accumulation (the exact per-example mean).
+- microbatched gradient accumulation (the exact per-example mean);
+- under GPT-2's sequence parallelism (``seq_group``, the rank's ``seq``
+  axis) each rank's gradient is its slice of the sequence's part, summed
+  over the axis before weight decay (and, in fedavg, before each local
+  step), so every seq rank holds the client's whole gradient.
 
 The loss callback contract is ``compute_loss(param_views, model_state,
 microbatch, rng, train) -> (loss_sum, metric_sums, count,
@@ -42,6 +46,7 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from commefficient_torch.ops.clip import clip_by_l2
+from commefficient_torch.ops.collectives import all_reduce_sum
 from commefficient_torch.ops.flat import LeafSegment, ParamLayout, SegmentGroup
 from commefficient_torch.ops.sketch import (
     CountSketch,
@@ -71,6 +76,9 @@ class WorkerConfig:
     fedavg_batch_size: int = -1
     fedavg_lr_decay: float = 1.0
     do_topk_down: bool = False
+    # the client group's seq axis under sequence parallelism (taken from
+    # the realized grid), else None
+    seq_axis: Optional[str] = None
 
     @property
     def has_velocity(self) -> bool:
@@ -197,14 +205,18 @@ def _microbatch_grads(compute_loss, params_flat, params, model_state, batch,
 
 
 def forward_grad(compute_loss, params_flat, params, model_state, batch,
-                 rng, cfg: WorkerConfig, sketch: Optional[CountSketch]):
+                 rng, cfg: WorkerConfig, sketch: Optional[CountSketch],
+                 seq_group=None):
     """One client's gradient and its transforms, in the JAX package's
-    order: weight decay, the dense ``max_grad_norm`` clip (not in sketch
-    mode), DP (clip, then worker noise), then in sketch mode the table and
-    its clip by ``l2estimate``. Returns ``(transmit, (loss_mean,
-    *metric_means, count), new_model_state, dense_grad)``."""
+    order: the sum over the seq axis, weight decay, the dense
+    ``max_grad_norm`` clip (not in sketch mode), DP (clip, then worker
+    noise), then in sketch mode the table and its clip by ``l2estimate``.
+    Returns ``(transmit, (loss_mean, *metric_means, count),
+    new_model_state, dense_grad)``."""
     grad, loss_mean, metric_means, count, new_state = _microbatch_grads(
         compute_loss, params_flat, params, model_state, batch, rng, cfg)
+    if seq_group is not None:
+        grad = all_reduce_sum(grad, seq_group)
     if cfg.weight_decay != 0:
         grad = grad + (cfg.weight_decay / cfg.num_workers) * params_flat
     if cfg.max_grad_norm is not None and cfg.mode != "sketch":
@@ -227,12 +239,13 @@ def forward_grad(compute_loss, params_flat, params, model_state, batch,
 
 def local_step(compute_loss, params_flat, params, model_state, velocity,
                error, batch, rng, cfg: WorkerConfig,
-               sketch: Optional[CountSketch]) -> Tuple[ClientResult, Any]:
+               sketch: Optional[CountSketch],
+               seq_group=None) -> Tuple[ClientResult, Any]:
     """One client's training contribution: ``forward_grad``, the ``x
     count`` scaling, local momentum and error, and the local top-k."""
     g, metrics, new_state, _ = forward_grad(
         compute_loss, params_flat, params, model_state, batch, rng, cfg,
-        sketch)
+        sketch, seq_group=seq_group)
     count = metrics[-1]
     # sum-of-example-gradients scaling; linear, so it applies to tables too
     g = g * count
@@ -264,7 +277,8 @@ def local_step(compute_loss, params_flat, params, model_state, velocity,
 
 
 def fedavg_local(compute_loss, params_flat, params, model_state, batch, rng,
-                 lr, cfg: WorkerConfig) -> Tuple[ClientResult, Any]:
+                 lr, cfg: WorkerConfig,
+                 seq_group=None) -> Tuple[ClientResult, Any]:
     """FedAvg local training: ``num_fedavg_epochs`` passes of local SGD
     over the client's batch in ``fedavg_batch_size`` chunks, the step
     decayed by ``fedavg_lr_decay ** step``; all-padding chunks are
@@ -282,6 +296,8 @@ def fedavg_local(compute_loss, params_flat, params, model_state, batch, rng,
             chunk = {k: v[i] for k, v in chunks.items()}
             g, loss_sum, msums, count, mstate = _grad_of(
                 compute_loss, params, w, mstate, chunk, rng)
+            if seq_group is not None:
+                g = all_reduce_sum(g, seq_group)
             g_mean = g / torch.clamp(count, min=1.0)
             decay = cfg.fedavg_lr_decay ** step
             valid = (count > 0).to(torch.float32)

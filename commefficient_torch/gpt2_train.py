@@ -41,6 +41,18 @@ ranks, as in ``cv_train``; rank 0 alone prints and writes. The
 observability plane and the guards are ``cv_train``'s (the event log is
 ``<log_dir>/telemetry.jsonl``); as in the JAX package, ``gpt2_train``
 writes no TensorBoard scalars.
+
+Sequence parallelism: under ``torchrun`` with ``--seq_parallel
+ring|ulysses --seq_devices Q`` the ranks form the grid with a ``seq`` axis
+of ``Q`` (``parallel/mesh.py``); each seq rank holds ``max_seq_len / Q``
+tokens of every sequence, attention runs exactly over the whole sequence
+(``parallel/ring.py``, ``parallel/ulysses.py``) and the collate emits the
+shifted labels the seq-parallel loss reads. The REALIZED grid decides it:
+a world too small for a seq axis prints ``--seq_parallel ... disabled``
+and trains the dense model, as the JAX package does.
+
+    torchrun --standalone --nproc_per_node 2 -m commefficient_torch.gpt2_train \
+        --seq_parallel ring --seq_devices 2 --num_devices 1 ...
 """
 
 from __future__ import annotations
@@ -96,8 +108,10 @@ from commefficient_torch.models.gpt2 import (
 from commefficient_torch.ops.flat import ParamLayout
 from commefficient_torch.parallel import (
     destroy_distributed,
+    grid_axes,
     main_first,
     quiet_unless_main,
+    requested_seq_devices,
     start_client_group,
 )
 from commefficient_torch.profiling import StepProfiler
@@ -118,7 +132,7 @@ from commefficient_torch.utils import (
 FULL_VOCAB = 50257 + 5
 
 
-def get_data_loaders(args, tokenizer):
+def get_data_loaders(args, tokenizer, emit_shifted: bool = False):
     train_dataset = FedPERSONA(
         tokenizer, args.num_candidates, args.max_history,
         args.personality_permutations,
@@ -134,24 +148,60 @@ def get_data_loaders(args, tokenizer):
     train_loader = FedLoader(
         train_dataset, args.num_workers, args.local_batch_size,
         collate_fn=make_personachat_collate_fn(args.max_seq_len,
-                                               args.num_candidates))
+                                               args.num_candidates,
+                                               emit_shifted=emit_shifted))
     val_loader = FedLoader(
         val_dataset,
         val_batch_size=args.valid_batch_size * args.num_workers,
         collate_fn=make_personachat_collate_fn(args.max_seq_len,
-                                               n_cand_val))
+                                               n_cand_val,
+                                               emit_shifted=emit_shifted))
     return train_loader, val_loader
 
 
-def build_model(args, len_tokenizer: int) -> GPT2DoubleHeads:
+def seq_plane(args, group):
+    """The seq group when the REALIZED grid has a ``seq`` axis under
+    ``--seq_parallel``, else None. A request the grid could not meet
+    (one process, or a world too small) prints ``--seq_parallel ...
+    disabled`` with the grid's shape and sets ``args.seq_parallel`` to
+    ``none``, as the JAX package's ``gpt2_train`` does."""
+    if args.seq_parallel == "none":
+        return None
+    if group is not None and group.seq is not None:
+        return group.seq
+    if group is None:
+        # one process: the grid policy over one device (its warnings)
+        nc, nsh, _ = grid_axes(args.num_workers, args.num_devices,
+                               args.shard_devices, 1,
+                               requested_seq_devices(args))
+        shape = {"clients": nc, **({"shard": nsh} if nsh > 1 else {})}
+    else:
+        shape = {a["name"]: a["size"] for a in group.topology()["axes"]}
+    print(f"--seq_parallel {args.seq_parallel} disabled: "
+          f"mesh has no seq axis ({shape})")
+    args.seq_parallel = "none"
+    return None
+
+
+def build_model(args, len_tokenizer: int,
+                seq_group=None) -> GPT2DoubleHeads:
+    """The run's model; with ``seq_group`` its attention is
+    ``--seq_parallel``'s over that group."""
+    geometry = (dict(attn_impl=args.seq_parallel, seq_group=seq_group)
+                if seq_group is not None else {})
     if args.do_test or os.environ.get("COMMEFFICIENT_TINY_MODEL"):
-        return GPT2DoubleHeads(
+        model = GPT2DoubleHeads(
             vocab_size=max(512, len_tokenizer),
             n_positions=args.max_seq_len, n_embd=64,
             n_layer=int(os.environ.get("COMMEFFICIENT_TINY_LAYERS", 2)),
-            n_head=2)
-    return GPT2DoubleHeads(vocab_size=max(FULL_VOCAB, len_tokenizer),
-                           n_positions=1024)
+            n_head=2, **geometry)
+    else:
+        model = GPT2DoubleHeads(vocab_size=max(FULL_VOCAB, len_tokenizer),
+                                n_positions=1024, **geometry)
+    if seq_group is not None and args.seq_parallel == "ulysses":
+        assert model.n_head % args.seq_devices == 0, \
+            "ulysses needs n_head divisible by --seq_devices"
+    return model
 
 
 def initial_weights(args, model: GPT2DoubleHeads, len_tokenizer: int):
@@ -341,11 +391,12 @@ def train_gpt2(model, opt, scheduler, train_loader, val_loader, args,
     return test_gpt2(model, val_loader, args, timer=timer)
 
 
-def train(argv=None, init_method=None):
+def train(argv=None, init_method=None, backend=None):
     """``init_method``: the process group's rendezvous under ``torchrun``
-    (default ``env://``)."""
+    (default ``env://``); ``backend``: the process group's backend when
+    the caller names one (default: NCCL on the card, gloo on the CPU)."""
     args = parse_args(default_lr=4e-2, argv=argv)
-    group = start_client_group(args, init_method)
+    group = start_client_group(args, init_method, backend=backend)
     try:
         if group is not None and not group.active:
             print(f"rank {group.rank} idle: the client group has "
@@ -377,17 +428,21 @@ def _train(args, group):
     # tokenizer; the run then only evaluates
     if args.do_finetune and not args.do_test:
         args.model_checkpoint = args.finetune_path
-    model = build_model(args, len(tokenizer))
+    # sequence parallelism: the realized grid decides it
+    seq_group = seq_plane(args, group)
+    model = build_model(args, len(tokenizer), seq_group)
     compute_loss_train, compute_loss_val = make_gpt2_losses(
         model, args.lm_coef, args.mc_coef,
-        compute_dtype=torch.bfloat16 if args.do_bf16 else None)
+        compute_dtype=torch.bfloat16 if args.do_bf16 else None,
+        seq_group=seq_group)
 
     log_dir = make_logdir(args)
     if group is None or group.is_main:
         os.makedirs(log_dir, exist_ok=True)
         tokenizer.save_pretrained(log_dir)
     train_loader, val_loader = main_first(
-        lambda: get_data_loaders(args, tokenizer))
+        lambda: get_data_loaders(args, tokenizer,
+                                 emit_shifted=seq_group is not None))
 
     init_params, what = initial_weights(args, model, len(tokenizer))
     print(f"initial weights: {what}")

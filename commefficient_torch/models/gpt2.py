@@ -38,8 +38,24 @@ become float32, exactly) into a flax-layout parameter tree: HF's
 each lands in the leaf's declared layout and crosses into the modules
 through ``convert.params_from_flax``. Nothing is downloaded.
 
-Tensor, sequence, pipeline and expert parallelism are not ported
-(ROADMAP.md queue 1 item 7).
+Sequence parallelism (``attn_impl="ring"`` or ``"ulysses"`` with
+``seq_group``, a ``parallel/mesh.ClientGroup`` over the ``seq`` axis): the
+model runs on this rank's slice of the sequence (``input_ids`` and
+``token_type_ids`` cut on their last axis, in rank order). Attention runs
+exactly over the global sequence (``parallel/ring.py``,
+``parallel/ulysses.py``), with no dense causal mask and no dropout on the
+attention probabilities (the residual and embedding dropouts remain, as
+in the JAX package); the position embeddings start at ``seq_index *
+T_local``; the multiple-choice head reads the classification token
+(``mc_token_ids``: a global position) on the rank that holds it, runs
+the head on that rank's hidden state, masks the scalar logit to that
+rank and sums it over the group through ``ops/collectives.psum_repct``,
+whose backward is the identity, so every parameter's gradient on a rank
+is its slice's part and the ranks' gradients sum to the dense one. The
+parameters are the dense model's.
+
+Tensor, pipeline and expert parallelism are not ported (ROADMAP.md queue
+1 item 7).
 """
 
 from __future__ import annotations
@@ -52,6 +68,8 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from commefficient_torch.ops.collectives import psum_repct
 
 __all__ = ["GPT2Config", "GPT2DoubleHeads", "Block", "GeneratorKeep",
            "MaskKeep", "resize_token_embeddings", "load_hf_gpt2"]
@@ -149,13 +167,21 @@ class Embed(nn.Module):
         return F.linear(x, self.embedding)
 
 
-class Block(nn.Module):
-    """Pre-LN transformer block with dense causal attention."""
+ATTN_IMPLS = ("dense", "ring", "ulysses")
 
-    def __init__(self, n_embd: int, n_head: int, dropout: float):
+
+class Block(nn.Module):
+    """Pre-LN transformer block: dense causal attention, or ring / Ulysses
+    attention over ``seq_group`` (this rank's slice of the sequence, no
+    attention-probs dropout)."""
+
+    def __init__(self, n_embd: int, n_head: int, dropout: float,
+                 attn_impl: str = "dense", seq_group=None):
         super().__init__()
         self.n_head = n_head
         self.dropout = dropout
+        self.attn_impl = attn_impl
+        self.seq_group = seq_group
         self.ln_1 = LayerNorm(n_embd)
         self.attn_qkv = nn.Linear(n_embd, 3 * n_embd)
         self.attn_proj = nn.Linear(n_embd, n_embd)
@@ -171,13 +197,24 @@ class Block(nn.Module):
         q = q.reshape(B, T, self.n_head, hd)
         k = k.reshape(B, T, self.n_head, hd)
         v = v.reshape(B, T, self.n_head, hd)
-        # a Python-float scale, as in flax (a bf16 forward stays bf16)
-        att = torch.einsum("bqhd,bkhd->bhqk", q, k) * (
-            1.0 / float(np.sqrt(hd)))
-        att = torch.where(mask, att, torch.finfo(att.dtype).min)
-        att = torch.softmax(att, dim=-1)
-        att = _dropout(att, self.dropout, keep)
-        out = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(B, T, C)
+        if self.attn_impl == "dense":
+            # a Python-float scale, as in flax (a bf16 forward stays bf16)
+            att = torch.einsum("bqhd,bkhd->bhqk", q, k) * (
+                1.0 / float(np.sqrt(hd)))
+            att = torch.where(mask, att, torch.finfo(att.dtype).min)
+            att = torch.softmax(att, dim=-1)
+            att = _dropout(att, self.dropout, keep)
+            out = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(B, T, C)
+        else:
+            # T is the local slice; the attention handles global causality
+            from commefficient_torch.parallel.ring import ring_attention
+            from commefficient_torch.parallel.ulysses import (
+                ulysses_attention,
+            )
+
+            attn = {"ring": ring_attention,
+                    "ulysses": ulysses_attention}[self.attn_impl]
+            out = attn(q, k, v, self.seq_group, causal=True).reshape(B, T, C)
         x = x + _dropout(self.attn_proj(out), self.dropout, keep)
         h = self.mlp_fc(self.ln_2(x))
         h = F.gelu(h, approximate="tanh")
@@ -187,17 +224,25 @@ class Block(nn.Module):
 class GPT2DoubleHeads(nn.Module):
     def __init__(self, vocab_size: int = 50257, n_positions: int = 1024,
                  n_embd: int = 768, n_layer: int = 12, n_head: int = 12,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, attn_impl: str = "dense",
+                 seq_group=None):
         super().__init__()
+        assert attn_impl in ATTN_IMPLS, attn_impl
+        assert (attn_impl == "dense") == (seq_group is None), \
+            "ring / ulysses attention needs a seq group, dense none"
         self.config = GPT2Config(vocab_size, n_positions, n_embd, n_layer,
                                  n_head, dropout)
         self.vocab_size = vocab_size
         self.n_layer = n_layer
+        self.n_head = n_head
         self.dropout = dropout
+        self.attn_impl = attn_impl
+        self.seq_group = seq_group
         self.wte = Embed(vocab_size, n_embd)
         self.wpe = Embed(n_positions, n_embd)
         for i in range(n_layer):
-            setattr(self, f"h{i}", Block(n_embd, n_head, dropout))
+            setattr(self, f"h{i}", Block(n_embd, n_head, dropout,
+                                         attn_impl, seq_group))
         self.ln_f = LayerNorm(n_embd)
         self.mc_head = nn.Linear(n_embd, 1)
 
@@ -223,11 +268,14 @@ class GPT2DoubleHeads(nn.Module):
 
     def dropout_numel(self, n_seq: int, seq_len: int) -> int:
         """Keep-mask elements one forward of ``n_seq`` sequences of
-        ``seq_len`` tokens draws: the embedding dropout, then per block the
-        attention probabilities and the two residual branches."""
+        ``seq_len`` tokens (the local slice under sequence parallelism)
+        draws: the embedding dropout, then per block the attention
+        probabilities (dense attention only) and the two residual
+        branches."""
         c = self.config
         tok = n_seq * seq_len * c.n_embd
-        att = n_seq * c.n_head * seq_len * seq_len
+        att = (n_seq * c.n_head * seq_len * seq_len
+               if self.attn_impl == "dense" else 0)
         return tok + c.n_layer * (att + 2 * tok)
 
     def forward(self, input_ids, token_type_ids=None, mc_token_ids=None,
@@ -243,13 +291,16 @@ class GPT2DoubleHeads(nn.Module):
         T = orig_shape[-1]
         flat_ids = input_ids.reshape(-1, T)
         B = flat_ids.shape[0]
-        pos = torch.arange(T, device=input_ids.device)
+        sp = self.attn_impl != "dense"
+        # the global positions of this rank's slice of the sequence
+        pos0 = self.seq_group.rank * T if sp else 0
+        pos = pos0 + torch.arange(T, device=input_ids.device)
         x = self.wte(flat_ids) + self.wpe(pos)[None]
         if token_type_ids is not None:
             x = x + self.wte(token_type_ids.reshape(-1, T))
         x = _dropout(x, self.dropout, dropout)
-        mask = torch.tril(torch.ones((T, T), dtype=torch.bool,
-                                     device=input_ids.device))[None, None]
+        mask = None if sp else torch.tril(torch.ones(
+            (T, T), dtype=torch.bool, device=input_ids.device))[None, None]
         for i in range(self.n_layer):
             x = getattr(self, f"h{i}")(x, mask, dropout)
         x = self.ln_f(x)
@@ -257,9 +308,18 @@ class GPT2DoubleHeads(nn.Module):
         mc_logits = None
         if mc_token_ids is not None:
             flat_mc = mc_token_ids.reshape(-1).to(torch.int64)
+            local = flat_mc - pos0
+            safe = torch.clamp(local, 0, T - 1) if sp else local
             cls_h = torch.gather(
-                x, 1, flat_mc[:, None, None].expand(B, 1, x.shape[-1]))[:, 0]
-            mc_logits = self.mc_head(cls_h)[..., 0].reshape(orig_shape[:-1])
+                x, 1, safe[:, None, None].expand(B, 1, x.shape[-1]))[:, 0]
+            mc = self.mc_head(cls_h)[..., 0]
+            if sp:
+                # the token lives on one rank: the head's scalar output,
+                # masked to that rank, summed over the group (identity
+                # backward: each rank's parameter gradients stay its part)
+                in_range = (local >= 0) & (local < T)
+                mc = psum_repct(mc * in_range.to(mc.dtype), self.seq_group)
+            mc_logits = mc.reshape(orig_shape[:-1])
         lm_logits = lm_logits.reshape(tuple(orig_shape) + (self.vocab_size,))
         return lm_logits, mc_logits
 

@@ -105,6 +105,12 @@ class ResNet9(nn.Module):
                         else model_state)
 
     @staticmethod
+    def finetune_trainable(path: Tuple[str, ...]) -> bool:
+        """Head-only finetuning: True for the leaves of the ``linear``
+        head (``path`` a flax path, as ``jax_param_path`` gives it)."""
+        return "linear" in path
+
+    @staticmethod
     def jax_param_path(torch_name: str) -> Tuple[str, ...]:
         """``"res1.res2.conv.weight"`` -> ``("res1", "res2", "Conv_0",
         "kernel")``; ``"prep.bn.scale"`` -> ``("prep", "BatchNorm_0",

@@ -7,6 +7,10 @@ rank and size) and runs on the group's backend (NCCL on the card):
 - ``reduce_scatter_sum`` / ``all_gather_tiled``: the reduce-scatter ->
   per-shard update -> all-gather pair of the sharded server
   (``--server_shard``);
+- ``psum_repct`` / ``ident_psumct``: the all-reduce whose backward is the
+  identity and the identity whose backward is an all-reduce
+  (``torch.autograd.Function``s with a ``vmap`` rule), which the
+  seq-parallel GPT-2 forward and loss run on the ``seq`` axis;
 - ``quantized_psum_scatter`` / ``quantized_psum`` /
   ``quantized_all_gather``: block-scaled stochastic-rounding collectives
   with an explicit error-feedback remainder. Each rank adds its carried
@@ -79,7 +83,7 @@ __all__ = [
     "leg_quantized", "resolve_leg_lowering", "plan_lowering",
     "CollectivePlan", "FP32_PLAN", "parse_collective_plan",
     "plan_from_reduce_dtype", "sr_generator", "level_sr_generators",
-    "autotune_collective_plan",
+    "autotune_collective_plan", "psum_repct", "ident_psumct",
 ]
 
 # 64 sublanes x 128 lanes per float32 scale, as in the JAX package; the
@@ -156,6 +160,71 @@ def _all_to_all(x: torch.Tensor, cg) -> torch.Tensor:
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x.contiguous(), group=_pg(cg))
     return out
+
+
+# --------------------------------------------------------------------------
+# collectives with a pinned backward (the seq-parallel forward)
+# --------------------------------------------------------------------------
+
+class _PsumRepct(torch.autograd.Function):
+    """All-reduce forward, identity backward. Its ``vmap`` rule runs the
+    collective once on the whole batched tensor (the lanes are independent
+    and every rank batches the same lanes), so it works inside the fused
+    client phase's ``torch.func.vmap``."""
+
+    @staticmethod
+    def forward(x, cg):
+        return all_reduce_sum(x.clone(memory_format=torch.contiguous_format),
+                              cg)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, cg):
+        return _PsumRepct.apply(x, cg), in_dims[0]
+
+
+class _IdentPsumct(torch.autograd.Function):
+    """Identity forward, all-reduce backward (``vmap`` as above)."""
+
+    @staticmethod
+    def forward(x, cg):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.cg = inputs[1]
+
+    @staticmethod
+    def backward(ctx, ct):
+        return all_reduce_sum(
+            ct.clone(memory_format=torch.contiguous_format), ctx.cg), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, cg):
+        return _IdentPsumct.apply(x, cg), in_dims[0]
+
+
+def psum_repct(x: torch.Tensor, cg) -> torch.Tensor:
+    """``x`` summed over the group, with the identity as its backward: the
+    right VJP when the output's cotangent is replicated over the group
+    (the seq-parallel loss and multiple-choice logit). A plain
+    all-reduce's transpose is another all-reduce, which multiplies every
+    upstream gradient by the group's size. Also the plain sum of a tensor
+    that carries no gradient (an integer count)."""
+    return _PsumRepct.apply(x, cg)
+
+
+def ident_psumct(x: torch.Tensor, cg) -> torch.Tensor:
+    """Identity forward (``x`` replicated over the group); the backward
+    all-reduces the ranks' partial cotangents."""
+    return _IdentPsumct.apply(x, cg)
 
 
 # --------------------------------------------------------------------------

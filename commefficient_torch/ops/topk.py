@@ -29,6 +29,11 @@ The sharded server's threshold exchange (``group``, a
 each pass's 16 counts are summed over the group as int64
 (``all_reduce``), 16 integers a pass instead of the full vector. The
 sharded path always takes the per-pass descent, as the JAX package does.
+
+``topk(..., method="sort")`` keeps exactly ``min(k, d)`` entries by a
+stable descending ``torch.sort`` of the magnitudes, the lower index
+winning among ties (``lax.top_k``'s tie-break), for callers that need the
+reference's tie-breaking.
 """
 
 from __future__ import annotations
@@ -169,15 +174,28 @@ def topk_dense_nd(vec: torch.Tensor, k: int, group=None) -> torch.Tensor:
     return _apply_threshold(raw, vec, resolve_threshold(vec, k, group))
 
 
+def _topk_sort_1d(vec: torch.Tensor, k: int) -> torch.Tensor:
+    """Exactly ``min(k, d)`` entries kept: the largest magnitudes by a
+    stable descending sort, so among ties the lower index wins, as
+    ``lax.top_k`` breaks them."""
+    idx = torch.sort(vec.abs(), descending=True, stable=True).indices[
+        :min(k, vec.shape[0])]
+    return torch.zeros_like(vec).index_copy_(0, idx, vec[idx])
+
+
 def topk(vec: torch.Tensor, k: int, method: str = "threshold") -> torch.Tensor:
     """Dense vector with only the k largest-magnitude entries kept; 1-D
-    ``(d,)`` or row-wise over 2-D ``(rows, d)``."""
-    if method != "threshold":
-        raise NotImplementedError(
-            f"topk method {method!r} is not ported; the port has the "
-            "tie-inclusive threshold descent only (ROADMAP.md, queue 1)")
+    ``(d,)`` or row-wise over 2-D ``(rows, d)``. ``method="threshold"``
+    keeps every entry tied at the cut (the descent); ``"sort"`` keeps
+    exactly k, the reference's tie-break by lower index."""
+    if method == "threshold":
+        f = topk_dense_nd
+    elif method == "sort":
+        f = _topk_sort_1d
+    else:
+        raise ValueError(f"unknown topk method {method!r}")
     if vec.ndim == 1:
-        return topk_dense_nd(vec, k)
+        return f(vec, k)
     if vec.ndim == 2:
-        return torch.stack([topk_dense_nd(row, k) for row in vec])
+        return torch.stack([f(row, k) for row in vec])
     raise ValueError(f"topk supports 1-D or 2-D input, got ndim={vec.ndim}")

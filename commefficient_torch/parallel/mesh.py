@@ -15,10 +15,11 @@ where the caller asks for the CPU. A caller may name another backend
 explicitly (a test running ``gloo`` on CUDA tensors); nothing picks one
 at run time, and a process group that fails to start raises.
 
-The grid follows the JAX package's policy (``grid_shape``): the ``shard``
-axis (``--shard_devices``) is claimed first and must divide
-``num_workers``; the ``clients`` axis is ``min(--num_devices, world //
-shard)`` (``-1``: all of it), reduced until ``clients x shard`` divides
+The grid follows the JAX package's policy (``grid_axes``; ``grid_shape``
+is its server axes): the ``seq`` axis is claimed first, then the
+``shard`` axis (``--shard_devices``), which must divide ``num_workers``;
+the ``clients`` axis is ``min(--num_devices, world // (shard x seq))``
+(``-1``: all of it), reduced until ``clients x shard`` divides
 ``num_workers``. Ranks past the grid are idle (``ClientGroup.active`` is
 False), as the devices past the JAX mesh are. A world of 1 keeps the
 process-group path live, as the JAX package's 1-device mesh does.
@@ -40,6 +41,18 @@ axis order: ``{s * n_clients + c : s}`` (the ``shard`` axis of column
 ``c``) and ``{s * n_clients + c : c}`` (the ``clients`` axis of row
 ``s``); every rank creates all of them, in the same order.
 
+The ``seq`` axis (``--seq_parallel ring|ulysses --seq_devices Q``, GPT-2's
+sequence parallelism) is the JAX mesh's minor-most axis: device ``i`` sits
+at ``q = i % Q`` and ``(c, s)`` as above from ``i // Q``, and its process
+rank is ``p * Q + q``. Seq claims its ranks before the shard and clients
+axes (JAX's priority), and shrinks with a warning when the world is too
+small. The ``Q`` seq ranks of one tuple index ``p`` run the same client
+slots and the same server step; the server reduce tuple of seq index
+``q`` is ``{p * Q + q : p}`` (sorted by ``p``, so its sums keep the 1-D
+order), and the seq axis of ``p`` is ``{p * Q + q : q}``
+(``ClientGroup.seq``, ``ClientGroup.axis("seq")``). At ``Q = 1`` the
+numbering is the grid's above, unchanged.
+
 ``mesh_axis_placement``: ``clients`` rides ``dcn`` exactly when the world
 spans more than one node (``LOCAL_WORLD_SIZE < WORLD_SIZE``), every other
 axis ``ici``; ``COMMEFFICIENT_FORCE_DCN_AXIS=<axis>`` forces one axis to
@@ -59,6 +72,7 @@ import torch.distributed as dist
 
 CLIENTS_AXIS = "clients"
 SHARD_AXIS = "shard"
+SEQ_AXIS = "seq"
 
 
 @dataclass(frozen=True)
@@ -74,7 +88,11 @@ class ClientGroup:
     ``g.rank`` is this rank's index along that axis); on the 1-D plane it
     is empty and the ``clients`` axis is the group itself. ``placement``
     is ``mesh_axis_placement``'s ``(axis, "ici" | "dcn")`` pairs and
-    ``nodes`` the node count of the world."""
+    ``nodes`` the node count of the world. ``seq`` is this rank's group
+    along the ``seq`` axis (its ``rank`` the seq index), None without
+    one; ``backend`` the process group's backend name, fixed when the
+    group is built (``parallel/ring.py`` picks its neighbour shift by
+    it)."""
 
     group: Any
     rank: int
@@ -84,6 +102,8 @@ class ClientGroup:
     axes: Tuple[Tuple[str, "ClientGroup"], ...] = ()
     placement: Tuple[Tuple[str, str], ...] = ()
     nodes: int = 1
+    seq: Optional["ClientGroup"] = None
+    backend: str = ""
 
     def slots(self, W: int) -> Tuple[int, int]:
         """This rank's ``[lo, hi)`` of a round's ``W`` slots."""
@@ -93,7 +113,8 @@ class ClientGroup:
 
     @property
     def is_main(self) -> bool:
-        return self.rank == 0
+        """Rank 0 of the server reduce tuple, at seq index 0."""
+        return self.rank == 0 and (self.seq is None or self.seq.rank == 0)
 
     @property
     def server_axes(self):
@@ -112,7 +133,10 @@ class ClientGroup:
         return {name: g.size for name, g in self.axes}
 
     def axis(self, name: str) -> "ClientGroup":
-        """This rank's group along server reduce axis ``name``."""
+        """This rank's group along server reduce axis ``name``, or along
+        the ``seq`` axis."""
+        if name == SEQ_AXIS and self.seq is not None:
+            return self.seq
         if not self.axes and name == CLIENTS_AXIS:
             return self
         for ax, g in self.axes:
@@ -141,10 +165,14 @@ class ClientGroup:
         """The grid for the telemetry ``run_start`` event, in the JAX
         package's ``mesh`` schema: the axes in mesh order (``clients``
         first) with sizes and placements, and the process count."""
-        sizes = self.axis_sizes
+        sizes = dict(self.axis_sizes)
         place = self.axis_placement()
         names = [CLIENTS_AXIS] + [a for a in sizes if a != CLIENTS_AXIS]
-        return {"process_count": int(self.size),
+        if self.seq is not None:
+            names.append(SEQ_AXIS)
+            sizes[SEQ_AXIS] = self.seq.size
+        return {"process_count": int(self.size * (self.seq.size if self.seq
+                                                  else 1)),
                 "nodes": int(self.nodes),
                 "axes": [{"name": a, "size": int(sizes[a]),
                           "placement": place.get(a, "ici")}
@@ -240,37 +268,55 @@ def destroy_distributed() -> None:
         dist.destroy_process_group()
 
 
-def grid_shape(num_workers: int, num_devices: int = -1,
-               shard_devices: int = 1, world: int = 1) -> Tuple[int, int]:
-    """``(n_clients, n_shard)``: the JAX package's ``default_client_mesh``
-    policy over ``world`` devices without the seq, model, stage and
-    expert axes, its clamps and warnings word for word. The shard axis is
-    claimed first and reduced to a divisor of ``num_workers``; the
-    clients axis is ``min(num_devices, world // n_shard)`` (``num_devices
-    <= 0``: all of it), reduced until ``n_clients * n_shard`` divides
-    ``num_workers``."""
+def grid_axes(num_workers: int, num_devices: int = -1,
+              shard_devices: int = 1, world: int = 1,
+              seq_devices: int = 1) -> Tuple[int, int, int]:
+    """``(n_clients, n_shard, n_seq)``: the JAX package's
+    ``default_client_mesh`` policy over ``world`` devices without the
+    model, stage and expert axes, its clamps and warnings word for word.
+    The seq axis is claimed first (``min(seq_devices, world)``); the
+    shard axis next, reduced to a divisor of ``num_workers``; the clients
+    axis is ``min(num_devices, world // (n_shard * n_seq))``
+    (``num_devices <= 0``: all of it), reduced until ``n_clients *
+    n_shard`` divides ``num_workers``."""
     n_avail = world
-    nsh = max(1, min(shard_devices, n_avail))
+    ns = max(1, min(seq_devices, n_avail))
+    if seq_devices > ns:
+        warnings.warn(f"--seq_devices {seq_devices} reduced to {ns} "
+                      f"(only {n_avail} devices available; 1 model x "
+                      f"1 stage x 1 expert device(s) claimed first — "
+                      f"axis priority model > stage > expert > seq)",
+                      stacklevel=2)
+    nsh = max(1, min(shard_devices, n_avail // ns))
     while num_workers % nsh:
         nsh -= 1
     if shard_devices > nsh:
         warnings.warn(f"--shard_devices {shard_devices} reduced to {nsh} "
                       f"(must divide num_workers={num_workers}; "
-                      f"{n_avail} devices available, 1 "
+                      f"{n_avail} devices available, {ns} "
                       f"claimed by seq/model/stage/expert)", stacklevel=2)
     requested = num_devices if num_devices and num_devices > 0 \
         else n_avail
-    n = max(1, min(requested, n_avail // nsh))
+    n = max(1, min(requested, n_avail // (nsh * ns)))
     while num_workers % (n * nsh):
         n -= 1
-    if 0 < num_devices != n and num_devices != n * nsh:
+    if 0 < num_devices != n and num_devices != n * nsh * ns:
         warnings.warn(
             f"--num_devices {num_devices} reduced to {n} on the clients axis "
-            f"(must divide num_workers={num_workers}; {nsh} shard x 1 seq "
+            f"(must divide num_workers={num_workers}; {nsh} shard x {ns} seq "
             f"x 1 model x 1 stage x 1 expert device(s) per client "
             f"shard; {n_avail} available devices)",
             stacklevel=2)
-    return n, nsh
+    return n, nsh, ns
+
+
+def grid_shape(num_workers: int, num_devices: int = -1,
+               shard_devices: int = 1, world: int = 1,
+               seq_devices: int = 1) -> Tuple[int, int]:
+    """``(n_clients, n_shard)``: the server reduce axes of ``grid_axes``."""
+    nc, nsh, _ = grid_axes(num_workers, num_devices, shard_devices, world,
+                           seq_devices)
+    return nc, nsh
 
 
 def client_group_size(num_workers: int, num_devices: int, world: int) -> int:
@@ -278,14 +324,18 @@ def client_group_size(num_workers: int, num_devices: int, world: int) -> int:
     return grid_shape(num_workers, num_devices, 1, world)[0]
 
 
-def tuple_index(device_index: int, n_clients: int, n_shard: int) -> int:
-    """The server reduce tuple's index ``p = s * n_clients + c`` of the
-    device at ``c = i // n_shard``, ``s = i % n_shard``; a device past the
-    grid keeps its index."""
-    if device_index >= n_clients * n_shard:
+def tuple_index(device_index: int, n_clients: int, n_shard: int,
+                n_seq: int = 1) -> int:
+    """The process rank ``p * n_seq + q`` of the device at ``q = i %
+    n_seq``, ``c = (i // n_seq) // n_shard``, ``s = (i // n_seq) %
+    n_shard``, where ``p = s * n_clients + c`` is its index in the server
+    reduce tuple (``p`` itself at ``n_seq = 1``); a device past the grid
+    keeps its index."""
+    if device_index >= n_clients * n_shard * n_seq:
         return device_index
-    c, s = divmod(device_index, n_shard)
-    return s * n_clients + c
+    j, q = divmod(device_index, n_seq)
+    c, s = divmod(j, n_shard)
+    return (s * n_clients + c) * n_seq + q
 
 
 def mesh_axis_placement(n_shard: int = 1, nodes: int = 1) -> dict:
@@ -304,69 +354,104 @@ def mesh_axis_placement(n_shard: int = 1, nodes: int = 1) -> dict:
 
 def make_client_group(num_workers: int, num_devices: int = -1,
                       device: Optional[torch.device] = None,
-                      shard_devices: int = 1, nodes: int = 1
-                      ) -> Optional[ClientGroup]:
-    """The client grid of a running process group whose ranks are the
-    tuple indices (``tuple_index``), or None when none is initialized
-    (the single-device round). Every rank must call it: a grid smaller
-    than the world is a new subgroup of the first ``N`` ranks, the axis
-    subgroups are new groups, and the ranks past the grid get
-    ``active=False``. ``nodes``: the world's node count (placement and
-    the multi-node check)."""
+                      shard_devices: int = 1, nodes: int = 1,
+                      seq_devices: int = 1) -> Optional[ClientGroup]:
+    """The client grid of a running process group whose ranks are
+    numbered by ``tuple_index``, or None when none is initialized (the
+    single-device round). Every rank must call it: a grid smaller than
+    the world is a new subgroup of the first ``N`` ranks, the axis
+    subgroups (and, with a seq axis, each seq index's server reduce tuple
+    and each tuple index's seq axis) are new groups, and the ranks past
+    the grid get ``active=False``. ``nodes``: the world's node count
+    (placement and the multi-node check)."""
     if not (dist.is_available() and dist.is_initialized()):
         return None
     world = dist.get_world_size()
     rank = dist.get_rank()
-    nc, nsh = grid_shape(num_workers, num_devices, shard_devices, world)
+    nc, nsh, ns = grid_axes(num_workers, num_devices, shard_devices, world,
+                            seq_devices)
     n = nc * nsh
-    if nodes > 1 and n == world and nc % nodes:
+    total = n * ns
+    if nodes > 1 and total == world and nc % nodes:
         raise ValueError(
             f"multi-node grid: the clients axis clients={nc} must be "
             f"divisible by the node count {nodes}")
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if dist.get_backend() == "nccl" else torch.device("cpu"))
+    backend = dist.get_backend()
     placement = tuple(mesh_axis_placement(nsh, nodes).items())
-    group = None if n == world else dist.new_group(list(range(n)))
+    active = rank < total
+    p, q = divmod(rank, ns) if active else (rank, 0)
+
+    def rank_of(pp: int, qq: int) -> int:
+        return pp * ns + qq
+
+    # every rank creates every group, in one order
+    seq = None
+    if ns == 1:
+        group = None if n == world else dist.new_group(list(range(n)))
+    else:
+        tuples = [dist.new_group([rank_of(pp, qq) for pp in range(n)])
+                  for qq in range(ns)]
+        seqs = [dist.new_group([rank_of(pp, qq) for qq in range(ns)])
+                for pp in range(n)]
+        group = tuples[q] if active else None
+        if active:
+            seq = ClientGroup(seqs[p], q, ns, device, backend=backend)
     axes = ()
     if nsh > 1:
-        # every rank creates every axis group, in one order
-        shard_groups = [dist.new_group([s * nc + c for s in range(nsh)])
-                        for c in range(nc)]
-        client_groups = [dist.new_group([s * nc + c for c in range(nc)])
-                         for s in range(nsh)]
-        if rank < n:
-            s, c = divmod(rank, nc)
-            axes = ((SHARD_AXIS, ClientGroup(shard_groups[c], s, nsh,
-                                             device)),
-                    (CLIENTS_AXIS, ClientGroup(client_groups[s], c, nc,
-                                               device)))
-    return ClientGroup(group, rank, n, device, active=rank < n, axes=axes,
-                       placement=placement, nodes=nodes)
+        shard_groups = [[dist.new_group([rank_of(s * nc + c, qq)
+                                         for s in range(nsh)])
+                         for c in range(nc)] for qq in range(ns)]
+        client_groups = [[dist.new_group([rank_of(s * nc + c, qq)
+                                          for c in range(nc)])
+                          for s in range(nsh)] for qq in range(ns)]
+        if active:
+            s, c = divmod(p, nc)
+            axes = ((SHARD_AXIS, ClientGroup(shard_groups[q][c], s, nsh,
+                                             device, backend=backend)),
+                    (CLIENTS_AXIS, ClientGroup(client_groups[q][s], c, nc,
+                                               device, backend=backend)))
+    return ClientGroup(group, p, n, device, active=active, axes=axes,
+                       placement=placement, nodes=nodes, seq=seq,
+                       backend=backend)
 
 
-def start_client_group(args, init_method: Optional[str] = None
+def requested_seq_devices(args) -> int:
+    """``--seq_devices`` under ``--seq_parallel ring|ulysses``, else 1."""
+    if getattr(args, "seq_parallel", "none") == "none":
+        return 1
+    return int(getattr(args, "seq_devices", 1) or 1)
+
+
+def start_client_group(args, init_method: Optional[str] = None,
+                       backend: Optional[str] = None
                        ) -> Optional[ClientGroup]:
     """An entry point's grid: under ``torchrun`` or the cohort seam
     (``world_from_env``) the process group on ``args.device``
-    (``cuda:LOCAL_RANK`` with NCCL, or gloo on the CPU; ``init_method``
-    defaults to the launch's rendezvous), numbered by the tuple index,
-    and its grid; else None (one device)."""
+    (``cuda:LOCAL_RANK`` with NCCL, or gloo on the CPU, unless the caller
+    names ``backend``; ``init_method`` defaults to the launch's
+    rendezvous), numbered by ``tuple_index``, and its grid (with a
+    ``seq`` axis under ``--seq_parallel``); else None (one device)."""
     env = world_from_env()
     if env is None:
         return None
     shard = int(getattr(args, "shard_devices", 1) or 1)
+    seq = requested_seq_devices(args)
     with warnings.catch_warnings():
         # make_client_group warns once the group is up
         warnings.simplefilter("ignore")
-        nc, nsh = grid_shape(args.num_workers, args.num_devices, shard,
-                             env.size)
+        nc, nsh, ns = grid_axes(args.num_workers, args.num_devices, shard,
+                                env.size, seq)
     device = init_distributed(
-        args.device, init_method=init_method or env.init_method,
-        rank=tuple_index(env.rank, nc, nsh), world_size=env.size,
+        args.device, backend=backend,
+        init_method=init_method or env.init_method,
+        rank=tuple_index(env.rank, nc, nsh, ns), world_size=env.size,
         local_rank=env.local_rank)
     return make_client_group(args.num_workers, args.num_devices, device,
-                             shard_devices=shard, nodes=env.nodes)
+                             shard_devices=shard, nodes=env.nodes,
+                             seq_devices=seq)
 
 
 def main_first(fn, group: Optional[ClientGroup] = None):

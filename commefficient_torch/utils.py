@@ -1,5 +1,7 @@
-"""Schedules, loggers, timing and run directories: the port's copy of the
-parts of ``commefficient_tpu/utils.py`` the entry points use."""
+"""Schedules, loggers, timing and run directories: the port's copy of
+``commefficient_tpu/utils.py``'s public helpers (the schedules
+``PiecewiseLinear``, ``Exp`` and ``Const``; ``Logger``, ``TableLogger``
+and ``TSVLogger``; ``Timer``; ``make_logdir``)."""
 
 from __future__ import annotations
 
@@ -10,7 +12,8 @@ from typing import Sequence
 
 import numpy as np
 
-__all__ = ["PiecewiseLinear", "TableLogger", "Timer", "make_logdir"]
+__all__ = ["PiecewiseLinear", "Exp", "Const", "Logger", "TableLogger",
+           "TSVLogger", "Timer", "make_logdir"]
 
 
 @dataclass(frozen=True)
@@ -22,6 +25,41 @@ class PiecewiseLinear:
 
     def __call__(self, t):
         return np.interp([t], self.knots, self.vals)[0]
+
+
+@dataclass(frozen=True)
+class Exp:
+    """Exponential decay ``initial * decay ** t``."""
+
+    initial: float
+    decay: float
+
+    def __call__(self, t):
+        return self.initial * (self.decay ** t)
+
+
+@dataclass(frozen=True)
+class Const:
+    """The constant schedule."""
+
+    val: float
+
+    def __call__(self, t):
+        return self.val
+
+
+class Logger:
+    """printf-style debug logger: ``debug`` / ``info`` print when
+    ``verbose``."""
+
+    def __init__(self, verbose: bool = True):
+        self.verbose = verbose
+
+    def debug(self, *args, **kwargs):
+        if self.verbose:
+            print(*args, **kwargs)
+
+    info = debug
 
 
 class TableLogger:
@@ -42,6 +80,22 @@ class TableLogger:
             else:
                 cells.append(f"{str(v):>12s}")
         print(*cells)
+
+
+class TSVLogger:
+    """Rows kept as ``epoch``, ``hours`` and ``top1Accuracy``, rendered as
+    TSV by ``str``."""
+
+    def __init__(self):
+        self.log = [["epoch", "hours", "top1Accuracy"]]
+
+    def append(self, row: dict):
+        self.log.append([row.get("epoch", -1),
+                         round(row.get("total_time", 0.0) / 3600, 6),
+                         row.get("test_acc", 0.0)])
+
+    def __str__(self):
+        return "\n".join("\t".join(str(c) for c in r) for r in self.log)
 
 
 class Timer:

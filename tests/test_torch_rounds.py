@@ -188,8 +188,10 @@ def test_cv_train_main_cpu(tmp_path, monkeypatch):
 # --participation, the host-state flags and --churn are ported now; their
 # places are taken by flags of planes still unported). The 2-D plane's
 # flags (--plan_error_budget, --shard_devices, --collective_plan auto)
-# are ported too: they parse as the JAX package parses them.
+# are ported too: they parse as the JAX package parses them. So does
+# --seq_parallel (GPT-2's sequence parallelism), with its --seq_devices.
 PORTED_2D = ("--plan_error_budget", "--shard_devices", "--collective_plan")
+PORTED_SEQ = ("--seq_parallel",)
 
 
 @pytest.mark.parametrize("flag", [["--plan_error_budget", "0.1"],
@@ -202,6 +204,12 @@ PORTED_2D = ("--plan_error_budget", "--shard_devices", "--collective_plan")
                                   ["--pipeline_devices", "2"],
                                   ["--collective_plan", "auto"]])
 def test_unported_options_raise(flag):
+    if flag[0] in PORTED_SEQ:
+        ja, ta = j_parse(argv=ARGV + flag), t_parse(argv=ARGV + flag
+                                                    + ["--device", "cpu"])
+        assert (ta.seq_parallel, ta.seq_devices) == \
+            (ja.seq_parallel, ja.seq_devices) == ("ring", 2)
+        return
     if flag[0] not in PORTED_2D:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_parse(argv=ARGV + ["--device", "cpu"] + flag)

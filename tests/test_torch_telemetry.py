@@ -466,8 +466,7 @@ def test_cv_train_log_renders_with_obs_report(tmp_path):
 
 # flags still unported -> the item their NotImplementedError names
 UNPORTED_ITEMS = {
-    "--seq_parallel": "item 7",
-    "--seq_devices": "item 7", "--model_devices": "item 7",
+    "--model_devices": "item 7",
     "--pipeline_devices": "item 7", "--pp_microbatches": "item 7",
     "--n_experts": "item 7", "--expert_devices": "item 7",
     "--moe_dispatch": "item 7", "--moe_capacity_factor": "item 7",

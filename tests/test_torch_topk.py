@@ -195,5 +195,34 @@ def test_rowwise_2d():
 
 
 def test_sort_method_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttk.topk(torch.zeros(10), 2, method="sort")
+    """(Once the pin of the missing sort method; the name stays.) The
+    port's ``method="sort"`` returns the JAX package's values bit for bit
+    on ``tests/test_ops.py``'s sort cases: the heavy-tailed 4,096-vector
+    at k = 256, k > d, 1-D and row-wise 2-D inputs, ties (the lower index
+    wins, as in ``lax.top_k``), and the randomized shapes over 60 orders
+    of magnitude; an unknown method raises ``ValueError`` in both."""
+    rng = np.random.RandomState(7)
+    ties = np.zeros(40, np.float32)
+    ties[[3, 9, 17, 30]] = 2.5
+    ties[[5, 25]] = -2.5
+    cases = [((rng.randn(4096) * rng.rand(4096) ** 3).astype(np.float32),
+              256),
+             (np.random.RandomState(1).randn(7).astype(np.float32), 12),
+             (ties, 3),
+             (np.random.RandomState(4).randn(3, 500).astype(np.float32), 20)]
+    r = np.random.RandomState(0)
+    for t, (d, k) in enumerate([(10, 3), (257, 260), (1024, 1),
+                                (8192, 500), (19997, 4096)]):
+        scale = 10.0 ** r.randint(-30, 30)
+        cases.append(((r.randn(d) * scale * (r.rand(d) ** r.randint(0, 6)))
+                      .astype(np.float32), k))
+    for v, k in cases:
+        want = np.asarray(jtk.topk(jnp.asarray(v), k, method="sort"))
+        got = ttk.topk(torch.from_numpy(v.copy()), k, method="sort").numpy()
+        np.testing.assert_array_equal(got, want)
+    assert set(np.flatnonzero(ttk.topk(torch.from_numpy(ties), 3,
+                                       method="sort").numpy())) == {3, 5, 9}
+    with pytest.raises(ValueError, match="unknown topk method"):
+        ttk.topk(torch.zeros(10), 2, method="heap")
+    with pytest.raises(ValueError, match="unknown topk method"):
+        jtk.topk(jnp.zeros(10), 2, method="heap")

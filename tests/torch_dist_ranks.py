@@ -849,3 +849,144 @@ def body_server_2d(cg, cases):
                            "old_dres": _carry(old.dres)})
         out.append({"lowering": low, "rounds": rounds})
     return out
+
+
+# --------------------------------------------------------------------------
+# sequence parallelism (the seq axis, ring and Ulysses attention)
+# --------------------------------------------------------------------------
+
+def body_seq_attention(cg, cases):
+    """Each case: ``ring_attention`` or ``ulysses_attention`` over this
+    spawn's ranks as one seq group, on this rank's slice of the global
+    ``q, k, v`` (``(B, T, H, D)``, cut on T in rank order); the local
+    output, and the gradients of ``sum(out * ct)`` by the local ``q, k,
+    v``."""
+    import torch
+
+    from commefficient_torch.parallel import ring_attention, ulysses_attention
+
+    n, r = cg.size, cg.rank
+    out = []
+    for c in cases:
+        T = c["q"].shape[1]
+        sl = slice(r * T // n, (r + 1) * T // n)
+        q, k, v = (_t(c[x][:, sl]).requires_grad_() for x in "qkv")
+        fn = {"ring": ring_attention, "ulysses": ulysses_attention}[c["impl"]]
+        o = fn(q, k, v, cg, causal=c["causal"])
+        grads = torch.autograd.grad((o * _t(c["ct"][:, sl])).sum(),
+                                    (q, k, v))
+        out.append({"out": _np(o), "grads": [_np(g) for g in grads]})
+    return out
+
+
+def tiny_gpt2(spec, impl=None, seq_group=None):
+    """The tests' tiny GPT-2 (``spec["model"]``), seq-parallel over
+    ``seq_group`` with ``impl``, or dense."""
+    from commefficient_torch.models.gpt2 import GPT2DoubleHeads
+
+    geometry = ({"attn_impl": impl, "seq_group": seq_group}
+                if seq_group is not None else {})
+    return GPT2DoubleHeads(**spec["model"], **geometry)
+
+
+def body_seq_forward(cg, spec):
+    """The seq-parallel GPT-2 forward over this spawn's ranks as one seq
+    group, under each of ``spec["impls"]``, from the flat JAX-order
+    weights ``spec["flat0"]``: this rank's LM logits (its slice of the
+    sequence) and the multiple-choice logits."""
+    import torch
+    from torch.func import functional_call
+
+    from commefficient_torch.convert import flat_from_jax
+    from commefficient_torch.ops.flat import ParamLayout
+
+    n, r = cg.size, cg.rank
+    T = spec["ids"].shape[-1]
+    sl = slice(r * T // n, (r + 1) * T // n)
+    out = {}
+    for impl in spec["impls"]:
+        m = tiny_gpt2(spec, impl, cg)
+        layout = ParamLayout(m)
+        w = flat_from_jax(spec["flat0"], layout)
+        with torch.no_grad():
+            lm, mc = functional_call(
+                m, layout.params(w), (_t(spec["ids"][..., sl]),),
+                {"token_type_ids": _t(spec["tti"][..., sl]),
+                 "mc_token_ids": _t(spec["mc"])})
+        out[impl] = {"lm": _np(lm), "mc": _np(mc)}
+    return out
+
+
+def body_seq_rounds(cg, spec):
+    """``spec["runs"]``: each ``{"argv", "num_devices", "seq", "impl"}``
+    runs ``spec["batches"]`` through a fresh tiny GPT-2 FedModel on its
+    grid of this spawn's ranks (``impl`` None: the dense model; with
+    ``"single"``: without a group, on rank 0 alone). Per run:
+    the grid, this rank's weights after each round, the round's loss
+    metrics and its transmit table (the round's gradient sketch, divided
+    by the count), and with ``"dropout"`` each dropout draw of the
+    round (the keep masks) and the round generator's state after it."""
+    import torch
+
+    from commefficient_torch.config import parse_args
+    from commefficient_torch.convert import flat_from_jax
+    from commefficient_torch.federated import FedModel, FedOptimizer
+    from commefficient_torch.federated.losses import make_gpt2_losses
+    from commefficient_torch.ops.flat import ParamLayout
+    from commefficient_torch.parallel.mesh import make_client_group
+
+    out = []
+    for run in spec["runs"]:
+        if run.get("single"):
+            # the single-device round, on rank 0 alone
+            if cg.rank != 0:
+                out.append(None)
+                continue
+            group = None
+        else:
+            group = make_client_group(spec["W"], run["num_devices"],
+                                      torch.device("cpu"),
+                                      seq_devices=run["seq"])
+        args = parse_args(argv=list(run["argv"]) + ["--device", "cpu"])
+        seq_group = (group.seq if group is not None
+                     and args.seq_parallel != "none" else None)
+        mspec = dict(spec, model=dict(spec["model"],
+                                      dropout=run.get("dropout", 0.0)))
+        m = tiny_gpt2(mspec, run["impl"], seq_group)
+        train, val = make_gpt2_losses(m, seq_group=seq_group)
+        draws = []
+        if run.get("dropout"):
+            inner = train.draw_rng
+
+            def spy(gen, micro, inner=inner):
+                keep = inner(gen, micro)
+                draws.append(keep.numpy().copy())
+                return keep
+
+            train.draw_rng = spy
+        fm = FedModel(m, train, args, val, num_clients=spec["num_clients"],
+                      init_params=flat_from_jax(spec["flat0"],
+                                                ParamLayout(m)),
+                      device="cpu", group=group)
+        opt = FedOptimizer(fm, args)
+        opt.set_lr_factor(spec["lr"])
+        rec = {"seq_axis": fm.worker_config.seq_axis, "w": [], "res": [],
+               "table": []}
+        if group is not None:
+            rec.update(rank=group.rank, size=group.size,
+                       seq=None if group.seq is None else
+                       (group.seq.rank, group.seq.size),
+                       is_main=group.is_main, topology=group.topology())
+        for b in spec["batches"]:
+            h = fm.begin_round(b)
+            rec["table"].append(_np(fm._round_ctx.gradient))
+            opt.step()
+            rec["res"].append(fm.finish_round(h))
+            rec["w"].append(_weights(fm))
+        if draws:
+            rec["draws"] = draws
+            rec["rng_state"] = fm._rng.get_state().numpy().copy()
+        fm.train(False)
+        rec["val"] = fm(spec["val"])
+        out.append(rec)
+    return out
