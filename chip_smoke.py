@@ -238,12 +238,12 @@ Phases (any failure exits non-zero; nothing is caught):
    in host, against the hbm tier forced at the same population, in 1
    pair of 20 engine rounds (rounds/sec, device memory, the
    resident set); (3) 10^5 clients on the disk tier the planner picks
-   (2.0 TB logical): 16 timed rounds (prefetch hit share,
+   (2.0 TB logical): 8 timed rounds (prefetch hit share,
    ``gather_io_ms``, ``scatter_io_ms``, the allocation of the row files
    against the rows touched, the resident set), a run state after round
-   8 and a resume bit-exact at round 16 with a byte flipped on disk
+   4 and a resume bit-exact at round 8 with a byte flipped on disk
    repaired from the snapshot, ``--inject_io_fault
-   eio=0.02,short=0.01,torn=0.01`` over rounds 9-16 bit-identical, and
+   eio=0.02,short=0.01,torn=0.01`` over rounds 5-8 bit-identical, and
    a ``flip=0.01`` drill with ``--io_scrub_rows 8`` whose detections,
    repairs and ``io_corrupt`` watch alert land in the event log; (4)
    local top-k with dense local error and momentum at 3,500 clients
@@ -263,7 +263,7 @@ Phases (any failure exits non-zero; nothing is caught):
    lease named present whenever read, finite answers; the served over
    solo wall ratio printed (data); (B) phase 14's sketch-local round at
    128 clients on disk under ``--churn
-   join=1,depart=0.7,init=0.6,seed=3,compact=4`` for 30 rounds with a
+   join=1,depart=0.7,init=0.6,seed=3,compact=4`` for 16 rounds with a
    save every 5, through ``cv_train.main`` in this process: 10 / 1 / 8
    launches a round, ``rows_retired`` and ``rows_compacted`` in the log,
    the directory checked against the masks after every save, each
@@ -303,7 +303,7 @@ Phases (any failure exits non-zero; nothing is caught):
    gradient and losses; (b) two ranks as (clients 1) x (seq 2) under
    ``--seq_parallel ring``, then ``ulysses``: round 1's summed gradient
    within ``SEQ_GRAD_ATOL`` / ``SEQ_GRAD_RTOL`` and its losses within
-   ``SEQ_LOSS_RTOL`` of the one-rank round's, 3 finite rounds, both
+   ``SEQ_LOSS_RTOL`` of the one-rank round's, 2 finite rounds, both
    ranks' weights bit-equal (their SHA-256), 2 / 1 / 8 launches of the
    accumulate, the query and the count pass a round on each rank; (c)
    meanwhile two more ranks run ``gpt2_train`` under ``--seq_parallel
@@ -312,14 +312,36 @@ Phases (any failure exits non-zero; nothing is caught):
    finite rounds, the four ranks' weights bit-equal, 2 / 1 / 8 launches;
    (e) tokens/sec of the (clients 2) x (seq 2) round beside the one-rank
    round's (data: gloo stages the 497.8 MB gradient sum through the host).
+18. GPT-2's tensor parallelism and experts (``phase_tp_ep``) at
+   GPT-2-small's full width (phase 9's round, dropout 0) and its MoE
+   variant (4 experts on every other block, d = 209,466,625, Tn = 419) on
+   gloo ranks on ``cuda:0``: the one-rank dense (phase 17's) and MoE
+   rounds in this process (their summed gradients, losses and
+   tokens/sec); the six
+   kernels against their plain versions at the MoE geometry, exact; one
+   MoE layer at full width on one client's 1,024 tokens, sparse dispatch
+   at capacity factor 4 equal to dense dispatch and at 1.25 dropping the
+   tokens the plain CPU computation drops; (a) two ranks as (clients 1)
+   x (model 2) and (c) two more as (clients 1) x (expert 2) on the MoE
+   model, side by side: round 1's summed gradient and losses against the
+   one-rank round's (``SEQ_GRAD_*``, ``SEQ_LOSS_RTOL``), MP_ROUNDS finite
+   rounds with 2 / 1 / 8 launches a rank, both ranks bit-equal, then each
+   pair's MP_TIMED_ROUNDS timed rounds with the card to itself; (b) four
+   ranks as (seq 2) x (model 2) under ring: MP_GRID_ROUNDS finite
+   rounds, the four ranks bit-equal, 2 / 1 / 8; (e) ``gpt2_train
+   --model_devices 2 --n_experts 4 --expert_devices 2`` on the four as
+   (model 2) x (expert 2): a finite val NLL alike on every rank, the
+   headline kernels launched, its tokens/sec; (f) tokens/sec of (a), (c)
+   and (e) beside the one-rank rounds' (data).
 
 Then one JSON line of the kernels (launches per timed window of the path
 that runs each: phase 4 for the accumulate, the query and the count pass,
 phase 5 for the running accumulate, the epilogue and the descent; and a
 ``sharded`` object each: its launches a round per rank on phase 11's
 sharded round and its largest error at ``t0 > 0``; its launches a
-round on rank 3 of phase 16's 2-D round; and on a rank of phase 17's
-(clients 2) x (seq 2) grid), the
+round on rank 3 of phase 16's 2-D round; on a rank of phase 17's
+(clients 2) x (seq 2) grid; on a rank of phase 18's (clients 1) x
+(model 2) round, with its largest error at the MoE geometry), the
 card's line, and ``{"ok": true, "device": {...}}`` as the last line.
 Without a card it exits with an error before printing any result.
 
@@ -827,7 +849,7 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed, k=None):
            lambda: torch.topk(mags, k, sorted=False))
     if timed:
         results["topk_descent"]["kthvalue_ms"] = time_ms(
-            lambda: torch.kthvalue(mags, n - k + 1), reps=5)
+            lambda: torch.kthvalue(mags, n - k + 1), reps=2)
 
     # fused epilogue at the resolved threshold: against its plain version
     # (the composed mask and accumulate), on the chunk range and, on a
@@ -3020,8 +3042,8 @@ OBS_IDENTITY_ROUNDS = 10
 OBS_AUDIT_ROUNDS = 16
 # alternating pairs of the cost phase: the host-bound ResNet9 round moves
 # 10-40% between windows of one call, the GPT-2 round under 1%
-OBS_PAIRS = {"headline": 6, "gpt2 f32": 1}
-OBS_PAIR_ROUNDS = 20
+OBS_PAIRS = {"headline": 4, "gpt2 f32": 1}
+OBS_PAIR_ROUNDS = 16
 # the profiled window of the host split: one drain cycle of the engine
 # (the profiler's event processing is slow at GPT-2's 7,800 operators a
 # round)
@@ -3563,7 +3585,7 @@ PART_RESUME_ROUNDS = 8
 PART_GPT2_ROUNDS = 6
 GPT2_SLOW = ["--inject_client_fault", "slow=0.25,delay=1,seed=7"]
 # alternating on / off pairs of the cost step, and engine rounds a window
-PART_PAIRS = {"headline": 4, "gpt2 f32": 2}
+PART_PAIRS = {"headline": 4, "gpt2 f32": 1}
 PART_PAIR_ROUNDS = {"headline": 20, "gpt2 f32": 8}
 HEADLINE_CLIENT = {"sketch_accumulate": 1}
 HEADLINE_SERVER = {"sketch_accumulate": 1, "sketch_estimates": 1,
@@ -4044,7 +4066,7 @@ OFF_EMNIST = 3500
 OFF_POP_ROUNDS = 20
 OFF_POP_PAIRS = 1
 OFF_LARGE = 100_000
-OFF_LARGE_ROUNDS = 16
+OFF_LARGE_ROUNDS = 8
 OFF_TOPK_ROUNDS = 5
 OFF_IO_FAULT = "eio=0.02,short=0.01,torn=0.01,seed=3"
 OFF_FLIP = "flip=0.01,seed=5"
@@ -4596,7 +4618,7 @@ SERVICE_A = [a for a in HEADLINE if a != "--no_telemetry"] + [
     "--churn", "join=2,depart=1.5,init=0.5,seed=3",
     "--checkpoint", "--checkpoint_every_rounds", "5",
     "--keep_checkpoints", "2"]
-SERVICE_A_PER_CLASS = 320       # 3,200 images: at most 50 rounds of 64
+SERVICE_A_PER_CLASS = 160       # 1,600 images: 26 rounds of 64 (>= 20)
 SERVICE_KILL_SEED = 15
 SERVICE_QUERY_S = 0.2
 # leg B: phase 14's sketch-local round, 128 clients on disk, compaction
@@ -4606,7 +4628,8 @@ SERVICE_B = [a for a in OFF_BASE if a != "--no_telemetry"] + [
     "--train_dataloader_workers", "0",
     "--churn", "join=1,depart=0.7,init=0.6,seed=3,compact=4",
     "--checkpoint", "--checkpoint_every_rounds", "5"]
-SERVICE_B_PER_CLASS = 192       # 1,920 images: at most 30 rounds of 64
+SERVICE_B_PER_CLASS = 96        # 960 images: 16 rounds of 64 (the leg needs a
+# compaction before its second-to-last save: two, at this size)
 # leg C: two tenants of 10 headline rounds
 SERVICE_C = HEADLINE + ["--iid", "--num_clients", "16", "--num_epochs",
                         "1", "--seed", "0", "--lr_scale", "0.1",
@@ -5401,9 +5424,9 @@ def phase_grid(card: str) -> dict:
 # phase 17: GPT-2's sequence parallelism (item 7.1) at GPT-2-small's full
 # width (config 5): two gloo ranks as (clients 1) x (seq 2) under ring and
 # Ulysses attention, four as (clients 2) x (seq 2), and gpt2_train
-SEQ_ROUNDS = 3
+SEQ_ROUNDS = 2
 SEQ_GRID_ROUNDS = 2
-SEQ_TIMED_ROUNDS = 3
+SEQ_TIMED_ROUNDS = 2
 # the seq-parallel summed gradient against the one-rank round's: fp32
 # sums in another order (the ring's blockwise online softmax and the
 # Ulysses head split, matrix products at half the sequence, the seq
@@ -5426,19 +5449,28 @@ def seq_batch(seed: int):
 
 
 def build_seq_gpt2(extra, group=None):
-    """Phase 9's GPT-2 round at dropout 0 (so the seq-parallel and the
+    """Phase 9's GPT-2 round at dropout 0 (so the parallel and the
     one-rank rounds compute the same function), on ``group`` with its
-    seq axis under ``--seq_parallel``; returns ``(fm, one_round)``."""
+    seq axis under ``--seq_parallel`` and its model and expert axes (the
+    MoE model under ``--n_experts``); returns ``(fm, one_round)``."""
     args = parse_args(default_lr=4e-2, argv=GPT2_BASE + list(extra) + [
         "--dataset_name", "PERSONA", "--num_clients", "8"])
     seq = group.seq if group is not None else None
-    model = GPT2DoubleHeads(**GPT2_MODEL, dropout=0.0,
-                            **({"attn_impl": args.seq_parallel,
-                                "seq_group": seq} if seq else {}))
-    train_loss, val_loss = make_gpt2_losses(model, seq_group=seq)
+    model = GPT2DoubleHeads(
+        **GPT2_MODEL, dropout=0.0,
+        **({"attn_impl": args.seq_parallel, "seq_group": seq} if seq
+           else {}),
+        model_group=group.model if group is not None else None,
+        expert_group=group.expert if group is not None else None,
+        n_experts=args.n_experts, moe_dispatch=args.moe_dispatch,
+        moe_capacity_factor=args.moe_capacity_factor)
+    train_loss, val_loss = make_gpt2_losses(
+        model, seq_group=seq,
+        moe_aux_coef=args.moe_aux_coef if args.n_experts else 0.0)
     fm = FedModel(model, train_loss, args, val_loss, num_clients=8,
                   group=group)
-    assert fm.grad_size == GPT2_D, fm.grad_size
+    assert fm.grad_size == (MOE_D if args.n_experts else GPT2_D), \
+        fm.grad_size
     opt = FedOptimizer(fm, args)
     schedule = PiecewiseLinear([0, 100], [args.lr_scale, 0.0])
     sched = LambdaLR(opt, lambda step: schedule(step))
@@ -5638,7 +5670,8 @@ def phase_seq(card: str) -> dict:
         grads = []
         with summed_gradient(grads):
             loss = one(seq_batch(0))[0]
-        np.save(os.path.join(tmp, "dense_g.npy"), grads[0].cpu().numpy())
+        dense_g = grads[0].cpu().numpy()
+        np.save(os.path.join(tmp, "dense_g.npy"), dense_g)
         np.save(os.path.join(tmp, "dense_loss.npy"), loss)
         one(seq_batch(1))
         torch.cuda.synchronize()
@@ -5723,6 +5756,447 @@ def phase_seq(card: str) -> dict:
                    "every other collective) through the host: these rates "
                    "measure nothing of NVLink"}
     print(json.dumps(out))
+    # the one-rank round's reference, which phase 18 holds its tensor-
+    # parallel round to (the same round: phase 9's model at dropout 0)
+    out["dense_ref"] = {"g": dense_g, "loss": loss,
+                        "tokens_per_sec": dense_rps * tokens}
+    return out
+
+
+# phase 18: tensor parallelism and experts (items 7.2 and 7.3) at
+# GPT-2-small's full width (config 5's round, dropout 0): gloo ranks on
+# cuda:0 as (clients 1) x (model 2), (clients 1) x (expert 2) on the MoE
+# model (4 experts on every other block), (seq 2) x (model 2) under ring,
+# and gpt2_train on (model 2) x (expert 2)
+MOE_D = 209_466_625
+MOE_EXPERTS = 4
+MOE_ARGS = ["--n_experts", str(MOE_EXPERTS)]
+TP_ARGS = ["--model_devices", "2", "--num_devices", "1"]
+EP_ARGS = MOE_ARGS + ["--expert_devices", "2", "--num_devices", "1"]
+MP_ROUNDS = 2
+MP_TIMED_ROUNDS = 2
+MP_GRID_ROUNDS = 2
+# the sparse dispatch against dense dispatch at capacity E on the card
+# (the two formulations add in another order):
+# |sparse - dense| <= MOE_DISPATCH_RTOL * max|dense|
+MOE_DISPATCH_RTOL = 1e-5
+
+
+def file_barrier(tmp: str, name: str, i: int, n: int = 4,
+                 timeout: float = 240.0) -> None:
+    """Wait until ``n`` processes have reached the barrier ``name`` (each
+    writes ``<tmp>/<name>.<i>``)."""
+    open(os.path.join(tmp, f"{name}.{i}"), "w").close()
+    t = time.perf_counter()
+    while sum(os.path.exists(os.path.join(tmp, f"{name}.{j}"))
+              for j in range(n)) < n:
+        assert time.perf_counter() - t < timeout, f"barrier {name} timed out"
+        time.sleep(0.05)
+
+
+def _mp_pair(i: int, tmp: str) -> dict:
+    """Stage 1 of phase 18. Ranks 0-1: (clients 1) x (model 2) on GPT-2;
+    ranks 2-3: (clients 1) x (expert 2) on the MoE model. Round 1's summed
+    gradient and losses against the one-rank round's (``tmp/<leg>_*``),
+    MP_ROUNDS finite rounds with 2 / 1 / 8 launches each, the weights'
+    hash and the peak memory; then each pair times MP_TIMED_ROUNDS rounds
+    while the other waits at a barrier."""
+    import torch.distributed as dist
+
+    from commefficient_torch.parallel import make_client_group
+
+    tp = i < 2
+    leg = "tp" if tp else "ep"
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store_{leg}",
+                            rank=i % 2, world_size=2)
+    rec = {"leg": leg, "launches": [], "losses": [], "s": {}}
+    try:
+        dev = seq_device()
+        torch.cuda.reset_peak_memory_stats()
+        if tp:
+            g = make_client_group(GPT2_W, 1, dev, model_devices=2)
+            assert (g.rank, g.size, g.model.rank, g.model.size) == \
+                (0, 1, i % 2, 2)
+            fm, one = build_seq_gpt2(TP_ARGS, g)
+            assert fm.worker_config.model_axis == "model"
+        else:
+            g = make_client_group(GPT2_W, 1, dev, expert_devices=2,
+                                  n_experts=MOE_EXPERTS)
+            assert (g.rank, g.size, g.expert.rank, g.expert.size) == \
+                (0, 1, i % 2, 2)
+            fm, one = build_seq_gpt2(EP_ARGS, g)
+            assert fm.worker_config.expert_axis == "expert"
+        rec["s"]["build"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = torch.from_numpy(np.load(os.path.join(
+            tmp, f"{'dense' if tp else 'moe'}_g.npy"))).to(dev)
+        ref_loss = np.load(os.path.join(
+            tmp, f"{'dense' if tp else 'moe'}_loss.npy"))
+        scale = float(ref.abs().max())
+        for r in range(MP_ROUNDS):
+            grads = []
+            kernels.reset_launch_counts()
+            with summed_gradient(grads):
+                loss = one(seq_batch(r))[0]
+            torch.cuda.synchronize()
+            rec["launches"].append(kernels.launch_counts())
+            rec["losses"].append(loss.tolist())
+            assert np.all(np.isfinite(loss)), (leg, r, loss)
+            if r == 0:
+                err = (grads[0] - ref).abs()
+                bound = SEQ_GRAD_ATOL * scale + SEQ_GRAD_RTOL * ref.abs()
+                rec["grad_max_abs_err"] = float(err.max())
+                rec["grad_scale"] = scale
+                rec["grad_within"] = bool((err <= bound).all())
+                rec["loss_max_rel_err"] = float(np.max(
+                    np.abs(loss - ref_loss) / np.abs(ref_loss)))
+            del grads
+        rec["w_hash"] = w_hash(fm)
+        rec["peak_memory_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["s"]["rounds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batch = seq_batch(MP_ROUNDS)
+        for stage in ("timed_tp", "timed_ep"):
+            file_barrier(tmp, stage, i)
+            if stage == f"timed_{leg}":
+                dist.barrier()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(MP_TIMED_ROUNDS):
+                    one(batch)
+                torch.cuda.synchronize()
+                rec["rounds_per_sec"] = MP_TIMED_ROUNDS / (
+                    time.perf_counter() - t)
+        file_barrier(tmp, "timed_done", i)
+        rec["s"]["timed"] = time.perf_counter() - t0
+        del fm, one
+        release_card()
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
+def _mp_grid(i: int, tmp: str) -> dict:
+    """Stage 2 of phase 18 on all four ranks: (seq 2) x (model 2) under
+    ring for MP_GRID_ROUNDS finite rounds with 2 / 1 / 8 launches each
+    and the weights' hash."""
+    import torch.distributed as dist
+
+    from commefficient_torch.parallel import make_client_group, tuple_index
+
+    rank = tuple_index(i, 1, 1, 2, 2)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store_grid",
+                            rank=rank, world_size=4)
+    rec = {"rank": rank, "launches": [], "losses": []}
+    try:
+        t0 = time.perf_counter()
+        g = make_client_group(GPT2_W, 1, seq_device(), seq_devices=2,
+                              model_devices=2)
+        assert g.process_rank == rank and g.inner_size == 4
+        fm, one = build_seq_gpt2(["--seq_parallel", "ring", "--seq_devices",
+                                  "2"] + TP_ARGS, g)
+        rec["s"] = {"build": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        for r in range(MP_GRID_ROUNDS):
+            kernels.reset_launch_counts()
+            loss = one(seq_batch(r))[0]
+            torch.cuda.synchronize()
+            rec["launches"].append(kernels.launch_counts())
+            rec["losses"].append(loss.tolist())
+            assert np.all(np.isfinite(loss)), (r, loss)
+        rec["w_hash"] = w_hash(fm)
+        rec["s"]["rounds"] = time.perf_counter() - t0
+        del fm, one
+        release_card()
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
+def _mp_cli(i: int, tmp: str) -> dict:
+    """Stage 3 of phase 18 on all four ranks: ``gpt2_train --model_devices
+    2 --n_experts 4 --expert_devices 2`` (dropout 0.1, the MoE model at
+    full width and depth) on gloo ranks on ``cuda:0``, a fraction of an
+    epoch of the synthetic PersonaChat, and the val pass; its tokens/sec
+    over its rounds, from the engine's first submit to its last drain
+    (the rounds' valid examples x candidates x tokens)."""
+    from commefficient_torch import gpt2_train
+    from commefficient_torch.federated.engine import PipelinedRoundEngine
+
+    timing = {"tokens": 0.0, "t0": None, "t1": None}
+    submit, drain = PipelinedRoundEngine.submit, PipelinedRoundEngine.drain
+
+    def timed_submit(self, batch):
+        if timing["t0"] is None:
+            torch.cuda.synchronize()
+            timing["t0"] = time.perf_counter()
+        ids = np.asarray(batch["input_ids"])
+        timing["tokens"] += float(np.asarray(batch["mask"]).sum()) \
+            * ids.shape[-2] * ids.shape[-1]
+        return submit(self, batch)
+
+    def timed_drain(self):
+        out = drain(self)
+        torch.cuda.synchronize()
+        timing["t1"] = time.perf_counter()
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    os.environ.update(RANK=str(i), WORLD_SIZE="4", LOCAL_RANK="0",
+                      LOCAL_WORLD_SIZE="4",
+                      COMMEFFICIENT_SYNTHETIC_CLIENTS="8",
+                      COMMEFFICIENT_RUN_DIR=os.path.join(tmp, "cli_run"))
+    kernels.reset_launch_counts()
+    with mock.patch.object(PipelinedRoundEngine, "submit", timed_submit), \
+            mock.patch.object(PipelinedRoundEngine, "drain", timed_drain):
+        stats = gpt2_train.train(GPT2_BASE + [
+            "--dataset_dir", os.path.join(tmp, "persona"), "--num_epochs",
+            "0.3", "--num_devices", "1"] + TP_ARGS[:2] + EP_ARGS[:-2],
+            init_method=f"file://{tmp}/store_cli", backend="gloo")
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        os.environ.pop(key)
+    return {"stats": {k: float(v) for k, v in stats.items()},
+            "launches": kernels.launch_counts(),
+            "tokens_per_sec": timing["tokens"] / (timing["t1"]
+                                                  - timing["t0"]),
+            "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _mp_rank(i: int, tmp: str, spawned_at: float) -> None:
+    """One process of phase 18: stages 1-3, its record written to
+    ``tmp`` (with the seconds from its spawn, at ``spawned_at`` on the
+    wall clock, to its kernels loaded)."""
+    kernels.library()
+    start_s = time.time() - spawned_at
+    with deterministic_cudnn():
+        out = {"pair": _mp_pair(i, tmp)}
+        out["pair"]["s"]["start"] = start_s
+        out["grid"] = _mp_grid(i, tmp)
+        t = time.perf_counter()
+        out["cli"] = _mp_cli(i, tmp)
+        out["cli"]["s"] = time.perf_counter() - t
+    with open(os.path.join(tmp, f"mp{i}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def moe_dispatch_check(card: str) -> dict:
+    """Phase 18 (d), in this process: one MoE layer at full width (C 768,
+    4 experts, N(0, 0.02) leaves from a seed) on one client's 4 x 256
+    tokens. Sparse dispatch at capacity factor E equals dense dispatch
+    (within MOE_DISPATCH_RTOL of the largest magnitude); at 1.25 the card
+    keeps exactly the tokens the plain CPU computation of the same layer
+    keeps, zeroes the others, and agrees with it on the kept ones (the
+    tokens lean to one expert, so that it overflows)."""
+    from commefficient_torch.parallel.moe import MoEMLP
+
+    gen = torch.Generator().manual_seed(18)
+    cpu = {}
+    for dispatch, cf in (("dense", 1.25), ("sparse", float(MOE_EXPERTS)),
+                         ("sparse", 1.25)):
+        mod = MoEMLP(768, MOE_EXPERTS, dispatch=dispatch,
+                     capacity_factor=cf)
+        cpu[(dispatch, cf)] = mod
+    with torch.no_grad():
+        for name, p in cpu[("dense", 1.25)].named_parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.02
+                    if name in ("router", "w_fc", "w_proj")
+                    else torch.zeros(p.shape))
+        for mod in cpu.values():
+            mod.load_state_dict(cpu[("dense", 1.25)].state_dict())
+    # tokens leaning to expert 0 (its logit raised by 0.5, about one
+    # standard deviation of a logit): it receives more than its capacity
+    r0 = cpu[("dense", 1.25)].router.detach()[:, 0]
+    x = torch.randn((GPT2_B * GPT2_C, GPT2_T, 768), generator=gen) \
+        + 0.5 * r0 / torch.dot(r0, r0)
+    dev = torch.device("cuda")
+    with torch.no_grad():
+        outs = {key: mod.to(dev)(x.to(dev))[0] for key, mod in cpu.items()}
+        dense = outs[("dense", 1.25)]
+        full = outs[("sparse", float(MOE_EXPERTS))]
+        scale = float(dense.abs().max())
+        err_full = float((full - dense).abs().max())
+        assert err_full <= MOE_DISPATCH_RTOL * scale, (err_full, scale)
+        sparse = outs[("sparse", 1.25)]
+        kept = cpu[("sparse", 1.25)].kept_tokens(x.to(dev)).cpu()
+        plain_mod = cpu[("sparse", 1.25)].to("cpu")
+        plain = plain_mod(x)[0]
+        plain_kept = plain_mod.kept_tokens(x)
+    assert torch.equal(kept, plain_kept), "the card drops other tokens"
+    zero = (sparse == 0).all(dim=-1).cpu()
+    assert torch.equal(zero, ~plain_kept), "dropped tokens are not zero"
+    err_kept = float((sparse.cpu() - plain).abs().max())
+    assert err_kept <= MOE_DISPATCH_RTOL * float(plain.abs().max()), err_kept
+    row = {"phase": "moe dispatch", "tokens": int(kept.numel()),
+           "capacity": plain_mod.capacity(kept.numel()),
+           "dropped": int((~kept).sum()), "full_capacity_max_abs_err":
+           err_full, "dense_scale": scale, "kept_max_abs_err": err_kept,
+           "card": card}
+    assert 0 < row["dropped"] < row["tokens"], row
+    print(json.dumps(row))
+    return row
+
+
+def phase_tp_ep(card: str, dense_ref=None) -> dict:
+    """Phase 18: GPT-2's tensor parallelism and the MoE model's expert
+    parallelism at GPT-2-small's full width (768, 12 heads; 4 experts on
+    every other block, d = 209,466,625, Tn = 419) and config 5's round
+    (4 clients x 2 examples x 2 candidates x 256 tokens, the 5 x 500,000
+    sketch, k = 50,000), dropout 0 and cuDNN deterministic, on gloo ranks
+    on ``cuda:0`` (two NCCL ranks cannot share a card; gloo stages every
+    collective, the activation sums included, through the host):
+
+    (a) two ranks as (clients 1) x (model 2), dense attention, full
+        depth: round 1's summed gradient (after the sum times
+        ``tp_scale``) within SEQ_GRAD_ATOL / SEQ_GRAD_RTOL of the
+        one-rank round's, its losses within SEQ_LOSS_RTOL, MP_ROUNDS
+        finite rounds, both ranks' weights bit-equal, 2 / 1 / 8 launches
+        of kernels 1 / 3 / 5 a round on each rank;
+    (b) four ranks as (seq 2) x (model 2) under ring: MP_GRID_ROUNDS
+        finite rounds, the four ranks' weights bit-equal, 2 / 1 / 8;
+    (c) two ranks as (clients 1) x (expert 2) on the MoE model, dense
+        dispatch, with the aux loss: as (a) against the one-rank MoE
+        round; and the six kernels against their plain versions at its
+        geometry (Tn = 419), exact;
+    (d) sparse dispatch on one rank (``moe_dispatch_check``);
+    (e) ``gpt2_train --model_devices 2 --n_experts 4 --expert_devices
+        2`` on four ranks as (model 2) x (expert 2), the MoE model at full
+        depth: a finite val NLL alike on every rank, the headline kernels
+        launched, its tokens/sec over its rounds;
+    (f) tokens/sec of (a), (c) and (e) (each with the card to itself)
+        beside the one-rank rounds' (data, no claim).
+
+    ``dense_ref``: phase 17's one-rank round (its summed gradient, losses
+    and tokens/sec), the same round as (a)'s reference; None computes
+    it here."""
+    import multiprocessing as mp
+
+    release_card()
+    t = time.perf_counter()
+    tokens = GPT2_W * GPT2_B * GPT2_C * GPT2_T
+    out = {"phase": "tensor and expert parallelism", "card": card}
+    with tempfile.TemporaryDirectory() as tmp, deterministic_cudnn():
+        one_rank = {}
+        for name, extra in (("dense", []), ("moe", MOE_ARGS)):
+            if name == "dense" and dense_ref is not None:
+                np.save(os.path.join(tmp, "dense_g.npy"), dense_ref["g"])
+                np.save(os.path.join(tmp, "dense_loss.npy"),
+                        dense_ref["loss"])
+                one_rank[name] = {
+                    "tokens_per_sec": dense_ref["tokens_per_sec"],
+                    "from": "phase 17"}
+                continue
+            torch.cuda.reset_peak_memory_stats()
+            fm, one = build_seq_gpt2(extra)
+            grads = []
+            with summed_gradient(grads):
+                loss = one(seq_batch(0))[0]
+            np.save(os.path.join(tmp, f"{name}_g.npy"),
+                    grads[0].cpu().numpy())
+            np.save(os.path.join(tmp, f"{name}_loss.npy"), loss)
+            del grads
+            one(seq_batch(1))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(MP_TIMED_ROUNDS):
+                one(seq_batch(MP_ROUNDS))
+            torch.cuda.synchronize()
+            one_rank[name] = {
+                "tokens_per_sec": MP_TIMED_ROUNDS * tokens / (
+                    time.perf_counter() - t1),
+                "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9}
+            del fm, one
+            release_card()
+        out["one_rank"] = one_rank
+        out["moe_kernels"] = check_kernels(card, MOE_D, 500_000, 5, 0, 18,
+                                           "gpt2 moe", False, k=50_000)
+        for name, row in out["moe_kernels"].items():
+            print(json.dumps({"phase": "moe kernels", "geometry": "gpt2 moe",
+                              "Tn": -(-MOE_D // 500_096), "name": name,
+                              **row}))
+        out["dispatch"] = moe_dispatch_check(card)
+        held = release_card()
+        print("phase 18: this process holds " + json.dumps(held)
+              + " on the card before its ranks start")
+        out["one_rank_s"] = time.perf_counter() - t
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_mp_rank, args=(i, tmp, time.time()))
+                 for i in range(4)]
+        for pr in procs:
+            pr.start()
+        for pr in procs:
+            pr.join(max(1.0, 420 - (time.perf_counter() - t)))
+        alive = [pr for pr in procs if pr.is_alive()]
+        for pr in alive:
+            pr.kill()
+            pr.join()
+        assert not alive, "phase 18 ranks timed out"
+        assert all(pr.exitcode == 0 for pr in procs), \
+            [pr.exitcode for pr in procs]
+        ranks = []
+        for i in range(4):
+            with open(os.path.join(tmp, f"mp{i}.json")) as f:
+                ranks.append(json.load(f))
+
+    def nonzero(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    pairs = {"tp": [r["pair"] for r in ranks[:2]],
+             "ep": [r["pair"] for r in ranks[2:]]}
+    for leg, pair in pairs.items():
+        for i, rec in enumerate(pair):
+            assert rec["grad_within"], (leg, i, rec["grad_max_abs_err"],
+                                        rec["grad_scale"])
+            assert rec["loss_max_rel_err"] <= SEQ_LOSS_RTOL, \
+                (leg, i, rec["loss_max_rel_err"])
+            for counts in rec["launches"]:
+                assert nonzero(counts) == HEADLINE_PER_ROUND, \
+                    (leg, i, counts)
+        assert pair[0]["w_hash"] == pair[1]["w_hash"], \
+            f"{leg}: the ranks' weights differ"
+        assert pair[0]["losses"] == pair[1]["losses"], leg
+    grids = [r["grid"] for r in ranks]
+    assert sorted(g["rank"] for g in grids) == [0, 1, 2, 3]
+    assert len({g["w_hash"] for g in grids}) == 1, \
+        "seq x model: the four ranks' weights differ"
+    for g in grids:
+        for counts in g["launches"]:
+            assert nonzero(counts) == HEADLINE_PER_ROUND, (g["rank"], counts)
+    cli = [r["cli"] for r in ranks]
+    keys = ("val_nll", "val_acc", "val_ppl")
+    for c in cli:
+        assert np.isfinite(c["stats"]["val_nll"]), c
+        assert all((c["launches"][k] > 0) == (k in HEADLINE_KERNELS)
+                   for k in c["launches"]), c["launches"]
+    assert len({tuple(c["stats"][k] for k in keys) for c in cli}) == 1, cli
+    out.update(
+        grad_max_abs_err={leg: max(p["grad_max_abs_err"] for p in pair)
+                          for leg, pair in pairs.items()},
+        grad_scale={leg: pair[0]["grad_scale"]
+                    for leg, pair in pairs.items()},
+        loss_max_rel_err={leg: max(p["loss_max_rel_err"] for p in pair)
+                          for leg, pair in pairs.items()},
+        launches_per_round_per_rank=nonzero(pairs["tp"][0]["launches"][0]),
+        peak_memory_GB_rank={leg: max(p["peak_memory_GB"] for p in pair)
+                             for leg, pair in pairs.items()},
+        cli={**cli[0]["stats"], "peak_memory_GB_rank": max(
+            c["peak_memory_GB"] for c in cli)},
+        tokens_per_sec={
+            "one rank": one_rank["dense"]["tokens_per_sec"],
+            "one rank moe": one_rank["moe"]["tokens_per_sec"],
+            "clients 1 x model 2": pairs["tp"][0]["rounds_per_sec"] * tokens,
+            "clients 1 x expert 2 moe":
+                pairs["ep"][0]["rounds_per_sec"] * tokens,
+            "model 2 x expert 2 moe (gpt2_train)":
+                cli[0]["tokens_per_sec"]},
+        stage_s_rank0={"pair": ranks[0]["pair"]["s"],
+                       "ep pair": ranks[2]["pair"]["s"],
+                       "seq x model": grids[0]["s"], "cli": cli[0]["s"]},
+        wall_s=time.perf_counter() - t,
+        note="gloo stages the gradient sums (497.8 MB, 837.9 MB for the "
+             "MoE model) and the activation sums through the host: these "
+             "rates measure nothing of NVLink")
+    print(json.dumps({k: v for k, v in out.items() if k != "moe_kernels"}))
     return out
 
 
@@ -5818,6 +6292,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     seq = phase_seq(card)
     wall["17 sequence parallelism"] = time.perf_counter() - t
+    t = time.perf_counter()
+    tp_ep = phase_tp_ep(card, seq.pop("dense_ref"))
+    wall["18 tensor and expert parallelism"] = time.perf_counter() - t
     print("phase wall seconds (phase 3 includes the build): " + json.dumps(
         {k: round(v, 2) for k, v in wall.items()}))
 
@@ -5851,7 +6328,11 @@ def main(argv=None) -> int:
              "library_ms")}, "sharded": sharded(k.name),
          "grid_2d_launches_per_round_per_rank": grid_launches.get(k.name, 0),
          "seq_launches_per_round_per_rank": seq[
-             "launches_per_round_per_rank"].get(k.name, 0)}
+             "launches_per_round_per_rank"].get(k.name, 0),
+         "tp_ep_launches_per_round_per_rank": tp_ep[
+             "launches_per_round_per_rank"].get(k.name, 0),
+         "moe_geometry_max_abs_err": tp_ep["moe_kernels"][k.name][
+             "max_abs_err"]}
         for k in kernels.KERNELS]}
     print(json.dumps({"rounds_per_sec": rps,
                       "opt_in_rounds_per_sec": opt_rps,
@@ -5895,6 +6376,7 @@ def main(argv=None) -> int:
                       "grid_2d_rounds_per_sec_median":
                           grid["rounds_per_sec_median"],
                       "seq_tokens_per_sec": seq["tokens_per_sec"],
+                      "tp_ep_tokens_per_sec": tp_ep["tokens_per_sec"],
                       **{"opt_in_" + k: v for k, v in opt_prof.items()}}))
     print(json.dumps(summary))
     print(card)

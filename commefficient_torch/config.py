@@ -18,7 +18,14 @@ or a saved run dir's ``model.npz``; nothing is downloaded),
 CV losses take it too). GPT-2's sequence parallelism: ``--seq_parallel
 ring|ulysses`` and ``--seq_devices`` (the JAX package's names, defaults,
 help and ``--max_seq_len`` check, ``check_seq_parallel``); the realized
-grid decides it (``gpt2_train``), and ``cv_train`` refuses it.
+grid decides it (``gpt2_train``), and ``cv_train`` refuses it. Tensor
+parallelism and mixture of experts: ``--model_devices``, ``--n_experts``,
+``--expert_devices``, ``--moe_dispatch``, ``--moe_capacity_factor`` and
+``--moe_aux_coef``, with the JAX package's names, defaults, help and
+checks (``check_model_parallel``); the realized grid decides the axes
+(``gpt2_train``), and ``cv_train`` refuses them with the JAX package's
+assertions. The pipeline's ``--pipeline_devices`` and
+``--pp_microbatches`` are parsed and raise (``UNPORTED``).
 
 Deviations: ``--device`` takes ``{cuda, cpu}`` with ``cuda`` the default
 (a CUDA request on a host without a card raises; there is no fallback to
@@ -88,23 +95,15 @@ DATASETS = ["CIFAR10", "CIFAR100", "EMNIST", "ImageNet", "PERSONA"]
 DP_MODES = ["worker", "server"]
 
 _Q1 = "ROADMAP.md queue 1"
-ITEM_PARALLEL = (f"{_Q1} item 7 (parallel/: sequence, tensor, pipeline "
-                 f"and expert parallelism)")
+ITEM_PARALLEL = (f"{_Q1} item 7.4 (parallel/pipeline.py: pipeline "
+                 f"parallelism)")
 
 # The flags of planes the port does not carry yet, with the JAX package's
 # types and defaults: (option strings, add_argument keywords, item). Each
 # is parsed; a value other than its default raises naming the item.
 UNPORTED = (
-    ("--model_devices", dict(type=int, default=1), ITEM_PARALLEL),
     ("--pipeline_devices", dict(type=int, default=1), ITEM_PARALLEL),
     ("--pp_microbatches", dict(type=int, default=4), ITEM_PARALLEL),
-    ("--n_experts", dict(type=int, default=0), ITEM_PARALLEL),
-    ("--expert_devices", dict(type=int, default=1), ITEM_PARALLEL),
-    ("--moe_dispatch", dict(choices=["dense", "sparse"], default="dense"),
-     ITEM_PARALLEL),
-    ("--moe_capacity_factor", dict(type=float, default=1.25),
-     ITEM_PARALLEL),
-    ("--moe_aux_coef", dict(type=float, default=0.01), ITEM_PARALLEL),
 )
 
 
@@ -290,6 +289,49 @@ def build_parser(default_lr=None) -> argparse.ArgumentParser:
     parser.add_argument("--seq_devices", type=int, default=2,
                         help="Size of the seq mesh axis when --seq_parallel "
                              "is enabled.")
+    # GPT-2's tensor parallelism (models/gpt2.TPDense): heads and MLP
+    # columns over a `model` axis of ranks; the parameters stay full-shape
+    parser.add_argument("--model_devices", type=int, default=1,
+                        help="Size of the `model` (tensor-parallel) mesh "
+                             "axis for GPT-2 (1 disables).")
+    # mixture of experts (parallel/moe.py): every other GPT-2 block gets a
+    # top-1-routed MoE MLP; --expert_devices splits its experts over an
+    # `expert` axis of ranks; the parameters stay full-shape
+    parser.add_argument("--n_experts", type=int, default=0,
+                        help="Experts per MoE MLP for GPT-2 (0 = dense "
+                             "MLPs, the reference architecture). NOTE: "
+                             "dispatch is dense for parity/static shapes — "
+                             "each MoE block computes all n_experts/"
+                             "expert_devices local experts per token, so an "
+                             "MoE block costs that many full MLP passes; "
+                             "there is no sparse-MoE FLOP saving unless "
+                             "expert_devices == n_experts.")
+    parser.add_argument("--expert_devices", type=int, default=1,
+                        help="Size of the `expert` (expert-parallel) mesh "
+                             "axis for GPT-2 MoE (1 disables).")
+    parser.add_argument("--moe_dispatch", choices=["dense", "sparse"],
+                        default="dense",
+                        help="MoE token dispatch: 'dense' evaluates every "
+                             "expert on every token (no drops, max FLOPs); "
+                             "'sparse' is GShard/Switch capacity-factor "
+                             "dispatch — each expert processes at most "
+                             "round(capacity_factor*N/E) tokens, overflow "
+                             "tokens skip the MoE layer (residual "
+                             "passthrough).")
+    parser.add_argument("--moe_capacity_factor", type=float, default=1.25,
+                        help="Per-expert token capacity multiplier for "
+                             "--moe_dispatch sparse.")
+    parser.add_argument("--moe_aux_coef", type=float, default=0.01,
+                        help="Switch load-balancing auxiliary loss "
+                             "coefficient for MoE GPT-2 (0 disables; only "
+                             "meaningful with --n_experts > 0). The aux is "
+                             "the mean over MoE layers of the per-token "
+                             "Switch balance term, weighted per example. "
+                             "Note the Switch paper SUMS per-layer auxes; "
+                             "the mean here (a deliberate deviation) makes "
+                             "the effective per-layer weight "
+                             "coef/n_moe_layers, so retune rather than "
+                             "assuming published values transfer.")
 
     # checkpoint, resume and the round engine (the JAX package's flags)
     parser.add_argument("--checkpoint", action="store_true",
@@ -713,10 +755,29 @@ def check_seq_parallel(args) -> None:
             f"--seq_devices {args.seq_devices}")
 
 
+def check_model_parallel(args) -> None:
+    """The JAX package's checks of the tensor-parallel and MoE flags."""
+    assert args.model_devices >= 1, "--model_devices must be >= 1"
+    if args.model_devices > 1:
+        assert args.seq_parallel in ("none", "ring"), (
+            "--model_devices > 1 composes only with --seq_parallel ring "
+            "(ring attention is per-head; ulysses all-to-alls the head "
+            "dim over the seq axis, conflicting with model-axis head "
+            "slicing)")
+    assert args.n_experts >= 0, "--n_experts must be >= 0"
+    assert args.expert_devices >= 1, "--expert_devices must be >= 1"
+    if args.expert_devices > 1:
+        assert args.n_experts > 0, "--expert_devices > 1 requires --n_experts"
+        assert args.n_experts % args.expert_devices == 0, (
+            f"--n_experts {args.n_experts} must divide by "
+            f"--expert_devices {args.expert_devices}")
+
+
 def parse_args(default_lr=None, argv=None):
     args = build_parser(default_lr).parse_args(argv)
     reject_unported(args)
     check_seq_parallel(args)
+    check_model_parallel(args)
     check_collectives(args)
     check_observability(args)
     check_participation(args)

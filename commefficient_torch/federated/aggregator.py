@@ -121,7 +121,7 @@ from commefficient_torch.ops.collectives import (
 )
 from commefficient_torch.ops.flat import ParamLayout
 from commefficient_torch.ops.sketch import make_sketch
-from commefficient_torch.parallel.mesh import SEQ_AXIS
+from commefficient_torch.parallel.mesh import EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS
 from commefficient_torch.profiling import annotate
 
 DEFAULT_NUM_CLIENTS = {"EMNIST": 3500, "PERSONA": 17568}
@@ -197,13 +197,23 @@ class RoundHandle(NamedTuple):
 
 
 def worker_config_from_args(args, group=None) -> WorkerConfig:
-    """The worker's config; its ``seq_axis`` comes from the REALIZED grid
-    (``group``): the grid policy may have reduced ``--seq_devices`` to 1,
-    and a config naming an axis the grid lacks would fail in the round."""
+    """The worker's config; its ``seq_axis``, ``model_axis`` and
+    ``expert_axis`` come from the REALIZED grid (``group``): the grid
+    policy may have reduced ``--seq_devices``, ``--model_devices`` or
+    ``--expert_devices`` to 1, and a config naming an axis the grid lacks
+    would fail in the round."""
     seq_axis = None
     if getattr(args, "seq_parallel", "none") != "none" and \
             group is not None and group.seq is not None:
         seq_axis = SEQ_AXIS
+    model_axis = None
+    if getattr(args, "model_devices", 1) > 1 and group is not None \
+            and group.model is not None:
+        model_axis = MODEL_AXIS
+    expert_axis = None
+    if getattr(args, "expert_devices", 1) > 1 and group is not None \
+            and group.expert is not None:
+        expert_axis = EXPERT_AXIS
     return WorkerConfig(
         mode=args.mode, error_type=args.error_type, k=args.k,
         num_workers=args.num_workers, weight_decay=args.weight_decay,
@@ -215,7 +225,8 @@ def worker_config_from_args(args, group=None) -> WorkerConfig:
         num_fedavg_epochs=args.num_fedavg_epochs,
         fedavg_batch_size=args.fedavg_batch_size,
         fedavg_lr_decay=args.fedavg_lr_decay,
-        do_topk_down=args.do_topk_down, seq_axis=seq_axis)
+        do_topk_down=args.do_topk_down, seq_axis=seq_axis,
+        model_axis=model_axis, expert_axis=expert_axis)
 
 
 def server_config_from_args(args, grad_size: int) -> ServerConfig:
@@ -240,9 +251,17 @@ def collective_plan_from_args(args):
 
 
 def round_config_from_args(args, grad_size: int, group=None) -> RoundConfig:
+    """The round's config; the slice predicates go with the axes the
+    worker takes (``tp_sliced_param``, ``ep_sliced_param``)."""
+    from commefficient_torch.models.gpt2 import tp_sliced_param
+    from commefficient_torch.parallel.moe import ep_sliced_param
+
     telemetry = bool(getattr(args, "telemetry", False))
+    wcfg = worker_config_from_args(args, group)
     return RoundConfig(
-        worker=worker_config_from_args(args, group),
+        worker=wcfg,
+        tp_sliced=tp_sliced_param if wcfg.model_axis is not None else None,
+        ep_sliced=ep_sliced_param if wcfg.expert_axis is not None else None,
         server=server_config_from_args(args, grad_size), grad_size=grad_size,
         do_test=bool(getattr(args, "do_test", False)),
         stream_sketch=bool(getattr(args, "stream_sketch", False)),
@@ -567,13 +586,13 @@ class FedModel:
         """The disk tier's directory: ``--state_dir``, else
         ``<checkpoint_path>/client_state``; each rank of a client group
         of several ranks keeps its own copy under ``rank<r>`` (``r`` the
-        process rank: the seq ranks of one tuple index each keep one)."""
+        process rank: the seq, model and expert ranks of one tuple index
+        each keep one)."""
         base = (getattr(args, "state_dir", "") or "") or os.path.join(
             getattr(args, "checkpoint_path", "."), "client_state")
         g = self.group
-        if g is not None and g.seq is not None:
-            return os.path.join(base,
-                                f"rank{g.rank * g.seq.size + g.seq.rank}")
+        if g is not None and g.inner_size > 1:
+            return os.path.join(base, f"rank{g.process_rank}")
         if g is not None and g.size > 1:
             return os.path.join(base, f"rank{g.rank}")
         return base

@@ -24,6 +24,14 @@ over the group) and the valid-token count through a plain sum, so the
 loss is the dense one on every rank and each rank's gradient is its
 slice's part. Each seq rank draws its own dropout masks, from a generator
 seeded by the round's generator and its seq index (``seq_generator``).
+The ranks of the ``model`` and ``expert`` axes draw the same masks (the
+same generator), as the JAX package's ranks draw from one key.
+
+``moe_aux_coef`` (``--moe_aux_coef``, with an MoE model): the train loss
+adds ``moe_aux_coef`` times the mean over the MoE layers of their Switch
+aux losses (``forward(..., return_aux=True)``) times the client's
+valid-example count, so the aux enters the data-weighted aggregation as
+the per-example terms do; the val metrics stay the NLL and accuracy.
 """
 
 from __future__ import annotations
@@ -147,7 +155,7 @@ def _lm_nll_per_example(lm_logits, batch, seq_group=None):
 def make_gpt2_losses(model: torch.nn.Module, lm_coef: float = 1.0,
                      mc_coef: float = 1.0,
                      compute_dtype: Optional[torch.dtype] = None,
-                     seq_group=None):
+                     seq_group=None, moe_aux_coef: float = 0.0):
     """GPT-2 double-heads losses (the JAX package's ``make_gpt2_losses``).
     ``seq_group``: the model's ``seq`` group under sequence parallelism
     (the module docstring), None for the dense model. Train: ``lm_coef * lm_nll + mc_coef * mc_ce`` per
@@ -166,15 +174,18 @@ def make_gpt2_losses(model: torch.nn.Module, lm_coef: float = 1.0,
     assert (seq_group is None) == (getattr(model, "seq_group", None)
                                    is None), \
         "the loss and the model must share the seq group"
+    # the aux is collected only where it enters the loss
+    with_aux = bool(moe_aux_coef) and getattr(model, "n_experts", 0) > 0
 
-    def _forward(params, batch, keep):
+    def _forward(params, batch, keep, aux=False):
         if compute_dtype is not None:
             params = _cast_params(params, compute_dtype)
-        lm_logits, mc_logits = functional_call(
+        out = functional_call(
             model, params, (batch["input_ids"],),
             {"token_type_ids": batch["token_type_ids"],
-             "mc_token_ids": batch["mc_token_ids"], "dropout": keep})
-        return lm_logits, mc_logits.to(torch.float32)
+             "mc_token_ids": batch["mc_token_ids"], "dropout": keep,
+             "return_aux": aux})
+        return (out[0], out[1].to(torch.float32)) + tuple(out[2:])
 
     def _keep_source(rng, train):
         if not train or model.dropout == 0.0:
@@ -190,13 +201,20 @@ def make_gpt2_losses(model: torch.nn.Module, lm_coef: float = 1.0,
 
     def compute_train(params, model_state, batch, rng, train):
         keep = _keep_source(rng, train)
-        lm_logits, mc_logits = _forward(params, batch, keep)
+        out = _forward(params, batch, keep, aux=with_aux)
+        lm_logits, mc_logits = out[:2]
         if isinstance(keep, MaskKeep):
             keep.check_consumed()
         lm_nll = _lm_nll_per_example(lm_logits, batch, seq_group)
         mc_ce, _ = _mc_ce_acc(mc_logits, batch["mc_labels"])
         mask = batch["mask"]
         loss_sum = torch.sum((lm_coef * lm_nll + mc_coef * mc_ce) * mask)
+        if with_aux:
+            # the mean over MoE layers (the JAX package's deliberate
+            # deviation from Switch's sum), weighted by the valid examples
+            aux = out[2]
+            loss_sum = loss_sum + moe_aux_coef * (
+                torch.sum(aux) / aux.shape[0]) * torch.sum(mask)
         return loss_sum, (), torch.sum(mask), model_state
 
     def draw_rng(generator: torch.Generator, micro) -> torch.Tensor:
@@ -213,7 +231,7 @@ def make_gpt2_losses(model: torch.nn.Module, lm_coef: float = 1.0,
         compute_train.draw_rng = draw_rng
 
     def compute_val(params, model_state, batch, rng, train):
-        lm_logits, mc_logits = _forward(params, batch, None)
+        lm_logits, mc_logits = _forward(params, batch, None)[:2]
         lm_nll = _lm_nll_per_example(lm_logits, batch, seq_group)
         _, acc = _mc_ce_acc(mc_logits, batch["mc_labels"])
         mask = batch["mask"]

@@ -98,6 +98,23 @@ over the seq axis before weight decay, as the JAX package does, and the
 per-client worker sums each client's gradient over it
 (``worker.forward_grad``, ``worker.fedavg_local``). From there on the
 seq ranks hold the same values and run the same server step.
+
+Under tensor and expert parallelism (``WorkerConfig.model_axis`` /
+``expert_axis``: the group's ``model`` and ``expert`` axes) the ranks of
+one tuple index run the same slots on the whole batch; each computes its
+slice of the model (heads and MLP columns, or experts), so its gradient
+is slice-local on the sliced leaves and whole on the rest. The round
+reconciles it as the JAX package does: after the seq sum, a sum over
+``model`` times ``tp_scale``, then a sum over ``expert`` times
+``ep_scale``, then weight decay. The two flat masks are built once, on
+the group's device, from the flat layout's leaf segments
+(``ops/flat.leaf_segments``): 1 on the leaves the predicate
+(``RoundConfig.tp_sliced`` / ``ep_sliced``: ``models/gpt2.
+tp_sliced_param``, ``parallel/moe.ep_sliced_param``) names, 1/n on the
+rest; the fused phase holds them in the resident layout, the per-client
+worker flat. The streaming phase never makes them: it multiplies each
+leaf by its product of the two values before sketching and sums the
+table over the axes (exact for power-of-two axes).
 """
 
 from __future__ import annotations
@@ -130,6 +147,7 @@ from commefficient_torch.federated.worker import (
     get_new_worker_weights,
     local_step,
     microbatch_plan,
+    reconcile,
     sketch_grad_tree,
     split_microbatches,
 )
@@ -293,6 +311,28 @@ class RoundConfig:
     # is whole on each seq rank
     seq_sharded_keys: Tuple[str, ...] = ("input_ids", "token_type_ids",
                                          "lm_labels_shifted")
+    # the leaves whose gradient a model (expert) rank computes for its
+    # slice alone, by '/'-joined lowercase flax path; required when the
+    # worker has a model (expert) axis
+    tp_sliced: Optional[Callable[[str], bool]] = None
+    ep_sliced: Optional[Callable[[str], bool]] = None
+
+
+def slice_scale_values(segments, sliced: Callable[[str], bool], n: int
+                       ) -> Tuple[float, ...]:
+    """The rescale value of each leaf for an axis of ``n`` ranks: 1.0
+    where ``sliced(path)`` (each rank's gradient is its slice's, and the
+    sum over the axis is the whole), 1/n elsewhere (every rank computed
+    the whole gradient)."""
+    return tuple(1.0 if sliced(sg.path) else 1.0 / n for sg in segments)
+
+
+def flat_scale(segments, values, device=None) -> torch.Tensor:
+    """The flat ``(d,)`` float32 mask of per-leaf ``values`` over the
+    leaf ``segments`` (``ops/flat.leaf_segments``)."""
+    return torch.cat([torch.full((sg.size,), v, dtype=torch.float32,
+                                 device=device)
+                      for sg, v in zip(segments, values)])
 
 
 def seq_slice(batch: dict, keys, seq_group) -> dict:
@@ -395,15 +435,57 @@ def build_round_step(compute_loss_train: Callable,
     stream = bool(cfg.stream_sketch) and fused_grad and sketch_after_sum \
         and chunked
 
-    stream_segs = stream_groups = None
+    # tensor and expert parallelism: the axis groups and their rescale
+    # values per leaf (1 on slice-local leaves, 1/n on replicated ones)
+    segs = leaf_segments(params)
+    axis_groups, axis_vals = [], []
+    for axis, pred, attr in ((wcfg.model_axis, cfg.tp_sliced, "tp_sliced"),
+                             (wcfg.expert_axis, cfg.ep_sliced,
+                              "ep_sliced")):
+        if axis is None:
+            axis_groups.append(None)
+            axis_vals.append(None)
+            continue
+        assert group is not None, f"axis {axis!r} needs a client group"
+        g = group.axis(axis)
+        assert pred is not None, \
+            f"worker axis {axis!r} set but RoundConfig.{attr} is missing"
+        axis_groups.append(g)
+        axis_vals.append(slice_scale_values(segs, pred, g.size))
+    model_group, expert_group = axis_groups
+
+    def scale_mask(vals):
+        """The d-sized mask of per-leaf values, on the group's device, in
+        the layout the client phase sums in."""
+        if vals is None:
+            return None
+        m = flat_scale(segs, vals, group.device)
+        assert m.numel() == cfg.grad_size, \
+            "scale layout does not match the flat vector"
+        return layout.chunk(m) if (chunked and fused_grad) else m
+
+    stream_segs = stream_groups = stream_scales = None
+    tp_scale = ep_scale = None
     if stream:
-        stream_segs = leaf_segments(params)
+        stream_segs = segs
         assert stream_segs[-1].offset + stream_segs[-1].size == \
             cfg.grad_size, "leaf layout does not cover the flat vector"
         if cfg.sketch_coalesce:
             stream_groups = coalesce_segments(
                 stream_segs, coalesce_vmem_budget(sketch),
                 chunk_elems=sketch.c_pad)
+        vals = [1.0] * len(segs)
+        for v in axis_vals:
+            if v is not None:
+                vals = [a * b for a, b in zip(vals, v)]
+        stream_scales = (tuple(vals) if any(v != 1.0 for v in vals)
+                         else None)
+    else:
+        # the fused phase's masks in the resident layout, the per-client
+        # worker's flat
+        tp_scale, ep_scale = (scale_mask(v) for v in axis_vals)
+    worker_axes = dict(model_group=model_group, tp_scale=tp_scale,
+                       expert_group=expert_group, ep_scale=ep_scale)
 
     def flat_res(w):
         """The resident weights (or a tensor in their layout) as a flat
@@ -472,10 +554,10 @@ def build_round_step(compute_loss_train: Callable,
             m_sums = ms if m_sums is None else tuple(
                 a + m for a, m in zip(m_sums, ms))
             counts = counts + cs.detach()
-        if seq_group is not None:
-            # each seq rank backpropagated its slice of the sequence
-            # (linear: one sum of the sum replaces the per-client sums)
-            g_sum = all_reduce_sum(g_sum, seq_group)
+        # each seq rank backpropagated its slice of the sequence, each
+        # model (expert) rank its slice of the model (linear: one sum of
+        # the sum replaces the per-client sums)
+        g_sum = reconcile(g_sum, seq_group, **worker_axes)
         if wcfg.weight_decay != 0:
             wd_scale = torch.sum(worker_mask * counts)
             g_sum = g_sum + ((wcfg.weight_decay / wcfg.num_workers)
@@ -520,16 +602,18 @@ def build_round_step(compute_loss_train: Callable,
             total = torch.sum(ls * worker_mask)
             grads = torch.autograd.grad(total, leaves)
             table = sketch_grad_tree(sketch, table, grads, stream_segs,
-                                     stream_groups)
+                                     stream_groups, stream_scales)
             loss_sums = loss_sums + ls.detach()
             ms = tuple(m.detach() for m in ms)
             m_sums = ms if m_sums is None else tuple(
                 a + m for a, m in zip(m_sums, ms))
             counts = counts + cs.detach()
-        if seq_group is not None:
-            # the fused phase's seq sum, riding the table (sketches are
-            # linear); weight decay goes in after it, as there
-            table = all_reduce_sum(table, seq_group)
+        # the fused phase's sums, riding the table (sketches are linear;
+        # the rescales went in per leaf); weight decay goes in after them,
+        # as there
+        for g in (seq_group, model_group, expert_group):
+            if g is not None:
+                table = all_reduce_sum(table, g)
         if wcfg.weight_decay != 0:
             wd_scale = torch.sum(worker_mask * counts)
             coef = (wcfg.weight_decay / wcfg.num_workers) * wd_scale
@@ -572,14 +656,15 @@ def build_round_step(compute_loss_train: Callable,
             res, new_ms = fedavg_local(compute_loss_train, weights_used,
                                        params, model_state,
                                        batch_row, rng, lr, wcfg,
-                                       seq_group=seq_group)
+                                       seq_group=seq_group, **worker_axes)
             transmit, new_vel, new_err, metrics = (res.transmit, vel_row,
                                                    err_row, res.metrics)
         else:
             res, new_ms = local_step(compute_loss_train, weights_used,
                                      params, model_state, vel_row,
                                      err_row, batch_row, rng, inner_wcfg,
-                                     sketch, seq_group=seq_group)
+                                     sketch, seq_group=seq_group,
+                                     **worker_axes)
             transmit, new_vel, new_err, metrics = (
                 res.transmit, res.new_velocity, res.new_error, res.metrics)
         transmit = transmit * slot_mask

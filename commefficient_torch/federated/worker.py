@@ -24,7 +24,14 @@ Semantics preserved:
 - under GPT-2's sequence parallelism (``seq_group``, the rank's ``seq``
   axis) each rank's gradient is its slice of the sequence's part, summed
   over the axis before weight decay (and, in fedavg, before each local
-  step), so every seq rank holds the client's whole gradient.
+  step), so every seq rank holds the client's whole gradient;
+- under tensor and expert parallelism (``model_group`` / ``expert_group``)
+  each rank's gradient is its slice's on the sliced leaves and whole on
+  the rest: after the seq sum it is summed over ``model`` and multiplied
+  by ``tp_scale``, then summed over ``expert`` and multiplied by
+  ``ep_scale`` (the flat masks of ``federated/rounds.py``: 1 on the
+  sliced leaves, 1/n on the replicated rest), the JAX package's chain
+  (``reconcile``).
 
 The loss callback contract is ``compute_loss(param_views, model_state,
 microbatch, rng, train) -> (loss_sum, metric_sums, count,
@@ -76,9 +83,12 @@ class WorkerConfig:
     fedavg_batch_size: int = -1
     fedavg_lr_decay: float = 1.0
     do_topk_down: bool = False
-    # the client group's seq axis under sequence parallelism (taken from
-    # the realized grid), else None
+    # the client group's seq, model and expert axes under sequence,
+    # tensor and expert parallelism (taken from the realized grid), else
+    # None
     seq_axis: Optional[str] = None
+    model_axis: Optional[str] = None
+    expert_axis: Optional[str] = None
 
     @property
     def has_velocity(self) -> bool:
@@ -136,7 +146,8 @@ def forward_metrics(compute_loss, params, model_state, batch):
 def sketch_grad_tree(sketch: CountSketch, table: torch.Tensor,
                      grads: Sequence[torch.Tensor],
                      segments: Sequence[LeafSegment],
-                     groups: Optional[Sequence[SegmentGroup]] = None
+                     groups: Optional[Sequence[SegmentGroup]] = None,
+                     scales: Optional[Sequence[float]] = None
                      ) -> torch.Tensor:
     """Stream leaf gradients into a running count-sketch table (the JAX
     package's ``sketch_grad_tree``): each leaf is accumulated at its flat
@@ -144,10 +155,16 @@ def sketch_grad_tree(sketch: CountSketch, table: torch.Tensor,
     ``grads`` come in offset order (the JAX layout of each leaf), so per
     table cell the adds continue the composed path's chunk-ordered fold.
     With ``groups`` (an ``ops/flat.coalesce_segments`` plan) each group of
-    adjacent leaves is one accumulate launch; without, one per leaf."""
+    adjacent leaves is one accumulate launch; without, one per leaf.
+    ``scales`` (one float a leaf): the tensor and expert parallelism
+    rescale of each leaf, multiplied in before it is sketched."""
     assert len(grads) == len(segments), (len(grads), len(segments))
     for g, seg in zip(grads, segments):
         assert g.numel() == seg.size, (tuple(g.shape), seg)
+    if scales is not None:
+        assert len(scales) == len(segments), (len(scales), len(segments))
+        grads = [g if float(v) == 1.0 else g * float(v)
+                 for g, v in zip(grads, scales)]
     if groups is None:
         for g, seg in zip(grads, segments):
             table = sketch_segment_accum(sketch, table, g, seg.offset)
@@ -204,19 +221,37 @@ def _microbatch_grads(compute_loss, params_flat, params, model_state, batch,
             count, mstate)
 
 
+def reconcile(g: torch.Tensor, seq_group=None, model_group=None,
+              tp_scale=None, expert_group=None, ep_scale=None
+              ) -> torch.Tensor:
+    """A rank's gradient made whole, in the JAX package's order: summed
+    over the seq axis (each rank's part of the sequence), then over the
+    model axis times ``tp_scale``, then over the expert axis times
+    ``ep_scale`` (slice-local leaves summed at scale 1, replicated ones
+    at 1/n). A group that is None is skipped."""
+    if seq_group is not None:
+        g = all_reduce_sum(g, seq_group)
+    if model_group is not None:
+        g = all_reduce_sum(g, model_group) * tp_scale
+    if expert_group is not None:
+        g = all_reduce_sum(g, expert_group) * ep_scale
+    return g
+
+
 def forward_grad(compute_loss, params_flat, params, model_state, batch,
                  rng, cfg: WorkerConfig, sketch: Optional[CountSketch],
-                 seq_group=None):
+                 seq_group=None, model_group=None, tp_scale=None,
+                 expert_group=None, ep_scale=None):
     """One client's gradient and its transforms, in the JAX package's
-    order: the sum over the seq axis, weight decay, the dense
-    ``max_grad_norm`` clip (not in sketch mode), DP (clip, then worker
-    noise), then in sketch mode the table and its clip by ``l2estimate``.
-    Returns ``(transmit, (loss_mean, *metric_means, count),
-    new_model_state, dense_grad)``."""
+    order: the sums over the seq, model and expert axes (``reconcile``),
+    weight decay, the dense ``max_grad_norm`` clip (not in sketch mode),
+    DP (clip, then worker noise), then in sketch mode the table and its
+    clip by ``l2estimate``. Returns ``(transmit, (loss_mean,
+    *metric_means, count), new_model_state, dense_grad)``."""
     grad, loss_mean, metric_means, count, new_state = _microbatch_grads(
         compute_loss, params_flat, params, model_state, batch, rng, cfg)
-    if seq_group is not None:
-        grad = all_reduce_sum(grad, seq_group)
+    grad = reconcile(grad, seq_group, model_group, tp_scale, expert_group,
+                     ep_scale)
     if cfg.weight_decay != 0:
         grad = grad + (cfg.weight_decay / cfg.num_workers) * params_flat
     if cfg.max_grad_norm is not None and cfg.mode != "sketch":
@@ -240,12 +275,13 @@ def forward_grad(compute_loss, params_flat, params, model_state, batch,
 def local_step(compute_loss, params_flat, params, model_state, velocity,
                error, batch, rng, cfg: WorkerConfig,
                sketch: Optional[CountSketch],
-               seq_group=None) -> Tuple[ClientResult, Any]:
+               seq_group=None, **axes) -> Tuple[ClientResult, Any]:
     """One client's training contribution: ``forward_grad``, the ``x
-    count`` scaling, local momentum and error, and the local top-k."""
+    count`` scaling, local momentum and error, and the local top-k.
+    ``axes``: ``forward_grad``'s model and expert groups and scales."""
     g, metrics, new_state, _ = forward_grad(
         compute_loss, params_flat, params, model_state, batch, rng, cfg,
-        sketch, seq_group=seq_group)
+        sketch, seq_group=seq_group, **axes)
     count = metrics[-1]
     # sum-of-example-gradients scaling; linear, so it applies to tables too
     g = g * count
@@ -278,12 +314,15 @@ def local_step(compute_loss, params_flat, params, model_state, velocity,
 
 def fedavg_local(compute_loss, params_flat, params, model_state, batch, rng,
                  lr, cfg: WorkerConfig,
-                 seq_group=None) -> Tuple[ClientResult, Any]:
+                 seq_group=None, **axes) -> Tuple[ClientResult, Any]:
     """FedAvg local training: ``num_fedavg_epochs`` passes of local SGD
     over the client's batch in ``fedavg_batch_size`` chunks, the step
     decayed by ``fedavg_lr_decay ** step``; all-padding chunks are
-    skipped (they move neither the weights nor the step count). Transmits
-    ``(w0 - w_final) x count``."""
+    skipped (they move neither the weights nor the step count). Each
+    step's gradient is made whole over the seq, model and expert axes
+    first (``reconcile``; ``axes``: its model and expert groups and
+    scales), so the local weights stay replicated. Transmits ``(w0 -
+    w_final) x count``."""
     B = batch["mask"].shape[0]
     fbs, n_chunks, pad = microbatch_plan(B, cfg.fedavg_batch_size)
     chunks = split_microbatches(batch, fbs, n_chunks, pad)
@@ -296,8 +335,7 @@ def fedavg_local(compute_loss, params_flat, params, model_state, batch, rng,
             chunk = {k: v[i] for k, v in chunks.items()}
             g, loss_sum, msums, count, mstate = _grad_of(
                 compute_loss, params, w, mstate, chunk, rng)
-            if seq_group is not None:
-                g = all_reduce_sum(g, seq_group)
+            g = reconcile(g, seq_group, **axes)
             g_mean = g / torch.clamp(count, min=1.0)
             decay = cfg.fedavg_lr_decay ** step
             valid = (count > 0).to(torch.float32)

@@ -53,6 +53,20 @@ and trains the dense model, as the JAX package does.
 
     torchrun --standalone --nproc_per_node 2 -m commefficient_torch.gpt2_train \
         --seq_parallel ring --seq_devices 2 --num_devices 1 ...
+
+Tensor parallelism and mixture of experts: ``--model_devices M`` gives
+the grid a ``model`` axis (each rank computes ``n_head / M`` heads and
+``4 n_embd / M`` MLP columns, ``models/gpt2.TPDense``; composes with
+``--seq_parallel ring``), ``--n_experts E`` makes every other block an MoE
+block (``--moe_dispatch``, ``--moe_capacity_factor``, ``--moe_aux_coef``)
+and ``--expert_devices`` splits its experts over an ``expert`` axis
+(``parallel/moe.py``). The REALIZED grid decides them, with the JAX
+package's checks (``n_head`` and ``4 n_embd`` divisible by the realized
+model axis, ``n_experts`` by the realized expert axis) and its
+``--expert_devices ... disabled`` message.
+
+    torchrun --standalone --nproc_per_node 4 -m commefficient_torch.gpt2_train \
+        --num_devices 1 --model_devices 2 --n_experts 4 --expert_devices 2 ...
 """
 
 from __future__ import annotations
@@ -108,10 +122,10 @@ from commefficient_torch.models.gpt2 import (
 from commefficient_torch.ops.flat import ParamLayout
 from commefficient_torch.parallel import (
     destroy_distributed,
-    grid_axes,
+    grid_sizes,
     main_first,
     quiet_unless_main,
-    requested_seq_devices,
+    requested_axes,
     start_client_group,
 )
 from commefficient_torch.profiling import StepProfiler
@@ -159,49 +173,80 @@ def get_data_loaders(args, tokenizer, emit_shifted: bool = False):
     return train_loader, val_loader
 
 
-def seq_plane(args, group):
-    """The seq group when the REALIZED grid has a ``seq`` axis under
-    ``--seq_parallel``, else None. A request the grid could not meet
-    (one process, or a world too small) prints ``--seq_parallel ...
-    disabled`` with the grid's shape and sets ``args.seq_parallel`` to
-    ``none``, as the JAX package's ``gpt2_train`` does."""
-    if args.seq_parallel == "none":
-        return None
-    if group is not None and group.seq is not None:
-        return group.seq
+def grid_planes(args, group):
+    """``(seq, model, expert)``: the groups the REALIZED grid has for
+    ``--seq_parallel``, ``--model_devices`` and ``--expert_devices``
+    (None where it has no such axis). A request the grid could not meet
+    (one process, or a world too small) is dropped as the JAX package's
+    ``gpt2_train`` drops it: ``--seq_parallel ... disabled`` and
+    ``--expert_devices ... disabled`` with the grid's shape, and the flag
+    set back to its default (a model axis the grid lacks is dropped
+    without a message, as there)."""
+    inner = requested_axes(args)
+    wants = {"seq": args.seq_parallel != "none",
+             "model": inner["model_devices"] > 1,
+             "expert": inner["expert_devices"] > 1}
+    if not any(wants.values()):
+        return None, None, None
     if group is None:
         # one process: the grid policy over one device (its warnings)
-        nc, nsh, _ = grid_axes(args.num_workers, args.num_devices,
-                               args.shard_devices, 1,
-                               requested_seq_devices(args))
-        shape = {"clients": nc, **({"shard": nsh} if nsh > 1 else {})}
+        sizes = grid_sizes(args.num_workers, args.num_devices,
+                           args.shard_devices, 1, **inner)
+        shape = {a: n for a, n in sizes.items()
+                 if a == "clients" or n > 1}
     else:
         shape = {a["name"]: a["size"] for a in group.topology()["axes"]}
-    print(f"--seq_parallel {args.seq_parallel} disabled: "
-          f"mesh has no seq axis ({shape})")
-    args.seq_parallel = "none"
-    return None
+    seq, model, expert = ((group.seq, group.model, group.expert)
+                          if group is not None else (None, None, None))
+    if wants["seq"] and seq is None:
+        print(f"--seq_parallel {args.seq_parallel} disabled: "
+              f"mesh has no seq axis ({shape})")
+        args.seq_parallel = "none"
+    if args.expert_devices > 1 and expert is None:
+        print(f"--expert_devices {args.expert_devices} disabled: "
+              f"mesh has no expert axis ({shape})")
+        args.expert_devices = 1
+    return (seq if args.seq_parallel != "none" else None,
+            model if wants["model"] else None, expert)
 
 
-def build_model(args, len_tokenizer: int,
-                seq_group=None) -> GPT2DoubleHeads:
+def build_model(args, len_tokenizer: int, seq_group=None, model_group=None,
+                expert_group=None) -> GPT2DoubleHeads:
     """The run's model; with ``seq_group`` its attention is
-    ``--seq_parallel``'s over that group."""
+    ``--seq_parallel``'s over that group, with ``model_group`` its heads
+    and MLP columns are sliced over that group, with ``--n_experts`` every
+    other block is an MoE block, its experts over ``expert_group``."""
     geometry = (dict(attn_impl=args.seq_parallel, seq_group=seq_group)
                 if seq_group is not None else {})
+    if model_group is not None:
+        geometry["model_group"] = model_group
+    if args.n_experts:
+        geometry.update(n_experts=args.n_experts,
+                        moe_dispatch=args.moe_dispatch,
+                        moe_capacity_factor=args.moe_capacity_factor,
+                        expert_group=expert_group)
     if args.do_test or os.environ.get("COMMEFFICIENT_TINY_MODEL"):
-        model = GPT2DoubleHeads(
-            vocab_size=max(512, len_tokenizer),
-            n_positions=args.max_seq_len, n_embd=64,
-            n_layer=int(os.environ.get("COMMEFFICIENT_TINY_LAYERS", 2)),
-            n_head=2, **geometry)
+        dims = dict(vocab_size=max(512, len_tokenizer),
+                    n_positions=args.max_seq_len, n_embd=64,
+                    n_layer=int(os.environ.get("COMMEFFICIENT_TINY_LAYERS",
+                                               2)), n_head=2)
     else:
-        model = GPT2DoubleHeads(vocab_size=max(FULL_VOCAB, len_tokenizer),
-                                n_positions=1024, **geometry)
+        dims = dict(vocab_size=max(FULL_VOCAB, len_tokenizer),
+                    n_positions=1024, n_embd=768, n_head=12)
     if seq_group is not None and args.seq_parallel == "ulysses":
-        assert model.n_head % args.seq_devices == 0, \
+        assert dims["n_head"] % args.seq_devices == 0, \
             "ulysses needs n_head divisible by --seq_devices"
-    return model
+    if model_group is not None:
+        nm = model_group.size  # realized size, possibly reduced
+        assert dims["n_head"] % nm == 0, \
+            f"--model_devices (realized {nm}) must divide n_head"
+        assert (4 * dims["n_embd"]) % nm == 0, \
+            f"--model_devices (realized {nm}) must divide the MLP hidden dim"
+    if expert_group is not None:
+        ne = expert_group.size  # realized size, possibly reduced
+        assert args.n_experts % ne == 0, \
+            f"--expert_devices (realized {ne}) must divide --n_experts"
+    return GPT2DoubleHeads(**dims, **geometry)
 
 
 def initial_weights(args, model: GPT2DoubleHeads, len_tokenizer: int):
@@ -428,13 +473,15 @@ def _train(args, group):
     # tokenizer; the run then only evaluates
     if args.do_finetune and not args.do_test:
         args.model_checkpoint = args.finetune_path
-    # sequence parallelism: the realized grid decides it
-    seq_group = seq_plane(args, group)
-    model = build_model(args, len(tokenizer), seq_group)
+    # sequence, tensor and expert parallelism: the realized grid decides
+    seq_group, model_group, expert_group = grid_planes(args, group)
+    model = build_model(args, len(tokenizer), seq_group, model_group,
+                        expert_group)
     compute_loss_train, compute_loss_val = make_gpt2_losses(
         model, args.lm_coef, args.mc_coef,
         compute_dtype=torch.bfloat16 if args.do_bf16 else None,
-        seq_group=seq_group)
+        seq_group=seq_group,
+        moe_aux_coef=args.moe_aux_coef if args.n_experts else 0.0)
 
     log_dir = make_logdir(args)
     if group is None or group.is_main:

@@ -54,8 +54,31 @@ whose backward is the identity, so every parameter's gradient on a rank
 is its slice's part and the ranks' gradients sum to the dense one. The
 parameters are the dense model's.
 
-Tensor, pipeline and expert parallelism are not ported (ROADMAP.md queue
-1 item 7).
+Tensor parallelism (``model_group``, a ``ClientGroup`` over the ``model``
+axis): the parameters stay full-shape, so the flat vector, the HF loader
+and ``convert.py`` never see the axis; each block computes ``n_head / M``
+local heads and ``4 C / M`` MLP columns (``TPDense``: ``mode="col"``
+slices the output features, per block of the packed q|k|v, and runs
+``ident_psumct`` on its input; ``mode="row"`` slices the input features
+and sums its output over the group with ``psum_repct``, then adds the bias
+once). It composes with dense or ring attention; Ulysses, which splits
+the heads over the seq axis, is refused as in the JAX package. The
+residual and embedding dropout masks are the same on every model rank
+(one generator); the attention-probability mask has the local-head shape
+and the same pattern on every rank. The round sums the slice-local
+gradients over the group and rescales by ``tp_scale`` (1 on the leaves
+``tp_sliced_param`` names, 1/M on the rest).
+
+Mixture of experts (``n_experts > 0``): block ``i`` with ``i % moe_every
+== moe_every - 1`` (every other block by default) replaces its MLP by
+``parallel/moe.MoEMLP`` (flax leaves ``h{i}/moe/{router, w_fc, b_fc,
+w_proj, b_proj}``), its experts split over ``expert_group`` when given.
+``forward(..., return_aux=True)`` also returns the MoE layers' Switch aux
+losses, one a layer, as a tensor (flax sows them into a collection).
+``load_hf_gpt2`` prints the JAX package's warning for the MoE blocks and
+leaves their experts as initialized.
+
+The pipeline (ROADMAP.md queue 1 item 7.4) is not ported.
 """
 
 from __future__ import annotations
@@ -69,12 +92,26 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from commefficient_torch.ops.collectives import psum_repct
+from commefficient_torch.ops.collectives import ident_psumct, psum_repct
+from commefficient_torch.parallel.moe import MoEMLP
 
 __all__ = ["GPT2Config", "GPT2DoubleHeads", "Block", "GeneratorKeep",
-           "MaskKeep", "resize_token_embeddings", "load_hf_gpt2"]
+           "MaskKeep", "TPDense", "resize_token_embeddings", "load_hf_gpt2",
+           "tp_sliced_param"]
 
 LN_EPSILON = 1e-5
+
+
+def tp_sliced_param(path: str) -> bool:
+    """True for parameters whose gradient each model rank computes for its
+    slice alone (``TPDense``): the packed qkv projection and the MLP
+    up-projection (kernel and bias, column-sliced), and the two
+    row-sliced down-projection kernels. A row-sliced bias is added after
+    the sum, so its gradient is replicated like every other parameter's.
+    ``path`` is the '/'-joined lowercase flax path."""
+    if "attn_qkv" in path or "mlp_fc" in path:
+        return True
+    return ("attn_proj" in path or "mlp_proj" in path) and "kernel" in path
 
 
 class GPT2Config:
@@ -170,33 +207,96 @@ class Embed(nn.Module):
 ATTN_IMPLS = ("dense", "ring", "ulysses")
 
 
+class TPDense(nn.Linear):
+    """An ``nn.Linear`` whose parameters are full-shape (the same leaves
+    as without the axis: flax's kernel ``(in, out)`` is the transpose of
+    ``weight``) and whose compute runs on this rank's slice of
+    ``model_group``: ``mode="col"``, ``x @ kernel[:, cols] + bias[cols]``
+    with the output features cut in ``blocks`` equal parts, each sliced on
+    its own (the packed q|k|v needs a head slice of each part), behind
+    ``ident_psumct``; ``mode="row"``, ``psum_repct(x_local @
+    kernel[rows, :]) + bias`` (the reduction point; the bias added once,
+    after the sum). Without a group, a plain ``nn.Linear``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 model_group=None, mode: str = "col", blocks: int = 1):
+        super().__init__(in_features, out_features)
+        assert mode in ("col", "row"), mode
+        self.model_group = model_group
+        self.mode = mode
+        self.blocks = blocks
+        if model_group is not None:
+            nm = model_group.size
+            split = out_features // blocks if mode == "col" else in_features
+            assert split % nm == 0, \
+                f"{split} features do not divide by the model axis {nm}"
+
+    def forward(self, x):
+        g = self.model_group
+        if g is None:
+            return F.linear(x, self.weight, self.bias)
+        nm, idx = g.size, g.rank
+        if self.mode == "col":
+            x = ident_psumct(x, g)
+            blk = self.out_features // self.blocks
+            sub = blk // nm
+            rows = [b * blk + idx * sub for b in range(self.blocks)]
+            w = torch.cat([self.weight[r:r + sub] for r in rows])
+            bias = torch.cat([self.bias[r:r + sub] for r in rows])
+            return F.linear(x, w, bias)
+        sub = self.in_features // nm
+        w = self.weight[:, idx * sub:(idx + 1) * sub]
+        return psum_repct(F.linear(x, w), g) + self.bias
+
+
 class Block(nn.Module):
     """Pre-LN transformer block: dense causal attention, or ring / Ulysses
     attention over ``seq_group`` (this rank's slice of the sequence, no
-    attention-probs dropout)."""
+    attention-probs dropout); its heads and MLP columns sliced over
+    ``model_group``; an MoE MLP in place of the dense one when
+    ``n_experts > 0``, its experts over ``expert_group``. ``forward``
+    returns ``(x, aux)``, ``aux`` None without MoE."""
 
     def __init__(self, n_embd: int, n_head: int, dropout: float,
-                 attn_impl: str = "dense", seq_group=None):
+                 attn_impl: str = "dense", seq_group=None, model_group=None,
+                 n_experts: int = 0, expert_group=None,
+                 moe_dispatch: str = "dense",
+                 moe_capacity_factor: float = 1.25):
         super().__init__()
         self.n_head = n_head
         self.dropout = dropout
         self.attn_impl = attn_impl
         self.seq_group = seq_group
+        self.model_group = model_group
+        nm = model_group.size if model_group is not None else 1
+        assert n_head % nm == 0, \
+            f"n_head {n_head} does not divide by the model axis {nm}"
+        self.n_local = n_head // nm
         self.ln_1 = LayerNorm(n_embd)
-        self.attn_qkv = nn.Linear(n_embd, 3 * n_embd)
-        self.attn_proj = nn.Linear(n_embd, n_embd)
+        self.attn_qkv = TPDense(n_embd, 3 * n_embd, model_group, "col",
+                                blocks=3)
+        self.attn_proj = TPDense(n_embd, n_embd, model_group, "row")
         self.ln_2 = LayerNorm(n_embd)
-        self.mlp_fc = nn.Linear(n_embd, 4 * n_embd)
-        self.mlp_proj = nn.Linear(4 * n_embd, n_embd)
+        if n_experts > 0:
+            self.moe = MoEMLP(n_embd, n_experts, expert_group=expert_group,
+                              seq_group=(seq_group if attn_impl != "dense"
+                                         else None),
+                              dispatch=moe_dispatch,
+                              capacity_factor=moe_capacity_factor)
+        else:
+            self.mlp_fc = TPDense(n_embd, 4 * n_embd, model_group, "col")
+            self.mlp_proj = TPDense(4 * n_embd, n_embd, model_group, "row")
 
     def forward(self, x, mask, keep=None):
         h = self.ln_1(x)
         B, T, C = h.shape
-        q, k, v = torch.split(self.attn_qkv(h), C, dim=-1)
+        # under tensor parallelism q|k|v hold this rank's local heads
+        q, k, v = torch.chunk(self.attn_qkv(h), 3, dim=-1)
         hd = C // self.n_head
-        q = q.reshape(B, T, self.n_head, hd)
-        k = k.reshape(B, T, self.n_head, hd)
-        v = v.reshape(B, T, self.n_head, hd)
+        nl = self.n_local
+        q = q.reshape(B, T, nl, hd)
+        k = k.reshape(B, T, nl, hd)
+        v = v.reshape(B, T, nl, hd)
         if self.attn_impl == "dense":
             # a Python-float scale, as in flax (a bf16 forward stays bf16)
             att = torch.einsum("bqhd,bkhd->bhqk", q, k) * (
@@ -204,7 +304,8 @@ class Block(nn.Module):
             att = torch.where(mask, att, torch.finfo(att.dtype).min)
             att = torch.softmax(att, dim=-1)
             att = _dropout(att, self.dropout, keep)
-            out = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(B, T, C)
+            out = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(
+                B, T, nl * hd)
         else:
             # T is the local slice; the attention handles global causality
             from commefficient_torch.parallel.ring import ring_attention
@@ -214,22 +315,40 @@ class Block(nn.Module):
 
             attn = {"ring": ring_attention,
                     "ulysses": ulysses_attention}[self.attn_impl]
-            out = attn(q, k, v, self.seq_group, causal=True).reshape(B, T, C)
+            out = attn(q, k, v, self.seq_group, causal=True).reshape(
+                B, T, nl * hd)
         x = x + _dropout(self.attn_proj(out), self.dropout, keep)
-        h = self.mlp_fc(self.ln_2(x))
-        h = F.gelu(h, approximate="tanh")
-        return x + _dropout(self.mlp_proj(h), self.dropout, keep)
+        h = self.ln_2(x)
+        aux = None
+        if hasattr(self, "moe"):
+            h, aux = self.moe(h)
+        else:
+            h = F.gelu(self.mlp_fc(h), approximate="tanh")
+            h = self.mlp_proj(h)
+        return x + _dropout(h, self.dropout, keep), aux
 
 
 class GPT2DoubleHeads(nn.Module):
     def __init__(self, vocab_size: int = 50257, n_positions: int = 1024,
                  n_embd: int = 768, n_layer: int = 12, n_head: int = 12,
                  dropout: float = 0.1, attn_impl: str = "dense",
-                 seq_group=None):
+                 seq_group=None, model_group=None, n_experts: int = 0,
+                 moe_every: int = 2, expert_group=None,
+                 moe_dispatch: str = "dense",
+                 moe_capacity_factor: float = 1.25):
         super().__init__()
         assert attn_impl in ATTN_IMPLS, attn_impl
         assert (attn_impl == "dense") == (seq_group is None), \
             "ring / ulysses attention needs a seq group, dense none"
+        if attn_impl != "dense" and model_group is not None:
+            # ring attention is per head, so it composes with the model
+            # axis's head slices; Ulysses all-to-alls the heads over seq
+            assert attn_impl == "ring", (
+                "tensor parallelism composes with sequence parallelism "
+                "only for attn_impl='ring' (ulysses shards heads over the "
+                "seq axis, conflicting with model-axis head slicing)")
+        if expert_group is not None:
+            assert n_experts > 0, "expert_axis requires n_experts > 0"
         self.config = GPT2Config(vocab_size, n_positions, n_embd, n_layer,
                                  n_head, dropout)
         self.vocab_size = vocab_size
@@ -238,13 +357,33 @@ class GPT2DoubleHeads(nn.Module):
         self.dropout = dropout
         self.attn_impl = attn_impl
         self.seq_group = seq_group
+        self.model_group = model_group
+        self.expert_group = expert_group
+        self.n_experts = n_experts
+        self.moe_every = moe_every
         self.wte = Embed(vocab_size, n_embd)
         self.wpe = Embed(n_positions, n_embd)
         for i in range(n_layer):
-            setattr(self, f"h{i}", Block(n_embd, n_head, dropout,
-                                         attn_impl, seq_group))
+            moe = self.is_moe_block(i)
+            setattr(self, f"h{i}", Block(
+                n_embd, n_head, dropout, attn_impl, seq_group, model_group,
+                n_experts=n_experts if moe else 0,
+                expert_group=expert_group if moe else None,
+                moe_dispatch=moe_dispatch,
+                moe_capacity_factor=moe_capacity_factor))
         self.ln_f = LayerNorm(n_embd)
         self.mc_head = nn.Linear(n_embd, 1)
+
+    def is_moe_block(self, i: int) -> bool:
+        """Block ``i`` carries an MoE MLP: ``n_experts > 0`` and ``i %
+        moe_every == moe_every - 1`` (GShard's every other layer)."""
+        return self.n_experts > 0 and i % self.moe_every == \
+            self.moe_every - 1
+
+    @property
+    def moe_blocks(self):
+        """The indices of the MoE blocks."""
+        return [i for i in range(self.n_layer) if self.is_moe_block(i)]
 
     def initial_model_state(self):
         """GPT-2 carries no model state."""
@@ -259,7 +398,8 @@ class GPT2DoubleHeads(nn.Module):
         for name, p in self.named_parameters():
             if name == "wpe.embedding":
                 std = 0.01
-            elif name == "wte.embedding" or name.endswith(".weight"):
+            elif name == "wte.embedding" or name.endswith(".weight") or \
+                    name.rsplit(".", 1)[-1] in ("router", "w_fc", "w_proj"):
                 std = 0.02
             else:
                 p.fill_(1.0 if name.endswith(".scale") else 0.0)
@@ -270,23 +410,26 @@ class GPT2DoubleHeads(nn.Module):
         """Keep-mask elements one forward of ``n_seq`` sequences of
         ``seq_len`` tokens (the local slice under sequence parallelism)
         draws: the embedding dropout, then per block the attention
-        probabilities (dense attention only) and the two residual
-        branches."""
+        probabilities (dense attention only; this rank's local heads under
+        tensor parallelism) and the two residual branches."""
         c = self.config
         tok = n_seq * seq_len * c.n_embd
-        att = (n_seq * c.n_head * seq_len * seq_len
+        nm = self.model_group.size if self.model_group is not None else 1
+        att = (n_seq * (c.n_head // nm) * seq_len * seq_len
                if self.attn_impl == "dense" else 0)
         return tok + c.n_layer * (att + 2 * tok)
 
     def forward(self, input_ids, token_type_ids=None, mc_token_ids=None,
-                dropout=None):
+                dropout=None, return_aux: bool = False):
         """``input_ids``: ``(..., T)`` integer ids; ``token_type_ids`` the
         same shape; ``mc_token_ids``: ``(...,)`` the classification token's
         position. ``dropout``: a keep-mask source (``GeneratorKeep`` /
         ``MaskKeep``) for the train forward, None for eval.
 
         Returns ``(lm_logits (..., T, vocab), mc_logits (...,))``
-        (``mc_logits`` None without ``mc_token_ids``)."""
+        (``mc_logits`` None without ``mc_token_ids``), and with
+        ``return_aux`` the MoE layers' aux losses ``(n_moe_blocks,)``
+        third."""
         orig_shape = input_ids.shape
         T = orig_shape[-1]
         flat_ids = input_ids.reshape(-1, T)
@@ -301,8 +444,11 @@ class GPT2DoubleHeads(nn.Module):
         x = _dropout(x, self.dropout, dropout)
         mask = None if sp else torch.tril(torch.ones(
             (T, T), dtype=torch.bool, device=input_ids.device))[None, None]
+        auxes = []
         for i in range(self.n_layer):
-            x = getattr(self, f"h{i}")(x, mask, dropout)
+            x, aux = getattr(self, f"h{i}")(x, mask, dropout)
+            if aux is not None:
+                auxes.append(aux)
         x = self.ln_f(x)
         lm_logits = self.wte.attend(x)  # weight-tied LM head
         mc_logits = None
@@ -321,6 +467,10 @@ class GPT2DoubleHeads(nn.Module):
                 mc = psum_repct(mc * in_range.to(mc.dtype), self.seq_group)
             mc_logits = mc.reshape(orig_shape[:-1])
         lm_logits = lm_logits.reshape(tuple(orig_shape) + (self.vocab_size,))
+        if return_aux:
+            aux = (torch.stack(auxes) if auxes else
+                   torch.zeros(0, device=lm_logits.device))
+            return lm_logits, mc_logits, aux
         return lm_logits, mc_logits
 
     @staticmethod
@@ -435,6 +585,11 @@ def load_hf_gpt2(params_template: dict, checkpoint_dir: str):
     put(out["wte"], "embedding", "transformer.wte.weight")
     put(out["wpe"], "embedding", "transformer.wpe.weight")
     n_layer = sum(1 for k in out if k.startswith("h") and k[1:].isdigit())
+    moe_blocks = [i for i in range(n_layer) if "moe" in out[f"h{i}"]]
+    if moe_blocks:
+        print(f"load_hf_gpt2: blocks {moe_blocks} are MoE — their expert "
+              f"MLPs have no HF equivalent and stay freshly initialized "
+              f"(attention/LN weights still load)")
     for i in range(n_layer):
         p = f"transformer.h.{i}."
         blk = out[f"h{i}"]
@@ -445,6 +600,9 @@ def load_hf_gpt2(params_template: dict, checkpoint_dir: str):
                          ("attn_proj", "attn.c_proj"),
                          ("mlp_fc", "mlp.c_fc"),
                          ("mlp_proj", "mlp.c_proj")):
+            if leaf not in blk:
+                # an MoE block: its experts keep the template's values
+                continue
             # Conv1D (in, out) is flax's kernel layout
             put(blk[leaf], "kernel", p + hf + ".weight")
             put(blk[leaf], "bias", p + hf + ".bias")

@@ -3,11 +3,15 @@ client slots split over the ranks of a ``ClientGroup``, the 1-D clients
 plane or the 2-D (clients x shard) grid (``parallel/mesh.py``), and
 GPT-2's sequence parallelism over a ``seq`` axis of ranks: ring attention
 (``parallel/ring.py``) and Ulysses all-to-all attention
-(``parallel/ulysses.py``). The collectives the data plane runs live in
-``ops/collectives.py``."""
+(``parallel/ulysses.py``), its tensor parallelism over a ``model`` axis
+(``models/gpt2.TPDense``) and the mixture-of-experts MLP with its experts
+over an ``expert`` axis (``parallel/moe.py``). The collectives the data
+plane runs live in ``ops/collectives.py``."""
 
 from commefficient_torch.parallel.mesh import (
     CLIENTS_AXIS,
+    EXPERT_AXIS,
+    MODEL_AXIS,
     SEQ_AXIS,
     SHARD_AXIS,
     ClientGroup,
@@ -16,22 +20,27 @@ from commefficient_torch.parallel.mesh import (
     destroy_distributed,
     grid_axes,
     grid_shape,
+    grid_sizes,
     init_distributed,
     main_first,
     make_client_group,
     mesh_axis_placement,
     quiet_unless_main,
+    requested_axes,
     requested_seq_devices,
     start_client_group,
     tuple_index,
     world_from_env,
 )
+from commefficient_torch.parallel.moe import MoEMLP, ep_sliced_param
 from commefficient_torch.parallel.ring import ring_attention
 from commefficient_torch.parallel.ulysses import ulysses_attention
 
-__all__ = ["CLIENTS_AXIS", "SEQ_AXIS", "SHARD_AXIS", "ClientGroup", "World",
-           "client_group_size", "destroy_distributed", "grid_axes",
-           "grid_shape", "init_distributed", "main_first",
-           "make_client_group", "mesh_axis_placement", "quiet_unless_main",
-           "requested_seq_devices", "ring_attention", "start_client_group",
-           "tuple_index", "ulysses_attention", "world_from_env"]
+__all__ = ["CLIENTS_AXIS", "EXPERT_AXIS", "MODEL_AXIS", "SEQ_AXIS",
+           "SHARD_AXIS", "ClientGroup", "MoEMLP", "World",
+           "client_group_size", "destroy_distributed", "ep_sliced_param",
+           "grid_axes", "grid_shape", "grid_sizes", "init_distributed",
+           "main_first", "make_client_group", "mesh_axis_placement",
+           "quiet_unless_main", "requested_axes", "requested_seq_devices",
+           "ring_attention", "start_client_group", "tuple_index",
+           "ulysses_attention", "world_from_env"]

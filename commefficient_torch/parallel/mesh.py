@@ -15,11 +15,12 @@ where the caller asks for the CPU. A caller may name another backend
 explicitly (a test running ``gloo`` on CUDA tensors); nothing picks one
 at run time, and a process group that fails to start raises.
 
-The grid follows the JAX package's policy (``grid_axes``; ``grid_shape``
-is its server axes): the ``seq`` axis is claimed first, then the
-``shard`` axis (``--shard_devices``), which must divide ``num_workers``;
-the ``clients`` axis is ``min(--num_devices, world // (shard x seq))``
-(``-1``: all of it), reduced until ``clients x shard`` divides
+The grid follows the JAX package's policy (``grid_sizes``; ``grid_axes``
+and ``grid_shape`` are its views): the ``model``, ``expert`` and ``seq``
+axes are claimed first (below), then the ``shard`` axis
+(``--shard_devices``), which must divide ``num_workers``; the
+``clients`` axis is ``min(--num_devices, world // (shard x seq x model x
+expert))`` (``-1``: all of it), reduced until ``clients x shard`` divides
 ``num_workers``. Ranks past the grid are idle (``ClientGroup.active`` is
 False), as the devices past the JAX mesh are. A world of 1 keeps the
 process-group path live, as the JAX package's 1-device mesh does.
@@ -53,6 +54,28 @@ order), and the seq axis of ``p`` is ``{p * Q + q : q}``
 (``ClientGroup.seq``, ``ClientGroup.axis("seq")``). At ``Q = 1`` the
 numbering is the grid's above, unchanged.
 
+The ``model`` axis (``--model_devices M``, GPT-2's tensor parallelism)
+and the ``expert`` axis (``--expert_devices E`` with ``--n_experts``,
+expert parallelism of the MoE blocks) follow the JAX mesh's axis order
+``clients, shard, seq, model, expert``, the last varying fastest. JAX's
+``make_mesh`` reshapes the device list row-major into that shape, so
+device ``i`` sits at ``e = i % E``, ``m = (i // E) % M``, ``q = (i //
+(E M)) % Q`` and ``(c, s)`` as above from ``i // (Q M E)``, and its
+process rank is ``((p * Q + q) * M + m) * E + e`` (``tuple_index``: ``p``
+times the inner size ``Q M E`` plus the device's inner index). The axes
+claim their devices in JAX's priority ``model > stage > expert > seq >
+clients`` (``grid_sizes``), each clamp with JAX's warning; the expert axis
+shrinks to a divisor of ``--n_experts``. The ranks of one tuple index
+(all its seq, model and expert indices) run the same client slots and the
+same server step; the server reduce tuple of inner index ``j`` is ``{p *
+Q M E + j : p}``, and the rank's group along ``model`` (``expert``) holds
+the ranks that differ from it in ``m`` (``e``) alone
+(``ClientGroup.axis("model")``, ``ClientGroup.axis("expert")``). Every
+rank creates every subgroup, in one order: the tuples, then the seq,
+model and expert axes, then the shard and clients axes. The pipeline's
+``stage`` axis is not ported (``--pipeline_devices`` raises naming
+ROADMAP.md queue 1 item 7.4).
+
 ``mesh_axis_placement``: ``clients`` rides ``dcn`` exactly when the world
 spans more than one node (``LOCAL_WORLD_SIZE < WORLD_SIZE``), every other
 axis ``ici``; ``COMMEFFICIENT_FORCE_DCN_AXIS=<axis>`` forces one axis to
@@ -73,6 +96,11 @@ import torch.distributed as dist
 CLIENTS_AXIS = "clients"
 SHARD_AXIS = "shard"
 SEQ_AXIS = "seq"
+MODEL_AXIS = "model"
+EXPERT_AXIS = "expert"
+# the axes inside a tuple index, in the JAX mesh's order (the last varies
+# fastest)
+INNER_AXES = (SEQ_AXIS, MODEL_AXIS, EXPERT_AXIS)
 
 
 @dataclass(frozen=True)
@@ -90,9 +118,10 @@ class ClientGroup:
     is ``mesh_axis_placement``'s ``(axis, "ici" | "dcn")`` pairs and
     ``nodes`` the node count of the world. ``seq`` is this rank's group
     along the ``seq`` axis (its ``rank`` the seq index), None without
-    one; ``backend`` the process group's backend name, fixed when the
-    group is built (``parallel/ring.py`` picks its neighbour shift by
-    it)."""
+    one; ``model`` and ``expert`` its groups along those axes (None
+    without them); ``backend`` the process group's backend name, fixed
+    when the group is built (``parallel/ring.py`` picks its neighbour
+    shift by it)."""
 
     group: Any
     rank: int
@@ -104,6 +133,8 @@ class ClientGroup:
     nodes: int = 1
     seq: Optional["ClientGroup"] = None
     backend: str = ""
+    model: Optional["ClientGroup"] = None
+    expert: Optional["ClientGroup"] = None
 
     def slots(self, W: int) -> Tuple[int, int]:
         """This rank's ``[lo, hi)`` of a round's ``W`` slots."""
@@ -111,10 +142,35 @@ class ClientGroup:
         per = W // self.size
         return self.rank * per, (self.rank + 1) * per
 
+    def _inner(self):
+        """``(axis, group)`` of the seq, model and expert axes this rank
+        has, in mesh order."""
+        return tuple((name, g) for name, g in zip(
+            INNER_AXES, (self.seq, self.model, self.expert)) if g is not None)
+
+    @property
+    def inner_size(self) -> int:
+        """The ranks of one tuple index: the product of the seq, model and
+        expert axes."""
+        n = 1
+        for _, g in self._inner():
+            n *= g.size
+        return n
+
+    @property
+    def process_rank(self) -> int:
+        """This process's rank in the world: ``rank`` times the inner size
+        plus its index along the inner axes (row-major)."""
+        j = 0
+        for _, g in self._inner():
+            j = j * g.size + g.rank
+        return self.rank * self.inner_size + j
+
     @property
     def is_main(self) -> bool:
-        """Rank 0 of the server reduce tuple, at seq index 0."""
-        return self.rank == 0 and (self.seq is None or self.seq.rank == 0)
+        """Rank 0 of the server reduce tuple, at index 0 of the seq, model
+        and expert axes."""
+        return self.rank == 0 and all(g.rank == 0 for _, g in self._inner())
 
     @property
     def server_axes(self):
@@ -134,9 +190,10 @@ class ClientGroup:
 
     def axis(self, name: str) -> "ClientGroup":
         """This rank's group along server reduce axis ``name``, or along
-        the ``seq`` axis."""
-        if name == SEQ_AXIS and self.seq is not None:
-            return self.seq
+        the ``seq``, ``model`` or ``expert`` axis."""
+        for ax, g in self._inner():
+            if ax == name:
+                return g
         if not self.axes and name == CLIENTS_AXIS:
             return self
         for ax, g in self.axes:
@@ -168,11 +225,10 @@ class ClientGroup:
         sizes = dict(self.axis_sizes)
         place = self.axis_placement()
         names = [CLIENTS_AXIS] + [a for a in sizes if a != CLIENTS_AXIS]
-        if self.seq is not None:
-            names.append(SEQ_AXIS)
-            sizes[SEQ_AXIS] = self.seq.size
-        return {"process_count": int(self.size * (self.seq.size if self.seq
-                                                  else 1)),
+        for name, g in self._inner():
+            names.append(name)
+            sizes[name] = g.size
+        return {"process_count": int(self.size * self.inner_size),
                 "nodes": int(self.nodes),
                 "axes": [{"name": a, "size": int(sizes[a]),
                           "placement": place.get(a, "ici")}
@@ -268,46 +324,78 @@ def destroy_distributed() -> None:
         dist.destroy_process_group()
 
 
-def grid_axes(num_workers: int, num_devices: int = -1,
-              shard_devices: int = 1, world: int = 1,
-              seq_devices: int = 1) -> Tuple[int, int, int]:
-    """``(n_clients, n_shard, n_seq)``: the JAX package's
-    ``default_client_mesh`` policy over ``world`` devices without the
-    model, stage and expert axes, its clamps and warnings word for word.
-    The seq axis is claimed first (``min(seq_devices, world)``); the
-    shard axis next, reduced to a divisor of ``num_workers``; the clients
-    axis is ``min(num_devices, world // (n_shard * n_seq))``
-    (``num_devices <= 0``: all of it), reduced until ``n_clients *
-    n_shard`` divides ``num_workers``."""
+def grid_sizes(num_workers: int, num_devices: int = -1,
+               shard_devices: int = 1, world: int = 1, seq_devices: int = 1,
+               model_devices: int = 1, expert_devices: int = 1,
+               n_experts: int = 0) -> dict:
+    """``{axis: size}`` of the grid over ``world`` devices: the JAX
+    package's ``default_client_mesh`` policy without the pipeline's
+    ``stage`` axis, its clamps and warnings word for word. The axes claim
+    devices in the priority ``model > stage > expert > seq > clients``:
+    the model axis ``min(model_devices, world)``; the expert axis next,
+    reduced to a divisor of ``n_experts`` (when it is set); the seq axis;
+    the shard axis, reduced to a divisor of ``num_workers``; the clients
+    axis ``min(num_devices, world // (shard x seq x model x expert))``
+    (``num_devices <= 0``: all of it), reduced until ``clients x shard``
+    divides ``num_workers``. Keys in mesh order: ``clients``, ``shard``,
+    ``seq``, ``model``, ``expert`` (every key present, 1 where the grid has
+    no such axis)."""
     n_avail = world
-    ns = max(1, min(seq_devices, n_avail))
+    npp = 1
+    nm = max(1, min(model_devices, n_avail))
+    if model_devices > nm:
+        warnings.warn(f"--model_devices {model_devices} reduced to {nm} "
+                      f"(only {n_avail} devices available)", stacklevel=2)
+    ne = max(1, min(expert_devices, n_avail // (nm * npp)))
+    if n_experts > 0:
+        # the expert axis must divide the expert count (the slice is E/ne)
+        while n_experts % ne:
+            ne -= 1
+    if expert_devices > ne:
+        warnings.warn(f"--expert_devices {expert_devices} reduced to "
+                      f"{ne} (only {n_avail} devices available"
+                      + (f"; must divide --n_experts {n_experts}"
+                         if n_experts > 0 else "") + ")",
+                      stacklevel=2)
+    ns = max(1, min(seq_devices, n_avail // (nm * npp * ne)))
     if seq_devices > ns:
         warnings.warn(f"--seq_devices {seq_devices} reduced to {ns} "
-                      f"(only {n_avail} devices available; 1 model x "
-                      f"1 stage x 1 expert device(s) claimed first — "
+                      f"(only {n_avail} devices available; {nm} model x "
+                      f"{npp} stage x {ne} expert device(s) claimed first — "
                       f"axis priority model > stage > expert > seq)",
                       stacklevel=2)
-    nsh = max(1, min(shard_devices, n_avail // ns))
+    nsh = max(1, min(shard_devices, n_avail // (ns * nm * npp * ne)))
     while num_workers % nsh:
         nsh -= 1
     if shard_devices > nsh:
         warnings.warn(f"--shard_devices {shard_devices} reduced to {nsh} "
                       f"(must divide num_workers={num_workers}; "
-                      f"{n_avail} devices available, {ns} "
+                      f"{n_avail} devices available, {ns * nm * npp * ne} "
                       f"claimed by seq/model/stage/expert)", stacklevel=2)
     requested = num_devices if num_devices and num_devices > 0 \
         else n_avail
-    n = max(1, min(requested, n_avail // (nsh * ns)))
+    n = max(1, min(requested, n_avail // (nsh * ns * nm * npp * ne)))
     while num_workers % (n * nsh):
         n -= 1
-    if 0 < num_devices != n and num_devices != n * nsh * ns:
+    if 0 < num_devices != n and num_devices != n * nsh * ns * nm * npp * ne:
         warnings.warn(
             f"--num_devices {num_devices} reduced to {n} on the clients axis "
             f"(must divide num_workers={num_workers}; {nsh} shard x {ns} seq "
-            f"x 1 model x 1 stage x 1 expert device(s) per client "
+            f"x {nm} model x {npp} stage x {ne} expert device(s) per client "
             f"shard; {n_avail} available devices)",
             stacklevel=2)
-    return n, nsh, ns
+    return {CLIENTS_AXIS: n, SHARD_AXIS: nsh, SEQ_AXIS: ns, MODEL_AXIS: nm,
+            EXPERT_AXIS: ne}
+
+
+def grid_axes(num_workers: int, num_devices: int = -1,
+              shard_devices: int = 1, world: int = 1,
+              seq_devices: int = 1) -> Tuple[int, int, int]:
+    """``(n_clients, n_shard, n_seq)`` of ``grid_sizes`` without the model
+    and expert axes."""
+    sizes = grid_sizes(num_workers, num_devices, shard_devices, world,
+                       seq_devices)
+    return sizes[CLIENTS_AXIS], sizes[SHARD_AXIS], sizes[SEQ_AXIS]
 
 
 def grid_shape(num_workers: int, num_devices: int = -1,
@@ -325,17 +413,19 @@ def client_group_size(num_workers: int, num_devices: int, world: int) -> int:
 
 
 def tuple_index(device_index: int, n_clients: int, n_shard: int,
-                n_seq: int = 1) -> int:
-    """The process rank ``p * n_seq + q`` of the device at ``q = i %
-    n_seq``, ``c = (i // n_seq) // n_shard``, ``s = (i // n_seq) %
-    n_shard``, where ``p = s * n_clients + c`` is its index in the server
-    reduce tuple (``p`` itself at ``n_seq = 1``); a device past the grid
-    keeps its index."""
-    if device_index >= n_clients * n_shard * n_seq:
+                n_seq: int = 1, n_model: int = 1, n_expert: int = 1) -> int:
+    """The process rank ``p * I + j`` of the device at inner index ``j =
+    i % I`` (``I = n_seq * n_model * n_expert``: ``j = (q * n_model + m) *
+    n_expert + e``, the JAX mesh's row-major order of its minor axes),
+    ``c = (i // I) // n_shard``, ``s = (i // I) % n_shard``, where ``p = s
+    * n_clients + c`` is its index in the server reduce tuple (``p`` itself
+    when ``I = 1``); a device past the grid keeps its index."""
+    inner = n_seq * n_model * n_expert
+    if device_index >= n_clients * n_shard * inner:
         return device_index
-    j, q = divmod(device_index, n_seq)
+    j, q = divmod(device_index, inner)
     c, s = divmod(j, n_shard)
-    return (s * n_clients + c) * n_seq + q
+    return (s * n_clients + c) * inner + q
 
 
 def mesh_axis_placement(n_shard: int = 1, nodes: int = 1) -> dict:
@@ -355,23 +445,28 @@ def mesh_axis_placement(n_shard: int = 1, nodes: int = 1) -> dict:
 def make_client_group(num_workers: int, num_devices: int = -1,
                       device: Optional[torch.device] = None,
                       shard_devices: int = 1, nodes: int = 1,
-                      seq_devices: int = 1) -> Optional[ClientGroup]:
+                      seq_devices: int = 1, model_devices: int = 1,
+                      expert_devices: int = 1,
+                      n_experts: int = 0) -> Optional[ClientGroup]:
     """The client grid of a running process group whose ranks are
     numbered by ``tuple_index``, or None when none is initialized (the
     single-device round). Every rank must call it: a grid smaller than
     the world is a new subgroup of the first ``N`` ranks, the axis
-    subgroups (and, with a seq axis, each seq index's server reduce tuple
-    and each tuple index's seq axis) are new groups, and the ranks past
-    the grid get ``active=False``. ``nodes``: the world's node count
-    (placement and the multi-node check)."""
+    subgroups (and, with inner axes, each inner index's server reduce
+    tuple and each tuple index's seq, model and expert axes) are new
+    groups, and the ranks past the grid get ``active=False``. ``nodes``:
+    the world's node count (placement and the multi-node check)."""
     if not (dist.is_available() and dist.is_initialized()):
         return None
     world = dist.get_world_size()
     rank = dist.get_rank()
-    nc, nsh, ns = grid_axes(num_workers, num_devices, shard_devices, world,
-                            seq_devices)
+    sizes = grid_sizes(num_workers, num_devices, shard_devices, world,
+                       seq_devices, model_devices, expert_devices, n_experts)
+    nc, nsh = sizes[CLIENTS_AXIS], sizes[SHARD_AXIS]
+    dims = [sizes[a] for a in INNER_AXES]   # (Q, M, E)
+    inner = dims[0] * dims[1] * dims[2]
     n = nc * nsh
-    total = n * ns
+    total = n * inner
     if nodes > 1 and total == world and nc % nodes:
         raise ValueError(
             f"multi-node grid: the clients axis clients={nc} must be "
@@ -382,40 +477,70 @@ def make_client_group(num_workers: int, num_devices: int = -1,
     backend = dist.get_backend()
     placement = tuple(mesh_axis_placement(nsh, nodes).items())
     active = rank < total
-    p, q = divmod(rank, ns) if active else (rank, 0)
+    p, j = divmod(rank, inner) if active else (rank, 0)
 
-    def rank_of(pp: int, qq: int) -> int:
-        return pp * ns + qq
+    def rank_of(pp: int, jj: int) -> int:
+        return pp * inner + jj
+
+    def unravel(jj: int):
+        q, rest = divmod(jj, dims[1] * dims[2])
+        m, e = divmod(rest, dims[2])
+        return [q, m, e]
+
+    def ravel(idx) -> int:
+        return (idx[0] * dims[1] + idx[1]) * dims[2] + idx[2]
 
     # every rank creates every group, in one order
-    seq = None
-    if ns == 1:
+    group = None
+    if inner == 1:
         group = None if n == world else dist.new_group(list(range(n)))
     else:
-        tuples = [dist.new_group([rank_of(pp, qq) for pp in range(n)])
-                  for qq in range(ns)]
-        seqs = [dist.new_group([rank_of(pp, qq) for qq in range(ns)])
-                for pp in range(n)]
-        group = tuples[q] if active else None
+        tuples = [dist.new_group([rank_of(pp, jj) for pp in range(n)])
+                  for jj in range(inner)]
+        group = tuples[j] if active else None
+    inner_groups = {}
+    for k, name in enumerate(INNER_AXES):
+        if dims[k] == 1:
+            continue
+        # the groups along axis k: one for each tuple index and each
+        # index of the other inner axes, in rank order
+        made = {}
+        for pp in range(n):
+            for jj in range(inner):
+                idx = unravel(jj)
+                if idx[k]:
+                    continue
+                members = []
+                for v in range(dims[k]):
+                    idx[k] = v
+                    members.append(rank_of(pp, ravel(idx)))
+                made[(pp, jj)] = dist.new_group(members)
         if active:
-            seq = ClientGroup(seqs[p], q, ns, device, backend=backend)
+            idx = unravel(j)
+            pos = idx[k]
+            idx[k] = 0
+            inner_groups[name] = ClientGroup(made[(p, ravel(idx))], pos,
+                                             dims[k], device,
+                                             backend=backend)
     axes = ()
     if nsh > 1:
-        shard_groups = [[dist.new_group([rank_of(s * nc + c, qq)
+        shard_groups = [[dist.new_group([rank_of(s * nc + c, jj)
                                          for s in range(nsh)])
-                         for c in range(nc)] for qq in range(ns)]
-        client_groups = [[dist.new_group([rank_of(s * nc + c, qq)
+                         for c in range(nc)] for jj in range(inner)]
+        client_groups = [[dist.new_group([rank_of(s * nc + c, jj)
                                           for c in range(nc)])
-                          for s in range(nsh)] for qq in range(ns)]
+                          for s in range(nsh)] for jj in range(inner)]
         if active:
             s, c = divmod(p, nc)
-            axes = ((SHARD_AXIS, ClientGroup(shard_groups[q][c], s, nsh,
+            axes = ((SHARD_AXIS, ClientGroup(shard_groups[j][c], s, nsh,
                                              device, backend=backend)),
-                    (CLIENTS_AXIS, ClientGroup(client_groups[q][s], c, nc,
+                    (CLIENTS_AXIS, ClientGroup(client_groups[j][s], c, nc,
                                                device, backend=backend)))
     return ClientGroup(group, p, n, device, active=active, axes=axes,
-                       placement=placement, nodes=nodes, seq=seq,
-                       backend=backend)
+                       placement=placement, nodes=nodes,
+                       seq=inner_groups.get(SEQ_AXIS), backend=backend,
+                       model=inner_groups.get(MODEL_AXIS),
+                       expert=inner_groups.get(EXPERT_AXIS))
 
 
 def requested_seq_devices(args) -> int:
@@ -425,6 +550,20 @@ def requested_seq_devices(args) -> int:
     return int(getattr(args, "seq_devices", 1) or 1)
 
 
+def requested_axes(args) -> dict:
+    """The inner axes an entry point asks the grid for: ``seq_devices``
+    (``requested_seq_devices``), ``model_devices`` (``--model_devices``),
+    ``expert_devices`` (``--expert_devices`` when ``--n_experts`` is set,
+    else 1, as the JAX package's ``gpt2_train`` asks) and ``n_experts``:
+    the keywords of ``grid_sizes`` and ``make_client_group``."""
+    n_experts = int(getattr(args, "n_experts", 0) or 0)
+    return {"seq_devices": requested_seq_devices(args),
+            "model_devices": int(getattr(args, "model_devices", 1) or 1),
+            "expert_devices": (int(getattr(args, "expert_devices", 1) or 1)
+                               if n_experts else 1),
+            "n_experts": n_experts}
+
+
 def start_client_group(args, init_method: Optional[str] = None,
                        backend: Optional[str] = None
                        ) -> Optional[ClientGroup]:
@@ -432,26 +571,27 @@ def start_client_group(args, init_method: Optional[str] = None,
     (``world_from_env``) the process group on ``args.device``
     (``cuda:LOCAL_RANK`` with NCCL, or gloo on the CPU, unless the caller
     names ``backend``; ``init_method`` defaults to the launch's
-    rendezvous), numbered by ``tuple_index``, and its grid (with a
-    ``seq`` axis under ``--seq_parallel``); else None (one device)."""
+    rendezvous), numbered by ``tuple_index``, and its grid (with the
+    ``seq``, ``model`` and ``expert`` axes it asks for, ``requested_axes``);
+    else None (one device)."""
     env = world_from_env()
     if env is None:
         return None
     shard = int(getattr(args, "shard_devices", 1) or 1)
-    seq = requested_seq_devices(args)
+    inner = requested_axes(args)
     with warnings.catch_warnings():
         # make_client_group warns once the group is up
         warnings.simplefilter("ignore")
-        nc, nsh, ns = grid_axes(args.num_workers, args.num_devices, shard,
-                                env.size, seq)
+        sizes = grid_sizes(args.num_workers, args.num_devices, shard,
+                           env.size, **inner)
     device = init_distributed(
         args.device, backend=backend,
         init_method=init_method or env.init_method,
-        rank=tuple_index(env.rank, nc, nsh, ns), world_size=env.size,
-        local_rank=env.local_rank)
+        rank=tuple_index(env.rank, sizes[CLIENTS_AXIS], sizes[SHARD_AXIS],
+                         *(sizes[a] for a in INNER_AXES)),
+        world_size=env.size, local_rank=env.local_rank)
     return make_client_group(args.num_workers, args.num_devices, device,
-                             shard_devices=shard, nodes=env.nodes,
-                             seq_devices=seq)
+                             shard_devices=shard, nodes=env.nodes, **inner)
 
 
 def main_first(fn, group: Optional[ClientGroup] = None):

@@ -353,5 +353,5 @@ def test_gpt2_train_refuses_what_is_not_ported(tmp_path):
         gpt2_train.train(TRAIN_ARGV + ["--collective_plan",
                                        "table=ici:fp32/dcn:int8"])
     with pytest.raises(NotImplementedError, match="item 7"):
-        gpt2_train.train(TRAIN_ARGV + ["--model_devices", "2"])
+        gpt2_train.train(TRAIN_ARGV + ["--pipeline_devices", "2"])
     assert os.environ.get("COMMEFFICIENT_RUN_DIR") is None

@@ -189,9 +189,14 @@ def test_cv_train_main_cpu(tmp_path, monkeypatch):
 # places are taken by flags of planes still unported). The 2-D plane's
 # flags (--plan_error_budget, --shard_devices, --collective_plan auto)
 # are ported too: they parse as the JAX package parses them. So does
-# --seq_parallel (GPT-2's sequence parallelism), with its --seq_devices.
+# --seq_parallel (GPT-2's sequence parallelism), with its --seq_devices,
+# and so do tensor parallelism's --model_devices and the experts'
+# --n_experts and --expert_devices. The pipeline's --pipeline_devices and
+# --pp_microbatches still raise, naming item 7.
 PORTED_2D = ("--plan_error_budget", "--shard_devices", "--collective_plan")
 PORTED_SEQ = ("--seq_parallel",)
+PORTED_TP_EP = {"--model_devices": [], "--n_experts": [],
+                "--expert_devices": ["--n_experts", "4"]}
 
 
 @pytest.mark.parametrize("flag", [["--plan_error_budget", "0.1"],
@@ -204,6 +209,14 @@ PORTED_SEQ = ("--seq_parallel",)
                                   ["--pipeline_devices", "2"],
                                   ["--collective_plan", "auto"]])
 def test_unported_options_raise(flag):
+    if flag[0] in PORTED_TP_EP:
+        argv = ARGV + flag + PORTED_TP_EP[flag[0]]
+        ja, ta = j_parse(argv=argv), t_parse(argv=argv + ["--device", "cpu"])
+        for dest in ("model_devices", "n_experts", "expert_devices",
+                     "moe_dispatch", "moe_capacity_factor", "moe_aux_coef"):
+            assert getattr(ta, dest) == getattr(ja, dest), (flag, dest)
+        assert getattr(ta, flag[0].lstrip("-")) == 2
+        return
     if flag[0] in PORTED_SEQ:
         ja, ta = j_parse(argv=ARGV + flag), t_parse(argv=ARGV + flag
                                                     + ["--device", "cpu"])
@@ -211,7 +224,7 @@ def test_unported_options_raise(flag):
             (ja.seq_parallel, ja.seq_devices) == ("ring", 2)
         return
     if flag[0] not in PORTED_2D:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
             t_parse(argv=ARGV + ["--device", "cpu"] + flag)
         return
     argv = ARGV + flag + (["--server_shard"] if flag[0] != "--plan_error_budget"
@@ -284,7 +297,7 @@ def test_batchnorm_names_its_roadmap_item():
     assert t_parse(argv=ARGV + ["--device", "cpu", "--churn",
                                 "join=1"]).churn == "join=1"
     with pytest.raises(NotImplementedError, match="item 7"):
-        t_parse(argv=ARGV + ["--device", "cpu", "--n_experts", "2"])
+        t_parse(argv=ARGV + ["--device", "cpu", "--pp_microbatches", "2"])
 
 
 def test_per_client_worker_path_not_ported():

@@ -466,11 +466,7 @@ def test_cv_train_log_renders_with_obs_report(tmp_path):
 
 # flags still unported -> the item their NotImplementedError names
 UNPORTED_ITEMS = {
-    "--model_devices": "item 7",
     "--pipeline_devices": "item 7", "--pp_microbatches": "item 7",
-    "--n_experts": "item 7", "--expert_devices": "item 7",
-    "--moe_dispatch": "item 7", "--moe_capacity_factor": "item 7",
-    "--moe_aux_coef": "item 7",
 }
 # accepted and ignored, as the JAX package ignores them
 IGNORED = ("--port", "--share_ps_gpu", "--nan_threshold",
@@ -479,6 +475,7 @@ IGNORED = ("--port", "--share_ps_gpu", "--nan_threshold",
 VALUES = {
     "--reduce_dtype": ["int8", "--server_shard"],
     "--shard_devices": ["2", "--server_shard"],
+    "--expert_devices": ["2", "--n_experts", "2"],
     "--collective_plan": ["float32"], "--inject_fault": ["2:nan"],
     "--watch_rules": ["loss>2"], "--trace_rounds": ["1:1"],
     "--participation": ["0.5"], "--churn": ["join=1"],

@@ -879,14 +879,19 @@ def body_seq_attention(cg, cases):
     return out
 
 
-def tiny_gpt2(spec, impl=None, seq_group=None):
-    """The tests' tiny GPT-2 (``spec["model"]``), seq-parallel over
-    ``seq_group`` with ``impl``, or dense."""
+def tiny_gpt2(spec, impl=None, seq_group=None, model_group=None,
+              expert_group=None):
+    """The tests' tiny GPT-2 (``spec["model"]``, which may name
+    ``n_experts``), seq-parallel over ``seq_group`` with ``impl``, its
+    heads over ``model_group`` and its experts over ``expert_group``, or
+    dense."""
     from commefficient_torch.models.gpt2 import GPT2DoubleHeads
 
     geometry = ({"attn_impl": impl, "seq_group": seq_group}
                 if seq_group is not None else {})
-    return GPT2DoubleHeads(**spec["model"], **geometry)
+    return GPT2DoubleHeads(**spec["model"], **geometry,
+                           model_group=model_group,
+                           expert_group=expert_group)
 
 
 def body_seq_forward(cg, spec):
@@ -933,10 +938,14 @@ def body_seq_rounds(cg, spec):
     from commefficient_torch.federated import FedModel, FedOptimizer
     from commefficient_torch.federated.losses import make_gpt2_losses
     from commefficient_torch.ops.flat import ParamLayout
-    from commefficient_torch.parallel.mesh import make_client_group
+    from commefficient_torch.parallel.mesh import (
+        make_client_group,
+        requested_axes,
+    )
 
     out = []
     for run in spec["runs"]:
+        args = parse_args(argv=list(run["argv"]) + ["--device", "cpu"])
         if run.get("single"):
             # the single-device round, on rank 0 alone
             if cg.rank != 0:
@@ -946,14 +955,21 @@ def body_seq_rounds(cg, spec):
         else:
             group = make_client_group(spec["W"], run["num_devices"],
                                       torch.device("cpu"),
-                                      seq_devices=run["seq"])
-        args = parse_args(argv=list(run["argv"]) + ["--device", "cpu"])
+                                      **dict(requested_axes(args),
+                                             seq_devices=run["seq"]))
         seq_group = (group.seq if group is not None
                      and args.seq_parallel != "none" else None)
-        mspec = dict(spec, model=dict(spec["model"],
-                                      dropout=run.get("dropout", 0.0)))
-        m = tiny_gpt2(mspec, run["impl"], seq_group)
-        train, val = make_gpt2_losses(m, seq_group=seq_group)
+        model_group = group.model if group is not None else None
+        expert_group = group.expert if group is not None else None
+        mspec = dict(spec, model=dict(
+            spec["model"], dropout=run.get("dropout", 0.0),
+            n_experts=args.n_experts, moe_dispatch=args.moe_dispatch,
+            moe_capacity_factor=args.moe_capacity_factor))
+        m = tiny_gpt2(mspec, run["impl"], seq_group, model_group,
+                      expert_group)
+        train, val = make_gpt2_losses(
+            m, seq_group=seq_group,
+            moe_aux_coef=args.moe_aux_coef if args.n_experts else 0.0)
         draws = []
         if run.get("dropout"):
             inner = train.draw_rng
@@ -970,13 +986,20 @@ def body_seq_rounds(cg, spec):
                       device="cpu", group=group)
         opt = FedOptimizer(fm, args)
         opt.set_lr_factor(spec["lr"])
-        rec = {"seq_axis": fm.worker_config.seq_axis, "w": [], "res": [],
-               "table": []}
+        rec = {"seq_axis": fm.worker_config.seq_axis,
+               "model_axis": fm.worker_config.model_axis,
+               "expert_axis": fm.worker_config.expert_axis, "w": [],
+               "res": [], "table": []}
         if group is not None:
             rec.update(rank=group.rank, size=group.size,
                        seq=None if group.seq is None else
                        (group.seq.rank, group.seq.size),
-                       is_main=group.is_main, topology=group.topology())
+                       model=None if group.model is None else
+                       (group.model.rank, group.model.size),
+                       expert=None if group.expert is None else
+                       (group.expert.rank, group.expert.size),
+                       is_main=group.is_main, topology=group.topology(),
+                       process_rank=group.process_rank)
         for b in spec["batches"]:
             h = fm.begin_round(b)
             rec["table"].append(_np(fm._round_ctx.gradient))
@@ -989,4 +1012,92 @@ def body_seq_rounds(cg, spec):
         fm.train(False)
         rec["val"] = fm(spec["val"])
         out.append(rec)
+    return out
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism and experts (the model and expert axes)
+# --------------------------------------------------------------------------
+
+def _grid_of_spawn(cg, seq: int = 1, model: int = 1, expert: int = 1,
+                   n_experts: int = 0):
+    """This spawn's ranks as one tuple index with the inner axes asked
+    for (a grid of one client slot)."""
+    import torch
+
+    from commefficient_torch.parallel.mesh import make_client_group
+
+    g = make_client_group(1, 1, torch.device("cpu"), seq_devices=seq,
+                          model_devices=model, expert_devices=expert,
+                          n_experts=n_experts)
+    assert g.active and g.inner_size == cg.size, (g, cg.size)
+    return g
+
+
+def body_mp_forward(cg, spec):
+    """The GPT-2 forward under each of ``spec["cases"]`` (``{"seq",
+    "model", "expert", "impl"}``) over this spawn's ranks, from the flat
+    JAX-order weights ``spec["flat0"]``: this rank's LM logits (its slice
+    of the sequence), the multiple-choice logits and the aux losses."""
+    import torch
+    from torch.func import functional_call
+
+    from commefficient_torch.convert import flat_from_jax
+    from commefficient_torch.ops.flat import ParamLayout
+
+    out = []
+    for c in spec["cases"]:
+        g = _grid_of_spawn(cg, c.get("seq", 1), c.get("model", 1),
+                           c.get("expert", 1),
+                           spec["model"].get("n_experts", 0))
+        n = g.seq.size if g.seq is not None else 1
+        r = g.seq.rank if g.seq is not None else 0
+        T = spec["ids"].shape[-1]
+        sl = slice(r * T // n, (r + 1) * T // n)
+        m = tiny_gpt2(spec, c.get("impl"), g.seq, g.model, g.expert)
+        layout = ParamLayout(m)
+        w = flat_from_jax(spec["flat0"], layout)
+        with torch.no_grad():
+            lm, mc, aux = functional_call(
+                m, layout.params(w), (_t(spec["ids"][..., sl]),),
+                {"token_type_ids": _t(spec["tti"][..., sl]),
+                 "mc_token_ids": _t(spec["mc"]), "return_aux": True})
+        out.append({"lm": _np(lm), "mc": _np(mc), "aux": _np(aux),
+                    "process_rank": g.process_rank})
+    return out
+
+
+def body_moe_mlp(cg, spec):
+    """``MoEMLP`` under each of ``spec["cases"]`` (``{"seq", "expert",
+    "dispatch", "cf"}``) over this spawn's ranks, from the flax leaves
+    ``spec["params"]`` on ``spec["x"]`` ``(B, T, C)`` (cut on T over the
+    seq axis): this rank's output, the aux, and the gradients of ``sum(out
+    * ct) + aux`` by the input and each leaf."""
+    import torch
+
+    from commefficient_torch.parallel.moe import MoEMLP
+
+    C, E = spec["x"].shape[-1], spec["n_experts"]
+    out = []
+    for c in spec["cases"]:
+        g = _grid_of_spawn(cg, c.get("seq", 1), 1, c.get("expert", 1), E)
+        n = g.seq.size if g.seq is not None else 1
+        r = g.seq.rank if g.seq is not None else 0
+        T = spec["x"].shape[1]
+        sl = slice(r * T // n, (r + 1) * T // n)
+        mod = MoEMLP(C, E, expert_group=g.expert, seq_group=g.seq,
+                     dispatch=c.get("dispatch", "dense"),
+                     capacity_factor=c.get("cf", 1.25))
+        with torch.no_grad():
+            for k, v in spec["params"].items():
+                getattr(mod, k).copy_(_t(v))
+        x = _t(spec["x"][:, sl]).requires_grad_()
+        y, aux = mod(x)
+        loss = (y * _t(spec["ct"][:, sl])).sum() + aux
+        names = sorted(spec["params"])
+        grads = torch.autograd.grad(loss, [x] + [getattr(mod, k)
+                                                 for k in names])
+        out.append({"out": _np(y), "aux": float(aux),
+                    "gx": _np(grads[0]),
+                    "grads": {k: _np(gr) for k, gr in zip(names, grads[1:])}})
     return out
