@@ -333,6 +333,21 @@ Phases (any failure exits non-zero; nothing is caught):
    (model 2) x (expert 2): a finite val NLL alike on every rank, the
    headline kernels launched, its tokens/sec; (f) tokens/sec of (a), (c)
    and (e) beside the one-rank rounds' (data).
+19. GPT-2's pipeline (``phase_pp``) at GPT-2-small's full width and depth
+   (phase 9's round, dropout 0, ``--pp_microbatches 2``) and on phase
+   18's MoE model (6 layers a stage, its aux at one microbatch) on gloo
+   ranks on ``cuda:0``, against phase 17's and phase 18's one-rank rounds:
+   (a) two ranks as (clients 1) x (stage 2) and (b) two more as (clients
+   1) x (stage 2) on the MoE model, side by side: round 1's summed
+   gradient and losses against the one-rank round's (``SEQ_GRAD_*``,
+   ``SEQ_LOSS_RTOL``), PP_ROUNDS finite rounds with 2 / 1 / 8 launches a
+   rank, both ranks bit-equal, then each pair's PP_TIMED_ROUNDS timed
+   rounds with the card to itself; (c) four ranks as (stage 2) x (model
+   2), then as (seq 2) x (stage 2) under ring: PP_GRID_ROUNDS finite
+   rounds each, the four ranks bit-equal, 2 / 1 / 8;
+   (d) ``gpt2_train --pipeline_devices 2`` on two ranks: a finite val NLL
+   alike on both, the headline kernels launched, its tokens/sec; (e)
+   tokens/sec of (a), (b) and (d) beside the one-rank rounds' (data).
 
 Then one JSON line of the kernels (launches per timed window of the path
 that runs each: phase 4 for the accumulate, the query and the count pass,
@@ -341,7 +356,8 @@ phase 5 for the running accumulate, the epilogue and the descent; and a
 sharded round and its largest error at ``t0 > 0``; its launches a
 round on rank 3 of phase 16's 2-D round; on a rank of phase 17's
 (clients 2) x (seq 2) grid; on a rank of phase 18's (clients 1) x
-(model 2) round, with its largest error at the MoE geometry), the
+(model 2) round, with its largest error at the MoE geometry; on a rank of
+phase 19's (clients 1) x (stage 2) round), the
 card's line, and ``{"ok": true, "device": {...}}`` as the last line.
 Without a card it exits with an error before printing any result.
 
@@ -401,6 +417,7 @@ from commefficient_torch.federated.server import (
 from commefficient_torch.federated.worker import microbatch_plan
 from commefficient_torch.models import GPT2DoubleHeads, ResNet9
 from commefficient_torch.ops.flat import ChunkLayout
+from commefficient_torch.parallel.pipeline import make_gpt2_pp_losses
 from commefficient_torch.ops import sketch as tsk
 from commefficient_torch.ops import topk as ttk
 from commefficient_torch.profiling import host_sync_monitor
@@ -5451,8 +5468,9 @@ def seq_batch(seed: int):
 def build_seq_gpt2(extra, group=None):
     """Phase 9's GPT-2 round at dropout 0 (so the parallel and the
     one-rank rounds compute the same function), on ``group`` with its
-    seq axis under ``--seq_parallel`` and its model and expert axes (the
-    MoE model under ``--n_experts``); returns ``(fm, one_round)``."""
+    seq axis under ``--seq_parallel``, its model and expert axes (the
+    MoE model under ``--n_experts``) and its stage axis (the pipelined
+    loss, ``--pp_microbatches``); returns ``(fm, one_round)``."""
     args = parse_args(default_lr=4e-2, argv=GPT2_BASE + list(extra) + [
         "--dataset_name", "PERSONA", "--num_clients", "8"])
     seq = group.seq if group is not None else None
@@ -5464,9 +5482,14 @@ def build_seq_gpt2(extra, group=None):
         expert_group=group.expert if group is not None else None,
         n_experts=args.n_experts, moe_dispatch=args.moe_dispatch,
         moe_capacity_factor=args.moe_capacity_factor)
-    train_loss, val_loss = make_gpt2_losses(
-        model, seq_group=seq,
-        moe_aux_coef=args.moe_aux_coef if args.n_experts else 0.0)
+    aux = args.moe_aux_coef if args.n_experts else 0.0
+    if group is not None and group.stage is not None:
+        train_loss, val_loss = make_gpt2_pp_losses(
+            model, group.stage, n_micro=args.pp_microbatches,
+            moe_aux_coef=aux)
+    else:
+        train_loss, val_loss = make_gpt2_losses(model, seq_group=seq,
+                                                moe_aux_coef=aux)
     fm = FedModel(model, train_loss, args, val_loss, num_clients=8,
                   group=group)
     assert fm.grad_size == (MOE_D if args.n_experts else GPT2_D), \
@@ -5794,19 +5817,25 @@ def file_barrier(tmp: str, name: str, i: int, n: int = 4,
         time.sleep(0.05)
 
 
-def _mp_pair(i: int, tmp: str) -> dict:
-    """Stage 1 of phase 18. Ranks 0-1: (clients 1) x (model 2) on GPT-2;
-    ranks 2-3: (clients 1) x (expert 2) on the MoE model. Round 1's summed
-    gradient and losses against the one-rank round's (``tmp/<leg>_*``),
-    MP_ROUNDS finite rounds with 2 / 1 / 8 launches each, the weights'
-    hash and the peak memory; then each pair times MP_TIMED_ROUNDS rounds
-    while the other waits at a barrier."""
+# phase 18's pairs: name -> (flags, grid keywords, reference, inner axis)
+MP_LEGS = {"tp": (TP_ARGS, {"model_devices": 2}, "dense", "model"),
+           "ep": (EP_ARGS, {"expert_devices": 2, "n_experts": MOE_EXPERTS},
+                  "moe", "expert")}
+
+
+def _pair(i: int, tmp: str, legs: dict, rounds: int, timed: int) -> dict:
+    """Stage 1 of phases 18 and 19: ranks 0-1 run the first of ``legs``,
+    ranks 2-3 the second, each pair as (clients 1) x (2 on its inner
+    axis). Round 1's summed gradient and losses against the one-rank
+    round's (``tmp/<reference>_*``), ``rounds`` finite rounds with 2 / 1 /
+    8 launches each, the weights' hash and the peak memory; then each pair
+    times ``timed`` rounds while the other waits at a barrier."""
     import torch.distributed as dist
 
     from commefficient_torch.parallel import make_client_group
 
-    tp = i < 2
-    leg = "tp" if tp else "ep"
+    leg = list(legs)[i // 2]
+    extra, grid_kw, ref_name, axis = legs[leg]
     t0 = time.perf_counter()
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store_{leg}",
                             rank=i % 2, world_size=2)
@@ -5814,27 +5843,20 @@ def _mp_pair(i: int, tmp: str) -> dict:
     try:
         dev = seq_device()
         torch.cuda.reset_peak_memory_stats()
-        if tp:
-            g = make_client_group(GPT2_W, 1, dev, model_devices=2)
-            assert (g.rank, g.size, g.model.rank, g.model.size) == \
-                (0, 1, i % 2, 2)
-            fm, one = build_seq_gpt2(TP_ARGS, g)
-            assert fm.worker_config.model_axis == "model"
-        else:
-            g = make_client_group(GPT2_W, 1, dev, expert_devices=2,
-                                  n_experts=MOE_EXPERTS)
-            assert (g.rank, g.size, g.expert.rank, g.expert.size) == \
-                (0, 1, i % 2, 2)
-            fm, one = build_seq_gpt2(EP_ARGS, g)
-            assert fm.worker_config.expert_axis == "expert"
+        g = make_client_group(GPT2_W, 1, dev, **grid_kw)
+        inner = getattr(g, axis)
+        assert (g.rank, g.size, inner.rank, inner.size) == (0, 1, i % 2, 2)
+        fm, one = build_seq_gpt2(extra, g)
+        assert g.axis(axis) is inner and axis in (
+            fm.worker_config.model_axis, fm.worker_config.pp_axis,
+            fm.worker_config.expert_axis), fm.worker_config
         rec["s"]["build"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         ref = torch.from_numpy(np.load(os.path.join(
-            tmp, f"{'dense' if tp else 'moe'}_g.npy"))).to(dev)
-        ref_loss = np.load(os.path.join(
-            tmp, f"{'dense' if tp else 'moe'}_loss.npy"))
+            tmp, f"{ref_name}_g.npy"))).to(dev)
+        ref_loss = np.load(os.path.join(tmp, f"{ref_name}_loss.npy"))
         scale = float(ref.abs().max())
-        for r in range(MP_ROUNDS):
+        for r in range(rounds):
             grads = []
             kernels.reset_launch_counts()
             with summed_gradient(grads):
@@ -5856,18 +5878,17 @@ def _mp_pair(i: int, tmp: str) -> dict:
         rec["peak_memory_GB"] = torch.cuda.max_memory_allocated() / 1e9
         rec["s"]["rounds"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        batch = seq_batch(MP_ROUNDS)
-        for stage in ("timed_tp", "timed_ep"):
-            file_barrier(tmp, stage, i)
-            if stage == f"timed_{leg}":
+        batch = seq_batch(rounds)
+        for name in legs:
+            file_barrier(tmp, f"timed_{name}", i)
+            if name == leg:
                 dist.barrier()
                 torch.cuda.synchronize()
                 t = time.perf_counter()
-                for _ in range(MP_TIMED_ROUNDS):
+                for _ in range(timed):
                     one(batch)
                 torch.cuda.synchronize()
-                rec["rounds_per_sec"] = MP_TIMED_ROUNDS / (
-                    time.perf_counter() - t)
+                rec["rounds_per_sec"] = timed / (time.perf_counter() - t)
         file_barrier(tmp, "timed_done", i)
         rec["s"]["timed"] = time.perf_counter() - t0
         del fm, one
@@ -5877,28 +5898,32 @@ def _mp_pair(i: int, tmp: str) -> dict:
     return rec
 
 
-def _mp_grid(i: int, tmp: str) -> dict:
-    """Stage 2 of phase 18 on all four ranks: (seq 2) x (model 2) under
-    ring for MP_GRID_ROUNDS finite rounds with 2 / 1 / 8 launches each
-    and the weights' hash."""
+def _grid4(i: int, tmp: str, extra, grid_kw: dict, rounds: int,
+           store: str = "grid") -> dict:
+    """Stage 2 of phases 18 and 19 on all four ranks, the grid
+    ``grid_kw`` of one tuple index (process rank ``tuple_index``), its
+    process group at ``tmp/store_<store>``: ``rounds`` finite rounds with
+    2 / 1 / 8 launches each and the weights' hash."""
     import torch.distributed as dist
 
     from commefficient_torch.parallel import make_client_group, tuple_index
 
-    rank = tuple_index(i, 1, 1, 2, 2)
-    dist.init_process_group("gloo", init_method=f"file://{tmp}/store_grid",
+    n = {k: grid_kw.get(k, 1) for k in ("seq_devices", "model_devices",
+                                        "pipeline_devices")}
+    rank = tuple_index(i, 1, 1, n["seq_devices"], n["model_devices"],
+                       n_stage=n["pipeline_devices"])
+    dist.init_process_group("gloo",
+                            init_method=f"file://{tmp}/store_{store}",
                             rank=rank, world_size=4)
     rec = {"rank": rank, "launches": [], "losses": []}
     try:
         t0 = time.perf_counter()
-        g = make_client_group(GPT2_W, 1, seq_device(), seq_devices=2,
-                              model_devices=2)
+        g = make_client_group(GPT2_W, 1, seq_device(), **grid_kw)
         assert g.process_rank == rank and g.inner_size == 4
-        fm, one = build_seq_gpt2(["--seq_parallel", "ring", "--seq_devices",
-                                  "2"] + TP_ARGS, g)
+        fm, one = build_seq_gpt2(extra, g)
         rec["s"] = {"build": time.perf_counter() - t0}
         t0 = time.perf_counter()
-        for r in range(MP_GRID_ROUNDS):
+        for r in range(rounds):
             kernels.reset_launch_counts()
             loss = one(seq_batch(r))[0]
             torch.cuda.synchronize()
@@ -5914,10 +5939,9 @@ def _mp_grid(i: int, tmp: str) -> dict:
     return rec
 
 
-def _mp_cli(i: int, tmp: str) -> dict:
-    """Stage 3 of phase 18 on all four ranks: ``gpt2_train --model_devices
-    2 --n_experts 4 --expert_devices 2`` (dropout 0.1, the MoE model at
-    full width and depth) on gloo ranks on ``cuda:0``, a fraction of an
+def _cli(i: int, tmp: str, world: int, extra) -> dict:
+    """``gpt2_train`` with the flags ``extra`` on ``world`` gloo ranks on
+    ``cuda:0`` (dropout 0.1, full width and depth), a fraction of an
     epoch of the synthetic PersonaChat, and the val pass; its tokens/sec
     over its rounds, from the engine's first submit to its last drain
     (the rounds' valid examples x candidates x tokens)."""
@@ -5943,8 +5967,8 @@ def _mp_cli(i: int, tmp: str) -> dict:
         return out
 
     torch.cuda.reset_peak_memory_stats()
-    os.environ.update(RANK=str(i), WORLD_SIZE="4", LOCAL_RANK="0",
-                      LOCAL_WORLD_SIZE="4",
+    os.environ.update(RANK=str(i), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      LOCAL_WORLD_SIZE=str(world),
                       COMMEFFICIENT_SYNTHETIC_CLIENTS="8",
                       COMMEFFICIENT_RUN_DIR=os.path.join(tmp, "cli_run"))
     kernels.reset_launch_counts()
@@ -5952,7 +5976,7 @@ def _mp_cli(i: int, tmp: str) -> dict:
             mock.patch.object(PipelinedRoundEngine, "drain", timed_drain):
         stats = gpt2_train.train(GPT2_BASE + [
             "--dataset_dir", os.path.join(tmp, "persona"), "--num_epochs",
-            "0.3", "--num_devices", "1"] + TP_ARGS[:2] + EP_ARGS[:-2],
+            "0.3", "--num_devices", "1"] + list(extra),
             init_method=f"file://{tmp}/store_cli", backend="gloo")
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
         os.environ.pop(key)
@@ -5970,11 +5994,14 @@ def _mp_rank(i: int, tmp: str, spawned_at: float) -> None:
     kernels.library()
     start_s = time.time() - spawned_at
     with deterministic_cudnn():
-        out = {"pair": _mp_pair(i, tmp)}
+        out = {"pair": _pair(i, tmp, MP_LEGS, MP_ROUNDS, MP_TIMED_ROUNDS)}
         out["pair"]["s"]["start"] = start_s
-        out["grid"] = _mp_grid(i, tmp)
+        out["grid"] = _grid4(i, tmp, ["--seq_parallel", "ring",
+                                      "--seq_devices", "2"] + TP_ARGS,
+                             {"seq_devices": 2, "model_devices": 2},
+                             MP_GRID_ROUNDS)
         t = time.perf_counter()
-        out["cli"] = _mp_cli(i, tmp)
+        out["cli"] = _cli(i, tmp, 4, TP_ARGS[:2] + EP_ARGS[:-2])
         out["cli"]["s"] = time.perf_counter() - t
     with open(os.path.join(tmp, f"mp{i}.json"), "w") as f:
         json.dump(out, f)
@@ -6037,6 +6064,32 @@ def moe_dispatch_check(card: str) -> dict:
     return row
 
 
+def one_rank_round(extra, rounds: int, timed: int) -> dict:
+    """The one-rank GPT-2 round (``build_seq_gpt2(extra)``) in this
+    process: round 1's summed gradient and losses, then ``timed`` timed
+    rounds after a second, and the peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    tokens = GPT2_W * GPT2_B * GPT2_C * GPT2_T
+    fm, one = build_seq_gpt2(extra)
+    grads = []
+    with summed_gradient(grads):
+        loss = one(seq_batch(0))[0]
+    g = grads[0].cpu().numpy()
+    del grads
+    one(seq_batch(1))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(timed):
+        one(seq_batch(rounds))
+    torch.cuda.synchronize()
+    out = {"g": g, "loss": loss,
+           "tokens_per_sec": timed * tokens / (time.perf_counter() - t),
+           "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9}
+    del fm, one
+    release_card()
+    return out
+
+
 def phase_tp_ep(card: str, dense_ref=None) -> dict:
     """Phase 18: GPT-2's tensor parallelism and the MoE model's expert
     parallelism at GPT-2-small's full width (768, 12 heads; 4 experts on
@@ -6076,37 +6129,21 @@ def phase_tp_ep(card: str, dense_ref=None) -> dict:
     tokens = GPT2_W * GPT2_B * GPT2_C * GPT2_T
     out = {"phase": "tensor and expert parallelism", "card": card}
     with tempfile.TemporaryDirectory() as tmp, deterministic_cudnn():
-        one_rank = {}
+        one_rank, refs = {}, {}
         for name, extra in (("dense", []), ("moe", MOE_ARGS)):
             if name == "dense" and dense_ref is not None:
-                np.save(os.path.join(tmp, "dense_g.npy"), dense_ref["g"])
-                np.save(os.path.join(tmp, "dense_loss.npy"),
-                        dense_ref["loss"])
+                refs[name] = dense_ref
                 one_rank[name] = {
                     "tokens_per_sec": dense_ref["tokens_per_sec"],
                     "from": "phase 17"}
-                continue
-            torch.cuda.reset_peak_memory_stats()
-            fm, one = build_seq_gpt2(extra)
-            grads = []
-            with summed_gradient(grads):
-                loss = one(seq_batch(0))[0]
-            np.save(os.path.join(tmp, f"{name}_g.npy"),
-                    grads[0].cpu().numpy())
-            np.save(os.path.join(tmp, f"{name}_loss.npy"), loss)
-            del grads
-            one(seq_batch(1))
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            for _ in range(MP_TIMED_ROUNDS):
-                one(seq_batch(MP_ROUNDS))
-            torch.cuda.synchronize()
-            one_rank[name] = {
-                "tokens_per_sec": MP_TIMED_ROUNDS * tokens / (
-                    time.perf_counter() - t1),
-                "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9}
-            del fm, one
-            release_card()
+            else:
+                refs[name] = one_rank_round(extra, MP_ROUNDS,
+                                            MP_TIMED_ROUNDS)
+                one_rank[name] = {k: refs[name][k] for k in (
+                    "tokens_per_sec", "peak_memory_GB")}
+            np.save(os.path.join(tmp, f"{name}_g.npy"), refs[name]["g"])
+            np.save(os.path.join(tmp, f"{name}_loss.npy"),
+                    refs[name]["loss"])
         out["one_rank"] = one_rank
         out["moe_kernels"] = check_kernels(card, MOE_D, 500_000, 5, 0, 18,
                                            "gpt2 moe", False, k=50_000)
@@ -6197,6 +6234,185 @@ def phase_tp_ep(card: str, dense_ref=None) -> dict:
              "MoE model) and the activation sums through the host: these "
              "rates measure nothing of NVLink")
     print(json.dumps({k: v for k, v in out.items() if k != "moe_kernels"}))
+    # the one-rank MoE round, which phase 19 holds its pipelined MoE round
+    # to
+    out["moe_ref"] = refs["moe"]
+    return out
+
+
+# phase 19: the pipeline (item 7.4) at GPT-2-small's full width (config
+# 5's round, dropout 0): gloo ranks on cuda:0 as (clients 1) x (stage 2)
+# on GPT-2 and on the MoE model, (stage 2) x (model 2), and gpt2_train on
+# (stage 2)
+PP_ARGS = ["--pipeline_devices", "2", "--pp_microbatches", "2",
+           "--num_devices", "1"]
+# the MoE aux is a per-microbatch estimator: the one-rank round's at one
+# microbatch
+PP_MOE_ARGS = MOE_ARGS + ["--pipeline_devices", "2", "--pp_microbatches",
+                          "1", "--num_devices", "1"]
+PP_LEGS = {"pp": (PP_ARGS, {"pipeline_devices": 2}, "dense", "stage"),
+           "pp_moe": (PP_MOE_ARGS, {"pipeline_devices": 2,
+                                    "n_experts": MOE_EXPERTS}, "moe",
+                      "stage")}
+PP_ROUNDS = 2
+PP_TIMED_ROUNDS = 2
+PP_GRID_ROUNDS = 2
+
+
+def _pp_rank(i: int, tmp: str, spawned_at: float) -> None:
+    """One process of phase 19: the pairs, the (stage 2) x (model 2) and
+    (seq 2) x (stage 2) grids, then ``gpt2_train --pipeline_devices 2`` on
+    ranks 0-1; its record written to ``tmp``."""
+    kernels.library()
+    start_s = time.time() - spawned_at
+    with deterministic_cudnn():
+        out = {"pair": _pair(i, tmp, PP_LEGS, PP_ROUNDS, PP_TIMED_ROUNDS)}
+        out["pair"]["s"]["start"] = start_s
+        out["grid"] = _grid4(i, tmp, TP_ARGS[:2] + PP_ARGS,
+                             {"model_devices": 2, "pipeline_devices": 2},
+                             PP_GRID_ROUNDS)
+        out["ring"] = _grid4(i, tmp, ["--seq_parallel", "ring",
+                                      "--seq_devices", "2"] + PP_ARGS,
+                             {"seq_devices": 2, "pipeline_devices": 2},
+                             PP_GRID_ROUNDS, store="ring")
+        if i < 2:
+            t = time.perf_counter()
+            out["cli"] = _cli(i, tmp, 2, PP_ARGS)
+            out["cli"]["s"] = time.perf_counter() - t
+    with open(os.path.join(tmp, f"pp{i}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_pp(card: str, dense_ref=None, moe_ref=None) -> dict:
+    """Phase 19: GPT-2's pipeline at GPT-2-small's full width and depth
+    (12 x 768, 12 heads; d = 124,444,417) and on phase 18's MoE model (4
+    experts on every other block: 6 layers a stage, the same dense/MoE
+    pattern on both), config 5's round (4 clients x 2 examples x 2
+    candidates x 256 tokens, the 5 x 500,000 sketch, k = 50,000),
+    dropout 0 and cuDNN deterministic, on gloo ranks on ``cuda:0`` (gloo
+    stages the hops and the gradient sum over ``stage`` through the
+    host):
+
+    (a) two ranks as (clients 1) x (stage 2), ``--pp_microbatches 2``:
+        round 1's summed gradient within SEQ_GRAD_ATOL / SEQ_GRAD_RTOL of
+        the one-rank round's and its losses within SEQ_LOSS_RTOL,
+        PP_ROUNDS finite rounds, both ranks' weights bit-equal, 2 / 1 / 8
+        launches of kernels 1 / 3 / 5 a round on each rank;
+    (b) meanwhile two more ranks as (clients 1) x (stage 2) on the MoE
+        model with its aux at ``--pp_microbatches 1``: as (a) against the
+        one-rank MoE round; then each pair's PP_TIMED_ROUNDS timed rounds
+        with the card to itself;
+    (c) four ranks as (stage 2) x (model 2), then as (seq 2) x (stage 2)
+        under ring attention: PP_GRID_ROUNDS finite rounds each, the four
+        ranks' weights bit-equal, 2 / 1 / 8;
+    (d) ``python -m commefficient_torch.gpt2_train --pipeline_devices 2``
+        on two ranks at full depth: a finite val NLL alike on both ranks,
+        its tokens/sec timed inside ``gpt2_train``;
+    (e) tokens/sec of (a), (b) and (d) beside the one-rank rounds', and
+        the peak memory a rank (data, no claim).
+
+    ``dense_ref`` / ``moe_ref``: phase 17's and phase 18's one-rank rounds
+    (summed gradient, losses, tokens/sec); None computes them here."""
+    import multiprocessing as mp
+
+    release_card()
+    t = time.perf_counter()
+    tokens = GPT2_W * GPT2_B * GPT2_C * GPT2_T
+    out = {"phase": "pipeline", "card": card}
+    with tempfile.TemporaryDirectory() as tmp, deterministic_cudnn():
+        refs = {"dense": dense_ref, "moe": moe_ref}
+        for name, extra in (("dense", []), ("moe", MOE_ARGS)):
+            if refs[name] is None:
+                refs[name] = one_rank_round(extra, PP_ROUNDS,
+                                            PP_TIMED_ROUNDS)
+            np.save(os.path.join(tmp, f"{name}_g.npy"), refs[name]["g"])
+            np.save(os.path.join(tmp, f"{name}_loss.npy"),
+                    refs[name]["loss"])
+        held = release_card()
+        print("phase 19: this process holds " + json.dumps(held)
+              + " on the card before its ranks start")
+        out["one_rank_s"] = time.perf_counter() - t
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_pp_rank, args=(i, tmp, time.time()))
+                 for i in range(4)]
+        for pr in procs:
+            pr.start()
+        for pr in procs:
+            pr.join(max(1.0, 300 - (time.perf_counter() - t)))
+        alive = [pr for pr in procs if pr.is_alive()]
+        for pr in alive:
+            pr.kill()
+            pr.join()
+        assert not alive, "phase 19 ranks timed out"
+        assert all(pr.exitcode == 0 for pr in procs), \
+            [pr.exitcode for pr in procs]
+        ranks = []
+        for i in range(4):
+            with open(os.path.join(tmp, f"pp{i}.json")) as f:
+                ranks.append(json.load(f))
+
+    def nonzero(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    pairs = {"pp": [r["pair"] for r in ranks[:2]],
+             "pp_moe": [r["pair"] for r in ranks[2:]]}
+    for leg, pair in pairs.items():
+        for i, rec in enumerate(pair):
+            assert rec["grad_within"], (leg, i, rec["grad_max_abs_err"],
+                                        rec["grad_scale"])
+            assert rec["loss_max_rel_err"] <= SEQ_LOSS_RTOL, \
+                (leg, i, rec["loss_max_rel_err"])
+            for counts in rec["launches"]:
+                assert nonzero(counts) == HEADLINE_PER_ROUND, \
+                    (leg, i, counts)
+        assert pair[0]["w_hash"] == pair[1]["w_hash"], \
+            f"{leg}: the stage ranks' weights differ"
+        assert pair[0]["losses"] == pair[1]["losses"], leg
+    for key, what in (("grid", "stage x model"), ("ring", "seq x stage")):
+        grids = [r[key] for r in ranks]
+        assert sorted(g["rank"] for g in grids) == [0, 1, 2, 3]
+        assert len({g["w_hash"] for g in grids}) == 1, \
+            f"{what}: the four ranks' weights differ"
+        for g in grids:
+            for counts in g["launches"]:
+                assert nonzero(counts) == HEADLINE_PER_ROUND, \
+                    (what, g["rank"], counts)
+    cli = [r["cli"] for r in ranks[:2]]
+    keys = ("val_nll", "val_acc", "val_ppl")
+    for c in cli:
+        assert np.isfinite(c["stats"]["val_nll"]), c
+        assert all((c["launches"][k] > 0) == (k in HEADLINE_KERNELS)
+                   for k in c["launches"]), c["launches"]
+    assert len({tuple(c["stats"][k] for k in keys) for c in cli}) == 1, cli
+    out.update(
+        grad_max_abs_err={leg: max(p["grad_max_abs_err"] for p in pair)
+                          for leg, pair in pairs.items()},
+        grad_scale={leg: pair[0]["grad_scale"]
+                    for leg, pair in pairs.items()},
+        loss_max_rel_err={leg: max(p["loss_max_rel_err"] for p in pair)
+                          for leg, pair in pairs.items()},
+        launches_per_round_per_rank=nonzero(pairs["pp"][0]["launches"][0]),
+        peak_memory_GB_rank={leg: max(p["peak_memory_GB"] for p in pair)
+                             for leg, pair in pairs.items()},
+        cli={**cli[0]["stats"], "peak_memory_GB_rank": max(
+            c["peak_memory_GB"] for c in cli)},
+        tokens_per_sec={
+            "one rank": refs["dense"]["tokens_per_sec"],
+            "one rank moe": refs["moe"]["tokens_per_sec"],
+            "clients 1 x stage 2": pairs["pp"][0]["rounds_per_sec"] * tokens,
+            "clients 1 x stage 2 moe":
+                pairs["pp_moe"][0]["rounds_per_sec"] * tokens,
+            "stage 2 (gpt2_train)": cli[0]["tokens_per_sec"]},
+        stage_s_rank0={"pair": ranks[0]["pair"]["s"],
+                       "moe pair": ranks[2]["pair"]["s"],
+                       "stage x model": ranks[0]["grid"]["s"],
+                       "seq x stage": ranks[0]["ring"]["s"],
+                       "cli": cli[0]["s"]},
+        wall_s=time.perf_counter() - t,
+        note="gloo stages the hops and the gradient sums (497.8 MB, 837.9 "
+             "MB for the MoE model) through the host: these rates measure "
+             "nothing of NVLink")
+    print(json.dumps(out))
     return out
 
 
@@ -6293,8 +6509,12 @@ def main(argv=None) -> int:
     seq = phase_seq(card)
     wall["17 sequence parallelism"] = time.perf_counter() - t
     t = time.perf_counter()
-    tp_ep = phase_tp_ep(card, seq.pop("dense_ref"))
+    dense_ref = seq.pop("dense_ref")
+    tp_ep = phase_tp_ep(card, dense_ref)
     wall["18 tensor and expert parallelism"] = time.perf_counter() - t
+    t = time.perf_counter()
+    pp = phase_pp(card, dense_ref, tp_ep.pop("moe_ref"))
+    wall["19 pipeline"] = time.perf_counter() - t
     print("phase wall seconds (phase 3 includes the build): " + json.dumps(
         {k: round(v, 2) for k, v in wall.items()}))
 
@@ -6330,6 +6550,8 @@ def main(argv=None) -> int:
          "seq_launches_per_round_per_rank": seq[
              "launches_per_round_per_rank"].get(k.name, 0),
          "tp_ep_launches_per_round_per_rank": tp_ep[
+             "launches_per_round_per_rank"].get(k.name, 0),
+         "pp_launches_per_round_per_rank": pp[
              "launches_per_round_per_rank"].get(k.name, 0),
          "moe_geometry_max_abs_err": tp_ep["moe_kernels"][k.name][
              "max_abs_err"]}
@@ -6377,6 +6599,7 @@ def main(argv=None) -> int:
                           grid["rounds_per_sec_median"],
                       "seq_tokens_per_sec": seq["tokens_per_sec"],
                       "tp_ep_tokens_per_sec": tp_ep["tokens_per_sec"],
+                      "pp_tokens_per_sec": pp["tokens_per_sec"],
                       **{"opt_in_" + k: v for k, v in opt_prof.items()}}))
     print(json.dumps(summary))
     print(card)

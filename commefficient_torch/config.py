@@ -24,8 +24,10 @@ parallelism and mixture of experts: ``--model_devices``, ``--n_experts``,
 ``--moe_aux_coef``, with the JAX package's names, defaults, help and
 checks (``check_model_parallel``); the realized grid decides the axes
 (``gpt2_train``), and ``cv_train`` refuses them with the JAX package's
-assertions. The pipeline's ``--pipeline_devices`` and
-``--pp_microbatches`` are parsed and raise (``UNPORTED``).
+assertions. The pipeline: ``--pipeline_devices`` and
+``--pp_microbatches``, with the JAX package's names, defaults, help and
+checks; the realized grid decides the ``stage`` axis (``gpt2_train``),
+and ``cv_train`` refuses it.
 
 Deviations: ``--device`` takes ``{cuda, cpu}`` with ``cuda`` the default
 (a CUDA request on a host without a card raises; there is no fallback to
@@ -76,12 +78,8 @@ the JAX package's names, defaults, help and checks
 the open-world population's ``--churn``.
 ``--port``, ``--share_ps_gpu``, ``--nan_threshold`` and
 ``--num_results_*`` are accepted and ignored, as the JAX package ignores
-them; ``--rng_impl threefry2x32`` is a no-op and its JAX-only PRNGs raise.
-
-Every other flag of the JAX package is parsed with its type and default
-(``UNPORTED``); a value other than the default raises
-``NotImplementedError`` naming the ROADMAP item that ports it
-(``reject_unported``).
+them; ``--rng_impl threefry2x32`` is a no-op and its JAX-only PRNGs raise
+(``reject_jax_prng``). Every flag of the JAX package is carried.
 """
 
 from __future__ import annotations
@@ -93,33 +91,6 @@ MODES = ["sketch", "true_topk", "local_topk", "fedavg", "uncompressed"]
 ERROR_TYPES = ["none", "local", "virtual"]
 DATASETS = ["CIFAR10", "CIFAR100", "EMNIST", "ImageNet", "PERSONA"]
 DP_MODES = ["worker", "server"]
-
-_Q1 = "ROADMAP.md queue 1"
-ITEM_PARALLEL = (f"{_Q1} item 7.4 (parallel/pipeline.py: pipeline "
-                 f"parallelism)")
-
-# The flags of planes the port does not carry yet, with the JAX package's
-# types and defaults: (option strings, add_argument keywords, item). Each
-# is parsed; a value other than its default raises naming the item.
-UNPORTED = (
-    ("--pipeline_devices", dict(type=int, default=1), ITEM_PARALLEL),
-    ("--pp_microbatches", dict(type=int, default=4), ITEM_PARALLEL),
-)
-
-
-def _unported_defaults():
-    """``(flag, dest, default, item)`` for every unported value: a
-    ``store_false`` twin names itself, since only it moves the value off
-    its default."""
-    out = {}
-    for flag, kw, item in UNPORTED:
-        dest = kw.get("dest", flag.lstrip("-"))
-        if kw.get("action") == "store_false":
-            out[dest] = (flag, dest, out[dest][2], item)
-        else:
-            out[dest] = (flag, dest, kw.get("default"), item)
-    return tuple(out.values())
-
 
 def parse_inject_fault(spec: str):
     """``--inject_fault`` spec -> {round_index: poison_value}. The spec is
@@ -294,6 +265,16 @@ def build_parser(default_lr=None) -> argparse.ArgumentParser:
     parser.add_argument("--model_devices", type=int, default=1,
                         help="Size of the `model` (tensor-parallel) mesh "
                              "axis for GPT-2 (1 disables).")
+    # GPT-2's pipeline (parallel/pipeline.py): GPipe over a `stage` axis of
+    # ranks, contiguous layer ranges, microbatched activation hops; the
+    # parameters stay full-shape
+    parser.add_argument("--pipeline_devices", type=int, default=1,
+                        help="Size of the `stage` (pipeline-parallel) mesh "
+                             "axis for GPT-2 (1 disables).")
+    parser.add_argument("--pp_microbatches", type=int, default=4,
+                        help="GPipe microbatches per client batch when "
+                             "--pipeline_devices > 1 (auto-reduced to a "
+                             "divisor of the batch).")
     # mixture of experts (parallel/moe.py): every other GPT-2 block gets a
     # top-1-routed MoE MLP; --expert_devices splits its experts over an
     # `expert` axis of ranks; the parameters stay full-shape
@@ -584,20 +565,12 @@ def build_parser(default_lr=None) -> argparse.ArgumentParser:
                              "round's aggregated transmit with the value "
                              "before the server phase.")
 
-    for flag, kw, item in UNPORTED:
-        parser.add_argument(flag, **kw, help=f"Not ported yet ({item}).")
     return parser
 
 
-def reject_unported(args) -> None:
-    """Raise ``NotImplementedError`` for any option this slice does not
-    carry, naming its ROADMAP item, and ``ValueError`` for a JAX PRNG
-    (``--rng_impl rbg|unsafe_rbg``). Attributes an ``args`` object lacks
-    count as unset."""
-    for flag, dest, default, item in _unported_defaults():
-        if getattr(args, dest, default) != default:
-            raise NotImplementedError(
-                f"{flag} is not ported yet ({item})")
+def reject_jax_prng(args) -> None:
+    """Raise ``ValueError`` for a JAX PRNG (``--rng_impl rbg|unsafe_rbg``);
+    an ``args`` object without the attribute passes."""
     rng_impl = getattr(args, "rng_impl", "threefry2x32")
     if rng_impl != "threefry2x32":
         raise ValueError(
@@ -756,8 +729,11 @@ def check_seq_parallel(args) -> None:
 
 
 def check_model_parallel(args) -> None:
-    """The JAX package's checks of the tensor-parallel and MoE flags."""
+    """The JAX package's checks of the tensor-parallel, pipeline and MoE
+    flags."""
     assert args.model_devices >= 1, "--model_devices must be >= 1"
+    assert args.pipeline_devices >= 1, "--pipeline_devices must be >= 1"
+    assert args.pp_microbatches >= 1, "--pp_microbatches must be >= 1"
     if args.model_devices > 1:
         assert args.seq_parallel in ("none", "ring"), (
             "--model_devices > 1 composes only with --seq_parallel ring "
@@ -775,7 +751,7 @@ def check_model_parallel(args) -> None:
 
 def parse_args(default_lr=None, argv=None):
     args = build_parser(default_lr).parse_args(argv)
-    reject_unported(args)
+    reject_jax_prng(args)
     check_seq_parallel(args)
     check_model_parallel(args)
     check_collectives(args)

@@ -509,11 +509,14 @@ def main(argv=None, init_method=None):
     """``init_method``: the process group's rendezvous under ``torchrun``
     (default ``env://``)."""
     args = parse_args(argv=argv)
-    # tensor parallelism and experts are GPT-2's (the JAX package's
-    # assertions; the pipeline's flags raise in parse_args)
+    # tensor parallelism, the pipeline and experts are GPT-2's (the JAX
+    # package's assertions)
     assert args.model_devices == 1, (
         "--model_devices (tensor parallelism) is GPT-2 only; the CV models "
         "have no model axis — use gpt2_train.py")
+    assert args.pipeline_devices == 1, (
+        "--pipeline_devices (pipeline parallelism) is GPT-2 only; the CV "
+        "models have no stage axis — use gpt2_train.py")
     assert args.n_experts == 0, (
         "--n_experts (MoE / expert parallelism) is GPT-2 only; the CV "
         "models have no expert axis — use gpt2_train.py")

@@ -49,9 +49,8 @@ disk tier's ladder events become telemetry events at the next dispatch.
 ``finalize`` drains and joins the tier's worker; an I/O error surfaced
 there fails the run. DP noise draws from a
 ``torch.Generator`` on the device, seeded with ``args.seed + 1`` as the
-JAX package seeds its key. Options of the JAX package that the port does
-not carry raise ``NotImplementedError`` naming the ROADMAP item
-(``config.reject_unported``).
+JAX package seeds its key; a JAX-only ``--rng_impl`` raises
+(``config.reject_jax_prng``).
 
 ``begin_round`` dispatches a round without a host wait: the batch and the
 participants' last rounds reach the card through pinned host buffers and
@@ -121,7 +120,12 @@ from commefficient_torch.ops.collectives import (
 )
 from commefficient_torch.ops.flat import ParamLayout
 from commefficient_torch.ops.sketch import make_sketch
-from commefficient_torch.parallel.mesh import EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS
+from commefficient_torch.parallel.mesh import (
+    EXPERT_AXIS,
+    MODEL_AXIS,
+    SEQ_AXIS,
+    STAGE_AXIS,
+)
 from commefficient_torch.profiling import annotate
 
 DEFAULT_NUM_CLIENTS = {"EMNIST": 3500, "PERSONA": 17568}
@@ -197,11 +201,11 @@ class RoundHandle(NamedTuple):
 
 
 def worker_config_from_args(args, group=None) -> WorkerConfig:
-    """The worker's config; its ``seq_axis``, ``model_axis`` and
-    ``expert_axis`` come from the REALIZED grid (``group``): the grid
-    policy may have reduced ``--seq_devices``, ``--model_devices`` or
-    ``--expert_devices`` to 1, and a config naming an axis the grid lacks
-    would fail in the round."""
+    """The worker's config; its ``seq_axis``, ``model_axis``, ``pp_axis``
+    and ``expert_axis`` come from the REALIZED grid (``group``): the grid
+    policy may have reduced ``--seq_devices``, ``--model_devices``,
+    ``--pipeline_devices`` or ``--expert_devices`` to 1, and a config
+    naming an axis the grid lacks would fail in the round."""
     seq_axis = None
     if getattr(args, "seq_parallel", "none") != "none" and \
             group is not None and group.seq is not None:
@@ -210,6 +214,10 @@ def worker_config_from_args(args, group=None) -> WorkerConfig:
     if getattr(args, "model_devices", 1) > 1 and group is not None \
             and group.model is not None:
         model_axis = MODEL_AXIS
+    pp_axis = None
+    if getattr(args, "pipeline_devices", 1) > 1 and group is not None \
+            and group.stage is not None:
+        pp_axis = STAGE_AXIS
     expert_axis = None
     if getattr(args, "expert_devices", 1) > 1 and group is not None \
             and group.expert is not None:
@@ -226,7 +234,7 @@ def worker_config_from_args(args, group=None) -> WorkerConfig:
         fedavg_batch_size=args.fedavg_batch_size,
         fedavg_lr_decay=args.fedavg_lr_decay,
         do_topk_down=args.do_topk_down, seq_axis=seq_axis,
-        model_axis=model_axis, expert_axis=expert_axis)
+        model_axis=model_axis, expert_axis=expert_axis, pp_axis=pp_axis)
 
 
 def server_config_from_args(args, grad_size: int) -> ServerConfig:
@@ -329,9 +337,9 @@ class FedModel:
         generator seeded with ``args.seed``. ``device`` defaults to
         ``args.device``, and that to ``cuda``; with ``group`` (a
         ``ClientGroup``) it is the group's device."""
-        from commefficient_torch.config import reject_unported
+        from commefficient_torch.config import reject_jax_prng
 
-        reject_unported(args)
+        reject_jax_prng(args)
         self.group = group
         if group is not None:
             assert group.active, "an idle rank runs no rounds"
@@ -586,8 +594,8 @@ class FedModel:
         """The disk tier's directory: ``--state_dir``, else
         ``<checkpoint_path>/client_state``; each rank of a client group
         of several ranks keeps its own copy under ``rank<r>`` (``r`` the
-        process rank: the seq, model and expert ranks of one tuple index
-        each keep one)."""
+        process rank: the seq, model, stage and expert ranks of one tuple
+        index each keep one)."""
         base = (getattr(args, "state_dir", "") or "") or os.path.join(
             getattr(args, "checkpoint_path", "."), "client_state")
         g = self.group

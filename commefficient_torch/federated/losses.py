@@ -37,6 +37,7 @@ the per-example terms do; the val metrics stay the NLL and accuracy.
 from __future__ import annotations
 
 import hashlib
+from functools import partial
 from typing import Optional
 
 import torch
@@ -121,35 +122,80 @@ def seq_generator(generator: torch.Generator, index: int
     return gen
 
 
-def _lm_nll_per_example(lm_logits, batch, seq_group=None):
-    """Per-example token-mean NLL of the next token (position t predicts
-    t + 1; label -1 is ignored), as the JAX package takes it (a documented
-    deviation from the reference's batch-wide token mean, identical when
-    the examples have equal valid-token counts): ``logsumexp`` minus the
-    gathered logit, accumulated in float32, so no ``(..., V)`` log-prob
-    tensor is formed. With ``seq_group`` the logits are this rank's slice,
-    the targets ``lm_labels_shifted`` (shifted over the global sequence),
-    and the sums run over the group."""
-    if seq_group is not None:
+def lm_nll_sums(lm_logits, labels, shifted: bool):
+    """Per-example sums of the next-token NLL and the valid-target count
+    over the last two axes (candidates, positions): ``logsumexp`` minus
+    the gathered logit, accumulated in float32, so no ``(..., V)``
+    log-prob tensor is formed. ``shifted``: the targets are already
+    shifted (``lm_labels_shifted``: position t's target is token t + 1);
+    else position t predicts ``labels[t + 1]`` and the last position
+    predicts nothing. Label -1 is ignored."""
+    if shifted:
         logits = lm_logits
-        labels = batch["lm_labels_shifted"].to(torch.int64)
+        labels = labels.to(torch.int64)
     else:
         logits = lm_logits[..., :-1, :]
-        labels = batch["lm_labels"][..., 1:].to(torch.int64)
+        labels = labels[..., 1:].to(torch.int64)
     valid = labels != -1
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     lse = torch.logsumexp(logits.to(torch.float32), dim=-1)
     picked = torch.gather(logits, -1, safe[..., None])[..., 0].to(
         torch.float32)
     tok_nll = (lse - picked) * valid
-    nll_sum = tok_nll.sum(dim=(-2, -1))
-    n_valid = valid.sum(dim=(-2, -1))
+    return tok_nll.sum(dim=(-2, -1)), valid.sum(dim=(-2, -1))
+
+
+def _lm_nll_per_example(lm_logits, batch, seq_group=None):
+    """Per-example token-mean NLL of the next token (position t predicts
+    t + 1; label -1 is ignored), as the JAX package takes it (a documented
+    deviation from the reference's batch-wide token mean, identical when
+    the examples have equal valid-token counts). With ``seq_group`` the
+    logits are this rank's slice, the targets ``lm_labels_shifted``
+    (shifted over the global sequence), and the sums run over the
+    group."""
     if seq_group is not None:
+        nll_sum, n_valid = lm_nll_sums(lm_logits,
+                                       batch["lm_labels_shifted"], True)
         # the loss is replicated over the group, so the sum's backward is
         # the identity; the count carries no gradient
         nll_sum = psum_repct(nll_sum, seq_group)
         n_valid = psum_repct(n_valid, seq_group)
+    else:
+        nll_sum, n_valid = lm_nll_sums(lm_logits, batch["lm_labels"], False)
     return nll_sum / torch.clamp(n_valid, min=1)
+
+
+def dropout_source(model, seq_group, rng, train):
+    """Where a GPT-2 train forward takes its keep masks: None (eval, or no
+    dropout), the generator to draw them from (under sequence parallelism
+    this seq rank's own, ``seq_generator``), or the flat masks drawn
+    beforehand (``draw_keep_masks``)."""
+    if not train or model.dropout == 0.0:
+        return None
+    if isinstance(rng, torch.Generator):
+        return rng if seq_group is None else seq_generator(rng,
+                                                           seq_group.rank)
+    if isinstance(rng, torch.Tensor):
+        return rng
+    raise ValueError("the GPT-2 train forward draws dropout masks: pass "
+                     "a torch.Generator or pre-drawn keep masks as rng")
+
+
+def draw_keep_masks(model, seq_group, generator: torch.Generator,
+                    micro) -> torch.Tensor:
+    """The flat keep masks of one microbatch for each client: ``(W, n)``
+    booleans for ``micro`` with a leading client axis, ``n =
+    model.dropout_numel`` (under sequence parallelism this rank's masks
+    for its slice, from ``seq_generator``)."""
+    ids = micro["input_ids"]
+    W, T = ids.shape[0], ids.shape[-1]
+    if seq_group is not None:
+        generator = seq_generator(generator, seq_group.rank)
+    n = model.dropout_numel(ids[0].numel() // T, T)
+    keep_prob = 1.0 - float(model.dropout)
+    return torch.stack([
+        torch.rand(n, generator=generator, device=ids.device) < keep_prob
+        for _ in range(W)])
 
 
 def make_gpt2_losses(model: torch.nn.Module, lm_coef: float = 1.0,
@@ -188,16 +234,10 @@ def make_gpt2_losses(model: torch.nn.Module, lm_coef: float = 1.0,
         return (out[0], out[1].to(torch.float32)) + tuple(out[2:])
 
     def _keep_source(rng, train):
-        if not train or model.dropout == 0.0:
-            return None
-        if isinstance(rng, torch.Generator):
-            if seq_group is not None:
-                rng = seq_generator(rng, seq_group.rank)
-            return GeneratorKeep(rng, keep_prob)
-        if isinstance(rng, torch.Tensor):
-            return MaskKeep(rng)
-        raise ValueError("the GPT-2 train forward draws dropout masks: pass "
-                         "a torch.Generator or pre-drawn keep masks as rng")
+        src = dropout_source(model, seq_group, rng, train)
+        if isinstance(src, torch.Generator):
+            return GeneratorKeep(src, keep_prob)
+        return None if src is None else MaskKeep(src)
 
     def compute_train(params, model_state, batch, rng, train):
         keep = _keep_source(rng, train)
@@ -217,18 +257,8 @@ def make_gpt2_losses(model: torch.nn.Module, lm_coef: float = 1.0,
                 torch.sum(aux) / aux.shape[0]) * torch.sum(mask)
         return loss_sum, (), torch.sum(mask), model_state
 
-    def draw_rng(generator: torch.Generator, micro) -> torch.Tensor:
-        ids = micro["input_ids"]
-        W, T = ids.shape[0], ids.shape[-1]
-        if seq_group is not None:
-            generator = seq_generator(generator, seq_group.rank)
-        n = model.dropout_numel(ids[0].numel() // T, T)
-        return torch.stack([
-            torch.rand(n, generator=generator, device=ids.device) < keep_prob
-            for _ in range(W)])
-
     if model.dropout != 0.0:
-        compute_train.draw_rng = draw_rng
+        compute_train.draw_rng = partial(draw_keep_masks, model, seq_group)
 
     def compute_val(params, model_state, batch, rng, train):
         lm_logits, mc_logits = _forward(params, batch, None)[:2]

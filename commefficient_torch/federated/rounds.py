@@ -115,6 +115,13 @@ rest; the fused phase holds them in the resident layout, the per-client
 worker flat. The streaming phase never makes them: it multiplies each
 leaf by its product of the two values before sketching and sums the
 table over the axes (exact for power-of-two axes).
+
+Under the pipeline (``WorkerConfig.pp_axis``: the group's ``stage`` axis,
+``parallel/pipeline.py``) the stage ranks of one tuple index run the same
+slots on the whole batch, each through its own range of layers, so its
+gradient is its layers' part (zero elsewhere); the round sums it over
+``stage`` at scale 1, after the model sum and before the expert sum, in
+every client phase (the streaming phase sums its table over the axis).
 """
 
 from __future__ import annotations
@@ -145,6 +152,7 @@ from commefficient_torch.federated.worker import (
     fedavg_local,
     forward_metrics,
     get_new_worker_weights,
+    leaf_grads,
     local_step,
     microbatch_plan,
     reconcile,
@@ -400,11 +408,17 @@ def build_round_step(compute_loss_train: Callable,
     # a per-axis plan's legs resolved on the grid (None: a flat plan)
     lowering = plan_lowering(plan, group) if server_shard else None
     assert params.d == cfg.grad_size, (params.d, cfg.grad_size)
-    seq_group = None
+    seq_group = stage_group = None
     if wcfg.seq_axis is not None:
         assert group is not None and group.seq is not None, \
             f"seq_axis {wcfg.seq_axis!r} not in the client group's axes"
         seq_group = group.axis(wcfg.seq_axis)
+    if wcfg.pp_axis is not None:
+        # the pipelined loss carries the GPipe schedule; the round only
+        # sums the stages' disjoint gradient parts
+        assert group is not None and group.stage is not None, \
+            f"pp_axis {wcfg.pp_axis!r} not in the client group's axes"
+        stage_group = group.axis(wcfg.pp_axis)
     if wcfg.mode == "sketch":
         assert sketch is not None and sketch.d == cfg.grad_size, \
             "sketch mode needs the sketch geometry of the flat vector"
@@ -485,7 +499,8 @@ def build_round_step(compute_loss_train: Callable,
         # worker's flat
         tp_scale, ep_scale = (scale_mask(v) for v in axis_vals)
     worker_axes = dict(model_group=model_group, tp_scale=tp_scale,
-                       expert_group=expert_group, ep_scale=ep_scale)
+                       expert_group=expert_group, ep_scale=ep_scale,
+                       stage_group=stage_group)
 
     def flat_res(w):
         """The resident weights (or a tensor in their layout) as a flat
@@ -546,7 +561,7 @@ def build_round_step(compute_loss_train: Callable,
             mstates = {k: v.detach() for k, v in mstates.items()}
             total = torch.sum(ls * worker_mask)
             g = torch.zeros_like(ps)
-            params.gather_grads(torch.autograd.grad(total, leaves),
+            params.gather_grads(leaf_grads(total, leaves),
                                 flat_res(g))
             g_sum = g_sum + g
             loss_sums = loss_sums + ls.detach()
@@ -555,8 +570,8 @@ def build_round_step(compute_loss_train: Callable,
                 a + m for a, m in zip(m_sums, ms))
             counts = counts + cs.detach()
         # each seq rank backpropagated its slice of the sequence, each
-        # model (expert) rank its slice of the model (linear: one sum of
-        # the sum replaces the per-client sums)
+        # model (expert) rank its slice of the model, each stage its layers
+        # (linear: one sum of the sum replaces the per-client sums)
         g_sum = reconcile(g_sum, seq_group, **worker_axes)
         if wcfg.weight_decay != 0:
             wd_scale = torch.sum(worker_mask * counts)
@@ -600,7 +615,7 @@ def build_round_step(compute_loss_train: Callable,
                                                  hi)
             mstates = {k: v.detach() for k, v in mstates.items()}
             total = torch.sum(ls * worker_mask)
-            grads = torch.autograd.grad(total, leaves)
+            grads = leaf_grads(total, leaves)
             table = sketch_grad_tree(sketch, table, grads, stream_segs,
                                      stream_groups, stream_scales)
             loss_sums = loss_sums + ls.detach()
@@ -611,7 +626,7 @@ def build_round_step(compute_loss_train: Callable,
         # the fused phase's sums, riding the table (sketches are linear;
         # the rescales went in per leaf); weight decay goes in after them,
         # as there
-        for g in (seq_group, model_group, expert_group):
+        for g in (seq_group, model_group, stage_group, expert_group):
             if g is not None:
                 table = all_reduce_sum(table, g)
         if wcfg.weight_decay != 0:

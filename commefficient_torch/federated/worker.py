@@ -30,8 +30,10 @@ Semantics preserved:
   the rest: after the seq sum it is summed over ``model`` and multiplied
   by ``tp_scale``, then summed over ``expert`` and multiplied by
   ``ep_scale`` (the flat masks of ``federated/rounds.py``: 1 on the
-  sliced leaves, 1/n on the replicated rest), the JAX package's chain
-  (``reconcile``).
+  sliced leaves, 1/n on the replicated rest); under the pipeline
+  (``stage_group``) each stage's gradient holds its layers' part alone,
+  summed over ``stage`` at scale 1 between the model and the expert sums:
+  the JAX package's chain (``reconcile``).
 
 The loss callback contract is ``compute_loss(param_views, model_state,
 microbatch, rng, train) -> (loss_sum, metric_sums, count,
@@ -83,12 +85,13 @@ class WorkerConfig:
     fedavg_batch_size: int = -1
     fedavg_lr_decay: float = 1.0
     do_topk_down: bool = False
-    # the client group's seq, model and expert axes under sequence,
-    # tensor and expert parallelism (taken from the realized grid), else
-    # None
+    # the client group's seq, model, stage and expert axes under sequence,
+    # tensor, pipeline and expert parallelism (taken from the realized
+    # grid), else None
     seq_axis: Optional[str] = None
     model_axis: Optional[str] = None
     expert_axis: Optional[str] = None
+    pp_axis: Optional[str] = None
 
     @property
     def has_velocity(self) -> bool:
@@ -178,6 +181,14 @@ def sketch_grad_tree(sketch: CountSketch, table: torch.Tensor,
     return table
 
 
+def leaf_grads(loss: torch.Tensor, leaves):
+    """The gradient of ``loss`` by each parameter leaf; a leaf the loss
+    does not use gets zeros (a pipeline stage uses only its own layers,
+    the embeddings or the heads)."""
+    return torch.autograd.grad(loss, leaves, allow_unused=True,
+                               materialize_grads=True)
+
+
 def _grad_of(compute_loss, params: ParamLayout, w_flat, model_state, batch,
              rng):
     """``(gradient of loss_sum by the flat weights, loss_sum, metric_sums,
@@ -188,7 +199,7 @@ def _grad_of(compute_loss, params: ParamLayout, w_flat, model_state, batch,
     leaves = params.leaves(w_flat)
     loss_sum, msums, count, new_state = compute_loss(
         params.params_of(leaves), model_state, batch, rng, True)
-    g = params.gather_grads(torch.autograd.grad(loss_sum, leaves),
+    g = params.gather_grads(leaf_grads(loss_sum, leaves),
                             torch.empty_like(w_flat))
     if isinstance(new_state, dict):
         new_state = {k: v.detach() for k, v in new_state.items()}
@@ -222,17 +233,20 @@ def _microbatch_grads(compute_loss, params_flat, params, model_state, batch,
 
 
 def reconcile(g: torch.Tensor, seq_group=None, model_group=None,
-              tp_scale=None, expert_group=None, ep_scale=None
-              ) -> torch.Tensor:
+              tp_scale=None, expert_group=None, ep_scale=None,
+              stage_group=None) -> torch.Tensor:
     """A rank's gradient made whole, in the JAX package's order: summed
     over the seq axis (each rank's part of the sequence), then over the
-    model axis times ``tp_scale``, then over the expert axis times
-    ``ep_scale`` (slice-local leaves summed at scale 1, replicated ones
-    at 1/n). A group that is None is skipped."""
+    model axis times ``tp_scale``, then over the stage axis (each stage's
+    layers' part), then over the expert axis times ``ep_scale``
+    (slice-local leaves summed at scale 1, replicated ones at 1/n). A
+    group that is None is skipped."""
     if seq_group is not None:
         g = all_reduce_sum(g, seq_group)
     if model_group is not None:
         g = all_reduce_sum(g, model_group) * tp_scale
+    if stage_group is not None:
+        g = all_reduce_sum(g, stage_group)
     if expert_group is not None:
         g = all_reduce_sum(g, expert_group) * ep_scale
     return g
@@ -241,9 +255,10 @@ def reconcile(g: torch.Tensor, seq_group=None, model_group=None,
 def forward_grad(compute_loss, params_flat, params, model_state, batch,
                  rng, cfg: WorkerConfig, sketch: Optional[CountSketch],
                  seq_group=None, model_group=None, tp_scale=None,
-                 expert_group=None, ep_scale=None):
+                 expert_group=None, ep_scale=None, stage_group=None):
     """One client's gradient and its transforms, in the JAX package's
-    order: the sums over the seq, model and expert axes (``reconcile``),
+    order: the sums over the seq, model, stage and expert axes
+    (``reconcile``),
     weight decay, the dense ``max_grad_norm`` clip (not in sketch mode),
     DP (clip, then worker noise), then in sketch mode the table and its
     clip by ``l2estimate``. Returns ``(transmit, (loss_mean,
@@ -251,7 +266,7 @@ def forward_grad(compute_loss, params_flat, params, model_state, batch,
     grad, loss_mean, metric_means, count, new_state = _microbatch_grads(
         compute_loss, params_flat, params, model_state, batch, rng, cfg)
     grad = reconcile(grad, seq_group, model_group, tp_scale, expert_group,
-                     ep_scale)
+                     ep_scale, stage_group)
     if cfg.weight_decay != 0:
         grad = grad + (cfg.weight_decay / cfg.num_workers) * params_flat
     if cfg.max_grad_norm is not None and cfg.mode != "sketch":
@@ -319,9 +334,9 @@ def fedavg_local(compute_loss, params_flat, params, model_state, batch, rng,
     over the client's batch in ``fedavg_batch_size`` chunks, the step
     decayed by ``fedavg_lr_decay ** step``; all-padding chunks are
     skipped (they move neither the weights nor the step count). Each
-    step's gradient is made whole over the seq, model and expert axes
-    first (``reconcile``; ``axes``: its model and expert groups and
-    scales), so the local weights stay replicated. Transmits ``(w0 -
+    step's gradient is made whole over the seq, model, stage and expert
+    axes first (``reconcile``; ``axes``: its model, stage and expert
+    groups and scales), so the local weights stay replicated. Transmits ``(w0 -
     w_final) x count``."""
     B = batch["mask"].shape[0]
     fbs, n_chunks, pad = microbatch_plan(B, cfg.fedavg_batch_size)

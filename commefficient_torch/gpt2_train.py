@@ -67,6 +67,18 @@ model axis, ``n_experts`` by the realized expert axis) and its
 
     torchrun --standalone --nproc_per_node 4 -m commefficient_torch.gpt2_train \
         --num_devices 1 --model_devices 2 --n_experts 4 --expert_devices 2 ...
+
+The pipeline: ``--pipeline_devices S`` gives the grid a ``stage`` axis;
+each stage rank runs its contiguous range of the blocks on the GPipe
+clock over ``--pp_microbatches`` microbatches of a client batch
+(``parallel/pipeline.make_gpt2_pp_losses``; stage 0 embeds, the last
+stage runs the heads), and the round sums the stages' gradients. The
+REALIZED grid decides it (a world too small drops it with the grid's
+``--pipeline_devices ... reduced`` warning), with the JAX package's check
+``n_layer >= S``. It composes with the seq, model and expert axes.
+
+    torchrun --standalone --nproc_per_node 2 -m commefficient_torch.gpt2_train \
+        --num_devices 1 --pipeline_devices 2 --pp_microbatches 2 ...
 """
 
 from __future__ import annotations
@@ -128,6 +140,7 @@ from commefficient_torch.parallel import (
     requested_axes,
     start_client_group,
 )
+from commefficient_torch.parallel.pipeline import make_gpt2_pp_losses
 from commefficient_torch.profiling import StepProfiler
 from commefficient_torch.telemetry import (
     attach_run_telemetry,
@@ -174,20 +187,21 @@ def get_data_loaders(args, tokenizer, emit_shifted: bool = False):
 
 
 def grid_planes(args, group):
-    """``(seq, model, expert)``: the groups the REALIZED grid has for
-    ``--seq_parallel``, ``--model_devices`` and ``--expert_devices``
-    (None where it has no such axis). A request the grid could not meet
-    (one process, or a world too small) is dropped as the JAX package's
-    ``gpt2_train`` drops it: ``--seq_parallel ... disabled`` and
-    ``--expert_devices ... disabled`` with the grid's shape, and the flag
-    set back to its default (a model axis the grid lacks is dropped
-    without a message, as there)."""
+    """``(seq, model, stage, expert)``: the groups the REALIZED grid has
+    for ``--seq_parallel``, ``--model_devices``, ``--pipeline_devices``
+    and ``--expert_devices`` (None where it has no such axis). A request
+    the grid could not meet (one process, or a world too small) is
+    dropped as the JAX package's ``gpt2_train`` drops it: ``--seq_parallel
+    ... disabled`` and ``--expert_devices ... disabled`` with the grid's
+    shape, and the flag set back to its default (a model or stage axis
+    the grid lacks is dropped without a message, as there)."""
     inner = requested_axes(args)
     wants = {"seq": args.seq_parallel != "none",
              "model": inner["model_devices"] > 1,
+             "stage": inner["pipeline_devices"] > 1,
              "expert": inner["expert_devices"] > 1}
     if not any(wants.values()):
-        return None, None, None
+        return None, None, None, None
     if group is None:
         # one process: the grid policy over one device (its warnings)
         sizes = grid_sizes(args.num_workers, args.num_devices,
@@ -196,8 +210,9 @@ def grid_planes(args, group):
                  if a == "clients" or n > 1}
     else:
         shape = {a["name"]: a["size"] for a in group.topology()["axes"]}
-    seq, model, expert = ((group.seq, group.model, group.expert)
-                          if group is not None else (None, None, None))
+    seq, model, stage, expert = (
+        (group.seq, group.model, group.stage, group.expert)
+        if group is not None else (None,) * 4)
     if wants["seq"] and seq is None:
         print(f"--seq_parallel {args.seq_parallel} disabled: "
               f"mesh has no seq axis ({shape})")
@@ -207,7 +222,8 @@ def grid_planes(args, group):
               f"mesh has no expert axis ({shape})")
         args.expert_devices = 1
     return (seq if args.seq_parallel != "none" else None,
-            model if wants["model"] else None, expert)
+            model if wants["model"] else None,
+            stage if wants["stage"] else None, expert)
 
 
 def build_model(args, len_tokenizer: int, seq_group=None, model_group=None,
@@ -473,15 +489,28 @@ def _train(args, group):
     # tokenizer; the run then only evaluates
     if args.do_finetune and not args.do_test:
         args.model_checkpoint = args.finetune_path
-    # sequence, tensor and expert parallelism: the realized grid decides
-    seq_group, model_group, expert_group = grid_planes(args, group)
+    # sequence, tensor, pipeline and expert parallelism: the realized grid
+    # decides
+    seq_group, model_group, stage_group, expert_group = grid_planes(
+        args, group)
     model = build_model(args, len(tokenizer), seq_group, model_group,
                         expert_group)
-    compute_loss_train, compute_loss_val = make_gpt2_losses(
-        model, args.lm_coef, args.mc_coef,
-        compute_dtype=torch.bfloat16 if args.do_bf16 else None,
-        seq_group=seq_group,
-        moe_aux_coef=args.moe_aux_coef if args.n_experts else 0.0)
+    compute_dtype = torch.bfloat16 if args.do_bf16 else None
+    moe_aux_coef = args.moe_aux_coef if args.n_experts else 0.0
+    if stage_group is not None:
+        # the pipelined loss carries the GPipe schedule; the model stays
+        # the dense one
+        n_stages = stage_group.size  # realized size, possibly reduced
+        assert model.n_layer >= n_stages, \
+            f"--pipeline_devices (realized {n_stages}) must be <= n_layer"
+        compute_loss_train, compute_loss_val = make_gpt2_pp_losses(
+            model, stage_group, n_micro=args.pp_microbatches,
+            lm_coef=args.lm_coef, mc_coef=args.mc_coef,
+            compute_dtype=compute_dtype, moe_aux_coef=moe_aux_coef)
+    else:
+        compute_loss_train, compute_loss_val = make_gpt2_losses(
+            model, args.lm_coef, args.mc_coef, compute_dtype=compute_dtype,
+            seq_group=seq_group, moe_aux_coef=moe_aux_coef)
 
     log_dir = make_logdir(args)
     if group is None or group.is_main:

@@ -78,7 +78,9 @@ losses, one a layer, as a tensor (flax sows them into a collection).
 ``load_hf_gpt2`` prints the JAX package's warning for the MoE blocks and
 leaves their experts as initialized.
 
-The pipeline (ROADMAP.md queue 1 item 7.4) is not ported.
+The pipeline (``parallel/pipeline.make_gpt2_pp_losses``) runs this
+model's blocks, each stage its own range, and writes its own embedding
+and heads; the parameters are the dense model's.
 """
 
 from __future__ import annotations
@@ -406,18 +408,25 @@ class GPT2DoubleHeads(nn.Module):
                 continue
             p.copy_(torch.randn(p.shape, generator=generator) * std)
 
-    def dropout_numel(self, n_seq: int, seq_len: int) -> int:
-        """Keep-mask elements one forward of ``n_seq`` sequences of
-        ``seq_len`` tokens (the local slice under sequence parallelism)
-        draws: the embedding dropout, then per block the attention
-        probabilities (dense attention only; this rank's local heads under
-        tensor parallelism) and the two residual branches."""
+    def dropout_shapes(self, n_seq: int, seq_len: int):
+        """The shapes of the keep masks one forward of ``n_seq`` sequences
+        of ``seq_len`` tokens (the local slice under sequence parallelism)
+        draws, in call order: ``(embedding, [block 0's, block 1's,
+        ...])``, a block's being its attention probabilities (dense
+        attention only; this rank's local heads under tensor parallelism)
+        and its two residual branches."""
         c = self.config
-        tok = n_seq * seq_len * c.n_embd
+        tok = (n_seq, seq_len, c.n_embd)
         nm = self.model_group.size if self.model_group is not None else 1
-        att = (n_seq * (c.n_head // nm) * seq_len * seq_len
-               if self.attn_impl == "dense" else 0)
-        return tok + c.n_layer * (att + 2 * tok)
+        att = ([(n_seq, c.n_head // nm, seq_len, seq_len)]
+               if self.attn_impl == "dense" else [])
+        return tok, [att + [tok, tok] for _ in range(c.n_layer)]
+
+    def dropout_numel(self, n_seq: int, seq_len: int) -> int:
+        """Keep-mask elements one forward draws (``dropout_shapes``)."""
+        emb, blocks = self.dropout_shapes(n_seq, seq_len)
+        return int(np.prod(emb)) + sum(int(np.prod(sh)) for blk in blocks
+                                       for sh in blk)
 
     def forward(self, input_ids, token_type_ids=None, mc_token_ids=None,
                 dropout=None, return_aux: bool = False):

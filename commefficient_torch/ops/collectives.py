@@ -11,6 +11,13 @@ rank and size) and runs on the group's backend (NCCL on the card):
   identity and the identity whose backward is an all-reduce
   (``torch.autograd.Function``s with a ``vmap`` rule), which the
   seq-parallel GPT-2 forward and loss run on the ``seq`` axis;
+- ``send_recv``: one point-to-point exchange with a neighbour (the ring
+  attention's shift, ``parallel/ring.py``, and the pipeline's stage hop,
+  ``parallel/pipeline.py``): ``batch_isend_irecv`` on the tensor's own
+  device, except for ``gloo`` on a CUDA tensor, whose buffer is staged
+  through host memory (gloo's point-to-point reads and writes the raw
+  buffer and moves host memory only: ``writev ... Bad address`` on
+  device memory);
 - ``quantized_psum_scatter`` / ``quantized_psum`` /
   ``quantized_all_gather``: block-scaled stochastic-rounding collectives
   with an explicit error-feedback remainder. Each rank adds its carried
@@ -83,7 +90,7 @@ __all__ = [
     "leg_quantized", "resolve_leg_lowering", "plan_lowering",
     "CollectivePlan", "FP32_PLAN", "parse_collective_plan",
     "plan_from_reduce_dtype", "sr_generator", "level_sr_generators",
-    "autotune_collective_plan", "psum_repct", "ident_psumct",
+    "autotune_collective_plan", "psum_repct", "ident_psumct", "send_recv",
 ]
 
 # 64 sublanes x 128 lanes per float32 scale, as in the JAX package; the
@@ -152,6 +159,41 @@ def all_gather_tiled(x: torch.Tensor, cg) -> torch.Tensor:
                       dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, x.contiguous(), group=_pg(cg))
     return out
+
+
+def _peer(cg, group_rank: int) -> int:
+    """The global rank of ``group_rank`` in ``cg``'s process group."""
+    if cg.group is None:
+        return group_rank
+    return dist.get_global_rank(cg.group, group_rank)
+
+
+def send_recv(x: torch.Tensor, cg, dst: Optional[int],
+              src: Optional[int]) -> Optional[torch.Tensor]:
+    """Send ``x`` to group rank ``dst`` and return what group rank ``src``
+    sent (a tensor like ``x``), in one ``batch_isend_irecv``; ``dst``
+    None sends nothing, ``src`` None receives nothing (and returns
+    None). The transport follows the group's backend name
+    (``ClientGroup.backend``): ``gloo`` on a CUDA tensor stages through
+    host memory."""
+    staged = cg.backend == "gloo" and x.is_cuda
+    send = x.contiguous()
+    if staged:
+        send = send.cpu()
+    recv = None if src is None else torch.empty_like(send)
+    ops = []
+    if dst is not None:
+        ops.append(dist.P2POp(dist.isend, send, _peer(cg, dst),
+                              group=cg.group))
+    if src is not None:
+        ops.append(dist.P2POp(dist.irecv, recv, _peer(cg, src),
+                              group=cg.group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    if recv is None:
+        return None
+    return recv.to(x.device) if staged else recv
 
 
 def _all_to_all(x: torch.Tensor, cg) -> torch.Tensor:

@@ -54,27 +54,28 @@ order), and the seq axis of ``p`` is ``{p * Q + q : q}``
 (``ClientGroup.seq``, ``ClientGroup.axis("seq")``). At ``Q = 1`` the
 numbering is the grid's above, unchanged.
 
-The ``model`` axis (``--model_devices M``, GPT-2's tensor parallelism)
-and the ``expert`` axis (``--expert_devices E`` with ``--n_experts``,
-expert parallelism of the MoE blocks) follow the JAX mesh's axis order
-``clients, shard, seq, model, expert``, the last varying fastest. JAX's
-``make_mesh`` reshapes the device list row-major into that shape, so
-device ``i`` sits at ``e = i % E``, ``m = (i // E) % M``, ``q = (i //
-(E M)) % Q`` and ``(c, s)`` as above from ``i // (Q M E)``, and its
-process rank is ``((p * Q + q) * M + m) * E + e`` (``tuple_index``: ``p``
-times the inner size ``Q M E`` plus the device's inner index). The axes
-claim their devices in JAX's priority ``model > stage > expert > seq >
-clients`` (``grid_sizes``), each clamp with JAX's warning; the expert axis
-shrinks to a divisor of ``--n_experts``. The ranks of one tuple index
-(all its seq, model and expert indices) run the same client slots and the
+The ``model`` axis (``--model_devices M``, GPT-2's tensor parallelism),
+the ``stage`` axis (``--pipeline_devices S``, GPT-2's pipeline,
+``parallel/pipeline.py``) and the ``expert`` axis (``--expert_devices E``
+with ``--n_experts``, expert parallelism of the MoE blocks) follow the JAX
+mesh's axis order ``clients, shard, seq, model, stage, expert``, the last
+varying fastest. JAX's ``make_mesh`` reshapes the device list row-major
+into that shape, so device ``i`` sits at ``e = i % E``, ``st = (i // E)
+% S``, ``m = (i // (E S)) % M``, ``q = (i // (E S M)) % Q`` and ``(c,
+s)`` as above from ``i // (Q M S E)``, and its process rank is ``(((p *
+Q + q) * M + m) * S + st) * E + e`` (``tuple_index``: ``p`` times the inner
+size ``Q M S E`` plus the device's inner index). The axes claim their
+devices in JAX's priority ``model > stage > expert > seq > clients``
+(``grid_sizes``), each clamp with JAX's warning; the expert axis shrinks
+to a divisor of ``--n_experts``. The ranks of one tuple index (all its
+seq, model, stage and expert indices) run the same client slots and the
 same server step; the server reduce tuple of inner index ``j`` is ``{p *
-Q M E + j : p}``, and the rank's group along ``model`` (``expert``) holds
-the ranks that differ from it in ``m`` (``e``) alone
-(``ClientGroup.axis("model")``, ``ClientGroup.axis("expert")``). Every
-rank creates every subgroup, in one order: the tuples, then the seq,
-model and expert axes, then the shard and clients axes. The pipeline's
-``stage`` axis is not ported (``--pipeline_devices`` raises naming
-ROADMAP.md queue 1 item 7.4).
+Q M S E + j : p}``, and the rank's group along ``model`` (``stage``,
+``expert``) holds the ranks that differ from it in ``m`` (``st``, ``e``)
+alone (``ClientGroup.axis("model")``, ``ClientGroup.axis("stage")``,
+``ClientGroup.axis("expert")``). Every rank creates every subgroup, in
+one order: the tuples, then the seq, model, stage and expert axes, then
+the shard and clients axes.
 
 ``mesh_axis_placement``: ``clients`` rides ``dcn`` exactly when the world
 spans more than one node (``LOCAL_WORLD_SIZE < WORLD_SIZE``), every other
@@ -90,6 +91,7 @@ import warnings
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -97,10 +99,11 @@ CLIENTS_AXIS = "clients"
 SHARD_AXIS = "shard"
 SEQ_AXIS = "seq"
 MODEL_AXIS = "model"
+STAGE_AXIS = "stage"
 EXPERT_AXIS = "expert"
 # the axes inside a tuple index, in the JAX mesh's order (the last varies
 # fastest)
-INNER_AXES = (SEQ_AXIS, MODEL_AXIS, EXPERT_AXIS)
+INNER_AXES = (SEQ_AXIS, MODEL_AXIS, STAGE_AXIS, EXPERT_AXIS)
 
 
 @dataclass(frozen=True)
@@ -118,8 +121,8 @@ class ClientGroup:
     is ``mesh_axis_placement``'s ``(axis, "ici" | "dcn")`` pairs and
     ``nodes`` the node count of the world. ``seq`` is this rank's group
     along the ``seq`` axis (its ``rank`` the seq index), None without
-    one; ``model`` and ``expert`` its groups along those axes (None
-    without them); ``backend`` the process group's backend name, fixed
+    one; ``model``, ``stage`` and ``expert`` its groups along those axes
+    (None without them); ``backend`` the process group's backend name, fixed
     when the group is built (``parallel/ring.py`` picks its neighbour
     shift by it)."""
 
@@ -135,6 +138,7 @@ class ClientGroup:
     backend: str = ""
     model: Optional["ClientGroup"] = None
     expert: Optional["ClientGroup"] = None
+    stage: Optional["ClientGroup"] = None
 
     def slots(self, W: int) -> Tuple[int, int]:
         """This rank's ``[lo, hi)`` of a round's ``W`` slots."""
@@ -143,15 +147,16 @@ class ClientGroup:
         return self.rank * per, (self.rank + 1) * per
 
     def _inner(self):
-        """``(axis, group)`` of the seq, model and expert axes this rank
-        has, in mesh order."""
+        """``(axis, group)`` of the seq, model, stage and expert axes this
+        rank has, in mesh order."""
         return tuple((name, g) for name, g in zip(
-            INNER_AXES, (self.seq, self.model, self.expert)) if g is not None)
+            INNER_AXES, (self.seq, self.model, self.stage, self.expert))
+            if g is not None)
 
     @property
     def inner_size(self) -> int:
-        """The ranks of one tuple index: the product of the seq, model and
-        expert axes."""
+        """The ranks of one tuple index: the product of the seq, model,
+        stage and expert axes."""
         n = 1
         for _, g in self._inner():
             n *= g.size
@@ -168,8 +173,8 @@ class ClientGroup:
 
     @property
     def is_main(self) -> bool:
-        """Rank 0 of the server reduce tuple, at index 0 of the seq, model
-        and expert axes."""
+        """Rank 0 of the server reduce tuple, at index 0 of the seq,
+        model, stage and expert axes."""
         return self.rank == 0 and all(g.rank == 0 for _, g in self._inner())
 
     @property
@@ -190,7 +195,7 @@ class ClientGroup:
 
     def axis(self, name: str) -> "ClientGroup":
         """This rank's group along server reduce axis ``name``, or along
-        the ``seq``, ``model`` or ``expert`` axis."""
+        the ``seq``, ``model``, ``stage`` or ``expert`` axis."""
         for ax, g in self._inner():
             if ax == name:
                 return g
@@ -327,25 +332,30 @@ def destroy_distributed() -> None:
 def grid_sizes(num_workers: int, num_devices: int = -1,
                shard_devices: int = 1, world: int = 1, seq_devices: int = 1,
                model_devices: int = 1, expert_devices: int = 1,
-               n_experts: int = 0) -> dict:
+               n_experts: int = 0, pipeline_devices: int = 1) -> dict:
     """``{axis: size}`` of the grid over ``world`` devices: the JAX
-    package's ``default_client_mesh`` policy without the pipeline's
-    ``stage`` axis, its clamps and warnings word for word. The axes claim
-    devices in the priority ``model > stage > expert > seq > clients``:
-    the model axis ``min(model_devices, world)``; the expert axis next,
-    reduced to a divisor of ``n_experts`` (when it is set); the seq axis;
+    package's ``default_client_mesh`` policy, its clamps and warnings word
+    for word. The axes claim devices in the priority ``model > stage >
+    expert > seq > clients``: the model axis ``min(model_devices,
+    world)``; the stage axis ``min(pipeline_devices, world // model)``;
+    the expert axis next, reduced to a divisor of ``n_experts`` (when it
+    is set); the seq axis;
     the shard axis, reduced to a divisor of ``num_workers``; the clients
     axis ``min(num_devices, world // (shard x seq x model x expert))``
     (``num_devices <= 0``: all of it), reduced until ``clients x shard``
     divides ``num_workers``. Keys in mesh order: ``clients``, ``shard``,
-    ``seq``, ``model``, ``expert`` (every key present, 1 where the grid has
-    no such axis)."""
+    ``seq``, ``model``, ``stage``, ``expert`` (every key present, 1 where
+    the grid has no such axis)."""
     n_avail = world
-    npp = 1
     nm = max(1, min(model_devices, n_avail))
     if model_devices > nm:
         warnings.warn(f"--model_devices {model_devices} reduced to {nm} "
                       f"(only {n_avail} devices available)", stacklevel=2)
+    npp = max(1, min(pipeline_devices, n_avail // nm))
+    if pipeline_devices > npp:
+        warnings.warn(f"--pipeline_devices {pipeline_devices} reduced to "
+                      f"{npp} (only {n_avail} devices available)",
+                      stacklevel=2)
     ne = max(1, min(expert_devices, n_avail // (nm * npp)))
     if n_experts > 0:
         # the expert axis must divide the expert count (the slice is E/ne)
@@ -385,14 +395,14 @@ def grid_sizes(num_workers: int, num_devices: int = -1,
             f"shard; {n_avail} available devices)",
             stacklevel=2)
     return {CLIENTS_AXIS: n, SHARD_AXIS: nsh, SEQ_AXIS: ns, MODEL_AXIS: nm,
-            EXPERT_AXIS: ne}
+            STAGE_AXIS: npp, EXPERT_AXIS: ne}
 
 
 def grid_axes(num_workers: int, num_devices: int = -1,
               shard_devices: int = 1, world: int = 1,
               seq_devices: int = 1) -> Tuple[int, int, int]:
-    """``(n_clients, n_shard, n_seq)`` of ``grid_sizes`` without the model
-    and expert axes."""
+    """``(n_clients, n_shard, n_seq)`` of ``grid_sizes`` without the model,
+    stage and expert axes."""
     sizes = grid_sizes(num_workers, num_devices, shard_devices, world,
                        seq_devices)
     return sizes[CLIENTS_AXIS], sizes[SHARD_AXIS], sizes[SEQ_AXIS]
@@ -413,14 +423,16 @@ def client_group_size(num_workers: int, num_devices: int, world: int) -> int:
 
 
 def tuple_index(device_index: int, n_clients: int, n_shard: int,
-                n_seq: int = 1, n_model: int = 1, n_expert: int = 1) -> int:
+                n_seq: int = 1, n_model: int = 1, n_expert: int = 1,
+                n_stage: int = 1) -> int:
     """The process rank ``p * I + j`` of the device at inner index ``j =
-    i % I`` (``I = n_seq * n_model * n_expert``: ``j = (q * n_model + m) *
-    n_expert + e``, the JAX mesh's row-major order of its minor axes),
-    ``c = (i // I) // n_shard``, ``s = (i // I) % n_shard``, where ``p = s
-    * n_clients + c`` is its index in the server reduce tuple (``p`` itself
-    when ``I = 1``); a device past the grid keeps its index."""
-    inner = n_seq * n_model * n_expert
+    i % I`` (``I = n_seq * n_model * n_stage * n_expert``: ``j = ((q *
+    n_model + m) * n_stage + st) * n_expert + e``, the JAX mesh's
+    row-major order of its minor axes), ``c = (i // I) // n_shard``, ``s =
+    (i // I) % n_shard``, where ``p = s * n_clients + c`` is its index in
+    the server reduce tuple (``p`` itself when ``I = 1``); a device past
+    the grid keeps its index."""
+    inner = n_seq * n_model * n_stage * n_expert
     if device_index >= n_clients * n_shard * inner:
         return device_index
     j, q = divmod(device_index, inner)
@@ -446,14 +458,14 @@ def make_client_group(num_workers: int, num_devices: int = -1,
                       device: Optional[torch.device] = None,
                       shard_devices: int = 1, nodes: int = 1,
                       seq_devices: int = 1, model_devices: int = 1,
-                      expert_devices: int = 1,
-                      n_experts: int = 0) -> Optional[ClientGroup]:
+                      expert_devices: int = 1, n_experts: int = 0,
+                      pipeline_devices: int = 1) -> Optional[ClientGroup]:
     """The client grid of a running process group whose ranks are
     numbered by ``tuple_index``, or None when none is initialized (the
     single-device round). Every rank must call it: a grid smaller than
     the world is a new subgroup of the first ``N`` ranks, the axis
     subgroups (and, with inner axes, each inner index's server reduce
-    tuple and each tuple index's seq, model and expert axes) are new
+    tuple and each tuple index's seq, model, stage and expert axes) are new
     groups, and the ranks past the grid get ``active=False``. ``nodes``:
     the world's node count (placement and the multi-node check)."""
     if not (dist.is_available() and dist.is_initialized()):
@@ -461,10 +473,11 @@ def make_client_group(num_workers: int, num_devices: int = -1,
     world = dist.get_world_size()
     rank = dist.get_rank()
     sizes = grid_sizes(num_workers, num_devices, shard_devices, world,
-                       seq_devices, model_devices, expert_devices, n_experts)
+                       seq_devices, model_devices, expert_devices, n_experts,
+                       pipeline_devices)
     nc, nsh = sizes[CLIENTS_AXIS], sizes[SHARD_AXIS]
-    dims = [sizes[a] for a in INNER_AXES]   # (Q, M, E)
-    inner = dims[0] * dims[1] * dims[2]
+    dims = [sizes[a] for a in INNER_AXES]   # (Q, M, S, E)
+    inner = int(np.prod(dims))
     n = nc * nsh
     total = n * inner
     if nodes > 1 and total == world and nc % nodes:
@@ -483,12 +496,10 @@ def make_client_group(num_workers: int, num_devices: int = -1,
         return pp * inner + jj
 
     def unravel(jj: int):
-        q, rest = divmod(jj, dims[1] * dims[2])
-        m, e = divmod(rest, dims[2])
-        return [q, m, e]
+        return [int(v) for v in np.unravel_index(jj, dims)]
 
     def ravel(idx) -> int:
-        return (idx[0] * dims[1] + idx[1]) * dims[2] + idx[2]
+        return int(np.ravel_multi_index(idx, dims))
 
     # every rank creates every group, in one order
     group = None
@@ -540,7 +551,8 @@ def make_client_group(num_workers: int, num_devices: int = -1,
                        placement=placement, nodes=nodes,
                        seq=inner_groups.get(SEQ_AXIS), backend=backend,
                        model=inner_groups.get(MODEL_AXIS),
-                       expert=inner_groups.get(EXPERT_AXIS))
+                       expert=inner_groups.get(EXPERT_AXIS),
+                       stage=inner_groups.get(STAGE_AXIS))
 
 
 def requested_seq_devices(args) -> int:
@@ -553,12 +565,15 @@ def requested_seq_devices(args) -> int:
 def requested_axes(args) -> dict:
     """The inner axes an entry point asks the grid for: ``seq_devices``
     (``requested_seq_devices``), ``model_devices`` (``--model_devices``),
-    ``expert_devices`` (``--expert_devices`` when ``--n_experts`` is set,
-    else 1, as the JAX package's ``gpt2_train`` asks) and ``n_experts``:
-    the keywords of ``grid_sizes`` and ``make_client_group``."""
+    ``pipeline_devices`` (``--pipeline_devices``), ``expert_devices``
+    (``--expert_devices`` when ``--n_experts`` is set, else 1, as the JAX
+    package's ``gpt2_train`` asks) and ``n_experts``: the keywords of
+    ``grid_sizes`` and ``make_client_group``."""
     n_experts = int(getattr(args, "n_experts", 0) or 0)
     return {"seq_devices": requested_seq_devices(args),
             "model_devices": int(getattr(args, "model_devices", 1) or 1),
+            "pipeline_devices": int(getattr(args, "pipeline_devices", 1)
+                                    or 1),
             "expert_devices": (int(getattr(args, "expert_devices", 1) or 1)
                                if n_experts else 1),
             "n_experts": n_experts}
@@ -572,7 +587,8 @@ def start_client_group(args, init_method: Optional[str] = None,
     (``cuda:LOCAL_RANK`` with NCCL, or gloo on the CPU, unless the caller
     names ``backend``; ``init_method`` defaults to the launch's
     rendezvous), numbered by ``tuple_index``, and its grid (with the
-    ``seq``, ``model`` and ``expert`` axes it asks for, ``requested_axes``);
+    ``seq``, ``model``, ``stage`` and ``expert`` axes it asks for,
+    ``requested_axes``);
     else None (one device)."""
     env = world_from_env()
     if env is None:
@@ -588,7 +604,9 @@ def start_client_group(args, init_method: Optional[str] = None,
         args.device, backend=backend,
         init_method=init_method or env.init_method,
         rank=tuple_index(env.rank, sizes[CLIENTS_AXIS], sizes[SHARD_AXIS],
-                         *(sizes[a] for a in INNER_AXES)),
+                         n_seq=sizes[SEQ_AXIS], n_model=sizes[MODEL_AXIS],
+                         n_stage=sizes[STAGE_AXIS],
+                         n_expert=sizes[EXPERT_AXIS]),
         world_size=env.size, local_rank=env.local_rank)
     return make_client_group(args.num_workers, args.num_devices, device,
                              shard_devices=shard, nodes=env.nodes, **inner)

@@ -17,11 +17,12 @@ backward shifts the cotangent the other way (the transpose of JAX's
 ``ppermute``) and whose ``vmap`` rule shifts the whole batched tensor
 once, so the attention runs inside the fused client phase's
 ``torch.func.vmap``. Keys and values travel stacked, one exchange a hop.
-Its transport is chosen by the group's backend name, fixed when the group
-is built (``ClientGroup.backend``): point-to-point ``batch_isend_irecv``
-on the tensor's own device, except for ``gloo`` on a CUDA tensor, whose
-block is staged through host memory first (gloo's point-to-point reads
-and writes the raw buffer and moves host memory only).
+Its transport is ``ops/collectives.send_recv``, chosen by the group's
+backend name, fixed when the group is built (``ClientGroup.backend``):
+point-to-point ``batch_isend_irecv`` on the tensor's own device, except
+for ``gloo`` on a CUDA tensor, whose block is staged through host memory
+first (gloo's point-to-point reads and writes the raw buffer and moves
+host memory only).
 """
 
 from __future__ import annotations
@@ -29,40 +30,19 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.distributed as dist
+
+from commefficient_torch.ops.collectives import send_recv
 
 __all__ = ["ring_attention"]
 
 _NEG = -0.7 * torch.finfo(torch.float32).max  # large-negative mask, NaN-free
 
 
-def _peer(cg, group_rank: int) -> int:
-    """The global rank of ``group_rank`` in ``cg``'s process group."""
-    if cg.group is None:
-        return group_rank
-    return dist.get_global_rank(cg.group, group_rank)
-
-
-def _host_staged(cg, x: torch.Tensor) -> bool:
-    return cg.backend == "gloo" and x.is_cuda
-
-
 def _shift(x: torch.Tensor, cg, offset: int) -> torch.Tensor:
     """Send ``x`` to group rank ``rank + offset`` and return what rank
     ``rank - offset`` sent (mod the group's size)."""
     n = cg.size
-    dst = _peer(cg, (cg.rank + offset) % n)
-    src = _peer(cg, (cg.rank - offset) % n)
-    staged = _host_staged(cg, x)
-    send = x.contiguous()
-    if staged:
-        send = send.cpu()
-    recv = torch.empty_like(send)
-    ops = [dist.P2POp(dist.isend, send, dst, group=cg.group),
-           dist.P2POp(dist.irecv, recv, src, group=cg.group)]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    return recv.to(x.device) if staged else recv
+    return send_recv(x, cg, (cg.rank + offset) % n, (cg.rank - offset) % n)
 
 
 class _Shift(torch.autograd.Function):

@@ -352,6 +352,10 @@ def test_gpt2_train_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(AssertionError, match="require --server_shard"):
         gpt2_train.train(TRAIN_ARGV + ["--collective_plan",
                                        "table=ici:fp32/dcn:int8"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        gpt2_train.train(TRAIN_ARGV + ["--pipeline_devices", "2"])
+    # so are the pipeline's, with the JAX package's checks
+    with pytest.raises(AssertionError,
+                       match="--pipeline_devices must be >= 1"):
+        gpt2_train.train(TRAIN_ARGV + ["--pipeline_devices", "0"])
+    with pytest.raises(AssertionError, match="--pp_microbatches must be >= 1"):
+        gpt2_train.train(TRAIN_ARGV + ["--pp_microbatches", "0"])
     assert os.environ.get("COMMEFFICIENT_RUN_DIR") is None

@@ -535,8 +535,9 @@ class TestEPWiring:
 
     def test_validate_args_invariants(self):
         """The flags' checks, as JAX's: ``--expert_devices`` needs
-        ``--n_experts`` and must divide it; the pipeline's flags still
-        raise naming item 7.4."""
+        ``--n_experts`` and must divide it; the pipeline's flags parse as
+        JAX's (ported with item 7.4), so the MoE flags compose with
+        them."""
         base = ["--mode", "uncompressed", "--local_momentum", "0"]
         for parse in (j_parse, t_parse):
             with pytest.raises(AssertionError, match="requires --n_experts"):
@@ -551,8 +552,10 @@ class TestEPWiring:
         assert (args.n_experts, args.expert_devices, args.moe_dispatch,
                 args.moe_capacity_factor, args.moe_aux_coef) == \
             (4, 2, "sparse", 2.0, 0.0)
-        with pytest.raises(NotImplementedError, match="item 7.4"):
-            t_parse(argv=base + ["--pipeline_devices", "2"])
+        argv = base + ["--n_experts", "4", "--pipeline_devices", "2"]
+        ta, ja = t_parse(argv=argv), j_parse(argv=argv)
+        assert (ta.pipeline_devices, ta.pp_microbatches, ta.n_experts) == \
+            (ja.pipeline_devices, ja.pp_microbatches, ja.n_experts)
 
     def test_mesh_degrade_keeps_expert_divisibility(self):
         """Clamping lands on a divisor of ``n_experts`` (3 asked of 8

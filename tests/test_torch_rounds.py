@@ -184,19 +184,17 @@ def test_cv_train_main_cpu(tmp_path, monkeypatch):
     assert summary["up (MiB)"] > 0
 
 
-# (--guards, --telemetry, --inject_fault, --staleness_decay,
-# --participation, the host-state flags and --churn are ported now; their
-# places are taken by flags of planes still unported). The 2-D plane's
-# flags (--plan_error_budget, --shard_devices, --collective_plan auto)
-# are ported too: they parse as the JAX package parses them. So does
-# --seq_parallel (GPT-2's sequence parallelism), with its --seq_devices,
-# and so do tensor parallelism's --model_devices and the experts'
-# --n_experts and --expert_devices. The pipeline's --pipeline_devices and
-# --pp_microbatches still raise, naming item 7.
+# Once the flags of planes the port did not carry yet, each case now
+# parses as the JAX package parses it: the 2-D plane's (--plan_error_budget,
+# --shard_devices, --collective_plan auto), --seq_parallel with its
+# --seq_devices, tensor parallelism's --model_devices, the experts'
+# --n_experts and --expert_devices, and the pipeline's --pipeline_devices
+# and --pp_microbatches. No flag is left unported.
 PORTED_2D = ("--plan_error_budget", "--shard_devices", "--collective_plan")
 PORTED_SEQ = ("--seq_parallel",)
 PORTED_TP_EP = {"--model_devices": [], "--n_experts": [],
                 "--expert_devices": ["--n_experts", "4"]}
+PORTED_PP = ("--pipeline_devices", "--pp_microbatches")
 
 
 @pytest.mark.parametrize("flag", [["--plan_error_budget", "0.1"],
@@ -223,10 +221,14 @@ def test_unported_options_raise(flag):
         assert (ta.seq_parallel, ta.seq_devices) == \
             (ja.seq_parallel, ja.seq_devices) == ("ring", 2)
         return
-    if flag[0] not in PORTED_2D:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-            t_parse(argv=ARGV + ["--device", "cpu"] + flag)
+    if flag[0] in PORTED_PP:
+        ja, ta = j_parse(argv=ARGV + flag), t_parse(argv=ARGV + flag
+                                                    + ["--device", "cpu"])
+        for dest in ("pipeline_devices", "pp_microbatches"):
+            assert getattr(ta, dest) == getattr(ja, dest), (flag, dest)
+        assert getattr(ta, flag[0].lstrip("-")) == 2
         return
+    assert flag[0] in PORTED_2D, flag
     argv = ARGV + flag + (["--server_shard"] if flag[0] != "--plan_error_budget"
                           else [])
     ja, ta = j_parse(argv=argv), t_parse(argv=argv + ["--device", "cpu"])
@@ -289,15 +291,16 @@ def test_cuda_request_without_card_raises():
 def test_batchnorm_names_its_roadmap_item():
     """The name is kept from when ``--batchnorm`` raised naming ROADMAP
     queue 1 item 1c: it is ported now, so it parses with the JAX
-    package's default (off), and the flags still unported name their
-    items."""
+    package's default (off), as do the flags once unported (``--churn``,
+    and the pipeline's ``--pp_microbatches``, item 7.4)."""
     assert t_parse(argv=ARGV + ["--device", "cpu"]).do_batchnorm is False
     assert t_parse(argv=ARGV + ["--device", "cpu",
                                 "--batchnorm"]).do_batchnorm is True
     assert t_parse(argv=ARGV + ["--device", "cpu", "--churn",
                                 "join=1"]).churn == "join=1"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t_parse(argv=ARGV + ["--device", "cpu", "--pp_microbatches", "2"])
+    assert t_parse(argv=ARGV + ["--device", "cpu", "--pp_microbatches",
+                                "2"]).pp_microbatches == \
+        j_parse(argv=ARGV + ["--pp_microbatches", "2"]).pp_microbatches == 2
 
 
 def test_per_client_worker_path_not_ported():

@@ -464,10 +464,9 @@ def test_cv_train_log_renders_with_obs_report(tmp_path):
 
 # ---- the flag walk ---------------------------------------------------------
 
-# flags still unported -> the item their NotImplementedError names
-UNPORTED_ITEMS = {
-    "--pipeline_devices": "item 7", "--pp_microbatches": "item 7",
-}
+# flags still unported -> the item their NotImplementedError names: none
+# since the pipeline's --pipeline_devices and --pp_microbatches were ported
+UNPORTED_ITEMS = {}
 # accepted and ignored, as the JAX package ignores them
 IGNORED = ("--port", "--share_ps_gpu", "--nan_threshold",
            "--num_results_train", "--num_results_val")

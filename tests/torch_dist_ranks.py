@@ -444,10 +444,17 @@ def cli_cv_train(init_method, spec):
 
 
 def cli_gpt2_train(init_method, spec):
-    """``gpt2_train.train`` as a rank of ``torchrun`` would run it."""
+    """``gpt2_train.train`` as a rank of ``torchrun`` would run it; with
+    ``spec["raises"]``, the message of the ``AssertionError`` it raises."""
     os.environ.update(spec["env"])
     from commefficient_torch import gpt2_train
 
+    if spec.get("raises"):
+        try:
+            gpt2_train.train(spec["argv"], init_method=init_method)
+        except AssertionError as e:
+            return {"error": str(e)}
+        return {"error": None}
     stats = gpt2_train.train(spec["argv"], init_method=init_method)
     return {k: float(v) for k, v in stats.items()}
 
@@ -942,6 +949,7 @@ def body_seq_rounds(cg, spec):
         make_client_group,
         requested_axes,
     )
+    from commefficient_torch.parallel.pipeline import make_gpt2_pp_losses
 
     out = []
     for run in spec["runs"]:
@@ -961,15 +969,21 @@ def body_seq_rounds(cg, spec):
                      and args.seq_parallel != "none" else None)
         model_group = group.model if group is not None else None
         expert_group = group.expert if group is not None else None
+        stage_group = group.stage if group is not None else None
         mspec = dict(spec, model=dict(
             spec["model"], dropout=run.get("dropout", 0.0),
             n_experts=args.n_experts, moe_dispatch=args.moe_dispatch,
             moe_capacity_factor=args.moe_capacity_factor))
         m = tiny_gpt2(mspec, run["impl"], seq_group, model_group,
                       expert_group)
-        train, val = make_gpt2_losses(
-            m, seq_group=seq_group,
-            moe_aux_coef=args.moe_aux_coef if args.n_experts else 0.0)
+        aux = args.moe_aux_coef if args.n_experts else 0.0
+        if stage_group is not None:
+            train, val = make_gpt2_pp_losses(
+                m, stage_group, n_micro=args.pp_microbatches,
+                moe_aux_coef=aux)
+        else:
+            train, val = make_gpt2_losses(m, seq_group=seq_group,
+                                          moe_aux_coef=aux)
         draws = []
         if run.get("dropout"):
             inner = train.draw_rng
@@ -988,7 +1002,8 @@ def body_seq_rounds(cg, spec):
         opt.set_lr_factor(spec["lr"])
         rec = {"seq_axis": fm.worker_config.seq_axis,
                "model_axis": fm.worker_config.model_axis,
-               "expert_axis": fm.worker_config.expert_axis, "w": [],
+               "expert_axis": fm.worker_config.expert_axis,
+               "pp_axis": fm.worker_config.pp_axis, "w": [],
                "res": [], "table": []}
         if group is not None:
             rec.update(rank=group.rank, size=group.size,
@@ -998,6 +1013,8 @@ def body_seq_rounds(cg, spec):
                        (group.model.rank, group.model.size),
                        expert=None if group.expert is None else
                        (group.expert.rank, group.expert.size),
+                       stage=None if group.stage is None else
+                       (group.stage.rank, group.stage.size),
                        is_main=group.is_main, topology=group.topology(),
                        process_rank=group.process_rank)
         for b in spec["batches"]:
@@ -1020,7 +1037,7 @@ def body_seq_rounds(cg, spec):
 # --------------------------------------------------------------------------
 
 def _grid_of_spawn(cg, seq: int = 1, model: int = 1, expert: int = 1,
-                   n_experts: int = 0):
+                   n_experts: int = 0, stage: int = 1):
     """This spawn's ranks as one tuple index with the inner axes asked
     for (a grid of one client slot)."""
     import torch
@@ -1029,7 +1046,7 @@ def _grid_of_spawn(cg, seq: int = 1, model: int = 1, expert: int = 1,
 
     g = make_client_group(1, 1, torch.device("cpu"), seq_devices=seq,
                           model_devices=model, expert_devices=expert,
-                          n_experts=n_experts)
+                          n_experts=n_experts, pipeline_devices=stage)
     assert g.active and g.inner_size == cg.size, (g, cg.size)
     return g
 
@@ -1100,4 +1117,68 @@ def body_moe_mlp(cg, spec):
         out.append({"out": _np(y), "aux": float(aux),
                     "gx": _np(grads[0]),
                     "grads": {k: _np(gr) for k, gr in zip(names, grads[1:])}})
+    return out
+
+
+# --------------------------------------------------------------------------
+# the pipeline (the stage axis)
+# --------------------------------------------------------------------------
+
+def body_pp_losses(cg, spec):
+    """The pipelined GPT-2 losses under each of ``spec["cases"]`` (``{"stage",
+    "n_micro", "seq", "impl", "expert", "coef", "bf16", "val"}``) over this
+    spawn's ranks as one tuple index, from the flat JAX-order weights
+    ``spec["flat0"]`` on ``spec["batch"]`` (one client; its token leaves
+    cut over the seq axis): the train loss, the count and the gradient
+    made whole over the seq, stage and expert axes (``worker.reconcile``;
+    flat, JAX order), or with ``"val"`` the val sums."""
+    import torch
+
+    from commefficient_torch.convert import flat_from_jax
+    from commefficient_torch.federated.rounds import (
+        flat_scale,
+        seq_slice,
+        slice_scale_values,
+    )
+    from commefficient_torch.federated.worker import leaf_grads, reconcile
+    from commefficient_torch.ops.flat import ParamLayout, leaf_segments
+    from commefficient_torch.parallel.moe import ep_sliced_param
+    from commefficient_torch.parallel.pipeline import make_gpt2_pp_losses
+
+    out = []
+    for c in spec["cases"]:
+        model = dict(spec["model"], **c.get("model", {}))
+        g = _grid_of_spawn(cg, c.get("seq", 1), 1, c.get("expert", 1),
+                           model.get("n_experts", 0), c["stage"])
+        m = tiny_gpt2({"model": model}, c.get("impl"), g.seq, None,
+                      g.expert)
+        layout = ParamLayout(m)
+        w = flat_from_jax(spec[c.get("flat", "flat0")], layout)
+        train, val = make_gpt2_pp_losses(
+            m, g.stage, n_micro=c["n_micro"],
+            compute_dtype=torch.bfloat16 if c.get("bf16") else None,
+            moe_aux_coef=c.get("coef", 0.0))
+        batch = seq_slice({k: _t(v) for k, v in spec[c.get(
+            "batch", "batch")].items()}, ("input_ids", "token_type_ids",
+                                          "lm_labels_shifted"), g.seq)
+        if c.get("val"):
+            with torch.no_grad():
+                nll, (acc,), cnt, _ = val(layout.params(w), {}, batch, None,
+                                          False)
+            out.append({"nll": float(nll), "acc": float(acc),
+                        "count": float(cnt)})
+            continue
+        leaves = layout.leaves(w)
+        loss, _, cnt, _ = train(layout.params_of(leaves), {}, batch, None,
+                                True)
+        grad = layout.gather_grads(leaf_grads(loss, leaves),
+                                   torch.empty_like(w))
+        ep = None
+        if g.expert is not None:
+            ep = flat_scale(leaf_segments(layout), slice_scale_values(
+                leaf_segments(layout), ep_sliced_param, g.expert.size))
+        grad = reconcile(grad, g.seq, expert_group=g.expert, ep_scale=ep,
+                         stage_group=g.stage)
+        out.append({"loss": float(loss), "count": float(cnt),
+                    "g": _np(grad), "process_rank": g.process_rank})
     return out
