@@ -348,6 +348,22 @@ Phases (any failure exits non-zero; nothing is caught):
    (d) ``gpt2_train --pipeline_devices 2`` on two ranks: a finite val NLL
    alike on both, the headline kernels launched, its tokens/sec; (e)
    tokens/sec of (a), (b) and (d) beside the one-rank rounds' (data).
+20. the run report and the learning evidence (``phase_evidence``): (a)
+   ``commefficient_torch.scripts.sketch_fidelity``'s chunked-cyclic family
+   at the headline geometry (d = 6,568,640, 5 x 500,000, k = 50,000, 20
+   blocks) for 3 seeded power-law trials, each through the kernels (1 / 1
+   / 8 launches of the accumulate, the query and the count pass a trial)
+   and through the plain versions, the kept sets and values equal, mass
+   recall >= 0.999 and the update's relative L2 <= 0.002; (b)
+   ``scripts.learning_fullscale`` for 24 epochs, both legs (full ResNet9
+   with ``--batchnorm``, 8 x 64 images, 512 a class, the 5 x 500,000
+   sketch against uncompressed), its per-epoch rows printed, each leg's
+   final test accuracy >= 0.9, 240 x (2 / 1 / 8) launches, the sketched
+   leg's rounds/sec beside phase 4's; (c) ``python -m
+   commefficient_torch.scripts.obs_report --json`` on the sketched leg's
+   log in a child with neither ``jax`` nor ``commefficient_tpu`` loaded:
+   240 rounds, no alert; (d) ``scripts.gpt2_golden_calibrate`` at 3
+   epochs: val NLL below the JAX test's 5.0, printed beside JAX's 4.381.
 
 Then one JSON line of the kernels (launches per timed window of the path
 that runs each: phase 4 for the accumulate, the query and the count pass,
@@ -357,8 +373,9 @@ sharded round and its largest error at ``t0 > 0``; its launches a
 round on rank 3 of phase 16's 2-D round; on a rank of phase 17's
 (clients 2) x (seq 2) grid; on a rank of phase 18's (clients 1) x
 (model 2) round, with its largest error at the MoE geometry; on a rank of
-phase 19's (clients 1) x (stage 2) round), the
-card's line, and ``{"ok": true, "device": {...}}`` as the last line.
+phase 19's (clients 1) x (stage 2) round; and its launches in phase 20's
+fidelity trial, learning run and GPT-2 calibration), the card's line,
+and ``{"ok": true, "device": {...}}`` as the last line.
 Without a card it exits with an error before printing any result.
 
 ``--kernel-times`` runs none of the phases. It times, for the checkout
@@ -6416,6 +6433,187 @@ def phase_pp(card: str, dense_ref=None, moe_ref=None) -> dict:
     return out
 
 
+# phase 20: the run report and the learning evidence
+FIDELITY_TRIALS = 3
+# a trial: sketch_vec's one accumulate, then unsketch's query and the
+# per-pass descent's 8 count passes (ops/topk._descent)
+FIDELITY_PER_TRIAL = {"sketch_accumulate": 1, "sketch_estimates": 1,
+                      "topk_count_ge": 8}
+FIDELITY_MIN_RECALL = 0.999     # docs/sketch_fidelity.md: 1.0000 (JAX, CPU)
+FIDELITY_MAX_REL_L2 = 0.002     # docs/sketch_fidelity.md: 0.0012
+LEARN_EPOCHS = 24
+LEARN_ROUNDS = 240              # 24 epochs x 10 rounds of 8 x 64 images
+LEARN_MIN_ACC = 0.9
+GPT2_EPOCHS = 3
+GPT2_MAX_NLL = 5.0              # tests/test_gpt2.py:402 (uniform: 5.549)
+GPT2_JAX_NLL = 4.381            # JAX's calibration (tests/test_gpt2.py:374)
+# the report in a child: python -m ...obs_report --json, and neither JAX
+# nor the JAX package loaded at its end
+REPORT_CHILD = """import runpy, sys
+sys.argv = ["obs_report", "--json", sys.argv[1]]
+try:
+    runpy.run_module("commefficient_torch.scripts.obs_report",
+                     run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "commefficient_tpu")]
+assert not bad, bad
+"""
+
+
+def evidence_fidelity() -> dict:
+    """(a) ``sketch_fidelity``'s chunked-cyclic family at the headline
+    geometry on the card, each trial through the kernels and through the
+    plain versions."""
+    from commefficient_torch.scripts import sketch_fidelity as sf
+
+    want = {k.name: FIDELITY_PER_TRIAL.get(k.name, 0)
+            for k in kernels.KERNELS}
+    rows = []
+    for trial in range(FIDELITY_TRIALS):
+        v = sf.powerlaw_vector(np.random.RandomState(100 + trial), sf.D)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        rec = sf.chunked_cyclic(v, sf.R, sf.C, sf.K, seed=200 + trial)
+        ms = (time.perf_counter() - t) * 1e3
+        counts = kernels.launch_counts()
+        assert counts == want, (trial, counts, want)
+        t = time.perf_counter()
+        with plain_kernels():
+            plain = sf.chunked_cyclic(v, sf.R, sf.C, sf.K, seed=200 + trial)
+        plain_ms = (time.perf_counter() - t) * 1e3
+        kept = np.flatnonzero(rec)
+        assert kept.size == sf.K, kept.size
+        assert np.array_equal(kept, np.flatnonzero(plain)), trial
+        err = float(np.max(np.abs(rec - plain)))
+        assert err == 0.0, (trial, err)
+        recall, rel_update, rel_vals = sf.metrics(v, rec, sf.K)
+        assert recall >= FIDELITY_MIN_RECALL, (trial, recall)
+        assert rel_update <= FIDELITY_MAX_REL_L2, (trial, rel_update)
+        row = {"phase": "evidence", "part": "fidelity", "trial": trial,
+               "recall_mass": recall, "rel_l2_update": rel_update,
+               "rel_l2_vals": rel_vals, "max_abs_err": err,
+               "wall_ms": ms, "plain_wall_ms": plain_ms,
+               "launches": {k: n for k, n in counts.items() if n}}
+        print(json.dumps(row))
+        rows.append(row)
+    return {"rows": rows, "launches_per_trial": rows[0]["launches"]}
+
+
+def evidence_learning(tmp: str, headline_rps: float) -> dict:
+    """(b) ``learning_fullscale`` for 24 epochs, both legs, through the
+    script's entry point; (c) the sketched leg's log rendered by the
+    port's report in a child that loads no JAX."""
+    from commefficient_torch.scripts import learning_fullscale as lf
+
+    out, runs = os.path.join(tmp, "learning_fullscale.json"), \
+        os.path.join(tmp, "runs")
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    with env_vars(COMMEFFICIENT_SYNTHETIC_PER_CLASS=lf.PER_CLASS,
+                  LEARN_EPOCHS=LEARN_EPOCHS, LEARN_PIVOT=5, LEARN_TINY=0,
+                  COMMEFFICIENT_TINY_MODEL=""):
+        assert lf.main(["--out", out, "--run_root", runs,
+                        "--data_root", tmp]) == 0
+    wall = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    # the sketched leg launches the headline kernels; the uncompressed
+    # leg none
+    want = {k.name: HEADLINE_PER_ROUND.get(k.name, 0) * LEARN_ROUNDS
+            for k in kernels.KERNELS}
+    assert counts == want, (counts, want)
+    with open(out) as f:
+        rec = json.load(f)
+    assert rec["backend"] == "cuda" and rec["tiny"] is False, rec
+    final = {}
+    for leg in ("sketch", "uncompressed"):
+        rows = rec[leg]
+        assert len(rows) == LEARN_EPOCHS, (leg, len(rows))
+        for row in rows:
+            print(json.dumps({"phase": "evidence", "leg": leg, **row}))
+            assert all(np.isfinite(v) for v in row.values()), row
+        final[leg] = rows[-1]["test_acc"]
+        assert final[leg] >= LEARN_MIN_ACC, (leg, final[leg])
+    train_s = sum(r["train_time"] for r in rec["sketch"])
+    # (c)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", REPORT_CHILD, os.path.join(runs, "sketch")],
+        capture_output=True, text=True, timeout=300, cwd=_HERE)
+    report_s = time.perf_counter() - t
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], sep="\n")
+        raise RuntimeError(f"obs_report child exited {proc.returncode}")
+    tail = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert tail["log_rounds"] == LEARN_ROUNDS, tail["log_rounds"]
+    assert tail["run_complete"] is True, tail
+    assert tail["alerts"]["count"] == 0, tail["alerts"]
+    out_row = {"phase": "evidence", "part": "learning_fullscale",
+               "final_test_acc": final,
+               "epoch_first_at_1": {
+                   leg: next((r["epoch"] for r in rec[leg]
+                              if r["test_acc"] >= 0.9999), None)
+                   for leg in final},
+               "sketch_rounds_per_sec_train_time": LEARN_ROUNDS / train_s,
+               "sketch_report_rounds_per_sec": tail["rounds_per_sec"],
+               "headline_rounds_per_sec_phase4": headline_rps,
+               "report": {k: tail[k] for k in (
+                   "log_rounds", "run_complete", "mode", "grad_size",
+                   "backend", "rounds_per_sec", "dispatch_ms_p50",
+                   "drains", "epochs")},
+               "alerts": tail["alerts"]["count"],
+               "launches": {k: n for k, n in counts.items() if n},
+               "wall_s": wall, "report_child_s": report_s}
+    print(json.dumps(out_row))
+    return out_row
+
+
+def evidence_gpt2() -> dict:
+    """(d) ``gpt2_golden_calibrate`` at 3 epochs on the card: the val NLL
+    inside the JAX test's envelope, beside JAX's calibration."""
+    from commefficient_torch.scripts import gpt2_golden_calibrate as g
+
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    with env_vars(COMMEFFICIENT_TINY_MODEL=1, COMMEFFICIENT_GPT2_SEQ_LEN=64):
+        stats = g.run(GPT2_EPOCHS, device="cuda")
+    wall = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    assert np.isfinite(stats["val_nll"]), stats
+    assert stats["val_nll"] < GPT2_MAX_NLL, stats
+    assert all((counts[k] > 0) == (k in HEADLINE_KERNELS) for k in counts), \
+        counts
+    row = {"phase": "evidence", "part": "gpt2_golden", "epochs": GPT2_EPOCHS,
+           **stats, "jax_calibrated_val_nll": GPT2_JAX_NLL,
+           "envelope": GPT2_MAX_NLL,
+           "launches": {k: n for k, n in counts.items() if n},
+           "wall_s": wall}
+    print(json.dumps(row))
+    return row
+
+
+def phase_evidence(card: str, headline_rps: float) -> dict:
+    """Phase 20: (a) fidelity, (b) learning_fullscale, (c) the report
+    without JAX, (d) the GPT-2 envelope."""
+    print(card)
+    stage = {}
+    t = time.perf_counter()
+    fidelity = evidence_fidelity()
+    stage["fidelity"] = time.perf_counter() - t
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        learning = evidence_learning(tmp, headline_rps)
+        stage["learning_fullscale and report"] = time.perf_counter() - t
+    t = time.perf_counter()
+    gpt2 = evidence_gpt2()
+    stage["gpt2_golden"] = time.perf_counter() - t
+    print(json.dumps({"phase": "evidence", "stage_s": stage}))
+    return {"fidelity": fidelity, "learning": learning, "gpt2": gpt2,
+            "stage_s": stage}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-times", nargs="*", metavar="NAME",
@@ -6515,6 +6713,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     pp = phase_pp(card, dense_ref, tp_ep.pop("moe_ref"))
     wall["19 pipeline"] = time.perf_counter() - t
+    t = time.perf_counter()
+    evidence = phase_evidence(card, rps)
+    wall["20 report and learning evidence"] = time.perf_counter() - t
     print("phase wall seconds (phase 3 includes the build): " + json.dumps(
         {k: round(v, 2) for k, v in wall.items()}))
 
@@ -6554,7 +6755,13 @@ def main(argv=None) -> int:
          "pp_launches_per_round_per_rank": pp[
              "launches_per_round_per_rank"].get(k.name, 0),
          "moe_geometry_max_abs_err": tp_ep["moe_kernels"][k.name][
-             "max_abs_err"]}
+             "max_abs_err"],
+         "evidence_launches": {
+             "fidelity_per_trial": evidence["fidelity"][
+                 "launches_per_trial"].get(k.name, 0),
+             "learning_fullscale": evidence["learning"]["launches"].get(
+                 k.name, 0),
+             "gpt2_golden": evidence["gpt2"]["launches"].get(k.name, 0)}}
         for k in kernels.KERNELS]}
     print(json.dumps({"rounds_per_sec": rps,
                       "opt_in_rounds_per_sec": opt_rps,
@@ -6600,6 +6807,11 @@ def main(argv=None) -> int:
                       "seq_tokens_per_sec": seq["tokens_per_sec"],
                       "tp_ep_tokens_per_sec": tp_ep["tokens_per_sec"],
                       "pp_tokens_per_sec": pp["tokens_per_sec"],
+                      "evidence_final_test_acc":
+                          evidence["learning"]["final_test_acc"],
+                      "evidence_sketch_rounds_per_sec": evidence["learning"][
+                          "sketch_rounds_per_sec_train_time"],
+                      "evidence_gpt2_val_nll": evidence["gpt2"]["val_nll"],
                       **{"opt_in_" + k: v for k, v in opt_prof.items()}}))
     print(json.dumps(summary))
     print(card)

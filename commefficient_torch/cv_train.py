@@ -55,7 +55,8 @@ bfloat16 under ``--bf16``.
 The observability plane is on by default, as in the JAX package: each
 round's metric vector and the run's events go to
 ``<run_dir>/telemetry.jsonl`` (``runs/<time>_w..._c..._<mode>...``, or
-``$COMMEFFICIENT_RUN_DIR``; ``scripts/obs_report.py`` renders it), the
+``$COMMEFFICIENT_RUN_DIR``; ``python -m
+commefficient_torch.scripts.obs_report`` renders it), the
 watch rules run over the drained rounds (their checkpoint reaction saves
 the run state at the next round boundary; under ``torchrun``, where rank
 0 alone runs them, every rank takes the request at the next drain),

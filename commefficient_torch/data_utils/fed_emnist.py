@@ -56,8 +56,9 @@ def _read_leaf_dir(data_dir):
 
 
 # bump when _synthetic_leaf / _smooth_protos change what they generate:
-# consumers (scripts/femnist_ablation.py) fingerprint their prepared-data
-# cache dirs with it, since FedDataset.prepare keeps existing client files
+# consumers (commefficient_torch/scripts/femnist_ablation.py) fingerprint
+# their prepared-data cache dirs with it, since FedDataset.prepare keeps
+# existing client files
 SYNTHETIC_GEN_VERSION = 2
 
 
@@ -103,8 +104,8 @@ def _synthetic_leaf(seed=0):
     # COMMEFFICIENT_SYNTHETIC_SAMPLES: mean samples/client (default 40 →
     # the historical randint(20, 60)). Real FEMNIST averages ~230
     # samples/writer over 800k images; scaling this up is how the
-    # sample-count ablation (scripts/femnist_ablation.py) probes the
-    # small-data regime of the fallback.
+    # sample-count ablation (commefficient_torch/scripts/femnist_ablation.py)
+    # probes the small-data regime of the fallback.
     base = int(os.environ.get("COMMEFFICIENT_SYNTHETIC_SAMPLES", 40))
     lo, hi = max(1, base // 2), max(2, base * 3 // 2)
     rng = np.random.RandomState(seed)

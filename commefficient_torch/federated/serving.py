@@ -18,8 +18,8 @@ checkpoint while the run goes on.
   ``<serve_dir>/requests/<id>.json`` (atomic rename), the replica writes
   ``<serve_dir>/responses/<id>.json`` with the served ``model_version``
   and the latency, and appends ``serving_*`` events to
-  ``serving.jsonl`` in the telemetry log's record shape (the JAX
-  package's ``scripts/obs_report.py`` renders it). With
+  ``serving.jsonl`` in the telemetry log's record shape (``python -m
+  commefficient_torch.scripts.obs_report`` renders it). With
   ``COMMEFFICIENT_HEARTBEAT=1`` each iteration prints ``HEARTBEAT
   round=<served version> serve_lag=<versions behind>``.
 

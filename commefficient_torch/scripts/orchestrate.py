@@ -28,9 +28,9 @@ imports nothing of it.
   ``tenant_admit``, ``tenant_start``, ``tenant_progress``,
   ``tenant_exit``, ``tenant_restart``, ``tenant_poison``,
   ``tenant_throttle``, ``tenant_unthrottle``, ``tenant_giveup``,
-  ``tenant_finish``, ``fleet_done``), which the JAX package's
-  ``scripts/obs_report.py --fleet`` renders. Conservation: admitted ==
-  finished + gave_up at ``fleet_done``.
+  ``tenant_finish``, ``fleet_done``), which ``python -m
+  commefficient_torch.scripts.obs_report --fleet`` renders.
+  Conservation: admitted == finished + gave_up at ``fleet_done``.
 
 Usage::
 
@@ -245,8 +245,9 @@ def main(argv=None) -> int:
                          "tenant t<i> gets <fleet>/t<i>/{ckpt,state,run}")
     ap.add_argument("--events", default="",
                     help="fleet JSONL path (default "
-                         "<fleet-dir>/fleet_events.jsonl; the JAX "
-                         "package's obs_report.py --fleet renders it)")
+                         "<fleet-dir>/fleet_events.jsonl; python -m "
+                         "commefficient_torch.scripts.obs_report "
+                         "--fleet renders it)")
     ap.add_argument("--max-concurrent", type=int, default=0,
                     help="bounded tenant concurrency (0 = all tenants "
                          "at once, after the warm-admission gate)")
@@ -297,8 +298,9 @@ def main(argv=None) -> int:
         events_path=args.events)
     events = args.events or os.path.join(fleet_dir, "fleet_events.jsonl")
     print(f"[orchestrate] fleet {'complete' if rc == 0 else 'DEGRADED'} "
-          f"(rc {rc}); render with: python scripts/obs_report.py "
-          f"--fleet {events}", flush=True)
+          f"(rc {rc}); render with: python -m "
+          f"commefficient_torch.scripts.obs_report --fleet {events}",
+          flush=True)
     return rc
 
 

@@ -19,8 +19,9 @@ through ``COMMEFFICIENT_RESUME_EXCLUDE``, which
 falls back to an older run state.
 
 Every decision lands in a flushed JSONL event log (``--events``,
-``{"ev": ..., "t": ...}`` lines) that the JAX package's
-``scripts/obs_report.py`` renders as its Supervisor section.
+``{"ev": ..., "t": ...}`` lines) that ``python -m
+commefficient_torch.scripts.obs_report`` renders as its Supervisor
+section.
 
 The ladder lives in the ``ChildRun`` state machine: ``supervise()``
 blocks on one (events ``supervisor_*``), and
@@ -524,8 +525,9 @@ def main(argv=None) -> int:
                          "full-but-never-folding buffer is declared "
                          "hung by the ordinary deadline (0 disables)")
     ap.add_argument("--events", default="supervise_events.jsonl",
-                    help="supervisor JSONL event log (the JAX "
-                         "package's scripts/obs_report.py renders it)")
+                    help="supervisor JSONL event log (python -m "
+                         "commefficient_torch.scripts.obs_report "
+                         "renders it)")
     ap.add_argument("--procs", type=int, default=1,
                     help="run the child as an N-process group "
                          "(torchrun's RANK/WORLD_SIZE/LOCAL_RANK/"

@@ -23,8 +23,8 @@ Three layers, none of which adds a host sync to a round:
    completion wait and the drain, buffered per round and written when
    the round drains.
 3. **The JSONL event log** (``<run_dir>/telemetry.jsonl``): the JAX
-   package's event kinds and fields, which ``scripts/obs_report.py``
-   renders.
+   package's event kinds and fields, which ``python -m
+   commefficient_torch.scripts.obs_report`` renders.
 
 ``WatchEngine`` evaluates declarative threshold and EWMA-drift rules over
 each drained round record (host arithmetic on fetched values) with the

@@ -1,7 +1,8 @@
 """Schedules, loggers, timing and run directories: the port's copy of
 ``commefficient_tpu/utils.py``'s public helpers (the schedules
 ``PiecewiseLinear``, ``Exp`` and ``Const``; ``Logger``, ``TableLogger``
-and ``TSVLogger``; ``Timer``; ``make_logdir``)."""
+and ``TSVLogger``; ``Timer``; ``make_logdir``) and the learning scripts'
+harness ``run_cv_recorded``."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Sequence
 import numpy as np
 
 __all__ = ["PiecewiseLinear", "Exp", "Const", "Logger", "TableLogger",
-           "TSVLogger", "Timer", "make_logdir"]
+           "TSVLogger", "Timer", "make_logdir", "run_cv_recorded"]
 
 
 @dataclass(frozen=True)
@@ -135,3 +136,43 @@ def make_logdir(args) -> str:
         parts.append(f"r{getattr(args, 'num_rows', 0)}"
                      f"x{getattr(args, 'num_cols', 0)}k{getattr(args, 'k', 0)}")
     return os.path.join("runs", "_".join(parts))
+
+
+def _plain(v):
+    """A row's value as a JSON-ready Python scalar (numpy and 0-d torch
+    scalars to ``int`` / ``float``)."""
+    item = getattr(v, "item", None)
+    return item() if callable(item) else v
+
+
+def run_cv_recorded(argv, tag, echo=None):
+    """Run ``cv_train.main(argv)`` with every ``TableLogger`` row captured.
+
+    The harness of the learning-evidence scripts
+    (``commefficient_torch/scripts/learning_*.py``,
+    ``femnist_ablation.py``): returns the per-epoch rows the entry point
+    would print (``epoch, lr, train_time, train_loss, train_acc,
+    test_loss, test_acc, down (MiB), up (MiB), total_time``), echoing each
+    one, flushed, with the run's ``tag``. The real ``TableLogger`` is
+    restored on every exit path."""
+    import functools
+
+    from commefficient_torch import cv_train
+
+    if echo is None:
+        echo = functools.partial(print, flush=True)
+
+    rows = []
+
+    class _Recorder:
+        def append(self, row):
+            rows.append({k: _plain(v) for k, v in row.items()})
+            echo(f"[{tag}] {rows[-1]}")
+
+    orig = cv_train.TableLogger
+    cv_train.TableLogger = _Recorder
+    try:
+        cv_train.main(argv)
+    finally:
+        cv_train.TableLogger = orig
+    return rows
