@@ -364,6 +364,24 @@ Phases (any failure exits non-zero; nothing is caught):
    log in a child with neither ``jax`` nor ``commefficient_tpu`` loaded:
    240 rounds, no alert; (d) ``scripts.gpt2_golden_calibrate`` at 3
    epochs: val NLL below the JAX test's 5.0, printed beside JAX's 4.381.
+21. the scripts outside the bench leg (``phase_scripts``): (a)
+   ``scripts.host_offload_fullscale`` at 3,500 clients of 5 x 500,096
+   sketch error rows (35,006,720,000 bytes): the plan from the planner's
+   probes, then the host tier forced (device budget 1 B), every row
+   written and the resident set covering the rows, 6 rounds of 8 rows
+   gathered into pinned staging, a delta added on the card and scattered
+   back, median gather and scatter ms over rounds 1-5, the spot check;
+   (b) ``scripts.multihost_demo``: one cohort of 2 "nodes" x 2 gloo ranks
+   on ``cuda:0`` under torchrun's environment (the clients axis on
+   ``dcn``) runs the tiny sketched round in fp32, the same round under
+   the per-axis plan ``table=dcn:int8,downlink=dcn:int8`` and the engine
+   leg on a 2 x 2 clients x shard grid with its run state after round 2;
+   each equal to the same run in this process on a one-rank group
+   (``rtol=1e-4``; fp32: the weights elementwise and, for the round, the
+   kept set bit for bit), the run state resumed on that group, and 2 / 1
+   / 8 launches a round on every rank and in each one-process run; (c)
+   ``scripts.native_bench`` at one timed epoch: the native and numpy
+   batches equal, both loaders' and the ImageNet transforms' times.
 
 Then one JSON line of the kernels (launches per timed window of the path
 that runs each: phase 4 for the accumulate, the query and the count pass,
@@ -373,8 +391,9 @@ sharded round and its largest error at ``t0 > 0``; its launches a
 round on rank 3 of phase 16's 2-D round; on a rank of phase 17's
 (clients 2) x (seq 2) grid; on a rank of phase 18's (clients 1) x
 (model 2) round, with its largest error at the MoE geometry; on a rank of
-phase 19's (clients 1) x (stage 2) round; and its launches in phase 20's
-fidelity trial, learning run and GPT-2 calibration), the card's line,
+phase 19's (clients 1) x (stage 2) round; its launches in phase 20's
+fidelity trial, learning run and GPT-2 calibration; and a round on a
+rank of phase 21's two-node cohort), the card's line,
 and ``{"ok": true, "device": {...}}`` as the last line.
 Without a card it exits with an error before printing any result.
 
@@ -3077,7 +3096,7 @@ OBS_AUDIT_ROUNDS = 16
 # alternating pairs of the cost phase: the host-bound ResNet9 round moves
 # 10-40% between windows of one call, the GPT-2 round under 1%
 OBS_PAIRS = {"headline": 4, "gpt2 f32": 1}
-OBS_PAIR_ROUNDS = 16
+OBS_PAIR_ROUNDS = 12
 # the profiled window of the host split: one drain cycle of the engine
 # (the profiler's event processing is slow at GPT-2's 7,800 operators a
 # round)
@@ -3620,7 +3639,7 @@ PART_GPT2_ROUNDS = 6
 GPT2_SLOW = ["--inject_client_fault", "slow=0.25,delay=1,seed=7"]
 # alternating on / off pairs of the cost step, and engine rounds a window
 PART_PAIRS = {"headline": 4, "gpt2 f32": 1}
-PART_PAIR_ROUNDS = {"headline": 20, "gpt2 f32": 8}
+PART_PAIR_ROUNDS = {"headline": 16, "gpt2 f32": 6}
 HEADLINE_CLIENT = {"sketch_accumulate": 1}
 HEADLINE_SERVER = {"sketch_accumulate": 1, "sketch_estimates": 1,
                    "topk_count_ge": 8}
@@ -4094,10 +4113,10 @@ OFF_TIERS = {"hbm": {"COMMEFFICIENT_STATE_HBM_BUDGET": _BIG},
              "disk": {"COMMEFFICIENT_STATE_HBM_BUDGET": "1",
                       "COMMEFFICIENT_STATE_HOST_BUDGET": "1"}}
 OFF_IDENTITY_CLIENTS = 64
-OFF_IDENTITY_ROUNDS = 10
+OFF_IDENTITY_ROUNDS = 8
 OFF_PART_ROUNDS = 6
 OFF_EMNIST = 3500
-OFF_POP_ROUNDS = 20
+OFF_POP_ROUNDS = 16
 OFF_POP_PAIRS = 1
 OFF_LARGE = 100_000
 OFF_LARGE_ROUNDS = 8
@@ -6614,6 +6633,126 @@ def phase_evidence(card: str, headline_rps: float) -> dict:
             "stage_s": stage}
 
 
+# phase 21: the scripts outside the bench leg
+SCRIPTS_PLAN = "table=dcn:int8,downlink=dcn:int8"
+# a round on each rank: the replicated round and the sharded server under
+# the per-axis plan both launch the headline kernels once each a round
+# (SHARDED_PER_ROUND); the engine leg runs 4 rounds, its elastic resume 2
+SCRIPTS_ENGINE_ROUNDS, SCRIPTS_RESUME_ROUNDS = 4, 2
+NATIVE_EPOCHS = 1
+
+
+def scripts_offload() -> dict:
+    """(a) ``host_offload_fullscale`` at 3,500 clients: the plan from the
+    probes, the forced host tier, the rows resident, the spot check."""
+    from commefficient_torch.scripts import host_offload_fullscale as hof
+
+    with env_vars(HOST_OFFLOAD_TINY="", HOST_OFFLOAD_ROUNDS="6"):
+        t = time.perf_counter()
+        res, rows = hof.run(torch.device("cuda"))
+        wall = time.perf_counter() - t
+    assert (res["num_clients"], res["table"]) == (3500, [5, 500_096]), res
+    assert res["state_bytes"] == 35_006_720_000, res["state_bytes"]
+    assert res["placement"] == "host" and res["forced_tier"] == "host", res
+    # every page of the rows' own mapping is resident
+    assert res["resident_covers_state"], \
+        (res["resident_bytes"], res["state_bytes"])
+    assert res["staging_pinned"] and res["rows_device"] == "cpu", res
+    assert res["spot_check"]["ok"], res["spot_check"]
+    del rows
+    row = {"phase": "scripts", "part": "host_offload_fullscale",
+           **{k: v for k, v in res.items()
+              if k not in ("gather_ms", "scatter_ms")},
+           "gather_ms_rounds": res["gather_ms"],
+           "scatter_ms_rounds": res["scatter_ms"], "wall_s": wall}
+    print(json.dumps(row))
+    return row
+
+
+def scripts_multihost() -> dict:
+    """(b) ``multihost_demo`` on the card, one cohort of 2 nodes x 2 gloo
+    ranks on ``cuda:0``: the sketch fp32 round, the sketch round under a
+    per-axis int8 plan, the engine leg and its elastic resume, each equal
+    to the one-process card run; the kernels' launches a round a rank."""
+    from commefficient_torch.scripts import multihost_demo as mh
+
+    legs = [mh.make_leg("sketch"), mh.make_leg("sketch", SCRIPTS_PLAN),
+            mh.make_leg("sketch", engine=True)]
+    t = time.perf_counter()
+    res = mh.demo(legs, "cuda")
+    wall = time.perf_counter() - t
+    per_round = {k.name: SHARDED_PER_ROUND.get(k.name, 0)
+                 for k in kernels.KERNELS}
+
+    def times(n):
+        return {k: v * n for k, v in per_round.items() if v}
+
+    for leg in res:
+        n = SCRIPTS_ENGINE_ROUNDS if leg["leg"] == "engine" else 1
+        for rank in leg["ranks"]:
+            assert rank["placement"]["clients"] == "dcn", rank
+            got = {k: v for k, v in rank["launches"].items() if v}
+            assert got == times(n), (leg["plan"], rank["rank"], got)
+        ref = {k: v for k, v in leg["reference_launches"].items() if v}
+        assert ref == times(n), (leg["plan"], ref)
+        if leg["leg"] == "engine":
+            el = {k: v for k, v in leg["elastic_launches"].items() if v}
+            assert el == times(SCRIPTS_RESUME_ROUNDS), el
+        print(json.dumps({"phase": "scripts", "part": "multihost_demo",
+                          **{k: v for k, v in leg.items() if k != "ranks"},
+                          "rank_launches": [r["launches"]
+                                            for r in leg["ranks"]],
+                          "rank_sum": leg["ranks"][0]["sum"]}))
+    out = {"legs": [{k: leg[k] for k in (
+               "leg", "plan", "bit_equal_to_reference", "max_abs_diff")}
+               for leg in res],
+           "launches_per_round_per_rank": res[0]["ranks"][1]["launches"],
+           "cohort_s": res[0]["cohort_s"], "wall_s": wall}
+    print(json.dumps({"phase": "scripts", "part": "multihost_demo", **out}))
+    return out
+
+
+def scripts_native() -> dict:
+    """(c) ``native_bench`` at one timed epoch: the native and numpy
+    batches equal, both timings, the ImageNet transforms."""
+    from commefficient_torch.scripts import native_bench as nb
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        results, speedup, imagenet = nb.run(tmp, NATIVE_EPOCHS)
+        wall = time.perf_counter() - t
+    assert results["python"][0] > 0 and results["native"][0] > 0, results
+    row = {"phase": "scripts", "part": "native_bench",
+           "epochs": NATIVE_EPOCHS,
+           "seconds_per_epoch": {k: v[0] for k, v in results.items()},
+           "images_per_sec": {k: v[1] for k, v in results.items()},
+           "speedup": speedup,
+           "imagenet_ms_per_image": {k: v * 1e3
+                                     for k, v in imagenet.items()},
+           "wall_s": wall}
+    print(json.dumps(row))
+    return row
+
+
+def phase_scripts(card: str) -> dict:
+    """Phase 21: (a) host_offload_fullscale, (b) multihost_demo, (c)
+    native_bench."""
+    print(card)
+    stage = {}
+    t = time.perf_counter()
+    offload = scripts_offload()
+    stage["host_offload_fullscale"] = time.perf_counter() - t
+    t = time.perf_counter()
+    multihost = scripts_multihost()
+    stage["multihost_demo"] = time.perf_counter() - t
+    t = time.perf_counter()
+    native = scripts_native()
+    stage["native_bench"] = time.perf_counter() - t
+    print(json.dumps({"phase": "scripts", "stage_s": stage}))
+    return {"offload": offload, "multihost": multihost, "native": native,
+            "stage_s": stage}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-times", nargs="*", metavar="NAME",
@@ -6716,6 +6855,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     evidence = phase_evidence(card, rps)
     wall["20 report and learning evidence"] = time.perf_counter() - t
+    t = time.perf_counter()
+    scripts = phase_scripts(card)
+    wall["21 scripts"] = time.perf_counter() - t
     print("phase wall seconds (phase 3 includes the build): " + json.dumps(
         {k: round(v, 2) for k, v in wall.items()}))
 
@@ -6761,7 +6903,9 @@ def main(argv=None) -> int:
                  "launches_per_trial"].get(k.name, 0),
              "learning_fullscale": evidence["learning"]["launches"].get(
                  k.name, 0),
-             "gpt2_golden": evidence["gpt2"]["launches"].get(k.name, 0)}}
+             "gpt2_golden": evidence["gpt2"]["launches"].get(k.name, 0)},
+         "multihost_launches_per_round_per_rank": scripts["multihost"][
+             "launches_per_round_per_rank"].get(k.name, 0)}
         for k in kernels.KERNELS]}
     print(json.dumps({"rounds_per_sec": rps,
                       "opt_in_rounds_per_sec": opt_rps,
@@ -6812,6 +6956,10 @@ def main(argv=None) -> int:
                       "evidence_sketch_rounds_per_sec": evidence["learning"][
                           "sketch_rounds_per_sec_train_time"],
                       "evidence_gpt2_val_nll": evidence["gpt2"]["val_nll"],
+                      "offload_fullscale_gather_scatter_ms": [
+                          scripts["offload"]["gather_ms_median"],
+                          scripts["offload"]["scatter_ms_median"]],
+                      "native_bench_speedup": scripts["native"]["speedup"],
                       **{"opt_in_" + k: v for k, v in opt_prof.items()}}))
     print(json.dumps(summary))
     print(card)

@@ -65,8 +65,9 @@ the whole logical file. Without a sidecar the file's extents are read.
 Bytes in a row the sidecar records as a zero row are not read: a restore
 writes that row as the zero row it was.
 ``RowDirectory`` (the open-world id-to-row indirection) is ported and
-held against the JAX package; nothing attaches it yet (the service plane
-is ROADMAP queue 1 item 6e).
+held against the JAX package; ``MemmapRowStore.attach_directory`` arms
+it on the disk tier's store when ``--churn`` runs the open-world
+population (``federated/participation.py``).
 """
 
 from __future__ import annotations

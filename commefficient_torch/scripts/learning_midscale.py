@@ -16,6 +16,12 @@ seed1_5p7 seed0_noniid seed1_noniid (default: all). Each completed leg is
 added to ``--out`` (default ``runs/learning_midscale.json``), so an
 interrupted sweep resumes by re-running with the remaining legs.
 
+A spread study: ``--seeds 0,1,2`` runs each named leg's recipe at each of
+those seeds instead of its own (keyed ``<leg>@seed<S>`` in ``--out``);
+``--deterministic`` holds cuDNN to deterministic algorithms with no
+autotuning, so that a repeat on the card shows the card's own drift. Both
+leave the legs' recipes as they are.
+
 The argv differs from the JAX script's in two flags. ``--num_devices``
 is 1, not 8: the JAX legs spread the 8 client slots over the 8-device
 CPU mesh that ``scripts/script_env.force_cpu_mesh`` pins, and the port
@@ -27,6 +33,8 @@ from __future__ import annotations
 
 import argparse
 import os
+
+import torch
 
 from commefficient_torch.scripts.evidence import (
     RUNS,
@@ -97,11 +105,13 @@ LEGS = {
 }
 
 
-def leg_argv(leg: str, data_root: str = RUNS) -> list:
-    """The leg's ``cv_train`` argv before ``--device``; its channels go
-    in ``COMMEFFICIENT_MODEL_CHANNELS``."""
-    _, epochs, pivot, lr, seed, extra, mode = LEGS[leg]
-    return common(epochs, pivot, lr, seed, data_root) + extra + mode
+def leg_argv(leg: str, data_root: str = RUNS, seed=None) -> list:
+    """The leg's ``cv_train`` argv before ``--device`` (at ``seed`` when
+    given, else the leg's own); its channels go in
+    ``COMMEFFICIENT_MODEL_CHANNELS``."""
+    _, epochs, pivot, lr, own, extra, mode = LEGS[leg]
+    return (common(epochs, pivot, lr, own if seed is None else seed,
+                   data_root) + extra + mode)
 
 
 def main(argv=None) -> int:
@@ -110,25 +120,40 @@ def main(argv=None) -> int:
                     help=f"of {', '.join(LEGS)} (default: all)")
     add_common_args(ap, "learning_midscale")
     add_run_args(ap)
+    ap.add_argument("--seeds", default="",
+                    help="comma-separated seeds: run each leg's recipe at "
+                         "these seeds instead of its own (a spread study)")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="cuDNN on deterministic algorithms, no autotuning")
     args = ap.parse_args(argv)
     if set(args.legs) - set(LEGS):
         ap.error(f"unknown legs {sorted(set(args.legs) - set(LEGS))}")
     device = resolve_device(args.device, "learning_midscale")
     os.environ.setdefault("COMMEFFICIENT_SYNTHETIC_PER_CLASS", PER_CLASS)
+    if args.deterministic:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     record = device_record(device)
+    record["cudnn_deterministic"] = bool(
+        torch.backends.cudnn.deterministic)
+    seeds = [int(x) for x in args.seeds.split(",") if x.strip()]
     results = read_json(args.out)
     for leg in args.legs or list(LEGS):
-        channels, epochs, _, _, seed, _, _ = LEGS[leg]
-        argv_ = leg_argv(leg, args.data_root) + ["--device", device.type]
-        print(f"=== {leg}: channels {channels} epochs {epochs} "
-              f"seed {seed} ===", flush=True)
-        with leg_env(args.run_root, leg,
-                     COMMEFFICIENT_MODEL_CHANNELS=channels):
-            rows = run_cv_recorded(argv_, leg)
-        results[leg] = {"channels": channels, "epochs": epochs,
-                        "seed": seed, "argv": argv_, "rows": rows, **record}
-        write_json(args.out, results)
-        print(f"leg {leg} done -> {args.out}", flush=True)
+        channels, epochs, _, _, own, _, _ = LEGS[leg]
+        for seed in seeds or [None]:
+            key = leg if seed is None else f"{leg}@seed{seed}"
+            argv_ = (leg_argv(leg, args.data_root, seed)
+                     + ["--device", device.type])
+            print(f"=== {key}: channels {channels} epochs {epochs} seed "
+                  f"{own if seed is None else seed} ===", flush=True)
+            with leg_env(args.run_root, key,
+                         COMMEFFICIENT_MODEL_CHANNELS=channels):
+                rows = run_cv_recorded(argv_, key)
+            results[key] = {"channels": channels, "epochs": epochs,
+                            "seed": own if seed is None else seed,
+                            "argv": argv_, "rows": rows, **record}
+            write_json(args.out, results)
+            print(f"leg {key} done -> {args.out}", flush=True)
     return 0
 
 
