@@ -43,7 +43,10 @@ Phases (any failure exits non-zero; nothing is caught):
    and the count pass, no call of ``ChunkLayout.mask_tail`` (the query
    kernel writes the padded tail), the device time of each port kernel,
    the device memsets and device operations per round
-   (``torch.profiler``); then the server phase
+   (``torch.profiler`` through ``scripts/round_profile.py``, whose
+   capture of the 5 profiled rounds goes to ``runs/chip_smoke/`` with each
+   port kernel's spans a round held to its launches a round); then the
+   server phase
    from one table and state through the kernels and through the plain
    versions, which must be equal, and once more at top-k threshold 0
    (fewer than k nonzero estimates) on weights a quarter of which are
@@ -55,7 +58,9 @@ Phases (any failure exits non-zero; nothing is caught):
    launches per round derived from the port's coalescing plan (one
    running accumulate per group and microbatch plus one for weight decay,
    one query, one descent, one epilogue, no zero-table accumulate and no
-   count pass); the client table and the server phase through the kernels
+   count pass), its capture written and its spans held the same way, and
+   the port's ``profile_diff`` of phase 4's capture against it (exit 0);
+   the client table and the server phase through the kernels
    and through the plain versions, and the fused epilogue against the
    composed pair, all exactly equal;
 6. ``commefficient_torch.cv_train.main`` for one short epoch and an eval
@@ -111,7 +116,8 @@ Phases (any failure exits non-zero; nothing is caught):
    with tokens/sec and rounds/sec, the launches a round checked exactly
    (2 / 1 / 8, and the coalescing plan's count), the client / server
    split, the device's busy share and time by kernel over 3 profiled
-   rounds and the peak memory, beside the card's line; one server step
+   rounds (each leg's capture written, its spans held to the launches)
+   and the peak memory, beside the card's line; one server step
    through kernels and plain versions; one ``gpt2_train`` epoch on the
    synthetic PersonaChat with a finite val NLL and perplexity.
 10. the other CV models (``phase_cv_models``): the six kernels against
@@ -457,6 +463,22 @@ from commefficient_torch.parallel.pipeline import make_gpt2_pp_losses
 from commefficient_torch.ops import sketch as tsk
 from commefficient_torch.ops import topk as ttk
 from commefficient_torch.profiling import host_sync_monitor
+from commefficient_torch.scripts import profile_diff, round_profile
+from commefficient_torch.scripts.bench_rounds import (
+    GPT2_B,
+    GPT2_BASE,
+    GPT2_C,
+    GPT2_D,
+    GPT2_MODEL,
+    GPT2_T,
+    GPT2_W,
+    HEADLINE,
+    build_gpt2,
+    build_round,
+    gpt2_batch,
+    synthetic_batch,
+)
+from commefficient_torch.scripts.round_profile import dev_us, device_rows
 from commefficient_torch.telemetry import (
     DEFAULT_WATCH_RULES,
     METRIC_FIELDS,
@@ -468,12 +490,6 @@ from commefficient_torch.telemetry import (
 )
 from commefficient_torch.utils import PiecewiseLinear
 
-HEADLINE = ["--mode", "sketch", "--error_type", "virtual",
-            "--local_momentum", "0", "--virtual_momentum", "0.9",
-            "--num_rows", "5", "--num_cols", "500000", "--k", "50000",
-            "--num_workers", "8", "--local_batch_size", "8",
-            "--dataset_name", "CIFAR10", "--device", "cuda",
-            "--no_telemetry"]
 OPT_IN = ["--stream_sketch", "--sketch_coalesce", "--fused_epilogue"]
 TIMED_ROUNDS = 20
 HEADLINE_KERNELS = ("sketch_accumulate", "sketch_estimates", "topk_count_ge")
@@ -947,40 +963,6 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed, k=None):
     return results
 
 
-def synthetic_batch(seed: int = 0):
-    rng = np.random.RandomState(seed)
-    return {"inputs": rng.randn(8, 8, 32, 32, 3).astype(np.float32),
-            "targets": rng.randint(0, 10, size=(8, 8)).astype(np.int64),
-            "mask": np.ones((8, 8), np.float32),
-            "client_ids": np.arange(8, dtype=np.int32),
-            "worker_mask": np.ones(8, np.float32)}
-
-
-def build_round(extra, num_clients: int = 64):
-    """FedModel / FedOptimizer / LambdaLR for the headline round plus the
-    flags ``extra``; returns ``(args, fm, opt, sched, one_round)``."""
-    args = parse_args(argv=HEADLINE + extra + [
-        "--num_clients", str(num_clients), "--seed", "0"])
-    model = ResNet9(do_batchnorm=args.do_batchnorm)
-    train_loss, val_loss = make_cv_losses(model)
-    fm = FedModel(model, train_loss, args, val_loss, num_clients=num_clients)
-    opt = FedOptimizer(fm, args)
-    spe = 50
-    schedule = PiecewiseLinear([0, args.pivot_epoch, args.num_epochs],
-                               [0, 0.4, 0])
-    sched = LambdaLR(opt, lambda step: schedule(step / spe))
-    print(f"model d = {fm.grad_size:,}, sketch {fm.sketch.r} x "
-          f"{fm.sketch.c_pad} (T = {fm.sketch.T}), k = {args.k}")
-
-    def one_round(batch):
-        sched.step()
-        out = fm(batch)
-        opt.step()
-        return out
-
-    return args, fm, opt, sched, one_round
-
-
 def timed_rounds(one_round, batch, per_round: dict, label: str,
                  n: int = TIMED_ROUNDS):
     """2 warm-up rounds, then ``n`` rounds with the launch counts set to 0
@@ -1028,7 +1010,11 @@ def phase_rounds():
                            "topk_count_ge": 8}, "headline")
 
     split = phase_split(fm, opt, sched, batch, "headline")
-    split.update(profile_rounds(lambda: one_round(batch)))
+    split.update(profile_rounds(
+        lambda: one_round(batch), capture=(
+            "round_profile.md", "fused CIFAR federated round (phase 4)",
+            round_profile.geometry_of("cifar", fm.grad_size, [])),
+        per_round=HEADLINE_PER_ROUND))
 
     # the server phase exact: one table and state through the kernels and
     # through the plain versions, all on the card
@@ -1148,7 +1134,12 @@ def phase_opt_in(headline_rps: float):
     print(f"rounds/sec: headline {headline_rps:.3f}, opt-in {rps:.3f} "
           f"(ratio {rps / headline_rps:.3f}, same call)")
     prof = phase_split(fm, opt, sched, batch, "opt-in")
-    prof.update(profile_rounds(lambda: one_round(batch)))
+    prof.update(profile_rounds(
+        lambda: one_round(batch), capture=(
+            "round_profile_opt_in.md",
+            "fused CIFAR federated round, opt-in (phase 5)",
+            round_profile.geometry_of("cifar", fm.grad_size, OPT_IN)
+            + f", {ttk.FUSED_DESCENT_ENV}=1"), per_round=per_round))
 
     # the client table through the kernels and through the plain versions
     # (cuDNN held to deterministic algorithms, so that the gradients are
@@ -1206,105 +1197,36 @@ def phase_opt_in(headline_rps: float):
     return counts, rps, prof
 
 
-ANNOTATIONS = ("fed_round", "fed_drain")
+# the captures of phases 4, 5 and 9 (round_profile's layout), under the
+# checkout's gitignored runs/
+CAPTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "runs", "chip_smoke")
 
 
-def dev_us(e):
-    return (getattr(e, "self_device_time_total", None)
-            or getattr(e, "device_time_total", None)
-            or getattr(e, "self_cuda_time_total", 0))
-
-
-def device_rows(one_round, n: int, finish=None):
-    """``n`` calls of ``one_round`` (then ``finish``, if given) under
-    ``torch.profiler``, ending in a device sync: the device-side rows
-    (kernels, copies, memsets; the CPU ops that launched them would count
-    the same time twice), busiest first, and the wall ms."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            one_round()
-        if finish is not None:
-            finish()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    # a profiler range's device-side mirror (the engine's "fed_round" and
-    # "fed_drain") spans the kernels under it, which would count twice
-    rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   and e.key not in ANNOTATIONS
-                   and dev_us(e) > 0), key=dev_us, reverse=True)
-    return rows, wall_ms
-
-
-def profile_rounds(one_round, n: int = 5) -> dict:
-    """Device time by kernel over ``n`` rounds (torch.profiler), printed
-    per round, and the device's busy share of the profiled wall time."""
-    rows, wall_ms = device_rows(one_round, n)
-    busy_ms = sum(dev_us(e) for e in rows) / 1e3
-    cats = {"convolution": 0.0, "matmul": 0.0, "port kernels": 0.0,
-            "other": 0.0}
-    for e in rows:
-        name = e.key.lower()
-        if any(s in name for s in ("sketch_", "topk_", "fused_epilogue")):
-            cats["port kernels"] += dev_us(e)
-        elif any(s in name for s in ("conv", "cudnn", "dgrad", "wgrad",
-                                     "fprop", "implicit_gemm")):
-            cats["convolution"] += dev_us(e)
-        elif "gemm" in name or "nvjet" in name:
-            cats["matmul"] += dev_us(e)
-        elif "xmma" in name:
-            cats["convolution"] += dev_us(e)
-        else:
-            cats["other"] += dev_us(e)
-    per_kernel = {k.name: 0.0 for k in kernels.KERNELS}
-    for e in rows:
-        name = kernel_of(e.key)
-        if name:
-            per_kernel[name] += dev_us(e) / n / 1e3
-    print(f"profile: {n} rounds, wall {wall_ms / n:.3f} ms/round under the "
-          f"profiler, device busy {busy_ms / n:.3f} ms/round "
-          f"({100 * busy_ms / wall_ms:.1f}%)")
-    print("  by category (ms/round): " + json.dumps(
-        {k: round(v / n / 1e3, 4) for k, v in cats.items()}))
-    for e in rows[:16]:
-        print(f"  {dev_us(e) / n / 1e3:8.3f} ms/round  {e.count / n:6.1f} "
-              f"calls/round  {e.key[:90]}")
-    print("  port kernels (device ms/round): " + json.dumps(per_kernel))
-    memsets = sum(e.count for e in rows if "memset" in e.key.lower()) / n
-    device_ops = sum(e.count for e in rows) / n
-    print(f"  device memsets per round: {memsets:g}, device operations "
-          f"(kernels, copies, memsets) per round: {device_ops:g}")
-    return {"profiled_busy_ms_per_round": busy_ms / n,
-            "profiled_wall_ms_per_round": wall_ms / n,
-            "kernel_ms_per_round": per_kernel,
-            "memsets_per_round": memsets,
-            "device_ops_per_round": device_ops}
-
-
-# the port's kernel functions as the profiler names them (demangled or not)
-KERNEL_SYMBOLS = (
-    ("sketch_accumulate_into", ("sketch_accumulate_kernel<true>",
-                                "sketch_accumulate_kernelILb1E")),
-    ("sketch_accumulate", ("sketch_accumulate_kernel<false>",
-                           "sketch_accumulate_kernelILb0E")),
-    ("sketch_estimates", ("sketch_estimates_kernel",)),
-    ("fused_epilogue", ("fused_epilogue_kernel",)),
-    ("topk_count_ge", ("topk_count_ge_kernel",)),
-    ("topk_descent", ("topk_descent_kernel",)))
-
-
-def kernel_of(key: str):
-    """The port kernel a profiler row belongs to, or None."""
-    for name, symbols in KERNEL_SYMBOLS:
-        if any(sym in key for sym in symbols):
-            return name
-    return None
+def profile_rounds(one_round, n: int = 5, capture=None,
+                   per_round=None) -> dict:
+    """``round_profile.profile_rounds`` over ``n`` rounds. ``capture``:
+    ``(file name, title, geometry)`` of the capture to write under
+    CAPTURE_DIR; ``per_round``: the launches a round, which each port
+    kernel's spans a round in the capture must equal. Only a capture
+    records the ops' shapes: under ``record_shapes`` phase 10's ImageNet
+    round ran out of the card's memory."""
+    report = None
+    if capture is not None:
+        name, title, geometry = capture
+        report = (os.path.join(CAPTURE_DIR, name), title, geometry,
+                  round_profile.card_where())
+    prof = round_profile.profile_rounds(one_round, n, report=report,
+                                        record_shapes=report is not None)
+    if per_round is not None:
+        spans = prof["kernel_spans_per_round"]
+        want = {k.name: float(per_round.get(k.name, 0))
+                for k in kernels.KERNELS}
+        assert spans == want, \
+            f"{capture}: kernel spans a round {spans}, launches {want}"
+        print("  each port kernel's spans a round equal its launches a "
+              "round: " + json.dumps(want))
+    return prof
 
 
 def phase_cv_train():
@@ -1815,62 +1737,9 @@ def phase_lifecycle(card: str) -> dict:
 
 
 # phase 9: GPT-2 on PersonaChat (BASELINE.md config 5), bench.py's round
-GPT2_D = 124_444_417
-GPT2_MODEL = {"vocab_size": 50_262, "n_positions": 1024}
-GPT2_W, GPT2_B, GPT2_C, GPT2_T = 4, 2, 2, 256
-GPT2_BASE = ["--mode", "sketch", "--error_type", "virtual",
-             "--local_momentum", "0", "--virtual_momentum", "0.9",
-             "--num_rows", "5", "--num_cols", "500000", "--k", "50000",
-             "--num_blocks", "20", "--num_workers", str(GPT2_W),
-             "--local_batch_size", str(GPT2_B),
-             "--num_candidates", str(GPT2_C), "--max_seq_len", str(GPT2_T),
-             "--valid_batch_size", "2", "--device", "cuda", "--seed", "0",
-             "--no_telemetry"]
 GPT2_TIMED_ROUNDS = 6
 GPT2_LEGS = (("gpt2 f32", []), ("gpt2 bf16", ["--bf16"]),
              ("gpt2 opt-in", OPT_IN))
-
-
-def gpt2_batch(seed: int = 0):
-    """A seeded synthetic GPT-2 round (bench.py's): W clients x B examples
-    x C candidates x T tokens of ids below 50,000."""
-    rng = np.random.RandomState(seed)
-    W, B, C, T = GPT2_W, GPT2_B, GPT2_C, GPT2_T
-    return {
-        "input_ids": rng.randint(0, 50000, (W, B, C, T)).astype(np.int64),
-        "token_type_ids": rng.randint(0, 50000, (W, B, C, T)).astype(
-            np.int64),
-        "lm_labels": rng.randint(0, 50000, (W, B, C, T)).astype(np.int64),
-        "mc_token_ids": rng.randint(0, T, (W, B, C)).astype(np.int64),
-        "mc_labels": rng.randint(0, C, (W, B)).astype(np.int64),
-        "mask": np.ones((W, B), np.float32),
-        "client_ids": np.arange(W, dtype=np.int32),
-        "worker_mask": np.ones(W, np.float32)}
-
-
-def build_gpt2(extra, num_clients: int = 8):
-    """FedModel / FedOptimizer / LambdaLR for the GPT-2 round plus the
-    flags ``extra``; returns ``(args, fm, opt, sched, one_round)``."""
-    args = parse_args(default_lr=4e-2, argv=GPT2_BASE + extra + [
-        "--dataset_name", "PERSONA", "--num_clients", str(num_clients)])
-    model = GPT2DoubleHeads(**GPT2_MODEL)
-    train_loss, val_loss = make_gpt2_losses(
-        model, compute_dtype=torch.bfloat16 if args.do_bf16 else None)
-    fm = FedModel(model, train_loss, args, val_loss, num_clients=num_clients)
-    assert fm.grad_size == GPT2_D, fm.grad_size
-    opt = FedOptimizer(fm, args)
-    schedule = PiecewiseLinear([0, 100], [args.lr_scale, 0.0])
-    sched = LambdaLR(opt, lambda step: schedule(step))
-    print(f"gpt2 d = {fm.grad_size:,}, sketch {fm.sketch.r} x "
-          f"{fm.sketch.c_pad} (T = {fm.sketch.T}), k = {args.k}")
-
-    def one_round(batch):
-        sched.step()
-        out = fm(batch)
-        opt.step()
-        return out
-
-    return args, fm, opt, sched, one_round
 
 
 def gpt2_leg(card: str, label: str, extra) -> dict:
@@ -1897,7 +1766,13 @@ def gpt2_leg(card: str, label: str, extra) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tokens = GPT2_W * GPT2_B * GPT2_C * GPT2_T
     split = phase_split(fm, opt, sched, batch, label, n=3)
-    prof = profile_rounds(lambda: one_round(batch), n=3)
+    prof = profile_rounds(
+        lambda: one_round(batch), n=3, capture=(
+            f"round_profile_{label.replace(' ', '_').replace('-', '_')}.md",
+            f"GPT-2 PersonaChat federated round, {label} (phase 9)",
+            f"GPT-2 124M double-heads d={fm.grad_size:,}, 4 workers, "
+            f"sketch 5x500k k=50k" + "".join(f", {f}" for f in extra)),
+        per_round=per_round)
     row = {"phase": "gpt2", "leg": label, "d": fm.grad_size,
            "tokens_per_round": tokens, "tokens_per_sec": rps * tokens,
            "rounds_per_sec": rps, "rounds": GPT2_TIMED_ROUNDS,
@@ -6808,6 +6683,9 @@ def main(argv=None) -> int:
     wall["4 headline"] = time.perf_counter() - t
     t = time.perf_counter()
     opt_counts, opt_rps, opt_prof = phase_opt_in(rps)
+    # the port's profile_diff on phase 4's capture against phase 5's
+    rc = profile_diff.main([split["capture"], opt_prof["capture"]])
+    assert rc == 0, f"profile_diff exited {rc}"
     wall["5 opt-in"] = time.perf_counter() - t
     t = time.perf_counter()
     phase_cv_train()

@@ -734,10 +734,13 @@ class FedModel:
             states_in, proxy_ids = self._take_rows(ids, round_no, staged)
             dbatch["client_ids"] = proxy_ids
         pre_model_state = self._model_state
-        self._round_ctx, self._model_state, metrics = \
-            self.steps.client_step(self.ps_weights, states_in,
-                                   self._model_state, dbatch, self._opt_lr,
-                                   self._rng)
+        # names the client phase inside a profiler capture (the JAX
+        # package's span); a range is host-side and adds no sync
+        with annotate("fed_client_phase"):
+            self._round_ctx, self._model_state, metrics = \
+                self.steps.client_step(self.ps_weights, states_in,
+                                       self._model_state, dbatch,
+                                       self._opt_lr, self._rng)
         self._rounds_dispatched += 1
         sharded = self.round_config.server_shard
         if late_batch is not None:
@@ -1107,10 +1110,11 @@ class FedModel:
         ctx = self._round_ctx
         stream = self._stream_round
         states = self.client_states if stream is None else stream.proxy
-        out = self.steps.server_step(self.ps_weights, server_state,
-                                     states, ctx, lr, self._rng,
-                                     sr=self.sr_generators(
-                                         self._rounds_dispatched - 1))
+        sr = self.sr_generators(self._rounds_dispatched - 1)
+        # one span for the in-memory and the streamed server step
+        with annotate("fed_server_phase"):
+            out = self.steps.server_step(self.ps_weights, server_state,
+                                         states, ctx, lr, self._rng, sr=sr)
         self.ps_weights, new_state, new_states = out[:3]
         if stream is None:
             self.client_states = new_states
