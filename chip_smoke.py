@@ -75,7 +75,7 @@ Phases (any failure exits non-zero; nothing is caught):
    and 6 timed rounds each, rounds/sec beside the card's line, a finite
    loss, the launches per round derived from the code's structure
    (``modes_per_round``; 0 for the kernels a path does not run), the
-   device's busy share and time by kernel over 3 profiled rounds, and one
+   device's busy share and time by kernel over 2 profiled rounds, and one
    server step from the same round context through the kernels and
    through the plain versions, whose weights, server state and scattered
    client rows must be equal; and the count pass once on the flat,
@@ -115,7 +115,7 @@ Phases (any failure exits non-zero; nothing is caught):
    and the opt-in round in float32, each 2 warm-up and 6 timed rounds
    with tokens/sec and rounds/sec, the launches a round checked exactly
    (2 / 1 / 8, and the coalescing plan's count), the client / server
-   split, the device's busy share and time by kernel over 3 profiled
+   split, the device's busy share and time by kernel over 2 profiled
    rounds (each leg's capture written, its spans held to the launches)
    and the peak memory, beside the card's line; one server step
    through kernels and plain versions; one ``gpt2_train`` epoch on the
@@ -130,7 +130,7 @@ Phases (any failure exits non-zero; nothing is caught):
    ``FedLoader``: the headline and the opt-in leg, each 2 warm-up and 20
    timed rounds with rounds/sec and images/sec, the launches a round
    checked exactly (2 / 1 / 8, and the coalescing plan's count), the
-   client / server split, the busy share and time by kernel over 5
+   client / server split, the busy share and time by kernel over 2
    profiled rounds, the peak memory, and a server step through kernels
    and plain versions; the loader's batches/sec plain and under
    ``PrefetchLoader``, and the native data plane against its numpy
@@ -388,6 +388,20 @@ Phases (any failure exits non-zero; nothing is caught):
    / 8 launches a round on every rank and in each one-process run; (c)
    ``scripts.native_bench`` at one timed epoch: the native and numpy
    batches equal, both loaders' and the ImageNet transforms' times.
+22. the card's measurement batch through its own CLI
+   (``phase_card_measure``): ``python -m
+   commefficient_torch.scripts.card_measure matmul ops topk_ab
+   fused_epilogue --out runs/chip_smoke/card_measure.jsonl`` in a child
+   process at full width (d = 6,568,640 and 124,444,417, the 5 x 500,000
+   sketch, k = 50,000): exit 0, its header naming this card, every leg
+   ``ok`` with every equality flag true (each kernel arm equal to its
+   plain version, the descents' thresholds equal to the plain one and to
+   ``torch.topk``'s k-th magnitude, the fused epilogue's update and table
+   equal to the composed pair's), each kernel arm's launches a timed call
+   as derived (``CARD_MEASURE_LAUNCHES``: 8 count passes a per-pass
+   descent, one descent launch, ...), the arms whose host enqueue
+   outlasted the card's spin before them listed (``host_bound``), and the
+   child's wall seconds within ``CARD_MEASURE_LIMIT_S``.
 
 Then one JSON line of the kernels (launches per timed window of the path
 that runs each: phase 4 for the accumulate, the query and the count pass,
@@ -399,9 +413,13 @@ round on rank 3 of phase 16's 2-D round; on a rank of phase 17's
 (model 2) round, with its largest error at the MoE geometry; on a rank of
 phase 19's (clients 1) x (stage 2) round; its launches in phase 20's
 fidelity trial, learning run and GPT-2 calibration; and a round on a
-rank of phase 21's two-node cohort), the card's line,
+rank of phase 21's two-node cohort; its launches a timed call in each arm
+of phase 22's ``card_measure`` legs), the card's line,
 and ``{"ok": true, "device": {...}}`` as the last line.
-Without a card it exits with an error before printing any result.
+Without a card it exits with an error before printing any result. Every
+line this process prints is also written to
+``runs/chip_smoke/timeline.log`` after the seconds since the start, so
+that the time of each leg can be read.
 
 ``--kernel-times`` runs none of the phases. It times, for the checkout
 that holds the script, the accumulate pair and the query over full chunk
@@ -458,11 +476,28 @@ from commefficient_torch.federated.server import (
 )
 from commefficient_torch.federated.worker import microbatch_plan
 from commefficient_torch.models import GPT2DoubleHeads, ResNet9
-from commefficient_torch.ops.flat import ChunkLayout
 from commefficient_torch.parallel.pipeline import make_gpt2_pp_losses
 from commefficient_torch.ops import sketch as tsk
 from commefficient_torch.ops import topk as ttk
-from commefficient_torch.profiling import host_sync_monitor
+from commefficient_torch.checks import (
+    bit_equal,
+    deterministic_cudnn,
+    env_vars,
+    mask_past,
+    nan_equal,
+    plain_kernels,
+    rank_context,
+    release_card,
+    spawn_ranks,
+)
+from commefficient_torch.profiling import (
+    bound,
+    card_line,
+    host_sync_monitor,
+    peaks,
+    phase_split,
+    time_ms,
+)
 from commefficient_torch.scripts import profile_diff, round_profile
 from commefficient_torch.scripts.bench_rounds import (
     GPT2_B,
@@ -473,10 +508,18 @@ from commefficient_torch.scripts.bench_rounds import (
     GPT2_T,
     GPT2_W,
     HEADLINE,
+    OFFLOAD_BASE,
+    RESNET9_D,
+    build_cv,
     build_gpt2,
+    build_offload,
     build_round,
+    cohort_batch,
+    engine_rounds,
     gpt2_batch,
+    imagenet_argv,
     synthetic_batch,
+    time_rounds,
 )
 from commefficient_torch.scripts.round_profile import dev_us, device_rows
 from commefficient_torch.telemetry import (
@@ -495,99 +538,12 @@ TIMED_ROUNDS = 20
 HEADLINE_KERNELS = ("sketch_accumulate", "sketch_estimates", "topk_count_ge")
 OPT_IN_KERNELS = ("sketch_accumulate_into", "fused_epilogue", "topk_descent")
 REPS = 30
-# the plain PyTorch versions (milliseconds each at the large geometries)
-PLAIN_REPS = 10
-
-_FLUSH = {}
-
-
-def flush_l2() -> None:
-    """Read 96 MB, twice the H100's 50 MB L2, so the timed launch finds none
-    of its data there. A read leaves clean lines, which the launch evicts
-    for free; a write (``zero_``) would leave up to 50 MB of dirty lines
-    whose write-back the launch would pay for."""
-    buf = _FLUSH.get("buf")
-    if buf is None:
-        buf = _FLUSH["buf"] = torch.zeros(96 << 20, dtype=torch.uint8,
-                                          device="cuda")
-    buf.max()
-
-
-def time_ms(fn, reps: int = REPS, flush: bool = True) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` launches, after 3
-    warm-up calls, with L2 flushed before each launch (or not: then the
-    launch finds in L2 what the one before it left there). The card spins
-    for about 0.1 ms (``torch.cuda._sleep``, which touches no memory)
-    before the start event, so the host has enqueued the launch by the time
-    the card reaches it and no host time enters the measurement."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        if flush:
-            flush_l2()
-        torch.cuda._sleep(200_000)
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def peaks(name: str):
-    """(bytes/s, float32 op/s, int32 op/s) of the card.
-
-    Memory and float32 rates are NVIDIA's data-sheet numbers. The data
-    sheets give no int32 rate; this one is the rate of the ALU pipe, which
-    alone runs the right shifts and the logic ops (SHF, LOP3): the Hopper
-    SM's 64 INT32 lanes (the Hopper architecture white paper: 64 INT32
-    units per SM, against 128 FP32) times the SM count times the maximum SM
-    clock that ``nvidia-smi`` reports: 64 x 132 x 1,980 MHz = 16.7 T int32
-    op/s on an H100 SXM. Integer multiplies (IMAD), and the adds and left
-    shifts that the compiler moves there, run on the FMA pipe beside it,
-    and the SM issues 4 warp instructions a clock (128 lanes) over all its
-    pipes, so an int32 count charged at this rate must be of ALU-pipe ops,
-    or half the instructions of any kind (see ``HASH_ALU_OPS``)."""
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    int32 = 64 * sms * mhz * 1e6
-    if "PCIe" in name:
-        return 2.0e12, 51e12, int32
-    if "NVL" in name:
-        return 3.9e12, 60e12, int32
-    if "H200" in name:
-        return 4.8e12, 67e12, int32
-    return 3.35e12, 67e12, int32  # H100 SXM
-
-
-def nan_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return bool(torch.equal(torch.isnan(a), torch.isnan(b))
-                and torch.equal(torch.nan_to_num(a, nan=0.0),
-                                torch.nan_to_num(b, nan=0.0)))
-
-
-def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Equal NaN positions, and equal bit patterns (zero signs included)
-    everywhere else."""
-    nan = torch.isnan(a)
-    return bool(torch.equal(nan, torch.isnan(b))
-                and torch.equal(a.view(torch.int32)[~nan],
-                                b.view(torch.int32)[~nan]))
+# the plain PyTorch versions: a few reps (up to 0.25 s a call at d = 124M)
+PLAIN_REPS = 3
+# the profiled rounds of phases 7-10 (the profiler's event processing
+# takes seconds a round at FEMNIST's 5,500 and GPT-2's 1,400 device
+# operations; phases 4 and 5 profile 5)
+PROFILED_ROUNDS = 2
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -607,17 +563,6 @@ def special(x: torch.Tensor) -> torch.Tensor:
     flat[11:40] = 1e-40
     flat[41] = -0.0
     return x
-
-
-def bound(nbytes: float, int_ops: float, flops: float, peak) -> dict:
-    """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the card's rate for their
-    type (int32 and float32 run on their own lanes, so the slower of the
-    two)."""
-    bw, frate, irate = peak
-    tb, to = nbytes / bw, max(int_ops / irate, flops / frate)
-    return {"bound_ms": 1e3 * max(tb, to),
-            "bound_by": "bytes" if tb >= to else "operations"}
 
 
 # The int32 work of one sign hash and its use, per (row, coordinate),
@@ -649,41 +594,6 @@ QUERY_ALU_OPS_COORD = 1
 QUERY_ALU_OPS_ROW = 3
 MEDIAN_MIN_MAX = {r: 10 if r == 5 else 4 if r == 3 else r * (r - 1)
                   for r in range(1, 9)}
-
-
-def mask_past(est, t0, n_valid):
-    """``mask_tail`` by global coordinate, written out: +0.0 at every
-    position of the chunks from ``t0`` whose coordinate is >= n_valid."""
-    coord = t0 * est.shape[1] * 128 + torch.arange(
-        est.numel(), device=est.device).view(est.shape)
-    return torch.where(coord < n_valid, est,
-                       torch.zeros((), dtype=est.dtype, device=est.device))
-
-
-def plain_estimates(table3, cs_, t0=0, Tn=None, n_valid=None):
-    est = tsk._sketch_estimates_plain(table3, cs_.inv_q, cs_.inv_w,
-                                      cs_.sign_keys, t0)
-    return est if n_valid is None else mask_past(est, t0, n_valid)
-
-
-@contextlib.contextmanager
-def plain_kernels():
-    """Every kernel's dispatch point swapped for its plain version, on the
-    card; no kernel may launch inside."""
-    with contextlib.ExitStack() as stack:
-        for mod, name, fn in (
-                (tsk, "sketch_accumulate", tsk._sketch_accumulate_plain),
-                (tsk, "sketch_accumulate_into",
-                 tsk._sketch_accumulate_into_plain),
-                (tsk, "sketch_segment_into", tsk._sketch_segment_into_plain),
-                (tsk, "sketch_estimates", plain_estimates),
-                (tsk, "fused_epilogue", tsk._fused_epilogue_plain),
-                (ttk, "topk_count_ge", ttk._count_ge_plain),
-                (ttk, "topk_descent", ttk._descent_plain)):
-            stack.enter_context(mock.patch.object(mod, name, fn))
-        before = kernels.launch_counts()
-        yield
-        assert kernels.launch_counts() == before, "plain path launched"
 
 
 # Thresholds beyond the descent's sorted p + (j << shift): unsorted, with
@@ -965,35 +875,19 @@ def check_kernels(card: str, d, c, r, t0, seed, label, timed, k=None):
 
 def timed_rounds(one_round, batch, per_round: dict, label: str,
                  n: int = TIMED_ROUNDS):
-    """2 warm-up rounds, then ``n`` rounds with the launch counts set to 0
-    just before and read just after: they must be ``per_round`` times the
-    rounds. Returns ``(counts, rounds/sec)``."""
-    for _ in range(2):
-        one_round(batch)
-    torch.cuda.synchronize()
-    masks = []
-    mask_tail = ChunkLayout.mask_tail
-
-    def counted_mask_tail(self, c3):
-        masks.append(c3.device.type)
-        return mask_tail(self, c3)
-
-    with mock.patch.object(ChunkLayout, "mask_tail", counted_mask_tail):
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        losses = []
-        for _ in range(n):
-            losses.append(one_round(batch)[0])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = kernels.launch_counts()
-    # the query kernel writes the padded tail's +0.0 itself
-    assert not masks, f"{label}: mask_tail ran {len(masks)} times"
-    loss = np.concatenate(losses)
+    """``bench_rounds.time_rounds``: 2 warm-up rounds, then ``n`` rounds
+    with the launch counts set to 0 just before and read just after: they
+    must be ``per_round`` times the rounds, the losses finite, and the
+    padded tail masked by the query kernel alone (no ``mask_tail`` call).
+    Returns ``(counts, rounds/sec)``."""
+    res = time_rounds(one_round, batch, n)
+    assert not res["mask_tail_calls"], \
+        f"{label}: mask_tail ran {res['mask_tail_calls']} times"
+    loss, counts = res["losses"], res["counts"]
     assert np.all(np.isfinite(loss)), f"{label}: non-finite round loss"
     want = {k.name: per_round.get(k.name, 0) * n for k in kernels.KERNELS}
     assert counts == want, f"{label}: launches {counts}, expected {want}"
-    rps = n / wall
+    rps = n / res["seconds"]
     print(f"{label} rounds: {n} timed, {rps:.3f} rounds/sec "
           f"({1e3 / rps:.2f} ms/round), mean loss {loss.mean():.4f}")
     print(f"{label} launches per round: " + json.dumps(
@@ -1083,27 +977,6 @@ def check_zero_sign(fm, lr):
           f"estimates, k = {k}): weights equal under ==; "
           f"{int((new_p == 0).sum())} zero weights, "
           f"{int(sign_only.sum())} of them differ in the sign bit")
-
-
-def phase_split(fm, opt, sched, batch, label: str, n: int = 10) -> dict:
-    """Median CUDA-event times of the client and server phases over ``n``
-    rounds."""
-    client_ms, server_ms = [], []
-    for _ in range(n):
-        sched.step()
-        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        e[0].record()
-        handle = fm.begin_round(batch)
-        e[1].record()
-        opt.step()
-        e[2].record()
-        fm.finish_round(handle)
-        client_ms.append(e[0].elapsed_time(e[1]))
-        server_ms.append(e[1].elapsed_time(e[2]))
-    split = {"client_phase_ms": statistics.median(client_ms),
-             "server_phase_ms": statistics.median(server_ms)}
-    print(f"{label} phase split: " + json.dumps(split))
-    return split
 
 
 def opt_in_per_round(fm, args, examples: int = 8) -> dict:
@@ -1398,7 +1271,8 @@ def phase_modes(card: str) -> dict:
         rps = MODE_TIMED_ROUNDS / wall
         state_mb = sum(x.numel() * 4 for x in fm.client_states
                        if x is not None) / 1e6
-        prof = profile_rounds(lambda: one_round(batches[0]), n=3)
+        prof = profile_rounds(lambda: one_round(batches[0]),
+                              n=PROFILED_ROUNDS)
         row = {"phase": "modes", "config": name, "mode": args.mode,
                "workers": W, "rounds_per_sec": rps,
                "ms_per_round": 1e3 / rps, "mean_loss": float(loss.mean()),
@@ -1441,20 +1315,6 @@ PAIRS = 2
 BN_ROUNDS = 10
 HEADLINE_PER_ROUND = {"sketch_accumulate": 2, "sketch_estimates": 1,
                       "topk_count_ge": 8}
-
-
-@contextlib.contextmanager
-def deterministic_cudnn():
-    """cuDNN held to deterministic algorithms (and no autotuning), so that
-    two runs of one round give the same gradients bit for bit."""
-    old = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.deterministic,
-         torch.backends.cudnn.benchmark) = old
 
 
 def audited_submit(eng, batch, audit: dict):
@@ -1685,7 +1545,7 @@ def phase_lifecycle(card: str) -> dict:
     round, and the sketch-local round with its client tables);
     (c) ``--batchnorm``: d = 6,573,120, 10 headline rounds with finite
     losses and 2 / 1 / 8 launches a round, finite averaged running
-    statistics, the device's time by kernel over 3 profiled rounds, one
+    statistics, the device's time by kernel over 2 profiled rounds, one
     server step equal through kernels and plain versions;
     (d) ``cv_train --batchnorm`` resumed mid-epoch with ``--resume auto``:
     bit-identical to the continuous run with cuDNN deterministic, and the
@@ -1718,7 +1578,7 @@ def phase_lifecycle(card: str) -> dict:
     assert len(stats) == 16 and all(
         bool(torch.isfinite(v).all()) for v in stats.values()), \
         "batchnorm: non-finite running statistics"
-    prof = profile_rounds(lambda: one_round(batch), n=3)
+    prof = profile_rounds(lambda: one_round(batch), n=PROFILED_ROUNDS)
     check_server_step(fm, opt, synthetic_batch(1), "batchnorm")
     out["batchnorm"] = {"phase": "lifecycle", "round": "batchnorm",
                         "d": fm.grad_size, "rounds_per_sec": rps,
@@ -1745,7 +1605,7 @@ GPT2_LEGS = (("gpt2 f32", []), ("gpt2 bf16", ["--bf16"]),
 def gpt2_leg(card: str, label: str, extra) -> dict:
     """One timed GPT-2 leg: 2 warm-up and GPT2_TIMED_ROUNDS rounds
     (launches checked exactly), tokens/sec, the phase split over 3
-    rounds, the device's busy share and time by kernel over 3 profiled
+    rounds, the device's busy share and time by kernel over 2 profiled
     rounds, the peak memory of the timed rounds."""
     opt_in = extra is OPT_IN
     if opt_in:
@@ -1767,7 +1627,7 @@ def gpt2_leg(card: str, label: str, extra) -> dict:
     tokens = GPT2_W * GPT2_B * GPT2_C * GPT2_T
     split = phase_split(fm, opt, sched, batch, label, n=3)
     prof = profile_rounds(
-        lambda: one_round(batch), n=3, capture=(
+        lambda: one_round(batch), n=PROFILED_ROUNDS, capture=(
             f"round_profile_{label.replace(' ', '_').replace('-', '_')}.md",
             f"GPT-2 PersonaChat federated round, {label} (phase 9)",
             f"GPT-2 124M double-heads d={fm.grad_size:,}, 4 workers, "
@@ -1868,30 +1728,8 @@ FEMNIST_BASE = ["--mode", "sketch", "--error_type", "virtual",
 FEMNIST_ROUNDS = 24
 IMAGENET_D = 25_504_030
 IMAGENET_W, IMAGENET_B = 7, 64
-IMAGENET_BASE = ["--mode", "uncompressed", "--error_type", "none",
-                 "--local_momentum", "0", "--virtual_momentum", "0.9",
-                 "--weight_decay", "1e-4", "--num_workers", str(IMAGENET_W),
-                 "--local_batch_size", str(IMAGENET_B),
-                 "--microbatch_size", "16", "--dataset_name", "ImageNet",
-                 "--model", "FixupResNet50", "--iid",
-                 "--num_clients", str(IMAGENET_W), "--device", "cuda",
-                 "--seed", "0", "--no_telemetry"]
+IMAGENET_BASE = imagenet_argv(IMAGENET_W, IMAGENET_B, 16)
 IMAGENET_TIMED_ROUNDS = 3
-
-
-@contextlib.contextmanager
-def env_vars(**values):
-    """Environment variables set for the block, restored after it."""
-    old = {k: os.environ.get(k) for k in values}
-    os.environ.update({k: str(v) for k, v in values.items()})
-    try:
-        yield
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
 
 
 def draw_batches(loader, n: int) -> list:
@@ -1917,40 +1755,15 @@ def femnist_data(tmp: str):
     return FedLoader(ds, FEMNIST_W, FEMNIST_B)
 
 
-def build_cv(base, extra, num_clients: int):
-    """FedModel / FedOptimizer / LambdaLR for a phase-10 round, the model
-    and the LR groups as ``cv_train`` builds them; returns ``(args, fm,
-    opt, sched, one_round)``."""
-    from commefficient_torch import cv_train
-
-    args = parse_args(argv=base + extra)
-    model = cv_train.build_model_and_config(args)
-    cv_train.check_trainable(model)
-    train_loss, val_loss = make_cv_losses(model)
-    fm = FedModel(model, train_loss, args, val_loss, num_clients=num_clients)
-    opt = FedOptimizer(fm, args, param_groups=cv_train.build_param_groups(
-        args, fm.param_layout))
-    schedule = PiecewiseLinear([0, 100], [0.1, 0.0])
-    sched = LambdaLR(opt, lambda step: schedule(step))
-
-    def one_round(batch):
-        sched.step()
-        out = fm(batch)
-        opt.step()
-        return out
-
-    return args, fm, opt, sched, one_round
-
-
 def femnist_leg(card: str, label: str, extra, batches) -> dict:
     """One FEMNIST ResNet101-LN leg: 2 warm-up and 20 timed rounds over the
     pre-drawn batches (launches checked exactly), rounds/sec and
     images/sec, the phase split, the busy share and device time by kernel
-    over 5 profiled rounds, the peak memory."""
+    over 2 profiled rounds, the peak memory."""
     opt_in = extra is OPT_IN
     with env_vars(**({ttk.FUSED_DESCENT_ENV: "1"} if opt_in else {})):
         args, fm, opt, sched, one_round = build_cv(
-            FEMNIST_BASE, list(extra), num_clients=100)
+            FEMNIST_BASE + list(extra), num_clients=100)
         assert fm.grad_size == FEMNIST_D, fm.grad_size
         assert (fm.sketch.T, fm.sketch.c_pad) == FEMNIST_TC
         if opt_in:
@@ -1968,7 +1781,8 @@ def femnist_leg(card: str, label: str, extra, batches) -> dict:
                                    per_round, label)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         split = phase_split(fm, opt, sched, batches[0], label)
-        prof = profile_rounds(lambda: one_round(next(cycle)))
+        prof = profile_rounds(lambda: one_round(next(cycle)),
+                              n=PROFILED_ROUNDS)
         images = FEMNIST_W * FEMNIST_B
         row = {"phase": "femnist", "leg": label, "d": fm.grad_size,
                "T": fm.sketch.T, "images_per_round": images,
@@ -2075,8 +1889,7 @@ def imagenet_leg(card: str, tmp: str) -> dict:
     load_s = (time.perf_counter() - t0) / 3
     assert batches[0]["inputs"].shape == (IMAGENET_W, IMAGENET_B, 224, 224,
                                           3)
-    args, fm, opt, sched, one_round = build_cv(IMAGENET_BASE, [],
-                                               IMAGENET_W)
+    args, fm, opt, sched, one_round = build_cv(IMAGENET_BASE, IMAGENET_W)
     assert fm.grad_size == IMAGENET_D, fm.grad_size
     groups = opt.param_groups
     assert [b for _, b in groups] == [0.1, 0.1, 1.0], groups
@@ -2432,28 +2245,6 @@ def host_ops(one_round, n: int = 5, top: int = 12) -> dict:
                      e.count / n) for e in rows[:top]]}
 
 
-def _build_group_round(extra, group, num_clients: int = 64):
-    """``build_round`` with the FedModel on ``group``."""
-    args = parse_args(argv=HEADLINE + extra + [
-        "--num_clients", str(num_clients), "--seed", "0"])
-    model = ResNet9()
-    train_loss, val_loss = make_cv_losses(model)
-    fm = FedModel(model, train_loss, args, val_loss, num_clients=num_clients,
-                  group=group)
-    opt = FedOptimizer(fm, args)
-    schedule = PiecewiseLinear([0, args.pivot_epoch, args.num_epochs],
-                               [0, 0.4, 0])
-    sched = LambdaLR(opt, lambda step: schedule(step / 50))
-
-    def one_round(batch):
-        sched.step()
-        out = fm(batch)
-        opt.step()
-        return out
-
-    return args, fm, opt, sched, one_round
-
-
 def _weights(fm) -> torch.Tensor:
     return fm.layout.unchunk(fm.ps_weights).detach().clone()
 
@@ -2533,8 +2324,8 @@ def nccl_world1(card: str, headline_rps: float) -> dict:
             with deterministic_cudnn():
                 ws = []
                 for grp, extra in ((None, []), (group, ["--server_shard"])):
-                    _, fm, opt, sched, one_round = _build_group_round(
-                        extra, grp)
+                    _, fm, opt, sched, one_round = build_round(
+                        extra, group=grp)
                     ws.append([])
                     for i in range(2):
                         one_round(synthetic_batch(i))
@@ -2558,8 +2349,8 @@ def nccl_world1(card: str, headline_rps: float) -> dict:
                     ("sharded mixed", ["--server_shard", "--collective_plan",
                                        "uplink=int8,downlink=fp8_e4m3,"
                                        "table=int4"], SHARDED_PER_ROUND)):
-                _, fm, opt, sched, one_round = _build_group_round(extra,
-                                                                  group)
+                _, fm, opt, sched, one_round = build_round(extra,
+                                                                  group=group)
                 counts, rps = timed_rounds(one_round, batch, per_round,
                                            f"nccl {label}",
                                            n=TIMED_ROUNDS)
@@ -2579,7 +2370,7 @@ def nccl_world1(card: str, headline_rps: float) -> dict:
                     row["profile"] = profile_rounds(
                         lambda: one_round(batch), n=3)
                     row["host"] = host_ops(lambda: one_round(batch))
-                    *_, one_single = _build_group_round([], None)
+                    *_, one_single = build_round([], group=None)
                     row["single_host"] = host_ops(lambda: one_single(batch))
                     del one_single
                     for name in ("host", "single_host"):
@@ -2675,8 +2466,8 @@ def _gloo_rank(rank: int, n: int, tmp: str) -> None:
                                 ("replicated", []),
                                 ("fused", ["--server_shard",
                                            "--fused_epilogue"])):
-                _, fm, opt, sched, one_round = _build_group_round(extra,
-                                                                  group)
+                _, fm, opt, sched, one_round = build_round(extra,
+                                                                  group=group)
                 kernels.reset_launch_counts()
                 loss = one_round(synthetic_batch(0))[0]
                 assert np.all(np.isfinite(loss))
@@ -2701,24 +2492,10 @@ def gloo_two_ranks(card: str, world1_w: np.ndarray) -> dict:
     1's launches (its chunks start at ``t0 = 7``) equal the launches a
     round per rank derived from the code (SHARDED_PER_ROUND,
     SHARDED_FUSED_PER_ROUND)."""
-    import multiprocessing as mp
-
     with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_gloo_rank, args=(r, 2, tmp))
-                 for r in range(2)]
         t = time.perf_counter()
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(max(1.0, 300 - (time.perf_counter() - t)))
-        alive = [p for p in procs if p.is_alive()]
-        for p in alive:
-            p.kill()
-            p.join()
-        assert not alive, "gloo ranks timed out"
-        assert all(p.exitcode == 0 for p in procs), \
-            [p.exitcode for p in procs]
+        spawn_ranks(_gloo_rank, (2, tmp), n=2, timeout=300,
+                    label="gloo ranks")
         w = {f"{nm}{r}": np.load(os.path.join(tmp, f"{nm}{r}.npy"))
              for nm in ("sharded", "replicated", "fused") for r in (0, 1)}
         counts = {}
@@ -2954,7 +2731,7 @@ def phase_multi(card: str, headline_rps: float, gpt2_f32: dict) -> dict:
     out["torchrun"] = torchrun_entry(card)
     # the one-rank round's weights after one round, for step 4
     with deterministic_cudnn():
-        _, fm, opt, sched, one_round = _build_group_round([], None)
+        _, fm, opt, sched, one_round = build_round([], group=None)
         one_round(synthetic_batch(0))
         world1_w = _weights(fm).cpu().numpy()
         del fm, opt, sched
@@ -2972,10 +2749,10 @@ OBS_AUDIT_ROUNDS = 16
 # 10-40% between windows of one call, the GPT-2 round under 1%
 OBS_PAIRS = {"headline": 4, "gpt2 f32": 1}
 OBS_PAIR_ROUNDS = 12
-# the profiled window of the host split: one drain cycle of the engine
-# (the profiler's event processing is slow at GPT-2's 7,800 operators a
-# round)
-OBS_HOST_ROUNDS = 8
+# the profiled window of the host split: one drain cycle of the engine at
+# the headline, half of one at GPT-2 (the profiler's event processing is
+# slow at its 7,800 operators a round)
+OBS_HOST_ROUNDS = {"headline": 8, "gpt2 f32": 4}
 # the metric vector on the card against the same function on the CPU:
 # norms to float32 summation order, counts, nnz, threshold and verdict
 # exact
@@ -3327,20 +3104,19 @@ def clock_recorder(rt) -> dict:
     return spent
 
 
-def engine_host_ops(eng, batch) -> dict:
-    """The host's operators over OBS_HOST_ROUNDS engine rounds and their
-    drain under ``torch.profiler`` (CPU only): self time, operators and
-    kernel launches a round."""
+def engine_host_ops(eng, batch, n: int) -> dict:
+    """The host's operators over ``n`` engine rounds and their drain
+    under ``torch.profiler`` (CPU only): self time, operators and kernel
+    launches a round."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        for _ in range(OBS_HOST_ROUNDS):
+        for _ in range(n):
             eng.submit(batch)
         eng.drain()
         torch.cuda.synchronize()
     rows = prof.key_averages()
-    n = OBS_HOST_ROUNDS
     return {"self_cpu_ms_per_round": sum(e.self_cpu_time_total
                                          for e in rows) / n / 1e3,
             "aten_ops_per_round": sum(e.count for e in rows
@@ -3404,7 +3180,8 @@ def obs_costs(card: str, label: str, build, batch, per_round, tmp) -> dict:
             for c, v in r.items():
                 rps[c].append(v)
             ratios[cmp].append(r[cmp] / r["off"])
-    host = {cfg: engine_host_ops(engines[cfg], batch)
+    host = {cfg: engine_host_ops(engines[cfg], batch,
+                                 OBS_HOST_ROUNDS[label])
             for cfg in ("off", "telemetry")}
     host["recorder_ms_per_round"] = statistics.median(rec_ms)
     row = {"phase": "observability", "leg": label,
@@ -3964,12 +3741,6 @@ def phase_participation(card: str) -> dict:
 
 
 # phase 14: per-client state off the card
-OFF_BASE = ["--mode", "sketch", "--error_type", "local",
-            "--local_momentum", "0.9", "--virtual_momentum", "0",
-            "--num_rows", "5", "--num_cols", "500000", "--k", "50000",
-            "--num_workers", "8", "--local_batch_size", "8",
-            "--dataset_name", "CIFAR10", "--device", "cuda",
-            "--no_telemetry", "--seed", "0"]
 OFF_TOPK = ["--mode", "local_topk", "--error_type", "local",
             "--local_momentum", "0.9", "--virtual_momentum", "0",
             "--k", "50000", "--num_workers", "8", "--local_batch_size", "8",
@@ -3998,68 +3769,17 @@ OFF_LARGE_ROUNDS = 8
 OFF_TOPK_ROUNDS = 5
 OFF_IO_FAULT = "eio=0.02,short=0.01,torn=0.01,seed=3"
 OFF_FLIP = "flip=0.01,seed=5"
-RESNET9_D = 6_568_640
-
-
-def off_batch(seed: int, n_clients: int, live: int = 8):
-    """A round of 8 slots at a population of ``n_clients``: ``live``
-    clients drawn without replacement, the rest padding (client 0, zero
-    masks), as the loader pads a short cohort."""
-    rng = np.random.RandomState(1000 + seed)
-    b = {"inputs": rng.randn(8, 8, 32, 32, 3).astype(np.float32),
-         "targets": rng.randint(0, 10, size=(8, 8)).astype(np.int64),
-         "mask": np.ones((8, 8), np.float32),
-         "client_ids": rng.choice(n_clients, 8, replace=False)
-         .astype(np.int32),
-         "worker_mask": np.ones(8, np.float32)}
-    b["mask"][live:] = 0.0
-    b["worker_mask"][live:] = 0.0
-    b["client_ids"][live:] = 0
-    return b
-
-
-def build_offload(extra, num_clients: int, env: dict, state_dir: str,
-                  base=OFF_BASE, prefetch: bool = True):
-    """FedModel / FedOptimizer / LambdaLR (constant lr 0.1) at full width
-    with the tier the plan resolves under ``env`` (the budget overrides;
-    empty: the planner's own probes) and the disk tier in ``state_dir``."""
-    env = dict(env, COMMEFFICIENT_COHORT_PREFETCH="1" if prefetch else "0")
-    with env_vars(**env):
-        args = parse_args(argv=base + list(extra) + [
-            "--num_clients", str(num_clients), "--state_dir", state_dir])
-        model = ResNet9()
-        train_loss, val_loss = make_cv_losses(model)
-        fm = FedModel(model, train_loss, args, val_loss,
-                      num_clients=num_clients)
-    opt = FedOptimizer(fm, args)
-    sched = LambdaLR(opt, lambda step: 0.1)
-    return args, fm, opt, sched
 
 
 def off_engine(fm, opt, sched, batches, audit=None, offloads=None):
-    """The batches through ``PipelinedRoundEngine(window=2,
-    drain_every=8)`` and ``cohort_lookahead`` (the prefetcher's path);
-    non-drain submits audited when ``audit`` is a dict; each round's
-    ``offload`` record appended to ``offloads``."""
-    from commefficient_torch.federated.engine import cohort_lookahead
-
-    if offloads is not None:
-        seal = fm.seal_round
-
-        def recording_seal(h):
-            h = seal(h)
-            offloads.append(h.offload)
-            return h
-
-        fm.seal_round = recording_seal
-    eng = PipelinedRoundEngine(fm, opt, sched, window=2, drain_every=8)
-    got = []
-    for b in cohort_lookahead(batches, fm):
-        got.extend(audited_submit(eng, b, audit) if audit is not None
-                   else eng.submit(b))
-    got.extend(eng.drain())
-    if offloads is not None:
-        del fm.seal_round
+    """The batches through ``bench_rounds.engine_rounds`` (the round
+    engine and the prefetcher's path); non-drain submits audited when
+    ``audit`` is a dict; each round's ``offload`` record appended to
+    ``offloads``; every loss finite."""
+    got, _ = engine_rounds(
+        fm, opt, sched, batches, offloads=offloads,
+        submit=None if audit is None else (
+            lambda eng, b: audited_submit(eng, b, audit)))
     for r in got:
         assert np.all(np.isfinite(r.values[0])), "offload: non-finite loss"
     return got
@@ -4129,7 +3849,7 @@ def off_identity(tmp: str) -> dict:
     submit under the strict audit with no fetch. Then 0.75 cohorts under
     client faults on the disk tier against the hbm tier."""
     n = OFF_IDENTITY_CLIENTS
-    batches = [off_batch(s, n) for s in range(OFF_IDENTITY_ROUNDS)]
+    batches = [cohort_batch(s, n) for s in range(OFF_IDENTITY_ROUNDS)]
     ids = np.concatenate([b["client_ids"] for b in batches])
     res, pf_counts = {}, {}
     with deterministic_cudnn():
@@ -4167,7 +3887,7 @@ def off_identity(tmp: str) -> dict:
         del res
         torch.cuda.empty_cache()
         # a 0.75 cohort (6 of 8 slots) under client faults
-        part = [off_batch(s, n, live=6) for s in range(OFF_PART_ROUNDS)]
+        part = [cohort_batch(s, n, live=6) for s in range(OFF_PART_ROUNDS)]
         pids = np.concatenate([b["client_ids"] for b in part])
         states = {}
         for tier in ("hbm", "disk"):
@@ -4204,7 +3924,7 @@ def off_population(card: str, tmp: str) -> dict:
         for line in f:
             if line.startswith("MemTotal:"):
                 mem_total = int(line.split()[1]) * 1024
-    args = parse_args(argv=OFF_BASE + ["--num_clients", str(OFF_EMNIST)])
+    args = parse_args(argv=OFFLOAD_BASE + ["--num_clients", str(OFF_EMNIST)])
     from commefficient_torch.federated.aggregator import (
         worker_config_from_args,
     )
@@ -4251,13 +3971,13 @@ def off_population(card: str, tmp: str) -> dict:
                f"largest multiple of 500 it places in host with the device "
                f"budget forced to 1 B")
     print("offload population: " + why)
-    batches = [off_batch(s, n) for s in range(OFF_POP_ROUNDS)]
+    batches = [cohort_batch(s, n) for s in range(OFF_POP_ROUNDS)]
     models = {}
     for tier, env in (("host", env_host), ("hbm", OFF_TIERS["hbm"])):
         models[tier] = build_offload([], n, env,
                                      tempfile.mkdtemp(dir=tmp))
         assert models[tier][1].memory_plan.placement == tier
-        off_engine(*models[tier][1:], [off_batch(90 + s, n)
+        off_engine(*models[tier][1:], [cohort_batch(90 + s, n)
                                        for s in range(2)])
     rps = {"host": [], "hbm": []}
     peak_dev, rss = {"host": [], "hbm": []}, {"host": [], "hbm": []}
@@ -4330,7 +4050,7 @@ def off_large(card: str, tmp: str) -> dict:
     whose detections, repairs and watch alerts land in the event log."""
     n = OFF_LARGE
     half = OFF_LARGE_ROUNDS // 2
-    batches = [off_batch(s, n) for s in range(OFF_LARGE_ROUNDS)]
+    batches = [cohort_batch(s, n) for s in range(OFF_LARGE_ROUNDS)]
     ids = np.concatenate([b["client_ids"] for b in batches])
     ck = os.path.join(tmp, "ck")
     out = {}
@@ -4491,12 +4211,12 @@ def off_topk(card: str, tmp: str) -> dict:
     assert plan.total_bytes == 2 * OFF_EMNIST * fm.grad_size * 4, \
         plan.total_bytes
     print(f"offload local top-k: {plan.summary()}")
-    off_engine(fm, opt, sched, [off_batch(50, OFF_EMNIST)])
+    off_engine(fm, opt, sched, [cohort_batch(50, OFF_EMNIST)])
     offloads = []
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    off_engine(fm, opt, sched, [off_batch(60 + s, OFF_EMNIST)
+    off_engine(fm, opt, sched, [cohort_batch(60 + s, OFF_EMNIST)
                                 for s in range(OFF_TOPK_ROUNDS)],
                offloads=offloads)
     torch.cuda.synchronize()
@@ -4550,7 +4270,7 @@ SERVICE_A_PER_CLASS = 160       # 1,600 images: 26 rounds of 64 (>= 20)
 SERVICE_KILL_SEED = 15
 SERVICE_QUERY_S = 0.2
 # leg B: phase 14's sketch-local round, 128 clients on disk, compaction
-SERVICE_B = [a for a in OFF_BASE if a != "--no_telemetry"] + [
+SERVICE_B = [a for a in OFFLOAD_BASE if a != "--no_telemetry"] + [
     "--iid", "--num_clients", "128", "--num_epochs", "1",
     "--lr_scale", "0.1", "--pivot_epoch", "0.5",
     "--train_dataloader_workers", "0",
@@ -5056,20 +4776,6 @@ def grid_ef_identity(fm, opt, grid, batch, label: str) -> dict:
     return out
 
 
-def release_card() -> dict:
-    """Free what this process no longer uses on the card before spawned
-    ranks need it: collect unreachable objects (a model kept alive by a
-    reference cycle holds its device memory until the collector runs),
-    then return the allocator's cached blocks. Returns what stays held."""
-    import gc
-
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    return {"allocated_GiB": torch.cuda.memory_allocated() / 2**30,
-            "reserved_GiB": torch.cuda.memory_reserved() / 2**30}
-
-
 def _grid_rank(index: int, tmp: str) -> None:
     """One rank of phase 16: gloo on ``cuda:0``, the process group
     numbered by the tuple index of device ``index`` (as ``cv_train``
@@ -5099,7 +4805,7 @@ def _grid_rank(index: int, tmp: str) -> None:
         out["placement"] = g2.axis_placement()
         with deterministic_cudnn():
             # (a) the 2-D and the 1-D fp32 round, and the 2-D run state
-            _, fm2, opt2, sched2, r2 = _build_group_round(GRID_2D, g2)
+            _, fm2, opt2, sched2, r2 = build_round(GRID_2D, group=g2)
             assert fm2.collective_plan.spec() == \
                 "uplink=float32,table=float32,downlink=float32"
             kernels.reset_launch_counts()
@@ -5115,20 +4821,20 @@ def _grid_rank(index: int, tmp: str) -> None:
             save("err2d_r2_", opt2.server_state.error)
             r2(synthetic_batch(2))
             w2d_r3 = _weights(fm2)
-            _, fm1, opt1, sched1, r1 = _build_group_round(GRID_1D, g1)
+            _, fm1, opt1, sched1, r1 = build_round(GRID_1D, group=g1)
             kernels.reset_launch_counts()
             r1(synthetic_batch(0))
             out["launches_1d"] = kernels.launch_counts()
             save("w1d_r1_", _weights(fm1))
-            _, fmf, optf, schedf, rf = _build_group_round(
-                GRID_2D + ["--fused_epilogue"], g2)
+            _, fmf, optf, schedf, rf = build_round(
+                GRID_2D + ["--fused_epilogue"], group=g2)
             kernels.reset_launch_counts()
             loss = rf(synthetic_batch(0))[0]
             out["launches_2d_fused"] = kernels.launch_counts()
             assert np.all(np.isfinite(loss))
             del fmf, optf, schedf, rf
             # (d) the 2-D run state on the 1-D plane, one more round
-            _, fmr, optr, schedr, rr = _build_group_round(GRID_1D, g1)
+            _, fmr, optr, schedr, rr = build_round(GRID_1D, group=g1)
             load_run_state(state, fmr, optr, schedr)
             rr(synthetic_batch(1))
             save("wrs_r2_", _weights(fmr))
@@ -5136,8 +4842,8 @@ def _grid_rank(index: int, tmp: str) -> None:
             save("errrs_r2_", optr.server_state.error)
             del fmr, optr, schedr, rr
             # (b) the per-axis plan, 3 rounds and the identity
-            _, fmq, optq, schedq, rq = _build_group_round(
-                GRID_2D + ["--collective_plan", GRID_PLAN], g2)
+            _, fmq, optq, schedq, rq = build_round(
+                GRID_2D + ["--collective_plan", GRID_PLAN], group=g2)
             out["lowering"] = {k: (list(map(list, v)) if isinstance(v, tuple)
                                    else v)
                                for k, v in fmq._plan_lowering.items()}
@@ -5158,8 +4864,8 @@ def _grid_rank(index: int, tmp: str) -> None:
                 c.abs().max()) for c in getattr(st, name)]
                 for name in ("qres", "dres")}
             # (c) uncompressed under a per-axis uplink, 2 rounds
-            _, fmu, optu, schedu, ru = _build_group_round(
-                GRID_2D + GRID_DENSE, g2)
+            _, fmu, optu, schedu, ru = build_round(
+                GRID_2D + GRID_DENSE, group=g2)
             out["dense_losses"] = [float(np.mean(ru(synthetic_batch(i))[0]))
                                    for i in range(2)]
             save("wu_r2_", fmu.ps_weights)
@@ -5266,28 +4972,15 @@ def phase_grid(card: str) -> dict:
     the next round's weights and server state bit-equal; (e)
     ``grid_auto_run``. Rounds/sec of the 2-D, the 1-D and the per-axis
     round in GRID_PAIRS alternating triples (data, no claim)."""
-    import multiprocessing as mp
-
     held = release_card()
     print("phase 16: this process holds " + json.dumps(held)
           + " on the card before its ranks start")
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp, \
             env_vars(COMMEFFICIENT_FORCE_DCN_AXIS="clients"):
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_grid_rank, args=(i, tmp))
-                 for i in range(4)]
-        for pr in procs:
-            pr.start()
-        for pr in procs:
-            pr.join(max(1.0, 400 - (time.perf_counter() - t)))
-        alive = [pr for pr in procs if pr.is_alive()]
-        for pr in alive:
-            pr.kill()
-            pr.join()
-        assert not alive, "phase 16 ranks timed out"
-        assert all(pr.exitcode == 0 for pr in procs), \
-            [pr.exitcode for pr in procs]
+        spawn_ranks(_grid_rank, (tmp,),
+                    timeout=400 - (time.perf_counter() - t),
+                    label="phase 16 ranks")
         ranks = []
         for p in range(4):
             with open(os.path.join(tmp, f"rank{p}.json")) as f:
@@ -5594,8 +5287,6 @@ def phase_seq(card: str) -> dict:
         finite rounds, weights bit-equal on all four, 2 / 1 / 8 launches;
     (e) tokens/sec of the (clients 2) x (seq 2) round, with nothing else
         on the card, beside the one-rank round's (data, no claim)."""
-    import multiprocessing as mp
-
     release_card()
     t = time.perf_counter()
     tokens = GPT2_W * GPT2_B * GPT2_C * GPT2_T
@@ -5619,20 +5310,9 @@ def phase_seq(card: str) -> dict:
         print("phase 17: this process holds " + json.dumps(held)
               + " on the card before its ranks start")
         dense_s = time.perf_counter() - t
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_seq_rank, args=(i, tmp))
-                 for i in range(4)]
-        for pr in procs:
-            pr.start()
-        for pr in procs:
-            pr.join(max(1.0, 300 - (time.perf_counter() - t)))
-        alive = [pr for pr in procs if pr.is_alive()]
-        for pr in alive:
-            pr.kill()
-            pr.join()
-        assert not alive, "phase 17 ranks timed out"
-        assert all(pr.exitcode == 0 for pr in procs), \
-            [pr.exitcode for pr in procs]
+        spawn_ranks(_seq_rank, (tmp,),
+                    timeout=300 - (time.perf_counter() - t),
+                    label="phase 17 ranks")
         ranks = []
         for i in range(4):
             with open(os.path.join(tmp, f"seq{i}.json")) as f:
@@ -6033,8 +5713,6 @@ def phase_tp_ep(card: str, dense_ref=None) -> dict:
     ``dense_ref``: phase 17's one-rank round (its summed gradient, losses
     and tokens/sec), the same round as (a)'s reference; None computes
     it here."""
-    import multiprocessing as mp
-
     release_card()
     t = time.perf_counter()
     tokens = GPT2_W * GPT2_B * GPT2_C * GPT2_T
@@ -6067,20 +5745,9 @@ def phase_tp_ep(card: str, dense_ref=None) -> dict:
         print("phase 18: this process holds " + json.dumps(held)
               + " on the card before its ranks start")
         out["one_rank_s"] = time.perf_counter() - t
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_mp_rank, args=(i, tmp, time.time()))
-                 for i in range(4)]
-        for pr in procs:
-            pr.start()
-        for pr in procs:
-            pr.join(max(1.0, 420 - (time.perf_counter() - t)))
-        alive = [pr for pr in procs if pr.is_alive()]
-        for pr in alive:
-            pr.kill()
-            pr.join()
-        assert not alive, "phase 18 ranks timed out"
-        assert all(pr.exitcode == 0 for pr in procs), \
-            [pr.exitcode for pr in procs]
+        spawn_ranks(_mp_rank, (tmp, time.time()),
+                    timeout=420 - (time.perf_counter() - t),
+                    label="phase 18 ranks")
         ranks = []
         for i in range(4):
             with open(os.path.join(tmp, f"mp{i}.json")) as f:
@@ -6224,8 +5891,6 @@ def phase_pp(card: str, dense_ref=None, moe_ref=None) -> dict:
 
     ``dense_ref`` / ``moe_ref``: phase 17's and phase 18's one-rank rounds
     (summed gradient, losses, tokens/sec); None computes them here."""
-    import multiprocessing as mp
-
     release_card()
     t = time.perf_counter()
     tokens = GPT2_W * GPT2_B * GPT2_C * GPT2_T
@@ -6243,20 +5908,9 @@ def phase_pp(card: str, dense_ref=None, moe_ref=None) -> dict:
         print("phase 19: this process holds " + json.dumps(held)
               + " on the card before its ranks start")
         out["one_rank_s"] = time.perf_counter() - t
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_pp_rank, args=(i, tmp, time.time()))
-                 for i in range(4)]
-        for pr in procs:
-            pr.start()
-        for pr in procs:
-            pr.join(max(1.0, 300 - (time.perf_counter() - t)))
-        alive = [pr for pr in procs if pr.is_alive()]
-        for pr in alive:
-            pr.kill()
-            pr.join()
-        assert not alive, "phase 19 ranks timed out"
-        assert all(pr.exitcode == 0 for pr in procs), \
-            [pr.exitcode for pr in procs]
+        spawn_ranks(_pp_rank, (tmp, time.time()),
+                    timeout=300 - (time.perf_counter() - t),
+                    label="phase 19 ranks")
         ranks = []
         for i in range(4):
             with open(os.path.join(tmp, f"pp{i}.json")) as f:
@@ -6628,6 +6282,106 @@ def phase_scripts(card: str) -> dict:
             "stage_s": stage}
 
 
+# phase 22: the card's measurement batch (scripts/card_measure.py)
+CARD_MEASURE_LEGS = ("matmul", "ops", "topk_ab", "fused_epilogue")
+CARD_MEASURE_LIMIT_S = 60
+# each kernel arm's launches a timed call, from the code: the query and the
+# accumulate once a call each; the threshold's per-pass descent 8 count
+# passes (``ttk._descent``), the one-launch descent one launch; the fused
+# chain's threshold is the per-pass descent (the child runs without
+# COMMEFFICIENT_PALLAS_TOPK_FUSED)
+CARD_MEASURE_LAUNCHES = {
+    ("ops", "sketch_vec"): {"sketch_accumulate": 1},
+    ("ops", "est+sketch"): {"sketch_estimates": 1, "sketch_accumulate": 1},
+    ("ops", "resketch"): {"sketch_accumulate": 1},
+    ("ops", "topk"): {"topk_count_ge": 8},
+    ("ops", "count pass"): {"topk_count_ge": 1},
+    ("topk_ab", "per-pass descent"): {"topk_count_ge": 8},
+    ("topk_ab", "one-launch descent"): {"topk_descent": 1},
+    ("fused_epilogue", "composed"): {"sketch_estimates": 1,
+                                     "topk_count_ge": 8,
+                                     "sketch_accumulate": 1},
+    ("fused_epilogue", "fused"): {"sketch_estimates": 1, "topk_count_ge": 8,
+                                  "fused_epilogue": 1}}
+CARD_MEASURE_DS = (RESNET9_D, GPT2_D)
+
+
+def phase_card_measure(card: str) -> dict:
+    """Phase 22: ``card_measure`` run as a user runs it, in a child
+    process; its exit code, JSON lines, equality flags and each kernel
+    arm's launches a timed call checked here. Returns the launches a
+    call by kernel, then by ``"leg arm"``."""
+    path = os.path.join(CAPTURE_DIR, "card_measure.jsonl")
+    env = dict(os.environ)
+    env.pop(ttk.FUSED_DESCENT_ENV, None)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "commefficient_torch.scripts.card_measure",
+         *CARD_MEASURE_LEGS, "--out", path], cwd=_HERE, env=env,
+        capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t
+    print("\n".join(line for line in proc.stdout.splitlines()
+                    if not line.startswith("{")))
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    assert proc.returncode == 0, f"card_measure exit {proc.returncode}"
+    with open(path) as f:
+        header, *rows = [json.loads(line) for line in f]
+    assert header["card"] == card, (header["card"], card)
+    legs = {r["leg"]: r for r in rows}
+    assert tuple(legs) == CARD_MEASURE_LEGS, tuple(legs)
+    for r in rows:
+        assert r["ok"] and r["equal"] and all(r["equal"].values()), \
+            (r["leg"], r.get("error"), r["equal"])
+    launches = {k.name: {} for k in kernels.KERNELS}
+    for (leg, arm), want in CARD_MEASURE_LAUNCHES.items():
+        for d in CARD_MEASURE_DS:
+            got = legs[leg][f"d={d}"]["arms"][arm]["launches_per_call"]
+            assert got == want, (leg, arm, d, got, want)
+        for name, n in want.items():
+            launches[name][f"{leg} {arm}"] = n
+    flags = sum(len(r["equal"]) for r in rows)
+    # the timed arms where the host took longer to enqueue than the
+    # card's spin before them (their ms may hold host time)
+    host_bound = [f"{leg} d={d} {arm}"
+                  for (leg, arm) in CARD_MEASURE_LAUNCHES
+                  for d in CARD_MEASURE_DS
+                  if legs[leg][f"d={d}"]["arms"][arm].get("host_bound")]
+    print(json.dumps({"phase": "card_measure", "legs": list(legs),
+                      "equality_flags_true": flags,
+                      "host_bound_arms": host_bound, "wall_s": wall,
+                      "card": card}))
+    assert wall <= CARD_MEASURE_LIMIT_S, \
+        f"card_measure took {wall:.1f} s (limit {CARD_MEASURE_LIMIT_S} s)"
+    return launches
+
+
+class Timeline:
+    """A text stream that passes what it is given to ``out`` and writes
+    each line to ``path`` after the seconds since the stream was made."""
+
+    def __init__(self, out, path: str):
+        self.out, self.buf, self.t0 = out, "", time.perf_counter()
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        self.log = open(path, "w")
+
+    def write(self, s: str) -> int:
+        self.out.write(s)
+        *lines, self.buf = (self.buf + s).split("\n")
+        for line in lines:
+            self.log.write(f"{time.perf_counter() - self.t0:9.2f} "
+                           f"{line[:240]}\n")
+        if lines:
+            self.log.flush()
+        return len(s)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+    def __getattr__(self, name):
+        return getattr(self.out, name)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-times", nargs="*", metavar="NAME",
@@ -6640,9 +6394,14 @@ def main(argv=None) -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 1
     card = card_line()
+    if args.kernel_times is None:
+        sys.stdout = Timeline(sys.stdout,
+                              os.path.join(CAPTURE_DIR, "timeline.log"))
     print(card)
     if args.kernel_times is not None:
         return kernel_times(card, args.kernel_times)
+    # the rank processes' server starts importing now, beside phase 3
+    rank_context()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)")
@@ -6736,6 +6495,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     scripts = phase_scripts(card)
     wall["21 scripts"] = time.perf_counter() - t
+    t = time.perf_counter()
+    measure = phase_card_measure(card)
+    wall["22 card_measure"] = time.perf_counter() - t
     print("phase wall seconds (phase 3 includes the build): " + json.dumps(
         {k: round(v, 2) for k, v in wall.items()}))
 
@@ -6783,7 +6545,8 @@ def main(argv=None) -> int:
                  k.name, 0),
              "gpt2_golden": evidence["gpt2"]["launches"].get(k.name, 0)},
          "multihost_launches_per_round_per_rank": scripts["multihost"][
-             "launches_per_round_per_rank"].get(k.name, 0)}
+             "launches_per_round_per_rank"].get(k.name, 0),
+         "card_measure_launches_per_call": measure[k.name]}
         for k in kernels.KERNELS]}
     print(json.dumps({"rounds_per_sec": rps,
                       "opt_in_rounds_per_sec": opt_rps,

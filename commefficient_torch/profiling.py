@@ -23,22 +23,37 @@ time: a window that falls due while the other is capturing waits (the
 tracer) or is skipped (the step profiler), as in the JAX package.
 Starting a session may synchronize the card, so a strict audit keeps
 trace windows outside its extent.
+
+The card's timer, which ``chip_smoke.py`` and
+``scripts/card_measure.py`` share: ``timing`` / ``time_ms`` (CUDA events
+around one call, L2 flushed by ``flush_l2`` before it, the card spinning
+for longer than the host takes to enqueue the call, which is marked
+``host_bound`` where it did not), ``phase_split`` (the client and server
+phases of a round), ``card_line`` (``nvidia-smi``'s name and power limit),
+``peaks`` (the card's memory, float32 and int32 rates) and ``bound`` (the
+least time a piece of work could take at those rates).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import json
 import os
 import re
+import statistics
+import subprocess
 import sys
 import threading
+import time
 
 import numpy as np
 import torch
 
 __all__ = ["materialize", "SyncCounter", "host_sync_monitor", "Heartbeat",
            "HEARTBEAT_RE", "parse_heartbeat", "annotate", "parse_trace_rounds", "RoundTracer", "StepProfiler",
-           "offpath_fetches"]
+           "offpath_fetches", "flush_l2", "timing", "time_ms", "phase_split",
+           "card_line", "peaks", "bound"]
 
 
 class SyncCounter:
@@ -377,3 +392,161 @@ def annotate(name: str):
     """Context manager marking a host-side phase on the profiler
     timeline."""
     return torch.profiler.record_function(name)
+
+
+@functools.lru_cache(maxsize=None)
+def _flush_buffer(device_index: int) -> torch.Tensor:
+    return torch.zeros(96 << 20, dtype=torch.uint8,
+                       device=torch.device("cuda", device_index))
+
+
+def flush_l2() -> None:
+    """Read 96 MB, twice the H100's 50 MB L2, so the timed launch finds none
+    of its data there. A read leaves clean lines, which the launch evicts
+    for free; a write (``zero_``) would leave up to 50 MB of dirty lines
+    whose write-back the launch would pay for."""
+    _flush_buffer(torch.cuda.current_device()).max()
+
+
+# the shortest spin before a timed launch, and the spin's length against
+# the host's enqueue time of the timed call (``timing``)
+LEAD_MS = 0.1
+LEAD_OVER_HOST = 2.0
+
+
+@functools.lru_cache(maxsize=None)
+def _spin_cycles_per_ms(device_index: int) -> float:
+    """Cycles of ``torch.cuda._sleep`` a millisecond on this card, from one
+    spin of 2,000,000 cycles timed with CUDA events."""
+    n = 2_000_000
+    torch.cuda._sleep(n)
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    torch.cuda._sleep(n)
+    e.record()
+    e.synchronize()
+    return n / s.elapsed_time(e)
+
+
+def timing(fn, reps: int = 30, flush: bool = True) -> dict:
+    """CUDA-event times of ``fn`` over ``reps`` calls, after 3 warm-up
+    calls, with L2 flushed before each call (or not: then the call finds
+    in L2 what the one before it left there).
+
+    Before the start event the card spins (``torch.cuda._sleep``, which
+    touches no memory) for the lead: ``LEAD_OVER_HOST`` times the host's
+    time to enqueue one call between its events (the least of the warm-up
+    calls after the first), and at least ``LEAD_MS``. The host has then
+    enqueued the whole call by the time the card reaches it, so the
+    events time the card's work alone. Returns ``{"ms": median device
+    ms, "host_ms": median host ms to enqueue one timed call, "lead_ms":
+    the spin, "host_bound": host_ms > lead_ms}``: where ``host_bound`` is
+    true, the card may have waited for the host inside the timed call,
+    and ``ms`` is not the card's time. A call that waits on the card
+    itself (a device-to-host copy) is host-bound by nature, and its
+    ``host_ms`` holds its device time."""
+    def call(cycles: int):
+        """One call between two events after a spin of ``cycles``: (the
+        events, the host ms from the start event's record to the end
+        event's)."""
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        t = time.perf_counter()
+        s.record()
+        fn()
+        e.record()
+        return s, e, (time.perf_counter() - t) * 1e3
+
+    warm = [call(0)[2] for _ in range(3)]
+    torch.cuda.synchronize()
+    lead_ms = max(LEAD_MS, LEAD_OVER_HOST * min(warm[1:]))
+    cycles = int(lead_ms * _spin_cycles_per_ms(torch.cuda.current_device()))
+    times, host = [], []
+    for _ in range(reps):
+        if flush:
+            flush_l2()
+        s, e, h = call(cycles)
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+        host.append(h)
+    host_ms = statistics.median(host)
+    return {"ms": statistics.median(times), "host_ms": host_ms,
+            "lead_ms": lead_ms, "host_bound": host_ms > lead_ms}
+
+
+def time_ms(fn, reps: int = 30, flush: bool = True) -> float:
+    """The median CUDA-event ms of ``fn`` (``timing``)."""
+    return timing(fn, reps, flush)["ms"]
+
+
+def phase_split(fm, opt, sched, batch, label: str, n: int = 10) -> dict:
+    """Median CUDA-event times of the client and server phases over ``n``
+    rounds."""
+    client_ms, server_ms = [], []
+    for _ in range(n):
+        sched.step()
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        handle = fm.begin_round(batch)
+        e[1].record()
+        opt.step()
+        e[2].record()
+        fm.finish_round(handle)
+        client_ms.append(e[0].elapsed_time(e[1]))
+        server_ms.append(e[1].elapsed_time(e[2]))
+    split = {"client_phase_ms": statistics.median(client_ms),
+             "server_phase_ms": statistics.median(server_ms)}
+    print(f"{label} phase split: " + json.dumps(split), flush=True)
+    return split
+
+
+def card_line() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit``'s first line (raises
+    where ``nvidia-smi`` fails)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def peaks(name: str):
+    """(bytes/s, float32 op/s, int32 op/s) of the card.
+
+    Memory and float32 rates are NVIDIA's data-sheet numbers. The data
+    sheets give no int32 rate; this one is the rate of the ALU pipe, which
+    alone runs the right shifts and the logic ops (SHF, LOP3): the Hopper
+    SM's 64 INT32 lanes (the Hopper architecture white paper: 64 INT32
+    units per SM, against 128 FP32) times the SM count times the maximum SM
+    clock that ``nvidia-smi`` reports: 64 x 132 x 1,980 MHz = 16.7 T int32
+    op/s on an H100 SXM. Integer multiplies (IMAD), and the adds and left
+    shifts that the compiler moves there, run on the FMA pipe beside it,
+    and the SM issues 4 warp instructions a clock (128 lanes) over all its
+    pipes, so an int32 count charged at this rate must be of ALU-pipe ops,
+    or half the instructions of any kind."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int32 = 64 * sms * mhz * 1e6
+    if "PCIe" in name:
+        return 2.0e12, 51e12, int32
+    if "NVL" in name:
+        return 3.9e12, 60e12, int32
+    if "H200" in name:
+        return 4.8e12, 67e12, int32
+    return 3.35e12, 67e12, int32  # H100 SXM
+
+
+def bound(nbytes: float, int_ops: float, flops: float, peak) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the card's rate for their
+    type (int32 and float32 run on their own lanes, so the slower of the
+    two)."""
+    bw, frate, irate = peak
+    tb, to = nbytes / bw, max(int_ops / irate, flops / frate)
+    return {"bound_ms": 1e3 * max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations"}

@@ -66,15 +66,12 @@ def resolve_device(name: str, script: str,
 def card_line() -> str | None:
     """``nvidia-smi --query-gpu=name,power.limit``'s first line, or None
     where there is no ``nvidia-smi``."""
+    from commefficient_torch.profiling import card_line as smi_line
+
     try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True, timeout=60)
-    except (OSError, subprocess.SubprocessError):
+        return smi_line()
+    except (OSError, subprocess.SubprocessError, IndexError):
         return None
-    lines = out.stdout.strip().splitlines()
-    return lines[0] if lines else None
 
 
 def device_record(device: torch.device) -> dict:
